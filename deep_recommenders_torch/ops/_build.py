@@ -7,8 +7,9 @@ into its own shared library with a plain C interface:
          -Xcompiler -fPIC -o build/kernels/lib<name>-<hash>.so csrc/<name>.cu
 
 One nvcc process per source, all started together, so the build takes as
-long as the slowest file. The file name carries a hash of the source and the
-flags: an edited source builds anew, an unchanged one is loaded as it is.
+long as the slowest file. The file name carries a hash of the source, of the
+shared headers (``csrc/*.cuh``) and of the flags: an edited source or header
+builds anew, an unchanged one is loaded as it is.
 The build directory (``build/kernels`` at the root of the checkout) is
 listed in ``.gitignore``. Every exported C function launches on the stream it
 is given and returns ``cudaGetLastError()``; :func:`check` raises on a
@@ -30,7 +31,7 @@ CSRC_DIR = os.path.join(_PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PACKAGE_DIR), "build", "kernels")
 
 # Every kernel source of the package, by file stem.
-SOURCES = ("scatter_add_rows", "fm_interaction")
+SOURCES = ("scatter_add_rows", "fm_interaction", "cin2d", "cin_stack")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -45,8 +46,12 @@ def source_path(name: str) -> str:
 
 
 def library_path(name: str) -> str:
-    with open(source_path(name), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for path in [source_path(name)] + [os.path.join(CSRC_DIR, f)
+                                       for f in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

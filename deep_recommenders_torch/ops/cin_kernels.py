@@ -1,0 +1,397 @@
+"""CIN kernels over flattened rows: the CIN layer (K4) and the fused 2-layer
+stack (K3), forward and backward.
+
+Counterpart of ``deep_recommenders_tpu/ops/cin_kernels.py``. A CIN layer
+over (B, F, D) tensors is computed over rows r = b * D + d, so every tensor
+is 2-D:
+
+    out[r, m] = sum_{f,g} x0v[r, f] * xv[r, g] * W[f, g, m].
+
+- :func:`cin2d` (K4) is one such layer, a ``torch.autograd.Function`` whose
+  forward and backward launch ``csrc/cin2d.cu`` on a CUDA tensor.
+- :func:`cin_stack_pooled` (K3) is xDeepFM's flagship stack: two relu layers
+  and the sum of each layer over an example's D rows, with
+  ``csrc/cin_stack.cu`` as its forward and backward. Its input x0v is
+  bf16, as XDeepFM casts it.
+- Every kernel has its plain PyTorch version here (``*_reference``). A CPU
+  tensor takes the plain version; a CUDA tensor launches the kernel or
+  raises. Launches are counted per direction in ``cin2d.launches`` and
+  ``cin_stack_pooled.launches``.
+
+The kernels compute in fp32 on the CUDA cores. The TPU kernels' bf16 rounding
+of weights and activations came from the MXU and is not part of the
+function; the bf16 cast of x0v is part of the model.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from deep_recommenders_torch.ops import _build
+
+_P = ctypes.c_void_p
+_I64, _I32 = ctypes.c_int64, ctypes.c_int32
+
+
+# -- K4: one CIN layer over rows ---------------------------------------------
+
+def cin2d_reference(
+    x0v: torch.Tensor, xv: torch.Tensor, w: torch.Tensor
+) -> torch.Tensor:
+    """Plain ``out[r, m] = sum_{f,g} x0v[r,f] xv[r,g] w[f,g,m]``."""
+    t = torch.einsum("rg,fgm->rfm", xv, w)
+    return torch.einsum("rf,rfm->rm", x0v, t)
+
+
+def cin2d_backward_reference(
+    x0v: torch.Tensor, xv: torch.Tensor, w: torch.Tensor, g: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain gradients (dx0, dx, dW) of :func:`cin2d_reference` for the
+    output gradient ``g`` (R, M)."""
+    r = x0v.shape[0]
+    t = torch.einsum("rg,fgm->rfm", xv, w)
+    dx0 = torch.einsum("rm,rfm->rf", g, t)
+    dx = torch.einsum("rfm,fgm->rg", x0v[:, :, None] * g[:, None, :], w)
+    pair = (x0v[:, :, None] * xv[:, None, :]).reshape(r, -1)
+    dw = (pair.T @ g).reshape(w.shape)
+    return dx0, dx, dw
+
+
+def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
+    device = tensors[0].device
+    if device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {device}")
+    for t in tensors:
+        if t.device != device:
+            raise ValueError(f"{name}: inputs on different devices")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+
+
+def _check_tensor(name: str, what: str, t: torch.Tensor, dtype,
+                  shape) -> None:
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise TypeError(
+            f"{name}: {what} must be {tuple(shape)} {dtype}, got "
+            f"{tuple(t.shape)} {t.dtype}"
+        )
+
+
+def _cin2d_shapes(name, x0v, xv, w):
+    if x0v.dim() != 2 or xv.dim() != 2 or w.dim() != 3:
+        raise TypeError(
+            f"{name}: expected x0v (R, F0), xv (R, H), w (F0, H, M), got "
+            f"{tuple(x0v.shape)}, {tuple(xv.shape)}, {tuple(w.shape)}"
+        )
+    r, f0 = x0v.shape
+    h, m = xv.shape[1], w.shape[2]
+    _check_tensor(name, "x0v", x0v, torch.float32, (r, f0))
+    _check_tensor(name, "xv", xv, torch.float32, (r, h))
+    _check_tensor(name, "w", w, torch.float32, (f0, h, m))
+    if r >= 2**36 or f0 * h * m >= 2**31 or min(f0, h, m) == 0:
+        raise ValueError(
+            f"{name}: unsupported shape R={r} F0={f0} H={h} M={m}")
+    return r, f0, h, m
+
+
+def cin2d_forward(
+    x0v: torch.Tensor, xv: torch.Tensor, w: torch.Tensor
+) -> torch.Tensor:
+    """K4 forward: x0v (R, F0), xv (R, H), w (F0, H, M) f32 -> (R, M) f32."""
+    if x0v.device.type == "cpu":
+        return cin2d_reference(x0v, xv, w)
+    _check_cuda("cin2d", x0v, xv, w)
+    r, f0, h, m = _cin2d_shapes("cin2d", x0v, xv, w)
+    out = torch.empty((r, m), dtype=torch.float32, device=x0v.device)
+    if r == 0:
+        return out
+    fn = _build.function("cin2d", "cin2d_fwd_f32",
+                         [_P, _P, _P, _P, _I64, _I32, _I32, _I32, _P])
+    code = fn(x0v.data_ptr(), xv.data_ptr(), w.data_ptr(), out.data_ptr(),
+              r, f0, h, m, torch.cuda.current_stream(x0v.device).cuda_stream)
+    _build.check(code, "cin2d forward")
+    cin2d.launches["fwd"] += 1
+    return out
+
+
+def cin2d_backward(
+    x0v: torch.Tensor, xv: torch.Tensor, w: torch.Tensor, g: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4 backward: (dx0, dx, dW) for the output gradient g (R, M) f32.
+
+    On the card dW is summed over row chunks with fp32 atomics, so its
+    summation order changes from run to run.
+    """
+    if x0v.device.type == "cpu":
+        return cin2d_backward_reference(x0v, xv, w, g)
+    _check_cuda("cin2d backward", x0v, xv, w, g)
+    r, f0, h, m = _cin2d_shapes("cin2d backward", x0v, xv, w)
+    _check_tensor("cin2d backward", "g", g, torch.float32, (r, m))
+    dev = x0v.device
+    dx0 = torch.empty((r, f0), dtype=torch.float32, device=dev)
+    dx = torch.empty((r, h), dtype=torch.float32, device=dev)
+    dw = torch.zeros((f0, h, m), dtype=torch.float32, device=dev)
+    if r == 0:
+        return dx0, dx, dw
+    fn = _build.function("cin2d", "cin2d_bwd_f32",
+                         [_P] * 7 + [_I64, _I32, _I32, _I32, _P])
+    code = fn(x0v.data_ptr(), xv.data_ptr(), w.data_ptr(), g.data_ptr(),
+              dx0.data_ptr(), dx.data_ptr(), dw.data_ptr(), r, f0, h, m,
+              torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(code, "cin2d backward")
+    cin2d.launches["bwd"] += 1
+    return dx0, dx, dw
+
+
+class _Cin2d(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x0v, xv, w):
+        ctx.save_for_backward(x0v, xv, w)
+        return cin2d_forward(x0v, xv, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x0v, xv, w = ctx.saved_tensors
+        return cin2d_backward(x0v, xv, w, g.contiguous())
+
+
+def cin2d(
+    x0v: torch.Tensor, xv: torch.Tensor, w: torch.Tensor
+) -> torch.Tensor:
+    """Fused CIN layer over flattened rows (K4), differentiable.
+
+    x0v: (R, F0) f32; xv: (R, H) f32; w: (F0, H, M) f32 -> (R, M) f32.
+    """
+    return _Cin2d.apply(x0v, xv, w)
+
+
+cin2d.launches = {"fwd": 0, "bwd": 0}
+
+
+def cin_interaction_fused(
+    x0: torch.Tensor, x: torch.Tensor, kernel: torch.Tensor
+) -> torch.Tensor:
+    """Drop-in for ``ops.cin.cin_interaction`` over :func:`cin2d`.
+
+    x0: (B, F0, D); x: (B, F, D); kernel: (F0, F, M) -> (B, M, D).
+    """
+    b, f0, d = x0.shape
+    h = x.shape[1]
+    x0v = x0.transpose(1, 2).reshape(b * d, f0).contiguous()
+    xv = x.transpose(1, 2).reshape(b * d, h).contiguous()
+    out = cin2d(x0v, xv, kernel)  # (B*D, M)
+    return out.reshape(b, d, -1).transpose(1, 2)
+
+
+# -- K3: the fused 2-layer relu stack with per-example pooling ---------------
+
+def _layer(x0: torch.Tensor, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    # One fp32 CIN layer as a single matmul over the (R, F0 * H) pair tensor.
+    pair = (x0[:, :, None] * x[:, None, :]).reshape(x0.shape[0], -1)
+    return pair @ w.reshape(-1, w.shape[2])
+
+
+def stack_forward_reference(
+    x0v: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, d: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain forward of the stack with its residuals: (p1, p2, z1, z2)."""
+    x0 = x0v.float()  # accept the bf16 input stream
+    z1 = torch.relu(_layer(x0, x0, w1))
+    z2 = torch.relu(_layer(x0, z1, w2))
+    p1 = z1.reshape(-1, d, z1.shape[1]).sum(dim=1)
+    p2 = z2.reshape(-1, d, z2.shape[1]).sum(dim=1)
+    return p1, p2, z1, z2
+
+
+def stack_reference(
+    x0v: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, d: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain semantics of :func:`cin_stack_pooled`: (p1, p2)."""
+    p1, p2, _, _ = stack_forward_reference(x0v, w1, w2, d)
+    return p1, p2
+
+
+def stack_backward_reference(
+    x0v: torch.Tensor,
+    w1: torch.Tensor,
+    w2: torch.Tensor,
+    z1: torch.Tensor,
+    z2: torch.Tensor,
+    gp1: torch.Tensor,
+    gp2: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain backward of the stack from its saved residuals.
+
+    z1 (R, M1) and z2 (R, M2) are the relu'd layer outputs of the forward;
+    gp1 (B, M1) and gp2 (B, M2) the gradients of the pooled outputs.
+    Computes in the weights' dtype (fp32; fp64 for an exact reference) and
+    returns dx0 in x0v's dtype. The relu gradient at exactly 0 is 0.
+    """
+    x0 = x0v.to(w1.dtype)
+    r, f0 = x0.shape
+    d = r // gp1.shape[0]
+    m1 = w1.shape[2]
+    g2 = torch.where(z2 > 0, gp2.repeat_interleave(d, dim=0), 0.0)
+    # Layer 2: t[r, f, g] = sum_m g2[r, m] W2[f, g, m].
+    t = torch.einsum("rm,fgm->rfg", g2, w2)
+    dz1 = torch.einsum("rf,rfg->rg", x0, t)
+    dx0 = torch.einsum("rg,rfg->rf", z1, t)
+    dw2 = ((x0[:, :, None] * z1[:, None, :]).reshape(r, -1).T @ g2).reshape(
+        w2.shape
+    )
+    # Layer 1 over the symmetric pair tensor x0[f] * x0[g].
+    g1 = torch.where(z1 > 0, dz1 + gp1.repeat_interleave(d, dim=0), 0.0)
+    dy = (g1 @ w1.reshape(f0 * f0, m1).T).reshape(r, f0, f0)
+    dx0 = dx0 + torch.einsum("rag,rg->ra", dy + dy.transpose(1, 2), x0)
+    dw1 = ((x0[:, :, None] * x0[:, None, :]).reshape(r, -1).T @ g1).reshape(
+        w1.shape
+    )
+    return dx0.to(x0v.dtype), dw1, dw2
+
+
+def _stack_shapes(name, x0v, w1, w2):
+    if x0v.dim() != 2 or w1.dim() != 3 or w2.dim() != 3:
+        raise TypeError(
+            f"{name}: expected x0v (R, F0), w1 (F0, F0, M1), w2 (F0, M1, M2), "
+            f"got {tuple(x0v.shape)}, {tuple(w1.shape)}, {tuple(w2.shape)}"
+        )
+    r, f0 = x0v.shape
+    m1, m2 = w1.shape[2], w2.shape[2]
+    _check_tensor(name, "x0v", x0v, torch.bfloat16, (r, f0))
+    _check_tensor(name, "w1", w1, torch.float32, (f0, f0, m1))
+    _check_tensor(name, "w2", w2, torch.float32, (f0, m1, m2))
+    if r >= 2**36 or f0 * m1 * m2 >= 2**31 or min(f0, m1, m2) == 0:
+        raise ValueError(f"{name}: unsupported shape R={r} F0={f0} "
+                         f"M1={m1} M2={m2}")
+    return r, f0, m1, m2
+
+
+def stack_forward(
+    x0v: torch.Tensor,
+    w1: torch.Tensor,
+    w2: torch.Tensor,
+    d: int,
+    residuals: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor,
+           Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """K3 forward: (p1, p2, z1, z2); z1 and z2 are None without residuals.
+
+    x0v: (R, F0) bf16 rows r = b * d + j; w1 (F0, F0, M1), w2 (F0, M1, M2)
+    f32. R must be a multiple of d.
+    """
+    if x0v.shape[0] % d:
+        raise ValueError(f"cin_stack_pooled: R={x0v.shape[0]} is not a "
+                         f"multiple of d={d}")
+    if x0v.device.type == "cpu":
+        p1, p2, z1, z2 = stack_forward_reference(x0v, w1, w2, d)
+        return (p1, p2, z1, z2) if residuals else (p1, p2, None, None)
+    _check_cuda("cin_stack_pooled", x0v, w1, w2)
+    r, f0, m1, m2 = _stack_shapes("cin_stack_pooled", x0v, w1, w2)
+    dev = x0v.device
+    p1 = torch.zeros((r // d, m1), dtype=torch.float32, device=dev)
+    p2 = torch.zeros((r // d, m2), dtype=torch.float32, device=dev)
+    z1 = z2 = None
+    if residuals:
+        z1 = torch.empty((r, m1), dtype=torch.float32, device=dev)
+        z2 = torch.empty((r, m2), dtype=torch.float32, device=dev)
+    if r == 0:
+        return p1, p2, z1, z2
+    fn = _build.function("cin_stack", "cin_stack_fwd",
+                         [_P] * 7 + [_I64, _I32, _I32, _I32, _I32, _P])
+    code = fn(x0v.data_ptr(), w1.data_ptr(), w2.data_ptr(), p1.data_ptr(),
+              p2.data_ptr(), z1.data_ptr() if residuals else None,
+              z2.data_ptr() if residuals else None, r, f0, m1, m2, d,
+              torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(code, "cin_stack_pooled forward")
+    cin_stack_pooled.launches["fwd"] += 1
+    return p1, p2, z1, z2
+
+
+def stack_backward(
+    x0v: torch.Tensor,
+    w1: torch.Tensor,
+    w2: torch.Tensor,
+    z1: torch.Tensor,
+    z2: torch.Tensor,
+    gp1: torch.Tensor,
+    gp2: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3 backward from the saved residuals: (dx0 bf16, dW1, dW2).
+
+    On the card dW1 and dW2 are summed over row chunks with fp32 atomics,
+    so their summation order changes from run to run.
+    """
+    if x0v.device.type == "cpu":
+        return stack_backward_reference(x0v, w1, w2, z1, z2, gp1, gp2)
+    name = "cin_stack_pooled backward"
+    _check_cuda(name, x0v, w1, w2, z1, z2, gp1, gp2)
+    r, f0, m1, m2 = _stack_shapes(name, x0v, w1, w2)
+    b = gp1.shape[0] if gp1.dim() == 2 else -1
+    if b <= 0 or r % b:
+        raise TypeError(f"{name}: gp1 {tuple(gp1.shape)} does not pool "
+                        f"{r} rows")
+    _check_tensor(name, "z1", z1, torch.float32, (r, m1))
+    _check_tensor(name, "z2", z2, torch.float32, (r, m2))
+    _check_tensor(name, "gp1", gp1, torch.float32, (b, m1))
+    _check_tensor(name, "gp2", gp2, torch.float32, (b, m2))
+    dev = x0v.device
+    dx0 = torch.empty((r, f0), dtype=torch.bfloat16, device=dev)
+    dw1 = torch.zeros((f0, f0, m1), dtype=torch.float32, device=dev)
+    dw2 = torch.zeros((f0, m1, m2), dtype=torch.float32, device=dev)
+    # Scratch: the masked row gradients of both layers, for the dW passes.
+    g1 = torch.empty((r, m1), dtype=torch.float32, device=dev)
+    g2 = torch.empty((r, m2), dtype=torch.float32, device=dev)
+    if r == 0:
+        return dx0, dw1, dw2
+    fn = _build.function("cin_stack", "cin_stack_bwd",
+                         [_P] * 12 + [_I64, _I32, _I32, _I32, _I32, _P])
+    code = fn(x0v.data_ptr(), w1.data_ptr(), w2.data_ptr(), z1.data_ptr(),
+              z2.data_ptr(), gp1.data_ptr(), gp2.data_ptr(), dx0.data_ptr(),
+              dw1.data_ptr(), dw2.data_ptr(), g1.data_ptr(), g2.data_ptr(),
+              r, f0, m1, m2, r // b,
+              torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(code, name)
+    cin_stack_pooled.launches["bwd"] += 1
+    return dx0, dw1, dw2
+
+
+class _CinStack(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x0v, w1, w2, d):
+        p1, p2, z1, z2 = stack_forward(x0v, w1, w2, d, residuals=True)
+        ctx.save_for_backward(x0v, w1, w2, z1, z2)
+        return p1, p2
+
+    @staticmethod
+    def backward(ctx, gp1, gp2):
+        x0v, w1, w2, z1, z2 = ctx.saved_tensors
+        dx0, dw1, dw2 = stack_backward(
+            x0v, w1, w2, z1, z2, gp1.contiguous(), gp2.contiguous()
+        )
+        return dx0, dw1, dw2, None
+
+
+def cin_stack_pooled(
+    x0v: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, d: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused relu CIN stack with per-example sum pooling (K3).
+
+    x0v: (R, F0) flattened (example, dim) rows with R = B * d, row
+    r = b * d + (embedding dim index), bf16 on the card; w1: (F0, F0, M1);
+    w2: (F0, M1, M2). Returns (p1, p2): each relu'd layer output summed over
+    the embedding dim, (B, M1) and (B, M2) f32. Without a gradient to take
+    (``torch.no_grad()``, or no input that requires one) the forward keeps
+    no residuals.
+    """
+    if torch.is_grad_enabled() and (
+        x0v.requires_grad or w1.requires_grad or w2.requires_grad
+    ):
+        return _CinStack.apply(x0v, w1, w2, d)
+    p1, p2, _, _ = stack_forward(x0v, w1, w2, d, residuals=False)
+    return p1, p2
+
+
+cin_stack_pooled.launches = {"fwd": 0, "bwd": 0}

@@ -3,13 +3,16 @@
 Marked ``cuda``: each test skips where no CUDA device is present. This file
 imports neither JAX nor the JAX package, so it runs on the card alone (see
 README, "PyTorch port"). The tolerances follow the fp32 summation bound:
-atomics and the reference sum each output in different orders.
+atomics and the reference sum each output in different orders. The CIN
+kernels' checks are ``ops/cin_tolerances.py``'s, which states them.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from deep_recommenders_torch.ops import cin_kernels as ck
+from deep_recommenders_torch.ops import cin_tolerances as ct
 from deep_recommenders_torch.ops import embedding_kernels as ek
 from deep_recommenders_torch.ops import fm
 
@@ -74,3 +77,112 @@ def test_fm_interaction_kernel(device, shape):
     torch.cuda.synchronize()
     assert fm.fm_interaction_fused.launches == before + 1
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-4)
+
+
+def _normal(gen, *shape, std=1.0):
+    return torch.randn(*shape, device=gen.device, generator=gen) * std
+
+
+@pytest.mark.parametrize("r,f0,h,m", [
+    (131072, 6, 128, 128),  # the layered xDeepFM's layers 1 and 2
+    (131072, 6, 6, 128),  # its layer 0 (H = F0)
+    (1000, 6, 20, 12),
+    (37, 3, 130, 200),  # two column tiles each way, one partial row tile
+])
+def test_cin2d_kernel(device, r, f0, h, m):
+    gen = torch.Generator(device=device).manual_seed(0)
+    x0 = _normal(gen, r, f0, std=0.25)
+    x = _normal(gen, r, h, std=0.25)
+    w = _normal(gen, f0, h, m, std=0.05)
+    g = _normal(gen, r, m)
+    before = dict(ck.cin2d.launches)
+    out = ck.cin2d_forward(x0, x, w)
+    grads = ck.cin2d_backward(x0, x, w, g)
+    assert ck.cin2d.launches == {"fwd": before["fwd"] + 1,
+                                 "bwd": before["bwd"] + 1}
+    ct.check_cin2d_forward(out, x0, x, w)
+    ct.check_cin2d_backward(grads, x0, x, w, g)
+
+
+def test_cin2d_autograd_launches_both_kernels(device):
+    gen = torch.Generator(device=device).manual_seed(1)
+    x0, x = _normal(gen, 4096, 6), _normal(gen, 4096, 128)
+    w, g = _normal(gen, 6, 128, 128, std=0.05), _normal(gen, 4096, 128)
+    args = [t.clone().requires_grad_() for t in (x0, x, w)]
+    before = dict(ck.cin2d.launches)
+    ck.cin2d(*args).backward(g)
+    assert ck.cin2d.launches == {"fwd": before["fwd"] + 1,
+                                 "bwd": before["bwd"] + 1}
+    ct.check_cin2d_backward([a.grad for a in args], x0, x, w, g)
+
+
+@pytest.mark.parametrize("b,f0,d,m1,m2", [
+    (8192, 6, 16, 128, 128),  # the flagship xDeepFM
+    (16, 6, 8, 12, 20),
+    (5, 6, 3, 7, 5),  # R = 15 rows
+    (9, 4, 70, 130, 200),  # examples over three blocks; two column tiles
+])
+def test_cin_stack_kernel(device, b, f0, d, m1, m2):
+    gen = torch.Generator(device=device).manual_seed(2)
+    x0 = _normal(gen, b * d, f0, std=0.25).to(torch.bfloat16)
+    w1 = _normal(gen, f0, f0, m1, std=0.05)
+    w2 = _normal(gen, f0, m1, m2, std=0.05)
+    gp1, gp2 = _normal(gen, b, m1), _normal(gen, b, m2)
+    before = dict(ck.cin_stack_pooled.launches)
+    got = ck.stack_forward(x0, w1, w2, d, residuals=True)
+    ct.check_stack_forward(got, x0, w1, w2, d)
+    bare = ck.stack_forward(x0, w1, w2, d, residuals=False)
+    assert bare[2] is None and bare[3] is None
+    ct.check_stack_forward(bare, x0, w1, w2, d)
+
+    z1, z2 = got[2], got[3]
+    grads = ck.stack_backward(x0, w1, w2, z1, z2, gp1, gp2)
+    assert grads[0].dtype == torch.bfloat16
+    ct.check_stack_backward(grads, x0, w1, w2, z1, z2, gp1, gp2)
+    assert ck.cin_stack_pooled.launches == {"fwd": before["fwd"] + 2,
+                                            "bwd": before["bwd"] + 1}
+
+
+def test_cin_stack_pooled_autograd_and_no_grad_launches(device):
+    gen = torch.Generator(device=device).manual_seed(3)
+    x0 = _normal(gen, 64 * 16, 6, std=0.25).to(torch.bfloat16)
+    x0.requires_grad_()
+    w1 = _normal(gen, 6, 6, 16, std=0.05).requires_grad_()
+    w2 = _normal(gen, 6, 16, 24, std=0.05).requires_grad_()
+    before = dict(ck.cin_stack_pooled.launches)
+    p1, p2 = ck.cin_stack_pooled(x0, w1, w2, 16)
+    (p1.sum() + p2.square().sum()).backward()
+    with torch.no_grad():
+        q1, q2 = ck.cin_stack_pooled(x0, w1, w2, 16)
+    assert ck.cin_stack_pooled.launches == {"fwd": before["fwd"] + 2,
+                                            "bwd": before["bwd"] + 1}
+    torch.testing.assert_close(q1, p1.detach(), rtol=0, atol=0)
+    assert x0.grad.dtype == torch.bfloat16 and w1.grad.shape == w1.shape
+    assert bool(torch.isfinite(w2.grad).all())
+
+
+def test_cin_kernels_reject_bad_inputs(device):
+    x0, x = torch.zeros(64, 6, device=device), torch.zeros(64, 8,
+                                                           device=device)
+    w = torch.zeros(6, 8, 4, device=device)
+    with pytest.raises(TypeError):
+        ck.cin2d_forward(x0.double(), x, w)
+    with pytest.raises(TypeError):
+        ck.cin2d_forward(x0, x, torch.zeros(6, 7, 4, device=device))
+    with pytest.raises(ValueError):
+        ck.cin2d_forward(x0, x, w.cpu())
+    with pytest.raises(ValueError):
+        ck.cin2d_forward(x0, torch.zeros(8, 64, device=device).T, w)
+    with pytest.raises(TypeError):
+        ck.cin2d_backward(x0, x, w, torch.zeros(64, 5, device=device))
+    w1 = torch.zeros(6, 6, 4, device=device)
+    w2 = torch.zeros(6, 4, 4, device=device)
+    with pytest.raises(TypeError):  # the stack reads bf16 rows
+        ck.stack_forward(x0, w1, w2, 16)
+    with pytest.raises(ValueError):  # rows that are not whole examples
+        ck.stack_forward(x0.to(torch.bfloat16), w1, w2, 10)
+    z = torch.zeros(64, 4, device=device)
+    with pytest.raises(TypeError):
+        ck.stack_backward(x0.to(torch.bfloat16), w1, w2, z, z,
+                          torch.zeros(4, 4, device=device),
+                          torch.zeros(4, 5, device=device))
