@@ -5,22 +5,25 @@
 In order:
 1. prints the card's name and power limit (nvidia-smi);
 2. builds every CUDA kernel under deep_recommenders_torch/csrc with nvcc;
-3. builds the bench configuration's data: MovieLens-shaped ratings
-   (synthetic, seed 42, 200k ratings) encoded into the six CTR features;
+3. builds the data: MovieLens-shaped ratings (synthetic, seed 42, 200k
+   ratings) encoded into the six CTR features, and SyntheticImdb rows
+   (vocab 8000, length 512, seed 42) for the Transformer;
 4. kernel phase: calls each kernel's wrapper on the card at the shapes the
    main paths give it (K1, K2; K3 forward and backward at xDeepFM's
-   flagship shapes; K4 forward and backward at H = 6 and H = 128), holds
+   flagship shapes; K4 forward and backward at H = 6 and H = 128; K5 and
+   K6 at the Transformer's (2048, 512, 16), non-causal and causal), holds
    the result against its plain PyTorch version with the tolerance stated
-   below for K1 and K2 and in deep_recommenders_torch/ops/cin_tolerances.py
-   for K3 and K4 (each backward on the same saved residuals and the same
-   incoming gradients as its plain backward, in fp64; each weight gradient
-   also as a whole, and shown to reject two planted faults), reports each
-   output's error and share of its tolerance, and times kernel, plain
-   version and one library call where there is one, with CUDA events
-   (device time from CUDA-graph replays, and the eager call's time);
-5. three train paths, each with every launch counter set to 0 just before
-   it and read just after, each checked for a finite, falling loss, an AUC
-   above 0.5 and the exact launches it must make:
+   below for K1 and K2, in deep_recommenders_torch/ops/cin_tolerances.py
+   for K3 and K4 and in ops/attention_tolerances.py for K5 and K6 (each
+   backward on the same saved residuals and incoming gradients as its plain
+   backward, in fp64; each weight or input gradient also as a whole, and
+   shown to reject planted faults), reports each output's error and share
+   of its tolerance, and times kernel, plain version and one library call
+   where there is one, with CUDA events (device time from CUDA-graph
+   replays, and the eager call's time);
+5. five train paths, each with every launch counter set to 0 just before
+   it and read just after, each checked for a finite, falling loss and the
+   exact launches it must make:
    - DeepFM at the bench width (D=16, hidden (256, 32)), 2 epochs: one K1
      per train step;
    - xDeepFM's flagship (maps (128, 128) relu, hidden (256, 128)), 2 epochs:
@@ -29,12 +32,18 @@ In order:
    - xDeepFM with maps (128, 128, 128), the layered CIN, 1 epoch: two K1,
      three K4 forwards and three K4 backwards per train step, three K4
      forwards per eval batch;
-   all with Adam 1e-3 and batch 8192 through Trainer.fit_device. The
-   trained DeepFM's and flagship xDeepFM's logits on the card must match
-   the plain CPU path on the same weights;
-6. profiles ten more train steps of DeepFM and of the flagship xDeepFM
-   (torch.profiler): wall time per step, device busy time, idle share and
-   the kernels that take the most time;
+   (these three with Adam 1e-3 and batch 8192 through Trainer.fit_device,
+   each with an AUC above 0.5; the trained DeepFM's and flagship xDeepFM's
+   logits on the card must match the plain CPU path on the same weights);
+   - the Transformer seq2seq slice (the zoo's width at S = 512, batch 256),
+     2 epochs of a copy task through Transformer.loss: six K5 and six K6 per
+     train step, six K5 per held-out batch, and a held-out loss that falls;
+     its trained logits through K5 must match the plain CPU path;
+   - the ported IMDB example at its defaults, 3 epochs: dense attention,
+     no kernel launch;
+6. profiles ten more train steps of DeepFM, the flagship xDeepFM and the
+   Transformer (torch.profiler): wall time per step, device busy time, idle
+   share and the kernels that take the most time;
 7. prints one JSON line with every kernel's numbers, then, as the last line,
    {"ok": true, "device": {...}}.
 
@@ -53,10 +62,18 @@ import time
 import numpy as np
 import torch
 
-from deep_recommenders_torch.datasets import MovielensRanking
+from deep_recommenders_torch.datasets import MovielensRanking, SyntheticImdb
 from deep_recommenders_torch.device import resolve_device
+from deep_recommenders_torch.examples import train_transformer_on_imdb
+from deep_recommenders_torch.models.nlp import (
+    MultiHeadAttention,
+    Transformer,
+    noam_schedule,
+)
 from deep_recommenders_torch.models.ranking import DeepFM, XDeepFM
 from deep_recommenders_torch.ops import _build
+from deep_recommenders_torch.ops import attention as att
+from deep_recommenders_torch.ops import attention_tolerances as at
 from deep_recommenders_torch.ops import cin_kernels as ck
 from deep_recommenders_torch.ops import cin_tolerances as ct
 from deep_recommenders_torch.ops.embedding_kernels import (
@@ -80,6 +97,21 @@ XDEEPFM_MAPS = (128, 128)
 XDEEPFM_HIDDEN = (256, 128)
 LAYERED_MAPS = (128, 128, 128)
 LAYERED_EPOCHS = 1
+# The Transformer slice: the zoo's width (benchmarks/run_models.py:307-318:
+# vocab 8000, d 128, 8 heads, 2 + 2 layers, FFN 512, dropout 0, batch 256)
+# at S = 512, the shortest power-of-two length at which the dispatch rule
+# sends its attention to K5 and K6 (2048 x 512 x 512 x 4 B x 3 = 6.4 GB of
+# dense score tensors, above the 2 GB budget). A copy task on
+# SyntheticImdb rows: 15 train steps per epoch, 3 held-out batches.
+TX_VOCAB, TX_DIM, TX_HEADS, TX_LAYERS, TX_FFN = 8000, 128, 8, 2, 512
+TX_BATCH, TX_LEN, TX_EPOCHS, TX_EPSILON = 256, 512, 2, 0.1
+# Noam warmup: the learning rate rises to 2.7e-3 over the 30 steps (the
+# zoo's 4000 would keep it below 1.1e-5, too small to move the loss).
+TX_WARMUP = 100
+# Flash attention's kernel phase: fp64 checks over BH rows in chunks.
+ATT_CHUNK = 256
+# A planted fault in dk: the contribution of the first query tile dropped.
+ATT_PLANTED_ROWS = 64
 
 # Published H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bandwidth, fp32
 # outside the tensor cores, and dense bf16 on the tensor cores.
@@ -442,6 +474,7 @@ def reset_launches() -> None:
     fm_interaction_fused.launches = 0
     ck.cin_stack_pooled.launches = {"fwd": 0, "bwd": 0}
     ck.cin2d.launches = {"fwd": 0, "bwd": 0}
+    att.flash_attention.launches = {"fwd": 0, "bwd": 0}
 
 
 def read_launches() -> dict:
@@ -452,6 +485,8 @@ def read_launches() -> dict:
         "cin_stack_pooled.bwd": ck.cin_stack_pooled.launches["bwd"],
         "cin2d.fwd": ck.cin2d.launches["fwd"],
         "cin2d.bwd": ck.cin2d.launches["bwd"],
+        "flash_attention.fwd": att.flash_attention.launches["fwd"],
+        "flash_attention.bwd": att.flash_attention.launches["bwd"],
     }
 
 
@@ -524,8 +559,8 @@ def train_phase(ds: MovielensRanking, model: DeepFM, device):
         lambda s, e: {"scatter_add_rows": s}, device)
     check_logits("deepfm", model, DeepFM(ds.feature_specs, EMBED_DIM, HIDDEN),
                  ds, device, rtol=1e-4, atol=1e-5)
-    print("deepfm profile: " + json.dumps(profile_phase(trainer, train,
-                                                        test)))
+    print("deepfm profile: " + json.dumps(trainer_profile(trainer, train,
+                                                          test)))
 
     # The stack reads bf16 rows. The card and the CPU sum the movie_genres
     # bag in other orders, so an embedding element can round to the
@@ -541,8 +576,8 @@ def train_phase(ds: MovielensRanking, model: DeepFM, device):
     check_logits("xdeepfm", xdeepfm,
                  XDeepFM(ds.feature_specs, EMBED_DIM, XDEEPFM_MAPS, "relu",
                          XDEEPFM_HIDDEN), ds, device, rtol=1e-4, atol=2e-4)
-    print("xdeepfm profile: " + json.dumps(profile_phase(trainer, train,
-                                                         test)))
+    print("xdeepfm profile: " + json.dumps(trainer_profile(trainer, train,
+                                                           test)))
     del trainer, xdeepfm
 
     layered = make_xdeepfm(ds, LAYERED_MAPS, device)
@@ -555,26 +590,34 @@ def train_phase(ds: MovielensRanking, model: DeepFM, device):
     return paths
 
 
-def profile_phase(trainer: Trainer, train: DeviceData, test: DeviceData,
-                  steps: int = 10):
-    """Where a steady train step's time goes: the step's wall time without
-    the profiler, then torch.profiler's device time by kernel over the same
-    number of steps. The idle share is 1 - device busy / wall time. Also
-    the wall time of one warm evaluation of the test split, which the
-    steady examples/s window of ``fit_device`` contains."""
-    from torch.profiler import ProfilerActivity, profile
-
+def trainer_profile(trainer: Trainer, train: DeviceData, test: DeviceData):
+    """:func:`profile_phase` of a CTR model's ``Trainer``; its evaluation is
+    one warm pass over the test split, which the steady examples/s window
+    of ``fit_device`` contains."""
     perm = train.permutation(SEED, EPOCHS)
+    return profile_phase(
+        lambda s: trainer.train_step(
+            *train.gather(perm[s * BATCH:(s + 1) * BATCH])),
+        lambda: trainer._evaluate_device(test))  # ends in a host read
+
+
+def profile_phase(step, evaluate, steps: int = 10):
+    """Where a steady train step's time goes: the wall time of ``steps``
+    calls of ``step(s)`` without the profiler, then torch.profiler's device
+    time by kernel over as many steps. The idle share is 1 - device busy /
+    wall time. Also the wall time of one warm ``evaluate()``, which must
+    end in a host read."""
+    from torch.profiler import ProfilerActivity, profile
 
     def run():
         t0 = time.perf_counter()
         for s in range(steps):
-            trainer.train_step(*train.gather(perm[s * BATCH:(s + 1) * BATCH]))
+            step(s)
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3 / steps
 
     t0 = time.perf_counter()
-    trainer._evaluate_device(test)  # ends in a host read of the metrics
+    evaluate()
     eval_ms = (time.perf_counter() - t0) * 1e3
     run()  # warm up
     step_ms = run()
@@ -603,6 +646,281 @@ def profile_phase(trainer: Trainer, train: DeviceData, test: DeviceData,
     }
 
 
+# -- flash attention (K5, K6) and the Transformer paths -----------------------
+
+def _merge_checks(parts) -> dict:
+    """One check per output from per-chunk checks: the largest error and
+    share of a tolerance, and the smallest share a planted fault reached."""
+    merged = {}
+    for part in parts:
+        for out, fields in part.items():
+            m = merged.setdefault(out, {})
+            for key, value in fields.items():
+                if key == "planted":
+                    shares = m.setdefault("planted", {})
+                    for fault, share in value.items():
+                        shares[fault] = min(shares.get(fault, math.inf), share)
+                else:
+                    m[key] = max(m.get(key, -math.inf), value)
+    return merged
+
+
+def _valid_pairs(mask: torch.Tensor, causal: bool) -> int:
+    """(query, key) pairs the attention function must score: every valid
+    key for each of the S queries, or with causal only queries at or after
+    the key (S - j of them for key j)."""
+    s = mask.shape[1]
+    if not causal:
+        return int(mask.sum().item()) * s
+    after = torch.arange(s, 0, -1, device=mask.device, dtype=torch.float64)
+    return int((mask.double() * after).sum().item())
+
+
+def attention_kernel_phase(imdb: SyntheticImdb, device):
+    """K5 and K6 at the Transformer slice's shapes: q, k, v (2048, 512, 16)
+    seeded normals, with the key masks of one train batch's tokens repeated
+    over the 8 heads, non-causal and causal. Each is held against its plain
+    version in fp64 (``ops/attention_tolerances.py`` states the
+    tolerances), in chunks of ATT_CHUNK rows, on the same inputs, forward
+    residuals and incoming gradient; the dk check must reject dk less its
+    first query tile. Times: kernel, plain version and, for K5, one
+    ``F.scaled_dot_product_attention`` call with the boolean mask."""
+    tokens = torch.from_numpy(imdb.train[0][:TX_BATCH]).to(device)
+    mask = (tokens != 0).float().repeat_interleave(TX_HEADS, dim=0)
+    bh, s, d = mask.shape[0], TX_LEN, TX_DIM // TX_HEADS
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    q, k, v, g = (torch.randn(bh, s, d, device=device, generator=gen)
+                  for _ in range(4))
+    chunks = [slice(i, i + ATT_CHUNK) for i in range(0, bh, ATT_CHUNK)]
+    shape = {"q": [bh, s, d], "k": [bh, s, d],
+             "valid_keys": mask.mean().item()}
+    fwd, bwd = {}, {}
+    for causal in (False, True):
+        out, lse = att.flash_attention(q, k, v, mask, causal, return_lse=True)
+        grads = att.flash_attention_backward(q, k, v, mask, out, lse, g,
+                                             causal)
+        torch.cuda.synchronize()
+        fwd_checks = _merge_checks(
+            at.check_forward((out[c], lse[c]), q[c], k[c], v[c], mask[c],
+                             causal) for c in chunks)
+        bwd_checks = _merge_checks(
+            at.check_backward([t[c] for t in grads], q[c], k[c], v[c],
+                              mask[c], out[c], lse[c], g[c], causal,
+                              planted_rows=ATT_PLANTED_ROWS)
+            for c in chunks)
+        pairs = _valid_pairs(mask, causal)
+        allowed = mask[:, None, :] > 0
+        if causal:
+            allowed = allowed & torch.ones(s, s, dtype=torch.bool,
+                                           device=device).tril()
+        fwd_entry = {
+            "shape": {**shape, "causal": causal},
+            **check_fields(fwd_checks),
+            **timings(
+                lambda: att.flash_attention(q, k, v, mask, causal,
+                                            return_lse=True),
+                lambda: att.flash_attention_reference(q, k, v, mask, causal),
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, attn_mask=allowed),
+                iters=5, replays=4, eager_iters=10),
+            # q, k, v and out; the mask and lse. Per scored pair: 4 D
+            # products (q.k and p v) and 5 softmax operations.
+            **bound_fields((4 * bh * s * d + 2 * bh * s) * 4,
+                           pairs * (4 * d + 5)),
+            "scored_pairs": pairs,
+        }
+        bwd_entry = {
+            "shape": {**shape, "causal": causal},
+            **check_fields(bwd_checks),
+            **timings(
+                lambda: att.flash_attention_backward(q, k, v, mask, out, lse,
+                                                     g, causal),
+                lambda: att.flash_attention_backward_reference(
+                    q, k, v, mask, out, lse, g, causal),
+                None, iters=5, replays=4, eager_iters=10),
+            # q, k, v, g, out, dq, dk and dv; the mask and lse. Per scored
+            # pair: 10 D products (s, dp, dq, dk, dv) and 5 operations to
+            # rebuild p and form ds. The kernels, as JAX splits them,
+            # compute s and dp twice: 14 D products ("gflop_kernels").
+            **bound_fields((8 * bh * s * d + 2 * bh * s) * 4,
+                           pairs * (10 * d + 5)),
+            "gflop_kernels": pairs * (14 * d + 5) / 1e9,
+            "scored_pairs": pairs,
+        }
+        # The Transformer's four non-causal attentions per step lead each
+        # entry; its two causal ones follow under "causal".
+        if causal:
+            fwd["causal"], bwd["causal"] = fwd_entry, bwd_entry
+        else:
+            fwd.update(fwd_entry)
+            bwd.update(bwd_entry)
+        del out, lse, grads, allowed
+    source = "deep_recommenders_torch/csrc/flash_attention.cu"
+    entries = [
+        {"name": "flash_attention.fwd", "route": "cuda", "source": source,
+         "replaces": "deep_recommenders_tpu/ops/attention.py:165", **fwd},
+        {"name": "flash_attention.bwd", "route": "cuda", "source": source,
+         "replaces": "deep_recommenders_tpu/ops/attention.py:377", **bwd},
+    ]
+    del q, k, v, g
+    torch.cuda.empty_cache()
+    return entries
+
+
+def make_transformer(device) -> Transformer:
+    return Transformer(TX_VOCAB, TX_DIM, TX_HEADS, TX_LAYERS, TX_LAYERS,
+                       TX_FFN, dropout=0.0,
+                       generator=torch.Generator().manual_seed(SEED)
+                       ).to(device)
+
+
+def copy_task(tokens: torch.Tensor):
+    """(inputs, targets_in, targets_out, mask) of the copy task: the
+    decoder reads [1] + tokens[:-1] and predicts the tokens, padding
+    masked out of the loss."""
+    start = torch.ones_like(tokens[:, :1])
+    return (tokens, torch.cat([start, tokens[:, :-1]], dim=1), tokens,
+            (tokens != 0).float())
+
+
+def transformer_path(imdb: SyntheticImdb, device):
+    """The slice's main path: TX_EPOCHS of the copy task on the card through
+    ``Transformer.loss``, Adam under Noam(TX_DIM, TX_WARMUP), with every
+    launch counter set to 0 just before and read just after (the held-out
+    loss before and after training included). Each train step must launch
+    6 K5 and 6 K6 (encoder self-attention x2, decoder causal
+    self-attention x2, cross-attention x2), each held-out batch 6 K5;
+    K1-K4 none. Then the trained logits on the card, through K5, against
+    the plain CPU path, and a profile of ten steady steps."""
+    train = torch.from_numpy(imdb.train[0]).long().to(device)
+    test = torch.from_numpy(imdb.test[0]).long().to(device)
+    n_train, n_test = len(train) // TX_BATCH, len(test) // TX_BATCH
+    model = make_transformer(device)
+    opt = torch.optim.Adam(model.parameters(), lr=1.0)
+    sched = torch.optim.lr_scheduler.LambdaLR(
+        opt, noam_schedule(TX_DIM, TX_WARMUP))
+
+    def step(rows):
+        inp, tgt_in, tgt_out, mask = copy_task(train[rows])
+        opt.zero_grad(set_to_none=True)
+        loss = model.loss(inp, tgt_in, tgt_out, epsilon=TX_EPSILON,
+                          mask=mask)
+        loss.backward()
+        opt.step()
+        sched.step()
+        return loss.detach()
+
+    def heldout() -> float:
+        total = 0.0
+        with torch.no_grad():
+            for i in range(n_test):
+                inp, tgt_in, tgt_out, mask = copy_task(
+                    test[i * TX_BATCH:(i + 1) * TX_BATCH])
+                total += model.loss(inp, tgt_in, tgt_out,
+                                    epsilon=TX_EPSILON, training=False,
+                                    mask=mask)
+        return float(total) / n_test
+
+    def permutation(epoch):
+        return torch.randperm(
+            len(train), device=device,
+            generator=torch.Generator(device=device).manual_seed(SEED + epoch))
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    before = heldout()
+    t0 = time.perf_counter()
+    losses = []
+    for epoch in range(TX_EPOCHS):
+        perm = permutation(epoch)
+        for s in range(n_train):
+            losses.append(step(perm[s * TX_BATCH:(s + 1) * TX_BATCH]))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    after = heldout()
+    launches = read_launches()
+    losses = torch.stack(losses).tolist()
+    steps, evals = len(losses), 2 * n_test
+    name = "transformer_seq2seq"
+    print(f"{name} train: {steps} steps of {TX_BATCH} x {TX_LEN}, loss "
+          f"{losses[0]:.6f} -> {losses[-1]:.6f}, held-out loss {before:.6f} "
+          f"-> {after:.6f}, {steps * TX_BATCH / train_s:.1f} sequences/s "
+          f"(smoke figure), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"{name} launches: {launches}")
+    want = {key: 0 for key in launches}
+    want["flash_attention.fwd"] = 6 * (steps + evals)
+    want["flash_attention.bwd"] = 6 * steps
+    if steps != TX_EPOCHS * n_train or launches != want:
+        raise AssertionError(f"{name}: {steps} steps, launches {launches}, "
+                             f"expected {want}")
+    if not np.isfinite(losses).all() or not after < before:
+        raise AssertionError(f"{name}: loss not finite and falling: "
+                             f"{losses}, held-out {before} -> {after}")
+    check_transformer_logits(model, test[:8])
+    perm = permutation(TX_EPOCHS)
+    print(f"{name} profile: " + json.dumps(profile_phase(
+        lambda s: step(perm[s * TX_BATCH:(s + 1) * TX_BATCH]), heldout)))
+    del model, opt, train, test
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_transformer_logits(model: Transformer, tokens: torch.Tensor):
+    """The trained model's logits on 8 test rows: on the card with every
+    ``MultiHeadAttention.use_flash`` set to True (8 rows are under the
+    dispatch's budget), so K5 runs six times, against the plain CPU path
+    on the same weights. Logits are sums over the width of LayerNorm'd
+    unit-scale terms and table rows of norm ~sqrt(128), up to ~40 in size;
+    fp32 sums in other orders through 4 layers stay within rtol 1e-4 and
+    atol 1e-3 of each other."""
+    name = "transformer_seq2seq"
+    inp, tgt_in, _, _ = copy_task(tokens)
+    cpu_model = make_transformer("cpu")
+    cpu_model.load_state_dict({key: value.cpu() for key, value in
+                               model.state_dict().items()})
+    layers = [m for m in model.modules() if isinstance(m, MultiHeadAttention)]
+    for layer in layers:
+        layer.use_flash = True
+    before = att.flash_attention.launches["fwd"]
+    with torch.no_grad():
+        on_card = model(inp, tgt_in).cpu()
+        launched = att.flash_attention.launches["fwd"] - before
+        for layer in layers:
+            layer.use_flash = None
+        on_cpu = cpu_model(inp.cpu(), tgt_in.cpu())
+    if launched != len(layers) or on_card.shape != (8, TX_LEN, TX_VOCAB):
+        raise AssertionError(f"{name}: {launched} K5 launches for "
+                             f"{len(layers)} attentions, logits "
+                             f"{tuple(on_card.shape)}")
+    torch.testing.assert_close(on_card, on_cpu, rtol=1e-4, atol=1e-3)
+    print(f"{name} logits card (K5) vs cpu: max abs diff "
+          f"{(on_card - on_cpu).abs().max().item():.3g}, largest logit "
+          f"{on_cpu.abs().max().item():.3g}")
+
+
+def imdb_path():
+    """The ported IMDB example at its defaults (d 64, 4 heads, 2 layers,
+    batch 64, S 128, 3 epochs) on the card. Its attention goes dense under
+    the dispatch (256 x 128 x 128 scores), so it launches no kernel at all;
+    its loss must be finite and falling."""
+    name = "transformer_imdb"
+    reset_launches()
+    result = train_transformer_on_imdb.main(["--device", "cuda"])
+    launches = read_launches()
+    losses = np.asarray(result["step_losses"])
+    first, last = losses[:20].mean(), losses[-20:].mean()
+    print(f"{name} train: {len(losses)} steps, mean loss of the first 20 "
+          f"{first:.6f}, of the last 20 {last:.6f}, test accuracy "
+          f"{[h['accuracy'] for h in result['history']]}")
+    print(f"{name} launches: {launches}")
+    if any(launches.values()):
+        raise AssertionError(f"{name}: launches {launches}, expected none")
+    if not np.isfinite(losses).all() or not last < first:
+        raise AssertionError(f"{name}: loss not finite and falling")
+    return launches
+
+
 # Which path's launches each kernel's entry reports.
 ENTRY_PATH = {
     "scatter_add_rows": "deepfm",
@@ -611,6 +929,8 @@ ENTRY_PATH = {
     "cin_stack_pooled.bwd": "xdeepfm",
     "cin2d.fwd": "xdeepfm_layered",
     "cin2d.bwd": "xdeepfm_layered",
+    "flash_attention.fwd": "transformer_seq2seq",
+    "flash_attention.bwd": "transformer_seq2seq",
 }
 
 
@@ -633,10 +953,16 @@ def main() -> int:
     print(f"data: {ds.train_steps_per_epoch} train steps/epoch, "
           f"{ds.test_steps} test steps ({time.perf_counter() - t0:.1f} s)")
 
+    imdb = SyntheticImdb(num_words=TX_VOCAB, max_len=TX_LEN, seed=SEED)
     entries = kernel_phase(ds, model, device)
     entries += cin_kernel_phase(ds, device)
+    entries += attention_kernel_phase(imdb, device)
     print(f"kernel phase done ({time.perf_counter() - t0:.1f} s)")
     paths = train_phase(ds, model, device)
+    del ds, model
+    torch.cuda.empty_cache()
+    paths["transformer_seq2seq"] = transformer_path(imdb, device)
+    paths["transformer_imdb"] = imdb_path()
     for entry in entries:
         path = ENTRY_PATH[entry["name"]]
         entry["path"] = path

@@ -66,3 +66,51 @@ def xdeepfm_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             state[f"cins.{i}.{name}"] = _tensor(value)
         i += 1
     return state
+
+
+def _module_name(name: str) -> str:
+    # flax's encoder_i / decoder_i are the port's ModuleList entries.
+    for flax_prefix, torch_prefix in (("encoder_", "encoder_layers."),
+                                      ("decoder_", "decoder_layers.")):
+        if name.startswith(flax_prefix) and name[len(flax_prefix):].isdigit():
+            return torch_prefix + name[len(flax_prefix):]
+    return name
+
+
+def _flax_modules(p: Mapping[str, Any], prefix: str,
+                  state: Dict[str, torch.Tensor]) -> None:
+    """Dense ``kernel`` (in, out) -> Linear ``weight`` (out, in), LayerNorm
+    ``scale`` -> ``weight``, every other leaf (``bias``, ``table``) as it
+    is; submodules recursively."""
+    for name, value in p.items():
+        if isinstance(value, Mapping):
+            _flax_modules(value, f"{prefix}{_module_name(name)}.", state)
+        elif name == "kernel":
+            state[prefix + "weight"] = _tensor(np.asarray(value).T)
+        elif name == "scale":
+            state[prefix + "weight"] = _tensor(value)
+        else:
+            state[prefix + name] = _tensor(value)
+
+
+def transformer_from_flax(params: Mapping[str, Any]
+                          ) -> Dict[str, torch.Tensor]:
+    """A flax ``Transformer`` parameter tree -> the port's state dict.
+
+    - ``token_embedding/table`` -> ``token_embedding.table``;
+    - ``encoder_i/{self_attention/{q,k,v,out}_proj, attn_norm, ffn/{inner,
+      outer}, ffn_norm}`` -> ``encoder_layers.i.…``;
+    - ``decoder_i/{self_attention, self_norm, cross_attention, cross_norm,
+      ffn, ffn_norm}`` -> ``decoder_layers.i.…``;
+    with each Dense ``kernel`` (in, out) transposed into a Linear ``weight``
+    (out, in) and each LayerNorm ``scale`` as ``weight``.
+    """
+    state: Dict[str, torch.Tensor] = {}
+    _flax_modules(params.get("params", params), "", state)
+    return state
+
+
+# The IMDB example's TransformerClassifier by the same rules: its
+# ``transformer/…`` maps under ``transformer.`` and its ``head`` Dense to
+# ``head``.
+transformer_classifier_from_flax = transformer_from_flax

@@ -1,3 +1,4 @@
+from deep_recommenders_torch.datasets.imdb import SyntheticImdb
 from deep_recommenders_torch.datasets.movielens import (
     MovielensRanking,
     default_movielens_features,

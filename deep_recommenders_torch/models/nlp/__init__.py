@@ -1,0 +1,12 @@
+from deep_recommenders_torch.models.nlp.attention import (
+    MultiHeadAttention,
+    TokenEmbedding,
+)
+from deep_recommenders_torch.models.nlp.transformer import (
+    DecoderLayer,
+    EncoderLayer,
+    PositionWiseFeedForward,
+    Transformer,
+    noam_schedule,
+    position_encoding,
+)

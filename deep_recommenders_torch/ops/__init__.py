@@ -1,5 +1,13 @@
 """Ops with hand-written CUDA kernels, each beside its plain version."""
 
+from deep_recommenders_torch.ops.attention import (
+    FlashAttention,
+    flash_attention,
+    flash_attention_backward,
+    flash_attention_backward_reference,
+    flash_attention_reference,
+    scaled_dot_product_attention,
+)
 from deep_recommenders_torch.ops.cin import cin_interaction
 from deep_recommenders_torch.ops.cin_kernels import (
     cin2d,

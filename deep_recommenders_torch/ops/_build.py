@@ -31,7 +31,8 @@ CSRC_DIR = os.path.join(_PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PACKAGE_DIR), "build", "kernels")
 
 # Every kernel source of the package, by file stem.
-SOURCES = ("scatter_add_rows", "fm_interaction", "cin2d", "cin_stack")
+SOURCES = ("scatter_add_rows", "fm_interaction", "cin2d", "cin_stack",
+           "flash_attention")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -1,0 +1,350 @@
+"""Attention ops: dense SDPA, and blockwise (flash) attention forward (K5)
+and backward (K6).
+
+Counterpart of ``deep_recommenders_tpu/ops/attention.py``. Layout is the
+JAX package's: heads folded into the batch, q (BH, Sq, D), k and v
+(BH, Sk, D), key_mask (BH, Sk) with a value > 0 marking a valid key.
+
+- :func:`scaled_dot_product_attention` is the dense path: fp32 scores,
+  masked lanes set to ``NEG_INF``, causal by absolute indices (col <= row),
+  rows with no valid key giving weights 0, and inverted dropout on the
+  softmax weights drawn from an explicit ``torch.Generator``.
+- :func:`flash_attention` (K5) and :func:`flash_attention_backward` (K6)
+  launch ``csrc/flash_attention.cu`` on a CUDA tensor (or raise) and take
+  their plain versions, :func:`flash_attention_reference` and
+  :func:`flash_attention_backward_reference`, on a CPU tensor. Launches are
+  counted in ``flash_attention.launches`` ("fwd" per forward call, "bwd"
+  per backward call, which runs both of K6's kernels).
+- :class:`FlashAttention` is the autograd Function over K5 and K6 (the
+  counterpart of ``flash_attention_diff``).
+- :func:`attention` dispatches between the two paths by the JAX package's
+  rule, with "the tensor is on the card" in place of "the backend is TPU".
+
+The kernels take fp32 only; the JAX kernels' bf16 ``compute_dtype`` inputs
+are not ported yet.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+import warnings
+from typing import Optional, Tuple
+
+import torch
+
+from deep_recommenders_torch.ops import _build
+
+NEG_INF = -1e30
+
+# The dispatch constants of the JAX package (ops/attention.py:528-535): the
+# dense path keeps about three score-sized fp32 tensors alive in training
+# (the weights saved for backward, their gradient, one live score buffer);
+# above this many bytes of them, attention goes blockwise.
+FLASH_SCORE_BYTES = 2_000_000_000
+DENSE_RESIDENT_SCORE_TENSORS = 3
+
+# Head widths the kernels are built for (template instances in the source).
+KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+
+_P = ctypes.c_void_p
+_I32 = ctypes.c_int32
+
+
+def _valid_lanes(shape, key_mask, causal, device):
+    """Boolean (..., Sq, Sk) of lanes that are neither masked keys nor in
+    the causal future, or None when every lane is valid."""
+    valid = None
+    if key_mask is not None:
+        valid = key_mask[..., None, :] > 0
+    if causal:
+        sq, sk = shape[-2], shape[-1]
+        rows = torch.arange(sq, device=device)[:, None]
+        cols = torch.arange(sk, device=device)[None, :]
+        future = cols <= rows
+        valid = future if valid is None else valid & future
+    return valid
+
+
+def _softmax_weights(q, k, key_mask, causal):
+    """Softmax weights of the scaled scores q k^T / sqrt(D) over valid
+    lanes (masked lanes set to NEG_INF) and each row's log-sum-exp, in the
+    inputs' dtype. A row with no valid key gets weights 0, not a uniform
+    average over masked keys, and lse 0."""
+    scores = torch.einsum("...qd,...kd->...qk", q, k) / math.sqrt(q.shape[-1])
+    valid = _valid_lanes(scores.shape, key_mask, causal, scores.device)
+    if valid is not None:
+        scores = torch.where(valid, scores, NEG_INF)
+    any_valid = scores.amax(dim=-1) > NEG_INF / 2
+    weights = torch.where(any_valid[..., None], torch.softmax(scores, -1), 0.0)
+    lse = torch.where(any_valid, torch.logsumexp(scores, dim=-1), 0.0)
+    return weights, lse
+
+
+def scaled_dot_product_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_mask: Optional[torch.Tensor] = None,
+    causal: bool = False,
+    dropout_rate: float = 0.0,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Dense SDPA. q/k/v: (..., S, D); key_mask: (..., Sk) with 1 = valid.
+
+    Dropout (inverted, on the softmax weights) is active only when
+    ``dropout_rate > 0`` and a ``generator`` is given, as JAX's is only with
+    a ``dropout_rng``.
+    """
+    weights, _ = _softmax_weights(q.float(), k.float(), key_mask, causal)
+    if dropout_rate > 0.0 and generator is not None:
+        keep = torch.rand(weights.shape, generator=generator,
+                          device=weights.device) < 1.0 - dropout_rate
+        weights = torch.where(keep, weights / (1.0 - dropout_rate), 0.0)
+    out = torch.einsum("...qk,...kd->...qd", weights, v.float())
+    return out.to(q.dtype)
+
+
+# -- plain versions of K5 and K6 ---------------------------------------------
+
+def flash_attention_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_mask: Optional[torch.Tensor] = None,
+    causal: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain (out, lse) of K5: dense SDPA and the per-row log-sum-exp of the
+    scaled scores over valid keys; a row with no valid key gives out 0 and
+    lse 0. Computes in the inputs' dtype (fp32, or fp64 for a check)."""
+    weights, lse = _softmax_weights(q, k, key_mask, causal)
+    return torch.einsum("...qk,...kd->...qd", weights, v), lse
+
+
+def backward_terms(q, k, v, key_mask, out, lse, g, causal):
+    """The dense intermediates of K6's plain version: p = exp(s - lse) with
+    masked and causal-future lanes set to 0, dp = g v^T,
+    delta = rowsum(g * out) and ds = p (dp - delta) / sqrt(D)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("...qd,...kd->...qk", q, k) * scale
+    p = torch.exp(s - lse[..., None])
+    valid = _valid_lanes(s.shape, key_mask, causal, s.device)
+    if valid is not None:
+        p = torch.where(valid, p, 0.0)
+    delta = (g * out).sum(-1)
+    dp = torch.einsum("...qd,...kd->...qk", g, v)
+    ds = p * (dp - delta[..., None]) * scale
+    return p, dp, delta, ds
+
+
+def flash_attention_backward_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_mask: Optional[torch.Tensor],
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    g: torch.Tensor,
+    causal: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain (dq, dk, dv) of K6, from the forward's out and lse, over the
+    dense :func:`backward_terms`."""
+    p, _, _, ds = backward_terms(q, k, v, key_mask, out, lse, g, causal)
+    dq = torch.einsum("...qk,...kd->...qd", ds, k)
+    dk = torch.einsum("...qk,...qd->...kd", ds, q)
+    dv = torch.einsum("...qk,...qd->...kd", p, g)
+    return dq, dk, dv
+
+
+# -- K5 and K6 ---------------------------------------------------------------
+
+def _check_inputs(name, q, k, v, key_mask, *rest):
+    tensors = [q, k, v, key_mask, *rest]
+    device = q.device
+    if device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {device}")
+    for t in tensors:
+        if t.device != device:
+            raise ValueError(f"{name}: inputs on different devices")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: inputs must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+    if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
+        raise TypeError(
+            f"{name}: expected q (BH, Sq, D), k and v (BH, Sk, D), got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    if k.shape[0] != bh or k.shape[2] != d:
+        raise TypeError(f"{name}: q {tuple(q.shape)} and k {tuple(k.shape)} "
+                        f"disagree")
+    if tuple(key_mask.shape) != (bh, sk):
+        raise TypeError(f"{name}: key_mask must be {(bh, sk)}, got "
+                        f"{tuple(key_mask.shape)}")
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{name}: head width D={d} is not one of "
+                         f"{KERNEL_HEAD_DIMS}")
+    if bh >= 2**31 or max(sq, sk) * d >= 2**31 or \
+            bh * max(sq, sk) * d >= 2**40:
+        raise ValueError(f"{name}: unsupported shape BH={bh} Sq={sq} Sk={sk}")
+    return bh, sq, sk, d
+
+
+def _mask_or_ones(key_mask, k):
+    if key_mask is None:
+        return torch.ones(k.shape[:2], dtype=torch.float32, device=k.device)
+    return key_mask.to(torch.float32)
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_mask: Optional[torch.Tensor] = None,
+    causal: bool = False,
+    return_lse: bool = False,
+):
+    """K5, blockwise attention forward. q (BH, Sq, D), k and v (BH, Sk, D)
+    fp32; key_mask (BH, Sk), > 0 = valid (None = all valid). Returns out
+    (BH, Sq, D), and with ``return_lse`` also lse (BH, Sq) fp32."""
+    key_mask = _mask_or_ones(key_mask, k)
+    if q.device.type == "cpu":
+        out, lse = flash_attention_reference(q, k, v, key_mask, causal)
+        return (out, lse) if return_lse else out
+    bh, sq, sk, d = _check_inputs("flash_attention", q, k, v, key_mask)
+    out = torch.empty_like(q)
+    lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    if bh and sq:
+        fn = _build.function("flash_attention", "flash_attention_fwd_f32",
+                             [_P] * 6 + [_I32] * 5 + [_P])
+        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  key_mask.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                  bh, sq, sk, d, int(causal),
+                  torch.cuda.current_stream(q.device).cuda_stream)
+        _build.check(code, "flash_attention forward")
+        flash_attention.launches["fwd"] += 1
+    return (out, lse) if return_lse else out
+
+
+flash_attention.launches = {"fwd": 0, "bwd": 0}
+
+
+def flash_attention_backward(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_mask: Optional[torch.Tensor],
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    g: torch.Tensor,
+    causal: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K6, blockwise attention backward: (dq, dk, dv) for the output
+    gradient g, from the forward's out and lse. delta = rowsum(g * out) is
+    a plain torch reduction, as JAX leaves it to XLA."""
+    key_mask = _mask_or_ones(key_mask, k)
+    if q.device.type == "cpu":
+        return flash_attention_backward_reference(q, k, v, key_mask, out,
+                                                  lse, g, causal)
+    name = "flash_attention backward"
+    bh, sq, sk, d = _check_inputs(name, q, k, v, key_mask, out, lse, g)
+    if out.shape != q.shape or g.shape != q.shape or \
+            tuple(lse.shape) != (bh, sq):
+        raise TypeError(f"{name}: out, g must be {tuple(q.shape)} and lse "
+                        f"{(bh, sq)}")
+    delta = (g * out).sum(-1)
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    if bh and sk and sq:
+        fn = _build.function("flash_attention", "flash_attention_bwd_f32",
+                             [_P] * 10 + [_I32] * 5 + [_P])
+        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  key_mask.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                  g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                  bh, sq, sk, d, int(causal),
+                  torch.cuda.current_stream(q.device).cuda_stream)
+        _build.check(code, name)
+        flash_attention.launches["bwd"] += 1
+    else:  # no scores: every gradient is 0
+        dq.zero_()
+        dk.zero_()
+        dv.zero_()
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable blockwise attention over K5 and K6: ``apply(q, k, v,
+    key_mask, causal)``. Saves q, k, v, the mask, out and lse; no gradient
+    flows to the mask."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, causal):
+        out, lse = flash_attention(q, k, v, key_mask, causal,
+                                   return_lse=True)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, key_mask, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, key_mask, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, key_mask, out, lse,
+                                              g.contiguous(), ctx.causal)
+        return dq, dk, dv, None, None
+
+
+def use_flash_for(bh: int, sq: int, sk: int, device_type: str,
+                  dropout_active: bool) -> bool:
+    """The dispatch rule of ``attention(use_flash=None)``: blockwise on the
+    card where the dense path's fwd+bwd score tensors would exceed
+    ``FLASH_SCORE_BYTES``, dense otherwise and whenever dropout is active."""
+    score_bytes = bh * sq * sk * 4
+    return (device_type == "cuda"
+            and score_bytes * DENSE_RESIDENT_SCORE_TENSORS > FLASH_SCORE_BYTES
+            and not dropout_active)
+
+
+def attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_mask: Optional[torch.Tensor] = None,
+    causal: bool = False,
+    use_flash: Optional[bool] = None,
+    dropout_rate: float = 0.0,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Dense SDPA where its score tensors fit the memory budget, the
+    blockwise kernels beyond (:func:`use_flash_for`). Layout (BH, S, D).
+
+    Attention-weight dropout exists only in the dense path: the blockwise
+    kernels never hold the weight matrix. A dropout-active call that the
+    budget would send blockwise goes dense with a warning;
+    ``use_flash=True`` with active dropout raises instead of changing the
+    semantics."""
+    dropout_active = dropout_rate > 0.0 and generator is not None
+    if use_flash is None:
+        shape = (q.shape[0], q.shape[1], k.shape[1], q.device.type)
+        use_flash = use_flash_for(*shape, dropout_active)
+        if dropout_active and use_flash_for(*shape, False):
+            warnings.warn(
+                "attention-weight dropout sends this call to the dense path "
+                f"although its score tensors (BH, Sq, Sk) = {shape[:3]} "
+                "exceed the memory budget for which the flash kernels exist",
+                stacklevel=2)
+    if use_flash:
+        if dropout_active:
+            raise ValueError(
+                "attention-weight dropout is not implemented in the flash "
+                "kernel (the weight matrix is never materialized); call "
+                "with use_flash=False/None for dropout-active steps"
+            )
+        key_mask = _mask_or_ones(key_mask, k).contiguous()
+        return FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), key_mask, causal)
+    return scaled_dot_product_attention(
+        q, k, v, key_mask=key_mask, causal=causal,
+        dropout_rate=dropout_rate, generator=generator,
+    )

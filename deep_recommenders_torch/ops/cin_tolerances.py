@@ -94,7 +94,8 @@ def weight_grad_errors(got: torch.Tensor, want: torch.Tensor,
     }
 
 
-def _worst(errors: Dict[str, float]) -> float:
+def worst(errors: Dict[str, float]) -> float:
+    """The largest share of a tolerance in one output's errors."""
     if not errors["finite"]:
         return math.inf
     return max(errors["err_over_tol"], errors["fro_over_tol"])
@@ -104,7 +105,7 @@ def check_weight_grad(name: str, got: torch.Tensor, want: torch.Tensor,
                       sum_abs: torch.Tensor, n: int) -> Dict[str, float]:
     """:func:`weight_grad_errors`, raising if either share exceeds 1."""
     errors = weight_grad_errors(got, want, sum_abs, n)
-    if tuple(got.shape) != tuple(want.shape) or _worst(errors) > 1:
+    if tuple(got.shape) != tuple(want.shape) or worst(errors) > 1:
         raise AssertionError(f"{name} disagrees with its plain version: "
                              f"{errors}")
     del errors["finite"]
@@ -122,7 +123,7 @@ def reject_planted(name: str, got: torch.Tensor, want: torch.Tensor,
               "chunk_dropped": got - chunk.to(got.dtype)}
     shares = {}
     for fault, bad in faults.items():
-        shares[fault] = _worst(weight_grad_errors(bad, want, sum_abs, n))
+        shares[fault] = worst(weight_grad_errors(bad, want, sum_abs, n))
         if not shares[fault] > 1:
             raise AssertionError(f"{name}: the check accepts a planted "
                                  f"fault ({fault}): {shares[fault]:.3g}")

@@ -4,13 +4,16 @@ Marked ``cuda``: each test skips where no CUDA device is present. This file
 imports neither JAX nor the JAX package, so it runs on the card alone (see
 README, "PyTorch port"). The tolerances follow the fp32 summation bound:
 atomics and the reference sum each output in different orders. The CIN
-kernels' checks are ``ops/cin_tolerances.py``'s, which states them.
+kernels' checks are ``ops/cin_tolerances.py``'s, the attention kernels'
+``ops/attention_tolerances.py``'s; each module states them.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from deep_recommenders_torch.ops import attention as att
+from deep_recommenders_torch.ops import attention_tolerances as at
 from deep_recommenders_torch.ops import cin_kernels as ck
 from deep_recommenders_torch.ops import cin_tolerances as ct
 from deep_recommenders_torch.ops import embedding_kernels as ek
@@ -186,3 +189,96 @@ def test_cin_kernels_reject_bad_inputs(device):
         ck.stack_backward(x0.to(torch.bfloat16), w1, w2, z, z,
                           torch.zeros(4, 4, device=device),
                           torch.zeros(4, 5, device=device))
+
+
+# -- K5 and K6 ----------------------------------------------------------------
+
+def _attention_inputs(gen, bh, sq, sk, d):
+    q, k, v = (_normal(gen, bh, s, d) for s in (sq, sk, sk))
+    mask = (torch.rand(bh, sk, device=gen.device, generator=gen) < 0.8).float()
+    mask[1] = 0.0  # a (bh) row with no valid key
+    return q, k, v, mask
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("bh,sq,sk,d", [
+    (6, 150, 130, 16),  # ragged tiles both ways, Sq != Sk
+    (6, 130, 150, 32),
+    (4, 64, 200, 64),
+    (4, 100, 100, 128),
+    (64, 512, 512, 16),  # the Transformer slice's sequence length
+])
+def test_flash_attention_kernels(device, bh, sq, sk, d, causal):
+    """K5 and K6 against their fp64 plain versions
+    (ops/attention_tolerances.py states the tolerances), one launch each;
+    the check rejects dk less one query tile."""
+    gen = torch.Generator(device=device).manual_seed(4)
+    q, k, v, mask = _attention_inputs(gen, bh, sq, sk, d)
+    g = _normal(gen, bh, sq, d)
+    before = dict(att.flash_attention.launches)
+    out, lse = att.flash_attention(q, k, v, mask, causal, return_lse=True)
+    grads = att.flash_attention_backward(q, k, v, mask, out, lse, g, causal)
+    torch.cuda.synchronize()
+    assert att.flash_attention.launches == {"fwd": before["fwd"] + 1,
+                                            "bwd": before["bwd"] + 1}
+    at.check_forward((out, lse), q, k, v, mask, causal)
+    checks = at.check_backward(grads, q, k, v, mask, out, lse, g, causal,
+                               planted_rows=64)
+    assert checks["dk"]["planted"]["query_tile_dropped"] > 1
+    # The row with no valid key: out 0, lse 0, and no gradient.
+    assert not out[1].any() and not lse[1].any()
+    for grad in grads:
+        assert not grad[1].any()
+
+
+def test_flash_attention_autograd_launches_both_kernels(device):
+    gen = torch.Generator(device=device).manual_seed(5)
+    q, k, v, mask = _attention_inputs(gen, 16, 200, 200, 16)
+    g = _normal(gen, 16, 200, 16)
+    args = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = dict(att.flash_attention.launches)
+    out = att.FlashAttention.apply(*args, mask, True)
+    out.backward(g)
+    with torch.no_grad():
+        att.FlashAttention.apply(q, k, v, mask, True)
+    assert att.flash_attention.launches == {"fwd": before["fwd"] + 2,
+                                            "bwd": before["bwd"] + 1}
+    # The forward is deterministic: this lse is the one the backward used.
+    again, lse = att.flash_attention(q, k, v, mask, True, return_lse=True)
+    assert torch.equal(again, out.detach())
+    at.check_backward([a.grad for a in args], q, k, v, mask, again, lse, g,
+                      True)
+
+
+def test_attention_dispatch_on_the_card(device):
+    """The slice's shape goes through K5 and K6 unasked; a short sequence
+    goes dense, and so does dropout, with a warning above the budget."""
+    gen = torch.Generator(device=device).manual_seed(6)
+    before = dict(att.flash_attention.launches)
+    q = _normal(gen, 2048, 512, 16).requires_grad_()
+    att.attention(q, q, q, causal=True).sum().backward()
+    assert att.flash_attention.launches == {"fwd": before["fwd"] + 1,
+                                            "bwd": before["bwd"] + 1}
+    small = _normal(gen, 2048, 256, 16)
+    att.attention(small, small, small)
+    with pytest.warns(UserWarning, match="memory budget"):
+        att.attention(q.detach(), q.detach(), q.detach(), dropout_rate=0.1,
+                      generator=gen)
+    assert att.flash_attention.launches["fwd"] == before["fwd"] + 1
+
+
+def test_flash_attention_rejects_bad_inputs(device):
+    q = torch.zeros(2, 8, 16, device=device)
+    mask = torch.ones(2, 8, device=device)
+    with pytest.raises(ValueError):  # no kernel for D = 24
+        z = torch.zeros(2, 8, 24, device=device)
+        att.flash_attention(z, z, z, mask)
+    with pytest.raises(TypeError):
+        att.flash_attention(q.double(), q.double(), q.double(), mask.double())
+    with pytest.raises(ValueError):
+        t = torch.zeros(2, 16, 8, device=device).transpose(1, 2)
+        att.flash_attention(t, t, t, mask)
+    with pytest.raises(TypeError):
+        att.flash_attention(q, q, q, torch.ones(2, 7, device=device))
+    with pytest.raises(ValueError):
+        att.flash_attention(q, q.cpu(), q, mask)

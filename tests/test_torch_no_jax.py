@@ -12,7 +12,10 @@ import torch
 import chip_smoke
 from deep_recommenders_torch.datasets import default_movielens_features
 from deep_recommenders_torch.device import resolve_device
-from deep_recommenders_torch.examples import train_deepfm_on_movielens
+from deep_recommenders_torch.examples import (
+    train_deepfm_on_movielens,
+    train_transformer_on_imdb,
+)
 from deep_recommenders_torch.models.ranking import DeepFM
 from deep_recommenders_torch.training import DeviceData, Trainer
 
@@ -40,7 +43,7 @@ def test_port_imports_no_jax():
         capture_output=True, text=True, timeout=300,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 29  # every module was imported
+    assert int(out.stdout.split()[-1]) >= 36  # every module was imported
 
 
 @pytest.fixture
@@ -58,6 +61,8 @@ def test_default_device_raises_without_cuda(no_cuda):
                               np.zeros((4, 1), np.float32), 2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_deepfm_on_movielens.main(["--num-ratings", "100"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_transformer_on_imdb.main(["--epochs", "1"])
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")
