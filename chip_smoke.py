@@ -17,10 +17,13 @@ In order:
    for K3 and K4 and in ops/attention_tolerances.py for K5 and K6 (each
    backward on the same saved residuals and incoming gradients as its plain
    backward, in fp64; each weight or input gradient also as a whole, and
-   shown to reject planted faults), reports each output's error and share
-   of its tolerance, and times kernel, plain version and one library call
-   where there is one, with CUDA events (device time from CUDA-graph
-   replays, and the eager call's time);
+   shown to reject planted faults; K4's forward, which rounds as the TPU
+   kernel does, against its bf16 emulation and against fp64, and shown to
+   reject the fp32 function and an output missing one f-slice), reports
+   each output's error and share of its tolerance, and times kernel, plain
+   version and one library call where there is one (for K4's forward also
+   that call on bf16 operands), with CUDA events (device time from
+   CUDA-graph replays, and the eager call's time);
 5. five train paths, each with every launch counter set to 0 just before
    it and read just after, each checked for a finite, falling loss and the
    exact launches it must make:
@@ -30,8 +33,8 @@ In order:
      two K1, one K3 forward and one K3 backward per train step, one K3
      forward per eval batch;
    - xDeepFM with maps (128, 128, 128), the layered CIN, 1 epoch: two K1,
-     three K4 forwards and three K4 backwards per train step, three K4
-     forwards per eval batch;
+     three K4 forwards (bf16 on the tensor cores) and three K4 backwards
+     (fp32) per train step, three K4 forwards per eval batch;
    (these three with Adam 1e-3 and batch 8192 through Trainer.fit_device,
    each with an AUC above 0.5; the trained DeepFM's and flagship xDeepFM's
    logits on the card must match the plain CPU path on the same weights);
@@ -193,21 +196,28 @@ def cin_timings(kernel, plain, library=None) -> dict:
                    eager_iters=20)
 
 
-def bound(num_bytes: float, num_ops: float):
+def bound(num_bytes: float, num_ops: float,
+          ops_per_s: float = FP32_OPS_PER_S):
     """Least time the card could take: the larger of bytes over the memory
-    rate and fp32 operations over the fp32 rate (ms, which one)."""
+    rate and operations over their rate, fp32 by default (ms, which
+    one)."""
     t_bytes = num_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = num_ops / FP32_OPS_PER_S * 1e3
+    t_ops = num_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def bound_fields(num_bytes: float, num_ops: float) -> dict:
-    """``bound`` in fp32, and the same operations at the bf16 tensor-core
-    rate (``bound_bf16_ms``), the precision the TPU kernels ran at."""
-    ms, by = bound(num_bytes, num_ops)
-    bf16_ms = max(num_bytes / HBM_BYTES_PER_S, num_ops / BF16_OPS_PER_S) * 1e3
+def bound_fields(num_bytes: float, num_ops: float, bf16: bool = False
+                 ) -> dict:
+    """``bound`` at the rate of the kernel's arithmetic: fp32 on the CUDA
+    cores, or with ``bf16`` bf16 on the tensor cores. Also both bounds by
+    name: ``bound_fp32_ms``, and ``bound_bf16_ms``, the precision the TPU
+    kernels ran at."""
+    fp32_ms, fp32_by = bound(num_bytes, num_ops)
+    bf16_ms, bf16_by = bound(num_bytes, num_ops, BF16_OPS_PER_S)
+    ms, by = (bf16_ms, bf16_by) if bf16 else (fp32_ms, fp32_by)
     return {"bound_ms": ms, "bound_us": ms * 1e3, "bound_by": by,
-            "bound_bf16_ms": bf16_ms, "gflop": num_ops / 1e9}
+            "bound_fp32_ms": fp32_ms, "bound_bf16_ms": bf16_ms,
+            "gflop": num_ops / 1e9}
 
 
 def check_scatter(g, ids, num_rows):
@@ -339,7 +349,8 @@ def cin_kernel_phase(ds: MovielensRanking, device):
     embeddings of one train batch and each model's initial CIN weights; the
     incoming gradients are seeded normals. Each weight-gradient check must
     also reject two planted faults: dW scaled by 1 + 1e-3, and dW without
-    its first PLANTED_ROWS rows."""
+    its first PLANTED_ROWS rows; K4's forward check must reject the fp32
+    function and the bf16 emulation without one f-slice."""
     feats, _ = ds.train_arrays()
     batch = {k: torch.from_numpy(v[:BATCH]).to(device)
              for k, v in feats.items()}
@@ -416,22 +427,37 @@ def cin_kernel_phase(ds: MovielensRanking, device):
         h, m = xv.shape[1], w.shape[2]
         g = torch.randn(r, m, device=device, generator=gen)
         fwd_checks = ct.check_cin2d_forward(ck.cin2d_forward(x0v, xv, w),
-                                            x0v, xv, w)
+                                            x0v, xv, w, planted=True)
+        planted = fwd_checks["bf16"]["planted"]
+        print(f"cin2d.fwd H={h} shares: bf16 terms "
+              f"{fwd_checks['bf16']['err_over_tol']:.6g}, fp64 "
+              f"{fwd_checks['fp64']['err_over_tol']:.6g}; planted fp32 "
+              f"{planted['fp32']:.6g}, f-slice dropped "
+              f"{planted['f_slice_dropped']:.6g}")
         bwd_checks = ct.check_cin2d_backward(
             ck.cin2d_backward(x0v, xv, w, g), x0v, xv, w, g,
             planted_rows=PLANTED_ROWS)
         shape = {"x0v": [r, f0], "xv": [r, h], "w": [f0, h, m]}
         io_bytes = (r * (f0 + h) + f0 * h * m + r * m) * 4
+        x0b, xb, wb = (t.bfloat16() for t in (x0v, xv, w))
         fwd = {
             "shape": shape,
+            "precision": "bf16 operands and pair products, fp32 sums",
             **check_fields(fwd_checks),
+            # Against the plain version; the fp64 check's own is in checks.
+            "max_abs_err": fwd_checks["bf16"]["max_abs_err"],
             **cin_timings(
                 lambda: ck.cin2d_forward(x0v, xv, w),
-                lambda: ck.cin2d_reference(x0v, xv, w),
+                lambda: ck.cin2d_reference_bf16(x0v, xv, w),
                 lambda: torch.einsum("rf,rg,fgm->rm", x0v, xv, w),
             ),
-            **bound_fields(io_bytes, 2 * r * f0 * h * m),
+            "library_bf16_ms": graph_ms(
+                lambda: torch.einsum("rf,rg,fgm->rm", x0b, xb, wb),
+                CIN_ITERS, CIN_REPLAYS),
+            **bound_fields(io_bytes, 2 * r * f0 * h * m, bf16=True),
         }
+        fwd["bound_bf16_share"] = fwd["bound_bf16_ms"] / fwd["ms"]
+        del x0b, xb, wb
         bwd = {
             "shape": shape,
             **check_fields(bwd_checks),

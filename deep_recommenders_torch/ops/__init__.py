@@ -13,6 +13,7 @@ from deep_recommenders_torch.ops.cin_kernels import (
     cin2d,
     cin2d_backward_reference,
     cin2d_reference,
+    cin2d_reference_bf16,
     cin_interaction_fused,
     cin_stack_pooled,
     stack_backward_reference,

@@ -18,9 +18,13 @@ is 2-D:
   raises. Launches are counted per direction in ``cin2d.launches`` and
   ``cin_stack_pooled.launches``.
 
-The kernels compute in fp32 on the CUDA cores. The TPU kernels' bf16 rounding
-of weights and activations came from the MXU and is not part of the
-function; the bf16 cast of x0v is part of the model.
+K4's forward on the card rounds as the TPU kernel does: bf16 operands, each
+pair product x0v[r, f] * xv[r, g] rounded to bf16, fp32 accumulation on the
+tensor cores (:func:`cin2d_reference_bf16` is that function in plain
+PyTorch). K3 and K4's backward still compute in fp32 on the CUDA cores,
+where the TPU kernels round to bf16 as well. On a CPU tensor every wrapper
+takes its fp32 plain version, as the JAX package's off-TPU path takes its
+fp32 reference. The bf16 cast of K3's x0v is part of the model.
 """
 
 from __future__ import annotations
@@ -44,6 +48,28 @@ def cin2d_reference(
     """Plain ``out[r, m] = sum_{f,g} x0v[r,f] xv[r,g] w[f,g,m]``."""
     t = torch.einsum("rg,fgm->rfm", xv, w)
     return torch.einsum("rf,rfm->rm", x0v, t)
+
+
+def cin2d_reference_bf16(
+    x0v: torch.Tensor, xv: torch.Tensor, w: torch.Tensor
+) -> torch.Tensor:
+    """The function K4's forward computes on the card, as the TPU kernel
+    computes it (``deep_recommenders_tpu/ops/cin_kernels.py:94-105``):
+
+        out[r, m] = sum_{f,g} bf16(bf16(x0v[r,f]) bf16(xv[r,g])) bf16(w[f,g,m])
+
+    Every rounding is to nearest even; each product with w is exact in fp32
+    and the sums are in fp32. On the card its fp32 products must run
+    without TF32 (``torch.backends.cuda.matmul.allow_tf32`` False, the
+    default, which ``device.resolve_device`` sets).
+    """
+    xb = xv.bfloat16()
+    out = torch.zeros(xv.shape[0], w.shape[2], dtype=torch.float32,
+                      device=xv.device)
+    for f in range(w.shape[0]):
+        pair = (x0v[:, f:f + 1].bfloat16() * xb).float()
+        out += pair @ w[f].bfloat16().float()
+    return out
 
 
 def cin2d_backward_reference(
@@ -100,7 +126,12 @@ def _cin2d_shapes(name, x0v, xv, w):
 def cin2d_forward(
     x0v: torch.Tensor, xv: torch.Tensor, w: torch.Tensor
 ) -> torch.Tensor:
-    """K4 forward: x0v (R, F0), xv (R, H), w (F0, H, M) f32 -> (R, M) f32."""
+    """K4 forward: x0v (R, F0), xv (R, H), w (F0, H, M) f32 -> (R, M) f32.
+
+    On the card it computes :func:`cin2d_reference_bf16` on the tensor
+    cores; W goes to the kernel as bf16 (F0, Mp, Hp), transposed and
+    zero-padded to the kernel's tiles (Hp a multiple of 16, Mp of 128).
+    """
     if x0v.device.type == "cpu":
         return cin2d_reference(x0v, xv, w)
     _check_cuda("cin2d", x0v, xv, w)
@@ -108,9 +139,12 @@ def cin2d_forward(
     out = torch.empty((r, m), dtype=torch.float32, device=x0v.device)
     if r == 0:
         return out
-    fn = _build.function("cin2d", "cin2d_fwd_f32",
+    hp, mp = -(-h // 16) * 16, -(-m // 128) * 128
+    wt = torch.zeros((f0, mp, hp), dtype=torch.bfloat16, device=w.device)
+    wt[:, :m, :h] = w.transpose(1, 2)
+    fn = _build.function("cin2d", "cin2d_fwd_bf16",
                          [_P, _P, _P, _P, _I64, _I32, _I32, _I32, _P])
-    code = fn(x0v.data_ptr(), xv.data_ptr(), w.data_ptr(), out.data_ptr(),
+    code = fn(x0v.data_ptr(), xv.data_ptr(), wt.data_ptr(), out.data_ptr(),
               r, f0, h, m, torch.cuda.current_stream(x0v.device).cuda_stream)
     _build.check(code, "cin2d forward")
     cin2d.launches["fwd"] += 1

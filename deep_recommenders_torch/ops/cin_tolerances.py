@@ -15,7 +15,10 @@ relu moves no value farther than its input moved, so a bound carries
 through it, and a layer's bound carries into the next layer through |x0|
 and |W|.
 
-- A forward is held against its plain version in fp32.
+- K3's forward is held against its plain version in fp32.
+- K4's forward rounds as the TPU kernel does (bf16 operands and pair
+  products, fp32 sums) and is held two ways; see
+  :func:`check_cin2d_forward`.
 - A backward runs on the same saved residuals and incoming gradients as
   its plain backward, so both use the same relu masks. It is held against
   the plain backward in fp64, whose own error is below 2^-29 of these
@@ -54,20 +57,30 @@ UBF16 = 2.0**-8  # unit roundoff of bfloat16
 _TINY = torch.finfo(torch.float64).tiny
 
 
+def within_errors(got: torch.Tensor, want: torch.Tensor,
+                  tol: torch.Tensor) -> Dict[str, float]:
+    """The largest error of ``got`` against ``want`` and its largest share
+    of ``tol``, element-wise (inf where ``got`` is not finite). Raises
+    nothing."""
+    err = (got.double() - want.double()).abs()
+    tol = tol.double()
+    share = (err / tol.clamp_min(_TINY)).max().item()
+    return {
+        "max_abs_err": err.max().item(),
+        "tolerance": tol.max().item(),
+        "err_over_tol": share if bool(torch.isfinite(got).all())
+        else math.inf,
+    }
+
+
 def check_within(name: str, got: torch.Tensor, want: torch.Tensor,
                  tol: torch.Tensor) -> Dict[str, float]:
     """Every element of ``got`` within ``tol`` of ``want``, all finite."""
     if tuple(got.shape) != tuple(want.shape):
         raise AssertionError(f"{name}: shape {tuple(got.shape)}, expected "
                              f"{tuple(want.shape)}")
-    err = (got.double() - want.double()).abs()
-    tol = tol.double()
-    result = {
-        "max_abs_err": err.max().item(),
-        "tolerance": tol.max().item(),
-        "err_over_tol": (err / tol.clamp_min(_TINY)).max().item(),
-    }
-    if not bool(torch.isfinite(got).all()) or bool((err > tol).any()):
+    result = within_errors(got, want, tol)
+    if not result["err_over_tol"] <= 1:
         raise AssertionError(f"{name} disagrees with its plain version: "
                              f"{result}")
     return result
@@ -140,13 +153,54 @@ def _double(*tensors: torch.Tensor):
 
 # -- K4 -----------------------------------------------------------------------
 
-def check_cin2d_forward(got, x0v, xv, w) -> Dict[str, Dict[str, float]]:
-    """K4's forward output against its fp32 plain version."""
+def check_cin2d_forward(got, x0v, xv, w, planted: bool = False
+                        ) -> Dict[str, Dict[str, float]]:
+    """K4's forward output, held two ways (n = F0 H terms per output, c = 3):
+
+    - ``bf16``: against :func:`cin2d_reference_bf16`, the same rounded
+      terms t' summed in fp32 by the plain version, element-wise within
+      c (n + 2) u sum|t'|. The plain version rounds each addition (u); the
+      tensor cores' fp32 accumulation may truncate instead of rounding, so
+      the kernel's side takes 2 u per addition: c = 3.
+    - ``fp64``: against :func:`cin2d_reference` in fp64, whose own error is
+      negligible here, within ((1 + u_bf16)^4 - 1 + c (n + 2) u) sum|t|:
+      four bf16 roundings per term (x0v, xv, their product, w) and the
+      kernel's sum (sum|t'| <= (1 + u_bf16)^4 sum|t|, below 3/2 sum|t|).
+
+    With ``planted``, the check must also reject two planted outputs: the
+    fp32 function (``cin2d_reference``) and the emulation without its first
+    f-slice. Each one's largest share of either tolerance goes into
+    ``checks["bf16"]["planted"]``; raises if either share is not above 1.
+    On the card the plain versions must run without TF32.
+    """
+    if x0v.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("check_cin2d_forward needs fp32 products without "
+                           "TF32 (torch.backends.cuda.matmul.allow_tf32)")
     f0, h = x0v.shape[1], xv.shape[1]
-    tol = 2 * (f0 * h + 2) * U32 * ck.cin2d_reference(
-        x0v.abs(), xv.abs(), w.abs())
-    return {"out": check_within(f"cin2d forward H={h}", got,
-                                ck.cin2d_reference(x0v, xv, w), tol)}
+    c = 3 * (f0 * h + 2) * U32
+    name = f"cin2d forward H={h}"
+    want = ck.cin2d_reference_bf16(x0v, xv, w)
+    tol = c * ck.cin2d_reference_bf16(x0v.abs(), xv.abs(), w.abs())
+    args = _double(x0v, xv, w)
+    want64 = ck.cin2d_reference(*args)
+    tol64 = ((1 + UBF16)**4 - 1 + c) * ck.cin2d_reference(
+        *[a.abs() for a in args])
+    checks = {"bf16": check_within(f"{name} (bf16 terms)", got, want, tol),
+              "fp64": check_within(f"{name} (fp64)", got, want64, tol64)}
+    if planted:
+        faults = {"fp32": ck.cin2d_reference(x0v, xv, w),
+                  "f_slice_dropped": ck.cin2d_reference_bf16(
+                      x0v[:, 1:], xv, w[1:])}
+        shares = {}
+        for fault, bad in faults.items():
+            shares[fault] = max(
+                within_errors(bad, want, tol)["err_over_tol"],
+                within_errors(bad, want64, tol64)["err_over_tol"])
+            if not shares[fault] > 1:
+                raise AssertionError(f"{name}: the check accepts a planted "
+                                     f"fault ({fault}): {shares[fault]:.3g}")
+        checks["bf16"]["planted"] = shares
+    return checks
 
 
 def check_cin2d_backward(got: Sequence[torch.Tensor], x0v, xv, w, g,

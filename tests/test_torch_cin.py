@@ -12,11 +12,14 @@ rounded from fp32 values that differ by rounding, so it may differ by one
 bf16 ulp: rtol 2**-7.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
 
 from deep_recommenders_torch.models.ranking import CIN
 from deep_recommenders_torch.ops import cin as t_cin
@@ -84,6 +87,33 @@ def test_cin2d_forward_and_grads_match_jax_vjp(rng, r, f0, h, m):
         tk.cin2d_backward_reference(*map(_t, (x0, x, w, g))), wants,
     ):
         _close(gt, wt, rtol=1e-4, name=name)
+
+
+@pytest.mark.parametrize("r,f0,h,m", [(64, 6, 6, 12), (37, 6, 20, 9),
+                                     (512, 6, 32, 16)])
+def test_cin2d_reference_bf16_matches_the_pallas_kernel(monkeypatch, rng, r,
+                                                        f0, h, m):
+    """K4's forward on the card computes ``cin2d_reference_bf16``: the TPU
+    kernel's roundings (bf16 operands and pair products, fp32 sums). Held
+    here against JAX's ``_cin2d_fwd_impl`` through its Pallas body in
+    interpret mode. Both sum the same rounded terms t' in fp32 in orders of
+    their own: each within (n + 2) u sum|t'| of the exact sum (n = F0 H),
+    so 2 (n + 2) u sum|t'| of each other."""
+    monkeypatch.setattr(jk, "_on_tpu", lambda: True)
+    monkeypatch.setattr(pl, "pallas_call",
+                        functools.partial(pl.pallas_call, interpret=True))
+    x0 = rng.normal(size=(r, f0)).astype(np.float32)
+    x = rng.normal(size=(r, h)).astype(np.float32)
+    w = rng.normal(0, 0.2, (f0, h, m)).astype(np.float32)
+    want = np.asarray(jk._cin2d_fwd_impl(*map(jnp.asarray, (x0, x, w))))
+    got = tk.cin2d_reference_bf16(_t(x0), _t(x), _t(w))
+    sum_abs = tk.cin2d_reference_bf16(*(_t(np.abs(a)) for a in (x0, x, w)))
+    tol = 2 * (f0 * h + 2) * 2.0**-24 * sum_abs.numpy()
+    assert got.shape == (r, m)
+    assert np.all(np.abs(got.numpy() - want) <= tol)
+    # The fp32 function lies farther away: the roundings are what is held.
+    fp32 = tk.cin2d_reference(_t(x0), _t(x), _t(w)).numpy()
+    assert np.any(np.abs(fp32 - want) > tol)
 
 
 @pytest.mark.parametrize("b,f0,d,m1,m2", [(16, 6, 8, 12, 20), (5, 6, 3, 7, 5)])

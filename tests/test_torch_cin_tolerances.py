@@ -1,7 +1,10 @@
 """The checks that hold the CIN kernels against their plain versions
-(``ops/cin_tolerances.py``), run on the CPU with the fp32 plain version in
-the kernel's place: it passes them, and the weight-gradient check rejects
-a dW off by one part in 1000 or missing one chunk of 256 rows."""
+(``ops/cin_tolerances.py``), run on the CPU with a plain version in the
+kernel's place: K4's forward with its bf16 emulation, every other output
+with its fp32 plain version. They pass them; K4's forward check rejects the
+fp32 function and an output missing one f-slice, and the weight-gradient
+check rejects a dW off by one part in 1000 or missing one chunk of 256
+rows."""
 
 import pytest
 import torch
@@ -17,15 +20,22 @@ def _normal(gen, *shape, std=1.0):
 
 
 @pytest.mark.parametrize("h", [6, 32])
-def test_cin2d_plain_fp32_passes_and_planted_faults_fail(h):
+def test_cin2d_bf16_forward_and_fp32_backward_pass_and_planted_faults_fail(h):
     gen = torch.Generator().manual_seed(h)
     r, f0, m = 4096, 6, 16
     x0 = _normal(gen, r, f0, std=0.25)
     x = _normal(gen, r, h, std=0.25)
     w = _normal(gen, f0, h, m, std=0.05)
     g = _normal(gen, r, m)
-    fwd = ct.check_cin2d_forward(ck.cin2d_forward(x0, x, w), x0, x, w)
-    assert fwd["out"]["err_over_tol"] == 0.0  # the same plain version
+    fwd = ct.check_cin2d_forward(ck.cin2d_reference_bf16(x0, x, w), x0, x,
+                                 w, planted=True)
+    assert fwd["bf16"]["err_over_tol"] == 0.0  # the same plain version
+    assert 0 < fwd["fp64"]["err_over_tol"] <= 1
+    assert min(fwd["bf16"]["planted"].values()) > 1
+    # The fp32 function is what the CPU path computes; the bf16 contract
+    # rejects it.
+    with pytest.raises(AssertionError, match="bf16 terms"):
+        ct.check_cin2d_forward(ck.cin2d_forward(x0, x, w), x0, x, w)
     checks = ct.check_cin2d_backward(ck.cin2d_backward(x0, x, w, g), x0, x,
                                      w, g, planted_rows=256)
     assert set(checks) == {"dx0", "dx", "dw"}

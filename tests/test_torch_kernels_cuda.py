@@ -113,10 +113,25 @@ def test_cin2d_autograd_launches_both_kernels(device):
     w, g = _normal(gen, 6, 128, 128, std=0.05), _normal(gen, 4096, 128)
     args = [t.clone().requires_grad_() for t in (x0, x, w)]
     before = dict(ck.cin2d.launches)
-    ck.cin2d(*args).backward(g)
+    out = ck.cin2d(*args)
+    out.backward(g)
     assert ck.cin2d.launches == {"fwd": before["fwd"] + 1,
                                  "bwd": before["bwd"] + 1}
+    ct.check_cin2d_forward(out.detach(), x0, x, w)
     ct.check_cin2d_backward([a.grad for a in args], x0, x, w, g)
+
+
+def test_cin2d_forward_check_rejects_planted_outputs(device):
+    """At the layered xDeepFM's shape, on the card: the fp32 function and
+    the bf16 emulation without one f-slice both fail the forward check."""
+    gen = torch.Generator(device=device).manual_seed(4)
+    x0 = _normal(gen, 131072, 6, std=0.25)
+    x = torch.relu(_normal(gen, 131072, 128, std=0.25))
+    w = _normal(gen, 6, 128, 128, std=0.05)
+    checks = ct.check_cin2d_forward(ck.cin2d_forward(x0, x, w), x0, x, w,
+                                    planted=True)
+    assert min(checks["bf16"]["planted"].values()) > 1
+    assert ct.worst_share(checks) <= 1
 
 
 @pytest.mark.parametrize("b,f0,d,m1,m2", [
