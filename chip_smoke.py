@@ -22,9 +22,13 @@ In order:
    reject the fp32 function and an output missing one f-slice), reports
    each output's error and share of its tolerance, and times kernel, plain
    version and one library call where there is one (for K4's forward also
-   that call on bf16 operands), with CUDA events (device time from
-   CUDA-graph replays, and the eager call's time);
-5. five train paths, each with every launch counter set to 0 just before
+   that call on bf16 operands; for K6 the backward of the SDPA call, with
+   the kernels each SDPA call ran), with CUDA events (device time from
+   CUDA-graph replays, and the eager call's time); then the bf16 K5 and
+   K6 at the same shapes on bf16 q, k, v, g, held against their fp64 and
+   bf16 plain versions (``check_forward_bf16``, ``check_backward_bf16``),
+   timed beside the bf16 SDPA call, with the exp floor beside their bounds;
+5. six train paths, each with every launch counter set to 0 just before
    it and read just after, each checked for a finite, falling loss and the
    exact launches it must make:
    - DeepFM at the bench width (D=16, hidden (256, 32)), 2 epochs: one K1
@@ -42,11 +46,15 @@ In order:
      2 epochs of a copy task through Transformer.loss: six K5 and six K6 per
      train step, six K5 per held-out batch, and a held-out loss that falls;
      its trained logits through K5 must match the plain CPU path;
+   - the same in bf16 (``compute_dtype=torch.bfloat16``): six bf16 K5 and
+     six bf16 K6 per train step, six bf16 K5 per held-out batch, no fp32
+     launch; its logits through the bf16 K5 nearer the CPU's bf16 plain
+     path than that path is to fp32;
    - the ported IMDB example at its defaults, 3 epochs: dense attention,
      no kernel launch;
 6. profiles ten more train steps of DeepFM, the flagship xDeepFM and the
-   Transformer (torch.profiler): wall time per step, device busy time, idle
-   share and the kernels that take the most time;
+   Transformer in fp32 and bf16 (torch.profiler): wall time per step,
+   device busy time, idle share and the kernels that take the most time;
 7. prints one JSON line with every kernel's numbers, then, as the last line,
    {"ok": true, "device": {...}}.
 
@@ -122,6 +130,11 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
 U32 = 2.0**-24  # unit roundoff of float32
+# The H100's special-function units: 16 exponentials a clock on each of its
+# 132 SMs (the floor of the bf16 attention kernels at D = 16).
+SMS, EXP_PER_SM_CLOCK = 132, 16
+# Tile of the attention kernels (keys, and query rows of a block).
+ATT_TILE = 64
 # CUDA-graph timing of the CIN kernels: each call is milliseconds.
 CIN_ITERS, CIN_REPLAYS = 5, 4
 # Rows of the chunk left out of a weight gradient by a planted fault: the
@@ -136,6 +149,16 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def sm_clock_hz() -> float:
+    """The card's largest SM clock (nvidia-smi ``clocks.max.sm``), in Hz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
 def time_ms(fn, iters: int = 100, warmup: int = 10) -> float:
@@ -500,7 +523,8 @@ def reset_launches() -> None:
     fm_interaction_fused.launches = 0
     ck.cin_stack_pooled.launches = {"fwd": 0, "bwd": 0}
     ck.cin2d.launches = {"fwd": 0, "bwd": 0}
-    att.flash_attention.launches = {"fwd": 0, "bwd": 0}
+    att.flash_attention.launches = {"fwd": 0, "bwd": 0, "fwd_bf16": 0,
+                                    "bwd_bf16": 0}
 
 
 def read_launches() -> dict:
@@ -513,6 +537,8 @@ def read_launches() -> dict:
         "cin2d.bwd": ck.cin2d.launches["bwd"],
         "flash_attention.fwd": att.flash_attention.launches["fwd"],
         "flash_attention.bwd": att.flash_attention.launches["bwd"],
+        "flash_attention_bf16.fwd": att.flash_attention.launches["fwd_bf16"],
+        "flash_attention_bf16.bwd": att.flash_attention.launches["bwd_bf16"],
     }
 
 
@@ -702,6 +728,96 @@ def _valid_pairs(mask: torch.Tensor, causal: bool) -> int:
     return int((mask.double() * after).sum().item())
 
 
+def sdpa_inputs(q, k, v, mask, causal):
+    """q, k, v as (B, H, S, D) views and the boolean mask that
+    ``F.scaled_dot_product_attention`` takes for the same function: the
+    key mask of each example (its rows repeat over the TX_HEADS heads),
+    broadcast over heads and queries, with the causal triangle. The 4-D
+    layout lets the library choose a fused backend; the 3-D one runs its
+    math path."""
+    bh, s, d = q.shape
+    b = bh // TX_HEADS
+    q4, k4, v4 = (t.view(b, TX_HEADS, s, d) for t in (q, k, v))
+    allowed = (mask.view(b, TX_HEADS, s)[:, 0] > 0)[:, None, None, :]
+    if causal:
+        allowed = allowed & torch.ones(s, s, dtype=torch.bool,
+                                       device=q.device).tril()
+    return q4, k4, v4, allowed
+
+
+def sdpa_forward(q4, k4, v4, allowed):
+    """One ``F.scaled_dot_product_attention`` call with the boolean mask:
+    the library yardstick of K5 (the port never calls it)."""
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=allowed)
+
+
+def sdpa_backward(q4, k4, v4, allowed, g4):
+    """The backward of that call for the output gradient g, alone: the
+    forward runs once here and its graph is kept (K6's yardstick)."""
+    leaves = [t.detach().requires_grad_() for t in (q4, k4, v4)]
+    out = torch.nn.functional.scaled_dot_product_attention(
+        *leaves, attn_mask=allowed)
+    return lambda: torch.autograd.grad(out, leaves, g4, retain_graph=True)
+
+
+def kernel_times(fn, top: int = 3):
+    """The device kernels that take the most time in one call of ``fn``,
+    with their device ms (torch.profiler): which backend a library call
+    chose, or how a kernel's time splits between its launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    return [{"name": e.key[:100], "ms": e.self_device_time_total / 1e3}
+            for e in kernels[:top]]
+
+
+def library_fields(q, k, v, mask, causal, g=None) -> dict:
+    """The library yardstick of K5 (``g`` None) or K6: one
+    ``F.scaled_dot_product_attention`` call on the same inputs, or its
+    backward, timed, with the kernels it ran. The forward is timed from
+    CUDA-graph replays as the kernels are; the backward eagerly with CUDA
+    events (autograd's backward is not captured in a graph; at
+    milliseconds a call, the launch cost is noise)."""
+    args = sdpa_inputs(q, k, v, mask, causal)
+    if g is None:
+        call = sdpa_forward(*args)
+        fields = {"library_ms": graph_ms(call, 5, 4),
+                  "library_timing": "CUDA-graph replays"}
+    else:
+        call = sdpa_backward(*args, g.view(args[0].shape))
+        fields = {"library_ms": time_ms(call, iters=5, warmup=2),
+                  "library_timing": "eager, CUDA events"}
+    fields["library_kernels"] = kernel_times(call)
+    del call, args
+    torch.cuda.empty_cache()
+    return fields
+
+
+def live_tile_pairs(mask: torch.Tensor, causal: bool) -> int:
+    """(query, key) lanes of the tiles the bf16 kernels score, each of which
+    takes one exp: every 64 x 64 tile of a (bh) row whose keys are not all
+    padding, and with causal only tiles not wholly in the future."""
+    bh, s = mask.shape
+    nt = -(-s // ATT_TILE)
+    padded = torch.zeros(bh, nt * ATT_TILE, device=mask.device)
+    padded[:, :s] = mask
+    live = (padded.reshape(bh, nt, ATT_TILE) > 0).any(-1).double()
+    # Query tiles that see key tile t: all nt, or with causal nt - t.
+    seen = torch.full((nt,), float(nt), dtype=torch.float64,
+                      device=mask.device)
+    if causal:
+        seen -= torch.arange(nt, device=mask.device, dtype=torch.float64)
+    return int((live * seen).sum().item()) * ATT_TILE * ATT_TILE
+
+
 def attention_kernel_phase(imdb: SyntheticImdb, device):
     """K5 and K6 at the Transformer slice's shapes: q, k, v (2048, 512, 16)
     seeded normals, with the key masks of one train batch's tokens repeated
@@ -709,8 +825,9 @@ def attention_kernel_phase(imdb: SyntheticImdb, device):
     version in fp64 (``ops/attention_tolerances.py`` states the
     tolerances), in chunks of ATT_CHUNK rows, on the same inputs, forward
     residuals and incoming gradient; the dk check must reject dk less its
-    first query tile. Times: kernel, plain version and, for K5, one
-    ``F.scaled_dot_product_attention`` call with the boolean mask."""
+    first query tile. Times: kernel, plain version and one
+    ``F.scaled_dot_product_attention`` call with the boolean mask (for K6
+    its backward), with the kernels that call ran."""
     tokens = torch.from_numpy(imdb.train[0][:TX_BATCH]).to(device)
     mask = (tokens != 0).float().repeat_interleave(TX_HEADS, dim=0)
     bh, s, d = mask.shape[0], TX_LEN, TX_DIM // TX_HEADS
@@ -735,10 +852,6 @@ def attention_kernel_phase(imdb: SyntheticImdb, device):
                               planted_rows=ATT_PLANTED_ROWS)
             for c in chunks)
         pairs = _valid_pairs(mask, causal)
-        allowed = mask[:, None, :] > 0
-        if causal:
-            allowed = allowed & torch.ones(s, s, dtype=torch.bool,
-                                           device=device).tril()
         fwd_entry = {
             "shape": {**shape, "causal": causal},
             **check_fields(fwd_checks),
@@ -746,9 +859,8 @@ def attention_kernel_phase(imdb: SyntheticImdb, device):
                 lambda: att.flash_attention(q, k, v, mask, causal,
                                             return_lse=True),
                 lambda: att.flash_attention_reference(q, k, v, mask, causal),
-                lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q, k, v, attn_mask=allowed),
-                iters=5, replays=4, eager_iters=10),
+                None, iters=5, replays=4, eager_iters=10),
+            **library_fields(q, k, v, mask, causal),
             # q, k, v and out; the mask and lse. Per scored pair: 4 D
             # products (q.k and p v) and 5 softmax operations.
             **bound_fields((4 * bh * s * d + 2 * bh * s) * 4,
@@ -764,6 +876,7 @@ def attention_kernel_phase(imdb: SyntheticImdb, device):
                 lambda: att.flash_attention_backward_reference(
                     q, k, v, mask, out, lse, g, causal),
                 None, iters=5, replays=4, eager_iters=10),
+            **library_fields(q, k, v, mask, causal, g),
             # q, k, v, g, out, dq, dk and dv; the mask and lse. Per scored
             # pair: 10 D products (s, dp, dq, dk, dv) and 5 operations to
             # rebuild p and form ds. The kernels, as JAX splits them,
@@ -780,7 +893,7 @@ def attention_kernel_phase(imdb: SyntheticImdb, device):
         else:
             fwd.update(fwd_entry)
             bwd.update(bwd_entry)
-        del out, lse, grads, allowed
+        del out, lse, grads
     source = "deep_recommenders_torch/csrc/flash_attention.cu"
     entries = [
         {"name": "flash_attention.fwd", "route": "cuda", "source": source,
@@ -793,11 +906,133 @@ def attention_kernel_phase(imdb: SyntheticImdb, device):
     return entries
 
 
-def make_transformer(device) -> Transformer:
+def attention_bf16_kernel_phase(imdb: SyntheticImdb, device):
+    """The bf16 K5 and K6 at the bf16 Transformer path's shapes: q, k, v, g
+    (2048, 512, 16) seeded normals rounded to bf16, with the same key
+    masks as the fp32 phase, non-causal and causal. Each is held against
+    its fp64 and its bf16 plain version (``check_forward_bf16``,
+    ``check_backward_bf16`` in ``ops/attention_tolerances.py``), in chunks
+    of ATT_CHUNK rows; the dk check must reject dk less its first query
+    tile. Times: kernel, bf16 plain version, and one bf16
+    ``F.scaled_dot_product_attention`` call with the boolean mask (for K6
+    its backward). Bounds: bf16 bytes and bf16 tensor-core operations,
+    with the exp floor beside them (one exp per lane of a scored tile, two
+    in K6, at 16 a clock per SM at the largest SM clock)."""
+    tokens = torch.from_numpy(imdb.train[0][:TX_BATCH]).to(device)
+    mask = (tokens != 0).float().repeat_interleave(TX_HEADS, dim=0)
+    bh, s, d = mask.shape[0], TX_LEN, TX_DIM // TX_HEADS
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    q, k, v, g = (torch.randn(bh, s, d, device=device, generator=gen)
+                  .to(torch.bfloat16) for _ in range(4))
+    chunks = [slice(i, i + ATT_CHUNK) for i in range(0, bh, ATT_CHUNK)]
+    shape = {"q": [bh, s, d], "k": [bh, s, d], "dtype": "bfloat16",
+             "valid_keys": mask.mean().item()}
+    exp_rate = SMS * EXP_PER_SM_CLOCK * sm_clock_hz()
+    fwd, bwd = {}, {}
+    for causal in (False, True):
+        out, lse = att.flash_attention(q, k, v, mask, causal, return_lse=True)
+        grads = att.flash_attention_backward(q, k, v, mask, out, lse, g,
+                                             causal)
+        torch.cuda.synchronize()
+        fwd_checks = _merge_checks(
+            at.check_forward_bf16((out[c], lse[c]), q[c], k[c], v[c],
+                                  mask[c], causal) for c in chunks)
+        bwd_checks = _merge_checks(
+            at.check_backward_bf16([t[c] for t in grads], q[c], k[c], v[c],
+                                   mask[c], out[c], lse[c], g[c], causal,
+                                   planted_rows=ATT_PLANTED_ROWS)
+            for c in chunks)
+        print(f"flash_attention_bf16 causal={causal} shares: out "
+              f"{fwd_checks['out']['err_over_tol']:.6g} (fp64), "
+              f"{fwd_checks['out_bf16_plain']['err_over_tol']:.6g} (bf16 "
+              f"plain); dk {bwd_checks['dk']['err_over_tol']:.6g}, fro "
+              f"{bwd_checks['dk']['fro_over_tol']:.6g}; planted dk fault "
+              f"{bwd_checks['dk']['planted']['query_tile_dropped']:.6g}")
+        pairs = _valid_pairs(mask, causal)
+        lanes = live_tile_pairs(mask, causal)
+        fwd_entry = {
+            "shape": {**shape, "causal": causal},
+            **check_fields(fwd_checks),
+            # Against the bf16 plain version; the fp64 check's own is in
+            # checks.
+            "max_abs_err": fwd_checks["out_bf16_plain"]["max_abs_err"],
+            **timings(
+                lambda: att.flash_attention(q, k, v, mask, causal,
+                                            return_lse=True),
+                lambda: att.flash_attention_reference_bf16(q, k, v, mask,
+                                                           causal),
+                None, iters=10, replays=4, eager_iters=20),
+            **library_fields(q, k, v, mask, causal),
+            # q, k, v and out in bf16; the mask and lse in fp32. Per scored
+            # pair 4 D tensor-core operations (q.k and p v).
+            **bound_fields((4 * bh * s * d) * 2 + 2 * bh * s * 4,
+                           pairs * 4 * d, bf16=True),
+            "scored_pairs": pairs,
+            "exp_lanes": lanes,
+            "exp_floor_ms": lanes / exp_rate * 1e3,
+            "exp_floor_valid_pairs_ms": pairs / exp_rate * 1e3,
+        }
+        bwd_entry = {
+            "shape": {**shape, "causal": causal},
+            **check_fields(bwd_checks),
+            "max_abs_err": max(bwd_checks[f"{n}_bf16_plain"]["max_abs_err"]
+                               for n in ("dq", "dk", "dv")),
+            **timings(
+                lambda: att.flash_attention_backward(q, k, v, mask, out, lse,
+                                                     g, causal),
+                lambda: att.flash_attention_backward_reference_bf16(
+                    q, k, v, mask, out, lse, g, causal),
+                None, iters=10, replays=4, eager_iters=20),
+            **library_fields(q, k, v, mask, causal, g),
+            # The dq kernel and the dk/dv kernel, one launch each.
+            "kernel_split": kernel_times(
+                lambda: att.flash_attention_backward(q, k, v, mask, out, lse,
+                                                     g, causal), top=2),
+
+            # q, k, v, g, out, dq, dk and dv in bf16; the mask and lse in
+            # fp32. Per scored pair 10 D tensor-core operations (s, dp, dq,
+            # dk, dv); as JAX splits it, 14 D ("gflop_kernels"); each
+            # kernel rebuilds p: two exps a lane.
+            **bound_fields((8 * bh * s * d) * 2 + 2 * bh * s * 4,
+                           pairs * 10 * d, bf16=True),
+            "gflop_kernels": pairs * 14 * d / 1e9,
+            "scored_pairs": pairs,
+            "exp_lanes": 2 * lanes,
+            "exp_floor_ms": 2 * lanes / exp_rate * 1e3,
+            "exp_floor_valid_pairs_ms": 2 * pairs / exp_rate * 1e3,
+        }
+        if causal:
+            fwd["causal"], bwd["causal"] = fwd_entry, bwd_entry
+        else:
+            fwd.update(fwd_entry)
+            bwd.update(bwd_entry)
+        del out, lse, grads
+    source = "deep_recommenders_torch/csrc/flash_attention_bf16.cu"
+    entries = [
+        {"name": "flash_attention_bf16.fwd", "route": "cuda",
+         "source": source,
+         "replaces": "deep_recommenders_tpu/ops/attention.py:165", **fwd},
+        {"name": "flash_attention_bf16.bwd", "route": "cuda",
+         "source": source,
+         "replaces": "deep_recommenders_tpu/ops/attention.py:377", **bwd},
+    ]
+    del q, k, v, g
+    torch.cuda.empty_cache()
+    return entries
+
+
+def make_transformer(device, dtype=None) -> Transformer:
     return Transformer(TX_VOCAB, TX_DIM, TX_HEADS, TX_LAYERS, TX_LAYERS,
-                       TX_FFN, dropout=0.0,
+                       TX_FFN, dropout=0.0, compute_dtype=dtype,
                        generator=torch.Generator().manual_seed(SEED)
                        ).to(device)
+
+
+def flash_keys(dtype):
+    """The launch counters of K5 and K6 for the Transformer's dtype."""
+    if dtype == torch.bfloat16:
+        return "flash_attention_bf16.fwd", "flash_attention_bf16.bwd"
+    return "flash_attention.fwd", "flash_attention.bwd"
 
 
 def copy_task(tokens: torch.Tensor):
@@ -809,19 +1044,21 @@ def copy_task(tokens: torch.Tensor):
             (tokens != 0).float())
 
 
-def transformer_path(imdb: SyntheticImdb, device):
+def transformer_path(imdb: SyntheticImdb, device, dtype=None):
     """The slice's main path: TX_EPOCHS of the copy task on the card through
     ``Transformer.loss``, Adam under Noam(TX_DIM, TX_WARMUP), with every
     launch counter set to 0 just before and read just after (the held-out
-    loss before and after training included). Each train step must launch
-    6 K5 and 6 K6 (encoder self-attention x2, decoder causal
-    self-attention x2, cross-attention x2), each held-out batch 6 K5;
-    K1-K4 none. Then the trained logits on the card, through K5, against
-    the plain CPU path, and a profile of ten steady steps."""
+    loss before and after training included). In fp32 (``dtype`` None) each
+    train step must launch 6 K5 and 6 K6 (encoder self-attention x2,
+    decoder causal self-attention x2, cross-attention x2), each held-out
+    batch 6 K5; with ``dtype=torch.bfloat16`` the same counts of the bf16
+    K5 and K6 and no fp32 launch; K1-K4 none. Then the trained logits on
+    the card, through K5, against the plain CPU path, and a profile of ten
+    steady steps."""
     train = torch.from_numpy(imdb.train[0]).long().to(device)
     test = torch.from_numpy(imdb.test[0]).long().to(device)
     n_train, n_test = len(train) // TX_BATCH, len(test) // TX_BATCH
-    model = make_transformer(device)
+    model = make_transformer(device, dtype)
     opt = torch.optim.Adam(model.parameters(), lr=1.0)
     sched = torch.optim.lr_scheduler.LambdaLR(
         opt, noam_schedule(TX_DIM, TX_WARMUP))
@@ -867,23 +1104,24 @@ def transformer_path(imdb: SyntheticImdb, device):
     launches = read_launches()
     losses = torch.stack(losses).tolist()
     steps, evals = len(losses), 2 * n_test
-    name = "transformer_seq2seq"
+    name = "transformer_seq2seq" + ("_bf16" if dtype else "")
     print(f"{name} train: {steps} steps of {TX_BATCH} x {TX_LEN}, loss "
           f"{losses[0]:.6f} -> {losses[-1]:.6f}, held-out loss {before:.6f} "
           f"-> {after:.6f}, {steps * TX_BATCH / train_s:.1f} sequences/s "
           f"(smoke figure), peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(f"{name} launches: {launches}")
+    fwd_key, bwd_key = flash_keys(dtype)
     want = {key: 0 for key in launches}
-    want["flash_attention.fwd"] = 6 * (steps + evals)
-    want["flash_attention.bwd"] = 6 * steps
+    want[fwd_key] = 6 * (steps + evals)
+    want[bwd_key] = 6 * steps
     if steps != TX_EPOCHS * n_train or launches != want:
         raise AssertionError(f"{name}: {steps} steps, launches {launches}, "
                              f"expected {want}")
     if not np.isfinite(losses).all() or not after < before:
         raise AssertionError(f"{name}: loss not finite and falling: "
                              f"{losses}, held-out {before} -> {after}")
-    check_transformer_logits(model, test[:8])
+    check_transformer_logits(name, model, test[:8], dtype)
     perm = permutation(TX_EPOCHS)
     print(f"{name} profile: " + json.dumps(profile_phase(
         lambda s: step(perm[s * TX_BATCH:(s + 1) * TX_BATCH]), heldout)))
@@ -892,37 +1130,64 @@ def transformer_path(imdb: SyntheticImdb, device):
     return launches
 
 
-def check_transformer_logits(model: Transformer, tokens: torch.Tensor):
+def check_transformer_logits(name: str, model: Transformer,
+                             tokens: torch.Tensor, dtype=None):
     """The trained model's logits on 8 test rows: on the card with every
     ``MultiHeadAttention.use_flash`` set to True (8 rows are under the
     dispatch's budget), so K5 runs six times, against the plain CPU path
-    on the same weights. Logits are sums over the width of LayerNorm'd
-    unit-scale terms and table rows of norm ~sqrt(128), up to ~40 in size;
-    fp32 sums in other orders through 4 layers stay within rtol 1e-4 and
-    atol 1e-3 of each other."""
-    name = "transformer_seq2seq"
+    on the same weights (the bf16 plain version of K5 in bf16).
+
+    fp32: logits are sums over the width of LayerNorm'd unit-scale terms
+    and table rows of norm ~sqrt(128), up to ~40 in size; fp32 sums in
+    other orders through 4 layers stay within rtol 1e-4 and atol 1e-3 of
+    each other.
+
+    bf16: the card and the CPU round the same values to bf16 at the same
+    places, but sum in fp32 in other orders (cuBLAS and the kernel against
+    the CPU's GEMMs and the plain version, whose p is rounded against the
+    row's max, not the running max of 64-key tiles), so some
+    intermediates round to the other bf16 neighbour and the difference
+    carries through the layers. Its size is that of bf16 rounding itself:
+    the card's logits must lie nearer the CPU's bf16 logits than the CPU's
+    bf16 logits lie to its fp32 logits on the same weights (the largest
+    difference of each)."""
     inp, tgt_in, _, _ = copy_task(tokens)
-    cpu_model = make_transformer("cpu")
+    cpu_model = make_transformer("cpu", dtype)
     cpu_model.load_state_dict({key: value.cpu() for key, value in
                                model.state_dict().items()})
     layers = [m for m in model.modules() if isinstance(m, MultiHeadAttention)]
     for layer in layers:
         layer.use_flash = True
-    before = att.flash_attention.launches["fwd"]
+    fwd_key = flash_keys(dtype)[0]
+    before = read_launches()[fwd_key]
     with torch.no_grad():
         on_card = model(inp, tgt_in).cpu()
-        launched = att.flash_attention.launches["fwd"] - before
+        launched = read_launches()[fwd_key] - before
         for layer in layers:
             layer.use_flash = None
         on_cpu = cpu_model(inp.cpu(), tgt_in.cpu())
-    if launched != len(layers) or on_card.shape != (8, TX_LEN, TX_VOCAB):
+    if launched != len(layers) or on_card.shape != (8, TX_LEN, TX_VOCAB) \
+            or on_card.dtype != torch.float32:
         raise AssertionError(f"{name}: {launched} K5 launches for "
                              f"{len(layers)} attentions, logits "
-                             f"{tuple(on_card.shape)}")
-    torch.testing.assert_close(on_card, on_cpu, rtol=1e-4, atol=1e-3)
-    print(f"{name} logits card (K5) vs cpu: max abs diff "
-          f"{(on_card - on_cpu).abs().max().item():.3g}, largest logit "
-          f"{on_cpu.abs().max().item():.3g}")
+                             f"{tuple(on_card.shape)} {on_card.dtype}")
+    diff = (on_card - on_cpu).abs().max().item()
+    if dtype is None:
+        torch.testing.assert_close(on_card, on_cpu, rtol=1e-4, atol=1e-3)
+        gap = ""
+    else:
+        fp32_model = make_transformer("cpu")
+        fp32_model.load_state_dict(cpu_model.state_dict())
+        with torch.no_grad():
+            on_cpu32 = fp32_model(inp.cpu(), tgt_in.cpu())
+        bf16_gap = (on_cpu - on_cpu32).abs().max().item()
+        if not bool(torch.isfinite(on_card).all()) or not diff < bf16_gap:
+            raise AssertionError(f"{name}: logits card vs cpu differ by "
+                                 f"{diff}, bf16 vs fp32 on the cpu by "
+                                 f"{bf16_gap}")
+        gap = f", cpu bf16 vs fp32 {bf16_gap:.3g}"
+    print(f"{name} logits card (K5) vs cpu: max abs diff {diff:.3g}{gap}, "
+          f"largest logit {on_cpu.abs().max().item():.3g}")
 
 
 def imdb_path():
@@ -957,6 +1222,8 @@ ENTRY_PATH = {
     "cin2d.bwd": "xdeepfm_layered",
     "flash_attention.fwd": "transformer_seq2seq",
     "flash_attention.bwd": "transformer_seq2seq",
+    "flash_attention_bf16.fwd": "transformer_seq2seq_bf16",
+    "flash_attention_bf16.bwd": "transformer_seq2seq_bf16",
 }
 
 
@@ -983,11 +1250,14 @@ def main() -> int:
     entries = kernel_phase(ds, model, device)
     entries += cin_kernel_phase(ds, device)
     entries += attention_kernel_phase(imdb, device)
+    entries += attention_bf16_kernel_phase(imdb, device)
     print(f"kernel phase done ({time.perf_counter() - t0:.1f} s)")
     paths = train_phase(ds, model, device)
     del ds, model
     torch.cuda.empty_cache()
     paths["transformer_seq2seq"] = transformer_path(imdb, device)
+    paths["transformer_seq2seq_bf16"] = transformer_path(
+        imdb, device, torch.bfloat16)
     paths["transformer_imdb"] = imdb_path()
     for entry in entries:
         path = ENTRY_PATH[entry["name"]]

@@ -1,0 +1,811 @@
+// K5 and K6 in bf16: blockwise (flash) attention forward and backward on
+// the tensor cores, at the TPU kernels' bf16 contract.
+//
+// Replaces, for bf16 operands, deep_recommenders_tpu/ops/attention.py:
+// flash_attention (K5, body _flash_kernel :82, pallas_call :199) and
+// _flash_backward_impl (K6, bodies _flash_bwd_dq_kernel :285 and
+// _flash_bwd_dkv_kernel :326, pallas_calls :436 and :463). The fp32
+// counterparts stay in flash_attention.cu. Layout: q (BH, Sq, D), k and v
+// (BH, Sk, D), out, g, dq, dk, dv bf16; key_mask (BH, Sk), lse and delta
+// (BH, Sq) fp32; all contiguous, the bf16 tensors 16-byte aligned;
+// scale = 1/sqrt(D).
+//
+// The contract (JAX attention.py:107-149, :312-371): scores are fp32 sums
+// of bf16 products (each product exact in fp32); the softmax statistics,
+// p and ds are fp32; p is rounded to bf16 before P V and before dv = P^T dO,
+// ds before dq = dS K and dk = dS^T Q; every product accumulates in fp32;
+// out, dq, dk and dv are rounded to bf16 once, at the end.
+//
+// What bounds them on the H100 at the zoo's head width D = 16: the
+// exponentials. At (BH 2048, S 512, D 16) with 62.8% valid keys K5 scores
+// 337 M pairs non-causal: 21.6 GFLOP of bf16 products (0.022 ms at
+// 989 TFLOP/s) and about 143 MB of inputs and outputs (0.043 ms at
+// 3.35 TB/s), but one exp per pair, and the SFU gives 16 a clock per SM:
+// 0.08-0.13 ms at 1.98 GHz, counting 337 M exps or every lane of a live
+// tile (537 M). K6 rebuilds p in both of its kernels, twice the exps. So
+// wgmma would buy nothing yet. What the design does:
+// - mma.sync m16n8k16 (bf16 operands, fp32 accumulators) for every
+//   product; the score tile's accumulator fragments are converted to bf16
+//   in registers and fed as the A operand of the next product (P V, P^T dO,
+//   dS K, dS^T Q): p and ds never reach shared or device memory.
+// - exp2f with log2(e) folded into the score scale: one MUFU op a pair.
+// - key tiles whose mask is all zero are skipped (the block reads a bit
+//   mask of the valid keys once), as are tiles wholly in the causal future.
+//   A skipped tile would contribute p = 0 to every sum, so the result is
+//   the same as scoring it. SyntheticImdb post-pads, so padding fills whole
+//   tiles at the end of a row.
+// - operand tiles come in with cp.async, double-buffered, into rows padded
+//   to D + 8 bf16 (a stride that is 16 bytes off a multiple of 128), so
+//   that every ldmatrix is free of bank conflicts; V, K, Q and dO reach the
+//   second product of each pair through ldmatrix.trans.
+//
+// Blocks. 128 threads, 4 warps of 16 rows each.
+// - K5: one block per (bh, 64 query rows); loops over 64-key tiles with an
+//   online softmax on the accumulator fragments (running max and sum per
+//   row, reduced over the 4 lanes of a quad).
+// - K6, as JAX splits it (s and dp are computed in both kernels; sharing
+//   them in one pass is later work): a dq kernel, one block per (bh, 64
+//   query rows) over key tiles; a dk/dv kernel, one block per (bh, 64
+//   keys) over query tiles, working on transposed tiles (keys are rows).
+//   delta = rowsum(dO * O), which JAX leaves to XLA, is formed in fp32 by
+//   the dq kernel from its own rows of dO and O and written for the dk/dv
+//   kernel: no fp32 copies of dO and O.
+// - Tiles with no masked lane (all keys valid, wholly in the causal past,
+//   no row past the end) take a path without the per-lane selects: the
+//   kernels issue several instructions per score beside the one exp, and
+//   the selects were the largest share of them.
+//   Each block writes its own rows once: no atomics, and the result does
+//   not depend on the order blocks run in.
+// - Ragged Sq and Sk: rows past the end are zero-filled and not written,
+//   keys past Sk are masked. A query row with no valid key gives out 0 and
+//   lse 0, and its p is 0 in the backward.
+//
+// The rounding of p in K5 is against the running max of the key tiles seen
+// so far, which depends on the tile width (JAX uses 128 keys, this kernel
+// 64); ops/attention_tolerances.py bounds the difference.
+//
+// Every exported function launches on the stream it is given and returns
+// cudaGetLastError(), or cudaErrorInvalidValue for what it does not take.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <limits.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kThreads = 128;  // 4 warps
+constexpr int kRows = 64;      // rows a block owns: 16 per warp
+constexpr int kCols = 64;      // rows of a streamed tile
+constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr size_t kMaxSmem = 232448;
+
+template <int D>
+struct Dims {
+  static constexpr int LD = D + 8;       // bf16 per staged row
+  static constexpr int TILE = kCols * LD;
+  static constexpr int KSTEPS = D / 16;  // mma k-steps over D
+  static constexpr int NT = D / 8;       // n8 tiles over D
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes from src, or 16 zero bytes when !in (src is then not read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(in ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Four 8 x 8 bf16 matrices; lane l gives the address of row l % 8 of
+// matrix l / 8 and receives row l / 4, columns 2 (l % 4), 2 (l % 4) + 1 of
+// each (with .trans: rows 2 (l % 4), 2 (l % 4) + 1 of column l / 4).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// d += a b on one 16 x 8 x 16 tile: bf16 operands, fp32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// Fragment coordinates of a lane: mma's (group, thread in group) and
+// ldmatrix's (matrix, row).
+struct Lane {
+  int warp, grp, tig, lq, li;
+  __device__ Lane() {
+    const int lane = threadIdx.x & 31;
+    warp = threadIdx.x >> 5;
+    grp = lane >> 2;
+    tig = lane & 3;
+    lq = lane >> 3;
+    li = lane & 7;
+  }
+};
+
+// dst[r][c] = src[r * D + c] for r < n, 0 for n <= r < R (cp.async).
+template <int D, int R>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int n) {
+  constexpr int CH = D / 8;  // 16-byte chunks per row
+  for (int e = threadIdx.x; e < R * CH; e += kThreads) {
+    const int r = e / CH, c = (e - r * CH) * 8;
+    const bool in = r < n;
+    cp_async16(dst + r * Dims<D>::LD + c, in ? src + (int64_t)r * D + c : src,
+               in);
+  }
+}
+
+// bits[w] bit b = key 32 w + b is valid (< sk and mask > 0), for
+// w < 2 ntiles: two words per 64-key tile.
+__device__ __forceinline__ void load_key_bits(uint32_t* bits,
+                                              const float* __restrict__ mask,
+                                              int sk, int ntiles) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int w = warp; w < 2 * ntiles; w += kThreads / 32) {
+    const int key = w * 32 + lane;
+    const uint32_t b = __ballot_sync(0xffffffffu, key < sk && mask[key] > 0.f);
+    if (lane == 0) bits[w] = b;
+  }
+}
+
+// The first tile at or after t, below n, with a valid key.
+__device__ __forceinline__ int next_live(const uint32_t* bits, int t, int n) {
+  while (t < n && (bits[2 * t] | bits[2 * t + 1]) == 0) ++t;
+  return t;
+}
+
+// A fragments of the 16 rows [row0, row0 + 16) of a [rows][LD] tile, over
+// the 16 columns of k-step kk.
+template <int D>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile,
+                                       int row0, int kk, const Lane& ln) {
+  ldmatrix_x4(a, tile + (row0 + ln.li + (ln.lq & 1) * 8) * Dims<D>::LD +
+                     kk * 16 + (ln.lq >> 1) * 8);
+}
+
+// acc[j] += A B^T over a 64-row tile b ([64][LD]): the product of the
+// warp's 16 rows (A, k-steps over D) with the tile's rows, n8 tile j
+// holding tile rows 8 j .. 8 j + 7.
+template <int D>
+__device__ __forceinline__ void scores(float (&acc)[8][4],
+                                       const uint32_t (&a)[Dims<D>::KSTEPS][4],
+                                       const bf16* b, const Lane& ln) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < Dims<D>::KSTEPS; ++kk) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      uint32_t f[4];
+      ldmatrix_x4(f, b + (16 * j + ln.li + (ln.lq >> 1) * 8) * Dims<D>::LD +
+                         kk * 16 + (ln.lq & 1) * 8);
+      mma_bf16(acc[2 * j], a[kk], f[0], f[1]);
+      mma_bf16(acc[2 * j + 1], a[kk], f[2], f[3]);
+    }
+  }
+}
+
+// acc[n] += P B over a 64-row tile b ([64][LD], rows are the k index):
+// P is the warp's 16 x 64 fp32 fragments x, rounded to bf16 in registers.
+template <int D>
+__device__ __forceinline__ void accumulate(float (&acc)[Dims<D>::NT][4],
+                                           const float (&x)[8][4],
+                                           const bf16* b, const Lane& ln) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint32_t a[4] = {pack_bf16x2(x[2 * kk][0], x[2 * kk][1]),
+                           pack_bf16x2(x[2 * kk][2], x[2 * kk][3]),
+                           pack_bf16x2(x[2 * kk + 1][0], x[2 * kk + 1][1]),
+                           pack_bf16x2(x[2 * kk + 1][2], x[2 * kk + 1][3])};
+#pragma unroll
+    for (int jj = 0; jj < D / 16; ++jj) {
+      uint32_t f[4];
+      ldmatrix_x4_trans(f, b + (16 * kk + ln.li + (ln.lq & 1) * 8) *
+                                   Dims<D>::LD +
+                               16 * jj + (ln.lq >> 1) * 8);
+      mma_bf16(acc[2 * jj], a, f[0], f[1]);
+      mma_bf16(acc[2 * jj + 1], a, f[2], f[3]);
+    }
+  }
+}
+
+// Is column c (0..63) of a tile a valid key, from the tile's two words?
+__device__ __forceinline__ bool key_bit(uint32_t w0, uint32_t w1, int c) {
+  return ((c < 32 ? w0 : w1) >> (c & 31)) & 1u;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Rows grp (half 0) and grp + 8 (half 1) of the warp's 16 rows of a
+// [rows][D] bf16 output, from fp32 fragments times s[half].
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* out, int64_t row0, int rows,
+                                           const float (&acc)[Dims<D>::NT][4],
+                                           const float (&s)[2],
+                                           const Lane& ln) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = ln.grp + 8 * half;
+    if (r >= rows) continue;
+    bf16* o = out + (row0 + r) * D + 2 * ln.tig;
+#pragma unroll
+    for (int n = 0; n < Dims<D>::NT; ++n) {
+      *reinterpret_cast<uint32_t*>(o + 8 * n) = pack_bf16x2(
+          acc[n][2 * half] * s[half], acc[n][2 * half + 1] * s[half]);
+    }
+  }
+}
+
+// The online softmax of one key tile on the warp's score fragments s (the
+// raw q.k): s becomes p = exp2(s c - m), with c = scale log2(e) and m the
+// running max of s c over the key tiles so far; l is the running row sum
+// and alpha the factor the accumulator takes. kMasked: a lane where
+// valid(col, half) is false takes p = 0. Without it every lane is valid: a
+// tile of valid keys wholly in the causal past, which skips the selects.
+template <bool kMasked, typename Valid>
+__device__ __forceinline__ void online_softmax(float (&s)[8][4], float (&m)[2],
+                                               float (&l)[2],
+                                               float (&alpha)[2], float c,
+                                               const Lane& ln, Valid valid) {
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (kMasked && !valid(8 * j + 2 * ln.tig + (e & 1), e >> 1))
+        s[j][e] = kNegInf;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float tile_max = quad_max(mx[h]);
+    const float m_new =
+        tile_max <= kNegInf / 2 ? m[h] : fmaxf(m[h], tile_max * c);
+    // Guard rows masked so far: exp(NEG_INF - NEG_INF) would be 1.
+    alpha[h] = m[h] <= kNegInf / 2 ? 0.f : exp2f(m[h] - m_new);
+    m[h] = m_new;
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1;
+      const float p = exp2f(fmaf(s[j][e], c, -m[h]));
+      s[j][e] = kMasked && s[j][e] <= kNegInf / 2 ? 0.f : p;
+      sum[h] += s[j][e];
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) l[h] = alpha[h] * l[h] + quad_sum(sum[h]);
+}
+
+// K6's rebuild on the warp's fragments: p (the raw q.k on entry) becomes
+// exp2(p c - lse2(col, half)), with lse2 = lse log2(e); ds (dp on entry)
+// becomes p (dp - delta(col, half)) scale. kMasked: a lane where
+// valid(col, half) is false takes p = 0 (a select, never a product: exp
+// may overflow on masked lanes); without it every lane is valid.
+template <bool kMasked, typename Valid, typename Lse, typename Delta>
+__device__ __forceinline__ void rebuild_p_ds(float (&p)[8][4],
+                                             float (&ds)[8][4], float c,
+                                             float scale, const Lane& ln,
+                                             Valid valid, Lse lse2,
+                                             Delta delta) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 8 * j + 2 * ln.tig + (e & 1), h = e >> 1;
+      float pe = exp2f(fmaf(p[j][e], c, -lse2(col, h)));
+      if (kMasked && !valid(col, h)) pe = 0.f;
+      p[j][e] = pe;
+      ds[j][e] = pe * (ds[j][e] - delta(col, h)) * scale;
+    }
+}
+
+// -- K5 -----------------------------------------------------------------------
+
+template <int D>
+constexpr size_t fwd_smem(int ntiles) {
+  return sizeof(bf16) * (kRows + 4 * kCols) * Dims<D>::LD +
+         sizeof(uint32_t) * 2 * ntiles;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+               const bf16* __restrict__ v, const float* __restrict__ mask,
+               bf16* __restrict__ out, float* __restrict__ lse, int sq, int sk,
+               int causal, float scale_log2) {
+  using T = Dims<D>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);  // [64][LD]
+  bf16* ks = qs + kRows * T::LD;             // [2][64][LD]
+  bf16* vs = ks + 2 * T::TILE;               // [2][64][LD]
+  uint32_t* bits = reinterpret_cast<uint32_t*>(vs + 2 * T::TILE);
+
+  const Lane ln;
+  const int nq = (sq + kRows - 1) / kRows;
+  const int64_t bh = blockIdx.x / nq;
+  const int q0 = (int)(blockIdx.x % nq) * kRows;
+  const bf16* kb = k + bh * sk * D;
+  const bf16* vb = v + bh * sk * D;
+  const int ntiles = (sk + kCols - 1) / kCols;
+  // Causal: tiles that start after the block's last row are all future.
+  const int nrun = causal ? min(ntiles, (q0 + kRows - 1) / kCols + 1) : ntiles;
+
+  load_tile<D, kRows>(qs, q + (bh * sq + q0) * D, sq - q0);
+  load_key_bits(bits, mask + bh * sk, sk, ntiles);
+  __syncthreads();  // the bits
+  int t = next_live(bits, 0, nrun);
+  if (t < nrun) {
+    load_tile<D, kCols>(ks, kb + (int64_t)t * kCols * D, sk - t * kCols);
+    load_tile<D, kCols>(vs, vb + (int64_t)t * kCols * D, sk - t * kCols);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  uint32_t qa[T::KSTEPS][4];
+#pragma unroll
+  for (int kk = 0; kk < T::KSTEPS; ++kk)
+    load_a<D>(qa[kk], qs, 16 * ln.warp, kk, ln);
+
+  const int row0 = q0 + 16 * ln.warp + ln.grp;  // and row0 + 8
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[T::NT][4];
+#pragma unroll
+  for (int n = 0; n < T::NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+
+  for (int stage = 0; t < nrun; stage ^= 1) {
+    const int tn = next_live(bits, t + 1, nrun);
+    if (tn < nrun) {
+      load_tile<D, kCols>(ks + (stage ^ 1) * T::TILE,
+                          kb + (int64_t)tn * kCols * D, sk - tn * kCols);
+      load_tile<D, kCols>(vs + (stage ^ 1) * T::TILE,
+                          vb + (int64_t)tn * kCols * D, sk - tn * kCols);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // tile t has landed
+    __syncthreads();
+
+    float s[8][4];
+    scores<D>(s, qa, ks + stage * T::TILE, ln);
+    const uint32_t w0 = bits[2 * t], w1 = bits[2 * t + 1];
+    const int k0 = t * kCols;
+    float alpha[2];
+    if ((w0 & w1) == ~0u && (!causal || k0 + kCols - 1 <= q0)) {
+      online_softmax<false>(s, m, l, alpha, scale_log2, ln,
+                            [](int, int) { return true; });
+    } else {
+      online_softmax<true>(s, m, l, alpha, scale_log2, ln,
+                           [=](int c, int h) {
+                             return key_bit(w0, w1, c) &&
+                                    (!causal || k0 + c <= row0 + 8 * h);
+                           });
+    }
+#pragma unroll
+    for (int n = 0; n < T::NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
+    accumulate<D>(o, s, vs + stage * T::TILE, ln);
+    __syncthreads();  // this stage's readers are done before its next load
+    t = tn;
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) inv[h] = 1.f / fmaxf(l[h], 1e-30f);
+  const int64_t first = bh * sq + q0 + 16 * ln.warp;
+  store_rows<D>(out, first, sq - (q0 + 16 * ln.warp), o, inv, ln);
+  if (ln.tig == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      // Rows with no valid key get lse = 0: their backward p is zeroed by
+      // the same masks, so the value only has to be finite.
+      if (row < sq)
+        lse[bh * sq + row] =
+            l[h] > 0.f ? m[h] * kLn2 + logf(fmaxf(l[h], 1e-30f)) : 0.f;
+    }
+  }
+}
+
+// -- K6: dq -------------------------------------------------------------------
+
+template <int D>
+constexpr size_t dq_smem(int ntiles) {
+  return sizeof(bf16) * (3 * kRows + 4 * kCols) * Dims<D>::LD +
+         sizeof(float) * kRows + sizeof(uint32_t) * 2 * ntiles;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+              const bf16* __restrict__ v, const float* __restrict__ mask,
+              const float* __restrict__ lse, const bf16* __restrict__ out,
+              const bf16* __restrict__ g, float* __restrict__ delta,
+              bf16* __restrict__ dq, int sq, int sk, int causal, float scale,
+              float scale_log2) {
+  using T = Dims<D>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);  // [64][LD]
+  bf16* gs = qs + kRows * T::LD;             // [64][LD]
+  bf16* os = gs + kRows * T::LD;             // [64][LD]
+  bf16* ks = os + kRows * T::LD;             // [2][64][LD]
+  bf16* vs = ks + 2 * T::TILE;               // [2][64][LD]
+  float* delta_s = reinterpret_cast<float*>(vs + 2 * T::TILE);  // [64]
+  uint32_t* bits = reinterpret_cast<uint32_t*>(delta_s + kRows);
+
+  const Lane ln;
+  const int nq = (sq + kRows - 1) / kRows;
+  const int64_t bh = blockIdx.x / nq;
+  const int q0 = (int)(blockIdx.x % nq) * kRows;
+  const bf16* kb = k + bh * sk * D;
+  const bf16* vb = v + bh * sk * D;
+  const int ntiles = (sk + kCols - 1) / kCols;
+  const int nrun = causal ? min(ntiles, (q0 + kRows - 1) / kCols + 1) : ntiles;
+
+  const int64_t first = bh * sq + q0;  // the block's first row
+  load_tile<D, kRows>(qs, q + first * D, sq - q0);
+  load_tile<D, kRows>(gs, g + first * D, sq - q0);
+  load_tile<D, kRows>(os, out + first * D, sq - q0);
+  cp_async_commit();
+  load_key_bits(bits, mask + bh * sk, sk, ntiles);
+  __syncthreads();
+  int t = next_live(bits, 0, nrun);
+  if (t < nrun) {
+    load_tile<D, kCols>(ks, kb + (int64_t)t * kCols * D, sk - t * kCols);
+    load_tile<D, kCols>(vs, vb + (int64_t)t * kCols * D, sk - t * kCols);
+  }
+  cp_async_commit();
+
+  // delta = rowsum(g * out) in fp32 (each product of two bf16 values is
+  // exact), written for the dk/dv kernel that runs next; padded rows are 0.
+  cp_async_wait<1>();
+  __syncthreads();
+  for (int r = threadIdx.x; r < kRows; r += kThreads) {
+    float sum = 0.f;
+#pragma unroll
+    for (int c = 0; c < D; ++c)
+      sum = fmaf(__bfloat162float(gs[r * T::LD + c]),
+                 __bfloat162float(os[r * T::LD + c]), sum);
+    delta_s[r] = sum;
+    if (q0 + r < sq) delta[first + r] = sum;
+  }
+  __syncthreads();
+
+  const int row0 = q0 + 16 * ln.warp + ln.grp;
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    row_lse[h] = row < sq ? lse[bh * sq + row] * kLog2e : 0.f;
+    row_delta[h] = delta_s[row - q0];
+  }
+  float acc[T::NT][4];
+#pragma unroll
+  for (int n = 0; n < T::NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int stage = 0; t < nrun; stage ^= 1) {
+    const int tn = next_live(bits, t + 1, nrun);
+    if (tn < nrun) {
+      load_tile<D, kCols>(ks + (stage ^ 1) * T::TILE,
+                          kb + (int64_t)tn * kCols * D, sk - tn * kCols);
+      load_tile<D, kCols>(vs + (stage ^ 1) * T::TILE,
+                          vb + (int64_t)tn * kCols * D, sk - tn * kCols);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+
+    const bf16* kt = ks + stage * T::TILE;
+    float s[8][4], dp[8][4];
+    {
+      uint32_t a[T::KSTEPS][4];
+#pragma unroll
+      for (int kk = 0; kk < T::KSTEPS; ++kk)
+        load_a<D>(a[kk], qs, 16 * ln.warp, kk, ln);
+      scores<D>(s, a, kt, ln);
+#pragma unroll
+      for (int kk = 0; kk < T::KSTEPS; ++kk)
+        load_a<D>(a[kk], gs, 16 * ln.warp, kk, ln);
+      scores<D>(dp, a, vs + stage * T::TILE, ln);
+    }
+    const uint32_t w0 = bits[2 * t], w1 = bits[2 * t + 1];
+    const int k0 = t * kCols;
+    const auto lse2 = [=](int, int h) { return row_lse[h]; };
+    const auto dlt = [=](int, int h) { return row_delta[h]; };
+    // Rows past Sq need no mask: their q is 0 and their dq is not written.
+    if ((w0 & w1) == ~0u && (!causal || k0 + kCols - 1 <= q0)) {
+      rebuild_p_ds<false>(s, dp, scale_log2, scale, ln,
+                          [](int, int) { return true; }, lse2, dlt);
+    } else {
+      rebuild_p_ds<true>(s, dp, scale_log2, scale, ln,
+                         [=](int c, int h) {
+                           const int row = row0 + 8 * h;
+                           return row < sq && key_bit(w0, w1, c) &&
+                                  (!causal || k0 + c <= row);
+                         },
+                         lse2, dlt);
+    }
+    // dq += ds k: k's tile rows are the k index.
+    accumulate<D>(acc, dp, kt, ln);
+    __syncthreads();
+    t = tn;
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+  const float one[2] = {1.f, 1.f};
+  store_rows<D>(dq, first + 16 * ln.warp, sq - (q0 + 16 * ln.warp), acc, one,
+                ln);
+}
+
+// -- K6: dk and dv ------------------------------------------------------------
+
+template <int D>
+constexpr size_t dkv_smem() {
+  return sizeof(bf16) * (2 * kRows + 4 * kCols) * Dims<D>::LD +
+         sizeof(float) * 4 * kCols;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+               const bf16* __restrict__ v, const float* __restrict__ mask,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               const bf16* __restrict__ g, bf16* __restrict__ dk,
+               bf16* __restrict__ dv, int sq, int sk, int causal, float scale,
+               float scale_log2) {
+  using T = Dims<D>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ks = reinterpret_cast<bf16*>(smem);  // [64][LD], this block's keys
+  bf16* vs = ks + kRows * T::LD;             // [64][LD]
+  bf16* qs = vs + kRows * T::LD;             // [2][64][LD]
+  bf16* gs = qs + 2 * T::TILE;               // [2][64][LD]
+  float* lse_s = reinterpret_cast<float*>(gs + 2 * T::TILE);  // [2][64]
+  float* delta_s = lse_s + 2 * kCols;                         // [2][64]
+
+  const Lane ln;
+  const int nkb = (sk + kRows - 1) / kRows;
+  const int64_t bh = blockIdx.x / nkb;
+  const int k0 = (int)(blockIdx.x % nkb) * kRows;
+  const bf16* qb = q + bh * sq * D;
+  const bf16* gb = g + bh * sq * D;
+  const int key0 = k0 + 16 * ln.warp + ln.grp;  // and key0 + 8
+  bool key_ok[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = key0 + 8 * h;
+    key_ok[h] = key < sk && mask[bh * sk + key] > 0.f;
+  }
+  float acc_k[T::NT][4], acc_v[T::NT][4];
+#pragma unroll
+  for (int n = 0; n < T::NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+
+  const int nq = (sq + kCols - 1) / kCols;
+  // Causal: query tiles that end before this key tile starts see none of
+  // its keys. A block of padding keys only has gradients 0.
+  int qt = causal ? k0 / kCols : 0;
+  if (!__syncthreads_or(key_ok[0] || key_ok[1])) qt = nq;
+  const bool all_keys = __syncthreads_and(key_ok[0] && key_ok[1]);
+
+  auto stage_rows = [&](int tile, int stage) {
+    const int q0 = tile * kCols;
+    load_tile<D, kCols>(qs + stage * T::TILE, qb + (int64_t)q0 * D, sq - q0);
+    load_tile<D, kCols>(gs + stage * T::TILE, gb + (int64_t)q0 * D, sq - q0);
+    for (int e = threadIdx.x; e < kCols; e += kThreads) {
+      const bool in = q0 + e < sq;
+      lse_s[stage * kCols + e] = in ? lse[bh * sq + q0 + e] * kLog2e : 0.f;
+      delta_s[stage * kCols + e] = in ? delta[bh * sq + q0 + e] : 0.f;
+    }
+  };
+  load_tile<D, kRows>(ks, k + (bh * sk + k0) * D, sk - k0);
+  load_tile<D, kRows>(vs, v + (bh * sk + k0) * D, sk - k0);
+  if (qt < nq) stage_rows(qt, 0);
+  cp_async_commit();
+
+  for (int stage = 0; qt < nq; stage ^= 1, ++qt) {
+    if (qt + 1 < nq) stage_rows(qt + 1, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+
+    const bf16* qt_s = qs + stage * T::TILE;
+    const bf16* gt_s = gs + stage * T::TILE;
+    const float* lse_t = lse_s + stage * kCols;
+    const float* delta_t = delta_s + stage * kCols;
+    // Transposed tiles: rows are this warp's keys, columns the queries.
+    float p[8][4], ds[8][4];
+    {
+      uint32_t a[T::KSTEPS][4];
+#pragma unroll
+      for (int kk = 0; kk < T::KSTEPS; ++kk)
+        load_a<D>(a[kk], ks, 16 * ln.warp, kk, ln);
+      scores<D>(p, a, qt_s, ln);
+#pragma unroll
+      for (int kk = 0; kk < T::KSTEPS; ++kk)
+        load_a<D>(a[kk], vs, 16 * ln.warp, kk, ln);
+      scores<D>(ds, a, gt_s, ln);
+    }
+    const int q0 = qt * kCols;
+    const auto lse2 = [=](int c, int) { return lse_t[c]; };
+    const auto dlt = [=](int c, int) { return delta_t[c]; };
+    if (all_keys && q0 + kCols <= sq && (!causal || k0 + kRows - 1 <= q0)) {
+      rebuild_p_ds<false>(p, ds, scale_log2, scale, ln,
+                          [](int, int) { return true; }, lse2, dlt);
+    } else {
+      rebuild_p_ds<true>(p, ds, scale_log2, scale, ln,
+                         [=](int c, int h) {
+                           const int row = q0 + c;
+                           return key_ok[h] && row < sq &&
+                                  (!causal || key0 + 8 * h <= row);
+                         },
+                         lse2, dlt);
+    }
+    // dv += p^T g and dk += ds^T q: the query tiles' rows are the k index.
+    accumulate<D>(acc_v, p, gt_s, ln);
+    accumulate<D>(acc_k, ds, qt_s, ln);
+    __syncthreads();
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+  const float one[2] = {1.f, 1.f};
+  const int64_t first = bh * sk + k0 + 16 * ln.warp;
+  const int rows = sk - (k0 + 16 * ln.warp);
+  store_rows<D>(dk, first, rows, acc_k, one, ln);
+  store_rows<D>(dv, first, rows, acc_v, one, ln);
+}
+
+// -- launchers ----------------------------------------------------------------
+
+template <typename Kernel>
+int configure(Kernel kernel, size_t smem, int64_t blocks) {
+  if (blocks > INT_MAX || smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+bool aligned(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+template <int D>
+int fwd(const bf16* q, const bf16* k, const bf16* v, const float* mask,
+        bf16* out, float* lse, int bh, int sq, int sk, int causal,
+        cudaStream_t stream) {
+  const int64_t blocks = (int64_t)bh * ((sq + kRows - 1) / kRows);
+  const size_t smem = fwd_smem<D>((sk + kCols - 1) / kCols);
+  const int err = configure(fwd_kernel<D>, smem, blocks);
+  if (err) return err;
+  const float scale_log2 = (float)(kLog2e / sqrt((double)D));
+  fwd_kernel<D><<<(unsigned)blocks, kThreads, smem, stream>>>(
+      q, k, v, mask, out, lse, sq, sk, causal, scale_log2);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int bwd(const bf16* q, const bf16* k, const bf16* v, const float* mask,
+        const float* lse, const bf16* out, const bf16* g, float* delta,
+        bf16* dq, bf16* dk, bf16* dv, int bh, int sq, int sk, int causal,
+        cudaStream_t stream) {
+  const float scale = (float)(1.0 / sqrt((double)D));
+  const float scale_log2 = (float)(kLog2e / sqrt((double)D));
+  const int64_t dq_blocks = (int64_t)bh * ((sq + kRows - 1) / kRows);
+  const size_t dq_bytes = dq_smem<D>((sk + kCols - 1) / kCols);
+  int err = configure(dq_kernel<D>, dq_bytes, dq_blocks);
+  if (err) return err;
+  dq_kernel<D><<<(unsigned)dq_blocks, kThreads, dq_bytes, stream>>>(
+      q, k, v, mask, lse, out, g, delta, dq, sq, sk, causal, scale,
+      scale_log2);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  const int64_t dkv_blocks = (int64_t)bh * ((sk + kRows - 1) / kRows);
+  constexpr size_t dkv_bytes = dkv_smem<D>();
+  err = configure(dkv_kernel<D>, dkv_bytes, dkv_blocks);
+  if (err) return err;
+  dkv_kernel<D><<<(unsigned)dkv_blocks, kThreads, dkv_bytes, stream>>>(
+      q, k, v, mask, lse, delta, g, dk, dv, sq, sk, causal, scale,
+      scale_log2);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// K5 in bf16. q (bh, sq, d), k and v (bh, sk, d), out (bh, sq, d) bf16;
+// mask (bh, sk) and lse (bh, sq) fp32; all contiguous, the bf16 tensors
+// 16-byte aligned; d in {16, 32, 64, 128}.
+extern "C" int flash_attention_fwd_bf16(const bf16* q, const bf16* k,
+                                        const bf16* v, const float* mask,
+                                        bf16* out, float* lse, int bh, int sq,
+                                        int sk, int d, int causal,
+                                        cudaStream_t stream) {
+  if (!aligned(q) || !aligned(k) || !aligned(v) || !aligned(out))
+    return (int)cudaErrorInvalidValue;
+  switch (d) {
+    case 16: return fwd<16>(q, k, v, mask, out, lse, bh, sq, sk, causal, stream);
+    case 32: return fwd<32>(q, k, v, mask, out, lse, bh, sq, sk, causal, stream);
+    case 64: return fwd<64>(q, k, v, mask, out, lse, bh, sq, sk, causal, stream);
+    case 128:
+      return fwd<128>(q, k, v, mask, out, lse, bh, sq, sk, causal, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K6 in bf16. The forward's inputs, its out (bh, sq, d) bf16 and lse
+// (bh, sq) fp32, and the output gradient g (bh, sq, d) bf16; writes dq
+// (bh, sq, d), dk and dv (bh, sk, d) in bf16, and delta = rowsum(g * out)
+// (bh, sq) fp32, scratch that the dq kernel fills for the dk/dv kernel.
+// Runs the dq kernel, then the dk/dv kernel.
+extern "C" int flash_attention_bwd_bf16(const bf16* q, const bf16* k,
+                                        const bf16* v, const float* mask,
+                                        const float* lse, const bf16* out,
+                                        const bf16* g, float* delta, bf16* dq,
+                                        bf16* dk, bf16* dv, int bh, int sq,
+                                        int sk, int d, int causal,
+                                        cudaStream_t stream) {
+  if (!aligned(q) || !aligned(k) || !aligned(v) || !aligned(out) ||
+      !aligned(g) || !aligned(dq) || !aligned(dk) || !aligned(dv))
+    return (int)cudaErrorInvalidValue;
+#define FLASH_BWD(D)                                                       \
+  return bwd<D>(q, k, v, mask, lse, out, g, delta, dq, dk, dv, bh, sq, sk, \
+                causal, stream)
+  switch (d) {
+    case 16: FLASH_BWD(16);
+    case 32: FLASH_BWD(32);
+    case 64: FLASH_BWD(64);
+    case 128: FLASH_BWD(128);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef FLASH_BWD
+}

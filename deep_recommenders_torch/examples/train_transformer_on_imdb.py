@@ -11,7 +11,9 @@ test accuracy after each epoch. It trains on ``SyntheticImdb`` (the real
 
 At these defaults (batch 64, S = 128, 4 heads) attention goes dense under
 ``ops.attention.attention``'s dispatch: the flash kernels are for score
-tensors above the memory budget.
+tensors above the memory budget. ``--bf16`` trains the Transformer with
+``compute_dtype=torch.bfloat16`` (bf16 matmuls and attention; fp32
+parameters, LayerNorm and logits), as the JAX example's flag does.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from torch import nn
 from deep_recommenders_torch.datasets import SyntheticImdb
 from deep_recommenders_torch.device import resolve_device
 from deep_recommenders_torch.models.nlp import Transformer, noam_schedule
-from deep_recommenders_torch.models.nlp.attention import dense
+from deep_recommenders_torch.models.nlp.attention import Dense
 from deep_recommenders_torch.training.losses import softmax_cross_entropy
 
 NOAM_WARMUP = 400
@@ -36,14 +38,16 @@ class TransformerClassifier(nn.Module):
     def __init__(self, vocab_size: int, model_dim: int = 64,
                  num_heads: int = 4, num_layers: int = 2,
                  num_classes: int = 2,
+                 compute_dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.transformer = Transformer(
             vocab_size=vocab_size, model_dim=model_dim, num_heads=num_heads,
             num_encoder_layers=num_layers, num_decoder_layers=0,
-            ffn_dim=model_dim * 4, dropout=0.0, generator=generator,
+            ffn_dim=model_dim * 4, dropout=0.0, compute_dtype=compute_dtype,
+            generator=generator,
         )
-        self.head = dense(model_dim, num_classes, generator)
+        self.head = Dense(model_dim, num_classes, generator)
 
     def forward(self, tokens: torch.Tensor,
                 training: bool = False) -> torch.Tensor:
@@ -61,6 +65,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     p.add_argument("--max-len", type=int, default=128)
     p.add_argument("--model-dim", type=int, default=64)
     p.add_argument("--seed", type=int, default=42)
+    p.add_argument(
+        "--bf16", action="store_true",
+        help="bfloat16 compute (fp32 params/logits) for every matmul")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default) or 'cpu'")
     args = p.parse_args(argv)
@@ -76,6 +83,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
     model = TransformerClassifier(
         vocab_size=args.num_words, model_dim=args.model_dim,
+        compute_dtype=torch.bfloat16 if args.bf16 else None,
         generator=torch.Generator().manual_seed(args.seed),
     ).to(device)
     opt = torch.optim.Adam(model.parameters(), lr=1.0)

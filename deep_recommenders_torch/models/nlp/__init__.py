@@ -1,4 +1,5 @@
 from deep_recommenders_torch.models.nlp.attention import (
+    Dense,
     MultiHeadAttention,
     TokenEmbedding,
 )

@@ -2,16 +2,22 @@
 
 Counterpart of ``deep_recommenders_tpu/models/nlp/attention.py``:
 
+- :class:`Dense`: flax's ``nn.Dense`` as a Linear layer, with its compute
+  ``dtype``.
 - :class:`TokenEmbedding`: a normal(1.0) table; a lookup is scaled by
   sqrt(dim), and :meth:`TokenEmbedding.attend` is the tied pre-softmax
-  projection onto the unscaled table, in fp32.
+  projection onto the unscaled table, returning fp32 logits.
 - :class:`MultiHeadAttention`: separate Q, K, V projections and an output
-  projection (Linear layers initialised as flax's ``nn.Dense``). Heads are
+  projection (:class:`Dense` layers). Heads are
   folded into the batch as the JAX module folds them, (B, S, H, Dh) ->
   (B, H, S, Dh) -> (B * H, S, Dh), and the key mask is repeated per head
   with ``repeat_interleave``, so row b * H + h of the mask is example b's.
   The score path is ``ops.attention.attention``: the flash kernels K5/K6 on
   the card above the memory budget, dense SDPA otherwise.
+
+With a compute ``dtype`` (bf16 mixed precision, as the JAX modules' ``dtype``)
+the parameters stay fp32; lookups, projections and attention run in that
+dtype, and ``attend`` returns fp32 logits of the bf16 operands.
 
 Dropout is applied to the softmax weights inside the dense path and needs
 an explicit ``generator`` when active, as the JAX module needs a
@@ -32,21 +38,35 @@ from deep_recommenders_torch.models.common import lecun_normal_
 from deep_recommenders_torch.ops.attention import attention
 
 
-def dense(in_features: int, out_features: int,
-          generator: Optional[torch.Generator] = None) -> nn.Linear:
-    """A Linear layer initialised as flax's ``nn.Dense``: lecun-normal
-    weight, zero bias."""
-    layer = nn.Linear(in_features, out_features)
-    lecun_normal_(layer.weight, generator)
-    nn.init.zeros_(layer.bias)
-    return layer
+class Dense(nn.Linear):
+    """flax's ``nn.Dense``: lecun-normal weight, zero bias. With a compute
+    ``dtype`` the input, weight and bias are cast to it and the output is in
+    it: the product is rounded once (fp32 accumulation), then the bias is
+    added in that dtype, as XLA does for ``nn.Dense(dtype=bf16)``. The
+    parameters stay fp32."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(in_features, out_features)
+        self.compute_dtype = dtype
+        lecun_normal_(self.weight, generator)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        return x.to(dt) @ self.weight.to(dt).T + self.bias.to(dt)
 
 
 class TokenEmbedding(nn.Module):
     def __init__(self, vocab_size: int, dim: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dim = dim
+        self.compute_dtype = dtype
         self.table = nn.Parameter(torch.empty(vocab_size, dim))
         nn.init.normal_(self.table, 0.0, 1.0, generator=generator)
 
@@ -54,17 +74,31 @@ class TokenEmbedding(nn.Module):
         # F.embedding, not table[ids]: on the card the indexing backward
         # serialises on repeated ids (Zipfian tokens repeat a great deal),
         # where embedding's backward sums sorted segments.
-        return F.embedding(token_ids, self.table) * math.sqrt(self.dim)
+        dt = self.compute_dtype
+        if dt is None:
+            return F.embedding(token_ids, self.table) * math.sqrt(self.dim)
+        # Rows of the cast table times sqrt(dim) rounded to the dtype, the
+        # product in the dtype, as JAX's (attention.py:45-49).
+        scale = torch.tensor(math.sqrt(self.dim), dtype=dt,
+                             device=self.table.device)
+        return F.embedding(token_ids, self.table.to(dt)) * scale
 
     def attend(self, embeddings: torch.Tensor) -> torch.Tensor:
         """Tied pre-softmax projection: fp32 logits over the vocab with the
-        same table."""
-        return embeddings @ self.table.T
+        same table. With a compute dtype, the fp32 product of the operands
+        rounded to it (JAX's ``preferred_element_type=float32``: the
+        product of two bf16 values is exact in fp32)."""
+        dt = self.compute_dtype
+        if dt is None:
+            return embeddings @ self.table.T
+        return embeddings.to(dt).float() @ self.table.to(dt).float().T
 
 
 class MultiHeadAttention(nn.Module):
     """``use_flash`` is ``attention()``'s: None dispatches by the memory
-    budget, True forces the flash kernels, False the dense path."""
+    budget, True forces the flash kernels, False the dense path. ``dtype``
+    is the projections' and attention's compute dtype (None: the
+    input's)."""
 
     def __init__(
         self,
@@ -74,6 +108,7 @@ class MultiHeadAttention(nn.Module):
         causal: bool = False,
         use_flash: Optional[bool] = None,
         generator: Optional[torch.Generator] = None,
+        dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         if model_dim % num_heads != 0:
@@ -86,10 +121,10 @@ class MultiHeadAttention(nn.Module):
         self.dropout = dropout
         self.causal = causal
         self.use_flash = use_flash
-        self.q_proj = dense(model_dim, model_dim, generator)
-        self.k_proj = dense(model_dim, model_dim, generator)
-        self.v_proj = dense(model_dim, model_dim, generator)
-        self.out_proj = dense(model_dim, model_dim, generator)
+        self.q_proj = Dense(model_dim, model_dim, generator, dtype)
+        self.k_proj = Dense(model_dim, model_dim, generator, dtype)
+        self.v_proj = Dense(model_dim, model_dim, generator, dtype)
+        self.out_proj = Dense(model_dim, model_dim, generator, dtype)
 
     def forward(
         self,

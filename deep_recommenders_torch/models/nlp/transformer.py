@@ -16,7 +16,15 @@ Counterpart of ``deep_recommenders_tpu/models/nlp/transformer.py``:
 
 The Transformer's attention goes through ``ops.attention.attention``: on the
 card, above the memory budget and without dropout, through the flash
-kernels K5 and K6. ``compute_dtype=`` raises: the port computes in fp32.
+kernels K5 and K6.
+
+``compute_dtype=torch.bfloat16`` is the JAX module's mixed precision: the
+embedding lookup, every projection, the FFN, attention (the bf16 K5 and K6
+on the card) and the tied loss's logits run in bf16; the parameters,
+LayerNorm (its input upcast, as flax's ``LayerNorm(dtype=float32)``), the
+residual stream after each LayerNorm and the returned logits stay fp32.
+Layer 0's stream is bf16 (the bf16 embedding plus the encodings cast to
+bf16), as in JAX; a later ``x + sublayer`` adds bf16 to fp32 in fp32.
 """
 
 from __future__ import annotations
@@ -27,9 +35,9 @@ import torch
 from torch import nn
 
 from deep_recommenders_torch.models.nlp.attention import (
+    Dense,
     MultiHeadAttention,
     TokenEmbedding,
-    dense,
 )
 from deep_recommenders_torch.training.losses import (
     tied_smoothed_sparse_softmax_cross_entropy,
@@ -48,16 +56,25 @@ def position_encoding(seq_len: int, dim: int,
     return torch.where(even, torch.sin(angle), torch.cos(angle))
 
 
-def _layer_norm(dim: int) -> nn.LayerNorm:
-    return nn.LayerNorm(dim, eps=LAYER_NORM_EPS)
+class _LayerNorm(nn.LayerNorm):
+    """flax's ``LayerNorm(dtype=float32)``: eps 1e-6, statistics and output
+    in fp32 whatever the input's dtype."""
+
+    def __init__(self, dim: int):
+        super().__init__(dim, eps=LAYER_NORM_EPS)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.float())
+
 
 
 class PositionWiseFeedForward(nn.Module):
     def __init__(self, model_dim: int, inner_dim: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.inner = dense(model_dim, inner_dim, generator)
-        self.outer = dense(inner_dim, model_dim, generator)
+        self.inner = Dense(model_dim, inner_dim, generator, dtype)
+        self.outer = Dense(inner_dim, model_dim, generator, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.outer(torch.relu(self.inner(x)))
@@ -66,13 +83,16 @@ class PositionWiseFeedForward(nn.Module):
 class EncoderLayer(nn.Module):
     def __init__(self, num_heads: int, model_dim: int, ffn_dim: int,
                  dropout: float = 0.0,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.self_attention = MultiHeadAttention(
-            num_heads, model_dim, dropout=dropout, generator=generator)
-        self.attn_norm = _layer_norm(model_dim)
-        self.ffn = PositionWiseFeedForward(model_dim, ffn_dim, generator)
-        self.ffn_norm = _layer_norm(model_dim)
+            num_heads, model_dim, dropout=dropout, generator=generator,
+            dtype=dtype)
+        self.attn_norm = _LayerNorm(model_dim)
+        self.ffn = PositionWiseFeedForward(model_dim, ffn_dim, generator,
+                                           dtype)
+        self.ffn_norm = _LayerNorm(model_dim)
 
     def forward(self, x, key_mask, training: bool = False, generator=None):
         attn = self.self_attention(x, x, x, key_mask=key_mask,
@@ -84,17 +104,20 @@ class EncoderLayer(nn.Module):
 class DecoderLayer(nn.Module):
     def __init__(self, num_heads: int, model_dim: int, ffn_dim: int,
                  dropout: float = 0.0,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.self_attention = MultiHeadAttention(
             num_heads, model_dim, dropout=dropout, causal=True,
-            generator=generator)
-        self.self_norm = _layer_norm(model_dim)
+            generator=generator, dtype=dtype)
+        self.self_norm = _LayerNorm(model_dim)
         self.cross_attention = MultiHeadAttention(
-            num_heads, model_dim, dropout=dropout, generator=generator)
-        self.cross_norm = _layer_norm(model_dim)
-        self.ffn = PositionWiseFeedForward(model_dim, ffn_dim, generator)
-        self.ffn_norm = _layer_norm(model_dim)
+            num_heads, model_dim, dropout=dropout, generator=generator,
+            dtype=dtype)
+        self.cross_norm = _LayerNorm(model_dim)
+        self.ffn = PositionWiseFeedForward(model_dim, ffn_dim, generator,
+                                           dtype)
+        self.ffn_norm = _LayerNorm(model_dim)
 
     def forward(self, x, memory, self_mask, memory_mask,
                 training: bool = False, generator=None):
@@ -114,7 +137,8 @@ class Transformer(nn.Module):
     embedding projection; ``encode``/``decode`` serve encoder-only use. A
     ``generator`` draws the attention-weight dropout of training calls
     (needed when ``dropout`` > 0 and ``training``); the constructor's
-    ``generator`` draws the initial weights.
+    ``generator`` draws the initial weights. ``compute_dtype`` (None or
+    ``torch.bfloat16``) is the mixed precision of the module docstring.
     """
 
     def __init__(
@@ -126,30 +150,32 @@ class Transformer(nn.Module):
         num_decoder_layers: int = 2,
         ffn_dim: int = 2048,
         dropout: float = 0.1,
-        compute_dtype=None,
+        compute_dtype: Optional[torch.dtype] = None,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        if compute_dtype is not None:
-            raise NotImplementedError(
-                "compute_dtype is not ported yet: the port computes in fp32"
-            )
+        if compute_dtype not in (None, torch.bfloat16):
+            raise ValueError(f"compute_dtype must be None (fp32) or "
+                             f"torch.bfloat16, got {compute_dtype}")
         self.model_dim = model_dim
+        self.compute_dtype = compute_dtype
         self.token_embedding = TokenEmbedding(vocab_size, model_dim,
-                                              generator)
+                                              generator, compute_dtype)
         self.encoder_layers = nn.ModuleList(
-            EncoderLayer(num_heads, model_dim, ffn_dim, dropout, generator)
+            EncoderLayer(num_heads, model_dim, ffn_dim, dropout, generator,
+                         compute_dtype)
             for _ in range(num_encoder_layers)
         )
         self.decoder_layers = nn.ModuleList(
-            DecoderLayer(num_heads, model_dim, ffn_dim, dropout, generator)
+            DecoderLayer(num_heads, model_dim, ffn_dim, dropout, generator,
+                         compute_dtype)
             for _ in range(num_decoder_layers)
         )
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         x = self.token_embedding(tokens)
         pe = position_encoding(tokens.shape[1], self.model_dim, x.device)
-        return x + pe[None]
+        return x + pe[None].to(x.dtype)
 
     def encode(self, tokens, training: bool = False, generator=None):
         """tokens: (B, S) int ids -> ((B, S, D) memory, (B, S) mask)."""
@@ -181,9 +207,12 @@ class Transformer(nn.Module):
         memory, memory_mask = self.encode(inputs, training, generator)
         out = self.decode(targets_in, memory, memory_mask, training,
                           generator)
+        table = self.token_embedding.table
+        if self.compute_dtype is not None:  # JAX transformer.py:194-197
+            table = table.to(self.compute_dtype)
+            out = out.to(self.compute_dtype)
         return tied_smoothed_sparse_softmax_cross_entropy(
-            out, self.token_embedding.table, targets_out, epsilon=epsilon,
-            mask=mask,
+            out, table, targets_out, epsilon=epsilon, mask=mask,
         )
 
 

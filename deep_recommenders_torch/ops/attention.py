@@ -8,20 +8,28 @@ JAX package's: heads folded into the batch, q (BH, Sq, D), k and v
 - :func:`scaled_dot_product_attention` is the dense path: fp32 scores,
   masked lanes set to ``NEG_INF``, causal by absolute indices (col <= row),
   rows with no valid key giving weights 0, and inverted dropout on the
-  softmax weights drawn from an explicit ``torch.Generator``.
+  softmax weights drawn from an explicit ``torch.Generator``. As JAX's, it
+  rounds the weights to v's dtype before the product with v and returns
+  q's dtype.
 - :func:`flash_attention` (K5) and :func:`flash_attention_backward` (K6)
-  launch ``csrc/flash_attention.cu`` on a CUDA tensor (or raise) and take
-  their plain versions, :func:`flash_attention_reference` and
-  :func:`flash_attention_backward_reference`, on a CPU tensor. Launches are
-  counted in ``flash_attention.launches`` ("fwd" per forward call, "bwd"
-  per backward call, which runs both of K6's kernels).
+  take fp32 or bf16 q, k, v (and g), all of one dtype; the mask and lse are
+  fp32. On a CUDA tensor they launch ``csrc/flash_attention.cu`` (fp32) or
+  ``csrc/flash_attention_bf16.cu`` (bf16) or raise; on a CPU tensor they
+  take their plain versions, :func:`flash_attention_reference` and
+  :func:`flash_attention_backward_reference` in fp32, the ``_bf16`` ones in
+  bf16. Launches are counted in ``flash_attention.launches``: "fwd" and
+  "bwd" for the fp32 kernels, "fwd_bf16" and "bwd_bf16" for the bf16 ones
+  (one count per forward call; one per backward call, which runs both of
+  K6's kernels).
 - :class:`FlashAttention` is the autograd Function over K5 and K6 (the
   counterpart of ``flash_attention_diff``).
 - :func:`attention` dispatches between the two paths by the JAX package's
   rule, with "the tensor is on the card" in place of "the backend is TPU".
 
-The kernels take fp32 only; the JAX kernels' bf16 ``compute_dtype`` inputs
-are not ported yet.
+The bf16 path is the JAX kernels' bf16 contract (``attention.py:107-149``,
+``:312-371``): fp32 scores of bf16 operands, softmax statistics in fp32,
+p and ds rounded to bf16 before the products that consume them, fp32
+accumulation, and out, dq, dk, dv returned in bf16.
 """
 
 from __future__ import annotations
@@ -46,6 +54,8 @@ DENSE_RESIDENT_SCORE_TENSORS = 3
 
 # Head widths the kernels are built for (template instances in the source).
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+# Operand dtypes of q, k, v and g; the mask and lse are always fp32.
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 _P = ctypes.c_void_p
 _I32 = ctypes.c_int32
@@ -101,6 +111,10 @@ def scaled_dot_product_attention(
         keep = torch.rand(weights.shape, generator=generator,
                           device=weights.device) < 1.0 - dropout_rate
         weights = torch.where(keep, weights / (1.0 - dropout_rate), 0.0)
+    # JAX rounds the weights to v's dtype and accumulates in fp32; the
+    # product of two bf16 values is exact in fp32, so the upcast operands
+    # give the same function.
+    weights = weights.to(v.dtype).float()
     out = torch.einsum("...qk,...kd->...qd", weights, v.float())
     return out.to(q.dtype)
 
@@ -156,20 +170,101 @@ def flash_attention_backward_reference(
     return dq, dk, dv
 
 
+def flash_attention_reference_bf16(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_mask: Optional[torch.Tensor] = None,
+    causal: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain (out, lse) of K5 on bf16 q, k, v, as the JAX kernel computes
+    them: fp32 scores of the bf16 operands (each product exact in fp32),
+    p = exp(s - m) in fp32 and its row sum l from the unrounded p, p rounded
+    to bf16 before P V with fp32 accumulation, out = acc / l rounded to
+    bf16, lse = m + log l in fp32. One tile of keys: m is the row's max,
+    where the kernels use the running max of the key tiles seen so far
+    (``ops/attention_tolerances.py`` bounds the difference)."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    s = torch.einsum("...qd,...kd->...qk", qf, kf) * (1.0 / math.sqrt(
+        q.shape[-1]))
+    valid = _valid_lanes(s.shape, key_mask, causal, s.device)
+    if valid is not None:
+        s = torch.where(valid, s, NEG_INF)
+    m = s.amax(dim=-1)
+    any_valid = m > NEG_INF / 2
+    p = torch.exp(s - m[..., None])
+    p = torch.where(s <= NEG_INF / 2, 0.0, p)
+    l = p.sum(-1)
+    acc = torch.einsum("...qk,...kd->...qd", p.to(torch.bfloat16).float(), vf)
+    out = acc / l.clamp_min(1e-30)[..., None]
+    lse = torch.where(any_valid, m + torch.log(l.clamp_min(1e-30)), 0.0)
+    return out.to(torch.bfloat16), lse
+
+
+def flash_attention_backward_reference_bf16(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_mask: Optional[torch.Tensor],
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    g: torch.Tensor,
+    causal: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain (dq, dk, dv) of K6 on bf16 q, k, v, out and g with fp32 lse,
+    as the JAX kernels compute them: p rebuilt in fp32, dp = g v^T and
+    delta = rowsum(g * out) in fp32 from the upcast bf16 tensors,
+    ds = p (dp - delta) / sqrt(D) in fp32; p and ds rounded to bf16 before
+    dv = p^T g, dk = ds^T q and dq = ds k (fp32 accumulation); the
+    gradients returned in bf16."""
+    qf, kf, vf, of, gf = (t.float() for t in (q, k, v, out, g))
+    p, _, _, ds = backward_terms(qf, kf, vf, key_mask, of, lse.float(), gf,
+                                 causal)
+    pb = p.to(torch.bfloat16).float()
+    dsb = ds.to(torch.bfloat16).float()
+    dq = torch.einsum("...qk,...kd->...qd", dsb, kf)
+    dk = torch.einsum("...qk,...qd->...kd", dsb, qf)
+    dv = torch.einsum("...qk,...qd->...kd", pb, gf)
+    return tuple(t.to(torch.bfloat16) for t in (dq, dk, dv))
+
+
 # -- K5 and K6 ---------------------------------------------------------------
 
-def _check_inputs(name, q, k, v, key_mask, *rest):
-    tensors = [q, k, v, key_mask, *rest]
+def _operand_dtype(name, q, k, v, *rest):
+    """The one dtype of q, k, v and the rest of the operands (out, g):
+    fp32 or bf16."""
+    dtype = q.dtype
+    if dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{name}: q, k, v must be float32 or bfloat16, got "
+                        f"{dtype}")
+    for t in (k, v, *rest):
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: operands must share q's dtype {dtype}, "
+                            f"got {t.dtype}")
+    return dtype
+
+
+def _check_inputs(name, q, k, v, key_mask, operands=(), stats=()):
+    """Device, dtype, layout and shape checks of a kernel launch. q, k, v
+    and ``operands`` (out, g) share one dtype of ``KERNEL_DTYPES``; the mask
+    and ``stats`` (lse) are fp32; bf16 operands are 16-byte aligned (the
+    kernels copy them in 16-byte pieces)."""
+    dtype = _operand_dtype(name, q, k, v, *operands)
     device = q.device
     if device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {device}")
-    for t in tensors:
+    for t in (q, k, v, key_mask, *operands, *stats):
         if t.device != device:
             raise ValueError(f"{name}: inputs on different devices")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: inputs must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
+    if dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                       for t in (q, k, v, *operands)):
+        raise ValueError(f"{name}: bf16 operands must be 16-byte aligned")
+    for t in (key_mask, *stats):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: the mask and lse must be float32, got "
+                            f"{t.dtype}")
     if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
         raise TypeError(
             f"{name}: expected q (BH, Sq, D), k and v (BH, Sk, D), got "
@@ -197,6 +292,15 @@ def _mask_or_ones(key_mask, k):
     return key_mask.to(torch.float32)
 
 
+# (source, forward symbol, backward symbol, launch-count suffix) by dtype.
+_KERNELS = {
+    torch.float32: ("flash_attention", "flash_attention_fwd_f32",
+                    "flash_attention_bwd_f32", ""),
+    torch.bfloat16: ("flash_attention_bf16", "flash_attention_fwd_bf16",
+                     "flash_attention_bwd_bf16", "_bf16"),
+}
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -205,29 +309,33 @@ def flash_attention(
     causal: bool = False,
     return_lse: bool = False,
 ):
-    """K5, blockwise attention forward. q (BH, Sq, D), k and v (BH, Sk, D)
-    fp32; key_mask (BH, Sk), > 0 = valid (None = all valid). Returns out
-    (BH, Sq, D), and with ``return_lse`` also lse (BH, Sq) fp32."""
+    """K5, blockwise attention forward. q (BH, Sq, D), k and v (BH, Sk, D),
+    all fp32 or all bf16; key_mask (BH, Sk), > 0 = valid (None = all
+    valid). Returns out (BH, Sq, D) in q's dtype, and with ``return_lse``
+    also lse (BH, Sq) fp32."""
+    dtype = _operand_dtype("flash_attention", q, k, v)
     key_mask = _mask_or_ones(key_mask, k)
     if q.device.type == "cpu":
-        out, lse = flash_attention_reference(q, k, v, key_mask, causal)
+        plain = (flash_attention_reference_bf16 if dtype == torch.bfloat16
+                 else flash_attention_reference)
+        out, lse = plain(q, k, v, key_mask, causal)
         return (out, lse) if return_lse else out
     bh, sq, sk, d = _check_inputs("flash_attention", q, k, v, key_mask)
     out = torch.empty_like(q)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     if bh and sq:
-        fn = _build.function("flash_attention", "flash_attention_fwd_f32",
-                             [_P] * 6 + [_I32] * 5 + [_P])
+        source, symbol, _, suffix = _KERNELS[dtype]
+        fn = _build.function(source, symbol, [_P] * 6 + [_I32] * 5 + [_P])
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   key_mask.data_ptr(), out.data_ptr(), lse.data_ptr(),
                   bh, sq, sk, d, int(causal),
                   torch.cuda.current_stream(q.device).cuda_stream)
         _build.check(code, "flash_attention forward")
-        flash_attention.launches["fwd"] += 1
+        flash_attention.launches["fwd" + suffix] += 1
     return (out, lse) if return_lse else out
 
 
-flash_attention.launches = {"fwd": 0, "bwd": 0}
+flash_attention.launches = {"fwd": 0, "bwd": 0, "fwd_bf16": 0, "bwd_bf16": 0}
 
 
 def flash_attention_backward(
@@ -240,33 +348,51 @@ def flash_attention_backward(
     g: torch.Tensor,
     causal: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K6, blockwise attention backward: (dq, dk, dv) for the output
-    gradient g, from the forward's out and lse. delta = rowsum(g * out) is
-    a plain torch reduction, as JAX leaves it to XLA."""
+    """K6, blockwise attention backward: (dq, dk, dv) in q's dtype for the
+    output gradient g, from the forward's out and lse. q, k, v, out and g
+    share one dtype (fp32 or bf16); lse is fp32. delta = rowsum(g * out)
+    in fp32 is a plain torch reduction in fp32, as JAX leaves it to XLA;
+    the bf16 dq kernel forms it from its own rows."""
+    name = "flash_attention backward"
+    dtype = _operand_dtype(name, q, k, v, out, g)
     key_mask = _mask_or_ones(key_mask, k)
     if q.device.type == "cpu":
-        return flash_attention_backward_reference(q, k, v, key_mask, out,
-                                                  lse, g, causal)
-    name = "flash_attention backward"
-    bh, sq, sk, d = _check_inputs(name, q, k, v, key_mask, out, lse, g)
+        plain = (flash_attention_backward_reference_bf16
+                 if dtype == torch.bfloat16
+                 else flash_attention_backward_reference)
+        return plain(q, k, v, key_mask, out, lse, g, causal)
+    bh, sq, sk, d = _check_inputs(name, q, k, v, key_mask, (out, g), (lse,))
     if out.shape != q.shape or g.shape != q.shape or \
             tuple(lse.shape) != (bh, sq):
         raise TypeError(f"{name}: out, g must be {tuple(q.shape)} and lse "
                         f"{(bh, sq)}")
-    delta = (g * out).sum(-1)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     if bh and sk and sq:
-        fn = _build.function("flash_attention", "flash_attention_bwd_f32",
-                             [_P] * 10 + [_I32] * 5 + [_P])
-        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  key_mask.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                  g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                  bh, sq, sk, d, int(causal),
-                  torch.cuda.current_stream(q.device).cuda_stream)
+        source, _, symbol, suffix = _KERNELS[dtype]
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if dtype == torch.bfloat16:
+            # The dq kernel forms delta itself, into this scratch.
+            delta = torch.empty((bh, sq), dtype=torch.float32,
+                                device=q.device)
+            fn = _build.function(source, symbol,
+                                 [_P] * 11 + [_I32] * 5 + [_P])
+            code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      key_mask.data_ptr(), lse.data_ptr(), out.data_ptr(),
+                      g.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                      dk.data_ptr(), dv.data_ptr(), bh, sq, sk, d,
+                      int(causal), stream)
+        else:
+            delta = (g * out).sum(-1)
+            fn = _build.function(source, symbol,
+                                 [_P] * 10 + [_I32] * 5 + [_P])
+            code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      key_mask.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                      g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                      dv.data_ptr(), bh, sq, sk, d, int(causal), stream)
         _build.check(code, name)
-        flash_attention.launches["bwd"] += 1
+        flash_attention.launches["bwd" + suffix] += 1
     else:  # no scores: every gradient is 0
         dq.zero_()
         dk.zero_()
@@ -276,8 +402,9 @@ def flash_attention_backward(
 
 class FlashAttention(torch.autograd.Function):
     """Differentiable blockwise attention over K5 and K6: ``apply(q, k, v,
-    key_mask, causal)``. Saves q, k, v, the mask, out and lse; no gradient
-    flows to the mask."""
+    key_mask, causal)`` with fp32 or bf16 q, k, v; the gradients come back
+    in their dtype. Saves q, k, v, the mask, out and lse; no gradient flows
+    to the mask."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_mask, causal):
@@ -290,8 +417,9 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, key_mask, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_backward(q, k, v, key_mask, out, lse,
-                                              g.contiguous(), ctx.causal)
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, key_mask, out, lse, g.to(q.dtype).contiguous(),
+            ctx.causal)
         return dq, dk, dv, None, None
 
 
@@ -299,7 +427,9 @@ def use_flash_for(bh: int, sq: int, sk: int, device_type: str,
                   dropout_active: bool) -> bool:
     """The dispatch rule of ``attention(use_flash=None)``: blockwise on the
     card where the dense path's fwd+bwd score tensors would exceed
-    ``FLASH_SCORE_BYTES``, dense otherwise and whenever dropout is active."""
+    ``FLASH_SCORE_BYTES``, dense otherwise and whenever dropout is active.
+    The scores are fp32 whatever the operands' dtype, so the byte count is
+    BH Sq Sk 4 for bf16 operands too, as JAX's."""
     score_bytes = bh * sq * sk * 4
     return (device_type == "cuda"
             and score_bytes * DENSE_RESIDENT_SCORE_TENSORS > FLASH_SCORE_BYTES

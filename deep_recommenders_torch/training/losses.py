@@ -92,10 +92,24 @@ def tied_smoothed_sparse_softmax_cross_entropy(
     per-token loss: the backward computes the logits again. Only this part
     is recomputed; whatever produced ``features`` (the attention kernels
     among it) runs once.
+
+    bf16 ``features`` and ``table`` give the JAX loss's bf16 logits stream
+    (``training/losses.py:131-153``): the logits are the bf16 product with
+    fp32 accumulation, rounded once to bf16; the target logit is gathered
+    from them, and the log-sum-exp and the smoothing sum read them upcast
+    to fp32. The loss is fp32.
     """
 
     def per_token(feats, tbl):
-        return _smoothed_per_token(feats @ tbl.T, targets, epsilon)
+        logits = feats @ tbl.T
+        if logits.dtype != torch.bfloat16:
+            return _smoothed_per_token(logits, targets, epsilon)
+        wide = logits.float()
+        target = logits.gather(-1, targets.long()[..., None])[..., 0]
+        per = torch.logsumexp(wide, dim=-1) - (1.0 - epsilon) * target.float()
+        if epsilon:
+            per = per - (epsilon / logits.shape[-1]) * wide.sum(-1)
+        return per
 
     per = checkpoint(per_token, features, table, use_reentrant=False)
     return _reduce(per, reduction, mask)

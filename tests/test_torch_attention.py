@@ -162,3 +162,139 @@ def test_tolerances_accept_fp32_plain_and_reject_planted_fault(rng, causal):
     with pytest.raises(AssertionError):
         at.check_backward((grads[0], grads[1] * 1.01, grads[2]), q, k, v,
                           mask, out, lse, g, causal)
+
+
+# -- bf16 operands: the JAX kernels' bf16 contract ---------------------------
+
+def _bf16_pair(*arrays):
+    """Each array rounded to bf16, for JAX and for torch."""
+    return ([jnp.asarray(a).astype(jnp.bfloat16) for a in arrays],
+            [torch.from_numpy(a).to(torch.bfloat16) for a in arrays])
+
+
+def _f32(x):
+    return np.array(jnp.asarray(x).astype(jnp.float32)) \
+        if not isinstance(x, torch.Tensor) else x.float().numpy()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_sdpa_bf16_rounds_as_jax(rng, causal):
+    """bf16 q, k, v: fp32 scores and softmax, the weights rounded to bf16
+    before the product with v (fp32 accumulation), the output in bf16, as
+    JAX's. Both sides sum the same exact fp32 products of bf16 values, so
+    the outputs agree to within one bf16 ulp (2^-7 relative) and nearly
+    all bitwise; the unrounded weights the port used before differ from
+    JAX in about a quarter of the elements."""
+    q, k, v, mask = _inputs(rng, 3, 10, 13, 8, masked_row=1)
+    (jq, jk, jv), (tq, tk, tv) = _bf16_pair(q, k, v)
+    want = jatt.scaled_dot_product_attention(
+        jq, jk, jv, key_mask=jnp.asarray(mask), causal=causal)
+    got = att.scaled_dot_product_attention(tq, tk, tv,
+                                           key_mask=_t(mask)[0],
+                                           causal=causal)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=2**-7, atol=0)
+    assert (_f32(got) != _f32(want)).mean() <= 0.02
+    assert not got[1].any()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_bf16_matches_jax_interpret(rng, causal):
+    """The bf16 plain K5 against JAX's Pallas kernel in interpret mode on
+    bf16 inputs (32-key tiles). Both round p to bf16 (2^-8 relative), JAX
+    against the running max of its tiles and the port against the row's
+    max, so a term may round to the other neighbour, and each rounds its
+    output once: |out - want| <= 2^-7 (sum_k w |v| + |out|), below
+    2^-7 (max|v| + |out|). lse is fp32 on both sides: 2e-5, as fp32."""
+    q, k, v, mask = _inputs(rng, 4, 70, 90, 32, masked_row=2)
+    (jq, jk, jv), (tq, tk, tv) = _bf16_pair(q, k, v)
+    want_out, want_lse = jatt.flash_attention(
+        jq, jk, jv, key_mask=jnp.asarray(mask), causal=causal, block_q=32,
+        block_k=32, interpret=True, return_lse=True)
+    before = dict(att.flash_attention.launches)
+    out, lse = att.flash_attention(tq, tk, tv, _t(mask)[0], causal,
+                                   return_lse=True)
+    assert att.flash_attention.launches == before  # plain on the CPU
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    vmax = float(np.abs(_f32(tv)).max())
+    np.testing.assert_allclose(_f32(out), _f32(want_out), rtol=2**-7,
+                               atol=2**-7 * vmax)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), atol=2e-5)
+    assert not out[2].any() and not lse[2].any()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_bf16_grads_match_jax_interpret(rng, causal):
+    """The bf16 plain K6, through FlashAttention's backward, against JAX's
+    Pallas backward in interpret mode on the same bf16 q, k, v, g and JAX's
+    own out and lse. p and ds are rebuilt in fp32 on both sides in other
+    orders and rounded to bf16 (a term may round to the other neighbour),
+    and each gradient is rounded once: within 2^-7 of its largest element
+    and 2^-7 relative."""
+    q, k, v, mask = _inputs(rng, 2, 70, 90, 32, masked_row=1)
+    g = rng.normal(size=q.shape).astype(np.float32)
+    (jq, jk, jv, jg), (tq, tk, tv, tg) = _bf16_pair(q, k, v, g)
+    jmask = jnp.asarray(mask)
+    out, lse = jatt.flash_attention(jq, jk, jv, key_mask=jmask,
+                                    causal=causal, interpret=True,
+                                    return_lse=True)
+    want = jatt._flash_backward_impl(jq, jk, jv, jmask, out, lse, jg,
+                                     causal=causal, interpret=True)
+    tout = torch.from_numpy(_f32(out)).to(torch.bfloat16)
+    tlse = torch.from_numpy(np.array(lse))
+    got = att.flash_attention_backward(tq, tk, tv, _t(mask)[0], tout, tlse,
+                                       tg, causal)
+    for name, grad, ref in zip("qkv", got, want):
+        assert grad.dtype == torch.bfloat16
+        ref = _f32(ref)
+        np.testing.assert_allclose(_f32(grad), ref, rtol=2**-7,
+                                   atol=2**-7 * np.abs(ref).max(),
+                                   err_msg=f"d{name}")
+        assert not grad[1].any()
+    # The autograd Function takes bf16 and gives bf16 gradients.
+    args = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    att.FlashAttention.apply(*args, _t(mask)[0], causal).backward(tg)
+    assert all(a.grad.dtype == torch.bfloat16 for a in args)
+
+
+def test_flash_attention_rejects_other_dtypes_on_the_cpu(rng):
+    q, k, v, mask = _t(*_inputs(rng, 2, 8, 8, 16))
+    with pytest.raises(TypeError):
+        att.flash_attention(q.half(), k.half(), v.half(), mask)
+    with pytest.raises(TypeError):
+        att.flash_attention(q.bfloat16(), k, v, mask)
+    out, lse = att.flash_attention(q, k, v, mask, return_lse=True)
+    with pytest.raises(TypeError):
+        att.flash_attention_backward(q, k, v, mask, out, lse, q.bfloat16())
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_tolerances_accept_blockwise_and_reject_planted(rng, causal):
+    """The bf16 card checks (ops/attention_tolerances.py) on the CPU, with
+    JAX's blockwise kernels at the card kernels' 64-key tiles in the
+    kernels' place: they accept them; the dk check rejects dk less its
+    first 64-query tile, and a dk 3% off."""
+    q, k, v, mask = _inputs(rng, 4, 150, 130, 16, masked_row=3)
+    g = rng.normal(size=q.shape).astype(np.float32)
+    (jq, jk, jv, jg), (tq, tk, tv, tg) = _bf16_pair(q, k, v, g)
+    jmask = jnp.asarray(mask)
+    out, lse = jatt.flash_attention(jq, jk, jv, key_mask=jmask,
+                                    causal=causal, block_q=64, block_k=64,
+                                    interpret=True, return_lse=True)
+    grads = jatt._flash_backward_impl(jq, jk, jv, jmask, out, lse, jg,
+                                      causal=causal, block_q=64, block_k=64,
+                                      interpret=True)
+    tout, *tgrads = [torch.from_numpy(_f32(t)).to(torch.bfloat16)
+                     for t in (out, *grads)]
+    tlse, tmask = torch.from_numpy(np.array(lse)), _t(mask)[0]
+    fwd = at.check_forward_bf16((tout, tlse), tq, tk, tv, tmask, causal)
+    assert max(c["err_over_tol"] for c in fwd.values()) < 1
+    checks = at.check_backward_bf16(tgrads, tq, tk, tv, tmask, tout, tlse,
+                                    tg, causal, planted_rows=64)
+    for name in ("dq", "dk", "dv", "dq_bf16_plain"):
+        assert checks[name]["fro_over_tol"] < 1
+    assert checks["dk"]["planted"]["query_tile_dropped"] > 1
+    with pytest.raises(AssertionError):
+        at.check_backward_bf16(
+            (tgrads[0], tgrads[1] * 1.03, tgrads[2]), tq, tk, tv, tmask,
+            tout, tlse, tg, causal)

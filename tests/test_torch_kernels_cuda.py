@@ -234,8 +234,8 @@ def test_flash_attention_kernels(device, bh, sq, sk, d, causal):
     out, lse = att.flash_attention(q, k, v, mask, causal, return_lse=True)
     grads = att.flash_attention_backward(q, k, v, mask, out, lse, g, causal)
     torch.cuda.synchronize()
-    assert att.flash_attention.launches == {"fwd": before["fwd"] + 1,
-                                            "bwd": before["bwd"] + 1}
+    assert att.flash_attention.launches == {
+        **before, "fwd": before["fwd"] + 1, "bwd": before["bwd"] + 1}
     at.check_forward((out, lse), q, k, v, mask, causal)
     checks = at.check_backward(grads, q, k, v, mask, out, lse, g, causal,
                                planted_rows=64)
@@ -256,8 +256,8 @@ def test_flash_attention_autograd_launches_both_kernels(device):
     out.backward(g)
     with torch.no_grad():
         att.FlashAttention.apply(q, k, v, mask, True)
-    assert att.flash_attention.launches == {"fwd": before["fwd"] + 2,
-                                            "bwd": before["bwd"] + 1}
+    assert att.flash_attention.launches == {
+        **before, "fwd": before["fwd"] + 2, "bwd": before["bwd"] + 1}
     # The forward is deterministic: this lse is the one the backward used.
     again, lse = att.flash_attention(q, k, v, mask, True, return_lse=True)
     assert torch.equal(again, out.detach())
@@ -272,8 +272,8 @@ def test_attention_dispatch_on_the_card(device):
     before = dict(att.flash_attention.launches)
     q = _normal(gen, 2048, 512, 16).requires_grad_()
     att.attention(q, q, q, causal=True).sum().backward()
-    assert att.flash_attention.launches == {"fwd": before["fwd"] + 1,
-                                            "bwd": before["bwd"] + 1}
+    assert att.flash_attention.launches == {
+        **before, "fwd": before["fwd"] + 1, "bwd": before["bwd"] + 1}
     small = _normal(gen, 2048, 256, 16)
     att.attention(small, small, small)
     with pytest.warns(UserWarning, match="memory budget"):
@@ -297,3 +297,86 @@ def test_flash_attention_rejects_bad_inputs(device):
         att.flash_attention(q, q, q, torch.ones(2, 7, device=device))
     with pytest.raises(ValueError):
         att.flash_attention(q, q.cpu(), q, mask)
+
+
+# -- K5 and K6 in bf16 --------------------------------------------------------
+
+def _bf16(*tensors):
+    return [t.to(torch.bfloat16) for t in tensors]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("bh,sq,sk,d", [
+    (6, 150, 130, 16),  # ragged tiles both ways, Sq != Sk
+    (6, 130, 150, 32),
+    (4, 64, 200, 64),
+    (4, 100, 100, 128),
+    (64, 512, 512, 16),  # the Transformer slice's sequence length
+])
+def test_flash_attention_bf16_kernels(device, bh, sq, sk, d, causal):
+    """The bf16 K5 and K6 against their fp64 and bf16 plain versions
+    (ops/attention_tolerances.py states the tolerances), one launch each
+    and no fp32 launch; the check rejects dk less one query tile."""
+    gen = torch.Generator(device=device).manual_seed(7)
+    q, k, v, mask = _attention_inputs(gen, bh, sq, sk, d)
+    mask[2, sk // 2:] = 0.0  # post-padding: whole key tiles of padding
+    q, k, v, g = _bf16(q, k, v, _normal(gen, bh, sq, d))
+    before = dict(att.flash_attention.launches)
+    out, lse = att.flash_attention(q, k, v, mask, causal, return_lse=True)
+    grads = att.flash_attention_backward(q, k, v, mask, out, lse, g, causal)
+    torch.cuda.synchronize()
+    assert att.flash_attention.launches == {
+        **before, "fwd_bf16": before["fwd_bf16"] + 1,
+        "bwd_bf16": before["bwd_bf16"] + 1}
+    at.check_forward_bf16((out, lse), q, k, v, mask, causal)
+    checks = at.check_backward_bf16(grads, q, k, v, mask, out, lse, g,
+                                    causal, planted_rows=64)
+    assert checks["dk"]["planted"]["query_tile_dropped"] > 1
+    assert not out[1].any() and not lse[1].any()
+    for grad in grads:
+        assert grad.dtype == torch.bfloat16 and not grad[1].any()
+
+
+def test_flash_attention_bf16_autograd_and_dispatch(device):
+    """bf16 operands through FlashAttention and attention(): the bf16
+    kernels, gradients in bf16, the same out as the direct call."""
+    gen = torch.Generator(device=device).manual_seed(8)
+    q, k, v, mask = _attention_inputs(gen, 16, 200, 200, 16)
+    q, k, v, g = _bf16(q, k, v, _normal(gen, 16, 200, 16))
+    args = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = dict(att.flash_attention.launches)
+    out = att.FlashAttention.apply(*args, mask, True)
+    out.backward(g)
+    assert att.flash_attention.launches == {
+        **before, "fwd_bf16": before["fwd_bf16"] + 1,
+        "bwd_bf16": before["bwd_bf16"] + 1}
+    again, lse = att.flash_attention(q, k, v, mask, True, return_lse=True)
+    assert out.dtype == torch.bfloat16 and torch.equal(again, out.detach())
+    assert all(a.grad.dtype == torch.bfloat16 for a in args)
+    at.check_backward_bf16([a.grad for a in args], q, k, v, mask, again, lse,
+                           g, True)
+    big = _normal(gen, 2048, 512, 16).to(torch.bfloat16).requires_grad_()
+    before = dict(att.flash_attention.launches)
+    att.attention(big, big, big, causal=True).float().sum().backward()
+    assert att.flash_attention.launches == {
+        **before, "fwd_bf16": before["fwd_bf16"] + 1,
+        "bwd_bf16": before["bwd_bf16"] + 1}
+
+
+def test_flash_attention_bf16_rejects_other_dtypes(device):
+    q = torch.zeros(2, 8, 16, device=device, dtype=torch.bfloat16)
+    mask = torch.ones(2, 8, device=device)
+    with pytest.raises(TypeError):  # fp16 has no kernel
+        h = q.half()
+        att.flash_attention(h, h, h, mask)
+    with pytest.raises(TypeError):  # operands of two dtypes
+        att.flash_attention(q, q.float(), q, mask)
+    out, lse = att.flash_attention(q, q, q, mask, return_lse=True)
+    with pytest.raises(TypeError):  # lse stays fp32
+        att.flash_attention_backward(q, q, q, mask, out, lse.bfloat16(), q)
+    with pytest.raises(TypeError):  # g in q's dtype
+        att.flash_attention_backward(q, q, q, mask, out, lse, q.float())
+    with pytest.raises(ValueError):  # the kernels copy 16-byte pieces
+        shifted = torch.zeros(2 * 8 * 16 + 1, device=device,
+                              dtype=torch.bfloat16)[1:].view(2, 8, 16)
+        att.flash_attention(shifted, q, q, mask)

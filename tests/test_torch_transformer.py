@@ -357,8 +357,10 @@ def test_classifier_logits_match_flax(rng):
 
 
 def test_compute_dtype_raises():
-    with pytest.raises(NotImplementedError):
-        tnlp.Transformer(VOCAB, D, HEADS, compute_dtype=torch.bfloat16)
+    """bf16 is ported (tests/test_torch_transformer_bf16.py); any dtype but
+    fp32 and bf16 raises."""
+    with pytest.raises(ValueError):
+        tnlp.Transformer(VOCAB, D, HEADS, compute_dtype=torch.float16)
 
 
 def test_imdb_example_runs_on_cpu(capsys):
