@@ -16,10 +16,12 @@ In order:
    below for K1 and K2, in deep_recommenders_torch/ops/cin_tolerances.py
    for K3 and K4 and in ops/attention_tolerances.py for K5 and K6 (each
    backward on the same saved residuals and incoming gradients as its plain
-   backward, in fp64; each weight or input gradient also as a whole, and
-   shown to reject planted faults; K4's forward, which rounds as the TPU
-   kernel does, against its bf16 emulation and against fp64, and shown to
-   reject the fp32 function and an output missing one f-slice), reports
+   backward; each weight or input gradient also as a whole, and shown to
+   reject planted faults; K4's forward and K3's and K4's backwards, which
+   round as the TPU kernels do, against their bf16 emulations and against
+   fp64, and shown to reject the fp32 function, an output missing one
+   f-slice or a weight gradient scaled by 1 + 1e-3 or missing one chunk of
+   rows), reports
    each output's error and share of its tolerance, and times kernel, plain
    version and one library call where there is one (for K4's forward also
    that call on bf16 operands; for K6 the backward of the SDPA call, with
@@ -37,8 +39,8 @@ In order:
      two K1, one K3 forward and one K3 backward per train step, one K3
      forward per eval batch;
    - xDeepFM with maps (128, 128, 128), the layered CIN, 1 epoch: two K1,
-     three K4 forwards (bf16 on the tensor cores) and three K4 backwards
-     (fp32) per train step, three K4 forwards per eval batch;
+     three K4 forwards and three K4 backwards (both bf16 on the tensor
+     cores) per train step, three K4 forwards per eval batch;
    (these three with Adam 1e-3 and batch 8192 through Trainer.fit_device,
    each with an AUC above 0.5; the trained DeepFM's and flagship xDeepFM's
    logits on the card must match the plain CPU path on the same weights);
@@ -52,11 +54,18 @@ In order:
      path than that path is to fp32;
    - the ported IMDB example at its defaults, 3 epochs: dense attention,
      no kernel launch;
-6. profiles ten more train steps of DeepFM, the flagship xDeepFM and the
+6. profiles ten more train steps of DeepFM, both xDeepFMs and the
    Transformer in fp32 and bf16 (torch.profiler): wall time per step,
    device busy time, idle share and the kernels that take the most time;
 7. prints one JSON line with every kernel's numbers, then, as the last line,
    {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --xdeepfm-only
+
+builds the kernels and runs only the two xDeepFM train paths with their
+launch checks, AUCs and profiles, and prints them as its last line, one
+JSON object (not the full run's "ok" line): the same measurement on any
+tree of the port, to set a change beside its parent in one call.
 
 Any failure raises and exits non-zero; with no CUDA device it exits 1
 before printing any result. It imports nothing of JAX.
@@ -64,6 +73,7 @@ before printing any result. It imports nothing of JAX.
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import subprocess
@@ -137,9 +147,6 @@ SMS, EXP_PER_SM_CLOCK = 132, 16
 ATT_TILE = 64
 # CUDA-graph timing of the CIN kernels: each call is milliseconds.
 CIN_ITERS, CIN_REPLAYS = 5, 4
-# Rows of the chunk left out of a weight gradient by a planted fault: the
-# smallest chunk the kernels' weight passes sum at full width.
-PLANTED_ROWS = 256
 
 
 def card_line() -> str:
@@ -214,9 +221,24 @@ def timings(kernel, plain, library, iters: int = 50, replays: int = 10,
     }
 
 
+def host_us(fn, calls: int = 20) -> float:
+    """The host's wall time per call of a wrapper (us): ``calls`` calls
+    queued after a warm one, with no synchronisation between them, so the
+    card runs them later and the host's own work is what is timed."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / calls * 1e6
+
+
 def cin_timings(kernel, plain, library=None) -> dict:
-    return timings(kernel, plain, library, CIN_ITERS, CIN_REPLAYS,
-                   eager_iters=20)
+    return {**timings(kernel, plain, library, CIN_ITERS, CIN_REPLAYS,
+                      eager_iters=20),
+            "host_us": host_us(kernel)}
 
 
 def bound(num_bytes: float, num_ops: float,
@@ -229,18 +251,24 @@ def bound(num_bytes: float, num_ops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def bound_fields(num_bytes: float, num_ops: float, bf16: bool = False
-                 ) -> dict:
+def bound_fields(num_bytes: float, num_ops: float, bf16: bool = False,
+                 scalar_ops: float = 0.0) -> dict:
     """``bound`` at the rate of the kernel's arithmetic: fp32 on the CUDA
     cores, or with ``bf16`` bf16 on the tensor cores. Also both bounds by
     name: ``bound_fp32_ms``, and ``bound_bf16_ms``, the precision the TPU
-    kernels ran at."""
-    fp32_ms, fp32_by = bound(num_bytes, num_ops)
+    kernels ran at. ``scalar_ops`` are fp32 operations outside the
+    products (a backward's folds of t_f): at the fp32 rate in both, beside
+    the products on the tensor cores in the bf16 bound (the two units run
+    at once)."""
+    fp32_ms, fp32_by = bound(num_bytes, num_ops + scalar_ops)
     bf16_ms, bf16_by = bound(num_bytes, num_ops, BF16_OPS_PER_S)
+    scalar_ms = scalar_ops / FP32_OPS_PER_S * 1e3
+    if scalar_ms > bf16_ms:
+        bf16_ms, bf16_by = scalar_ms, "operations"
     ms, by = (bf16_ms, bf16_by) if bf16 else (fp32_ms, fp32_by)
     return {"bound_ms": ms, "bound_us": ms * 1e3, "bound_by": by,
             "bound_fp32_ms": fp32_ms, "bound_bf16_ms": bf16_ms,
-            "gflop": num_ops / 1e9}
+            "gflop": (num_ops + scalar_ops) / 1e9}
 
 
 def check_scatter(g, ids, num_rows):
@@ -366,14 +394,31 @@ def check_fields(checks) -> dict:
             "checks": checks}
 
 
+def bf16_backward_fields(name: str, checks) -> dict:
+    """:func:`check_fields` of a bf16 CIN backward, with ``max_abs_err``
+    against its bf16 plain version (the fp64 side's are in checks), and a
+    line with every output's shares and the planted faults'."""
+    own = {k: c for k, c in checks.items() if k != "planted"
+           and not k.endswith("_fp64")}
+    print(f"{name} shares: " + ", ".join(
+        f"{k} {c['err_over_tol']:.6g} / fro {c['fro_over_tol']:.6g}"
+        for k, c in checks.items() if k != "planted")
+        + "; planted " + ", ".join(
+            f"{k} {v:.6g}" for k, v in checks["planted"].items()))
+    return {**check_fields(checks), "max_abs_err": ct.max_abs_err(own),
+            "precision": "bf16 operands, products and intermediates where "
+                         "the TPU kernel rounds; fp32 sums"}
+
+
 def cin_kernel_phase(ds: MovielensRanking, device):
     """K3 and K4 at the xDeepFM paths' shapes, against their plain versions
     (``ops/cin_tolerances.py`` states the tolerances), on the real
     embeddings of one train batch and each model's initial CIN weights; the
     incoming gradients are seeded normals. Each weight-gradient check must
-    also reject two planted faults: dW scaled by 1 + 1e-3, and dW without
-    its first PLANTED_ROWS rows; K4's forward check must reject the fp32
-    function and the bf16 emulation without one f-slice."""
+    also reject dW scaled by 1 + 1e-3, dW without its first chunk of
+    ``ct.PLANTED_ROWS`` rows (one chunk of the weight passes) and the fp32
+    function; K4's forward check must reject the fp32 function and the bf16
+    emulation without one f-slice."""
     feats, _ = ds.train_arrays()
     batch = {k: torch.from_numpy(v[:BATCH]).to(device)
              for k, v in feats.items()}
@@ -418,9 +463,11 @@ def cin_kernel_phase(ds: MovielensRanking, device):
 
     got = ck.stack_backward(x0b, w1, w2, z1, z2, gp1, gp2)
     checks = ct.check_stack_backward(got, x0b, w1, w2, z1, z2, gp1, gp2,
-                                     planted_rows=PLANTED_ROWS)
-    bwd_ops = (4 * r * f0 * m1 * m2 + 4 * r * f0 * f0 * m1
-               + 4 * r * f0 * m1 + 4 * r * f0 * f0)
+                                     planted_rows=ct.PLANTED_ROWS)
+    # Tensor-core products: t_f and dW2 (layer 2), dy and dW1 (layer 1).
+    # The folds of t_f into dz1 and dx0, and dx0's layer-1 sum, are fp32.
+    bwd_ops = 4 * r * f0 * m1 * m2 + 4 * r * f0 * f0 * m1
+    bwd_scalar_ops = 4 * r * f0 * m1 + 4 * r * f0 * f0
     entries.append({
         "name": "cin_stack_pooled.bwd",
         "route": "cuda",
@@ -428,15 +475,18 @@ def cin_kernel_phase(ds: MovielensRanking, device):
         "replaces": "deep_recommenders_tpu/ops/cin_kernels.py:434",
         "shape": {"x0v": [r, f0], "dtype": "bfloat16", "m1": m1, "m2": m2,
                   "d": d},
-        **check_fields(checks),
+        **bf16_backward_fields("cin_stack_pooled.bwd", checks),
         **cin_timings(
             lambda: ck.stack_backward(x0b, w1, w2, z1, z2, gp1, gp2),
-            lambda: ck.stack_backward_reference(x0b, w1, w2, z1, z2, gp1,
-                                                gp2),
+            lambda: ck.stack_backward_reference_bf16(x0b, w1, w2, z1, z2,
+                                                     gp1, gp2),
         ),
         **bound_fields(
-            r * f0 * 2 * 2 + w_bytes * 2 + (r + b) * (m1 + m2) * 4, bwd_ops),
+            r * f0 * 2 * 2 + w_bytes * 2 + (r + b) * (m1 + m2) * 4, bwd_ops,
+            bf16=True, scalar_ops=bwd_scalar_ops),
     })
+    entries[-1]["bound_bf16_share"] = (entries[-1]["bound_bf16_ms"]
+                                       / entries[-1]["ms"])
     del got, z1, z2
 
     # K4 on the layered model's first two layers: layer 0 (H = F0 = 6) on
@@ -459,7 +509,7 @@ def cin_kernel_phase(ds: MovielensRanking, device):
               f"{planted['f_slice_dropped']:.6g}")
         bwd_checks = ct.check_cin2d_backward(
             ck.cin2d_backward(x0v, xv, w, g), x0v, xv, w, g,
-            planted_rows=PLANTED_ROWS)
+            planted_rows=ct.PLANTED_ROWS)
         shape = {"x0v": [r, f0], "xv": [r, h], "w": [f0, h, m]}
         io_bytes = (r * (f0 + h) + f0 * h * m + r * m) * 4
         x0b, xb, wb = (t.bfloat16() for t in (x0v, xv, w))
@@ -483,14 +533,19 @@ def cin_kernel_phase(ds: MovielensRanking, device):
         del x0b, xb, wb
         bwd = {
             "shape": shape,
-            **check_fields(bwd_checks),
+            **bf16_backward_fields(f"cin2d.bwd H={h}", bwd_checks),
             **cin_timings(
                 lambda: ck.cin2d_backward(x0v, xv, w, g),
-                lambda: ck.cin2d_backward_reference(x0v, xv, w, g),
+                lambda: ck.cin2d_backward_reference_bf16(x0v, xv, w, g),
             ),
-            # dx0 and dx share t_f = g @ W[f]^T; dW is one more product.
-            **bound_fields(io_bytes * 2, 4 * r * f0 * h * m + 4 * r * f0 * h),
+            # Reads x0, x, g and W, writes dx0, dx and dW. On the tensor
+            # cores t_f = g @ W[f]^T and dW; the folds of t_f into dx and
+            # dx0 are fp32.
+            **bound_fields(
+                (2 * r * (f0 + h) + r * m + 2 * f0 * h * m) * 4,
+                4 * r * f0 * h * m, bf16=True, scalar_ops=4 * r * f0 * h),
         }
+        bwd["bound_bf16_share"] = bwd["bound_bf16_ms"] / bwd["ms"]
         # The H = 128 layer (two of the three per step) leads the entry.
         if h == f0:
             fwd_entry["h6"], bwd_entry["h6"] = fwd, bwd
@@ -545,7 +600,8 @@ def read_launches() -> dict:
 def train_path(name, model, train, test, epochs, expect, device):
     """``epochs`` of ``fit_device`` with the launch counters set to 0 just
     before and read just after; ``expect(steps, eval_batches)`` gives the
-    launches each kernel must make."""
+    launches each kernel must make. Returns the trainer, the launches and
+    the last epoch's eval metrics."""
     trainer = Trainer(
         model, torch.optim.Adam(model.parameters(), lr=LEARNING_RATE),
         device=device,
@@ -578,7 +634,7 @@ def train_path(name, model, train, test, epochs, expect, device):
     metrics = [final[k] for k in ("auc", "precision", "recall", "val_loss")]
     if not all(math.isfinite(v) for v in metrics) or not final["auc"] > 0.5:
         raise AssertionError(f"{name}: bad eval metrics: {final}")
-    return trainer, launches, steps
+    return trainer, launches, final
 
 
 def check_logits(name, model, cpu_model, ds, device, rtol, atol):
@@ -613,6 +669,17 @@ def train_phase(ds: MovielensRanking, model: DeepFM, device):
                  ds, device, rtol=1e-4, atol=1e-5)
     print("deepfm profile: " + json.dumps(trainer_profile(trainer, train,
                                                           test)))
+    del trainer
+    launches, _ = xdeepfm_paths(ds, train, test, device)
+    paths.update(launches)
+    return paths
+
+
+def xdeepfm_paths(ds: MovielensRanking, train: DeviceData, test: DeviceData,
+                  device):
+    """The flagship and the layered xDeepFM: each path's launches, and its
+    final eval metrics with its profile."""
+    paths, results = {}, {}
 
     # The stack reads bf16 rows. The card and the CPU sum the movie_genres
     # bag in other orders, so an embedding element can round to the
@@ -620,7 +687,7 @@ def train_phase(ds: MovielensRanking, model: DeepFM, device):
     # (embeddings ~0.25, CIN kernels ~0.05, cin_head ~0.06) one such element
     # moves a logit by about 2e-5: atol 2e-4.
     xdeepfm = make_xdeepfm(ds, XDEEPFM_MAPS, device)
-    trainer, paths["xdeepfm"], _ = train_path(
+    trainer, paths["xdeepfm"], final = train_path(
         "xdeepfm", xdeepfm, train, test, EPOCHS,
         lambda s, e: {"scatter_add_rows": 2 * s,
                       "cin_stack_pooled.fwd": s + e,
@@ -628,18 +695,25 @@ def train_phase(ds: MovielensRanking, model: DeepFM, device):
     check_logits("xdeepfm", xdeepfm,
                  XDeepFM(ds.feature_specs, EMBED_DIM, XDEEPFM_MAPS, "relu",
                          XDEEPFM_HIDDEN), ds, device, rtol=1e-4, atol=2e-4)
-    print("xdeepfm profile: " + json.dumps(trainer_profile(trainer, train,
-                                                           test)))
+    results["xdeepfm"] = {"eval": final,
+                          "profile": trainer_profile(trainer, train, test)}
+    print("xdeepfm profile: " + json.dumps(results["xdeepfm"]["profile"]))
     del trainer, xdeepfm
 
     layered = make_xdeepfm(ds, LAYERED_MAPS, device)
     layers = len(LAYERED_MAPS)
-    _, paths["xdeepfm_layered"], _ = train_path(
+    trainer, paths["xdeepfm_layered"], final = train_path(
         "xdeepfm_layered", layered, train, test, LAYERED_EPOCHS,
         lambda s, e: {"scatter_add_rows": 2 * s,
                       "cin2d.fwd": layers * (s + e),
                       "cin2d.bwd": layers * s}, device)
-    return paths
+    results["xdeepfm_layered"] = {
+        "eval": final,
+        "profile": trainer_profile(trainer, train, test)}
+    print("xdeepfm_layered profile: "
+          + json.dumps(results["xdeepfm_layered"]["profile"]))
+    del trainer, layered
+    return paths, results
 
 
 def trainer_profile(trainer: Trainer, train: DeviceData, test: DeviceData):
@@ -656,26 +730,30 @@ def trainer_profile(trainer: Trainer, train: DeviceData, test: DeviceData):
 def profile_phase(step, evaluate, steps: int = 10):
     """Where a steady train step's time goes: the wall time of ``steps``
     calls of ``step(s)`` without the profiler, then torch.profiler's device
-    time by kernel over as many steps. The idle share is 1 - device busy /
-    wall time. Also the wall time of one warm ``evaluate()``, which must
-    end in a host read."""
+    time by kernel and host time by range over as many steps. The idle share is 1 - device busy /
+    wall time. The host's side of the same unprofiled steps is the wall
+    time of the loop that queues them, before the final synchronisation
+    (``host_loop_ms_per_step``): where it is as long as the step, the host
+    sets the pace. Also the wall time of one warm ``evaluate()``, which
+    must end in a host read."""
     from torch.profiler import ProfilerActivity, profile
 
     def run():
         t0 = time.perf_counter()
         for s in range(steps):
             step(s)
+        loop = time.perf_counter() - t0
         torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3 / steps
+        return (time.perf_counter() - t0) * 1e3 / steps, loop * 1e3 / steps
 
     t0 = time.perf_counter()
     evaluate()
     eval_ms = (time.perf_counter() - t0) * 1e3
     run()  # warm up
-    step_ms = run()
+    step_ms, loop_ms = run()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        profiled_ms = run()
+        profiled_ms = run()[0]
     # Device activity only; user-annotated ranges (the optimizer's step)
     # span kernels that are counted on their own.
     kernels = [e for e in prof.key_averages()
@@ -683,10 +761,16 @@ def profile_phase(step, evaluate, steps: int = 10):
                and not e.is_user_annotation]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    # The host's side: CPU time of each recorded range, children included
+    # (the profiler adds to it alike on every tree).
+    host = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CPU]
+    top_host = sorted(host, key=lambda e: -e.cpu_time_total)[:24]
     return {
         "steps": steps,
         "eval_ms": eval_ms,
         "step_ms": step_ms,
+        "host_loop_ms_per_step": loop_ms,
         "step_ms_profiled": profiled_ms,
         "device_busy_ms_per_step": busy_ms if kernels else "not measured",
         "device_idle_share": 1 - busy_ms / step_ms if kernels
@@ -695,6 +779,9 @@ def profile_phase(step, evaluate, steps: int = 10):
         "top": [{"name": e.key[:80],
                  "ms_per_step": e.self_device_time_total / 1e3 / steps,
                  "calls_per_step": e.count / steps} for e in top],
+        "top_host": [{"name": e.key[:80],
+                      "cpu_ms_per_step": e.cpu_time_total / 1e3 / steps,
+                      "calls_per_step": e.count / steps} for e in top_host],
     }
 
 
@@ -1227,7 +1314,19 @@ ENTRY_PATH = {
 }
 
 
-def main() -> int:
+def device_line() -> str:
+    return json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }})
+
+
+def main(argv=()) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--xdeepfm-only", action="store_true",
+                        help="run only the two xDeepFM train paths")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -1241,6 +1340,14 @@ def main() -> int:
     t0 = time.perf_counter()
     ds = MovielensRanking(batch_size=BATCH, num_ratings=NUM_RATINGS,
                           seed=SEED)
+    if args.xdeepfm_only:
+        train = DeviceData.from_numpy(*ds.train_arrays(), BATCH,
+                                      device=device)
+        test = DeviceData.from_numpy(*ds.test_arrays(), BATCH, device=device)
+        _, results = xdeepfm_paths(ds, train, test, device)
+        # Not the full smoke run: no kernel phase, so no "ok" line.
+        print(json.dumps({"xdeepfm_paths": results}))
+        return 0
     model = DeepFM(ds.feature_specs, EMBED_DIM, HIDDEN,
                    generator=torch.Generator().manual_seed(SEED)).to(device)
     print(f"data: {ds.train_steps_per_epoch} train steps/epoch, "
@@ -1266,13 +1373,9 @@ def main() -> int:
         entry["launches_by_path"] = {p: n[entry["name"]]
                                      for p, n in paths.items()}
     print(json.dumps({"kernels": entries}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu",
-        "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
-    }}))
+    print(device_line())
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -35,24 +35,41 @@
 // - the output, the largest transfer, goes from the registers to device
 //   memory once, rows past R and columns past M masked.
 //
-// Backward, in fp32 on the CUDA cores on the saved fp32 inputs (tiles in
-// cin_tile.cuh):
-// - data: one block per 64 rows keeps x0, x and the output gradient g in
-//   shared memory; for each f it forms t_f = g @ W[f]^T in registers and
-//   folds it at once into dx (registers) and dx0 (shared memory), so t_f
-//   never reaches device memory. For H <= 16 (layer 0, H = F0) the column
-//   tile is 16 wide instead of 128.
-// - weights: dW = sum over rows of (x0 (x) x)^T g, split into row chunks
-//   (about four blocks per SM) summed into the zeroed dW with fp32 atomics:
-//   the order of that sum changes from run to run.
+// Backward, at the TPU kernel's precision on the tensor cores (tiles in
+// cin_tile.cuh). The TPU kernel rounds g and W[f] to bf16 and forms
+// t_f = g W[f]^T on the MXU with fp32 accumulation; it folds t_f into dx
+// and dx0 with the fp32 x0 and x, and sums dW[f] = bf16(bf16(x0[:, f]) x)^T
+// bf16(g) on the MXU. This backward computes the same terms with
+// mma.sync m16n8k16.
+//
+// What bounds it on the H100: bytes. At R = 131072, F0 = 6, H = M = 128
+// it does 4 R F0 H M = 51.5 GFLOP on the tensor cores (0.052 ms at 989
+// TFLOP/s) over about 208 MB of fp32 inputs and outputs: x0, x, g and W
+// read, dx0, dx and dW written (0.062 ms at 3.35 TB/s). The design:
+// - data: one block of 8 warps per 128 rows keeps bf16 g in shared memory
+//   (with the fp32 x of its column tile and x0), walks bf16 W[f] (F0, Hp,
+//   Mp) from L2 in 128-deep chunks (cp.async, double-buffered) and, per f,
+//   folds t_f from its registers into dx (registers, across f) and into
+//   dx0 (a quad shuffle, then a fixed-order sum across the warps that
+//   share a row, in shared memory, double-buffered over f: no atomics).
+//   H <= 16 (layer 0, H = F0) takes 16-column tiles, wider H 128-column
+//   tiles. It also writes bf16 copies of x and g, the weight pass's
+//   operands. A block holds all of bf16 g, so M and F0 are bounded by
+//   shared memory: F0 <= 55 at M = 128, M <= 320 at F0 = 6 (H > 16; see
+//   cin2d_bwd_bf16_smem); the wrapper refuses larger shapes.
+// - weights: each block stages 64 rows of bf16 x, g and x0 at a time
+//   (cp.async, double-buffered), forms the rounded pair product in
+//   registers (__hmul2 on ldmatrix.trans fragments of x, by their rows'
+//   x0), multiplies it by g over a chunk of rows (2048 at H = 128, 512 at
+//   H = 6, so that each pass has some 200-400 blocks; the wrapper picks
+//   tile and chunk) and writes a partial dW; a second kernel adds the
+//   chunks in a fixed order, so dW is the same from run to run.
 
 #include "cin_tile.cuh"
 
 namespace {
 
-using cin::kK;
-using cin::kRows;
-using cin::kThreads;
+using namespace cin;
 
 // -- forward: bf16 mma.sync ---------------------------------------------------
 
@@ -62,59 +79,6 @@ constexpr int kFwdThreads = 256;
 constexpr int kChunk = 16;             // depth of g per step: one mma k
 constexpr int kWStride = kChunk + 8;   // bf16 per staged row of W: 48 bytes
 constexpr int kMaxFGroup = 8;          // f-slices per staged chunk
-constexpr size_t kMaxSmem = 232448;    // dynamic shared memory of a block
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Four 8 x 8 bf16 matrices; lane l gives the address of row l % 8 of
-// matrix l / 8 and receives row l / 4, columns 2 (l % 4) and 2 (l % 4) + 1
-// of each.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// d += a b on one 16 x 8 x 16 tile: bf16 operands, fp32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two bf16 products, each rounded to nearest even.
-__device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
-  const __nv_bfloat162 p =
-      __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&a),
-              *reinterpret_cast<const __nv_bfloat162*>(&b));
-  return *reinterpret_cast<const uint32_t*>(&p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&p);
-}
 
 // x0: (rows, f0) and x: (rows, h) fp32; wt: (f0, mp, hp) bf16, W[f, g, c] at
 // wt[(f * mp + c) * hp + g], zero past h and m; out: (rows, m) fp32. fg
@@ -248,63 +212,159 @@ __global__ void __launch_bounds__(kFwdThreads, 2)
   }
 }
 
-// -- backward: fp32 on the CUDA cores -----------------------------------------
+// -- backward: bf16 mma.sync --------------------------------------------------
 
-template <int CJ>
-__global__ void __launch_bounds__(kThreads)
+// Rows [r0, r0 + RB) of the backward's data product: dx (rows, h) and dx0
+// (rows, f0), fp32. wb: W as bf16 (f0, hp, mp), W[f, c, k] at
+// wb[(f * hp + c) * mp + k], zero past h and m. Also writes the weight
+// pass's operands: bf16(x) as xb (rows, xsd) and bf16(g) as gb (rows, mp),
+// zero-padded.
+template <int WR, int WC, int MT, int NT>
+__global__ void __launch_bounds__(WR* WC * 32, 1)
     cin2d_bwd_data_kernel(const float* __restrict__ x0,
                           const float* __restrict__ x,
-                          const float* __restrict__ w,
+                          const bf16* __restrict__ wb,
                           const float* __restrict__ g,
                           float* __restrict__ dx0, float* __restrict__ dx,
-                          int64_t rows, int f0, int h, int m) {
-  extern __shared__ float smem[];
-  const int ldx = h + 1, ldg = m + 1;
-  float* x0s = smem;                  // kRows * f0
-  float* dx0s = x0s + kRows * f0;     // kRows * f0
-  float* xs = dx0s + kRows * f0;      // kRows * ldx
-  float* gs = xs + kRows * ldx;       // kRows * ldg
-  float* bs = gs + kRows * ldg;       // kK * (16 CJ + 1)
-  const int64_t r0 = (int64_t)blockIdx.x * kRows;
-  cin::load_rows(x0s, f0, f0, x0 + r0 * f0, rows - r0);
-  cin::load_rows(xs, ldx, h, x + r0 * h, rows - r0);
-  cin::load_rows(gs, ldg, m, g + r0 * m, rows - r0);
-  for (int e = threadIdx.x; e < kRows * f0; e += kThreads) dx0s[e] = 0.f;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  cin::layer_backward_data<CJ>(
-      x0s, f0, xs, ldx, h, gs, ldg, m, w, bs, dx0s,
-      [&](int c0, float (&acc)[4][CJ]) {
+                          bf16* __restrict__ xb, bf16* __restrict__ gb,
+                          int64_t rows, int f0, int h, int m, int hp, int mp,
+                          int xsd) {
+  using T = Tile<WR, WC, MT, NT>;
+  constexpr int RB = T::kRowsB, COLS = T::kCols, LDX = COLS + 8;
+  extern __shared__ __align__(16) unsigned char bwd_smem[];
+  const int ldg = mp + 8;
+  bf16* ws = reinterpret_cast<bf16*>(bwd_smem);         // 2 kStage
+  bf16* gs = ws + 2 * T::kStage;                        // RB x ldg: bf16(g)
+  float* xs = reinterpret_cast<float*>(gs + RB * ldg);  // RB x LDX: x tile
+  float* x0s = xs + RB * LDX;                           // RB x f0
+  float* dx0s = x0s + RB * f0;                          // RB x f0
+  // dx0 of each warp column for one f, double-buffered over f: 2 x WC x RB.
+  float* part = dx0s + RB * f0;
+
+  const int tid = threadIdx.x;
+  const int64_t r0 = (int64_t)blockIdx.x * RB;
+  const int64_t valid = min64(rows - r0, RB);
+  const int mp2 = mp / 2;
+  // Unrolled, so that each thread has several loads in flight: one block
+  // fills an SM, and nothing else hides these loads' latency.
+#pragma unroll 8
+  for (int e = tid; e < RB * mp2; e += T::kThreads) {
+    const int rr = e / mp2, c = 2 * (e - rr * mp2);
+    float lo = 0.f, hi = 0.f;
+    if (rr < valid) {
+      const float* src = g + (r0 + rr) * m;
+      if (c < m) lo = src[c];
+      if (c + 1 < m) hi = src[c + 1];
+    }
+    *reinterpret_cast<uint32_t*>(gs + rr * ldg + c) = pack_bf16x2(lo, hi);
+  }
+  for (int e = tid; e < RB * f0; e += T::kThreads) {
+    x0s[e] = e / f0 < valid ? x0[r0 * f0 + e] : 0.f;
+    dx0s[e] = 0.f;
+  }
+  const Frag fr;
+  const int wr = T::warp_row(), wc = T::warp_col(), wcol = (tid >> 5) / WR;
+  const bool pairs = (h & 1) == 0;  // then (r * h + even col) is 8-byte aligned
+  for (int n0 = 0; n0 < hp; n0 += COLS) {
+#pragma unroll 8
+    for (int e = tid; e < RB * COLS; e += T::kThreads) {
+      const int rr = e / COLS, c = e - rr * COLS;
+      xs[rr * LDX + c] =
+          (rr < valid && n0 + c < h) ? x[(r0 + rr) * h + n0 + c] : 0.f;
+    }
+    float dxa[MT][NT][4] = {};
+    data_tile<WR, WC, MT, NT>(
+        gs, ldg, wb, hp, mp, f0, n0, ws,
+        [&](int f, float (&acc)[MT][NT][4]) {
+          // The warp columns' sums for f - 1, in a fixed order: data_tile
+          // synchronised since they were written.
+          if (f > 0) fold_part<WC, RB>(part, dx0s, f0, f - 1);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int64_t r = r0 + ty + 16 * i;
+          for (int t = 0; t < MT; ++t)
 #pragma unroll
-          for (int j = 0; j < CJ; ++j) {
-            const int c = c0 + tx + 16 * j;
-            if (r < rows && c < h) dx[r * h + c] = acc[i][j];
+            for (int hh = 0; hh < 2; ++hh) {
+              const int row = wr + fr.row(t, hh);
+              const float x0f = x0s[row * f0 + f];
+              float s = 0.f;
+#pragma unroll
+              for (int j = 0; j < NT; ++j) {
+                const float v0 = acc[t][j][2 * hh], v1 = acc[t][j][2 * hh + 1];
+                dxa[t][j][2 * hh] = fmaf(x0f, v0, dxa[t][j][2 * hh]);
+                dxa[t][j][2 * hh + 1] = fmaf(x0f, v1, dxa[t][j][2 * hh + 1]);
+                const float2 xv = *reinterpret_cast<const float2*>(
+                    xs + row * LDX + wc + fr.col(j));
+                s = fmaf(xv.x, v0, s);
+                s = fmaf(xv.y, v1, s);
+              }
+              s = quad_sum(s);
+              if (fr.tig == 0) part[((f & 1) * WC + wcol) * RB + row] = s;
+            }
+        });
+    // data_tile ended on __syncthreads: the last f's sums are visible.
+    fold_part<WC, RB>(part, dx0s, f0, f0 - 1);
+#pragma unroll
+    for (int t = 0; t < MT; ++t)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = wr + fr.row(t, hh);
+        if (row >= valid) continue;
+        float* o = dx + (r0 + row) * h;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int c = n0 + wc + fr.col(j);
+          const float v0 = dxa[t][j][2 * hh], v1 = dxa[t][j][2 * hh + 1];
+          if (pairs && c + 1 < h) {
+            *reinterpret_cast<float2*>(o + c) = make_float2(v0, v1);
+          } else {
+            if (c < h) o[c] = v0;
+            if (c + 1 < h) o[c + 1] = v1;
           }
         }
-      });
-  __syncthreads();
-  for (int e = threadIdx.x; e < kRows * f0; e += kThreads) {
-    if (r0 + e / f0 < rows) dx0[r0 * f0 + e] = dx0s[e];
+      }
+    // bf16(x) for the weight pass, from the tile (data_tile synchronised).
+    for (int e = tid; e < RB * (COLS / 2); e += T::kThreads) {
+      const int rr = e / (COLS / 2), c = 2 * (e - rr * (COLS / 2));
+      if (rr < valid && n0 + c < xsd)
+        *reinterpret_cast<uint32_t*>(xb + (r0 + rr) * xsd + n0 + c) =
+            pack_bf16x2(xs[rr * LDX + c], xs[rr * LDX + c + 1]);
+    }
+    __syncthreads();
+  }
+  for (int e = tid; e < valid * f0; e += T::kThreads) {
+    dx0[r0 * f0 + e] = dx0s[e];
+  }
+  for (int e = tid; e < valid * (mp / 8); e += T::kThreads) {
+    const int rr = e / (mp / 8), k = e - rr * (mp / 8);
+    *reinterpret_cast<uint4*>(gb + (r0 + rr) * mp + 8 * k) =
+        *reinterpret_cast<const uint4*>(gs + rr * ldg + 8 * k);
   }
 }
 
-template <int CJ>
-int launch_bwd_data(const float* x0, const float* x, const float* w,
-                    const float* g, float* dx0, float* dx, int64_t rows,
-                    int f0, int h, int m, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * ((size_t)kRows * (2 * f0 + h + 1 + m + 1) +
-                       (size_t)kK * (16 * CJ + 1));
-  const int err = cin::allow_smem(cin2d_bwd_data_kernel<CJ>, smem);
-  if (err) return err;
-  const int64_t blocks = (rows + kRows - 1) / kRows;
-  cin2d_bwd_data_kernel<CJ><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      x0, x, w, g, dx0, dx, rows, f0, h, m);
-  return (int)cudaGetLastError();
+// Dynamic shared memory of one block of cin2d_bwd_data_kernel.
+template <int WR, int WC, int MT, int NT>
+size_t bwd_data_smem(int f0, int mp) {
+  using T = Tile<WR, WC, MT, NT>;
+  return sizeof(bf16) * (2 * (size_t)T::kStage + (size_t)T::kRowsB * (mp + 8)) +
+         sizeof(float) * (size_t)T::kRowsB * (T::kCols + 8 + 2 * f0 + 2 * WC);
 }
 
+template <int WR, int WC, int MT, int NT>
+int launch_bwd_data(const float* x0, const float* x, const bf16* wb,
+                    const float* g, float* dx0, float* dx, bf16* xb,
+                    bf16* gb, int64_t rows, int f0, int h, int m, int hp,
+                    int mp, int xsd, cudaStream_t stream) {
+  using T = Tile<WR, WC, MT, NT>;
+  if (hp % T::kCols || mp % 16) return (int)cudaErrorInvalidValue;
+  const size_t smem = bwd_data_smem<WR, WC, MT, NT>(f0, mp);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const int err = allow_smem(cin2d_bwd_data_kernel<WR, WC, MT, NT>, smem);
+  if (err) return err;
+  const int64_t blocks = (rows + T::kRowsB - 1) / T::kRowsB;
+  cin2d_bwd_data_kernel<WR, WC, MT, NT>
+      <<<(unsigned)blocks, T::kThreads, smem, stream>>>(
+          x0, x, wb, g, dx0, dx, xb, gb, rows, f0, h, m, hp, mp, xsd);
+  return (int)cudaGetLastError();
+}
 }  // namespace
 
 // x0: (rows, f0) and x: (rows, h) fp32, row-major; wt: W (f0, h, m) as
@@ -322,9 +382,9 @@ extern "C" int cin2d_fwd_bf16(const float* x0, const float* x,
                        sizeof(uint32_t) * kFwdRows * (size_t)f0;
   const size_t per_f = 2 * sizeof(__nv_bfloat16) * kFwdCols * kWStride;
   int fg = f0 < kMaxFGroup ? f0 : kMaxFGroup;
-  while (fg > 1 && fixed + fg * per_f > kMaxSmem) --fg;
+  while (fg > 1 && fixed + fg * per_f > cin::kMaxSmem) --fg;
   const size_t smem = fixed + fg * per_f;
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (smem > cin::kMaxSmem) return (int)cudaErrorInvalidValue;
   const int err = cin::allow_smem(cin2d_fwd_bf16_kernel, smem);
   if (err) return err;
   const dim3 grid((unsigned)((rows + kFwdRows - 1) / kFwdRows),
@@ -334,18 +394,42 @@ extern "C" int cin2d_fwd_bf16(const float* x0, const float* x,
   return (int)cudaGetLastError();
 }
 
-// The fp32 gradients of the layer at (x0, x, w), all fp32 and row-major,
-// for the output gradient g (rows, m):
-// dx0 (rows, f0) and dx (rows, h) are written; dw (f0, h, m) must be zeroed
-// by the caller. Launches on `stream` and returns a CUDA error code.
-extern "C" int cin2d_bwd_f32(const float* x0, const float* x, const float* w,
-                             const float* g, float* dx0, float* dx, float* dw,
-                             int64_t rows, int32_t f0, int32_t h, int32_t m,
-                             cudaStream_t stream) {
+// Bytes of shared memory one block of the backward's data kernel needs for
+// (f0, h, mp): at most cin::kMaxSmem (232448) launch. With mp = m rounded up
+// to 16 that is 256 mp + 1024 f0 <= 89088 for h > 16 (f0 <= 55 at m = 128,
+// m <= 320 at f0 = 6) and 256 mp + 1024 f0 <= 208384 for h <= 16.
+extern "C" int64_t cin2d_bwd_bf16_smem(int32_t f0, int32_t h, int32_t mp) {
+  return (int64_t)(h <= 16 ? bwd_data_smem<8, 1, 1, 2>(f0, mp)
+                           : bwd_data_smem<4, 2, 2, 8>(f0, mp));
+}
+
+// The gradients of the layer at (x0, x, w) for the output gradient g
+// (rows, m), at the TPU kernel's precision: x0 (rows, f0), x (rows, h) and
+// g fp32, row-major; wb: W as bf16 (f0, hp, mp), zero-padded, with hp = h
+// rounded up to 16 (h <= 16) or to 128, and mp = m rounded up to 16. dx0
+// (rows, f0), dx (rows, h) and dw (f0, h, m) fp32 are written; dw by the
+// weight pass in tiles of `tile_rows` pair columns, summed over chunks of
+// `chunk` rows (a multiple of 64). Scratch: xb (rows, xsd) and gb (rows,
+// mp) bf16, xsd = h rounded up to 8, and part, ceil(rows / chunk) * f0 *
+// xsd * m floats. Launches on `stream` and returns a CUDA error code
+// (cudaErrorInvalidValue where the data kernel's block would need more
+// shared memory than cin::kMaxSmem: see cin2d_bwd_bf16_smem).
+extern "C" int cin2d_bwd_bf16(const float* x0, const float* x, const bf16* wb,
+                              const float* g, float* dx0, float* dx,
+                              float* dw, float* part, bf16* xb, bf16* gb,
+                              int64_t rows, int32_t f0, int32_t h, int32_t m,
+                              int32_t hp, int32_t mp, int32_t xsd,
+                              int32_t tile_rows, int32_t chunk,
+                              cudaStream_t stream) {
+  if (xsd % 8 || xsd < h || xsd > hp) return (int)cudaErrorInvalidValue;
   const int err =
-      h <= 16
-          ? launch_bwd_data<1>(x0, x, w, g, dx0, dx, rows, f0, h, m, stream)
-          : launch_bwd_data<8>(x0, x, w, g, dx0, dx, rows, f0, h, m, stream);
+      h <= 16 ? launch_bwd_data<8, 1, 1, 2>(x0, x, wb, g, dx0, dx, xb, gb,
+                                            rows, f0, h, m, hp, mp, xsd,
+                                            stream)
+              : launch_bwd_data<4, 2, 2, 8>(x0, x, wb, g, dx0, dx, xb, gb,
+                                            rows, f0, h, m, hp, mp, xsd,
+                                            stream);
   if (err) return err;
-  return cin::launch_weight_grad(x0, x, g, dw, rows, f0, h, m, stream);
+  return cin::launch_weight_pass(x0, xb, gb, part, dw, rows, f0, h, xsd, mp,
+                                 m, tile_rows, chunk, stream);
 }

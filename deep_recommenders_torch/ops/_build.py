@@ -105,8 +105,10 @@ def build() -> Dict[str, str]:
     return logs
 
 
-def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
-    """The C function ``symbol`` of source ``name``, building it if needed."""
+def function(name: str, symbol: str, argtypes,
+             restype=ctypes.c_int) -> ctypes._CFuncPtr:
+    """The C function ``symbol`` of source ``name``, building it if needed;
+    it returns a CUDA error code (``int``) unless ``restype`` says else."""
     lib = _libraries.get(name)
     if lib is None:
         path = library_path(name)
@@ -115,7 +117,7 @@ def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
         lib = _libraries[name] = ctypes.CDLL(path)
     fn = getattr(lib, symbol)
     fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    fn.restype = restype
     return fn
 
 

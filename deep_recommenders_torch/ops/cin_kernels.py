@@ -18,13 +18,16 @@ is 2-D:
   raises. Launches are counted per direction in ``cin2d.launches`` and
   ``cin_stack_pooled.launches``.
 
-K4's forward on the card rounds as the TPU kernel does: bf16 operands, each
-pair product x0v[r, f] * xv[r, g] rounded to bf16, fp32 accumulation on the
-tensor cores (:func:`cin2d_reference_bf16` is that function in plain
-PyTorch). K3 and K4's backward still compute in fp32 on the CUDA cores,
-where the TPU kernels round to bf16 as well. On a CPU tensor every wrapper
-takes its fp32 plain version, as the JAX package's off-TPU path takes its
-fp32 reference. The bf16 cast of K3's x0v is part of the model.
+K4's forward and K3's and K4's backwards on the card round as the TPU
+kernels do: bf16 operands, each pair product x0v[r, f] * xv[r, g] rounded
+to bf16, fp32 accumulation on the tensor cores, and the backwards' bf16
+intermediates where the TPU kernels round
+(:func:`cin2d_reference_bf16`, :func:`cin2d_backward_reference_bf16` and
+:func:`stack_backward_reference_bf16` are those functions in plain
+PyTorch). K3's forward still computes in fp32 on the CUDA cores. On a CPU
+tensor every wrapper takes its fp32 plain version, as the JAX package's
+off-TPU path takes its fp32 reference. The bf16 cast of K3's x0v is part
+of the model.
 """
 
 from __future__ import annotations
@@ -38,6 +41,35 @@ from deep_recommenders_torch.ops import _build
 
 _P = ctypes.c_void_p
 _I64, _I32 = ctypes.c_int64, ctypes.c_int32
+
+
+def weight_pass_plan(pair_columns: int) -> Tuple[int, int]:
+    """(tile rows, chunk rows) of a backward kernel's weight pass over
+    ``pair_columns`` = F0 x (H padded to a multiple of 8) pair columns: 64 x
+    128 tiles of dW in 512-row chunks for at most 64 pair columns, 128 x 128
+    tiles in 2048-row chunks for more, so that each pass has some 200-400
+    blocks at R = 131072. Each chunk is summed apart, then the chunks in a
+    fixed order. The launcher (``csrc/cin_tile.cuh``) takes both as
+    given."""
+    return (64, 512) if pair_columns <= 64 else (128, 2048)
+
+
+# Dynamic shared memory an sm_90 block may hold (227 KB; cin_tile.cuh's
+# kMaxSmem). The backwards' data kernels hold whole bf16 rows of the output
+# gradient, so their shapes are bounded by it.
+MAX_SMEM_BYTES = 232448
+
+
+def _check_smem(name: str, need: int, shape: str) -> None:
+    if need > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"{name}: {shape} needs {need} bytes of shared memory for one "
+            f"block of 128 rows, above the {MAX_SMEM_BYTES} an H100 block "
+            f"may hold")
+
+
+def _round_up(n: int, k: int) -> int:
+    return -(-n // k) * k
 
 
 # -- K4: one CIN layer over rows ---------------------------------------------
@@ -83,6 +115,33 @@ def cin2d_backward_reference(
     dx = torch.einsum("rfm,fgm->rg", x0v[:, :, None] * g[:, None, :], w)
     pair = (x0v[:, :, None] * xv[:, None, :]).reshape(r, -1)
     dw = (pair.T @ g).reshape(w.shape)
+    return dx0, dx, dw
+
+
+def cin2d_backward_reference_bf16(
+    x0v: torch.Tensor, xv: torch.Tensor, w: torch.Tensor, g: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradients K4's backward computes on the card, as the TPU kernel
+    computes them (``deep_recommenders_tpu/ops/cin_kernels.py:145-177``):
+
+        t_f   = bf16(g) bf16(W[f])^T                  (exact products)
+        dx    = sum_f x0v[:, f] t_f
+        dx0[:, f] = sum_h xv[:, h] t_f[:, h]          (fp32 x0v and xv)
+        dW[f] = sum_r bf16(bf16(x0v[r, f]) bf16(xv[r, :]))^T bf16(g[r, :])
+
+    Every sum is in fp32; on the card the fp32 products must run without
+    TF32, as for :func:`cin2d_reference_bf16`.
+    """
+    gb = g.bfloat16().float()
+    xb = xv.bfloat16()
+    dx = torch.zeros_like(xv)
+    dx0 = torch.empty_like(x0v)
+    dw = torch.empty_like(w)
+    for f in range(w.shape[0]):
+        t = gb @ w[f].bfloat16().float().T
+        dx += x0v[:, f:f + 1] * t
+        dx0[:, f] = (xv * t).sum(dim=1)
+        dw[f] = (x0v[:, f:f + 1].bfloat16() * xb).float().T @ gb
     return dx0, dx, dw
 
 
@@ -139,7 +198,7 @@ def cin2d_forward(
     out = torch.empty((r, m), dtype=torch.float32, device=x0v.device)
     if r == 0:
         return out
-    hp, mp = -(-h // 16) * 16, -(-m // 128) * 128
+    hp, mp = _round_up(h, 16), _round_up(m, 128)
     wt = torch.zeros((f0, mp, hp), dtype=torch.bfloat16, device=w.device)
     wt[:, :m, :h] = w.transpose(1, 2)
     fn = _build.function("cin2d", "cin2d_fwd_bf16",
@@ -156,8 +215,14 @@ def cin2d_backward(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K4 backward: (dx0, dx, dW) for the output gradient g (R, M) f32.
 
-    On the card dW is summed over row chunks with fp32 atomics, so its
-    summation order changes from run to run.
+    On the card it computes :func:`cin2d_backward_reference_bf16` on the
+    tensor cores; W goes to the kernel as bf16 (F0, Hp, Mp), zero-padded to
+    its tiles (Hp 16 for H <= 16, else a multiple of 128; Mp = M rounded up
+    to 16). dW is summed over row chunks (:func:`weight_pass_plan`), added
+    in a fixed order. A block of the data kernel holds 128 rows of bf16 g,
+    so the card takes 256 Mp + 1024 F0 <= 89088 for H > 16 (F0 <= 55 at
+    M = 128, M <= 320 at F0 = 6) and <= 208384 for H <= 16; it raises
+    ValueError on larger shapes.
     """
     if x0v.device.type == "cpu":
         return cin2d_backward_reference(x0v, xv, w, g)
@@ -167,14 +232,30 @@ def cin2d_backward(
     dev = x0v.device
     dx0 = torch.empty((r, f0), dtype=torch.float32, device=dev)
     dx = torch.empty((r, h), dtype=torch.float32, device=dev)
-    dw = torch.zeros((f0, h, m), dtype=torch.float32, device=dev)
     if r == 0:
-        return dx0, dx, dw
-    fn = _build.function("cin2d", "cin2d_bwd_f32",
-                         [_P] * 7 + [_I64, _I32, _I32, _I32, _P])
-    code = fn(x0v.data_ptr(), xv.data_ptr(), w.data_ptr(), g.data_ptr(),
-              dx0.data_ptr(), dx.data_ptr(), dw.data_ptr(), r, f0, h, m,
-              torch.cuda.current_stream(dev).cuda_stream)
+        return dx0, dx, torch.zeros_like(w)
+    hp = 16 if h <= 16 else _round_up(h, 128)
+    mp = _round_up(m, 16)
+    smem = _build.function("cin2d", "cin2d_bwd_bf16_smem", [_I32] * 3,
+                           restype=_I64)
+    _check_smem("cin2d backward", smem(f0, h, mp), f"F0={f0} H={h} M={m}")
+    dw = torch.empty_like(w)
+    wb = torch.zeros((f0, hp, mp), dtype=torch.bfloat16, device=dev)
+    wb[:, :h, :m] = w
+    # Scratch: bf16 copies of x and g (the weight pass's operands, x's
+    # columns padded to a multiple of 8) and the weight chunks' sums.
+    xs = _round_up(h, 8)
+    xb = torch.empty((r, xs), dtype=torch.bfloat16, device=dev)
+    gb = torch.empty((r, mp), dtype=torch.bfloat16, device=dev)
+    tile, chunk = weight_pass_plan(f0 * xs)
+    part = torch.empty(-(-r // chunk) * f0 * xs * m, dtype=torch.float32,
+                       device=dev)
+    fn = _build.function("cin2d", "cin2d_bwd_bf16",
+                         [_P] * 10 + [_I64] + [_I32] * 8 + [_P])
+    code = fn(x0v.data_ptr(), xv.data_ptr(), wb.data_ptr(), g.data_ptr(),
+              dx0.data_ptr(), dx.data_ptr(), dw.data_ptr(), part.data_ptr(),
+              xb.data_ptr(), gb.data_ptr(), r, f0, h, m, hp, mp, xs, tile,
+              chunk, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, "cin2d backward")
     cin2d.launches["bwd"] += 1
     return dx0, dx, dw
@@ -286,6 +367,60 @@ def stack_backward_reference(
     return dx0.to(x0v.dtype), dw1, dw2
 
 
+def stack_backward_reference_bf16(
+    x0v: torch.Tensor,
+    w1: torch.Tensor,
+    w2: torch.Tensor,
+    z1: torch.Tensor,
+    z2: torch.Tensor,
+    gp1: torch.Tensor,
+    gp2: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward K3 computes on the card, as the TPU kernel computes it
+    (``deep_recommenders_tpu/ops/cin_kernels.py:470-560``), from the same
+    arguments as :func:`stack_backward_reference`; x0b = bf16(x0v):
+
+        z1b = bf16(z1),  g2b = bf16(gp2 broadcast, masked by z2 > 0)
+        t_f = g2b bf16(W2[f])^T,  dz1 = sum_f x0b[:, f] t_f
+        dx0_2[:, f] = sum_m bf16(z1b bf16(t_f))
+        dW2[f] = sum_r bf16(x0b[r, f] z1b[r, :])^T g2b[r, :]
+        g1b = bf16((dz1 + gp1 broadcast), masked by z1b != 0)
+        dW1[f, g] = sum_r bf16(x0b[r, f] x0b[r, g]) g1b[r, :]
+        dy = g1b bf16(W1)^T,  a (F0, F0) block per row
+        dx0_1[:, a] = sum_g bf16(bf16(dy[a, g] + bf16(dy[g, a])) x0b[g])
+        dx0 = bf16(dx0_1 + dx0_2)
+
+    Every sum is in fp32. The swapped term of dy is rounded and the other
+    is not, as the TPU kernel's permutation matmul does. On the card the
+    fp32 products must run without TF32.
+    """
+    x0b = x0v.bfloat16()
+    x0 = x0b.float()
+    r, f0 = x0.shape
+    d = r // gp1.shape[0]
+    m1 = w1.shape[2]
+    z1b = z1.bfloat16()
+    g2 = torch.where(z2 > 0, gp2.repeat_interleave(d, dim=0), 0.0)
+    g2 = g2.bfloat16().float()
+    dz1 = torch.zeros_like(z1)
+    dx0_2 = torch.empty_like(x0)
+    dw2 = torch.empty_like(w2)
+    for f in range(f0):
+        t = g2 @ w2[f].bfloat16().float().T
+        dz1 += x0[:, f:f + 1] * t
+        dx0_2[:, f] = (z1b * t.bfloat16()).float().sum(dim=1)
+        dw2[f] = (x0b[:, f:f + 1] * z1b).float().T @ g2
+    g1 = torch.where(z1b != 0, dz1 + gp1.repeat_interleave(d, dim=0), 0.0)
+    g1 = g1.bfloat16().float()
+    pair = (x0b[:, :, None] * x0b[:, None, :]).float().reshape(r, -1)
+    dw1 = (pair.T @ g1).reshape(w1.shape)
+    dy = (g1 @ w1.bfloat16().float().reshape(f0 * f0, m1).T).reshape(
+        r, f0, f0)
+    sym = (dy + dy.transpose(1, 2).bfloat16().float()).bfloat16()
+    dx0_1 = (sym * x0b[:, None, :]).float().sum(dim=2)
+    return (dx0_1 + dx0_2).bfloat16(), dw1, dw2
+
+
 def _stack_shapes(name, x0v, w1, w2):
     if x0v.dim() != 2 or w1.dim() != 3 or w2.dim() != 3:
         raise TypeError(
@@ -355,8 +490,14 @@ def stack_backward(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K3 backward from the saved residuals: (dx0 bf16, dW1, dW2).
 
-    On the card dW1 and dW2 are summed over row chunks with fp32 atomics,
-    so their summation order changes from run to run.
+    On the card it computes :func:`stack_backward_reference_bf16` on the
+    tensor cores; W1 and W2 go to the kernel as bf16, zero-padded to its
+    tiles. dW1 and dW2 are summed over row chunks
+    (:func:`weight_pass_plan`), added in a fixed order. A block of the data
+    kernel holds 128 rows of bf16 g2, z1 and g1, so the card takes
+    256 (K2p + 2 K1p) + 1024 F0 <= 154624, with K1p, K2p = M1, M2 rounded
+    up to 16 (F0 <= 55 at M1 = M2 = 128); it raises ValueError on larger
+    shapes.
     """
     if x0v.device.type == "cpu":
         return stack_backward_reference(x0v, w1, w2, z1, z2, gp1, gp2)
@@ -373,20 +514,40 @@ def stack_backward(
     _check_tensor(name, "gp2", gp2, torch.float32, (b, m2))
     dev = x0v.device
     dx0 = torch.empty((r, f0), dtype=torch.bfloat16, device=dev)
-    dw1 = torch.zeros((f0, f0, m1), dtype=torch.float32, device=dev)
-    dw2 = torch.zeros((f0, m1, m2), dtype=torch.float32, device=dev)
-    # Scratch: the masked row gradients of both layers, for the dW passes.
-    g1 = torch.empty((r, m1), dtype=torch.float32, device=dev)
-    g2 = torch.empty((r, m2), dtype=torch.float32, device=dev)
     if r == 0:
-        return dx0, dw1, dw2
+        return dx0, torch.zeros_like(w1), torch.zeros_like(w2)
+    nyp, n1p = _round_up(f0 * f0, 64), _round_up(m1, 128)
+    k1p, k2p = _round_up(m1, 16), _round_up(m2, 16)
+    smem = _build.function("cin_stack", "cin_stack_bwd_smem", [_I32] * 3,
+                           restype=_I64)
+    _check_smem(name, smem(f0, k1p, k2p), f"F0={f0} M1={m1} M2={m2}")
+    dw1, dw2 = torch.empty_like(w1), torch.empty_like(w2)
+    w1b = torch.zeros((nyp, k1p), dtype=torch.bfloat16, device=dev)
+    w1b[:f0 * f0, :m1] = w1.reshape(f0 * f0, m1)
+    w2b = torch.zeros((f0, n1p, k2p), dtype=torch.bfloat16, device=dev)
+    w2b[:, :m1, :m2] = w2
+    # Scratch: the weight products' bf16 operands (the rounded row
+    # gradients of both layers, z1b and x0, columns padded to multiples of
+    # 8), layer 1's dy, and the weight chunks' sums.
+    x0w = _round_up(f0, 8)
+    g1 = torch.empty((r, k1p), dtype=torch.bfloat16, device=dev)
+    z1b = torch.empty((r, k1p), dtype=torch.bfloat16, device=dev)
+    g2 = torch.empty((r, k2p), dtype=torch.bfloat16, device=dev)
+    x0p = torch.empty((r, x0w), dtype=torch.bfloat16, device=dev)
+    dy = torch.empty((r, f0 * f0), dtype=torch.float32, device=dev)
+    tile1, chunk1 = weight_pass_plan(f0 * x0w)
+    tile2, chunk2 = weight_pass_plan(f0 * k1p)
+    part = torch.empty(max(-(-r // chunk1) * f0 * x0w * m1,
+                           -(-r // chunk2) * f0 * k1p * m2),
+                       dtype=torch.float32, device=dev)
     fn = _build.function("cin_stack", "cin_stack_bwd",
-                         [_P] * 12 + [_I64, _I32, _I32, _I32, _I32, _P])
-    code = fn(x0v.data_ptr(), w1.data_ptr(), w2.data_ptr(), z1.data_ptr(),
+                         [_P] * 16 + [_I64] + [_I32] * 13 + [_P])
+    code = fn(x0v.data_ptr(), w1b.data_ptr(), w2b.data_ptr(), z1.data_ptr(),
               z2.data_ptr(), gp1.data_ptr(), gp2.data_ptr(), dx0.data_ptr(),
               dw1.data_ptr(), dw2.data_ptr(), g1.data_ptr(), g2.data_ptr(),
-              r, f0, m1, m2, r // b,
-              torch.cuda.current_stream(dev).cuda_stream)
+              z1b.data_ptr(), x0p.data_ptr(), dy.data_ptr(), part.data_ptr(),
+              r, f0, m1, m2, r // b, nyp, n1p, k1p, k2p, x0w, tile1, chunk1,
+              tile2, chunk2, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, name)
     cin_stack_pooled.launches["bwd"] += 1
     return dx0, dw1, dw2

@@ -13,6 +13,9 @@ bf16 ulp: rtol 2**-7.
 """
 
 import functools
+import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -24,6 +27,7 @@ from jax.experimental import pallas as pl
 from deep_recommenders_torch.models.ranking import CIN
 from deep_recommenders_torch.ops import cin as t_cin
 from deep_recommenders_torch.ops import cin_kernels as tk
+from deep_recommenders_torch.ops import cin_tolerances as ct
 from deep_recommenders_tpu.models.ranking import CIN as JCIN
 from deep_recommenders_tpu.ops import cin as j_cin
 from deep_recommenders_tpu.ops import cin_kernels as jk
@@ -114,6 +118,108 @@ def test_cin2d_reference_bf16_matches_the_pallas_kernel(monkeypatch, rng, r,
     # The fp32 function lies farther away: the roundings are what is held.
     fp32 = tk.cin2d_reference(_t(x0), _t(x), _t(w)).numpy()
     assert np.any(np.abs(fp32 - want) > tol)
+
+
+# The JAX side of the bf16 backward tests: JAX's Pallas bodies of K4's and
+# K3's backwards in interpret mode, run in a subprocess under
+# --xla_allow_excess_precision=false. XLA on the CPU otherwise may drop the
+# bf16 rounding of a product that feeds a dot (K4's pair product), which the
+# TPU kernel makes.
+_JAX_BWD = r"""
+import functools, sys
+import jax
+jax.config.update("jax_platforms", "cpu")
+import jax.numpy as jnp
+import numpy as np
+from jax.experimental import pallas as pl
+from deep_recommenders_tpu.ops import cin_kernels as jk
+
+rng = np.random.default_rng(0)
+out = {}
+jk._on_tpu = lambda: True
+pl.pallas_call = functools.partial(pl.pallas_call, interpret=True)
+for i, (r, f0, h, m) in enumerate(%(k4)r):
+    a = dict(x0=rng.normal(size=(r, f0)), x=rng.normal(size=(r, h)),
+             w=rng.normal(0, 0.2, (f0, h, m)), g=rng.normal(size=(r, m)))
+    a = {k: v.astype(np.float32) for k, v in a.items()}
+    got = jk._cin2d_bwd(tuple(jnp.asarray(a[k]) for k in ("x0", "x", "w")),
+                        jnp.asarray(a["g"]))
+    a.update(zip(("dx0", "dx", "dw"), got))
+    out.update({f"k4_{i}_{k}": np.asarray(v) for k, v in a.items()})
+jk._on_tpu = lambda: False
+jk.STACK_INTERPRET = True
+for i, (b, f0, d, m1, m2) in enumerate(%(k3)r):
+    r = b * d
+    x0 = jnp.asarray(rng.normal(0, 0.5, (r, f0)), jnp.bfloat16)
+    w1 = jnp.asarray(rng.normal(0, 0.2, (f0, f0, m1)), jnp.float32)
+    w2 = jnp.asarray(rng.normal(0, 0.2, (f0, m1, m2)), jnp.float32)
+    gp1 = jnp.asarray(rng.normal(size=(b, m1)), jnp.float32)
+    gp2 = jnp.asarray(rng.normal(size=(b, m2)), jnp.float32)
+    _, _, z1, z2 = jk._stack_fwd_impl(x0, w1, w2, d, want_residuals=True)
+    dx0, dw1, dw2 = jk._stack_bwd(d, (x0, w1, w2, z1, z2), (gp1, gp2))
+    a = dict(x0=x0, w1=w1, w2=w2, gp1=gp1, gp2=gp2, z1=z1[:r], z2=z2[:r],
+             dx0=dx0, dw1=dw1, dw2=dw2)
+    out.update({f"k3_{i}_{k}": np.asarray(v.astype(jnp.float32))
+                for k, v in a.items()})
+np.savez(sys.argv[1], **out)
+"""
+K4_BWD_SHAPES = [(512, 6, 32, 16), (64, 6, 6, 12), (37, 6, 20, 9)]
+K3_BWD_SHAPES = [(8, 6, 16, 64, 48), (16, 6, 8, 12, 20)]
+
+
+@pytest.fixture(scope="module")
+def jax_backwards(tmp_path_factory):
+    path = tmp_path_factory.mktemp("cin_bwd") / "jax.npz"
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=root,
+               XLA_FLAGS=(os.environ.get("XLA_FLAGS", "")
+                          + " --xla_allow_excess_precision=false").strip())
+    code = _JAX_BWD % {"k4": K4_BWD_SHAPES, "k3": K3_BWD_SHAPES}
+    subprocess.run([sys.executable, "-c", code, str(path)], check=True,
+                   cwd=root, env=env, timeout=600)
+    return dict(np.load(path))
+
+
+@pytest.mark.parametrize("i", range(len(K4_BWD_SHAPES)))
+def test_cin2d_backward_reference_bf16_matches_the_pallas_kernel(
+        jax_backwards, i):
+    """K4's backward on the card computes ``cin2d_backward_reference_bf16``:
+    the TPU kernel's roundings (bf16 g and W, the pair product rounded,
+    fp32 x0v and xv in dx0 and dx, fp32 sums). JAX's Pallas body lies
+    within the tolerance of ``check_cin2d_backward`` (3 (n + 2) u sum|terms|
+    element-wise, 4 u sqrt(n + 4) of ||dW|| as a whole, and the bf16
+    roundings' share against fp64); the fp32 function does not."""
+    a = {k: _t(jax_backwards[f"k4_{i}_{k}"])
+         for k in ("x0", "x", "w", "g", "dx0", "dx", "dw")}
+    args = (a["x0"], a["x"], a["w"], a["g"])
+    checks = ct.check_cin2d_backward((a["dx0"], a["dx"], a["dw"]), *args,
+                                     planted_rows=8)
+    assert ct.worst_share(checks) <= 1
+    assert checks["planted"]["fp32"] > 1
+    with pytest.raises(AssertionError, match="disagrees"):
+        ct.check_cin2d_backward(tk.cin2d_backward_reference(*args), *args)
+
+
+@pytest.mark.parametrize("i", range(len(K3_BWD_SHAPES)))
+def test_stack_backward_reference_bf16_matches_the_pallas_kernel(
+        jax_backwards, i):
+    """K3's backward on the card computes ``stack_backward_reference_bf16``
+    on the saved residuals. Fed JAX's own bf16 residuals, JAX's Pallas body
+    lies within the tolerance of ``check_stack_backward`` (the fp32 bounds,
+    one bf16 spacing where a rounded intermediate may flip, the random-
+    rounding bound as a whole); the fp32 function does not."""
+    a = {k: _t(jax_backwards[f"k3_{i}_{k}"])
+         for k in ("x0", "w1", "w2", "gp1", "gp2", "z1", "z2", "dx0",
+                   "dw1", "dw2")}
+    d = K3_BWD_SHAPES[i][2]
+    args = (a["x0"].bfloat16(), a["w1"], a["w2"], a["z1"], a["z2"],
+            a["gp1"], a["gp2"])
+    checks = ct.check_stack_backward(
+        (a["dx0"].bfloat16(), a["dw1"], a["dw2"]), *args, planted_rows=d)
+    assert ct.worst_share(checks) <= 1
+    assert checks["planted"]["fp32"] > 1
+    with pytest.raises(AssertionError, match="disagrees"):
+        ct.check_stack_backward(tk.stack_backward_reference(*args), *args)
 
 
 @pytest.mark.parametrize("b,f0,d,m1,m2", [(16, 6, 8, 12, 20), (5, 6, 3, 7, 5)])

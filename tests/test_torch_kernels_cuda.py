@@ -4,8 +4,10 @@ Marked ``cuda``: each test skips where no CUDA device is present. This file
 imports neither JAX nor the JAX package, so it runs on the card alone (see
 README, "PyTorch port"). The tolerances follow the fp32 summation bound:
 atomics and the reference sum each output in different orders. The CIN
-kernels' checks are ``ops/cin_tolerances.py``'s, the attention kernels'
-``ops/attention_tolerances.py``'s; each module states them.
+kernels' checks are ``ops/cin_tolerances.py``'s (K4's forward and K3's
+and K4's backwards at the TPU kernels' bf16 contract, against their bf16
+emulations and fp64), the attention kernels' ``ops/attention_tolerances.py``'s;
+each module states them.
 """
 
 import numpy as np
@@ -93,6 +95,9 @@ def _normal(gen, *shape, std=1.0):
     (37, 3, 130, 200),  # two column tiles each way, one partial row tile
 ])
 def test_cin2d_kernel(device, r, f0, h, m):
+    """K4's forward and backward at the TPU kernel's bf16 contract, each
+    held against its bf16 emulation and against fp64
+    (ops/cin_tolerances.py), one launch each."""
     gen = torch.Generator(device=device).manual_seed(0)
     x0 = _normal(gen, r, f0, std=0.25)
     x = _normal(gen, r, h, std=0.25)
@@ -119,6 +124,24 @@ def test_cin2d_autograd_launches_both_kernels(device):
                                  "bwd": before["bwd"] + 1}
     ct.check_cin2d_forward(out.detach(), x0, x, w)
     ct.check_cin2d_backward([a.grad for a in args], x0, x, w, g)
+
+
+@pytest.mark.parametrize("h", [128, 6])
+def test_cin2d_backward_check_rejects_planted_faults(device, h):
+    """At the layered xDeepFM's shapes, on the card: K4's backward passes,
+    and its check rejects dW scaled by 1 + 1e-3, dW less one weight chunk
+    of rows, and the fp32 function."""
+    gen = torch.Generator(device=device).manual_seed(5)
+    x0 = _normal(gen, 131072, 6, std=0.25)
+    x = x0 if h == 6 else torch.relu(_normal(gen, 131072, h, std=0.25))
+    w = _normal(gen, 6, h, 128, std=0.05)
+    g = _normal(gen, 131072, 128)
+    checks = ct.check_cin2d_backward(ck.cin2d_backward(x0, x, w, g), x0, x,
+                                     w, g, planted_rows=ct.PLANTED_ROWS)
+    assert set(checks["planted"]) == {"fp32", "dw_scaled_1e-3",
+                                      "dw_chunk_dropped"}
+    assert min(checks["planted"].values()) > 1
+    assert ct.worst_share(checks) <= 1
 
 
 def test_cin2d_forward_check_rejects_planted_outputs(device):
@@ -161,6 +184,25 @@ def test_cin_stack_kernel(device, b, f0, d, m1, m2):
                                             "bwd": before["bwd"] + 1}
 
 
+def test_cin_stack_backward_check_rejects_planted_faults(device):
+    """At the flagship xDeepFM's shape, on the card: K3's backward passes,
+    and its check rejects each dW scaled by 1 + 1e-3 and less one weight
+    chunk of rows, and the fp32 function."""
+    gen = torch.Generator(device=device).manual_seed(6)
+    b, f0, d, m1, m2 = 8192, 6, 16, 128, 128
+    x0 = _normal(gen, b * d, f0, std=0.25).to(torch.bfloat16)
+    w1 = _normal(gen, f0, f0, m1, std=0.05)
+    w2 = _normal(gen, f0, m1, m2, std=0.05)
+    gp1, gp2 = _normal(gen, b, m1), _normal(gen, b, m2)
+    _, _, z1, z2 = ck.stack_forward(x0, w1, w2, d, residuals=True)
+    args = (x0, w1, w2, z1, z2, gp1, gp2)
+    checks = ct.check_stack_backward(ck.stack_backward(*args), *args,
+                                     planted_rows=ct.PLANTED_ROWS)
+    assert len(checks["planted"]) == 5
+    assert min(checks["planted"].values()) > 1
+    assert ct.worst_share(checks) <= 1
+
+
 def test_cin_stack_pooled_autograd_and_no_grad_launches(device):
     gen = torch.Generator(device=device).manual_seed(3)
     x0 = _normal(gen, 64 * 16, 6, std=0.25).to(torch.bfloat16)
@@ -177,6 +219,49 @@ def test_cin_stack_pooled_autograd_and_no_grad_launches(device):
     torch.testing.assert_close(q1, p1.detach(), rtol=0, atol=0)
     assert x0.grad.dtype == torch.bfloat16 and w1.grad.shape == w1.shape
     assert bool(torch.isfinite(w2.grad).all())
+
+
+@pytest.mark.parametrize("f0,h,m,fits", [
+    (55, 128, 128, True),  # 256 Mp + 1024 F0 = 89088, the limit
+    (56, 128, 128, False),
+    (6, 128, 320, True),
+    (6, 128, 321, False),  # Mp = 336
+    (171, 6, 128, True),  # H <= 16: 256 Mp + 1024 F0 <= 208384
+    (172, 6, 128, False),
+])
+def test_cin2d_backward_at_its_shared_memory_limit(device, f0, h, m, fits):
+    """K4's backward runs and passes its check up to the shapes whose data
+    block fits in shared memory, and refuses the next with a ValueError."""
+    gen = torch.Generator(device=device).manual_seed(8)
+    r = 300
+    x0 = _normal(gen, r, f0, std=0.25)
+    x = _normal(gen, r, h, std=0.25)
+    w = _normal(gen, f0, h, m, std=0.05)
+    g = _normal(gen, r, m)
+    if not fits:
+        with pytest.raises(ValueError, match="shared memory"):
+            ck.cin2d_backward(x0, x, w, g)
+        return
+    ct.check_cin2d_backward(ck.cin2d_backward(x0, x, w, g), x0, x, w, g)
+
+
+@pytest.mark.parametrize("f0,fits", [(55, True), (56, False)])
+def test_cin_stack_backward_at_its_shared_memory_limit(device, f0, fits):
+    """K3's backward at M1 = M2 = 128 runs and passes its check up to
+    F0 = 55 (256 (K2p + 2 K1p) + 1024 F0 = 154624) and refuses F0 = 56."""
+    gen = torch.Generator(device=device).manual_seed(9)
+    b, d, m1, m2 = 20, 16, 128, 128
+    x0 = _normal(gen, b * d, f0, std=0.25).to(torch.bfloat16)
+    w1 = _normal(gen, f0, f0, m1, std=0.02)
+    w2 = _normal(gen, f0, m1, m2, std=0.02)
+    gp1, gp2 = _normal(gen, b, m1), _normal(gen, b, m2)
+    _, _, z1, z2 = ck.stack_forward(x0, w1, w2, d, residuals=True)
+    args = (x0, w1, w2, z1, z2, gp1, gp2)
+    if not fits:
+        with pytest.raises(ValueError, match="shared memory"):
+            ck.stack_backward(*args)
+        return
+    ct.check_stack_backward(ck.stack_backward(*args), *args)
 
 
 def test_cin_kernels_reject_bad_inputs(device):
