@@ -17,11 +17,12 @@ In order:
    for K3 and K4 and in ops/attention_tolerances.py for K5 and K6 (each
    backward on the same saved residuals and incoming gradients as its plain
    backward; each weight or input gradient also as a whole, and shown to
-   reject planted faults; K4's forward and K3's and K4's backwards, which
-   round as the TPU kernels do, against their bf16 emulations and against
-   fp64, and shown to reject the fp32 function, an output missing one
-   f-slice or a weight gradient scaled by 1 + 1e-3 or missing one chunk of
-   rows), reports
+   reject planted faults; K3 and K4, forward and backward, which round as
+   the TPU kernels do, against their bf16 emulations and against fp64, and
+   shown to reject the fp32 function, an output missing one f-slice, K3's
+   z1 left unrounded before layer 2 or its W scaled by 1 + 1e-3, or a
+   weight gradient scaled by 1 + 1e-3 or missing one chunk of rows),
+   reports
    each output's error and share of its tolerance, and times kernel, plain
    version and one library call where there is one (for K4's forward also
    that call on bf16 operands; for K6 the backward of the SDPA call, with
@@ -43,7 +44,8 @@ In order:
      cores) per train step, three K4 forwards per eval batch;
    (these three with Adam 1e-3 and batch 8192 through Trainer.fit_device,
    each with an AUC above 0.5; the trained DeepFM's and flagship xDeepFM's
-   logits on the card must match the plain CPU path on the same weights);
+   logits on the card must match the plain CPU path on the same weights,
+   the flagship's with K3's forward as its bf16 emulation);
    - the Transformer seq2seq slice (the zoo's width at S = 512, batch 256),
      2 epochs of a copy task through Transformer.loss: six K5 and six K6 per
      train step, six K5 per held-out batch, and a held-out loss that falls;
@@ -74,6 +76,7 @@ before printing any result. It imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import subprocess
@@ -394,10 +397,11 @@ def check_fields(checks) -> dict:
             "checks": checks}
 
 
-def bf16_backward_fields(name: str, checks) -> dict:
-    """:func:`check_fields` of a bf16 CIN backward, with ``max_abs_err``
-    against its bf16 plain version (the fp64 side's are in checks), and a
-    line with every output's shares and the planted faults'."""
+def bf16_fields(name: str, checks) -> dict:
+    """:func:`check_fields` of a bf16 CIN kernel held two ways, with
+    ``max_abs_err`` against its bf16 plain version (the fp64 side's are in
+    checks), and a line with every output's shares and the planted
+    faults'."""
     own = {k: c for k, c in checks.items() if k != "planted"
            and not k.endswith("_fp64")}
     print(f"{name} shares: " + ", ".join(
@@ -418,7 +422,8 @@ def cin_kernel_phase(ds: MovielensRanking, device):
     also reject dW scaled by 1 + 1e-3, dW without its first chunk of
     ``ct.PLANTED_ROWS`` rows (one chunk of the weight passes) and the fp32
     function; K4's forward check must reject the fp32 function and the bf16
-    emulation without one f-slice."""
+    emulation without one f-slice, K3's also z1 left unrounded before layer
+    2 and W scaled by 1 + 1e-3."""
     feats, _ = ds.train_arrays()
     batch = {k: torch.from_numpy(v[:BATCH]).to(device)
              for k, v in feats.items()}
@@ -434,16 +439,17 @@ def cin_kernel_phase(ds: MovielensRanking, device):
     entries = []
 
     # K3 on the flagship's bf16 rows, forward then backward on the forward's
-    # own residuals.
+    # own bf16 residuals.
     w1 = flagship.cin_w1.detach()
     w2 = flagship.cin_w2.detach()
     m1, m2 = XDEEPFM_MAPS
     gp1 = torch.randn(b, m1, device=device, generator=gen)
     gp2 = torch.randn(b, m2, device=device, generator=gen)
     got = ck.stack_forward(x0b, w1, w2, d, residuals=True)
-    checks = ct.check_stack_forward(got, x0b, w1, w2, d)
+    checks = ct.check_stack_forward(got, x0b, w1, w2, d, planted=True)
     z1, z2 = got[2], got[3]
     w_bytes = (f0 * f0 * m1 + f0 * m1 * m2) * 4
+    # Reads x0 (bf16) and W; writes p1, p2 (fp32) and the bf16 residuals.
     fwd_ops = 2 * r * f0 * f0 * m1 + 2 * r * f0 * m1 * m2
     entries.append({
         "name": "cin_stack_pooled.fwd",
@@ -452,14 +458,16 @@ def cin_kernel_phase(ds: MovielensRanking, device):
         "replaces": "deep_recommenders_tpu/ops/cin_kernels.py:336",
         "shape": {"x0v": [r, f0], "dtype": "bfloat16", "m1": m1, "m2": m2,
                   "d": d},
-        **check_fields(checks),
+        **bf16_fields("cin_stack_pooled.fwd", checks),
         **cin_timings(
             lambda: ck.stack_forward(x0b, w1, w2, d, residuals=True),
-            lambda: ck.stack_forward_reference(x0b, w1, w2, d),
+            lambda: ck.stack_forward_reference_bf16(x0b, w1, w2, d),
         ),
-        **bound_fields(r * f0 * 2 + w_bytes + (b + r) * (m1 + m2) * 4,
-                       fwd_ops),
+        **bound_fields(r * f0 * 2 + w_bytes + b * (m1 + m2) * 4
+                       + r * (m1 + m2) * 2, fwd_ops, bf16=True),
     })
+    entries[-1]["bound_bf16_share"] = (entries[-1]["bound_bf16_ms"]
+                                       / entries[-1]["ms"])
 
     got = ck.stack_backward(x0b, w1, w2, z1, z2, gp1, gp2)
     checks = ct.check_stack_backward(got, x0b, w1, w2, z1, z2, gp1, gp2,
@@ -475,18 +483,23 @@ def cin_kernel_phase(ds: MovielensRanking, device):
         "replaces": "deep_recommenders_tpu/ops/cin_kernels.py:434",
         "shape": {"x0v": [r, f0], "dtype": "bfloat16", "m1": m1, "m2": m2,
                   "d": d},
-        **bf16_backward_fields("cin_stack_pooled.bwd", checks),
+        **bf16_fields("cin_stack_pooled.bwd", checks),
         **cin_timings(
             lambda: ck.stack_backward(x0b, w1, w2, z1, z2, gp1, gp2),
             lambda: ck.stack_backward_reference_bf16(x0b, w1, w2, z1, z2,
                                                      gp1, gp2),
         ),
+        # Reads x0, W, the bf16 residuals and the pooled gradients;
+        # writes dx0 (bf16) and dW.
         **bound_fields(
-            r * f0 * 2 * 2 + w_bytes * 2 + (r + b) * (m1 + m2) * 4, bwd_ops,
-            bf16=True, scalar_ops=bwd_scalar_ops),
+            r * f0 * 2 * 2 + w_bytes * 2 + r * (m1 + m2) * 2
+            + b * (m1 + m2) * 4, bwd_ops, bf16=True,
+            scalar_ops=bwd_scalar_ops),
     })
     entries[-1]["bound_bf16_share"] = (entries[-1]["bound_bf16_ms"]
                                        / entries[-1]["ms"])
+    print(f"cin_stack_pooled host us a call: fwd {entries[-2]['host_us']:.1f}"
+          f", bwd {entries[-1]['host_us']:.1f}")
     del got, z1, z2
 
     # K4 on the layered model's first two layers: layer 0 (H = F0 = 6) on
@@ -533,7 +546,7 @@ def cin_kernel_phase(ds: MovielensRanking, device):
         del x0b, xb, wb
         bwd = {
             "shape": shape,
-            **bf16_backward_fields(f"cin2d.bwd H={h}", bwd_checks),
+            **bf16_fields(f"cin2d.bwd H={h}", bwd_checks),
             **cin_timings(
                 lambda: ck.cin2d_backward(x0v, xv, w, g),
                 lambda: ck.cin2d_backward_reference_bf16(x0v, xv, w, g),
@@ -637,9 +650,28 @@ def train_path(name, model, train, test, epochs, expect, device):
     return trainer, launches, final
 
 
-def check_logits(name, model, cpu_model, ds, device, rtol, atol):
+@contextlib.contextmanager
+def stack_forward_bf16_on_cpu():
+    """K3's forward on a CPU tensor as the card computes it
+    (``stack_forward_reference_bf16``) instead of the fp32 function, so
+    that the CPU path computes the card's function."""
+    fp32 = ck.stack_forward
+
+    def emulated(x0v, w1, w2, d, residuals=True):
+        out = ck.stack_forward_reference_bf16(x0v, w1, w2, d)
+        return out if residuals else (*out[:2], None, None)
+
+    ck.stack_forward = emulated
+    try:
+        yield
+    finally:
+        ck.stack_forward = fp32
+
+
+def check_logits(name, model, cpu_model, ds, device, rtol, atol,
+                 plain=contextlib.nullcontext):
     """The trained model's logits on the card against the plain CPU path
-    (the kernels' plain versions) on the same weights."""
+    (the kernels' plain versions, under ``plain()``) on the same weights."""
     feats, _ = ds.test_arrays()
     rows = {k: torch.from_numpy(v[:256]) for k, v in feats.items()}
     model.eval()
@@ -648,7 +680,8 @@ def check_logits(name, model, cpu_model, ds, device, rtol, atol):
     cpu_model.eval()
     with torch.no_grad():
         on_card = model({k: v.to(device) for k, v in rows.items()}).cpu()
-        on_cpu = cpu_model(rows)
+        with plain():
+            on_cpu = cpu_model(rows)
     if on_card.shape != (256, 1):
         raise AssertionError(f"{name}: logits shape {tuple(on_card.shape)}")
     torch.testing.assert_close(on_card, on_cpu, rtol=rtol, atol=atol)
@@ -681,11 +714,13 @@ def xdeepfm_paths(ds: MovielensRanking, train: DeviceData, test: DeviceData,
     final eval metrics with its profile."""
     paths, results = {}, {}
 
-    # The stack reads bf16 rows. The card and the CPU sum the movie_genres
-    # bag in other orders, so an embedding element can round to the
-    # neighbouring bf16 value (one part in 256). At these weights' scale
-    # (embeddings ~0.25, CIN kernels ~0.05, cin_head ~0.06) one such element
-    # moves a logit by about 2e-5: atol 2e-4.
+    # The stack reads bf16 rows, and its forward on the card rounds as the
+    # TPU kernel does: the CPU side takes that function's bf16 emulation.
+    # The card and the CPU sum the movie_genres bag in other orders, so an
+    # embedding element can round to the neighbouring bf16 value (one part
+    # in 256). At these weights' scale (embeddings ~0.25, CIN kernels
+    # ~0.05, cin_head ~0.06) one such element moves a logit by about 2e-5:
+    # atol 2e-4.
     xdeepfm = make_xdeepfm(ds, XDEEPFM_MAPS, device)
     trainer, paths["xdeepfm"], final = train_path(
         "xdeepfm", xdeepfm, train, test, EPOCHS,
@@ -694,7 +729,8 @@ def xdeepfm_paths(ds: MovielensRanking, train: DeviceData, test: DeviceData,
                       "cin_stack_pooled.bwd": s}, device)
     check_logits("xdeepfm", xdeepfm,
                  XDeepFM(ds.feature_specs, EMBED_DIM, XDEEPFM_MAPS, "relu",
-                         XDEEPFM_HIDDEN), ds, device, rtol=1e-4, atol=2e-4)
+                         XDEEPFM_HIDDEN), ds, device, rtol=1e-4, atol=2e-4,
+                 plain=stack_forward_bf16_on_cpu)
     results["xdeepfm"] = {"eval": final,
                           "profile": trainer_profile(trainer, train, test)}
     print("xdeepfm profile: " + json.dumps(results["xdeepfm"]["profile"]))

@@ -5,9 +5,6 @@
 // a matrix product whose left operand, the pair tensor x0[r, f] * x[r, g]
 // with column q = f * H + g, is generated on the fly and never stored.
 //
-// - layer_forward: K3's forward, fp32 on the CUDA cores. 256 threads laid
-//   out as 16 x 16: thread (ty, tx) owns rows ty + 16 i (i < 4) and columns
-//   tx + 16 j (j < CJ) of a kRows x (16 CJ) output tile in fp32 registers.
 // - data_tile: the backward's data product on the tensor cores, as the
 //   TPU kernels compute it: for a block of rows whose output gradient G
 //   sits in shared memory as bf16, t_f = G bf16(W[f])^T for each f, with
@@ -39,9 +36,6 @@ namespace cin {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 256;
-constexpr int kRows = 64;  // rows of a forward tile: 4 per thread
-constexpr int kK = 32;     // depth of one staged slice of the right operand
 constexpr int kKC = 128;   // depth of one staged chunk of W in data_tile
 constexpr int kWSub = 64;  // rows a weight block stages at a time
 constexpr size_t kMaxSmem = 232448;  // dynamic shared memory of a block
@@ -468,72 +462,6 @@ int launch_weight_pass(const T0* x0, const bf16* xb, const bf16* gb,
   weight_sum_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
       part, dw, f0, h, xs, m, (int)((rows + chunk - 1) / chunk));
   return (int)cudaGetLastError();
-}
-
-// -- K3's forward (fp32, CUDA cores) ------------------------------------------
-
-// dst[rr * ld + c] = src[rr * width + c] for rr < kRows, c < width; rows at
-// or past `valid` are zero.
-template <typename T>
-__device__ void load_rows(float* dst, int ld, int width, const T* src,
-                          int64_t valid) {
-  for (int e = threadIdx.x; e < kRows * width; e += kThreads) {
-    const int rr = e / width, c = e - (e / width) * width;
-    dst[rr * ld + c] =
-        rr < valid ? to_f(src[(int64_t)rr * width + c]) : 0.f;
-  }
-}
-
-// out[rr, c] = sum_{f,g} x0s[rr, f] * xs[rr, g] * w[f, g, c] for the tile's
-// rows; x0s has row stride f0, xs row stride ldx and width h. For each
-// column tile c0 (16 * CJ wide) of [0, m), calls epi(c0, acc) with acc[i][j]
-// the value at row ty + 16 i, column c0 + tx + 16 j (0 past m). bs holds
-// kK * (16 * CJ + 1) floats. Every thread must call it; it synchronises
-// the block first, so the caller's writes to x0s and xs are seen.
-template <int CJ, typename Epi>
-__device__ void layer_forward(const float* x0s, int f0, const float* xs,
-                              int ldx, int h, const float* __restrict__ w,
-                              int m, float* bs, Epi epi) {
-  constexpr int TN = 16 * CJ, LDB = TN + 1;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  __syncthreads();
-  for (int c0 = 0; c0 < m; c0 += TN) {
-    float acc[4][CJ];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) acc[i][j] = 0.f;
-    for (int f = 0; f < f0; ++f) {
-      float a0[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a0[i] = x0s[(ty + 16 * i) * f0 + f];
-      for (int k0 = 0; k0 < h; k0 += kK) {
-        const int kn = min(kK, h - k0);
-        __syncthreads();
-        for (int e = threadIdx.x; e < kK * TN; e += kThreads) {
-          const int kk = e / TN, cc = e - (e / TN) * TN, c = c0 + cc;
-          bs[kk * LDB + cc] =
-              (kk < kn && c < m) ? w[((int64_t)f * h + k0 + kk) * m + c] : 0.f;
-        }
-        __syncthreads();
-#pragma unroll 4
-        for (int kk = 0; kk < kn; ++kk) {
-          float a[4], b[CJ];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            a[i] = a0[i] * xs[(ty + 16 * i) * ldx + k0 + kk];
-#pragma unroll
-          for (int j = 0; j < CJ; ++j) b[j] = bs[kk * LDB + tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < CJ; ++j)
-              acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-        }
-      }
-    }
-    epi(c0, acc);
-  }
 }
 
 }  // namespace cin

@@ -18,16 +18,16 @@ is 2-D:
   raises. Launches are counted per direction in ``cin2d.launches`` and
   ``cin_stack_pooled.launches``.
 
-K4's forward and K3's and K4's backwards on the card round as the TPU
-kernels do: bf16 operands, each pair product x0v[r, f] * xv[r, g] rounded
-to bf16, fp32 accumulation on the tensor cores, and the backwards' bf16
-intermediates where the TPU kernels round
-(:func:`cin2d_reference_bf16`, :func:`cin2d_backward_reference_bf16` and
-:func:`stack_backward_reference_bf16` are those functions in plain
-PyTorch). K3's forward still computes in fp32 on the CUDA cores. On a CPU
-tensor every wrapper takes its fp32 plain version, as the JAX package's
-off-TPU path takes its fp32 reference. The bf16 cast of K3's x0v is part
-of the model.
+K3 and K4, forward and backward, run on the card's tensor cores at the TPU
+kernels' bf16 contract: bf16 operands, each pair product x0v[r, f] * xv[r, g]
+rounded to bf16, fp32 accumulation, and bf16 intermediates where the TPU
+kernels round (:func:`cin2d_reference_bf16`,
+:func:`cin2d_backward_reference_bf16`, :func:`stack_forward_reference_bf16`
+and :func:`stack_backward_reference_bf16` are those functions in plain
+PyTorch). K3 keeps its residuals z1 and z2 in bf16 on the card, as the TPU
+kernel saves them. On a CPU tensor every wrapper takes its fp32 plain
+version (K3 with fp32 residuals), as the JAX package's off-TPU path takes
+its fp32 reference. The bf16 cast of K3's x0v is part of the model.
 """
 
 from __future__ import annotations
@@ -321,6 +321,46 @@ def stack_forward_reference(
     return p1, p2, z1, z2
 
 
+def _stack_forward_bf16(x0v, w1, w2, d, round_z1=True):
+    # stack_forward_reference_bf16; without round_z1, layer 2 reads the
+    # fp32 z1 (a planted fault of ops/cin_tolerances.py).
+    x0b = x0v.bfloat16()
+    x0 = x0b.float()
+    r, f0 = x0.shape
+    m1 = w1.shape[2]
+    pair = (x0b[:, :, None] * x0b[:, None, :]).float().reshape(r, -1)
+    z1 = torch.relu(pair @ w1.bfloat16().float().reshape(f0 * f0, m1))
+    z1b = z1.bfloat16()
+    z1x = z1b.float() if round_z1 else z1
+    z2 = torch.zeros((r, w2.shape[2]), dtype=torch.float32, device=x0.device)
+    for f in range(f0):
+        z2 += (x0[:, f:f + 1] * z1x).bfloat16().float() @ (
+            w2[f].bfloat16().float())
+    z2 = torch.relu(z2)
+    p1 = z1.reshape(-1, d, m1).sum(dim=1)
+    p2 = z2.reshape(-1, d, z2.shape[1]).sum(dim=1)
+    return p1, p2, z1b, z2.bfloat16()
+
+
+def stack_forward_reference_bf16(
+    x0v: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, d: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The forward K3 computes on the card, as the TPU kernel computes it
+    (``deep_recommenders_tpu/ops/cin_kernels.py:349-380``): (p1, p2, z1b,
+    z2b), with x0b = bf16(x0v):
+
+        z1  = relu(sum_{f,g} bf16(x0b[:, f] x0b[:, g]) bf16(W1[f, g]))
+        p1  = sum of z1 over each example's d rows,  z1b = bf16(z1)
+        z2  = relu(sum_f bf16(x0b[:, f] z1b) bf16(W2[f]))
+        p2  = sum of z2 over each example's d rows,  z2b = bf16(z2)
+
+    Every product of rounded operands is exact in fp32 and every sum is in
+    fp32; p1 and p2 pool the fp32 z1 and z2. On the card the fp32 products
+    must run without TF32.
+    """
+    return _stack_forward_bf16(x0v, w1, w2, d)
+
+
 def stack_reference(
     x0v: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, d: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -342,10 +382,12 @@ def stack_backward_reference(
 
     z1 (R, M1) and z2 (R, M2) are the relu'd layer outputs of the forward;
     gp1 (B, M1) and gp2 (B, M2) the gradients of the pooled outputs.
-    Computes in the weights' dtype (fp32; fp64 for an exact reference) and
-    returns dx0 in x0v's dtype. The relu gradient at exactly 0 is 0.
+    Computes in the weights' dtype (fp32; fp64 for an exact reference),
+    from residuals of any float dtype, and returns dx0 in x0v's dtype. The
+    relu gradient at exactly 0 is 0.
     """
     x0 = x0v.to(w1.dtype)
+    z1, z2 = z1.to(w1.dtype), z2.to(w1.dtype)
     r, f0 = x0.shape
     d = r // gp1.shape[0]
     m1 = w1.shape[2]
@@ -402,7 +444,7 @@ def stack_backward_reference_bf16(
     z1b = z1.bfloat16()
     g2 = torch.where(z2 > 0, gp2.repeat_interleave(d, dim=0), 0.0)
     g2 = g2.bfloat16().float()
-    dz1 = torch.zeros_like(z1)
+    dz1 = torch.zeros((r, m1), dtype=torch.float32, device=x0.device)
     dx0_2 = torch.empty_like(x0)
     dw2 = torch.empty_like(w2)
     for f in range(f0):
@@ -449,7 +491,17 @@ def stack_forward(
     """K3 forward: (p1, p2, z1, z2); z1 and z2 are None without residuals.
 
     x0v: (R, F0) bf16 rows r = b * d + j; w1 (F0, F0, M1), w2 (F0, M1, M2)
-    f32. R must be a multiple of d.
+    f32. R must be a multiple of d. On the card it computes
+    :func:`stack_forward_reference_bf16` on the tensor cores and returns
+    z1 and z2 in bf16; W1 goes to the kernel as bf16 (N1p, K1p), W1[f, g, c]
+    at [c, f * F0 + g], and W2 as bf16 (F0, M2p, K2p), W2[f, g, c] at
+    [f, c, g], zero-padded (K1p = F0^2 and K2p = M1 rounded up to 16, N1p
+    and M2p = M1 and M2 rounded up to 128). A block holds 128 rows of x0,
+    their pair tensor and bf16 z1, so the card takes
+    512 F0 + 256 (K1p + K2p + 16) + max(36864, 256 (K1p + 8), 12288)
+    <= 232448 bytes (F0 <= 18 at M1 = 128, M1 <= 688 at F0 = 6); it raises
+    ValueError on larger shapes. On a CPU tensor it takes the fp32
+    :func:`stack_forward_reference`, with fp32 residuals.
     """
     if x0v.shape[0] % d:
         raise ValueError(f"cin_stack_pooled: R={x0v.shape[0]} is not a "
@@ -457,20 +509,31 @@ def stack_forward(
     if x0v.device.type == "cpu":
         p1, p2, z1, z2 = stack_forward_reference(x0v, w1, w2, d)
         return (p1, p2, z1, z2) if residuals else (p1, p2, None, None)
-    _check_cuda("cin_stack_pooled", x0v, w1, w2)
-    r, f0, m1, m2 = _stack_shapes("cin_stack_pooled", x0v, w1, w2)
+    name = "cin_stack_pooled"
+    _check_cuda(name, x0v, w1, w2)
+    r, f0, m1, m2 = _stack_shapes(name, x0v, w1, w2)
+    smem = _build.function("cin_stack", "cin_stack_fwd_smem", [_I32] * 3,
+                           restype=_I64)
+    _check_smem(name, smem(f0, m1, 1), f"F0={f0} M1={m1}")
     dev = x0v.device
     p1 = torch.zeros((r // d, m1), dtype=torch.float32, device=dev)
     p2 = torch.zeros((r // d, m2), dtype=torch.float32, device=dev)
     z1 = z2 = None
     if residuals:
-        z1 = torch.empty((r, m1), dtype=torch.float32, device=dev)
-        z2 = torch.empty((r, m2), dtype=torch.float32, device=dev)
+        z1 = torch.empty((r, m1), dtype=torch.bfloat16, device=dev)
+        z2 = torch.empty((r, m2), dtype=torch.bfloat16, device=dev)
     if r == 0:
         return p1, p2, z1, z2
+    k1p, k2p = _round_up(f0 * f0, 16), _round_up(m1, 16)
+    w1t = torch.zeros((_round_up(m1, 128), k1p), dtype=torch.bfloat16,
+                      device=dev)
+    w1t[:m1, :f0 * f0] = w1.reshape(f0 * f0, m1).T
+    w2t = torch.zeros((f0, _round_up(m2, 128), k2p), dtype=torch.bfloat16,
+                      device=dev)
+    w2t[:, :m2, :m1] = w2.transpose(1, 2)
     fn = _build.function("cin_stack", "cin_stack_fwd",
                          [_P] * 7 + [_I64, _I32, _I32, _I32, _I32, _P])
-    code = fn(x0v.data_ptr(), w1.data_ptr(), w2.data_ptr(), p1.data_ptr(),
+    code = fn(x0v.data_ptr(), w1t.data_ptr(), w2t.data_ptr(), p1.data_ptr(),
               p2.data_ptr(), z1.data_ptr() if residuals else None,
               z2.data_ptr() if residuals else None, r, f0, m1, m2, d,
               torch.cuda.current_stream(dev).cuda_stream)
@@ -491,7 +554,7 @@ def stack_backward(
     """K3 backward from the saved residuals: (dx0 bf16, dW1, dW2).
 
     On the card it computes :func:`stack_backward_reference_bf16` on the
-    tensor cores; W1 and W2 go to the kernel as bf16, zero-padded to its
+    tensor cores from the forward's bf16 residuals z1, z2; W1 and W2 go to the kernel as bf16, zero-padded to its
     tiles. dW1 and dW2 are summed over row chunks
     (:func:`weight_pass_plan`), added in a fixed order. A block of the data
     kernel holds 128 rows of bf16 g2, z1 and g1, so the card takes
@@ -508,8 +571,8 @@ def stack_backward(
     if b <= 0 or r % b:
         raise TypeError(f"{name}: gp1 {tuple(gp1.shape)} does not pool "
                         f"{r} rows")
-    _check_tensor(name, "z1", z1, torch.float32, (r, m1))
-    _check_tensor(name, "z2", z2, torch.float32, (r, m2))
+    _check_tensor(name, "z1", z1, torch.bfloat16, (r, m1))
+    _check_tensor(name, "z2", z2, torch.bfloat16, (r, m2))
     _check_tensor(name, "gp1", gp1, torch.float32, (b, m1))
     _check_tensor(name, "gp2", gp2, torch.float32, (b, m2))
     dev = x0v.device

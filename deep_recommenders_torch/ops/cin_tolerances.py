@@ -14,16 +14,16 @@ takes 2 u per addition, and a kernel and a plain version lie within
 3 (n + 2) u sum|terms| of each other. relu moves no value farther than its
 input moved, so a bound carries through it.
 
-- K3's forward is held against its plain version in fp32.
 - K4's forward rounds as the TPU kernel does (bf16 operands and pair
   products, fp32 sums) and is held two ways; see
   :func:`check_cin2d_forward`.
-- K3's and K4's backwards round as the TPU kernels do
-  (``cin2d_backward_reference_bf16``, ``stack_backward_reference_bf16``)
-  and are held two ways, on the same saved residuals and incoming
-  gradients as their plain versions, so both use the same relu masks:
-  against the bf16 emulation ("bf16") and against fp64 of the fp32
-  function ("fp64"). :func:`_cin2d_backward_bounds` and
+- K3's forward and K3's and K4's backwards round as the TPU kernels do
+  (``stack_forward_reference_bf16``, ``cin2d_backward_reference_bf16``,
+  ``stack_backward_reference_bf16``) and are held two ways (the backwards
+  on the same saved residuals and incoming gradients as their plain
+  versions, so both use the same relu masks): against the bf16 emulation
+  ("bf16") and against fp64 of the fp32 function ("fp64").
+  :func:`_stack_forward_bounds`, :func:`_cin2d_backward_bounds` and
   :func:`_stack_backward_bounds` follow the contract step by step and
   carry, for every quantity, a bound e on its distance that holds for any
   rounding and a variance v of that distance under random rounding
@@ -36,8 +36,9 @@ input moved, so a bound carries through it.
     intermediate moves a value by at most u_b = 2^-8 of it (u_b^2 of its
     square in v);
   - against the emulation the same inputs round the same way, but an
-    intermediate that the contract rounds (K3's bf16(t_f), g1b, bf16(dy),
-    bf16(dy + bf16(dy^T)), the products with x0b and z1b, dx0) may round
+    intermediate that the contract rounds (K3's z1b, z2b and
+    bf16(x0b z1b) forward; bf16(t_f), g1b, bf16(dy), bf16(dy + bf16(dy^T)),
+    the products with x0b and z1b, dx0 backward) may round
     to the other neighbour where its two fp32 values straddle a rounding
     boundary: only where a boundary lies within e of it, and then by at
     most e plus one bf16 spacing s. Under random rounding a value that
@@ -49,8 +50,8 @@ input moved, so a bound carries through it.
 Gradients as a whole. dW sums over every row, n = R = 131,072 at full
 width. Its terms have random signs and cancel, so a typical |dW| is near
 sum|terms| / sqrt(R), below the element-wise bound. That bound holds for
-any summation order but cannot see a wrong dW. So each backward output is
-also held to a Frobenius error of at most 2 sqrt(sum v), plus one bf16
+any summation order but cannot see a wrong dW. So each output of K3's
+forward and of the backwards is also held to a Frobenius error of at most 2 sqrt(sum v), plus one bf16
 spacing for an output that is rounded (a lone flip). Without
 intermediate roundings this is 4 u sqrt(n + 4) ||exact|| for terms of
 random sign, 8.6e-5 of ||dW|| at n = 131,072; against fp64 the bf16
@@ -263,7 +264,7 @@ def hold(name: str, errors: Dict[str, float]) -> Dict[str, float]:
     return {k: v for k, v in errors.items() if k != "finite"}
 
 
-def _check_backward(name: str, got, sides, rounded, faults
+def _check_two_ways(name: str, got, sides, rounded, faults
                     ) -> Dict[str, Dict[str, float]]:
     """Holds each output of ``got`` to both ``sides`` ({"bf16": (wants,
     bounds), "fp64": ...}); with ``faults`` ({fault: outputs}), each fault
@@ -409,30 +410,88 @@ def check_cin2d_backward(got: Sequence[torch.Tensor], x0v, xv, w, g,
                                             rows[2])
         faults = _weight_faults(got, {"dw": 2}, chunk,
                                 ck.cin2d_backward_reference(x0v, xv, w, g))
-    return _check_backward(name, dict(zip(("dx0", "dx", "dw"), got)),
+    return _check_two_ways(name, dict(zip(("dx0", "dx", "dw"), got)),
                            sides, (), faults)
 
 
 # -- K3 -----------------------------------------------------------------------
 
+def _relu(x: Bound) -> Bound:
+    """relu(x): it moves no value farther than its input moved."""
+    return Bound(torch.relu(x.val), x.e, x.v)
+
+
+def _stack_forward_bounds(x0v, w1, w2, d: int, vs_fp64: bool):
+    """Bounds of K3's (p1, p2, z1b, z2b) following
+    :func:`stack_forward_reference_bf16`: against the emulation, or with
+    ``vs_fp64`` against the fp32 function in fp64."""
+    r, f0 = x0v.shape
+    m1 = w1.shape[2]
+    k = int(vs_fp64)
+    x0 = x0v.double()  # bf16 on both sides
+    one = torch.ones((), dtype=torch.float64, device=x0.device)
+    pair = x0[:, :, None] * x0[:, None, :]
+    if not vs_fp64:
+        pair = _bf16(pair)
+    # Against fp64, W1 and the pair product: two roundings a term.
+    z1 = _relu(sum_bound(lambda c, a: a @ c, _coef(w1.reshape(-1, m1),
+                                                     vs_fp64),
+                         exact(pair.reshape(r, -1)), f0 * f0, 2 * k))
+    del pair
+    p1 = sum_bound(lambda c, a: _pooled(c * a, d), one, z1, d)
+    z1b = _round(z1, vs_fp64)
+    del z1
+    # Layer 2's operand bf16(x0b[:, f] z1b), (R, F0, M1): a flip of z1b
+    # carries into it.
+    q = _round(_scale(x0[:, :, None], z1b.map(lambda t: t[:, None, :])),
+               vs_fp64)
+    z2 = _relu(sum_bound(lambda c, a: a.reshape(r, -1) @ c,
+                         _coef(w2.reshape(-1, w2.shape[2]), vs_fp64), q,
+                         f0 * m1, k))
+    del q
+    p2 = sum_bound(lambda c, a: _pooled(c * a, d), one, z2, d)
+    return p1, p2, z1b, _round(z2, vs_fp64)
+
+
 def check_stack_forward(got: Sequence[Optional[torch.Tensor]], x0v, w1, w2,
-                        d: int) -> Dict[str, Dict[str, float]]:
-    """K3's (p1, p2, z1, z2) against its fp32 plain version; z1 and z2 are
-    skipped where ``got`` holds None (no residuals)."""
-    f0, m1 = x0v.shape[1], w1.shape[2]
-    want = ck.stack_forward_reference(x0v, w1, w2, d)
-    z1 = want[2]
-    a0, aw1, aw2 = x0v.float().abs(), w1.abs(), w2.abs()
-    t1 = 2 * (f0 * f0 + 2) * U32 * ck.cin2d_reference(a0, a0, aw1)
-    t2 = (2 * (f0 * m1 + 2) * U32 * ck.cin2d_reference(a0, z1 + t1, aw2)
-          + ck.cin2d_reference(a0, t1, aw2))
-    tols = (_pooled(t1, d) + 2 * d * U32 * _pooled(z1, d),
-            _pooled(t2, d) + 2 * d * U32 * _pooled(want[3], d), t1, t2)
-    return {
-        n: check_within(f"cin_stack_pooled forward {n}", a, e, t)
-        for n, a, e, t in zip(("p1", "p2", "z1", "z2"), got, want, tols)
-        if a is not None
-    }
+                        d: int, planted: bool = False
+                        ) -> Dict[str, Dict[str, float]]:
+    """K3's (p1, p2, z1, z2) against :func:`stack_forward_reference_bf16`
+    and against fp64 of the fp32 function, with the bounds of the module's
+    docstring; z1 and z2 (bf16) are skipped where ``got`` holds None (no
+    residuals). A z1 or z2 element may round to the other bf16 neighbour
+    than the emulation's only where a rounding boundary lies within the
+    fp32 summation bound of it, and a flip of z1 widens layer 2's bound
+    only where it reaches. With ``planted``, the check must also reject
+    the fp32 function (``stack_forward_reference``), the emulation without
+    W2's first f-slice, with z1 left unrounded before layer 2, and with W1
+    and W2 scaled by 1 + 1e-3; each one's largest share goes under
+    "planted". On the card the plain versions must run without TF32."""
+    _no_tf32("check_stack_forward", x0v)
+    names = ("p1", "p2", "z1", "z2")
+    keep = [i for i, g in enumerate(got) if g is not None]
+    b16 = _stack_forward_bounds(x0v, w1, w2, d, False)
+    b64 = _stack_forward_bounds(x0v, w1, w2, d, True)
+    wants = ck.stack_forward_reference_bf16(x0v, w1, w2, d)
+    sides = {"bf16": ([wants[i] for i in keep], [b16[i] for i in keep]),
+             "fp64": ([b64[i].val for i in keep], [b64[i] for i in keep])}
+    faults = None
+    if planted:
+        w2_cut = w2.clone()
+        w2_cut[0] = 0
+        scale = 1 + 1e-3
+        faults = {
+            fault: [outs[i] for i in keep] for fault, outs in (
+                ("fp32", ck.stack_forward_reference(x0v, w1, w2, d)),
+                ("w2_f_slice_dropped", ck.stack_forward_reference_bf16(
+                    x0v, w1, w2_cut, d)),
+                ("z1_unrounded", ck._stack_forward_bf16(
+                    x0v, w1, w2, d, round_z1=False)),
+                ("w_scaled_1e-3", ck.stack_forward_reference_bf16(
+                    x0v, w1 * scale, w2 * scale, d)))}
+    return _check_two_ways("cin_stack_pooled forward",
+                           {names[i]: got[i] for i in keep}, sides,
+                           ("z1", "z2"), faults)
 
 
 def _stack_backward_bounds(x0v, w1, w2, z1, z2, gp1, gp2, vs_fp64: bool):
@@ -512,7 +571,7 @@ def check_stack_backward(got: Sequence[torch.Tensor], x0v, w1, w2, z1, z2,
             rows[2].double(), gp1[:e].double(), gp2[:e].double())
         faults = _weight_faults(got, {"dw1": 1, "dw2": 2}, chunk,
                                 ck.stack_backward_reference(*args))
-    return _check_backward("cin_stack_pooled backward",
+    return _check_two_ways("cin_stack_pooled backward",
                            dict(zip(("dx0", "dw1", "dw2"), got)), sides,
                            ("dx0",), faults)
 

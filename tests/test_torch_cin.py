@@ -120,10 +120,10 @@ def test_cin2d_reference_bf16_matches_the_pallas_kernel(monkeypatch, rng, r,
     assert np.any(np.abs(fp32 - want) > tol)
 
 
-# The JAX side of the bf16 backward tests: JAX's Pallas bodies of K4's and
-# K3's backwards in interpret mode, run in a subprocess under
+# The JAX side of the bf16 tests of K4's backward and K3's forward and
+# backward: JAX's Pallas bodies in interpret mode, run in a subprocess under
 # --xla_allow_excess_precision=false. XLA on the CPU otherwise may drop the
-# bf16 rounding of a product that feeds a dot (K4's pair product), which the
+# bf16 rounding of a product that feeds a dot (the pair products), which the
 # TPU kernel makes.
 _JAX_BWD = r"""
 import functools, sys
@@ -155,10 +155,10 @@ for i, (b, f0, d, m1, m2) in enumerate(%(k3)r):
     w2 = jnp.asarray(rng.normal(0, 0.2, (f0, m1, m2)), jnp.float32)
     gp1 = jnp.asarray(rng.normal(size=(b, m1)), jnp.float32)
     gp2 = jnp.asarray(rng.normal(size=(b, m2)), jnp.float32)
-    _, _, z1, z2 = jk._stack_fwd_impl(x0, w1, w2, d, want_residuals=True)
+    p1, p2, z1, z2 = jk._stack_fwd_impl(x0, w1, w2, d, want_residuals=True)
     dx0, dw1, dw2 = jk._stack_bwd(d, (x0, w1, w2, z1, z2), (gp1, gp2))
-    a = dict(x0=x0, w1=w1, w2=w2, gp1=gp1, gp2=gp2, z1=z1[:r], z2=z2[:r],
-             dx0=dx0, dw1=dw1, dw2=dw2)
+    a = dict(x0=x0, w1=w1, w2=w2, gp1=gp1, gp2=gp2, p1=p1, p2=p2,
+             z1=z1[:r], z2=z2[:r], dx0=dx0, dw1=dw1, dw2=dw2)
     out.update({f"k3_{i}_{k}": np.asarray(v.astype(jnp.float32))
                 for k, v in a.items()})
 np.savez(sys.argv[1], **out)
@@ -198,6 +198,30 @@ def test_cin2d_backward_reference_bf16_matches_the_pallas_kernel(
     assert checks["planted"]["fp32"] > 1
     with pytest.raises(AssertionError, match="disagrees"):
         ct.check_cin2d_backward(tk.cin2d_backward_reference(*args), *args)
+
+
+@pytest.mark.parametrize("i", range(len(K3_BWD_SHAPES)))
+def test_stack_forward_reference_bf16_matches_the_pallas_kernel(
+        jax_backwards, i):
+    """K3's forward on the card computes ``stack_forward_reference_bf16``:
+    the TPU kernel's roundings (bf16 x0, pair products, W1, W2 and z1 before
+    layer 2, fp32 sums, p pooled from fp32 z, bf16 residuals). JAX's Pallas
+    body lies within the tolerance of ``check_stack_forward`` (the fp32
+    bounds, one bf16 spacing where z1, z2 or a layer-2 operand may round to
+    the other neighbour, the bf16 roundings' share against fp64), which
+    rejects the planted faults on the same inputs; the fp32 function does
+    not lie within it."""
+    a = {k: _t(jax_backwards[f"k3_{i}_{k}"])
+         for k in ("x0", "w1", "w2", "p1", "p2", "z1", "z2")}
+    d = K3_BWD_SHAPES[i][2]
+    x0, w1, w2 = a["x0"].bfloat16(), a["w1"], a["w2"]
+    got = (a["p1"], a["p2"], a["z1"].bfloat16(), a["z2"].bfloat16())
+    checks = ct.check_stack_forward(got, x0, w1, w2, d, planted=True)
+    assert ct.worst_share(checks) <= 1
+    assert min(checks["planted"].values()) > 1
+    with pytest.raises(AssertionError, match="disagrees"):
+        ct.check_stack_forward(tk.stack_forward_reference(x0, w1, w2, d), x0,
+                               w1, w2, d)
 
 
 @pytest.mark.parametrize("i", range(len(K3_BWD_SHAPES)))

@@ -1,9 +1,10 @@
 """The checks that hold the CIN kernels against their plain versions
 (``ops/cin_tolerances.py``), run on the CPU with a plain version in the
-kernel's place: K4's forward and K3's and K4's backwards with their bf16
-emulations, K3's forward with its fp32 plain version. They pass them, also
-summed in another order; K4's forward check rejects the fp32 function and
-an output missing one f-slice, and the backward checks reject the fp32
+kernel's place: K3's and K4's forwards and backwards with their bf16
+emulations. They pass them, also summed in another order; K4's forward
+check rejects the fp32 function and an output missing one f-slice, K3's
+the fp32 function, W2 missing one f-slice, z1 left unrounded before layer
+2 and W scaled by 1 + 1e-3, and the backward checks reject the fp32
 function, a dW off by one part in 1000 and a dW missing one chunk of
 ``ct.PLANTED_ROWS`` rows, the smallest chunk of the weight passes."""
 
@@ -61,15 +62,26 @@ def test_cin2d_bf16_forward_and_fp32_backward_pass_and_planted_faults_fail(h):
 
 
 def test_stack_plain_fp32_passes_and_planted_faults_fail():
-    """K3's forward check passes its fp32 plain version; the backward check
-    passes the bf16 emulation, rejects the planted faults, and rejects the
-    fp32 backward that the CPU path computes."""
+    """K3's forward and backward checks pass their bf16 emulations (the
+    backward on the emulation's bf16 residuals, as the card keeps them) and
+    reject their planted faults, and both reject the fp32 functions that the
+    CPU path computes."""
     x0, w1, w2, gp1, gp2, d = _stack_inputs()
-    got = ck.stack_forward(x0, w1, w2, d, residuals=True)
-    assert set(ct.check_stack_forward(got, x0, w1, w2, d)) == {
-        "p1", "p2", "z1", "z2"}
+    got = ck.stack_forward_reference_bf16(x0, w1, w2, d)
+    fwd = ct.check_stack_forward(got, x0, w1, w2, d, planted=True)
+    outs = {"p1", "p2", "z1", "z2"}
+    assert set(fwd) == outs | {f"{o}_fp64" for o in outs} | {"planted"}
+    assert all(fwd[o]["err_over_tol"] == 0.0 for o in outs)  # the same
+    assert 0 < fwd["z1_fp64"]["fro_over_tol"] <= 1
+    assert set(fwd["planted"]) == {"fp32", "w2_f_slice_dropped",
+                                   "z1_unrounded", "w_scaled_1e-3"}
+    assert min(fwd["planted"].values()) > 1
     assert set(ct.check_stack_forward((*got[:2], None, None), x0, w1, w2,
-                                      d)) == {"p1", "p2"}
+                                      d)) == {"p1", "p2", "p1_fp64",
+                                              "p2_fp64"}
+    with pytest.raises(AssertionError, match="disagrees"):
+        ct.check_stack_forward(ck.stack_forward(x0, w1, w2, d), x0, w1, w2,
+                               d)
     z1, z2 = got[2], got[3]
     args = (x0, w1, w2, z1, z2, gp1, gp2)
     checks = ct.check_stack_backward(ck.stack_backward_reference_bf16(*args),
@@ -81,6 +93,26 @@ def test_stack_plain_fp32_passes_and_planted_faults_fail():
     assert min(checks["planted"].values()) > 1
     with pytest.raises(AssertionError, match="disagrees"):
         ct.check_stack_backward(ck.stack_backward(*args), *args)
+
+
+def test_stack_forward_check_passes_another_summation_order():
+    """The emulation with F0 and M1 permuted and each example's rows in
+    reverse sums layer 1, layer 2 and the pooling in other orders, so some
+    of z1b rounds to the other neighbour; its outputs pass the check."""
+    x0, w1, w2, _, _, d = _stack_inputs(m1=64, m2=48)
+    gen = torch.Generator().manual_seed(13)
+    pf = torch.randperm(x0.shape[1], generator=gen)
+    pm = torch.randperm(w1.shape[2], generator=gen)
+    rows = torch.arange(x0.shape[0]).reshape(-1, d).flip(1).reshape(-1)
+    got = ck.stack_forward_reference_bf16(
+        x0[rows][:, pf], w1[pf][:, pf][:, :, pm], w2[pf][:, pm], d)
+    got = _reordered(({1: torch.argsort(pm)}, {},
+                      {0: torch.argsort(rows), 1: torch.argsort(pm)},
+                      {0: torch.argsort(rows)}), got)
+    checks = ct.check_stack_forward(got, x0, w1, w2, d)
+    assert ct.worst_share(checks) <= 1
+    want = ck.stack_forward_reference_bf16(x0, w1, w2, d)
+    assert not torch.equal(got[2], want[2])  # flipped z1b values
 
 
 def _reordered(inv, outputs):

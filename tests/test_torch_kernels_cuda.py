@@ -4,8 +4,8 @@ Marked ``cuda``: each test skips where no CUDA device is present. This file
 imports neither JAX nor the JAX package, so it runs on the card alone (see
 README, "PyTorch port"). The tolerances follow the fp32 summation bound:
 atomics and the reference sum each output in different orders. The CIN
-kernels' checks are ``ops/cin_tolerances.py``'s (K4's forward and K3's
-and K4's backwards at the TPU kernels' bf16 contract, against their bf16
+kernels' checks are ``ops/cin_tolerances.py``'s (K3 and K4, forward and
+backward, at the TPU kernels' bf16 contract, against their bf16
 emulations and fp64), the attention kernels' ``ops/attention_tolerances.py``'s;
 each module states them.
 """
@@ -157,24 +157,37 @@ def test_cin2d_forward_check_rejects_planted_outputs(device):
     assert ct.worst_share(checks) <= 1
 
 
+def _stack_inputs(gen, b, f0, d, m1, m2, std=0.05):
+    x0 = _normal(gen, b * d, f0, std=0.25).to(torch.bfloat16)
+    w1 = _normal(gen, f0, f0, m1, std=std)
+    w2 = _normal(gen, f0, m1, m2, std=std)
+    return x0, w1, w2, _normal(gen, b, m1), _normal(gen, b, m2)
+
+
 @pytest.mark.parametrize("b,f0,d,m1,m2", [
     (8192, 6, 16, 128, 128),  # the flagship xDeepFM
     (16, 6, 8, 12, 20),
     (5, 6, 3, 7, 5),  # R = 15 rows
     (9, 4, 70, 130, 200),  # examples over three blocks; two column tiles
+    (300, 6, 1, 128, 128),  # one row an example
+    (100, 6, 3, 128, 128),  # examples across block edges
+    (5, 6, 129, 128, 128),  # the longest example over two blocks at most
 ])
 def test_cin_stack_kernel(device, b, f0, d, m1, m2):
+    """K3's forward, with and without residuals, against its bf16
+    emulation and fp64; its backward on the forward's bf16 residuals."""
     gen = torch.Generator(device=device).manual_seed(2)
-    x0 = _normal(gen, b * d, f0, std=0.25).to(torch.bfloat16)
-    w1 = _normal(gen, f0, f0, m1, std=0.05)
-    w2 = _normal(gen, f0, m1, m2, std=0.05)
-    gp1, gp2 = _normal(gen, b, m1), _normal(gen, b, m2)
+    x0, w1, w2, gp1, gp2 = _stack_inputs(gen, b, f0, d, m1, m2)
     before = dict(ck.cin_stack_pooled.launches)
     got = ck.stack_forward(x0, w1, w2, d, residuals=True)
+    assert got[2].dtype == got[3].dtype == torch.bfloat16
     ct.check_stack_forward(got, x0, w1, w2, d)
     bare = ck.stack_forward(x0, w1, w2, d, residuals=False)
     assert bare[2] is None and bare[3] is None
     ct.check_stack_forward(bare, x0, w1, w2, d)
+    # p is deterministic where an example spans at most two blocks.
+    torch.testing.assert_close(bare[0], got[0], rtol=0, atol=0)
+    torch.testing.assert_close(bare[1], got[1], rtol=0, atol=0)
 
     z1, z2 = got[2], got[3]
     grads = ck.stack_backward(x0, w1, w2, z1, z2, gp1, gp2)
@@ -184,16 +197,44 @@ def test_cin_stack_kernel(device, b, f0, d, m1, m2):
                                             "bwd": before["bwd"] + 1}
 
 
+def test_cin_stack_forward_check_rejects_planted_faults(device):
+    """At the flagship xDeepFM's shape, on the card: K3's forward passes,
+    and its check rejects the fp32 function, W2 without one f-slice, z1
+    left unrounded before layer 2 and W scaled by 1 + 1e-3."""
+    gen = torch.Generator(device=device).manual_seed(5)
+    x0, w1, w2, _, _ = _stack_inputs(gen, 8192, 6, 16, 128, 128)
+    checks = ct.check_stack_forward(ck.stack_forward(x0, w1, w2, 16), x0,
+                                    w1, w2, 16, planted=True)
+    assert len(checks["planted"]) == 4
+    assert min(checks["planted"].values()) > 1
+    assert ct.worst_share(checks) <= 1
+
+
+@pytest.mark.parametrize("f0,m1,fits", [
+    (18, 128, True),  # 512 F0 + 256 (K1p + K2p + 16) + 256 (K1p + 8)
+    (19, 128, False),  # K1p = 368: 237056 bytes
+    (6, 688, True),  # 512 F0 + 256 (K1p + K2p + 16) + 36864 = 232448
+    (6, 689, False),  # K2p = 704
+])
+def test_cin_stack_forward_at_its_shared_memory_limit(device, f0, m1, fits):
+    """K3's forward runs and passes its check up to the shapes whose block
+    fits in shared memory, and refuses the next with a ValueError."""
+    gen = torch.Generator(device=device).manual_seed(10)
+    x0, w1, w2, _, _ = _stack_inputs(gen, 20, f0, 16, m1, 24, std=0.02)
+    if not fits:
+        with pytest.raises(ValueError, match="shared memory"):
+            ck.stack_forward(x0, w1, w2, 16)
+        return
+    ct.check_stack_forward(ck.stack_forward(x0, w1, w2, 16), x0, w1, w2, 16)
+
+
 def test_cin_stack_backward_check_rejects_planted_faults(device):
     """At the flagship xDeepFM's shape, on the card: K3's backward passes,
     and its check rejects each dW scaled by 1 + 1e-3 and less one weight
     chunk of rows, and the fp32 function."""
     gen = torch.Generator(device=device).manual_seed(6)
-    b, f0, d, m1, m2 = 8192, 6, 16, 128, 128
-    x0 = _normal(gen, b * d, f0, std=0.25).to(torch.bfloat16)
-    w1 = _normal(gen, f0, f0, m1, std=0.05)
-    w2 = _normal(gen, f0, m1, m2, std=0.05)
-    gp1, gp2 = _normal(gen, b, m1), _normal(gen, b, m2)
+    d = 16
+    x0, w1, w2, gp1, gp2 = _stack_inputs(gen, 8192, 6, d, 128, 128)
     _, _, z1, z2 = ck.stack_forward(x0, w1, w2, d, residuals=True)
     args = (x0, w1, w2, z1, z2, gp1, gp2)
     checks = ct.check_stack_backward(ck.stack_backward(*args), *args,
@@ -248,14 +289,14 @@ def test_cin2d_backward_at_its_shared_memory_limit(device, f0, h, m, fits):
 @pytest.mark.parametrize("f0,fits", [(55, True), (56, False)])
 def test_cin_stack_backward_at_its_shared_memory_limit(device, f0, fits):
     """K3's backward at M1 = M2 = 128 runs and passes its check up to
-    F0 = 55 (256 (K2p + 2 K1p) + 1024 F0 = 154624) and refuses F0 = 56."""
+    F0 = 55 (256 (K2p + 2 K1p) + 1024 F0 = 154624) and refuses F0 = 56.
+    The forward takes F0 <= 18, so the bf16 residuals come from its
+    emulation."""
     gen = torch.Generator(device=device).manual_seed(9)
-    b, d, m1, m2 = 20, 16, 128, 128
-    x0 = _normal(gen, b * d, f0, std=0.25).to(torch.bfloat16)
-    w1 = _normal(gen, f0, f0, m1, std=0.02)
-    w2 = _normal(gen, f0, m1, m2, std=0.02)
-    gp1, gp2 = _normal(gen, b, m1), _normal(gen, b, m2)
-    _, _, z1, z2 = ck.stack_forward(x0, w1, w2, d, residuals=True)
+    d = 16
+    x0, w1, w2, gp1, gp2 = _stack_inputs(gen, 20, f0, d, 128, 128,
+                                         std=0.02)
+    _, _, z1, z2 = ck.stack_forward_reference_bf16(x0, w1, w2, d)
     args = (x0, w1, w2, z1, z2, gp1, gp2)
     if not fits:
         with pytest.raises(ValueError, match="shared memory"):
@@ -285,10 +326,12 @@ def test_cin_kernels_reject_bad_inputs(device):
     with pytest.raises(ValueError):  # rows that are not whole examples
         ck.stack_forward(x0.to(torch.bfloat16), w1, w2, 10)
     z = torch.zeros(64, 4, device=device)
+    gp = torch.zeros(4, 4, device=device)
     with pytest.raises(TypeError):
-        ck.stack_backward(x0.to(torch.bfloat16), w1, w2, z, z,
-                          torch.zeros(4, 4, device=device),
+        ck.stack_backward(x0.to(torch.bfloat16), w1, w2, z, z, gp,
                           torch.zeros(4, 5, device=device))
+    with pytest.raises(TypeError):  # the residuals are bf16 on the card
+        ck.stack_backward(x0.to(torch.bfloat16), w1, w2, z, z, gp, gp)
 
 
 # -- K5 and K6 ----------------------------------------------------------------
