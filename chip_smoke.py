@@ -21,14 +21,18 @@ In order:
    the TPU kernels do, against their bf16 emulations and against fp64, and
    shown to reject the fp32 function, an output missing one f-slice, K3's
    z1 left unrounded before layer 2 or its W scaled by 1 + 1e-3, or a
-   weight gradient scaled by 1 + 1e-3 or missing one chunk of rows),
-   reports
-   each output's error and share of its tolerance, and times kernel, plain
+   weight gradient scaled by 1 + 1e-3 or missing one chunk of rows; the
+   fp32 K5 and K6, which form every product in three TF32 passes, shown
+   to reject the same function with single-pass TF32 products at least
+   ten times over their limits, and dk less one query tile), reports each
+   output's error and share of its tolerance, and times kernel, plain
    version and one library call where there is one (for K4's forward also
    that call on bf16 operands; for K6 the backward of the SDPA call, with
    the kernels each SDPA call ran), with CUDA events (device time from
-   CUDA-graph replays, and the eager call's time); then the bf16 K5 and
-   K6 at the same shapes on bf16 q, k, v, g, held against their fp64 and
+   CUDA-graph replays, and the eager call's time; K5's and K6's bounds
+   those of their 3xTF32 design: bytes, three TF32 passes of their
+   products, or the exponentials, whichever is largest); then the bf16 K5
+   and K6 at the same shapes on bf16 q, k, v, g, held against their fp64 and
    bf16 plain versions (``check_forward_bf16``, ``check_backward_bf16``),
    timed beside the bf16 SDPA call, with the exp floor beside their bounds;
 5. six train paths, each with every launch counter set to 0 just before
@@ -68,6 +72,14 @@ builds the kernels and runs only the two xDeepFM train paths with their
 launch checks, AUCs and profiles, and prints them as its last line, one
 JSON object (not the full run's "ok" line): the same measurement on any
 tree of the port, to set a change beside its parent in one call.
+
+    python3 chip_smoke.py --attention-fp32-only
+
+builds the kernels, times the fp32 K5 and K6 at the kernel phase's shapes
+(no checks) and runs the fp32 Transformer path with its launch checks and
+profile, and prints them as its last line, one JSON object. It calls only
+what every tree of the port since K5 and K6 has, so a copy of this script
+in a parent's tree measures the parent.
 
 Any failure raises and exits non-zero; with no CUDA device it exits 1
 before printing any result. It imports nothing of JAX.
@@ -142,9 +154,12 @@ ATT_PLANTED_ROWS = 64
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
+# Dense TF32 on the tensor cores: the fp32 K5 and K6 take three passes.
+TF32_OPS_PER_S = 495e12
+TF32_PASSES = 3
 U32 = 2.0**-24  # unit roundoff of float32
 # The H100's special-function units: 16 exponentials a clock on each of its
-# 132 SMs (the floor of the bf16 attention kernels at D = 16).
+# 132 SMs (a floor of the attention kernels at D = 16).
 SMS, EXP_PER_SM_CLOCK = 132, 16
 # Tile of the attention kernels (keys, and query rows of a block).
 ATT_TILE = 64
@@ -830,6 +845,10 @@ def _merge_checks(parts) -> dict:
     for part in parts:
         for out, fields in part.items():
             m = merged.setdefault(out, {})
+            if out == "planted":  # a fault's share of its limit
+                for fault, share in fields.items():
+                    m[fault] = min(m.get(fault, math.inf), share)
+                continue
             for key, value in fields.items():
                 if key == "planted":
                     shares = m.setdefault("planted", {})
@@ -941,25 +960,86 @@ def live_tile_pairs(mask: torch.Tensor, causal: bool) -> int:
     return int((live * seen).sum().item()) * ATT_TILE * ATT_TILE
 
 
-def attention_kernel_phase(imdb: SyntheticImdb, device):
-    """K5 and K6 at the Transformer slice's shapes: q, k, v (2048, 512, 16)
-    seeded normals, with the key masks of one train batch's tokens repeated
-    over the 8 heads, non-causal and causal. Each is held against its plain
-    version in fp64 (``ops/attention_tolerances.py`` states the
-    tolerances), in chunks of ATT_CHUNK rows, on the same inputs, forward
-    residuals and incoming gradient; the dk check must reject dk less its
-    first query tile. Times: kernel, plain version and one
-    ``F.scaled_dot_product_attention`` call with the boolean mask (for K6
-    its backward), with the kernels that call ran."""
+def attention_inputs(imdb: SyntheticImdb, device, dtype=torch.float32):
+    """The attention kernels' inputs at the Transformer slice's shapes:
+    q, k, v, g (2048, 512, 16) seeded normals in ``dtype``, and the key
+    masks of one train batch's tokens repeated over the 8 heads."""
     tokens = torch.from_numpy(imdb.train[0][:TX_BATCH]).to(device)
     mask = (tokens != 0).float().repeat_interleave(TX_HEADS, dim=0)
     bh, s, d = mask.shape[0], TX_LEN, TX_DIM // TX_HEADS
     gen = torch.Generator(device=device).manual_seed(SEED)
     q, k, v, g = (torch.randn(bh, s, d, device=device, generator=gen)
-                  for _ in range(4))
+                  .to(dtype) for _ in range(4))
+    return q, k, v, g, mask
+
+
+def tf32_bound_fields(num_bytes: float, product_flop: float, exps: float,
+                      exp_rate: float, fp32_ops: float) -> dict:
+    """The bound of the fp32 K5 and K6 as they compute (3xTF32 on the
+    tensor cores): the largest of the bytes over the memory rate, the
+    products' operations times TF32_PASSES over the TF32 rate and the
+    exponentials over the SFUs' rate; beside it the fp32 CUDA-core bound
+    (``bound_fp32_ms``) of ``fp32_ops``."""
+    parts = {"bytes": num_bytes / HBM_BYTES_PER_S * 1e3,
+             "tf32_products": product_flop * TF32_PASSES / TF32_OPS_PER_S
+             * 1e3,
+             "exp_floor": exps / exp_rate * 1e3}
+    which = max(parts, key=parts.get)
+    fp32_ms, fp32_by = bound(num_bytes, fp32_ops)
+    return {"bound_ms": parts[which], "bound_us": parts[which] * 1e3,
+            "bound_by": "bytes" if which == "bytes" else "operations",
+            "bound_part": which, "bound_parts_ms": parts,
+            "bound_fp32_ms": fp32_ms, "bound_fp32_by": fp32_by,
+            "gflop": product_flop / 1e9}
+
+
+def fp32_attention_calls(q, k, v, g, mask, causal):
+    """The fp32 K5 call and the K6 call on its residuals."""
+    out, lse = att.flash_attention(q, k, v, mask, causal, return_lse=True)
+    return (lambda: att.flash_attention(q, k, v, mask, causal,
+                                        return_lse=True),
+            lambda: att.flash_attention_backward(q, k, v, mask, out, lse, g,
+                                                 causal))
+
+
+def fp32_attention_times(imdb: SyntheticImdb, device) -> dict:
+    """Device and eager ms of the fp32 K5 and K6 at the slice's shapes,
+    non-causal and causal, and how K6's time splits between its two
+    kernels: the same measurement on any tree of the port."""
+    q, k, v, g, mask = attention_inputs(imdb, device)
+    times = {}
+    for causal in (False, True):
+        fwd, bwd = fp32_attention_calls(q, k, v, g, mask, causal)
+        times[f"causal={causal}"] = {
+            "fwd_ms": graph_ms(fwd, 5, 4), "fwd_eager_ms": time_ms(fwd, 10),
+            "bwd_ms": graph_ms(bwd, 5, 4), "bwd_eager_ms": time_ms(bwd, 10),
+            "bwd_kernel_split": kernel_times(bwd, top=2)}
+    del q, k, v, g
+    torch.cuda.empty_cache()
+    return times
+
+
+def attention_kernel_phase(imdb: SyntheticImdb, device):
+    """K5 and K6 at the Transformer slice's shapes
+    (:func:`attention_inputs`), non-causal and causal. Each is held against
+    its plain version in fp64 (``ops/attention_tolerances.py`` states the
+    tolerances of the kernels' 3xTF32 products), in chunks of ATT_CHUNK
+    rows, on the same inputs, forward residuals and incoming gradient; the
+    checks must reject the same function with single-pass TF32 products at
+    least TF32_REJECT_FACTOR times over their limits, and dk less its
+    first query tile. Times: kernel, plain version and one
+    ``F.scaled_dot_product_attention`` call with the boolean mask (for K6
+    its backward), with the kernels that call ran. Bounds: the 3xTF32
+    design's (:func:`tf32_bound_fields`), the fp32 CUDA-core bound
+    beside it."""
+    q, k, v, g, mask = attention_inputs(imdb, device)
+    bh, s, d = q.shape
     chunks = [slice(i, i + ATT_CHUNK) for i in range(0, bh, ATT_CHUNK)]
     shape = {"q": [bh, s, d], "k": [bh, s, d],
              "valid_keys": mask.mean().item()}
+    exp_rate = SMS * EXP_PER_SM_CLOCK * sm_clock_hz()
+    precision = ("fp32 operands; every product in three TF32 passes "
+                 "(3xTF32) on the tensor cores, fp32 accumulation")
     fwd, bwd = {}, {}
     for causal in (False, True):
         out, lse = att.flash_attention(q, k, v, mask, causal, return_lse=True)
@@ -968,45 +1048,68 @@ def attention_kernel_phase(imdb: SyntheticImdb, device):
         torch.cuda.synchronize()
         fwd_checks = _merge_checks(
             at.check_forward((out[c], lse[c]), q[c], k[c], v[c], mask[c],
-                             causal) for c in chunks)
+                             causal, planted_tf32=True) for c in chunks)
         bwd_checks = _merge_checks(
             at.check_backward([t[c] for t in grads], q[c], k[c], v[c],
                               mask[c], out[c], lse[c], g[c], causal,
-                              planted_rows=ATT_PLANTED_ROWS)
+                              planted_rows=ATT_PLANTED_ROWS,
+                              planted_tf32=True)
             for c in chunks)
+        print(f"flash_attention causal={causal} shares: out "
+              f"{fwd_checks['out']['err_over_tol']:.6g} / fro "
+              f"{fwd_checks['out']['fro_over_tol']:.6g}, lse "
+              f"{fwd_checks['lse']['err_over_tol']:.6g}; " + ", ".join(
+                  f"{n} {bwd_checks[n]['err_over_tol']:.6g} / fro "
+                  f"{bwd_checks[n]['fro_over_tol']:.6g}"
+                  for n in ("dq", "dk", "dv"))
+              + "; single-pass TF32 forward "
+              f"{fwd_checks['planted']['single_pass_tf32']:.6g}, backward "
+              f"{bwd_checks['planted']['single_pass_tf32']:.6g} times its "
+              "limit; dk less a query tile "
+              f"{bwd_checks['dk']['planted']['query_tile_dropped']:.6g}")
         pairs = _valid_pairs(mask, causal)
+        fwd_call, bwd_call = fp32_attention_calls(q, k, v, g, mask, causal)
         fwd_entry = {
             "shape": {**shape, "causal": causal},
+            "precision": precision,
             **check_fields(fwd_checks),
             **timings(
-                lambda: att.flash_attention(q, k, v, mask, causal,
-                                            return_lse=True),
+                fwd_call,
                 lambda: att.flash_attention_reference(q, k, v, mask, causal),
                 None, iters=5, replays=4, eager_iters=10),
             **library_fields(q, k, v, mask, causal),
             # q, k, v and out; the mask and lse. Per scored pair: 4 D
-            # products (q.k and p v) and 5 softmax operations.
-            **bound_fields((4 * bh * s * d + 2 * bh * s) * 4,
-                           pairs * (4 * d + 5)),
+            # products (q.k and p v) and one exp; on the CUDA cores 5
+            # softmax operations beside them.
+            **tf32_bound_fields((4 * bh * s * d + 2 * bh * s) * 4,
+                                pairs * 4 * d, pairs, exp_rate,
+                                pairs * (4 * d + 5)),
             "scored_pairs": pairs,
         }
         bwd_entry = {
             "shape": {**shape, "causal": causal},
+            "precision": precision,
             **check_fields(bwd_checks),
             **timings(
-                lambda: att.flash_attention_backward(q, k, v, mask, out, lse,
-                                                     g, causal),
+                bwd_call,
                 lambda: att.flash_attention_backward_reference(
                     q, k, v, mask, out, lse, g, causal),
                 None, iters=5, replays=4, eager_iters=10),
             **library_fields(q, k, v, mask, causal, g),
+            # The dq kernel and the dk/dv kernel, one launch each.
+            "kernel_split": kernel_times(bwd_call, top=2),
             # q, k, v, g, out, dq, dk and dv; the mask and lse. Per scored
-            # pair: 10 D products (s, dp, dq, dk, dv) and 5 operations to
-            # rebuild p and form ds. The kernels, as JAX splits them,
-            # compute s and dp twice: 14 D products ("gflop_kernels").
-            **bound_fields((8 * bh * s * d + 2 * bh * s) * 4,
-                           pairs * (10 * d + 5)),
-            "gflop_kernels": pairs * (14 * d + 5) / 1e9,
+            # pair: 10 D products (s, dp, dq, dk, dv) and one exp. The
+            # kernels, as JAX splits them, compute s and dp twice and
+            # rebuild p in both: 14 D products and two exps
+            # ("bound_design_ms").
+            **tf32_bound_fields((8 * bh * s * d + 2 * bh * s) * 4,
+                                pairs * 10 * d, pairs, exp_rate,
+                                pairs * (10 * d + 5)),
+            "bound_design_ms": tf32_bound_fields(
+                (8 * bh * s * d + 2 * bh * s) * 4, pairs * 14 * d,
+                2 * pairs, exp_rate, 0)["bound_ms"],
+            "gflop_kernels": pairs * 14 * d / 1e9,
             "scored_pairs": pairs,
         }
         # The Transformer's four non-causal attentions per step lead each
@@ -1016,7 +1119,7 @@ def attention_kernel_phase(imdb: SyntheticImdb, device):
         else:
             fwd.update(fwd_entry)
             bwd.update(bwd_entry)
-        del out, lse, grads
+        del out, lse, grads, fwd_call, bwd_call
     source = "deep_recommenders_torch/csrc/flash_attention.cu"
     entries = [
         {"name": "flash_attention.fwd", "route": "cuda", "source": source,
@@ -1041,12 +1144,8 @@ def attention_bf16_kernel_phase(imdb: SyntheticImdb, device):
     its backward). Bounds: bf16 bytes and bf16 tensor-core operations,
     with the exp floor beside them (one exp per lane of a scored tile, two
     in K6, at 16 a clock per SM at the largest SM clock)."""
-    tokens = torch.from_numpy(imdb.train[0][:TX_BATCH]).to(device)
-    mask = (tokens != 0).float().repeat_interleave(TX_HEADS, dim=0)
-    bh, s, d = mask.shape[0], TX_LEN, TX_DIM // TX_HEADS
-    gen = torch.Generator(device=device).manual_seed(SEED)
-    q, k, v, g = (torch.randn(bh, s, d, device=device, generator=gen)
-                  .to(torch.bfloat16) for _ in range(4))
+    q, k, v, g, mask = attention_inputs(imdb, device, torch.bfloat16)
+    bh, s, d = q.shape
     chunks = [slice(i, i + ATT_CHUNK) for i in range(0, bh, ATT_CHUNK)]
     shape = {"q": [bh, s, d], "k": [bh, s, d], "dtype": "bfloat16",
              "valid_keys": mask.mean().item()}
@@ -1177,7 +1276,7 @@ def transformer_path(imdb: SyntheticImdb, device, dtype=None):
     batch 6 K5; with ``dtype=torch.bfloat16`` the same counts of the bf16
     K5 and K6 and no fp32 launch; K1-K4 none. Then the trained logits on
     the card, through K5, against the plain CPU path, and a profile of ten
-    steady steps."""
+    steady steps. Returns the launches and the profile."""
     train = torch.from_numpy(imdb.train[0]).long().to(device)
     test = torch.from_numpy(imdb.test[0]).long().to(device)
     n_train, n_test = len(train) // TX_BATCH, len(test) // TX_BATCH
@@ -1246,11 +1345,12 @@ def transformer_path(imdb: SyntheticImdb, device, dtype=None):
                              f"{losses}, held-out {before} -> {after}")
     check_transformer_logits(name, model, test[:8], dtype)
     perm = permutation(TX_EPOCHS)
-    print(f"{name} profile: " + json.dumps(profile_phase(
-        lambda s: step(perm[s * TX_BATCH:(s + 1) * TX_BATCH]), heldout)))
+    profile = profile_phase(
+        lambda s: step(perm[s * TX_BATCH:(s + 1) * TX_BATCH]), heldout)
+    print(f"{name} profile: " + json.dumps(profile))
     del model, opt, train, test
     torch.cuda.empty_cache()
-    return launches
+    return launches, profile
 
 
 def check_transformer_logits(name: str, model: Transformer,
@@ -1362,6 +1462,9 @@ def main(argv=()) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--xdeepfm-only", action="store_true",
                         help="run only the two xDeepFM train paths")
+    parser.add_argument("--attention-fp32-only", action="store_true",
+                        help="time only the fp32 K5 and K6 and run the "
+                             "fp32 Transformer path")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1373,6 +1476,15 @@ def main(argv=()) -> int:
         print(f"--- nvcc {name}\n{log}", file=sys.stderr)
     print(f"kernels built in {time.perf_counter() - t0:.1f} s")
 
+    if args.attention_fp32_only:
+        imdb = SyntheticImdb(num_words=TX_VOCAB, max_len=TX_LEN, seed=SEED)
+        times = fp32_attention_times(imdb, device)
+        launches, profile = transformer_path(imdb, device)
+        # Not the full smoke run: no checks of the kernels, no "ok" line.
+        print(json.dumps({"attention_fp32": {
+            "kernels": times, "transformer_seq2seq": {
+                "launches": launches, "profile": profile}}}))
+        return 0
     t0 = time.perf_counter()
     ds = MovielensRanking(batch_size=BATCH, num_ratings=NUM_RATINGS,
                           seed=SEED)
@@ -1398,9 +1510,9 @@ def main(argv=()) -> int:
     paths = train_phase(ds, model, device)
     del ds, model
     torch.cuda.empty_cache()
-    paths["transformer_seq2seq"] = transformer_path(imdb, device)
+    paths["transformer_seq2seq"] = transformer_path(imdb, device)[0]
     paths["transformer_seq2seq_bf16"] = transformer_path(
-        imdb, device, torch.bfloat16)
+        imdb, device, torch.bfloat16)[0]
     paths["transformer_imdb"] = imdb_path()
     for entry in entries:
         path = ENTRY_PATH[entry["name"]]

@@ -1,55 +1,81 @@
-// K5 and K6: blockwise (flash) attention, forward and backward, fp32.
+// K5 and K6: blockwise (flash) attention forward and backward on fp32
+// operands, on the tensor cores at fp32 accuracy (3xTF32).
 //
-// Replaces deep_recommenders_tpu/ops/attention.py:flash_attention (K5, body
-// _flash_kernel) and _flash_backward_impl (K6, bodies _flash_bwd_dq_kernel
-// and _flash_bwd_dkv_kernel). Layout: q (BH, Sq, D), k and v (BH, Sk, D),
-// key_mask (BH, Sk) fp32 with a value > 0 marking a valid key, all
-// contiguous; scale = 1/sqrt(D).
+// Replaces, for fp32 operands, deep_recommenders_tpu/ops/attention.py:
+// flash_attention (K5, body _flash_kernel :82, pallas_call :199) and
+// _flash_backward_impl (K6, bodies _flash_bwd_dq_kernel :285 and
+// _flash_bwd_dkv_kernel :326, pallas_calls :436 and :463). The bf16
+// counterparts are in flash_attention_bf16.cu. Layout: q (BH, Sq, D), k and
+// v (BH, Sk, D), out, g, dq, dk, dv fp32; key_mask (BH, Sk), lse and delta
+// (BH, Sq) fp32; all contiguous, the operands 16-byte aligned;
+// scale = 1/sqrt(D).
 //
-// What bounds them on the H100: operations. At the Transformer slice's
-// shapes (BH = 2048, S = 512, D = 16) the forward is 4 BH S^2 D = 34 GFLOP
-// (0.51 ms at the 67 TFLOP/s fp32 rate) against 0.2 GB of inputs and
-// outputs (0.06 ms at 3.35 TB/s); the backward rebuilds p and forms dp,
-// ds, dq, dk and dv, about 3.5 times the forward's products. With D = 16
-// every score costs as many exp, max and mask operations as products, and
-// this simple version also reads its operands from shared memory once for
-// every few products, so it is bound by shared-memory traffic and
-// instruction throughput well before the fp32 rate.
+// The contract. The JAX kernels run their dots on the operands' own dtype
+// (attention.py:107-115): for fp32 an fp32-accurate product, several passes
+// on the TPU's matrix unit. Here every product x y of two fp32 values runs
+// on mma.sync m16n8k8 TF32 in three passes over the TF32 splits
+// x = x_hi + x_lo, with x_hi = rna_tf32(x) and x_lo = rna_tf32(x - x_hi),
+// rounded explicitly (the tensor core would drop the low 13 bits of raw
+// fp32 bits): x_lo y_hi + x_hi y_lo + x_hi y_hi, each product exact, fp32
+// accumulation. The dropped x_lo y_lo and the residuals of the two
+// splits put it within 3 2^-22 of |x y|, a few units of fp32 roundoff;
+// one TF32 pass would be 2^-10 off. The softmax statistics, p and ds are
+// fp32 on the CUDA cores. ops/attention_tolerances.py states the bounds.
 //
-// Design. The TPU kernels walk a sequential grid and carry their running
-// statistics in VMEM scratch from one grid step to the next. Here each
-// block owns one tile of rows and loops over the tiles of the other
-// sequence itself, so nothing is carried between blocks and no atomics are
-// needed: every result is written once, by the block that owns it, and
-// the results do not depend on the order blocks run in.
-// - A block of 128 threads works on a BR x BC tile of scores. Thread t owns
-//   rows 4 tr .. 4 tr + 3 (tr = t / TC) and columns tc + TC j (tc = t % TC),
-//   so the TC threads of a row are neighbouring lanes of one warp and
-//   reduce a row's max and sum with shuffles.
-// - The row operand of a score tile is staged transposed, [d][row], and
-//   read as one float4 for the thread's four rows; the column operand is
-//   staged [d][col] with a padded stride and read per column. Each product
-//   step reads 1 + BC / TC words of shared memory for 4 BC / TC products.
-// - K5: one block per (bh, 64 query rows). K/V tiles of 64 keys are staged
-//   through shared memory; a running max, a running sum and an fp32
-//   accumulator of D / TC columns stay in registers per query row; p goes
-//   through shared memory into the P V product.
-// - K6 dq: one block per (bh, 64 query rows), a loop over key tiles. It
-//   rebuilds p = exp(s scale - lse), forms dp = g v^T and
-//   ds = p (dp - delta) scale, and accumulates dq = ds k in registers.
-// - K6 dk/dv: one block per (bh, BK keys), a loop over query tiles. The
-//   score tile is transposed (keys are its rows), and dv = p^T g and
-//   dk = ds^T q accumulate in registers. BK = 64, or 32 at D = 128 to keep
-//   the two accumulators in registers.
-// - Tiles wholly in the causal future (every column > every row) are
-//   skipped; causal compares absolute indices, col <= row, as JAX does.
-//   Ragged Sq and Sk are masked in the kernel: rows past Sq are computed on
-//   zeros and not written, keys past Sk count as masked. No padding copies.
-// - Masked lanes contribute exactly 0; a query row with no valid key gives
-//   out = 0 and lse = 0, and its p is 0 in the backward.
+// What bounds them on the H100 at the zoo's head width D = 16. At (BH 2048,
+// S 512, D 16) with 62.8% valid keys K5 scores 337 M pairs non-causal:
+// 3 x 21.6 GFLOP of TF32 products (0.131 ms at 495 TFLOP/s), about 276 MB
+// of inputs and outputs (0.082 ms at 3.35 TB/s) and one exp a pair (0.089
+// ms at 16 a clock per SM at 1.98 GHz). K6 does 2.5 times K5's products
+// (3.5 times as JAX splits it). So the tensor cores bound both; mma.sync
+// does not reach the rate that wgmma does, and beside the mma the CUDA
+// cores split every operand (round, subtract, round: five instructions)
+// and run the softmax. What the design does:
+// - p and ds never leave registers. The m16n8 accumulator gives lane (g, t)
+//   the columns 2t and 2t + 1; the TF32 A fragment wants its k indices t
+//   and t + 4. Reading c0, c2, c1, c3 as a0..a3 makes k index t stand for
+//   tile row 2t and t + 4 for row 2t + 1 of each 8-group, and the B
+//   fragment is read from those rows: no shuffles.
+// - Tiles are staged in fp32 by cp.async, double-buffered, in rows of
+//   D + 4 floats: the fragments are plain 32-bit loads (there is no
+//   ldmatrix for 32-bit elements), and with this stride the (t, g) pattern
+//   of A and score-B fragments and the (2t, g) pattern of the P V-type B
+//   fragments hit 32 distinct banks for every D, and rows stay 16-byte
+//   aligned for cp.async.
+// - Operands are split as their fragments are loaded, with two integer
+//   instructions a rounding (cvt.rna.tf32 compiles to a longer sequence).
+//   The block's own rows (q; q and g; k and v) stay in shared memory and
+//   are split again for each streamed tile, at every D: at D = 16 that is
+//   8 of the warp's splits a tile, and at D = 128 holding their splits
+//   would take 128 registers. Splitting each streamed tile once a block
+//   in shared memory instead (four more tiles of it) measured no faster.
+// - Products over a 64-row tile with few n8 tiles (D <= 32) keep the two
+//   corrections in accumulators of their own: each accumulator would
+//   otherwise carry a chain of 24 dependent mma a tile.
+// - exp2 with log2(e) folded into the score scale: one MUFU instruction a
+//   pair (ex2.approx.ftz).
+// - Key tiles whose mask is all zero are skipped (a bit mask of the valid
+//   keys, read once a block), as are tiles wholly in the causal future;
+//   tiles with no masked lane take a path without the per-lane selects.
+//   A skipped tile would contribute p = 0 to every sum.
+//
+// Blocks. 128 threads, 4 warps of 16 rows each.
+// - K5: one block per (bh, 64 query rows); loops over 64-key tiles with an
+//   online softmax on the accumulator fragments (running max and sum per
+//   row, reduced over the 4 lanes of a quad).
+// - K6, as JAX splits it (s and dp are computed in both kernels; sharing
+//   them in one pass is later work): a dq kernel, one block per (bh, 64
+//   query rows) over key tiles; a dk/dv kernel, one block per (bh, 64
+//   keys) over query tiles, on transposed tiles (keys are rows).
+//   delta = rowsum(dO * O) comes in from the caller (JAX leaves it to XLA).
+// - Each block writes its own rows once: no atomics, and the result does
+//   not depend on the order blocks run in.
+// - Ragged Sq and Sk: rows past the end are zero-filled and not written,
+//   keys past Sk are masked. A query row with no valid key gives out 0 and
+//   lse 0, and its p is 0 in the backward.
 //
 // Every exported function launches on the stream it is given and returns
-// cudaGetLastError().
+// cudaGetLastError(), or cudaErrorInvalidValue for what it does not take.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -58,452 +84,657 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;  // 4 warps
+constexpr int kRows = 64;      // rows a block owns: 16 per warp
+constexpr int kCols = 64;      // rows of a streamed tile
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr size_t kMaxSmem = 232448;
 
-// A BR x BC score tile over 128 threads: thread t owns rows 4 tr + i
-// (i < 4) and columns tc + TC j (j < NJ).
-template <int BR, int BC>
-struct Tile {
-  static constexpr int TR = BR / 4;
-  static constexpr int TC = kThreads / TR;
-  static constexpr int NJ = BC / TC;
-  static constexpr int LDR = BR + 4;  // row operand [d][row], float4 reads
-  static constexpr int LDC = BC + 1;  // column operand [d][col]
-  static_assert(TR * TC == kThreads && NJ * TC == BC && TC <= 32, "tile");
+template <int D>
+struct Dims {
+  static constexpr int LD = D + 4;      // floats per staged row
+  static constexpr int TILE = kCols * LD;
+  static constexpr int KSTEPS = D / 8;  // mma k-steps over D
+  static constexpr int NT = D / 8;      // n8 tiles over D
 };
 
-// dst[d * ld + r] = src[r * D + d] for r < n, 0 for n <= r < R.
-template <int D, int R>
-__device__ __forceinline__ void load_transposed(float* dst, int ld,
-                                                const float* __restrict__ src,
-                                                int n) {
-  for (int e = threadIdx.x; e < R * D; e += kThreads) {
-    const int r = e / D, d = e % D;
-    dst[d * ld + r] = r < n ? src[(int64_t)r * D + d] : 0.f;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes from src, or 16 zero bytes when !in (src is then not read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(in ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// x rounded to TF32 (10 explicit mantissa bits), to nearest with ties away
+// from zero, as fp32 bits with the low 13 bits 0: cvt.rna.tf32.f32 for
+// finite x. Half of the dropped bits' range is added to the magnitude and
+// they are cleared: two integer instructions, where the cvt compiles to a
+// sequence with checks for NaN and infinity.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo + r, |lo| <= 2^-11 |x|, |r| <= 2^-22 |x|.
+struct Split {
+  uint32_t hi, lo;
+};
+
+__device__ __forceinline__ Split split(float x) {
+  const uint32_t hi = to_tf32(x);
+  return {hi, to_tf32(x - __uint_as_float(hi))};
+}
+
+// 2^x in one MUFU instruction (ex2.approx.ftz: within 2 ulp, results below
+// 2^-126 flushed to 0), where exp2f adds a range check and two products.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(x));
+  return r;
+}
+
+// d += a b on one 16 x 8 x 8 tile: TF32 operands, fp32 accumulators.
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b in three passes: the two corrections, then hi hi.
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], Split b0,
+                                     Split b1) {
+  mma(d, al, b0.hi, b1.hi);
+  mma(d, ah, b0.lo, b1.lo);
+  mma(d, ah, b0.hi, b1.hi);
+}
+
+// A fragment (row-major 16 x 8) from four fp32 values, split.
+__device__ __forceinline__ void split_a(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                        float a0, float a1, float a2,
+                                        float a3) {
+  const float x[4] = {a0, a1, a2, a3};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const Split s = split(x[e]);
+    hi[e] = s.hi;
+    lo[e] = s.lo;
   }
 }
 
-// dst[r * D + d] = src[r * D + d] for r < n, 0 for n <= r < R.
+// Fragment coordinates of a lane: mma's group and thread in group.
+struct Lane {
+  int warp, grp, tig;
+  __device__ Lane() {
+    const int lane = threadIdx.x & 31;
+    warp = threadIdx.x >> 5;
+    grp = lane >> 2;
+    tig = lane & 3;
+  }
+};
+
+// dst[r][c] = src[r * D + c] for r < n, 0 for n <= r < R (cp.async).
 template <int D, int R>
-__device__ __forceinline__ void load_rows(float* dst,
-                                          const float* __restrict__ src,
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           int n) {
-  for (int e = threadIdx.x; e < R * D; e += kThreads) {
-    dst[e] = e < n * D ? src[e] : 0.f;
+  constexpr int CH = D / 4;  // 16-byte chunks per row
+  for (int e = threadIdx.x; e < R * CH; e += kThreads) {
+    const int r = e / CH, c = (e - r * CH) * 4;
+    const bool in = r < n;
+    cp_async16(dst + r * Dims<D>::LD + c,
+               in ? src + (int64_t)r * D + c : src, in);
   }
 }
 
-// acc[i][j] = sum_d a[d][4 tr + i] * b[d][tc + TC j]; a is [D][LDR], b is
-// [D][LDC].
-template <int D, int BR, int BC>
-__device__ __forceinline__ void score_tile(
-    const float* a, const float* b, float (&acc)[4][Tile<BR, BC>::NJ]) {
-  using T = Tile<BR, BC>;
-  const int tr = threadIdx.x / T::TC, tc = threadIdx.x % T::TC;
+// bits[w] bit b = key 32 w + b is valid (< sk and mask > 0), for
+// w < 2 ntiles: two words per 64-key tile.
+__device__ __forceinline__ void load_key_bits(uint32_t* bits,
+                                              const float* __restrict__ mask,
+                                              int sk, int ntiles) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int w = warp; w < 2 * ntiles; w += kThreads / 32) {
+    const int key = w * 32 + lane;
+    const uint32_t b = __ballot_sync(0xffffffffu, key < sk && mask[key] > 0.f);
+    if (lane == 0) bits[w] = b;
+  }
+}
+
+// The first tile at or after t, below n, with a valid key.
+__device__ __forceinline__ int next_live(const uint32_t* bits, int t, int n) {
+  while (t < n && (bits[2 * t] | bits[2 * t + 1]) == 0) ++t;
+  return t;
+}
+
+// acc[j] = A B^T over a 64-row tile b ([64][LD]): the warp's 16 rows of a
+// ([rows][LD], from row0) against the tile's rows, n8 tile j holding tile
+// rows 8 j .. 8 j + 7. Lane (g, t) reads a[row0 + g (+ 8)][8 kk + t (+ 4)]
+// and b[8 j + g][8 kk + t (+ 4)].
+template <int D>
+__device__ __forceinline__ void scores(float (&acc)[8][4], const float* a,
+                                       int row0, const float* b,
+                                       const Lane& ln) {
+  constexpr int LD = Dims<D>::LD;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < 8; ++j)
 #pragma unroll
-    for (int j = 0; j < T::NJ; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    const float4 x = *reinterpret_cast<const float4*>(a + d * T::LDR + 4 * tr);
-    const float xs[4] = {x.x, x.y, x.z, x.w};
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 #pragma unroll
-    for (int j = 0; j < T::NJ; ++j) {
-      const float y = b[d * T::LDC + tc + T::TC * j];
+  for (int kk = 0; kk < Dims<D>::KSTEPS; ++kk) {
+    const float* ap = a + (row0 + ln.grp) * LD + 8 * kk + ln.tig;
+    uint32_t ah[4], al[4];
+    split_a(ah, al, ap[0], ap[8 * LD], ap[4], ap[8 * LD + 4]);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(xs[i], y, acc[i][j]);
+    for (int j = 0; j < 8; ++j) {
+      const float* bp = b + (8 * j + ln.grp) * LD + 8 * kk + ln.tig;
+      mma3(acc[j], ah, al, split(bp[0]), split(bp[4]));
     }
   }
 }
 
-// dst[(tc + TC j) * LDR + 4 tr + i] = v[i][j]: a tile stored [col][row], as
-// the row operand of the product that follows.
-template <int BR, int BC>
-__device__ __forceinline__ void store_transposed(
-    float* dst, const float (&v)[4][Tile<BR, BC>::NJ]) {
-  using T = Tile<BR, BC>;
-  const int tr = threadIdx.x / T::TC, tc = threadIdx.x % T::TC;
+// acc[n] += X B over a 64-row tile b ([64][LD], rows are the k index): X
+// is the warp's 16 x 64 fp32 accumulator fragments x, split in registers.
+// Lane (g, t) holds x's columns 2t, 2t + 1 of each 8-group kk; as the A
+// fragment's k indices t and t + 4 they stand for tile rows 8 kk + 2t and
+// 8 kk + 2t + 1, so b is read there: b[8 kk + 2t (+ 1)][8 n + g].
+template <int D>
+__device__ __forceinline__ void accumulate(float (&acc)[Dims<D>::NT][4],
+                                           const float (&x)[8][4],
+                                           const float* b, const Lane& ln) {
+  constexpr int LD = Dims<D>::LD;
+  constexpr int NT = Dims<D>::NT;
+  // With fewer than 8 n8 tiles the chains of dependent mma on each
+  // accumulator (8 k-steps x 3 passes) set the pace: the two corrections
+  // then go to accumulators of their own, added at the end.
+  constexpr bool kOwn = NT < 8;
+  float c1[kOwn ? NT : 1][4], c2[kOwn ? NT : 1][4];
+  if constexpr (kOwn) {
 #pragma unroll
-  for (int j = 0; j < T::NJ; ++j) {
-    *reinterpret_cast<float4*>(dst + (tc + T::TC * j) * T::LDR + 4 * tr) =
-        make_float4(v[0][j], v[1][j], v[2][j], v[3][j]);
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c1[n][e] = c2[n][e] = 0.f;
+  }
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    uint32_t ah[4], al[4];
+    split_a(ah, al, x[kk][0], x[kk][2], x[kk][1], x[kk][3]);
+    const float* bp = b + (8 * kk + 2 * ln.tig) * LD + ln.grp;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const Split b0 = split(bp[8 * n]), b1 = split(bp[8 * n + LD]);
+      if constexpr (kOwn) {
+        mma(c1[n], al, b0.hi, b1.hi);
+        mma(c2[n], ah, b0.lo, b1.lo);
+        mma(acc[n], ah, b0.hi, b1.hi);
+      } else {
+        mma3(acc[n], ah, al, b0, b1);
+      }
+    }
+  }
+  if constexpr (kOwn) {
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += c1[n][e] + c2[n][e];
   }
 }
 
-// acc[i][c] += sum_{k < BC} p[k][4 tr + i] * b(k, tc + TC c), with p stored
-// [BC][LDR] and b(k, col) = b[k * kstride + col * cstride].
-template <int D, int BR, int BC>
-__device__ __forceinline__ void accumulate(
-    float (&acc)[4][D / Tile<BR, BC>::TC], const float* p, const float* b,
-    int kstride, int cstride) {
-  using T = Tile<BR, BC>;
-  constexpr int NC = D / T::TC;
-  const int tr = threadIdx.x / T::TC, tc = threadIdx.x % T::TC;
-#pragma unroll 4
-  for (int k = 0; k < BC; ++k) {
-    const float4 x = *reinterpret_cast<const float4*>(p + k * T::LDR + 4 * tr);
-    const float xs[4] = {x.x, x.y, x.z, x.w};
+// Is column c (0..63) of a tile a valid key, from the tile's two words?
+__device__ __forceinline__ bool key_bit(uint32_t w0, uint32_t w1, int c) {
+  return ((c < 32 ? w0 : w1) >> (c & 31)) & 1u;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Rows grp (half 0) and grp + 8 (half 1) of the warp's 16 rows of a
+// [rows][D] output, from the fragments times s[half].
+template <int D>
+__device__ __forceinline__ void store_rows(float* out, int64_t row0, int rows,
+                                           const float (&acc)[Dims<D>::NT][4],
+                                           const float (&s)[2],
+                                           const Lane& ln) {
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const float y = b[k * kstride + (tc + T::TC * c) * cstride];
+  for (int half = 0; half < 2; ++half) {
+    const int r = ln.grp + 8 * half;
+    if (r >= rows) continue;
+    float* o = out + (row0 + r) * D + 2 * ln.tig;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(xs[i], y, acc[i][c]);
+    for (int n = 0; n < Dims<D>::NT; ++n) {
+      *reinterpret_cast<float2*>(o + 8 * n) = make_float2(
+          acc[n][2 * half] * s[half], acc[n][2 * half + 1] * s[half]);
     }
   }
 }
 
-// A reduction over the TC neighbouring lanes that share a row.
-template <int TC>
-__device__ __forceinline__ float row_max(float x) {
+// The online softmax of one key tile on the warp's score fragments s (the
+// raw q.k): s becomes p = exp2(s c - m), with c = scale log2(e) and m the
+// running max of s c over the key tiles so far; l is the running row sum
+// and alpha the factor the accumulator takes. kMasked: a lane where
+// valid(col, half) is false takes p = 0. Without it every lane is valid: a
+// tile of valid keys wholly in the causal past, which skips the selects.
+template <bool kMasked, typename Valid>
+__device__ __forceinline__ void online_softmax(float (&s)[8][4], float (&m)[2],
+                                               float (&l)[2],
+                                               float (&alpha)[2], float c,
+                                               const Lane& ln, Valid valid) {
+  float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-  for (int o = TC / 2; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (kMasked && !valid(8 * j + 2 * ln.tig + (e & 1), e >> 1))
+        s[j][e] = kNegInf;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float tile_max = quad_max(mx[h]);
+    const float m_new =
+        tile_max <= kNegInf / 2 ? m[h] : fmaxf(m[h], tile_max * c);
+    // Guard rows masked so far: exp(NEG_INF - NEG_INF) would be 1.
+    alpha[h] = m[h] <= kNegInf / 2 ? 0.f : fast_exp2(m[h] - m_new);
+    m[h] = m_new;
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1;
+      const float p = fast_exp2(fmaf(s[j][e], c, -m[h]));
+      s[j][e] = kMasked && s[j][e] <= kNegInf / 2 ? 0.f : p;
+      sum[h] += s[j][e];
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) l[h] = alpha[h] * l[h] + quad_sum(sum[h]);
 }
 
-template <int TC>
-__device__ __forceinline__ float row_sum(float x) {
+// K6's rebuild on the warp's fragments: p (the raw q.k on entry) becomes
+// exp2(p c - lse2(col, half)), with lse2 = lse log2(e); ds (dp on entry)
+// becomes p (dp - delta(col, half)) scale. kMasked: a lane where
+// valid(col, half) is false takes p = 0 (a select, never a product: exp
+// may overflow on masked lanes); without it every lane is valid.
+template <bool kMasked, typename Valid, typename Lse, typename Delta>
+__device__ __forceinline__ void rebuild_p_ds(float (&p)[8][4],
+                                             float (&ds)[8][4], float c,
+                                             float scale, const Lane& ln,
+                                             Valid valid, Lse lse2,
+                                             Delta delta) {
 #pragma unroll
-  for (int o = TC / 2; o > 0; o >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 8 * j + 2 * ln.tig + (e & 1), h = e >> 1;
+      float pe = fast_exp2(fmaf(p[j][e], c, -lse2(col, h)));
+      if (kMasked && !valid(col, h)) pe = 0.f;
+      p[j][e] = pe;
+      ds[j][e] = pe * (ds[j][e] - delta(col, h)) * scale;
+    }
 }
 
 // -- K5 -----------------------------------------------------------------------
 
-constexpr int kFwdQ = 64, kFwdK = 64;
-
 template <int D>
-constexpr size_t fwd_smem() {
-  using T = Tile<kFwdQ, kFwdK>;
-  return sizeof(float) *
-         (D * T::LDR + D * T::LDC + kFwdK * D + kFwdK * T::LDR + kFwdK);
+constexpr size_t fwd_smem(int ntiles) {
+  return sizeof(float) * (kRows + 4 * kCols) * Dims<D>::LD +
+         sizeof(uint32_t) * 2 * ntiles;
 }
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
-                     const float* __restrict__ mask, float* __restrict__ out,
-                     float* __restrict__ lse, int sq, int sk, int causal,
-                     float scale) {
-  using T = Tile<kFwdQ, kFwdK>;
-  constexpr int NJ = T::NJ, NC = D / T::TC;
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);  // [D][LDR]
-  float* ks = qs + D * T::LDR;                  // [D][LDC]
-  float* vs = ks + D * T::LDC;                  // [BK][D]
-  float* ps = vs + kFwdK * D;                   // [BK][LDR]
-  float* valid = ps + kFwdK * T::LDR;           // [BK]
+    fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ mask,
+               float* __restrict__ out, float* __restrict__ lse, int sq,
+               int sk, int causal, float scale_log2) {
+  using T = Dims<D>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);  // [64][LD]
+  float* ks = qs + kRows * T::LD;              // [2][64][LD]
+  float* vs = ks + 2 * T::TILE;                // [2][64][LD]
+  uint32_t* bits = reinterpret_cast<uint32_t*>(vs + 2 * T::TILE);
 
-  const int nq = (sq + kFwdQ - 1) / kFwdQ;
+  const Lane ln;
+  const int nq = (sq + kRows - 1) / kRows;
   const int64_t bh = blockIdx.x / nq;
-  const int q0 = (int)(blockIdx.x % nq) * kFwdQ;
-  const int tr = threadIdx.x / T::TC, tc = threadIdx.x % T::TC;
+  const int q0 = (int)(blockIdx.x % nq) * kRows;
   const float* kb = k + bh * sk * D;
   const float* vb = v + bh * sk * D;
-  const float* mb = mask + bh * sk;
+  const int ntiles = (sk + kCols - 1) / kCols;
+  // Causal: tiles that start after the block's last row are all future.
+  const int nrun = causal ? min(ntiles, (q0 + kRows - 1) / kCols + 1) : ntiles;
 
-  load_transposed<D, kFwdQ>(qs, T::LDR, q + (bh * sq + q0) * D, sq - q0);
-
-  float m[4], l[4], acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
+  load_tile<D, kRows>(qs, q + (bh * sq + q0) * D, sq - q0);
+  load_key_bits(bits, mask + bh * sk, sk, ntiles);
+  __syncthreads();  // the bits
+  int t = next_live(bits, 0, nrun);
+  if (t < nrun) {
+    load_tile<D, kCols>(ks, kb + (int64_t)t * kCols * D, sk - t * kCols);
+    load_tile<D, kCols>(vs, vb + (int64_t)t * kCols * D, sk - t * kCols);
   }
+  cp_async_commit();
 
-  int nk = (sk + kFwdK - 1) / kFwdK;
-  if (causal) nk = min(nk, (q0 + kFwdQ - 1) / kFwdK + 1);
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kFwdK;
-    __syncthreads();  // the previous tile's readers are done
-    load_transposed<D, kFwdK>(ks, T::LDC, kb + (int64_t)k0 * D, sk - k0);
-    load_rows<D, kFwdK>(vs, vb + (int64_t)k0 * D, sk - k0);
-    for (int e = threadIdx.x; e < kFwdK; e += kThreads)
-      valid[e] = (k0 + e < sk && mb[k0 + e] > 0.f) ? 1.f : 0.f;
-    __syncthreads();
+  const int row0 = q0 + 16 * ln.warp + ln.grp;  // and row0 + 8
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[T::NT][4];
+#pragma unroll
+  for (int n = 0; n < T::NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
 
-    float s[4][NJ];
-    score_tile<D, kFwdQ, kFwdK>(qs, ks, s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + 4 * tr + i;
-      float mc = kNegInf;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int col = tc + T::TC * j;
-        const bool ok = valid[col] > 0.f && (!causal || k0 + col <= row);
-        s[i][j] = ok ? s[i][j] * scale : kNegInf;
-        mc = fmaxf(mc, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max<T::TC>(mc));
-      // Guard rows masked so far: exp(NEG_INF - NEG_INF) would be 1.
-      const float alpha = m[i] <= kNegInf / 2 ? 0.f : expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        s[i][j] = s[i][j] <= kNegInf / 2 ? 0.f : expf(s[i][j] - m_new);
-        sum += s[i][j];
-      }
-      l[i] = alpha * l[i] + row_sum<T::TC>(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
+  for (int stage = 0; t < nrun; stage ^= 1) {
+    const int tn = next_live(bits, t + 1, nrun);
+    if (tn < nrun) {
+      load_tile<D, kCols>(ks + (stage ^ 1) * T::TILE,
+                          kb + (int64_t)tn * kCols * D, sk - tn * kCols);
+      load_tile<D, kCols>(vs + (stage ^ 1) * T::TILE,
+                          vb + (int64_t)tn * kCols * D, sk - tn * kCols);
     }
-    store_transposed<kFwdQ, kFwdK>(ps, s);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile t (and q) have landed
     __syncthreads();
-    accumulate<D, kFwdQ, kFwdK>(acc, ps, vs, D, 1);
-  }
 
+    float s[8][4];
+    scores<D>(s, qs, 16 * ln.warp, ks + stage * T::TILE, ln);
+    const uint32_t w0 = bits[2 * t], w1 = bits[2 * t + 1];
+    const int k0 = t * kCols;
+    float alpha[2];
+    if ((w0 & w1) == ~0u && (!causal || k0 + kCols - 1 <= q0)) {
+      online_softmax<false>(s, m, l, alpha, scale_log2, ln,
+                            [](int, int) { return true; });
+    } else {
+      online_softmax<true>(s, m, l, alpha, scale_log2, ln,
+                           [=](int c, int h) {
+                             return key_bit(w0, w1, c) &&
+                                    (!causal || k0 + c <= row0 + 8 * h);
+                           });
+    }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * tr + i;
-    if (row >= sq) continue;
-    const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    float* o = out + (bh * sq + row) * D;
+    for (int n = 0; n < T::NT; ++n)
 #pragma unroll
-    for (int c = 0; c < NC; ++c) o[tc + T::TC * c] = acc[i][c] * inv;
-    // Rows with no valid key get lse = 0: their backward p is zeroed by
-    // the same masks, so the value only has to be finite.
-    if (tc == 0)
-      lse[bh * sq + row] =
-          l[i] > 0.f ? m[i] + logf(fmaxf(l[i], 1e-30f)) : 0.f;
+      for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
+    accumulate<D>(o, s, vs + stage * T::TILE, ln);
+    __syncthreads();  // this stage's readers are done before its next load
+    t = tn;
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) inv[h] = 1.f / fmaxf(l[h], 1e-30f);
+  const int64_t first = bh * sq + q0 + 16 * ln.warp;
+  store_rows<D>(out, first, sq - (q0 + 16 * ln.warp), o, inv, ln);
+  if (ln.tig == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      // Rows with no valid key get lse = 0: their backward p is zeroed by
+      // the same masks, so the value only has to be finite.
+      if (row < sq)
+        lse[bh * sq + row] =
+            l[h] > 0.f ? m[h] * kLn2 + logf(fmaxf(l[h], 1e-30f)) : 0.f;
+    }
   }
 }
 
 // -- K6: dq -------------------------------------------------------------------
 
-constexpr int kDqQ = 64, kDqK = 64;
-
 template <int D>
-constexpr size_t dq_smem() {
-  using T = Tile<kDqQ, kDqK>;
-  return sizeof(float) *
-         (2 * D * T::LDR + 2 * D * T::LDC + kDqK * T::LDR + kDqK);
+constexpr size_t dq_smem(int ntiles) {
+  return sizeof(float) * (2 * kRows + 4 * kCols) * Dims<D>::LD +
+         sizeof(uint32_t) * 2 * ntiles;
 }
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const float* __restrict__ q,
-                        const float* __restrict__ k,
-                        const float* __restrict__ v,
-                        const float* __restrict__ mask,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        const float* __restrict__ g, float* __restrict__ dq,
-                        int sq, int sk, int causal, float scale) {
-  using T = Tile<kDqQ, kDqK>;
-  constexpr int NJ = T::NJ, NC = D / T::TC;
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);  // [D][LDR]
-  float* gs = qs + D * T::LDR;                  // [D][LDR]
-  float* ks = gs + D * T::LDR;                  // [D][LDC]
-  float* vs = ks + D * T::LDC;                  // [D][LDC]
-  float* dss = vs + D * T::LDC;                 // [BK][LDR]
-  float* valid = dss + kDqK * T::LDR;           // [BK]
+    dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ mask,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              const float* __restrict__ g, float* __restrict__ dq, int sq,
+              int sk, int causal, float scale, float scale_log2) {
+  using T = Dims<D>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);  // [64][LD]
+  float* gs = qs + kRows * T::LD;              // [64][LD]
+  float* ks = gs + kRows * T::LD;              // [2][64][LD]
+  float* vs = ks + 2 * T::TILE;                // [2][64][LD]
+  uint32_t* bits = reinterpret_cast<uint32_t*>(vs + 2 * T::TILE);
 
-  const int nq = (sq + kDqQ - 1) / kDqQ;
+  const Lane ln;
+  const int nq = (sq + kRows - 1) / kRows;
   const int64_t bh = blockIdx.x / nq;
-  const int q0 = (int)(blockIdx.x % nq) * kDqQ;
-  const int tr = threadIdx.x / T::TC, tc = threadIdx.x % T::TC;
+  const int q0 = (int)(blockIdx.x % nq) * kRows;
   const float* kb = k + bh * sk * D;
   const float* vb = v + bh * sk * D;
-  const float* mb = mask + bh * sk;
+  const int ntiles = (sk + kCols - 1) / kCols;
+  const int nrun = causal ? min(ntiles, (q0 + kRows - 1) / kCols + 1) : ntiles;
 
-  load_transposed<D, kDqQ>(qs, T::LDR, q + (bh * sq + q0) * D, sq - q0);
-  load_transposed<D, kDqQ>(gs, T::LDR, g + (bh * sq + q0) * D, sq - q0);
-  float row_lse[4], row_delta[4], acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * tr + i;
-    row_lse[i] = row < sq ? lse[bh * sq + row] : 0.f;
-    row_delta[i] = row < sq ? delta[bh * sq + row] : 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
+  const int64_t first = bh * sq + q0;  // the block's first row
+  load_tile<D, kRows>(qs, q + first * D, sq - q0);
+  load_tile<D, kRows>(gs, g + first * D, sq - q0);
+  load_key_bits(bits, mask + bh * sk, sk, ntiles);
+  __syncthreads();
+  int t = next_live(bits, 0, nrun);
+  if (t < nrun) {
+    load_tile<D, kCols>(ks, kb + (int64_t)t * kCols * D, sk - t * kCols);
+    load_tile<D, kCols>(vs, vb + (int64_t)t * kCols * D, sk - t * kCols);
   }
+  cp_async_commit();
 
-  int nk = (sk + kDqK - 1) / kDqK;
-  if (causal) nk = min(nk, (q0 + kDqQ - 1) / kDqK + 1);
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kDqK;
-    __syncthreads();
-    load_transposed<D, kDqK>(ks, T::LDC, kb + (int64_t)k0 * D, sk - k0);
-    load_transposed<D, kDqK>(vs, T::LDC, vb + (int64_t)k0 * D, sk - k0);
-    for (int e = threadIdx.x; e < kDqK; e += kThreads)
-      valid[e] = (k0 + e < sk && mb[k0 + e] > 0.f) ? 1.f : 0.f;
-    __syncthreads();
+  const int row0 = q0 + 16 * ln.warp + ln.grp;
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    row_lse[h] = row < sq ? lse[bh * sq + row] * kLog2e : 0.f;
+    row_delta[h] = row < sq ? delta[bh * sq + row] : 0.f;
+  }
+  float acc[T::NT][4];
+#pragma unroll
+  for (int n = 0; n < T::NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
-    float p[4][NJ], dp[4][NJ];
-    score_tile<D, kDqQ, kDqK>(qs, ks, p);
-    score_tile<D, kDqQ, kDqK>(gs, vs, dp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + 4 * tr + i;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int col = tc + T::TC * j;
-        const bool ok = row < sq && valid[col] > 0.f &&
-                        (!causal || k0 + col <= row);
-        // A select, never a product: exp may overflow on masked lanes.
-        const float pij = ok ? expf(p[i][j] * scale - row_lse[i]) : 0.f;
-        p[i][j] = pij * (dp[i][j] - row_delta[i]) * scale;  // ds
-      }
+  for (int stage = 0; t < nrun; stage ^= 1) {
+    const int tn = next_live(bits, t + 1, nrun);
+    if (tn < nrun) {
+      load_tile<D, kCols>(ks + (stage ^ 1) * T::TILE,
+                          kb + (int64_t)tn * kCols * D, sk - tn * kCols);
+      load_tile<D, kCols>(vs + (stage ^ 1) * T::TILE,
+                          vb + (int64_t)tn * kCols * D, sk - tn * kCols);
     }
-    store_transposed<kDqQ, kDqK>(dss, p);
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
-    // dq[row][col] += sum_k ds[row][k] * k[k][col]; ks is [col][k].
-    accumulate<D, kDqQ, kDqK>(acc, dss, ks, 1, T::LDC);
-  }
 
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * tr + i;
-    if (row >= sq) continue;
-    float* o = dq + (bh * sq + row) * D;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) o[tc + T::TC * c] = acc[i][c];
+    const float* kt = ks + stage * T::TILE;
+    float s[8][4], dp[8][4];
+    scores<D>(s, qs, 16 * ln.warp, kt, ln);
+    scores<D>(dp, gs, 16 * ln.warp, vs + stage * T::TILE, ln);
+    const uint32_t w0 = bits[2 * t], w1 = bits[2 * t + 1];
+    const int k0 = t * kCols;
+    const auto lse2 = [=](int, int h) { return row_lse[h]; };
+    const auto dlt = [=](int, int h) { return row_delta[h]; };
+    // Rows past Sq need no mask: their q is 0 and their dq is not written.
+    if ((w0 & w1) == ~0u && (!causal || k0 + kCols - 1 <= q0)) {
+      rebuild_p_ds<false>(s, dp, scale_log2, scale, ln,
+                          [](int, int) { return true; }, lse2, dlt);
+    } else {
+      rebuild_p_ds<true>(s, dp, scale_log2, scale, ln,
+                         [=](int c, int h) {
+                           const int row = row0 + 8 * h;
+                           return row < sq && key_bit(w0, w1, c) &&
+                                  (!causal || k0 + c <= row);
+                         },
+                         lse2, dlt);
+    }
+    // dq += ds k: k's tile rows are the k index.
+    accumulate<D>(acc, dp, kt, ln);
+    __syncthreads();
+    t = tn;
   }
+  cp_async_wait<0>();  // no copy outlives the block
+  const float one[2] = {1.f, 1.f};
+  store_rows<D>(dq, first + 16 * ln.warp, sq - (q0 + 16 * ln.warp), acc, one,
+                ln);
 }
 
 // -- K6: dk and dv ------------------------------------------------------------
 
-constexpr int kDkvQ = 64;
-
-template <int D>
-struct DkvTile {
-  static constexpr int BK = D >= 128 ? 32 : 64;
-  using T = Tile<BK, kDkvQ>;
-};
-
 template <int D>
 constexpr size_t dkv_smem() {
-  using T = typename DkvTile<D>::T;
-  return sizeof(float) *
-         (2 * D * T::LDR + 2 * D * T::LDC + 2 * kDkvQ * T::LDR + 2 * kDkvQ);
+  return sizeof(float) * (2 * kRows + 4 * kCols) * Dims<D>::LD +
+         sizeof(float) * 4 * kCols;
 }
 
+// At D = 16 ptxas left to itself settles on 128 registers and spills; asked
+// for four blocks an SM it fits 128 without a spill.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v,
-                         const float* __restrict__ mask,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         const float* __restrict__ g, float* __restrict__ dk,
-                         float* __restrict__ dv, int sq, int sk, int causal,
-                         float scale) {
-  constexpr int BK = DkvTile<D>::BK;
-  using T = typename DkvTile<D>::T;
-  constexpr int NJ = T::NJ, NC = D / T::TC;
-  extern __shared__ float4 smem4[];
-  float* ks = reinterpret_cast<float*>(smem4);  // [D][LDR]
-  float* vs = ks + D * T::LDR;                  // [D][LDR]
-  float* qs = vs + D * T::LDR;                  // [D][LDC]
-  float* gs = qs + D * T::LDC;                  // [D][LDC]
-  float* ps = gs + D * T::LDC;                  // [BQ][LDR]
-  float* dss = ps + kDkvQ * T::LDR;             // [BQ][LDR]
-  float* lse_s = dss + kDkvQ * T::LDR;          // [BQ]
-  float* delta_s = lse_s + kDkvQ;               // [BQ]
+__global__ void __launch_bounds__(kThreads, D == 16 ? 4 : 1)
+    dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ mask,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               const float* __restrict__ g, float* __restrict__ dk,
+               float* __restrict__ dv, int sq, int sk, int causal, float scale,
+               float scale_log2) {
+  using T = Dims<D>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ks = reinterpret_cast<float*>(smem);  // [64][LD], this block's keys
+  float* vs = ks + kRows * T::LD;              // [64][LD]
+  float* qs = vs + kRows * T::LD;              // [2][64][LD]
+  float* gs = qs + 2 * T::TILE;                // [2][64][LD]
+  float* lse_s = gs + 2 * T::TILE;             // [2][64]
+  float* delta_s = lse_s + 2 * kCols;          // [2][64]
 
-  const int nkb = (sk + BK - 1) / BK;
+  const Lane ln;
+  const int nkb = (sk + kRows - 1) / kRows;
   const int64_t bh = blockIdx.x / nkb;
-  const int k0 = (int)(blockIdx.x % nkb) * BK;
-  const int tr = threadIdx.x / T::TC, tc = threadIdx.x % T::TC;
+  const int k0 = (int)(blockIdx.x % nkb) * kRows;
   const float* qb = q + bh * sq * D;
   const float* gb = g + bh * sq * D;
-
-  load_transposed<D, BK>(ks, T::LDR, k + (bh * sk + k0) * D, sk - k0);
-  load_transposed<D, BK>(vs, T::LDR, v + (bh * sk + k0) * D, sk - k0);
-  bool key_ok[4];
-  float acc_k[4][NC], acc_v[4][NC];
+  const int key0 = k0 + 16 * ln.warp + ln.grp;  // and key0 + 8
+  bool key_ok[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + 4 * tr + i;
-    key_ok[i] = key < sk && mask[bh * sk + key] > 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
+  for (int h = 0; h < 2; ++h) {
+    const int key = key0 + 8 * h;
+    key_ok[h] = key < sk && mask[bh * sk + key] > 0.f;
   }
+  float acc_k[T::NT][4], acc_v[T::NT][4];
+#pragma unroll
+  for (int n = 0; n < T::NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
 
-  const int nq = (sq + kDkvQ - 1) / kDkvQ;
+  const int nq = (sq + kCols - 1) / kCols;
   // Causal: query tiles that end before this key tile starts see none of
-  // its keys.
-  for (int qt = causal ? k0 / kDkvQ : 0; qt < nq; ++qt) {
-    const int q0 = qt * kDkvQ;
-    __syncthreads();
-    load_transposed<D, kDkvQ>(qs, T::LDC, qb + (int64_t)q0 * D, sq - q0);
-    load_transposed<D, kDkvQ>(gs, T::LDC, gb + (int64_t)q0 * D, sq - q0);
-    for (int e = threadIdx.x; e < kDkvQ; e += kThreads) {
+  // its keys. A block of padding keys only has gradients 0.
+  int qt = causal ? k0 / kCols : 0;
+  if (!__syncthreads_or(key_ok[0] || key_ok[1])) qt = nq;
+  const bool all_keys = __syncthreads_and(key_ok[0] && key_ok[1]);
+
+  auto stage_rows = [&](int tile, int stage) {
+    const int q0 = tile * kCols;
+    load_tile<D, kCols>(qs + stage * T::TILE, qb + (int64_t)q0 * D, sq - q0);
+    load_tile<D, kCols>(gs + stage * T::TILE, gb + (int64_t)q0 * D, sq - q0);
+    for (int e = threadIdx.x; e < kCols; e += kThreads) {
       const bool in = q0 + e < sq;
-      lse_s[e] = in ? lse[bh * sq + q0 + e] : 0.f;
-      delta_s[e] = in ? delta[bh * sq + q0 + e] : 0.f;
+      lse_s[stage * kCols + e] = in ? lse[bh * sq + q0 + e] * kLog2e : 0.f;
+      delta_s[stage * kCols + e] = in ? delta[bh * sq + q0 + e] : 0.f;
     }
+  };
+  load_tile<D, kRows>(ks, k + (bh * sk + k0) * D, sk - k0);
+  load_tile<D, kRows>(vs, v + (bh * sk + k0) * D, sk - k0);
+  if (qt < nq) stage_rows(qt, 0);
+  cp_async_commit();
+
+  for (int stage = 0; qt < nq; stage ^= 1, ++qt) {
+    if (qt + 1 < nq) stage_rows(qt + 1, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
 
-    // Transposed tiles: rows are this block's keys, columns the queries.
-    float p[4][NJ], ds[4][NJ];
-    score_tile<D, BK, kDkvQ>(ks, qs, p);
-    score_tile<D, BK, kDkvQ>(vs, gs, ds);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int key = k0 + 4 * tr + i;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int col = tc + T::TC * j;
-        const int row = q0 + col;
-        const bool ok = key_ok[i] && row < sq && (!causal || key <= row);
-        p[i][j] = ok ? expf(p[i][j] * scale - lse_s[col]) : 0.f;
-        ds[i][j] = p[i][j] * (ds[i][j] - delta_s[col]) * scale;
-      }
+    const float* qt_s = qs + stage * T::TILE;
+    const float* gt_s = gs + stage * T::TILE;
+    const float* lse_t = lse_s + stage * kCols;
+    const float* delta_t = delta_s + stage * kCols;
+    // Transposed tiles: rows are this warp's keys, columns the queries.
+    float p[8][4], ds[8][4];
+    scores<D>(p, ks, 16 * ln.warp, qt_s, ln);
+    scores<D>(ds, vs, 16 * ln.warp, gt_s, ln);
+    const int q0 = qt * kCols;
+    const auto lse2 = [=](int c, int) { return lse_t[c]; };
+    const auto dlt = [=](int c, int) { return delta_t[c]; };
+    if (all_keys && q0 + kCols <= sq && (!causal || k0 + kRows - 1 <= q0)) {
+      rebuild_p_ds<false>(p, ds, scale_log2, scale, ln,
+                          [](int, int) { return true; }, lse2, dlt);
+    } else {
+      rebuild_p_ds<true>(p, ds, scale_log2, scale, ln,
+                         [=](int c, int h) {
+                           const int row = q0 + c;
+                           return key_ok[h] && row < sq &&
+                                  (!causal || key0 + 8 * h <= row);
+                         },
+                         lse2, dlt);
     }
-    store_transposed<BK, kDkvQ>(ps, p);
-    store_transposed<BK, kDkvQ>(dss, ds);
+    // dv += p^T g and dk += ds^T q: the query tiles' rows are the k index.
+    accumulate<D>(acc_v, p, gt_s, ln);
+    accumulate<D>(acc_k, ds, qt_s, ln);
     __syncthreads();
-    // dv[key][col] += sum_q p[q][key] g[q][col]; gs is [col][q]. Likewise
-    // dk with ds and q.
-    accumulate<D, BK, kDkvQ>(acc_v, ps, gs, 1, T::LDC);
-    accumulate<D, BK, kDkvQ>(acc_k, dss, qs, 1, T::LDC);
   }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + 4 * tr + i;
-    if (key >= sk) continue;
-    float* dk_row = dk + (bh * sk + key) * D;
-    float* dv_row = dv + (bh * sk + key) * D;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      dk_row[tc + T::TC * c] = acc_k[i][c];
-      dv_row[tc + T::TC * c] = acc_v[i][c];
-    }
-  }
+  cp_async_wait<0>();  // no copy outlives the block
+  const float one[2] = {1.f, 1.f};
+  const int64_t first = bh * sk + k0 + 16 * ln.warp;
+  const int rows = sk - (k0 + 16 * ln.warp);
+  store_rows<D>(dk, first, rows, acc_k, one, ln);
+  store_rows<D>(dv, first, rows, acc_v, one, ln);
 }
 
 // -- launchers ----------------------------------------------------------------
 
 template <typename Kernel>
-cudaError_t launch_config(Kernel kernel, size_t smem, int64_t blocks) {
-  if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
+int configure(Kernel kernel, size_t smem, int64_t blocks) {
+  if (blocks > INT_MAX || smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
+
+bool aligned(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 template <int D>
 int fwd(const float* q, const float* k, const float* v, const float* mask,
         float* out, float* lse, int bh, int sq, int sk, int causal,
         cudaStream_t stream) {
-  const int64_t blocks = (int64_t)bh * ((sq + kFwdQ - 1) / kFwdQ);
-  constexpr size_t smem = fwd_smem<D>();
-  cudaError_t err = launch_config(flash_fwd_kernel<D>, smem, blocks);
-  if (err != cudaSuccess) return (int)err;
-  flash_fwd_kernel<D><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      q, k, v, mask, out, lse, sq, sk, causal, (float)(1.0 / sqrt((double)D)));
+  const int64_t blocks = (int64_t)bh * ((sq + kRows - 1) / kRows);
+  const size_t smem = fwd_smem<D>((sk + kCols - 1) / kCols);
+  const int err = configure(fwd_kernel<D>, smem, blocks);
+  if (err) return err;
+  const float scale_log2 = (float)(kLog2e / sqrt((double)D));
+  fwd_kernel<D><<<(unsigned)blocks, kThreads, smem, stream>>>(
+      q, k, v, mask, out, lse, sq, sk, causal, scale_log2);
   return (int)cudaGetLastError();
 }
 
@@ -513,35 +744,37 @@ int bwd(const float* q, const float* k, const float* v, const float* mask,
         float* dk, float* dv, int bh, int sq, int sk, int causal,
         cudaStream_t stream) {
   const float scale = (float)(1.0 / sqrt((double)D));
-  const int64_t dq_blocks = (int64_t)bh * ((sq + kDqQ - 1) / kDqQ);
-  constexpr size_t dq_bytes = dq_smem<D>();
-  cudaError_t err = launch_config(flash_bwd_dq_kernel<D>, dq_bytes, dq_blocks);
-  if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_kernel<D><<<(unsigned)dq_blocks, kThreads, dq_bytes, stream>>>(
-      q, k, v, mask, lse, delta, g, dq, sq, sk, causal, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  constexpr int BK = DkvTile<D>::BK;
-  const int64_t dkv_blocks = (int64_t)bh * ((sk + BK - 1) / BK);
+  const float scale_log2 = (float)(kLog2e / sqrt((double)D));
+  const int64_t dq_blocks = (int64_t)bh * ((sq + kRows - 1) / kRows);
+  const size_t dq_bytes = dq_smem<D>((sk + kCols - 1) / kCols);
+  int err = configure(dq_kernel<D>, dq_bytes, dq_blocks);
+  if (err) return err;
+  dq_kernel<D><<<(unsigned)dq_blocks, kThreads, dq_bytes, stream>>>(
+      q, k, v, mask, lse, delta, g, dq, sq, sk, causal, scale, scale_log2);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  const int64_t dkv_blocks = (int64_t)bh * ((sk + kRows - 1) / kRows);
   constexpr size_t dkv_bytes = dkv_smem<D>();
-  err = launch_config(flash_bwd_dkv_kernel<D>, dkv_bytes, dkv_blocks);
-  if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkv_kernel<D>
-      <<<(unsigned)dkv_blocks, kThreads, dkv_bytes, stream>>>(
-          q, k, v, mask, lse, delta, g, dk, dv, sq, sk, causal, scale);
+  err = configure(dkv_kernel<D>, dkv_bytes, dkv_blocks);
+  if (err) return err;
+  dkv_kernel<D><<<(unsigned)dkv_blocks, kThreads, dkv_bytes, stream>>>(
+      q, k, v, mask, lse, delta, g, dk, dv, sq, sk, causal, scale,
+      scale_log2);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // K5. q (bh, sq, d), k and v (bh, sk, d), mask (bh, sk), out (bh, sq, d),
-// lse (bh, sq); all fp32 and contiguous; d in {16, 32, 64, 128}.
+// lse (bh, sq); all fp32 and contiguous, q, k, v and out 16-byte aligned;
+// d in {16, 32, 64, 128}.
 extern "C" int flash_attention_fwd_f32(const float* q, const float* k,
                                        const float* v, const float* mask,
                                        float* out, float* lse, int bh, int sq,
                                        int sk, int d, int causal,
                                        cudaStream_t stream) {
+  if (!aligned(q) || !aligned(k) || !aligned(v) || !aligned(out))
+    return (int)cudaErrorInvalidValue;
   switch (d) {
     case 16: return fwd<16>(q, k, v, mask, out, lse, bh, sq, sk, causal, stream);
     case 32: return fwd<32>(q, k, v, mask, out, lse, bh, sq, sk, causal, stream);
@@ -554,7 +787,8 @@ extern "C" int flash_attention_fwd_f32(const float* q, const float* k,
 
 // K6. The forward's inputs, its lse (bh, sq), delta = rowsum(g * out)
 // (bh, sq) and the output gradient g (bh, sq, d); writes dq (bh, sq, d),
-// dk and dv (bh, sk, d). Runs the dq kernel, then the dk/dv kernel.
+// dk and dv (bh, sk, d). q, k, v, g, dq, dk and dv 16-byte aligned. Runs
+// the dq kernel, then the dk/dv kernel.
 extern "C" int flash_attention_bwd_f32(const float* q, const float* k,
                                        const float* v, const float* mask,
                                        const float* lse, const float* delta,
@@ -562,6 +796,9 @@ extern "C" int flash_attention_bwd_f32(const float* q, const float* k,
                                        float* dv, int bh, int sq, int sk,
                                        int d, int causal,
                                        cudaStream_t stream) {
+  if (!aligned(q) || !aligned(k) || !aligned(v) || !aligned(g) ||
+      !aligned(dq) || !aligned(dk) || !aligned(dv))
+    return (int)cudaErrorInvalidValue;
 #define FLASH_BWD(D)                                                       \
   return bwd<D>(q, k, v, mask, lse, delta, g, dq, dk, dv, bh, sq, sk,     \
                 causal, stream)

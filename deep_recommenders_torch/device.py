@@ -15,6 +15,12 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
     A CUDA device with no GPU present raises instead of running on the CPU.
     On the card path this turns TF32 off for float32 matmuls and cuDNN, so
     float32 work stays float32 (the JAX reference computes in full fp32).
+    The fp32 flash-attention kernels (K5, K6) use the tensor cores all the
+    same, at fp32 accuracy: each product in three TF32 passes over split
+    operands (3xTF32), within 13 units of fp32 roundoff of the exact
+    product where one TF32 pass is 2^14 off; the card checks against fp64
+    (``ops/attention_tolerances.py``) hold them to fp32-sized bounds and
+    reject a single pass.
     """
     device = torch.device(device)
     if device.type == "cuda":

@@ -26,10 +26,14 @@ JAX package's: heads folded into the batch, q (BH, Sq, D), k and v
 - :func:`attention` dispatches between the two paths by the JAX package's
   rule, with "the tensor is on the card" in place of "the backend is TPU".
 
-The bf16 path is the JAX kernels' bf16 contract (``attention.py:107-149``,
-``:312-371``): fp32 scores of bf16 operands, softmax statistics in fp32,
-p and ds rounded to bf16 before the products that consume them, fp32
-accumulation, and out, dq, dk, dv returned in bf16.
+The fp32 path is the JAX kernels' fp32-accurate products
+(``attention.py:107-115``): on the card every product runs on the tensor
+cores in three TF32 passes over the split operands (3xTF32), within a few
+units of fp32 roundoff of the exact product. The bf16 path is the JAX
+kernels' bf16 contract (``attention.py:107-149``, ``:312-371``): fp32
+scores of bf16 operands, softmax statistics in fp32, p and ds rounded to
+bf16 before the products that consume them, fp32 accumulation, and out,
+dq, dk, dv returned in bf16.
 """
 
 from __future__ import annotations
@@ -247,7 +251,7 @@ def _operand_dtype(name, q, k, v, *rest):
 def _check_inputs(name, q, k, v, key_mask, operands=(), stats=()):
     """Device, dtype, layout and shape checks of a kernel launch. q, k, v
     and ``operands`` (out, g) share one dtype of ``KERNEL_DTYPES``; the mask
-    and ``stats`` (lse) are fp32; bf16 operands are 16-byte aligned (the
+    and ``stats`` (lse) are fp32; the operands are 16-byte aligned (the
     kernels copy them in 16-byte pieces)."""
     dtype = _operand_dtype(name, q, k, v, *operands)
     device = q.device
@@ -258,9 +262,8 @@ def _check_inputs(name, q, k, v, key_mask, operands=(), stats=()):
             raise ValueError(f"{name}: inputs on different devices")
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
-    if dtype == torch.bfloat16 and any(t.data_ptr() % 16
-                                       for t in (q, k, v, *operands)):
-        raise ValueError(f"{name}: bf16 operands must be 16-byte aligned")
+    if any(t.data_ptr() % 16 for t in (q, k, v, *operands)):
+        raise ValueError(f"{name}: operands must be 16-byte aligned")
     for t in (key_mask, *stats):
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: the mask and lse must be float32, got "

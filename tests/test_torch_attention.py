@@ -164,6 +164,80 @@ def test_tolerances_accept_fp32_plain_and_reject_planted_fault(rng, causal):
                           mask, out, lse, g, causal)
 
 
+# -- fp32 operands on the card: 3xTF32 products ------------------------------
+
+def test_round_tf32_rounds_to_nearest_ties_away(rng):
+    """round_tf32 is cvt.rna.tf32.f32: 10 explicit mantissa bits, nearest,
+    ties away from zero; the 3xTF32 split leaves at most 2^-22 of x."""
+    x = torch.from_numpy(rng.normal(size=4096).astype(np.float32))
+    hi = at.round_tf32(x)
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    assert ((x - hi).abs() <= 2.0**-11 * x.abs()).all()
+    lo = at.round_tf32(x - hi)
+    assert ((x.double() - hi.double() - lo.double()).abs()
+            <= 2.0**-22 * x.double().abs()).all()
+    ties = torch.tensor([1 + 2**-11, -(1 + 2**-11), 1 + 2**-11 - 2**-23,
+                         3 * 2**-11], dtype=torch.float32)
+    want = torch.tensor([1 + 2**-10, -(1 + 2**-10), 1.0, 3 * 2**-11])
+    assert torch.equal(at.round_tf32(ties), want)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_3xtf32_emulation_matches_jax_interpret(rng, causal):
+    """The 3xTF32 emulation of K5 (the fp32 kernels' products) against
+    JAX's Pallas kernel in interpret mode on fp32 inputs: the split puts
+    each product within 13 u of its value, so the fp32 tests' 2e-5
+    holds."""
+    q, k, v, mask = _inputs(rng, 4, 70, 90, 32, masked_row=2)
+    want_out, want_lse = jatt.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        key_mask=jnp.asarray(mask), causal=causal, block_q=32, block_k=32,
+        interpret=True, return_lse=True)
+    out, lse = at.flash_attention_tf32(*_t(q, k, v, mask), causal, passes=3)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want_out), atol=2e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), atol=2e-5)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_tolerances_accept_3xtf32_and_reject_1xtf32_forward(rng, causal):
+    """The fp32 forward check (ops/attention_tolerances.py) accepts the
+    3xTF32 emulation and rejects single-pass TF32 products at least
+    TF32_REJECT_FACTOR times over its limit."""
+    q, k, v, mask = _t(*_inputs(rng, 4, 150, 130, 16, masked_row=3))
+    got = at.flash_attention_tf32(q, k, v, mask, causal, passes=3)
+    fwd = at.check_forward(got, q, k, v, mask, causal, planted_tf32=True)
+    assert fwd["out"]["err_over_tol"] < 1 and fwd["out"]["fro_over_tol"] < 1
+    assert fwd["lse"]["err_over_tol"] < 1
+    assert fwd["planted"]["single_pass_tf32"] >= at.TF32_REJECT_FACTOR
+    with pytest.raises(AssertionError):
+        at.check_forward(at.flash_attention_tf32(q, k, v, mask, causal,
+                                                 passes=1),
+                         q, k, v, mask, causal)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_tolerances_accept_3xtf32_and_reject_1xtf32_backward(rng, causal):
+    """The fp32 backward check accepts the 3xTF32 emulation of K6 and
+    rejects single-pass TF32 products at least TF32_REJECT_FACTOR times
+    over its limit."""
+    q, k, v, mask = _t(*_inputs(rng, 4, 150, 130, 16, masked_row=3))
+    g = torch.from_numpy(rng.normal(size=q.shape).astype(np.float32))
+    out, lse = at.flash_attention_tf32(q, k, v, mask, causal, passes=3)
+    grads = at.flash_attention_backward_tf32(q, k, v, mask, out, lse, g,
+                                             causal, passes=3)
+    checks = at.check_backward(grads, q, k, v, mask, out, lse, g, causal,
+                               planted_rows=64, planted_tf32=True)
+    for name in ("dq", "dk", "dv"):
+        assert checks[name]["err_over_tol"] < 1
+        assert checks[name]["fro_over_tol"] < 1
+    assert checks["planted"]["single_pass_tf32"] >= at.TF32_REJECT_FACTOR
+    assert checks["dk"]["planted"]["query_tile_dropped"] > 1
+    with pytest.raises(AssertionError):
+        at.check_backward(at.flash_attention_backward_tf32(
+            q, k, v, mask, out, lse, g, causal, passes=1),
+            q, k, v, mask, out, lse, g, causal)
+
+
 # -- bf16 operands: the JAX kernels' bf16 contract ---------------------------
 
 def _bf16_pair(*arrays):

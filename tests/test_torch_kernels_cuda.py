@@ -374,6 +374,73 @@ def test_flash_attention_kernels(device, bh, sq, sk, d, causal):
         assert not grad[1].any()
 
 
+def _edge_mask(mask, case, sk):
+    """Key masks the fp32 kernels must skip or mask at a tile's edge."""
+    last = (sk - 1) // 64 * 64  # the first key of the last 64-key tile
+    if case == "padding_tiles":
+        mask[:, 64:128] = 0.0  # a whole middle tile of padding: skipped
+        mask[2, last:] = 0.0  # post-padding: the last tile too
+    elif case == "last_tile_only":
+        mask[0] = 0.0
+        mask[0, last:] = 1.0  # row 0's only valid keys: the last tile
+        mask[3] = 0.0
+        mask[3, sk - 1] = 1.0  # row 3's only valid key: the last one
+    return mask
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("case,bh,sq,sk,d", [
+    ("padding_tiles", 6, 200, 300, 16),
+    ("padding_tiles", 4, 130, 260, 128),
+    ("last_tile_only", 6, 150, 200, 16),
+    ("last_tile_only", 4, 100, 140, 64),
+    ("ragged_sk", 4, 70, 67, 16),  # Sk not a multiple of 8
+    ("ragged_sk", 4, 33, 61, 32),
+])
+def test_flash_attention_kernels_at_tile_edges(device, case, bh, sq, sk, d,
+                                               causal):
+    """K5 and K6 where whole 64-key tiles are padding (skipped), where a
+    row's only valid keys lie in the last tile, and where Sk is not a
+    multiple of 8 (the ragged edge of the P V fragments' 2t / 2t + 1 key
+    rows): against their fp64 plain versions, one launch each."""
+    gen = torch.Generator(device=device).manual_seed(9)
+    q, k, v, mask = _attention_inputs(gen, bh, sq, sk, d)
+    mask = _edge_mask(mask, case, sk)
+    g = _normal(gen, bh, sq, d)
+    before = dict(att.flash_attention.launches)
+    out, lse = att.flash_attention(q, k, v, mask, causal, return_lse=True)
+    grads = att.flash_attention_backward(q, k, v, mask, out, lse, g, causal)
+    torch.cuda.synchronize()
+    assert att.flash_attention.launches == {
+        **before, "fwd": before["fwd"] + 1, "bwd": before["bwd"] + 1}
+    at.check_forward((out, lse), q, k, v, mask, causal)
+    at.check_backward(grads, q, k, v, mask, out, lse, g, causal)
+    assert not out[1].any() and not lse[1].any()
+    for grad in grads:
+        assert not grad[1].any()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_checks_reject_single_pass_tf32(device, causal):
+    """At the slice's sequence length, the checks reject the function with
+    single-pass TF32 products on the card's data at least
+    TF32_REJECT_FACTOR times over their limits, forward and backward, and
+    accept the kernels."""
+    gen = torch.Generator(device=device).manual_seed(10)
+    q, k, v, mask = _attention_inputs(gen, 32, 512, 512, 16)
+    mask[4:, 320:] = 0.0  # SyntheticImdb-like post-padding
+    g = _normal(gen, 32, 512, 16)
+    out, lse = att.flash_attention(q, k, v, mask, causal, return_lse=True)
+    grads = att.flash_attention_backward(q, k, v, mask, out, lse, g, causal)
+    fwd = at.check_forward((out, lse), q, k, v, mask, causal,
+                           planted_tf32=True)
+    bwd = at.check_backward(grads, q, k, v, mask, out, lse, g, causal,
+                            planted_tf32=True)
+    for checks in (fwd, bwd):
+        assert checks["planted"]["single_pass_tf32"] >= \
+            at.TF32_REJECT_FACTOR
+
+
 def test_flash_attention_autograd_launches_both_kernels(device):
     gen = torch.Generator(device=device).manual_seed(5)
     q, k, v, mask = _attention_inputs(gen, 16, 200, 200, 16)
