@@ -9,7 +9,11 @@ In order:
    ratings) encoded into the six CTR features, and SyntheticImdb rows
    (vocab 8000, length 512, seed 42) for the Transformer;
 4. kernel phase: calls each kernel's wrapper on the card at the shapes the
-   main paths give it (K1, K2; K3 forward and backward at xDeepFM's
+   main paths give it (K1 on a train batch's, skewed and uniform ids and
+   into a table of 10^6 rows, held bit for bit to its summation order run
+   with plain ops on the CPU, three calls each, "bitwise_equal" and
+   "deterministic", and to its plain version within the fp32 summation
+   bound, and on ids out of range; K2 on fp32 and bf16 embeddings; K3 forward and backward at xDeepFM's
    flagship shapes; K4 forward and backward at H = 6 and H = 128; K5 and
    K6 at the Transformer's (2048, 512, 16), non-causal and causal), holds
    the result against its plain PyTorch version with the tolerance stated
@@ -35,6 +39,11 @@ In order:
    and K6 at the same shapes on bf16 q, k, v, g, held against their fp64 and
    bf16 plain versions (``check_forward_bf16``, ``check_backward_bf16``),
    timed beside the bf16 SDPA call, with the exp floor beside their bounds;
+   then the head widths no kernel is built for (``head_width_phase``):
+   attention() over the budget at D = 8 and FlashAttention at D = 24, fp32
+   and bf16, through K5 and K6 padded to the next kernel width and held to
+   the same checks at the true D, and a D = 256 call that warns and goes
+   dense;
 5. six train paths, each with every launch counter set to 0 just before
    it and read just after, each checked for a finite, falling loss and the
    exact launches it must make:
@@ -66,12 +75,17 @@ In order:
 7. prints one JSON line with every kernel's numbers, then, as the last line,
    {"ok": true, "device": {...}}.
 
-    python3 chip_smoke.py --xdeepfm-only
+    python3 chip_smoke.py --ctr-only
 
-builds the kernels and runs only the two xDeepFM train paths with their
-launch checks, AUCs and profiles, and prints them as its last line, one
-JSON object (not the full run's "ok" line): the same measurement on any
-tree of the port, to set a change beside its parent in one call.
+builds the kernels, times K1 (a train batch's, skewed and uniform ids, and
+uniform ids into 10^6 rows) and K2
+(fp32) at the kernel phase's inputs (no checks), runs the DeepFM and the
+two xDeepFM train paths with their launch checks, AUCs and profiles, and
+prints them as its last line, one JSON object (not the full run's "ok"
+line). Like the next
+mode, it calls only what every tree of the port with K3's bf16 forward has
+(the flagship's logit check expects it), so a copy of this script in a
+parent's tree measures the parent, to set a change beside it in one call.
 
     python3 chip_smoke.py --attention-fp32-only
 
@@ -94,6 +108,7 @@ import math
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -125,6 +140,8 @@ EMBED_DIM = 16
 HIDDEN = (256, 32)
 LEARNING_RATE = 1e-3
 NUM_RATINGS = 200_000
+# K1's timed table of hashed ids (the table of a Criteo-scale ranking model).
+LARGE_TABLE_ROWS = 1_000_000
 EPOCHS = 2
 SEED = 42
 # xDeepFM's flagship (benchmarks/run_models.py:164-169), and the first
@@ -148,6 +165,11 @@ TX_WARMUP = 100
 ATT_CHUNK = 256
 # A planted fault in dk: the contribution of the first query tile dropped.
 ATT_PLANTED_ROWS = 64
+# Head widths without a kernel: the IMDB example's --model-dim 32
+# --max-len 1024 (batch 64 x 4 heads, D = 8; 256 x 1024^2 x 4 B x 3 = 3.2 GB
+# of dense score tensors, over the 2 GB budget), checked in chunks of rows;
+# and D = 256 over the budget (160 x 1024^2 x 4 B x 3 = 2.01 GB).
+HW_BH, HW_LEN, HW_CHUNK, HW_WIDE_BH = 256, 1024, 64, 160
 
 # Published H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bandwidth, fp32
 # outside the tensor cores, and dense bf16 on the tensor cores.
@@ -289,29 +311,84 @@ def bound_fields(num_bytes: float, num_ops: float, bf16: bool = False,
             "gflop": (num_ops + scalar_ops) / 1e9}
 
 
-def check_scatter(g, ids, num_rows):
-    """K1 against its plain version. Both sum each row's updates in fp32 in
-    orders that differ (atomics change theirs from run to run), so each
-    element may differ by the recursive-summation bound of both sides:
-    2 * n_row * u * sum|g| over the n_row updates of that row."""
-    out = scatter_add_rows(g, ids, num_rows)
-    ref = scatter_add_rows_reference(g, ids, num_rows)
-    sum_abs = scatter_add_rows_reference(g.abs(), ids, num_rows)
-    count = torch.bincount(ids.long(), minlength=num_rows).float()[:, None]
-    tol = 2.0 * count * U32 * sum_abs
+def check_scatter(g, ids, num_rows, calls: int = 3) -> dict:
+    """K1 on ``calls`` calls against, on copies of g and ids on the CPU,
+    (a) its summation order run with plain ops
+    (``scatter_add_rows_in_segments``): equal bit for bit (``torch.equal``
+    on the int32 views), so also from call to call; and (b) its plain
+    version (``index_add_``, each row in index order): both are fp32 sums of
+    the same L terms of a row, each within (L - 1) u sum|g| of the exact
+    sum, so they may differ by 2 L u sum|g| (the tolerance, element-wise).
+    Also the most updates a row takes, and the most it takes in one
+    segment: the longest chain of dependent adds."""
+    # Imported here: --ctr-only also runs in a parent's tree, which has no
+    # summation-order model.
+    from deep_recommenders_torch.ops.embedding_kernels import (
+        scatter_add_rows_in_segments,
+        segment_length,
+    )
+    g_cpu, ids_cpu = g.cpu(), ids.cpu()
+    want = scatter_add_rows_in_segments(g_cpu, ids_cpu, num_rows)
+    plain = scatter_add_rows_reference(g_cpu, ids_cpu, num_rows)
+    runs = [scatter_add_rows(g, ids, num_rows).cpu() for _ in range(calls)]
+    bits = [t.view(torch.int32) for t in runs]
+    bitwise = all(torch.equal(b, want.view(torch.int32)) for b in bits)
+    deterministic = all(torch.equal(b, bits[0]) for b in bits[1:])
+    rows = ids_cpu.long()
+    kept = (rows >= -num_rows) & (rows < num_rows)
+    rows = rows % num_rows
+    updates = torch.bincount(rows[kept], minlength=num_rows).double()
+    magnitude = scatter_add_rows_reference(g_cpu.abs().double(), ids_cpu,
+                                           num_rows)
+    tol = 2.0 * updates[:, None] * U32 * magnitude
+    err = (runs[0].double() - plain.double()).abs()
+    within = bool((err <= tol).all())
+    if not (bitwise and deterministic and within):
+        raise AssertionError(
+            f"scatter_add_rows: bitwise_equal {bitwise}, deterministic "
+            f"{deterministic}, within the summation bound {within}, max "
+            f"err {err.max().item():.3g}")
+    segment = segment_length(g.shape[1])
+    nseg = -(-ids.shape[0] // segment)
+    chain = rows * nseg + torch.arange(ids.shape[0]) // segment
+    return {"max_abs_err": err.max().item(), "tolerance": tol.max().item(),
+            "max_err_over_tolerance": (err / tol.clamp_min(1e-300)).max()
+            .item(),
+            "bitwise_equal": bitwise, "deterministic": deterministic,
+            "segment": segment,
+            "max_row_updates": int(updates.max().item()),
+            "longest_chain": int(torch.unique(chain[kept],
+                                              return_counts=True)[1].max())}
+
+
+def check_fm(emb):
+    """K2 against its plain version on the same embeddings (fp32 or bf16,
+    both widened to fp32): sums over F and D in fp32 in two orders, so the
+    error of either side is within (F + D) * u of the magnitude of its
+    terms."""
+    b, f, d = emb.shape
+    out = fm_interaction_fused(emb)
+    ref = fm_interaction(emb)
+    x = emb.float()
+    scale = x.abs().sum(1).square().sum(-1) + x.square().sum((1, 2))
+    tol = 2.0 * (f + d) * U32 * scale[:, None]
     err = (out - ref).abs()
     torch.cuda.synchronize()
-    if not bool(torch.isfinite(out).all()) or bool((err > tol).any()):
-        raise AssertionError(
-            f"scatter_add_rows disagrees: max err {err.max().item():.3g}, "
-            f"worst excess {(err - tol).max().item():.3g}"
-        )
-    return err.max().item(), tol.max().item()
+    if tuple(out.shape) != (b, 1) or not bool(torch.isfinite(out).all()) \
+            or bool((err > tol).any()):
+        raise AssertionError(f"fm_interaction_fused {emb.dtype} disagrees: "
+                             f"max err {err.max().item():.3g}")
+    return {"max_abs_err": err.max().item(), "tolerance": tol.max().item(),
+            "max_err_over_tolerance": (err / tol).max().item()}
 
 
-def kernel_phase(ds: MovielensRanking, model: DeepFM, device):
-    """K1 and K2 at the main path's shapes, against their plain versions."""
-    entries = []
+def ctr_kernel_inputs(ds: MovielensRanking, model: DeepFM, device):
+    """K1's and K2's inputs at the main path's shapes: g (16384, 17) seeded
+    normals beside the ids of one train batch's user_id and movie_id, the
+    two big vocabularies, as the engine stacks them (16384 ids into 10044
+    rows), the same ids skewed (90% of them on 16 hot rows), the table's
+    row count, a generator for more, and the batch's (B, F, D)
+    embeddings."""
     feats, _ = ds.train_arrays()
     batch = {k: torch.from_numpy(v[:BATCH]).to(device)
              for k, v in feats.items()}
@@ -319,21 +396,46 @@ def kernel_phase(ds: MovielensRanking, model: DeepFM, device):
                        model.embeddings.feature_offsets))
     num_rows, c = model.embeddings.table.shape[0], EMBED_DIM + 1
     gen = torch.Generator(device=device).manual_seed(SEED)
-
-    # K1 on the ids of one train batch: user_id and movie_id, the two big
-    # vocabularies, as the engine stacks them (16384 ids into 10044 rows).
     ids = torch.stack(
         [batch["user_id"] + offsets["user_id"],
          batch["movie_id"] + offsets["movie_id"]], dim=1,
     ).reshape(-1)
     g = torch.randn(ids.shape[0], c, device=device, generator=gen)
-    err, tol = check_scatter(g, ids, num_rows)
-    # Skewed ids: 90% of them on 16 hot rows.
     hot = torch.randint(0, 16, ids.shape, device=device, generator=gen,
                         dtype=torch.int32)
     is_hot = torch.rand(ids.shape, device=device, generator=gen) < 0.9
     skewed = torch.where(is_hot, hot, ids)
-    skew_err, skew_tol = check_scatter(g, skewed, num_rows)
+    with torch.no_grad():
+        emb = model.embeddings(batch).contiguous()
+    return g, ids, skewed, num_rows, gen, emb
+
+
+def kernel_phase(ds: MovielensRanking, model: DeepFM, device):
+    """K1 and K2 at the main path's shapes, against their plain versions."""
+    entries = []
+    g, ids, skewed, num_rows, gen, emb32 = ctr_kernel_inputs(ds, model,
+                                                             device)
+    c = g.shape[1]
+    batch_ids = check_scatter(g, ids, num_rows)
+    skew = check_scatter(g, skewed, num_rows)
+    # Ids drawn uniformly over the table: no hot row. (The train batch's
+    # own ids are skewed: its most frequent movie holds about a quarter of
+    # them.)
+    spread = torch.randint(0, num_rows, ids.shape, device=device,
+                           generator=gen, dtype=torch.int32)
+    uniform = check_scatter(g, spread, num_rows)
+    # A table of 10^6 rows, as the ranking models with hashed categorical
+    # vocabularies hold: the output alone is 68 MB.
+    large_rows = LARGE_TABLE_ROWS
+    large_ids = torch.randint(0, large_rows, ids.shape, device=device,
+                              generator=gen, dtype=torch.int32)
+    large = check_scatter(g, large_ids, large_rows, calls=2)
+    large_bound, large_by = bound(
+        ids.shape[0] * (c * 4 + 4) + large_rows * c * 4, ids.shape[0] * c)
+    # Ids out of range: [-V, 0) wraps to row V + id, the rest drop.
+    wild = torch.randint(-2 * num_rows, 2 * num_rows, ids.shape,
+                         device=device, generator=gen, dtype=torch.int32)
+    out_of_range = check_scatter(g, wild, num_rows, calls=1)
     ids_long = ids.long()
     n = ids.shape[0]
     bound_ms, bound_by = bound(n * c * 4 + n * 4 + num_rows * c * 4, n * c)
@@ -343,8 +445,8 @@ def kernel_phase(ds: MovielensRanking, model: DeepFM, device):
         "source": "deep_recommenders_torch/csrc/scatter_add_rows.cu",
         "replaces": "deep_recommenders_tpu/ops/embedding_kernels.py:90",
         "shape": {"g": [n, c], "num_rows": num_rows},
-        "max_abs_err": err,
-        "tolerance": tol,
+        "ids": "one train batch's user_id and movie_id",
+        **batch_ids,
         **timings(
             lambda: scatter_add_rows(g, ids, num_rows),
             lambda: scatter_add_rows_reference(g, ids, num_rows),
@@ -352,55 +454,67 @@ def kernel_phase(ds: MovielensRanking, model: DeepFM, device):
                 0, ids_long, g
             ),
         ),
+        "host_us": host_us(lambda: scatter_add_rows(g, ids, num_rows)),
         "skewed": {
-            "max_abs_err": skew_err,
-            "tolerance": skew_tol,
+            **skew,
             "ms": graph_ms(lambda: scatter_add_rows(g, skewed, num_rows)),
+            "eager_ms": time_ms(lambda: scatter_add_rows(g, skewed,
+                                                         num_rows)),
             "plain_ms": graph_ms(
                 lambda: scatter_add_rows_reference(g, skewed, num_rows)
             ),
         },
+        "uniform": {
+            **uniform,
+            "ms": graph_ms(lambda: scatter_add_rows(g, spread, num_rows)),
+            "eager_ms": time_ms(lambda: scatter_add_rows(g, spread,
+                                                         num_rows)),
+            "plain_ms": graph_ms(
+                lambda: scatter_add_rows_reference(g, spread, num_rows)
+            ),
+        },
+        "large_table": {
+            **large,
+            "num_rows": large_rows,
+            **timings(
+                lambda: scatter_add_rows(g, large_ids, large_rows),
+                lambda: scatter_add_rows_reference(g, large_ids, large_rows),
+                lambda: torch.zeros(large_rows, c, device=device).index_add_(
+                    0, large_ids.long(), g)),
+            "bound_ms": large_bound,
+            "bound_by": large_by,
+        },
+        "out_of_range_ids": out_of_range,
         "bound_ms": bound_ms,
         "bound_us": bound_ms * 1e3,
         "bound_by": bound_by,
     })
 
-    # K2 on the (B, F, D) embeddings of the same batch.
-    with torch.no_grad():
-        emb = model.embeddings(batch).contiguous()
-    b, f, d = emb.shape
-    out = fm_interaction_fused(emb)
-    ref = fm_interaction(emb)
-    # Sums over F and D in fp32 in two orders: the error of either side is
-    # within (F + D) * u of the magnitude of its terms.
-    scale = emb.abs().sum(1).square().sum(-1) + emb.square().sum((1, 2))
-    tol = 2.0 * (f + d) * U32 * scale[:, None]
-    err = (out - ref).abs()
-    torch.cuda.synchronize()
-    if tuple(out.shape) != (b, 1) or not bool(torch.isfinite(out).all()) \
-            or bool((err > tol).any()):
-        raise AssertionError(
-            f"fm_interaction_fused disagrees: max err {err.max().item():.3g}"
-        )
-    bound_ms, bound_by = bound(b * f * d * 4 + b * 4, b * (3 * f * d + 2 * d))
-    entries.append({
-        "name": "fm_interaction_fused",
-        "route": "cuda",
-        "source": "deep_recommenders_torch/csrc/fm_interaction.cu",
-        "replaces": "deep_recommenders_tpu/ops/fm.py:56",
-        "shape": {"embeddings": [b, f, d]},
-        "max_abs_err": err.max().item(),
-        "tolerance": tol.max().item(),
-        **timings(
-            lambda: fm_interaction_fused(emb),
-            lambda: fm_interaction(emb),
-            lambda: 0.5 * (emb.sum(1).square().sum(-1)
-                           - emb.square().sum((1, 2))),
-        ),
-        "bound_ms": bound_ms,
-        "bound_us": bound_ms * 1e3,
-        "bound_by": bound_by,
-    })
+    # K2 on the (B, F, D) embeddings of the same batch, in fp32 and bf16.
+    b, f, d = emb32.shape
+    for emb in (emb32, emb32.to(torch.bfloat16)):
+        size = emb.element_size()
+        bound_ms, bound_by = bound(b * f * d * size + b * 4,
+                                   b * (3 * f * d + 2 * d))
+        entries.append({
+            "name": "fm_interaction_fused" + (".bf16" if size == 2 else ""),
+            "route": "cuda",
+            "source": "deep_recommenders_torch/csrc/fm_interaction.cu",
+            "replaces": "deep_recommenders_tpu/ops/fm.py:56",
+            "shape": {"embeddings": [b, f, d], "dtype": str(emb.dtype)},
+            **check_fm(emb),
+            **timings(
+                lambda: fm_interaction_fused(emb),
+                lambda: fm_interaction(emb),
+                lambda: 0.5 * (emb.sum(1, dtype=torch.float32).square()
+                               .sum(-1)
+                               - emb.float().square().sum((1, 2))),
+            ),
+            "host_us": host_us(lambda: fm_interaction_fused(emb)),
+            "bound_ms": bound_ms,
+            "bound_us": bound_ms * 1e3,
+            "bound_by": bound_by,
+        })
     return entries
 
 
@@ -710,17 +824,60 @@ def train_phase(ds: MovielensRanking, model: DeepFM, device):
     test = DeviceData.from_numpy(*ds.test_arrays(), BATCH, device=device)
     paths = {}
 
-    trainer, paths["deepfm"], _ = train_path(
+    paths["deepfm"], _ = deepfm_path(ds, model, train, test, device)
+    launches, _ = xdeepfm_paths(ds, train, test, device)
+    paths.update(launches)
+    return paths
+
+
+def deepfm_path(ds: MovielensRanking, model: DeepFM, train: DeviceData,
+                test: DeviceData, device):
+    """DeepFM's train path (one K1 per step), its logits against the plain
+    CPU path, and its profile: the launches, and the final eval metrics
+    with the profile."""
+    trainer, launches, final = train_path(
         "deepfm", model, train, test, EPOCHS,
         lambda s, e: {"scatter_add_rows": s}, device)
     check_logits("deepfm", model, DeepFM(ds.feature_specs, EMBED_DIM, HIDDEN),
                  ds, device, rtol=1e-4, atol=1e-5)
-    print("deepfm profile: " + json.dumps(trainer_profile(trainer, train,
-                                                          test)))
-    del trainer
-    launches, _ = xdeepfm_paths(ds, train, test, device)
-    paths.update(launches)
-    return paths
+    profile = trainer_profile(trainer, train, test)
+    print("deepfm profile: " + json.dumps(profile))
+    return launches, {"eval": final, "profile": profile}
+
+
+def ctr_kernel_times(ds: MovielensRanking, model: DeepFM, device) -> dict:
+    """Device, eager, plain and library ms and host us of K1 (a train
+    batch's ids and skewed ids) and of K2 on fp32 embeddings, at the kernel
+    phase's inputs, without checks: they call only what every tree of the
+    port has, so a copy of this script in a parent's tree measures the
+    parent."""
+    g, ids, skewed, num_rows, gen, emb = ctr_kernel_inputs(ds, model,
+                                                           device)
+    c = g.shape[1]
+    spread = torch.randint(0, num_rows, ids.shape, device=device,
+                           generator=gen, dtype=torch.int32)
+    large_ids = torch.randint(0, LARGE_TABLE_ROWS, ids.shape, device=device,
+                              generator=gen, dtype=torch.int32)
+    times = {}
+    for name, rows, v in (("batch", ids, num_rows),
+                          ("skewed", skewed, num_rows),
+                          ("uniform", spread, num_rows),
+                          ("large_table", large_ids, LARGE_TABLE_ROWS)):
+        rows_long = rows.long()
+        times[f"scatter_add_rows.{name}"] = {
+            **timings(
+                lambda: scatter_add_rows(g, rows, v),
+                lambda: scatter_add_rows_reference(g, rows, v),
+                lambda: torch.zeros(v, c, device=device).index_add_(
+                    0, rows_long, g)),
+            "host_us": host_us(lambda: scatter_add_rows(g, rows, v))}
+    times["fm_interaction_fused"] = {
+        **timings(lambda: fm_interaction_fused(emb),
+                  lambda: fm_interaction(emb),
+                  lambda: 0.5 * (emb.sum(1).square().sum(-1)
+                                 - emb.square().sum((1, 2)))),
+        "host_us": host_us(lambda: fm_interaction_fused(emb))}
+    return times
 
 
 def xdeepfm_paths(ds: MovielensRanking, train: DeviceData, test: DeviceData,
@@ -1243,6 +1400,89 @@ def attention_bf16_kernel_phase(imdb: SyntheticImdb, device):
     return entries
 
 
+def head_width_phase(device) -> dict:
+    """``attention()`` and ``FlashAttention`` at head widths that no kernel
+    is built for. Over the memory budget at the IMDB example's
+    ``--model-dim 32 --max-len 1024`` shape, (BH, S, D) = (256, 1024, 8)
+    with seeded post-padding key masks, in fp32 and bf16, forward and
+    backward must launch K5 and K6 once each (padded to D = 16) and pass the
+    checks of ``ops/attention_tolerances.py`` at D = 8 against the plain
+    versions (in chunks of HW_CHUNK rows); FlashAttention at D = 24 on
+    (6, 150, 130) the same way; a D = 256 call over the budget must warn,
+    go dense (no launch) and equal the dense SDPA."""
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    result = {}
+    for name, (bh, s, d, call) in {
+            "attention_d8": (HW_BH, HW_LEN, 8, "attention"),
+            "flash_attention_d24": (6, 150, 24, "FlashAttention")}.items():
+        lengths = torch.randint(s // 16, s + 1, (bh,), device=device,
+                                generator=gen)
+        mask = (torch.arange(s, device=device)[None, :]
+                < lengths[:, None]).float()
+        for dtype in (torch.float32, torch.bfloat16):
+            bf16 = dtype == torch.bfloat16
+            q, k, v, g = (torch.randn(bh, s, d, device=device, generator=gen)
+                          .to(dtype) for _ in range(4))
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            fwd_key, bwd_key = flash_keys(dtype)
+            reset_launches()
+            if call == "attention":
+                if not att.use_flash_for(bh, s, s, "cuda", False):
+                    raise AssertionError(f"{name}: under the budget")
+                out = att.attention(*leaves, key_mask=mask)
+            else:
+                out = att.FlashAttention.apply(*leaves, mask, False)
+            out.backward(g)
+            launches = read_launches()
+            want = {key: 0 for key in launches}
+            want[fwd_key] = want[bwd_key] = 1
+            if launches != want or out.shape != q.shape:
+                raise AssertionError(f"{name} {dtype}: launches {launches}, "
+                                     f"out {tuple(out.shape)}")
+            out = out.detach()
+            grads = [t.grad for t in leaves]
+            width = att.kernel_head_dim(d)
+            lse = att.flash_attention(
+                *(att.pad_head_dim(t, width) for t in (q, k, v)), mask,
+                False, return_lse=True, scale=d ** -0.5)[1]
+            forward = at.check_forward_bf16 if bf16 else at.check_forward
+            backward = at.check_backward_bf16 if bf16 else at.check_backward
+            chunks = [slice(i, i + HW_CHUNK) for i in range(0, bh, HW_CHUNK)]
+            fwd_checks = _merge_checks(
+                forward((out[c], lse[c]), q[c], k[c], v[c], mask[c], False)
+                for c in chunks)
+            bwd_checks = _merge_checks(
+                backward([t[c] for t in grads], q[c], k[c], v[c], mask[c],
+                         out[c], lse[c], g[c], False) for c in chunks)
+            torch.cuda.synchronize()
+            result[f"{name}_{'bf16' if bf16 else 'fp32'}"] = {
+                "shape": [bh, s, d], "kernel_width": width,
+                "launches": {fwd_key: 1, bwd_key: 1},
+                "worst_share": max(ct.worst_share(fwd_checks),
+                                   ct.worst_share(bwd_checks)),
+                "checks": {**fwd_checks, **bwd_checks}}
+            del q, k, v, g, leaves, out, grads, lse
+    wide = torch.randn(HW_WIDE_BH, HW_LEN, 256, device=device, generator=gen)
+    reset_launches()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        got = att.attention(wide, wide, wide)
+    if not any("head width D=256" in str(w.message) for w in caught) or \
+            any(read_launches().values()):
+        raise AssertionError(f"attention D=256: warnings {caught}, "
+                             f"launches {read_launches()}")
+    torch.testing.assert_close(got, att.scaled_dot_product_attention(
+        wide, wide, wide))
+    result["attention_d256_dense"] = {"shape": [HW_WIDE_BH, HW_LEN, 256],
+                                      "warned": True, "launches": 0}
+    del wide, got
+    torch.cuda.empty_cache()
+    print("head widths: " + ", ".join(
+        f"{k} worst share {v['worst_share']:.6g}" for k, v in result.items()
+        if "worst_share" in v) + "; D=256 dense with a warning")
+    return result
+
+
 def make_transformer(device, dtype=None) -> Transformer:
     return Transformer(TX_VOCAB, TX_DIM, TX_HEADS, TX_LAYERS, TX_LAYERS,
                        TX_FFN, dropout=0.0, compute_dtype=dtype,
@@ -1439,6 +1679,7 @@ def imdb_path():
 ENTRY_PATH = {
     "scatter_add_rows": "deepfm",
     "fm_interaction_fused": "deepfm",
+    "fm_interaction_fused.bf16": "deepfm",
     "cin_stack_pooled.fwd": "xdeepfm",
     "cin_stack_pooled.bwd": "xdeepfm",
     "cin2d.fwd": "xdeepfm_layered",
@@ -1448,6 +1689,11 @@ ENTRY_PATH = {
     "flash_attention_bf16.fwd": "transformer_seq2seq_bf16",
     "flash_attention_bf16.bwd": "transformer_seq2seq_bf16",
 }
+
+
+# An entry whose launch counter has another name: K2 on bf16 embeddings is
+# the same wrapper, counted in fm_interaction_fused.launches.
+COUNTER = {"fm_interaction_fused.bf16": "fm_interaction_fused"}
 
 
 def device_line() -> str:
@@ -1460,8 +1706,9 @@ def device_line() -> str:
 
 def main(argv=()) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--xdeepfm-only", action="store_true",
-                        help="run only the two xDeepFM train paths")
+    parser.add_argument("--ctr-only", action="store_true",
+                        help="time only K1 and K2 and run the DeepFM and "
+                             "the two xDeepFM train paths")
     parser.add_argument("--attention-fp32-only", action="store_true",
                         help="time only the fp32 K5 and K6 and run the "
                              "fp32 Transformer path")
@@ -1488,16 +1735,19 @@ def main(argv=()) -> int:
     t0 = time.perf_counter()
     ds = MovielensRanking(batch_size=BATCH, num_ratings=NUM_RATINGS,
                           seed=SEED)
-    if args.xdeepfm_only:
+    model = DeepFM(ds.feature_specs, EMBED_DIM, HIDDEN,
+                   generator=torch.Generator().manual_seed(SEED)).to(device)
+    if args.ctr_only:
+        times = ctr_kernel_times(ds, model, device)
         train = DeviceData.from_numpy(*ds.train_arrays(), BATCH,
                                       device=device)
         test = DeviceData.from_numpy(*ds.test_arrays(), BATCH, device=device)
-        _, results = xdeepfm_paths(ds, train, test, device)
-        # Not the full smoke run: no kernel phase, so no "ok" line.
-        print(json.dumps({"xdeepfm_paths": results}))
+        _, results = deepfm_path(ds, model, train, test, device)
+        _, more = xdeepfm_paths(ds, train, test, device)
+        # Not the full smoke run: no checks of the kernels, no "ok" line.
+        print(json.dumps({"ctr": {"kernels": times, "deepfm": results,
+                                  **more}}))
         return 0
-    model = DeepFM(ds.feature_specs, EMBED_DIM, HIDDEN,
-                   generator=torch.Generator().manual_seed(SEED)).to(device)
     print(f"data: {ds.train_steps_per_epoch} train steps/epoch, "
           f"{ds.test_steps} test steps ({time.perf_counter() - t0:.1f} s)")
 
@@ -1506,6 +1756,7 @@ def main(argv=()) -> int:
     entries += cin_kernel_phase(ds, device)
     entries += attention_kernel_phase(imdb, device)
     entries += attention_bf16_kernel_phase(imdb, device)
+    head_widths = head_width_phase(device)
     print(f"kernel phase done ({time.perf_counter() - t0:.1f} s)")
     paths = train_phase(ds, model, device)
     del ds, model
@@ -1516,10 +1767,11 @@ def main(argv=()) -> int:
     paths["transformer_imdb"] = imdb_path()
     for entry in entries:
         path = ENTRY_PATH[entry["name"]]
+        counter = COUNTER.get(entry["name"], entry["name"])
         entry["path"] = path
-        entry["launches"] = paths[path][entry["name"]]
-        entry["launches_by_path"] = {p: n[entry["name"]]
-                                     for p, n in paths.items()}
+        entry["launches"] = paths[path][counter]
+        entry["launches_by_path"] = {p: n[counter] for p, n in paths.items()}
+    print("head_widths " + json.dumps(head_widths))
     print(json.dumps({"kernels": entries}))
     print(device_line())
     return 0

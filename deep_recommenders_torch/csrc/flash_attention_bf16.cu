@@ -7,8 +7,9 @@
 // _flash_bwd_dkv_kernel :326, pallas_calls :436 and :463). The fp32
 // counterparts stay in flash_attention.cu. Layout: q (BH, Sq, D), k and v
 // (BH, Sk, D), out, g, dq, dk, dv bf16; key_mask (BH, Sk), lse and delta
-// (BH, Sq) fp32; all contiguous, the bf16 tensors 16-byte aligned;
-// scale = 1/sqrt(D).
+// (BH, Sq) fp32; all contiguous, the bf16 tensors 16-byte aligned; the
+// softmax scale is an argument, 1/sqrt(D) by default (a head width that
+// FlashAttention pads with zero columns to D passes the true width's).
 //
 // The contract (JAX attention.py:107-149, :312-371): scores are fp32 sums
 // of bf16 products (each product exact in fp32); the softmax statistics,
@@ -723,12 +724,12 @@ bool aligned(const void* p) { return ((uintptr_t)p & 15) == 0; }
 template <int D>
 int fwd(const bf16* q, const bf16* k, const bf16* v, const float* mask,
         bf16* out, float* lse, int bh, int sq, int sk, int causal,
-        cudaStream_t stream) {
+        double softmax_scale, cudaStream_t stream) {
   const int64_t blocks = (int64_t)bh * ((sq + kRows - 1) / kRows);
   const size_t smem = fwd_smem<D>((sk + kCols - 1) / kCols);
   const int err = configure(fwd_kernel<D>, smem, blocks);
   if (err) return err;
-  const float scale_log2 = (float)(kLog2e / sqrt((double)D));
+  const float scale_log2 = (float)(kLog2e * softmax_scale);
   fwd_kernel<D><<<(unsigned)blocks, kThreads, smem, stream>>>(
       q, k, v, mask, out, lse, sq, sk, causal, scale_log2);
   return (int)cudaGetLastError();
@@ -738,9 +739,9 @@ template <int D>
 int bwd(const bf16* q, const bf16* k, const bf16* v, const float* mask,
         const float* lse, const bf16* out, const bf16* g, float* delta,
         bf16* dq, bf16* dk, bf16* dv, int bh, int sq, int sk, int causal,
-        cudaStream_t stream) {
-  const float scale = (float)(1.0 / sqrt((double)D));
-  const float scale_log2 = (float)(kLog2e / sqrt((double)D));
+        double softmax_scale, cudaStream_t stream) {
+  const float scale = (float)softmax_scale;
+  const float scale_log2 = (float)(kLog2e * softmax_scale);
   const int64_t dq_blocks = (int64_t)bh * ((sq + kRows - 1) / kRows);
   const size_t dq_bytes = dq_smem<D>((sk + kCols - 1) / kCols);
   int err = configure(dq_kernel<D>, dq_bytes, dq_blocks);
@@ -764,22 +765,26 @@ int bwd(const bf16* q, const bf16* k, const bf16* v, const float* mask,
 
 // K5 in bf16. q (bh, sq, d), k and v (bh, sk, d), out (bh, sq, d) bf16;
 // mask (bh, sk) and lse (bh, sq) fp32; all contiguous, the bf16 tensors
-// 16-byte aligned; d in {16, 32, 64, 128}.
+// 16-byte aligned; d in {16, 32, 64, 128}; the scores are q.k scale (the
+// wrapper's default 1/sqrt(d); a head width padded with zero columns passes
+// its own).
 extern "C" int flash_attention_fwd_bf16(const bf16* q, const bf16* k,
                                         const bf16* v, const float* mask,
                                         bf16* out, float* lse, int bh, int sq,
                                         int sk, int d, int causal,
-                                        cudaStream_t stream) {
+                                        double scale, cudaStream_t stream) {
   if (!aligned(q) || !aligned(k) || !aligned(v) || !aligned(out))
     return (int)cudaErrorInvalidValue;
+#define FLASH_FWD(D) \
+  return fwd<D>(q, k, v, mask, out, lse, bh, sq, sk, causal, scale, stream)
   switch (d) {
-    case 16: return fwd<16>(q, k, v, mask, out, lse, bh, sq, sk, causal, stream);
-    case 32: return fwd<32>(q, k, v, mask, out, lse, bh, sq, sk, causal, stream);
-    case 64: return fwd<64>(q, k, v, mask, out, lse, bh, sq, sk, causal, stream);
-    case 128:
-      return fwd<128>(q, k, v, mask, out, lse, bh, sq, sk, causal, stream);
+    case 16: FLASH_FWD(16);
+    case 32: FLASH_FWD(32);
+    case 64: FLASH_FWD(64);
+    case 128: FLASH_FWD(128);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef FLASH_FWD
 }
 
 // K6 in bf16. The forward's inputs, its out (bh, sq, d) bf16 and lse
@@ -793,13 +798,13 @@ extern "C" int flash_attention_bwd_bf16(const bf16* q, const bf16* k,
                                         const bf16* g, float* delta, bf16* dq,
                                         bf16* dk, bf16* dv, int bh, int sq,
                                         int sk, int d, int causal,
-                                        cudaStream_t stream) {
+                                        double scale, cudaStream_t stream) {
   if (!aligned(q) || !aligned(k) || !aligned(v) || !aligned(out) ||
       !aligned(g) || !aligned(dq) || !aligned(dk) || !aligned(dv))
     return (int)cudaErrorInvalidValue;
 #define FLASH_BWD(D)                                                       \
   return bwd<D>(q, k, v, mask, lse, out, g, delta, dq, dk, dv, bh, sq, sk, \
-                causal, stream)
+                causal, scale, stream)
   switch (d) {
     case 16: FLASH_BWD(16);
     case 32: FLASH_BWD(32);

@@ -22,9 +22,17 @@ JAX package's: heads folded into the batch, q (BH, Sq, D), k and v
   (one count per forward call; one per backward call, which runs both of
   K6's kernels).
 - :class:`FlashAttention` is the autograd Function over K5 and K6 (the
-  counterpart of ``flash_attention_diff``).
+  counterpart of ``flash_attention_diff``). JAX's kernels take any head
+  width D; the card's are built for ``KERNEL_HEAD_DIMS``. On the card,
+  FlashAttention pads q, k, v (and g) with zero columns up to the next
+  kernel width (:func:`kernel_head_dim`), passes the true D's scale, and
+  slices out, dq, dk and dv back to D: zero columns leave every score, the
+  lse and delta = rowsum(g * out) unchanged, and give out's padded columns
+  exactly 0.
 - :func:`attention` dispatches between the two paths by the JAX package's
-  rule, with "the tensor is on the card" in place of "the backend is TPU".
+  rule, with "the tensor is on the card" in place of "the backend is TPU";
+  above the widest kernel width a call over the budget goes dense with a
+  warning.
 
 The fp32 path is the JAX kernels' fp32-accurate products
 (``attention.py:107-115``): on the card every product runs on the tensor
@@ -63,6 +71,7 @@ KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 _P = ctypes.c_void_p
 _I32 = ctypes.c_int32
+_F64 = ctypes.c_double
 
 
 def _valid_lanes(shape, key_mask, causal, device):
@@ -80,12 +89,14 @@ def _valid_lanes(shape, key_mask, causal, device):
     return valid
 
 
-def _softmax_weights(q, k, key_mask, causal):
-    """Softmax weights of the scaled scores q k^T / sqrt(D) over valid
-    lanes (masked lanes set to NEG_INF) and each row's log-sum-exp, in the
-    inputs' dtype. A row with no valid key gets weights 0, not a uniform
-    average over masked keys, and lse 0."""
-    scores = torch.einsum("...qd,...kd->...qk", q, k) / math.sqrt(q.shape[-1])
+def _softmax_weights(q, k, key_mask, causal, scale=None):
+    """Softmax weights of the scaled scores q k^T / sqrt(D) (or q k^T
+    ``scale``) over valid lanes (masked lanes set to NEG_INF) and each
+    row's log-sum-exp, in the inputs' dtype. A row with no valid key gets
+    weights 0, not a uniform average over masked keys, and lse 0."""
+    scores = torch.einsum("...qd,...kd->...qk", q, k)
+    scores = (scores / math.sqrt(q.shape[-1]) if scale is None
+              else scores * scale)
     valid = _valid_lanes(scores.shape, key_mask, causal, scores.device)
     if valid is not None:
         scores = torch.where(valid, scores, NEG_INF)
@@ -131,19 +142,23 @@ def flash_attention_reference(
     v: torch.Tensor,
     key_mask: Optional[torch.Tensor] = None,
     causal: bool = False,
+    scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain (out, lse) of K5: dense SDPA and the per-row log-sum-exp of the
     scaled scores over valid keys; a row with no valid key gives out 0 and
-    lse 0. Computes in the inputs' dtype (fp32, or fp64 for a check)."""
-    weights, lse = _softmax_weights(q, k, key_mask, causal)
+    lse 0. The scores are q k^T / sqrt(D), or q k^T ``scale``. Computes in
+    the inputs' dtype (fp32, or fp64 for a check)."""
+    weights, lse = _softmax_weights(q, k, key_mask, causal, scale)
     return torch.einsum("...qk,...kd->...qd", weights, v), lse
 
 
-def backward_terms(q, k, v, key_mask, out, lse, g, causal):
+def backward_terms(q, k, v, key_mask, out, lse, g, causal, scale=None):
     """The dense intermediates of K6's plain version: p = exp(s - lse) with
     masked and causal-future lanes set to 0, dp = g v^T,
-    delta = rowsum(g * out) and ds = p (dp - delta) / sqrt(D)."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
+    delta = rowsum(g * out) and ds = p (dp - delta) scale, where
+    s = q k^T scale and ``scale`` defaults to 1 / sqrt(D)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("...qd,...kd->...qk", q, k) * scale
     p = torch.exp(s - lse[..., None])
     valid = _valid_lanes(s.shape, key_mask, causal, s.device)
@@ -164,10 +179,12 @@ def flash_attention_backward_reference(
     lse: torch.Tensor,
     g: torch.Tensor,
     causal: bool = False,
+    scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain (dq, dk, dv) of K6, from the forward's out and lse, over the
-    dense :func:`backward_terms`."""
-    p, _, _, ds = backward_terms(q, k, v, key_mask, out, lse, g, causal)
+    dense :func:`backward_terms` (``scale`` as there)."""
+    p, _, _, ds = backward_terms(q, k, v, key_mask, out, lse, g, causal,
+                                 scale)
     dq = torch.einsum("...qk,...kd->...qd", ds, k)
     dk = torch.einsum("...qk,...qd->...kd", ds, q)
     dv = torch.einsum("...qk,...qd->...kd", p, g)
@@ -180,17 +197,20 @@ def flash_attention_reference_bf16(
     v: torch.Tensor,
     key_mask: Optional[torch.Tensor] = None,
     causal: bool = False,
+    scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain (out, lse) of K5 on bf16 q, k, v, as the JAX kernel computes
-    them: fp32 scores of the bf16 operands (each product exact in fp32),
-    p = exp(s - m) in fp32 and its row sum l from the unrounded p, p rounded
-    to bf16 before P V with fp32 accumulation, out = acc / l rounded to
-    bf16, lse = m + log l in fp32. One tile of keys: m is the row's max,
-    where the kernels use the running max of the key tiles seen so far
-    (``ops/attention_tolerances.py`` bounds the difference)."""
+    them: fp32 scores of the bf16 operands (each product exact in fp32)
+    times ``scale`` (default 1 / sqrt(D)), p = exp(s - m) in fp32 and its
+    row sum l from the unrounded p, p rounded to bf16 before P V with fp32
+    accumulation, out = acc / l rounded to bf16, lse = m + log l in fp32.
+    One tile of keys: m is the row's max, where the kernels use the running
+    max of the key tiles seen so far (``ops/attention_tolerances.py`` bounds
+    the difference)."""
     qf, kf, vf = q.float(), k.float(), v.float()
-    s = torch.einsum("...qd,...kd->...qk", qf, kf) * (1.0 / math.sqrt(
-        q.shape[-1]))
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("...qd,...kd->...qk", qf, kf) * scale
     valid = _valid_lanes(s.shape, key_mask, causal, s.device)
     if valid is not None:
         s = torch.where(valid, s, NEG_INF)
@@ -214,16 +234,17 @@ def flash_attention_backward_reference_bf16(
     lse: torch.Tensor,
     g: torch.Tensor,
     causal: bool = False,
+    scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain (dq, dk, dv) of K6 on bf16 q, k, v, out and g with fp32 lse,
     as the JAX kernels compute them: p rebuilt in fp32, dp = g v^T and
     delta = rowsum(g * out) in fp32 from the upcast bf16 tensors,
-    ds = p (dp - delta) / sqrt(D) in fp32; p and ds rounded to bf16 before
-    dv = p^T g, dk = ds^T q and dq = ds k (fp32 accumulation); the
-    gradients returned in bf16."""
+    ds = p (dp - delta) scale in fp32 (``scale`` default 1 / sqrt(D)); p
+    and ds rounded to bf16 before dv = p^T g, dk = ds^T q and dq = ds k
+    (fp32 accumulation); the gradients returned in bf16."""
     qf, kf, vf, of, gf = (t.float() for t in (q, k, v, out, g))
     p, _, _, ds = backward_terms(qf, kf, vf, key_mask, of, lse.float(), gf,
-                                 causal)
+                                 causal, scale)
     pb = p.to(torch.bfloat16).float()
     dsb = ds.to(torch.bfloat16).float()
     dq = torch.einsum("...qk,...kd->...qd", dsb, kf)
@@ -304,6 +325,11 @@ _KERNELS = {
 }
 
 
+def _scale_arg(scale: Optional[float], d: int) -> float:
+    """The softmax scale a kernel is given: ``scale``, or 1 / sqrt(D)."""
+    return 1.0 / math.sqrt(d) if scale is None else float(scale)
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -311,27 +337,30 @@ def flash_attention(
     key_mask: Optional[torch.Tensor] = None,
     causal: bool = False,
     return_lse: bool = False,
+    scale: Optional[float] = None,
 ):
     """K5, blockwise attention forward. q (BH, Sq, D), k and v (BH, Sk, D),
     all fp32 or all bf16; key_mask (BH, Sk), > 0 = valid (None = all
-    valid). Returns out (BH, Sq, D) in q's dtype, and with ``return_lse``
-    also lse (BH, Sq) fp32."""
+    valid); the scores are q k^T ``scale``, by default D ** -0.5. Returns
+    out (BH, Sq, D) in q's dtype, and with ``return_lse`` also lse (BH, Sq)
+    fp32. On the card D must be one of ``KERNEL_HEAD_DIMS``."""
     dtype = _operand_dtype("flash_attention", q, k, v)
     key_mask = _mask_or_ones(key_mask, k)
     if q.device.type == "cpu":
         plain = (flash_attention_reference_bf16 if dtype == torch.bfloat16
                  else flash_attention_reference)
-        out, lse = plain(q, k, v, key_mask, causal)
+        out, lse = plain(q, k, v, key_mask, causal, scale)
         return (out, lse) if return_lse else out
     bh, sq, sk, d = _check_inputs("flash_attention", q, k, v, key_mask)
     out = torch.empty_like(q)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     if bh and sq:
         source, symbol, _, suffix = _KERNELS[dtype]
-        fn = _build.function(source, symbol, [_P] * 6 + [_I32] * 5 + [_P])
+        fn = _build.function(source, symbol,
+                             [_P] * 6 + [_I32] * 5 + [_F64, _P])
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   key_mask.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                  bh, sq, sk, d, int(causal),
+                  bh, sq, sk, d, int(causal), _scale_arg(scale, d),
                   torch.cuda.current_stream(q.device).cuda_stream)
         _build.check(code, "flash_attention forward")
         flash_attention.launches["fwd" + suffix] += 1
@@ -350,12 +379,14 @@ def flash_attention_backward(
     lse: torch.Tensor,
     g: torch.Tensor,
     causal: bool = False,
+    scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K6, blockwise attention backward: (dq, dk, dv) in q's dtype for the
-    output gradient g, from the forward's out and lse. q, k, v, out and g
-    share one dtype (fp32 or bf16); lse is fp32. delta = rowsum(g * out)
-    in fp32 is a plain torch reduction in fp32, as JAX leaves it to XLA;
-    the bf16 dq kernel forms it from its own rows."""
+    output gradient g, from the forward's out and lse (computed with the
+    same ``scale``, by default D ** -0.5). q, k, v, out and g share one
+    dtype (fp32 or bf16); lse is fp32. delta = rowsum(g * out) in fp32 is
+    a plain torch reduction in fp32, as JAX leaves it to XLA; the bf16 dq
+    kernel forms it from its own rows."""
     name = "flash_attention backward"
     dtype = _operand_dtype(name, q, k, v, out, g)
     key_mask = _mask_or_ones(key_mask, k)
@@ -363,7 +394,7 @@ def flash_attention_backward(
         plain = (flash_attention_backward_reference_bf16
                  if dtype == torch.bfloat16
                  else flash_attention_backward_reference)
-        return plain(q, k, v, key_mask, out, lse, g, causal)
+        return plain(q, k, v, key_mask, out, lse, g, causal, scale)
     bh, sq, sk, d = _check_inputs(name, q, k, v, key_mask, (out, g), (lse,))
     if out.shape != q.shape or g.shape != q.shape or \
             tuple(lse.shape) != (bh, sq):
@@ -375,25 +406,27 @@ def flash_attention_backward(
     if bh and sk and sq:
         source, _, symbol, suffix = _KERNELS[dtype]
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        scale = _scale_arg(scale, d)
         if dtype == torch.bfloat16:
             # The dq kernel forms delta itself, into this scratch.
             delta = torch.empty((bh, sq), dtype=torch.float32,
                                 device=q.device)
             fn = _build.function(source, symbol,
-                                 [_P] * 11 + [_I32] * 5 + [_P])
+                                 [_P] * 11 + [_I32] * 5 + [_F64, _P])
             code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       key_mask.data_ptr(), lse.data_ptr(), out.data_ptr(),
                       g.data_ptr(), delta.data_ptr(), dq.data_ptr(),
                       dk.data_ptr(), dv.data_ptr(), bh, sq, sk, d,
-                      int(causal), stream)
+                      int(causal), scale, stream)
         else:
             delta = (g * out).sum(-1)
             fn = _build.function(source, symbol,
-                                 [_P] * 10 + [_I32] * 5 + [_P])
+                                 [_P] * 10 + [_I32] * 5 + [_F64, _P])
             code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       key_mask.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                       g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                      dv.data_ptr(), bh, sq, sk, d, int(causal), stream)
+                      dv.data_ptr(), bh, sq, sk, d, int(causal), scale,
+                      stream)
         _build.check(code, name)
         flash_attention.launches["bwd" + suffix] += 1
     else:  # no scores: every gradient is 0
@@ -403,27 +436,57 @@ def flash_attention_backward(
     return dq, dk, dv
 
 
+def kernel_head_dim(d: int) -> Optional[int]:
+    """The narrowest of ``KERNEL_HEAD_DIMS`` that holds head width ``d``,
+    or None above the widest."""
+    return next((w for w in KERNEL_HEAD_DIMS if d <= w), None)
+
+
+def pad_head_dim(t: torch.Tensor, width: int) -> torch.Tensor:
+    """``t`` (..., D) with zero columns appended up to ``width``."""
+    d = t.shape[-1]
+    return t if d == width else torch.nn.functional.pad(t, (0, width - d))
+
+
+def _operand_width(q: torch.Tensor) -> int:
+    """The head width FlashAttention hands the kernels: on the card the
+    next kernel width (D itself above the widest, which the kernels
+    refuse); on the CPU, where the plain versions take any D, D."""
+    d = q.shape[-1]
+    if q.device.type == "cpu":
+        return d
+    return kernel_head_dim(d) or d
+
+
 class FlashAttention(torch.autograd.Function):
     """Differentiable blockwise attention over K5 and K6: ``apply(q, k, v,
     key_mask, causal)`` with fp32 or bf16 q, k, v; the gradients come back
-    in their dtype. Saves q, k, v, the mask, out and lse; no gradient flows
-    to the mask."""
+    in their dtype. On the card a head width D that no kernel is built for
+    is padded with zero columns to :func:`kernel_head_dim` and run at
+    scale D ** -0.5; out, dq, dk and dv are sliced back to D. Saves the
+    (padded) q, k, v, the mask, out and lse; no gradient flows to the
+    mask."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_mask, causal):
+        d, width = q.shape[-1], _operand_width(q)
+        scale = None if width == d else 1.0 / math.sqrt(d)
+        q, k, v = (pad_head_dim(t, width) for t in (q, k, v))
         out, lse = flash_attention(q, k, v, key_mask, causal,
-                                   return_lse=True)
-        ctx.causal = causal
+                                   return_lse=True, scale=scale)
+        ctx.causal, ctx.d, ctx.scale = causal, d, scale
         ctx.save_for_backward(q, k, v, key_mask, out, lse)
-        return out
+        return out if width == d else out[..., :d].contiguous()
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, key_mask, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_backward(
-            q, k, v, key_mask, out, lse, g.to(q.dtype).contiguous(),
-            ctx.causal)
-        return dq, dk, dv, None, None
+        g = pad_head_dim(g.to(q.dtype), q.shape[-1]).contiguous()
+        grads = flash_attention_backward(q, k, v, key_mask, out, lse, g,
+                                         ctx.causal, ctx.scale)
+        if q.shape[-1] != ctx.d:
+            grads = [t[..., :ctx.d].contiguous() for t in grads]
+        return (*grads, None, None)
 
 
 def use_flash_for(bh: int, sq: int, sk: int, device_type: str,
@@ -453,20 +516,24 @@ def attention(
     blockwise kernels beyond (:func:`use_flash_for`). Layout (BH, S, D).
 
     Attention-weight dropout exists only in the dense path: the blockwise
-    kernels never hold the weight matrix. A dropout-active call that the
-    budget would send blockwise goes dense with a warning;
-    ``use_flash=True`` with active dropout raises instead of changing the
-    semantics."""
+    kernels never hold the weight matrix. Nor is there a kernel for a head
+    width D above the widest of ``KERNEL_HEAD_DIMS``. A call that the
+    budget would send blockwise goes dense with a warning in either case;
+    ``use_flash=True`` raises instead of changing the semantics or the
+    memory it takes."""
     dropout_active = dropout_rate > 0.0 and generator is not None
+    too_wide = kernel_head_dim(q.shape[-1]) is None
     if use_flash is None:
         shape = (q.shape[0], q.shape[1], k.shape[1], q.device.type)
-        use_flash = use_flash_for(*shape, dropout_active)
-        if dropout_active and use_flash_for(*shape, False):
+        use_flash = use_flash_for(*shape, dropout_active) and not too_wide
+        if (dropout_active or too_wide) and use_flash_for(*shape, False):
+            why = ("attention-weight dropout" if dropout_active else
+                   f"head width D={q.shape[-1]} (no kernel is wider than "
+                   f"{KERNEL_HEAD_DIMS[-1]})")
             warnings.warn(
-                "attention-weight dropout sends this call to the dense path "
-                f"although its score tensors (BH, Sq, Sk) = {shape[:3]} "
-                "exceed the memory budget for which the flash kernels exist",
-                stacklevel=2)
+                f"{why} sends this call to the dense path although its "
+                f"score tensors (BH, Sq, Sk) = {shape[:3]} exceed the memory "
+                "budget for which the flash kernels exist", stacklevel=2)
     if use_flash:
         if dropout_active:
             raise ValueError(
@@ -474,6 +541,11 @@ def attention(
                 "kernel (the weight matrix is never materialized); call "
                 "with use_flash=False/None for dropout-active steps"
             )
+        if too_wide:
+            raise ValueError(
+                f"no flash kernel for head width D={q.shape[-1]} (the "
+                f"widest is {KERNEL_HEAD_DIMS[-1]}); call with "
+                "use_flash=False/None")
         key_mask = _mask_or_ones(key_mask, k).contiguous()
         return FlashAttention.apply(q.contiguous(), k.contiguous(),
                                     v.contiguous(), key_mask, causal)

@@ -11,6 +11,17 @@ plain gather; its backward is ``zeros((V, C)).at[ids].add(g)``.
   ``csrc/scatter_add_rows.cu`` for a CUDA tensor (the source says what bounds
   it and how it is built) and takes the plain version for a CPU tensor.
 - :func:`scatter_add_rows_reference` is that plain version (``index_add_``).
+- :func:`scatter_add_rows_in_segments` is the kernel's summation order, run
+  with plain ops: on the CPU it gives the kernel's result bit for bit.
+
+All follow JAX's ``zeros((V, C)).at[ids].add(g)``: an id in [-V, 0) adds
+into row V + id and any other id outside [0, V) is dropped. The plain
+version adds each row's updates in index order from +0.0 (``index_add_`` on
+the CPU is that sequential sum). The kernel cuts the ids into segments of
+:func:`segment_length` positions, adds a row's updates within a segment in
+index order from +0.0, then the row's segment sums in segment order from
++0.0: a fixed order, so its result is the same on every run, and the plain
+version's for every row whose updates lie in one segment.
 """
 
 from __future__ import annotations
@@ -23,16 +34,70 @@ from deep_recommenders_torch.ops import _build
 
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p,
+    ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+    ctypes.c_void_p,
 ]
+# The kernel's limits (csrc/scatter_add_rows.cu: kMaxSegment, kStageFloats,
+# kMaxCols): a segment's rows of g are staged in shared memory.
+MAX_SEGMENT = 2048
+STAGE_FLOATS = 2048 * 17
+MAX_COLS = 8192
+
+
+def segment_length(c: int) -> int:
+    """Ids per segment of K1's summation order at row width ``c``: the
+    largest power of two up to ``MAX_SEGMENT`` whose rows of g fit the
+    kernel's stage (2048 at DeepFM's C = 17)."""
+    if not 0 < c <= MAX_COLS:
+        raise ValueError(f"scatter_add_rows: row width {c} not in "
+                         f"[1, {MAX_COLS}]")
+    segment = MAX_SEGMENT
+    while segment * c > STAGE_FLOATS:
+        segment //= 2
+    return segment
+
+
+def _rows(ids: torch.Tensor, num_rows: int) -> torch.Tensor:
+    """Each id's row: [-num_rows, 0) wraps to ``num_rows + id``; every other
+    id outside [0, num_rows) goes to the spare row ``num_rows``."""
+    rows = ids.long()
+    rows = torch.where(rows < 0, rows + num_rows, rows)
+    return torch.where((rows >= 0) & (rows < num_rows), rows, num_rows)
 
 
 def scatter_add_rows_reference(
     g: torch.Tensor, ids: torch.Tensor, num_rows: int
 ) -> torch.Tensor:
-    """Plain ``zeros((num_rows, C)).index_add_(0, ids, g)``."""
-    out = torch.zeros((num_rows, g.shape[1]), dtype=g.dtype, device=g.device)
-    return out.index_add_(0, ids, g)
+    """Plain ``zeros((num_rows, C)).at[ids].add(g)`` as JAX computes it:
+    ids in [-num_rows, 0) wrap to ``num_rows + id``, and ``index_add_`` adds
+    the rows in index order. Every other id outside [0, num_rows) adds into
+    one spare row past the end, which is cut off: dropped, with no
+    data-dependent shape (so no host sync)."""
+    out = torch.zeros((num_rows + 1, g.shape[1]), dtype=g.dtype,
+                      device=g.device)
+    return out.index_add_(0, _rows(ids, num_rows), g)[:num_rows]
+
+
+def scatter_add_rows_in_segments(
+    g: torch.Tensor, ids: torch.Tensor, num_rows: int,
+    segment: int | None = None,
+) -> torch.Tensor:
+    """``zeros((num_rows, C)).at[ids].add(g)`` in the order of kernel K1:
+    the ids in segments of ``segment`` positions (default
+    ``segment_length(C)``), each row's updates within a segment added in
+    index order from +0.0, then its segment sums in segment order from
+    +0.0. Run on the CPU (where ``index_add_`` adds in index order) it is
+    the kernel's result bit for bit."""
+    n, c = g.shape
+    segment = segment or segment_length(c)
+    nseg = max(1, -(-n // segment))
+    rows = _rows(ids, num_rows)
+    key = rows * nseg + torch.arange(n, device=g.device) // segment
+    keys, slot = torch.unique(key, return_inverse=True)  # sorted
+    parts = torch.zeros((keys.shape[0], c), dtype=g.dtype, device=g.device)
+    parts.index_add_(0, slot, g)
+    out = torch.zeros((num_rows + 1, c), dtype=g.dtype, device=g.device)
+    return out.index_add_(0, keys // nseg, parts)[:num_rows]
 
 
 def scatter_add_rows(
@@ -40,9 +105,10 @@ def scatter_add_rows(
 ) -> torch.Tensor:
     """``zeros((num_rows, C)).at[ids].add(g)``: (N, C) f32, (N,) i32 -> (V, C).
 
-    On a CUDA tensor this launches kernel K1 (fp32 atomics, so the order of
-    the additions into a row changes from run to run) and counts the launch
-    in ``scatter_add_rows.launches``; on a CPU tensor it is the plain version.
+    On a CUDA tensor this launches kernel K1, which writes every row in one
+    launch in the fixed order of :func:`scatter_add_rows_in_segments` (no
+    atomics: the same bits on every run), and counts the launch in
+    ``scatter_add_rows.launches``; on a CPU tensor it is the plain version.
     """
     if g.device.type == "cpu":
         return scatter_add_rows_reference(g, ids, num_rows)
@@ -61,16 +127,18 @@ def scatter_add_rows(
     if ids.device != g.device:
         raise ValueError("scatter_add_rows: g and ids on different devices")
     n, c = g.shape
-    if not 0 < num_rows < 2**31 or c >= 2**31:
-        raise ValueError(f"scatter_add_rows: bad shape ({num_rows}, {c})")
-    out = torch.zeros((num_rows, c), dtype=torch.float32, device=g.device)
-    if n == 0:
+    if not 0 < num_rows < 2**31 or n >= 2**31 - 2**15:
+        raise ValueError(f"scatter_add_rows: bad shape g {(n, c)} into "
+                         f"{num_rows} rows")
+    out = torch.empty((num_rows, c), dtype=torch.float32, device=g.device)
+    if c == 0:
         return out
+    segment = segment_length(c)
     g = g.contiguous()
     ids = ids.contiguous()
     fn = _build.function("scatter_add_rows", "scatter_add_rows_f32", _ARGTYPES)
     code = fn(
-        out.data_ptr(), g.data_ptr(), ids.data_ptr(), n, c, num_rows,
+        out.data_ptr(), g.data_ptr(), ids.data_ptr(), n, c, num_rows, segment,
         torch.cuda.current_stream(g.device).cuda_stream,
     )
     _build.check(code, "scatter_add_rows")

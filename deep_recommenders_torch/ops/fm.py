@@ -7,9 +7,11 @@ embeddings (B, F, D) -> (B, 1).
 - :func:`fm_interaction`: plain torch, the one DeepFM calls (as the JAX
   DeepFM calls the plain jnp version).
 - :func:`fm_interaction_fused`: the counterpart of ``fm_interaction_pallas``.
-  On a CUDA tensor it launches ``csrc/fm_interaction.cu`` (one warp per row,
-  one read of the embeddings); on a CPU tensor it is :func:`fm_interaction`.
-  Forward only, as in JAX.
+  It takes fp32 or bf16 embeddings, as the TPU body does (it casts what it
+  reads to fp32). On a CUDA tensor it launches ``csrc/fm_interaction.cu``
+  (one read of the embeddings in their own dtype, 16-byte loads, several
+  rows a warp); on a CPU tensor it is :func:`fm_interaction`. Forward only,
+  as in JAX.
 """
 
 from __future__ import annotations
@@ -39,8 +41,14 @@ def fm_interaction(embeddings: torch.Tensor) -> torch.Tensor:
     return (0.5 * (sum_sq - sq_sum))[:, None]
 
 
+# The kernel's C function by input dtype.
+_SYMBOLS = {torch.float32: "fm_interaction_f32",
+            torch.bfloat16: "fm_interaction_bf16"}
+
+
 def fm_interaction_fused(embeddings: torch.Tensor) -> torch.Tensor:
-    """Kernel K2 on a CUDA tensor; identical math to :func:`fm_interaction`.
+    """Kernel K2 on a CUDA tensor; identical math to :func:`fm_interaction`:
+    (B, F, D) fp32 or bf16 -> (B, 1) fp32, summed in fp32.
 
     Counts each launch in ``fm_interaction_fused.launches``.
     """
@@ -49,19 +57,19 @@ def fm_interaction_fused(embeddings: torch.Tensor) -> torch.Tensor:
     if embeddings.device.type != "cuda":
         raise ValueError(f"fm_interaction_fused: unsupported device "
                          f"{embeddings.device}")
-    if embeddings.dtype != torch.float32 or embeddings.dim() != 3:
+    if embeddings.dtype not in _SYMBOLS or embeddings.dim() != 3:
         raise TypeError(
-            "fm_interaction_fused: embeddings must be (B, F, D) float32, got "
-            f"{embeddings.dtype} {tuple(embeddings.shape)}"
+            "fm_interaction_fused: embeddings must be (B, F, D) float32 or "
+            f"bfloat16, got {embeddings.dtype} {tuple(embeddings.shape)}"
         )
     b, f, d = embeddings.shape
     out = torch.empty((b, 1), dtype=torch.float32, device=embeddings.device)
     if b == 0:
         return out
-    if f * d >= 2**31 or b >= 2**34:
+    if f * d >= 2**31 or b >= 2**31:
         raise ValueError(f"fm_interaction_fused: shape {(b, f, d)} too large")
     x = embeddings.contiguous()
-    fn = _build.function("fm_interaction", "fm_interaction_f32", _ARGTYPES)
+    fn = _build.function("fm_interaction", _SYMBOLS[x.dtype], _ARGTYPES)
     code = fn(
         x.data_ptr(), out.data_ptr(), b, f, d,
         torch.cuda.current_stream(x.device).cuda_stream,

@@ -372,3 +372,136 @@ def test_bf16_tolerances_accept_blockwise_and_reject_planted(rng, causal):
         at.check_backward_bf16(
             (tgrads[0], tgrads[1] * 1.03, tgrads[2]), tq, tk, tv, tmask,
             tout, tlse, tg, causal)
+
+
+# -- head widths the card's kernels are not built for -------------------------
+
+def _padded(tensors, width):
+    return [att.pad_head_dim(t, width) for t in tensors]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 24])
+def test_padded_plain_versions_match_unpadded(rng, d, dtype, causal):
+    """What FlashAttention does on the card for a head width without a
+    kernel, through the plain K5 and K6: q, k, v and g padded with zero
+    columns to the next kernel width and run at scale = D ** -0.5, then
+    sliced back, against the unpadded plain versions. The zero columns add
+    exact zeros to every score, so fp32 agrees to the rounding of the
+    einsums' other summation order over the wider axis (rtol 1e-6, atol
+    1e-6 on values ~1), and bf16 to one bf16 rounding of out or of a
+    gradient (2^-7 relative and of the largest element); out's padded
+    columns and every padded gradient column are exactly 0."""
+    q, k, v, mask = _t(*_inputs(rng, 3, 40, 50, d, masked_row=1))
+    g = torch.from_numpy(rng.normal(size=q.shape).astype(np.float32))
+    q, k, v, g = (t.to(dtype) for t in (q, k, v, g))
+    width = att.kernel_head_dim(d)
+    assert width == {8: 16, 24: 32}[d]
+    bf16 = dtype == torch.bfloat16
+    fwd = (att.flash_attention_reference_bf16 if bf16
+           else att.flash_attention_reference)
+    bwd = (att.flash_attention_backward_reference_bf16 if bf16
+           else att.flash_attention_backward_reference)
+    out, lse = fwd(q, k, v, mask, causal)
+    grads = bwd(q, k, v, mask, out, lse, g, causal)
+    qp, kp, vp, gp = _padded((q, k, v, g), width)
+    out_p, lse_p = fwd(qp, kp, vp, mask, causal, d ** -0.5)
+    grads_p = bwd(qp, kp, vp, mask, out_p, lse_p, gp, causal, d ** -0.5)
+    for got, want in zip((out_p, *grads_p), (out, *grads)):
+        assert got.dtype == dtype and not got[..., d:].any()
+        got, want = got[..., :d].float(), want.float()
+        if bf16:
+            np.testing.assert_allclose(
+                got.numpy(), want.numpy(), rtol=2**-7,
+                atol=2**-7 * want.abs().max().item())
+        else:
+            np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                                       atol=1e-6)
+    np.testing.assert_allclose(lse_p.numpy(), lse.numpy(), rtol=1e-6,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 24])
+def test_padded_flash_attention_matches_jax_interpret(rng, monkeypatch, d,
+                                                      dtype, causal):
+    """FlashAttention with the card's padding of the head width forced on
+    the CPU (the plain versions in the kernels' place), forward and
+    gradients, against JAX's flash kernels in interpret mode at the true
+    D, which JAX's blocks take whole. fp32: out and lse to 2e-5, gradients
+    to atol 3e-5 and rtol 1e-4, as the unpadded tests above; bf16: out to
+    one bf16 rounding and 2^-7 of max|v|, lse to 2e-5, and each gradient
+    (here from the port's own out and lse, JAX's from its own) within 2^-7
+    relative and 2^-7 of its largest element, as the bf16 tests above."""
+    monkeypatch.setattr(att, "_operand_width",
+                        lambda t: att.kernel_head_dim(t.shape[-1]))
+    q, k, v, mask = _inputs(rng, 2, 70, 90, d, masked_row=1)
+    g = rng.normal(size=q.shape).astype(np.float32)
+    jmask = jnp.asarray(mask)
+    if dtype == torch.bfloat16:
+        (jq, jk, jv, jg), (tq, tk, tv, tg) = _bf16_pair(q, k, v, g)
+    else:
+        jq, jk, jv, jg = (jnp.asarray(a) for a in (q, k, v, g))
+        tq, tk, tv, tg = _t(q, k, v, g)
+    want_out, want_lse = jatt.flash_attention(
+        jq, jk, jv, key_mask=jmask, causal=causal, block_q=32, block_k=32,
+        interpret=True, return_lse=True)
+    if dtype == torch.bfloat16:
+        want = jatt._flash_backward_impl(jq, jk, jv, jmask, want_out,
+                                         want_lse, jg, causal=causal,
+                                         interpret=True)
+    else:
+        want = jax.grad(lambda *a: jnp.sum(jatt.flash_attention_diff(
+            *a, jmask, causal, True) * jg), argnums=(0, 1, 2))(jq, jk, jv)
+    args = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    before = dict(att.flash_attention.launches)
+    out = att.FlashAttention.apply(*args, _t(mask)[0], causal)
+    out.backward(tg)
+    assert att.flash_attention.launches == before  # plain on the CPU
+    assert out.shape == q.shape and out.dtype == dtype
+    qp, kp, vp = _padded((tq, tk, tv), att.kernel_head_dim(d))
+    _, lse = att.flash_attention(qp, kp, vp, _t(mask)[0], causal,
+                                 return_lse=True, scale=d ** -0.5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), atol=2e-5)
+    if dtype == torch.bfloat16:
+        vmax = float(np.abs(_f32(tv)).max())
+        np.testing.assert_allclose(_f32(out.detach()), _f32(want_out),
+                                   rtol=2**-7, atol=2**-7 * vmax)
+    else:
+        np.testing.assert_allclose(out.detach().numpy(),
+                                   np.asarray(want_out), atol=2e-5)
+    for name, arg, ref in zip("qkv", args, want):
+        assert arg.grad.shape == arg.shape and arg.grad.dtype == dtype
+        ref = _f32(ref)
+        if dtype == torch.bfloat16:
+            np.testing.assert_allclose(_f32(arg.grad), ref, rtol=2**-7,
+                                       atol=2**-7 * np.abs(ref).max(),
+                                       err_msg=f"d{name}")
+        else:
+            np.testing.assert_allclose(arg.grad.numpy(), ref, atol=3e-5,
+                                       rtol=1e-4, err_msg=f"d{name}")
+        assert not arg.grad[1].any()  # the (bh) row with no valid key
+
+
+def test_attention_dispatch_above_the_widest_kernel(rng, monkeypatch):
+    """kernel_head_dim's widths; a head width above the widest kernel goes
+    dense, with a warning where the budget would send it blockwise, and
+    use_flash=True refuses it. The budget's verdict is forced on the CPU
+    (there it always says dense): D = 8 then goes through FlashAttention,
+    D = 256 dense with the warning."""
+    assert [att.kernel_head_dim(d) for d in (1, 8, 16, 24, 48, 96, 128,
+                                             129)] == \
+        [16, 16, 16, 32, 64, 128, 128, None]
+    wide = _t(*_inputs(rng, 2, 6, 6, 256))
+    with pytest.raises(ValueError, match="head width"):
+        att.attention(*wide[:3], use_flash=True)
+    monkeypatch.setattr(att, "use_flash_for", lambda *a: not a[-1])
+    with pytest.warns(UserWarning, match="head width D=256"):
+        got = att.attention(*wide[:3], key_mask=wide[3])
+    torch.testing.assert_close(got, att.scaled_dot_product_attention(
+        *wide[:3], key_mask=wide[3]))
+    narrow = [t.requires_grad_() for t in _t(*_inputs(rng, 2, 6, 6, 8))[:3]]
+    att.attention(*narrow, causal=True).sum().backward()  # FlashAttention
+    assert all(t.grad is not None for t in narrow)

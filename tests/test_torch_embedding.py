@@ -184,3 +184,118 @@ def test_lookup_rejects_bad_arguments():
         t_ek.lookup(table, torch.zeros(3, dtype=torch.int32), "fp8")
     with pytest.raises(TypeError):
         t_ek.lookup(table, torch.zeros(3, dtype=torch.int64))
+
+
+def _in_order_loop(g, ids, v):
+    """zeros((v, C)).at[ids].add(g) by a numpy loop over the ids in index
+    order: ids in [-v, 0) wrap to v + id, other out-of-range ids drop."""
+    out = np.zeros((v, g.shape[1]), np.float32)
+    for i, idx in enumerate(ids.tolist()):
+        row = idx + v if idx < 0 else idx
+        if 0 <= row < v:
+            out[row] = out[row] + g[i]  # one fp32 add per column
+    return out
+
+
+@pytest.mark.parametrize("skewed", [False, True])
+def test_scatter_add_rows_reference_is_the_in_order_sum(rng, skewed):
+    """The plain version sums each row's updates in index order from +0.0,
+    bit for bit: the card's kernel's order within one segment. Tolerance:
+    none (the int32 views are equal)."""
+    n, c, v = 2048, 17, 1000
+    g = rng.normal(0, 1, (n, c)).astype(np.float32)
+    ids = rng.integers(0, v, n).astype(np.int32)
+    if skewed:  # 90% of the ids on 16 hot rows
+        hot = rng.random(n) < 0.9
+        ids[hot] = rng.integers(0, 16, hot.sum())
+    got = t_ek.scatter_add_rows_reference(torch.from_numpy(g),
+                                          torch.from_numpy(ids), v).numpy()
+    np.testing.assert_array_equal(got.view(np.int32),
+                                  _in_order_loop(g, ids, v).view(np.int32))
+
+
+def test_scatter_add_rows_out_of_range_ids_as_jax(rng):
+    """Ids in [-V, 0) add into row V + id and every other id outside
+    [0, V) is dropped, as JAX's zeros((V, C)).at[ids].add(g) on the CPU:
+    the plain version, the CPU wrapper and the kernel's order (one segment
+    here) against it (each row sums at most a few updates of size ~1 in
+    fp32: atol 1e-6), and bit for bit against the in-order loop."""
+    n, c, v = 512, 5, 40
+    g = rng.normal(0, 1, (n, c)).astype(np.float32)
+    ids = rng.integers(-2 * v, 2 * v, n).astype(np.int32)
+    ids[:4] = [-v, -1, v, -v - 1]  # the edges of the wrapped range
+    want = np.asarray(jnp.zeros((v, c), jnp.float32).at[
+        jnp.asarray(ids)].add(jnp.asarray(g)))
+    tg, tids = torch.from_numpy(g), torch.from_numpy(ids)
+    for got in (t_ek.scatter_add_rows_reference(tg, tids, v),
+                t_ek.scatter_add_rows(tg, tids, v),
+                t_ek.scatter_add_rows_in_segments(tg, tids, v)):
+        assert got.shape == (v, c) and got.is_contiguous()
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+        np.testing.assert_array_equal(
+            got.numpy().view(np.int32),
+            _in_order_loop(g, ids, v).view(np.int32))
+
+
+def _segment_order_loop(g, ids, v, segment):
+    """The kernel's order by a numpy loop: within each segment of `segment`
+    positions a row's updates added in index order from +0.0, then each
+    row's segment sums added in segment order from +0.0."""
+    out = np.zeros((v, g.shape[1]), np.float32)
+    for s0 in range(0, len(ids), segment):
+        parts = {}
+        for i in range(s0, min(s0 + segment, len(ids))):
+            row = int(ids[i]) + v if ids[i] < 0 else int(ids[i])
+            if 0 <= row < v:
+                parts[row] = parts.get(row, np.zeros(g.shape[1],
+                                                     np.float32)) + g[i]
+        for row, part in parts.items():
+            out[row] = out[row] + part
+    return out
+
+
+@pytest.mark.parametrize("segment", [64, 2048])
+@pytest.mark.parametrize("skewed", [False, True])
+def test_scatter_add_rows_in_segments_is_the_segment_order(rng, skewed,
+                                                           segment):
+    """The kernel's order model equals a numpy loop in that order bit for
+    bit, with ids out of range among them, at many segments (64) and at
+    the segment length of C = 17 (2048). Tolerance: none (the int32 views
+    are equal)."""
+    n, c, v = 3000, 17, 500
+    g = rng.normal(0, 1, (n, c)).astype(np.float32)
+    ids = rng.integers(-v - 20, v + 20, n).astype(np.int32)
+    if skewed:  # a quarter of the ids on one row, as a train batch's movie
+        ids[rng.random(n) < 0.25] = 7
+    got = t_ek.scatter_add_rows_in_segments(
+        torch.from_numpy(g), torch.from_numpy(ids), v, segment).numpy()
+    np.testing.assert_array_equal(
+        got.view(np.int32), _segment_order_loop(g, ids, v, segment)
+        .view(np.int32))
+
+
+def test_scatter_add_rows_in_segments_within_one_segment_is_the_plain_sum(
+        rng):
+    """With every id in one segment the kernel's order is the plain
+    version's in-order sum, bit for bit; over several segments a hot row
+    differs from it by rounding only (fp32 sums of 16384 terms of size ~1:
+    atol 1e-3)."""
+    c, v = 17, 100
+    assert t_ek.segment_length(c) == 2048
+    g = torch.from_numpy(rng.normal(0, 1, (16384, c)).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(0, 8, 16384).astype(np.int32))
+    one = t_ek.scatter_add_rows_in_segments(g[:2048], ids[:2048], v)
+    assert torch.equal(one.view(torch.int32), t_ek.scatter_add_rows_reference(
+        g[:2048], ids[:2048], v).view(torch.int32))
+    many = t_ek.scatter_add_rows_in_segments(g, ids, v)
+    torch.testing.assert_close(many, t_ek.scatter_add_rows_reference(
+        g, ids, v), rtol=0, atol=1e-3)
+
+
+def test_segment_length_fits_the_kernel_stage():
+    """The segment is the largest power of two up to 2048 whose rows of g
+    fit the kernel's stage of 2048 x 17 floats; wider rows are refused."""
+    assert [t_ek.segment_length(c) for c in (1, 17, 18, 32, 8192)] == [
+        2048, 2048, 1024, 1024, 4]
+    with pytest.raises(ValueError):
+        t_ek.segment_length(8193)

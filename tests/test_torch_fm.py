@@ -37,3 +37,17 @@ def test_fm_interaction_bf16_input_accumulates_in_fp32(rng):
     got = t_fm.fm_interaction(torch.from_numpy(emb).to(torch.bfloat16))
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(64, 6, 16), (37, 5, 7), (10, 3, 70)])
+def test_fm_interaction_fused_bf16_matches_pallas(rng, shape):
+    """bf16 embeddings through fm_interaction_fused (on the CPU its plain
+    version, which widens them to fp32) against JAX's fm_interaction_pallas
+    on the same bf16 values: both sum the same fp32 values in fp32, so
+    rtol 1e-5 as above."""
+    emb = rng.normal(0, 1, shape).astype(np.float32)
+    want = np.asarray(j_fm.fm_interaction_pallas(
+        jnp.asarray(emb).astype(jnp.bfloat16)))
+    got = t_fm.fm_interaction_fused(torch.from_numpy(emb).to(torch.bfloat16))
+    assert got.shape == (shape[0], 1) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)

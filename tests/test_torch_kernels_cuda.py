@@ -2,8 +2,10 @@
 
 Marked ``cuda``: each test skips where no CUDA device is present. This file
 imports neither JAX nor the JAX package, so it runs on the card alone (see
-README, "PyTorch port"). The tolerances follow the fp32 summation bound:
-atomics and the reference sum each output in different orders. The CIN
+README, "PyTorch port"). K1 is held bit for bit to its summation order
+run with plain ops on the CPU, and to fp64 within the fp32 summation bound;
+K2's tolerances follow the fp32 summation bound: kernel and reference sum
+each output in different orders. The CIN
 kernels' checks are ``ops/cin_tolerances.py``'s (K3 and K4, forward and
 backward, at the TPU kernels' bf16 contract, against their bf16
 emulations and fp64), the attention kernels' ``ops/attention_tolerances.py``'s;
@@ -31,8 +33,16 @@ def device():
     return torch.device("cuda")
 
 
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
 @pytest.mark.parametrize("skewed", [False, True])
 def test_scatter_add_rows_kernel(device, skewed):
+    """K1 at DeepFM's shape: one launch a call, equal bit for bit to its
+    summation order run on the CPU and to itself over three calls, and
+    within the fp32 summation bound of fp64 (~1500 fp32 adds into a hot row
+    of size ~40: rtol 1e-5, atol 1e-3)."""
     rng = np.random.default_rng(0)
     n, c, v = 16384, 17, 10044
     ids = rng.integers(0, v, n).astype(np.int32)
@@ -41,14 +51,85 @@ def test_scatter_add_rows_kernel(device, skewed):
         ids[hot] = rng.integers(0, 16, hot.sum())
     g = torch.from_numpy(rng.normal(0, 1, (n, c)).astype(np.float32))
     ids = torch.from_numpy(ids)
-    want = ek.scatter_add_rows_reference(g.double(), ids, v)
+    want = ek.scatter_add_rows_in_segments(g, ids, v)
+    exact = ek.scatter_add_rows_reference(g.double(), ids, v)
     before = ek.scatter_add_rows.launches
-    got = ek.scatter_add_rows(g.to(device), ids.to(device), v)
+    runs = [ek.scatter_add_rows(g.to(device), ids.to(device), v)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    assert ek.scatter_add_rows.launches == before + 3
+    for got in runs:
+        assert torch.equal(_bits(got.cpu()), _bits(want))
+    np.testing.assert_allclose(runs[0].cpu().double().numpy(),
+                               exact.numpy(), rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("n,c,v,hot", [
+    (16384, 17, 10044, 0.25),     # a train batch: a quarter on one row
+    (16384, 17, 1_000_000, 0.0),  # a hashed table: 31 clusters, 2 waves
+    (20000, 17, 3, 0.0),          # three rows: every block holds all ids
+    (5000, 40, 10044, 0.5),       # wider rows: segments of 512
+    (30000, 1, 70000, 0.0),       # one column, several rounds
+])
+def test_scatter_add_rows_kernel_tables_and_widths(device, n, c, v, hot):
+    """K1 bit for bit against its summation order run on the CPU, over two
+    calls, at table sizes and row widths that change its plan: the cluster
+    count, the segment length and the number of rounds."""
+    rng = np.random.default_rng(n + c)
+    ids = rng.integers(0, v, n).astype(np.int32)
+    ids[rng.random(n) < hot] = v // 2
+    g = torch.from_numpy(rng.normal(0, 1, (n, c)).astype(np.float32))
+    ids = torch.from_numpy(ids)
+    want = ek.scatter_add_rows_in_segments(g, ids, v)
+    for _ in range(2):
+        got = ek.scatter_add_rows(g.to(device), ids.to(device), v)
+        assert torch.equal(_bits(got.cpu()), _bits(want))
+
+
+@pytest.mark.parametrize("n,offset", [(40000, 0), (777, 1), (0, 0)])
+def test_scatter_add_rows_kernel_ids_out_of_range_and_ragged(device, n,
+                                                             offset):
+    """Ids in [-V, 0) wrap to row V + id, the rest outside [0, V) drop, as
+    in the kernel's summation order run on the CPU (bit for bit); also more
+    ids than one round of the kernel (40000), ids not 16-byte aligned (a
+    view at offset 1) and no ids at all (every row written 0)."""
+    rng = np.random.default_rng(n)
+    v, c = 300, 9
+    ids = rng.integers(-2 * v, 2 * v, n + offset).astype(np.int32)
+    if n > 1000:  # a hot row that spans the chunks
+        ids[rng.random(n + offset) < 0.5] = -1
+    g = torch.from_numpy(rng.normal(0, 1, (n, c)).astype(np.float32))
+    ids = torch.from_numpy(ids)[offset:]
+    want = ek.scatter_add_rows_in_segments(g, ids, v)
+    ids_card = ids.to(device)
+    if offset:  # the same ids at an address 4 bytes past 16-byte aligned
+        base = torch.zeros(n + offset, dtype=torch.int32, device=device)
+        base[offset:] = ids_card
+        ids_card = base[offset:]
+        assert ids_card.data_ptr() % 16 != 0
+    before = ek.scatter_add_rows.launches
+    got = ek.scatter_add_rows(g.to(device), ids_card, v)
     torch.cuda.synchronize()
     assert ek.scatter_add_rows.launches == before + 1
-    # fp64 reference; ~1500 fp32 adds into a hot row of size ~40.
-    np.testing.assert_allclose(got.cpu().double().numpy(), want.numpy(),
-                               rtol=1e-5, atol=1e-3)
+    assert torch.equal(_bits(got.cpu()), _bits(want))
+
+
+def test_scatter_add_rows_writes_untouched_rows_over_nan_memory(device):
+    """The output is allocated uninitialised: rows no id touches must come
+    out +0.0 even where the caching allocator hands back memory first
+    filled with NaN."""
+    v, c = 10044, 17
+    ids = torch.arange(0, v, 7, dtype=torch.int32, device=device)
+    g = torch.ones(ids.shape[0], c, device=device)
+    garbage = torch.full((v, c), float("nan"), device=device)
+    ptr = garbage.data_ptr()
+    del garbage
+    got = ek.scatter_add_rows(g, ids, v)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == ptr  # the NaN-filled block, reused
+    want = torch.zeros(v, c)
+    want[::7] = 1.0
+    assert torch.equal(_bits(got.cpu()), _bits(want))
 
 
 def test_lookup_backward_launches_kernel_once(device):
@@ -73,9 +154,17 @@ def test_scatter_add_rows_rejects_bad_inputs(device):
                                                     device=device), 5)
 
 
-@pytest.mark.parametrize("shape", [(8192, 6, 16), (5, 3, 70), (1, 1, 1)])
-def test_fm_interaction_kernel(device, shape):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8192, 6, 16), (5, 3, 70), (1, 1, 1),
+                                   (1000, 7, 20)])
+def test_fm_interaction_kernel(device, shape, dtype):
+    """K2 on fp32 and bf16 embeddings, through its vector path (16-byte
+    loads, several rows a warp) and its scalar branch (D = 70, 1, 20: not
+    a multiple of the vector width, or more than 32 lanes a row), against
+    the plain version on the CPU on the same values: both sum fp32 values
+    in fp32 in other orders."""
     emb = torch.randn(*shape, generator=torch.Generator().manual_seed(1))
+    emb = emb.to(dtype)
     want = fm.fm_interaction(emb)
     before = fm.fm_interaction_fused.launches
     got = fm.fm_interaction_fused(emb.to(device))
@@ -575,3 +664,85 @@ def test_flash_attention_bf16_rejects_other_dtypes(device):
         shifted = torch.zeros(2 * 8 * 16 + 1, device=device,
                               dtype=torch.bfloat16)[1:].view(2, 8, 16)
         att.flash_attention(shifted, q, q, mask)
+
+
+# -- head widths without a kernel of their own ------------------------------
+
+def _padded_lse(q, k, v, mask, causal):
+    """The lse of K5 on q, k, v padded to the next kernel width, as
+    FlashAttention runs it (deterministic: the one its backward used)."""
+    d = q.shape[-1]
+    width = att.kernel_head_dim(d)
+    qp, kp, vp = (att.pad_head_dim(t, width) for t in (q, k, v))
+    return att.flash_attention(qp, kp, vp, mask, causal, return_lse=True,
+                               scale=d ** -0.5)[1]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 24, 48, 96])
+def test_flash_attention_pads_head_widths(device, d, dtype, causal):
+    """FlashAttention at head widths without a kernel: q, k, v and g go to
+    K5 and K6 padded with zero columns to the next kernel width at scale
+    D ** -0.5 (one launch each of the dtype's kernels), and out, dq, dk, dv
+    come back at D and pass the checks of ops/attention_tolerances.py at
+    the true D against the plain versions."""
+    gen = torch.Generator(device=device).manual_seed(11)
+    q, k, v, mask = _attention_inputs(gen, 6, 150, 130, d)
+    g = _normal(gen, 6, 150, d)
+    if dtype == torch.bfloat16:
+        q, k, v, g = _bf16(q, k, v, g)
+    fwd, bwd = (("fwd_bf16", "bwd_bf16") if dtype == torch.bfloat16
+                else ("fwd", "bwd"))
+    args = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = dict(att.flash_attention.launches)
+    out = att.FlashAttention.apply(*args, mask, causal)
+    out.backward(g)
+    assert att.flash_attention.launches == {
+        **before, fwd: before[fwd] + 1, bwd: before[bwd] + 1}
+    out = out.detach()
+    grads = [a.grad for a in args]
+    assert out.shape == q.shape and out.dtype == dtype
+    lse = _padded_lse(q, k, v, mask, causal)
+    if dtype == torch.bfloat16:
+        at.check_forward_bf16((out, lse), q, k, v, mask, causal)
+        at.check_backward_bf16(grads, q, k, v, mask, out, lse, g, causal)
+    else:
+        at.check_forward((out, lse), q, k, v, mask, causal)
+        at.check_backward(grads, q, k, v, mask, out, lse, g, causal)
+    assert not out[1].any()
+    for grad in grads:
+        assert grad.dtype == dtype and not grad[1].any()
+
+
+def test_attention_dispatch_pads_or_goes_dense_by_head_width(device):
+    """attention() over the memory budget: at D = 8 (the IMDB example's
+    --model-dim 32 --max-len 1024, BH 256) it goes through K5 and K6 and
+    agrees with the plain versions on 32 of its rows; at D = 256, wider
+    than every kernel, it warns and goes dense, and use_flash=True
+    raises."""
+    gen = torch.Generator(device=device).manual_seed(12)
+    q, k, v, mask = _attention_inputs(gen, 256, 1024, 1024, 8)
+    g = _normal(gen, 256, 1024, 8)
+    args = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = dict(att.flash_attention.launches)
+    out = att.attention(*args, key_mask=mask)
+    out.backward(g)
+    assert att.flash_attention.launches == {
+        **before, "fwd": before["fwd"] + 1, "bwd": before["bwd"] + 1}
+    rows = slice(0, 32)
+    lse = _padded_lse(q[rows], k[rows], v[rows], mask[rows], False)
+    at.check_forward((out.detach()[rows], lse), q[rows], k[rows], v[rows],
+                     mask[rows], False)
+    at.check_backward([a.grad[rows] for a in args], q[rows], k[rows],
+                      v[rows], mask[rows], out.detach()[rows], lse, g[rows],
+                      False)
+    wide = _normal(gen, 160, 1024, 256)
+    before = dict(att.flash_attention.launches)
+    with pytest.warns(UserWarning, match="head width D=256"):
+        got = att.attention(wide, wide, wide)
+    assert att.flash_attention.launches == before
+    torch.testing.assert_close(got, att.scaled_dot_product_attention(
+        wide, wide, wide))
+    with pytest.raises(ValueError, match="head width"):
+        att.attention(wide, wide, wide, use_flash=True)
