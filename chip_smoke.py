@@ -13,7 +13,9 @@ In order:
    into a table of 10^6 rows, held bit for bit to its summation order run
    with plain ops on the CPU, three calls each, "bitwise_equal" and
    "deterministic", and to its plain version within the fp32 summation
-   bound, and on ids out of range; K2 on fp32 and bf16 embeddings; K3 forward and backward at xDeepFM's
+   bound, and on ids out of range; K1 on bf16 g at the batch's, skewed
+   and uniform ids, bit for bit its order's fp32 sums rounded once to
+   bf16; K2 on fp32 and bf16 embeddings; K3 forward and backward at xDeepFM's
    flagship shapes; K4 forward and backward at H = 6 and H = 128; K5 and
    K6 at the Transformer's (2048, 512, 16), non-causal and causal), holds
    the result against its plain PyTorch version with the tolerance stated
@@ -44,7 +46,7 @@ In order:
    and bf16, through K5 and K6 padded to the next kernel width and held to
    the same checks at the true D, and a D = 256 call that warns and goes
    dense;
-5. six train paths, each with every launch counter set to 0 just before
+5. twelve train paths, each with every launch counter set to 0 just before
    it and read just after, each checked for a finite, falling loss and the
    exact launches it must make:
    - DeepFM at the bench width (D=16, hidden (256, 32)), 2 epochs: one K1
@@ -59,6 +61,17 @@ In order:
    each with an AUC above 0.5; the trained DeepFM's and flagship xDeepFM's
    logits on the card must match the plain CPU path on the same weights,
    the flagship's with K3's forward as its bf16 emulation);
+   - the rest of the CTR family at the zoo's widths, 2 epochs each: FM
+     (Adam 1e-2), FNN (256, 32) warm-started from the FM's weights through
+     save_checkpoint, restore_checkpoint and warm_start_from, Wide & Deep
+     (256, 128, 64) with the example's three crosses under FTRL (L1 0.5)
+     and Adam, and DCN (3 cross layers, (256, 128)): one fp32 K1 per train
+     step each; DeepFM in bf16 (``compute_dtype=torch.bfloat16``): one bf16
+     K1 per train step; the flagship xDeepFM in bf16: one bf16 K1
+     (embeddings), one fp32 K1 (linear terms), K3 as in fp32; each with an
+     AUC above 0.5 and its logits on the card against the plain CPU path
+     (fp32: rtol 1e-4; bf16: nearer the CPU's bf16 logits than those lie
+     to its fp32 ones);
    - the Transformer seq2seq slice (the zoo's width at S = 512, batch 256),
      2 epochs of a copy task through Transformer.loss: six K5 and six K6 per
      train step, six K5 per held-out batch, and a held-out loss that falls;
@@ -69,7 +82,7 @@ In order:
      path than that path is to fp32;
    - the ported IMDB example at its defaults, 3 epochs: dense attention,
      no kernel launch;
-6. profiles ten more train steps of DeepFM, both xDeepFMs and the
+6. profiles ten more train steps of every CTR model and the
    Transformer in fp32 and bf16 (torch.profiler): wall time per step,
    device busy time, idle share and the kernels that take the most time;
 7. prints one JSON line with every kernel's numbers, then, as the last line,
@@ -105,8 +118,10 @@ import argparse
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -150,6 +165,13 @@ XDEEPFM_MAPS = (128, 128)
 XDEEPFM_HIDDEN = (256, 128)
 LAYERED_MAPS = (128, 128, 128)
 LAYERED_EPOCHS = 1
+# The rest of the CTR family at the zoo's widths (benchmarks/run_models.py:
+# 141-161): FM at the FM example's learning rate, FNN (256, 32), Wide &
+# Deep (256, 128, 64), DCN with 3 cross layers and (256, 128).
+FM_LEARNING_RATE = 1e-2
+FNN_HIDDEN = (256, 32)
+WDL_HIDDEN = (256, 128, 64)
+DCN_CROSS_LAYERS, DCN_HIDDEN = 3, (256, 128)
 # The Transformer slice: the zoo's width (benchmarks/run_models.py:307-318:
 # vocab 8000, d 128, 8 heads, 2 + 2 layers, FFN 512, dropout 0, batch 256)
 # at S = 512, the shortest power-of-two length at which the dispatch rule
@@ -180,6 +202,7 @@ BF16_OPS_PER_S = 989e12
 TF32_OPS_PER_S = 495e12
 TF32_PASSES = 3
 U32 = 2.0**-24  # unit roundoff of float32
+U_BF16 = 2.0**-8  # unit roundoff of bfloat16
 # The H100's special-function units: 16 exponentials a clock on each of its
 # 132 SMs (a floor of the attention kernels at D = 16).
 SMS, EXP_PER_SM_CLOCK = 132, 16
@@ -314,11 +337,13 @@ def bound_fields(num_bytes: float, num_ops: float, bf16: bool = False,
 def check_scatter(g, ids, num_rows, calls: int = 3) -> dict:
     """K1 on ``calls`` calls against, on copies of g and ids on the CPU,
     (a) its summation order run with plain ops
-    (``scatter_add_rows_in_segments``): equal bit for bit (``torch.equal``
-    on the int32 views), so also from call to call; and (b) its plain
-    version (``index_add_``, each row in index order): both are fp32 sums of
-    the same L terms of a row, each within (L - 1) u sum|g| of the exact
-    sum, so they may differ by 2 L u sum|g| (the tolerance, element-wise).
+    (``scatter_add_rows_in_segments``; on bf16 g, on g.float(), each row
+    then rounded once to bf16): equal bit for bit (``torch.equal`` on the
+    integer views), so also from call to call; and (b) its plain version
+    (``index_add_``, each row in index order, in fp32): both are fp32 sums
+    of the same L terms of a row, each within (L - 1) u sum|g| of the exact
+    sum, so they may differ by 2 L u sum|g| (the tolerance, element-wise),
+    and on bf16 g each is then rounded once (u_bf16 of each side more).
     Also the most updates a row takes, and the most it takes in one
     segment: the longest chain of dependent adds."""
     # Imported here: --ctr-only also runs in a parent's tree, which has no
@@ -328,11 +353,13 @@ def check_scatter(g, ids, num_rows, calls: int = 3) -> dict:
         segment_length,
     )
     g_cpu, ids_cpu = g.cpu(), ids.cpu()
-    want = scatter_add_rows_in_segments(g_cpu, ids_cpu, num_rows)
+    want = scatter_add_rows_in_segments(g_cpu.float(), ids_cpu,
+                                        num_rows).to(g.dtype)
     plain = scatter_add_rows_reference(g_cpu, ids_cpu, num_rows)
     runs = [scatter_add_rows(g, ids, num_rows).cpu() for _ in range(calls)]
-    bits = [t.view(torch.int32) for t in runs]
-    bitwise = all(torch.equal(b, want.view(torch.int32)) for b in bits)
+    view = torch.int16 if g.dtype == torch.bfloat16 else torch.int32
+    bits = [t.view(view) for t in runs]
+    bitwise = all(torch.equal(b, want.view(view)) for b in bits)
     deterministic = all(torch.equal(b, bits[0]) for b in bits[1:])
     rows = ids_cpu.long()
     kept = (rows >= -num_rows) & (rows < num_rows)
@@ -341,6 +368,8 @@ def check_scatter(g, ids, num_rows, calls: int = 3) -> dict:
     magnitude = scatter_add_rows_reference(g_cpu.abs().double(), ids_cpu,
                                            num_rows)
     tol = 2.0 * updates[:, None] * U32 * magnitude
+    if g.dtype == torch.bfloat16:
+        tol = tol + U_BF16 * (runs[0].double().abs() + plain.double().abs())
     err = (runs[0].double() - plain.double()).abs()
     within = bool((err <= tol).all())
     if not (bitwise and deterministic and within):
@@ -359,6 +388,45 @@ def check_scatter(g, ids, num_rows, calls: int = 3) -> dict:
             "max_row_updates": int(updates.max().item()),
             "longest_chain": int(torch.unique(chain[kept],
                                               return_counts=True)[1].max())}
+
+
+def scatter_bf16_entry(g, ids, skewed, spread, num_rows, device) -> dict:
+    """K1 on bf16 g (the bf16 models' table gradient) on the train batch's,
+    skewed and uniform ids: :func:`check_scatter` (bit for bit its order's
+    fp32 sums rounded once), device, eager and plain ms, and the library
+    call: ``index_add_`` of g.float() into fp32 ``torch.zeros``, then the
+    cast to bf16. Bound: bf16 g, the ids and the bf16 output once each."""
+    n, c = g.shape
+    bound_ms, bound_by = bound(n * c * 2 + n * 4 + num_rows * c * 2, n * c)
+    fields = {}
+    for name, rows in (("batch", ids), ("skewed", skewed),
+                       ("uniform", spread)):
+        rows_long = rows.long()
+        fields[name] = {
+            **check_scatter(g, rows, num_rows),
+            **timings(
+                lambda: scatter_add_rows(g, rows, num_rows),
+                lambda: scatter_add_rows_reference(g, rows, num_rows),
+                lambda: torch.zeros(num_rows, c, device=device).index_add_(
+                    0, rows_long, g.float()).to(torch.bfloat16)),
+            "host_us": host_us(lambda: scatter_add_rows(g, rows, num_rows)),
+        }
+    return {
+        "name": "scatter_add_rows.bf16",
+        "route": "cuda",
+        "source": "deep_recommenders_torch/csrc/scatter_add_rows.cu",
+        "replaces": "deep_recommenders_tpu/ops/embedding_kernels.py:90",
+        "shape": {"g": [n, c], "dtype": "bfloat16", "num_rows": num_rows},
+        "ids": "one train batch's user_id and movie_id",
+        **fields["batch"],
+        "skewed": fields["skewed"],
+        "uniform": fields["uniform"],
+        "library": "index_add_ of g.float() into fp32 torch.zeros, then "
+                   ".to(torch.bfloat16)",
+        "bound_ms": bound_ms,
+        "bound_us": bound_ms * 1e3,
+        "bound_by": bound_by,
+    }
 
 
 def check_fm(emb):
@@ -457,21 +525,19 @@ def kernel_phase(ds: MovielensRanking, model: DeepFM, device):
         "host_us": host_us(lambda: scatter_add_rows(g, ids, num_rows)),
         "skewed": {
             **skew,
-            "ms": graph_ms(lambda: scatter_add_rows(g, skewed, num_rows)),
-            "eager_ms": time_ms(lambda: scatter_add_rows(g, skewed,
-                                                         num_rows)),
-            "plain_ms": graph_ms(
-                lambda: scatter_add_rows_reference(g, skewed, num_rows)
-            ),
+            **timings(
+                lambda: scatter_add_rows(g, skewed, num_rows),
+                lambda: scatter_add_rows_reference(g, skewed, num_rows),
+                lambda: torch.zeros(num_rows, c, device=device).index_add_(
+                    0, skewed.long(), g)),
         },
         "uniform": {
             **uniform,
-            "ms": graph_ms(lambda: scatter_add_rows(g, spread, num_rows)),
-            "eager_ms": time_ms(lambda: scatter_add_rows(g, spread,
-                                                         num_rows)),
-            "plain_ms": graph_ms(
-                lambda: scatter_add_rows_reference(g, spread, num_rows)
-            ),
+            **timings(
+                lambda: scatter_add_rows(g, spread, num_rows),
+                lambda: scatter_add_rows_reference(g, spread, num_rows),
+                lambda: torch.zeros(num_rows, c, device=device).index_add_(
+                    0, spread.long(), g)),
         },
         "large_table": {
             **large,
@@ -489,6 +555,9 @@ def kernel_phase(ds: MovielensRanking, model: DeepFM, device):
         "bound_us": bound_ms * 1e3,
         "bound_by": bound_by,
     })
+
+    entries.append(scatter_bf16_entry(g.to(torch.bfloat16), ids, skewed,
+                                      spread, num_rows, device))
 
     # K2 on the (B, F, D) embeddings of the same batch, in fp32 and bf16.
     b, f, d = emb32.shape
@@ -717,6 +786,7 @@ def make_xdeepfm(ds: MovielensRanking, maps, device) -> XDeepFM:
 
 def reset_launches() -> None:
     scatter_add_rows.launches = 0
+    scatter_add_rows.launches_bf16 = 0
     fm_interaction_fused.launches = 0
     ck.cin_stack_pooled.launches = {"fwd": 0, "bwd": 0}
     ck.cin2d.launches = {"fwd": 0, "bwd": 0}
@@ -727,6 +797,7 @@ def reset_launches() -> None:
 def read_launches() -> dict:
     return {
         "scatter_add_rows": scatter_add_rows.launches,
+        "scatter_add_rows_bf16": scatter_add_rows.launches_bf16,
         "fm_interaction_fused": fm_interaction_fused.launches,
         "cin_stack_pooled.fwd": ck.cin_stack_pooled.launches["fwd"],
         "cin_stack_pooled.bwd": ck.cin_stack_pooled.launches["bwd"],
@@ -739,13 +810,16 @@ def read_launches() -> dict:
     }
 
 
-def train_path(name, model, train, test, epochs, expect, device):
+def train_path(name, model, train, test, epochs, expect, device,
+               optimizer=None):
     """``epochs`` of ``fit_device`` with the launch counters set to 0 just
     before and read just after; ``expect(steps, eval_batches)`` gives the
-    launches each kernel must make. Returns the trainer, the launches and
-    the last epoch's eval metrics."""
+    launches each kernel must make. The optimizer is Adam at LEARNING_RATE
+    unless one is given. Returns the trainer, the launches and the last
+    epoch's eval metrics."""
     trainer = Trainer(
-        model, torch.optim.Adam(model.parameters(), lr=LEARNING_RATE),
+        model, optimizer or torch.optim.Adam(model.parameters(),
+                                             lr=LEARNING_RATE),
         device=device,
     )
     reset_launches()
@@ -797,29 +871,48 @@ def stack_forward_bf16_on_cpu():
         ck.stack_forward = fp32
 
 
-def check_logits(name, model, cpu_model, ds, device, rtol, atol,
-                 plain=contextlib.nullcontext):
-    """The trained model's logits on the card against the plain CPU path
-    (the kernels' plain versions, under ``plain()``) on the same weights."""
-    feats, _ = ds.test_arrays()
+def check_logits(name, model, cpu_model, ds, device, rtol=1e-4, atol=1e-5,
+                 plain=contextlib.nullcontext, feats=None, fp32_model=None):
+    """The trained model's logits on 256 test rows (``feats``, by default
+    the test split's) on the card against the plain CPU path (the kernels'
+    plain versions, under ``plain()``) on the same weights: within ``rtol``
+    and ``atol``; or, for a bf16 model given the same model in fp32 on the
+    CPU (``fp32_model``), nearer the CPU's bf16 logits than those lie to
+    the CPU's fp32 logits (the largest difference of each), the rule of the
+    bf16 Transformer."""
+    if feats is None:
+        feats, _ = ds.test_arrays()
     rows = {k: torch.from_numpy(v[:256]) for k, v in feats.items()}
     model.eval()
-    cpu_model.load_state_dict({k: v.cpu() for k, v in
-                               model.state_dict().items()})
+    weights = {k: v.cpu() for k, v in model.state_dict().items()}
+    cpu_model.load_state_dict(weights)
     cpu_model.eval()
     with torch.no_grad():
         on_card = model({k: v.to(device) for k, v in rows.items()}).cpu()
         with plain():
             on_cpu = cpu_model(rows)
-    if on_card.shape != (256, 1):
-        raise AssertionError(f"{name}: logits shape {tuple(on_card.shape)}")
-    torch.testing.assert_close(on_card, on_cpu, rtol=rtol, atol=atol)
-    print(f"{name} logits card vs cpu: max abs diff "
-          f"{(on_card - on_cpu).abs().max().item():.3g}")
+            if fp32_model is not None:
+                fp32_model.load_state_dict(weights)
+                on_cpu32 = fp32_model.eval()(rows)
+    if on_card.shape != (256, 1) or on_card.dtype != torch.float32:
+        raise AssertionError(f"{name}: logits {tuple(on_card.shape)} "
+                             f"{on_card.dtype}")
+    diff = (on_card - on_cpu).abs().max().item()
+    gap = ""
+    if fp32_model is None:
+        torch.testing.assert_close(on_card, on_cpu, rtol=rtol, atol=atol)
+    else:
+        bf16_gap = (on_cpu - on_cpu32).abs().max().item()
+        if not bool(torch.isfinite(on_card).all()) or not diff < bf16_gap:
+            raise AssertionError(f"{name}: logits card vs cpu differ by "
+                                 f"{diff}, bf16 vs fp32 on the cpu by "
+                                 f"{bf16_gap}")
+        gap = f", cpu bf16 vs fp32 {bf16_gap:.3g}"
+    print(f"{name} logits card vs cpu: max abs diff {diff:.3g}{gap}")
 
 
 def train_phase(ds: MovielensRanking, model: DeepFM, device):
-    """The three train paths; returns each path's launches."""
+    """The CTR train paths; returns each path's launches."""
     train = DeviceData.from_numpy(*ds.train_arrays(), BATCH, device=device)
     test = DeviceData.from_numpy(*ds.test_arrays(), BATCH, device=device)
     paths = {}
@@ -827,7 +920,124 @@ def train_phase(ds: MovielensRanking, model: DeepFM, device):
     paths["deepfm"], _ = deepfm_path(ds, model, train, test, device)
     launches, _ = xdeepfm_paths(ds, train, test, device)
     paths.update(launches)
+    launches, _ = ranking_paths(ds, train, test, device)
+    paths.update(launches)
     return paths
+
+
+def one_k1(s, e):
+    """The launches of a model with one fp32 table pass: K1 once a step."""
+    return {"scatter_add_rows": s}
+
+
+def ranking_paths(ds: MovielensRanking, train: DeviceData, test: DeviceData,
+                  device):
+    """The rest of the CTR family at the zoo's widths
+    (benchmarks/run_models.py:141-169), then DeepFM and the flagship
+    xDeepFM in bf16, each for EPOCHS with Adam at LEARNING_RATE (FM at
+    FM_LEARNING_RATE, the FM example's; Wide & Deep with the example's
+    crosses and its FTRL/Adam split): one fp32 K1 a step for fm, fnn, wdl
+    and dcn; one bf16 K1 a step for deepfm_bf16; for xdeepfm_bf16 one bf16
+    K1 (embeddings), one fp32 K1 (linear terms) and K3 as in the fp32
+    flagship. The FNN starts from the trained FM's weights through
+    save_checkpoint, restore_checkpoint and warm_start_from. Each path's
+    logits on the card against the plain CPU path; each path's launches,
+    and its final eval metrics with its profile."""
+    # Imported here: --ctr-only also runs in a parent's tree, which may
+    # not have these models.
+    from deep_recommenders_torch.examples.train_wdl_on_movielens import (
+        CROSSES,
+        wdl_optimizer,
+        wide_sparsity,
+        with_crosses,
+    )
+    from deep_recommenders_torch.models.ranking import (
+        DCN,
+        FNN,
+        FactorizationMachine,
+        WideDeep,
+    )
+    from deep_recommenders_torch.training import (
+        restore_checkpoint,
+        save_checkpoint,
+        warm_start_from,
+    )
+
+    specs = ds.feature_specs
+    paths, results = {}, {}
+
+    def gen():
+        return torch.Generator().manual_seed(SEED)
+
+    def run(name, model, expect, train=train, test=test, optimizer=None,
+            cpu_model=None, **check):
+        trainer, paths[name], final = train_path(
+            name, model, train, test, EPOCHS, expect, device, optimizer)
+        check_logits(name, model, cpu_model, ds, device, **check)
+        results[name] = {"eval": final,
+                         "profile": trainer_profile(trainer, train, test)}
+        print(f"{name} profile: " + json.dumps(results[name]["profile"]))
+
+    fm = FactorizationMachine(specs, EMBED_DIM, generator=gen()).to(device)
+    run("fm", fm, one_k1, cpu_model=FactorizationMachine(specs, EMBED_DIM),
+        optimizer=torch.optim.Adam(fm.parameters(), lr=FM_LEARNING_RATE))
+
+    # The two-phase FM -> FNN flow, through a checkpoint under build/.
+    scratch = os.path.dirname(_build.BUILD_DIR)
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        saved = save_checkpoint(os.path.join(tmp, "fm"), fm.state_dict())
+        fm_state = restore_checkpoint(
+            saved, FactorizationMachine(specs, EMBED_DIM).state_dict())
+    fnn = FNN(specs, EMBED_DIM, FNN_HIDDEN, generator=gen())
+    fnn.load_state_dict(warm_start_from(fnn.state_dict(), fm_state))
+    if not torch.equal(fnn.embeddings.table, fm.embeddings.table.cpu()):
+        raise AssertionError("fnn: warm start did not take the FM's table")
+    print(f"fnn warm-started from the fm path's checkpoint ({saved})")
+    del fm
+    run("fnn", fnn.to(device), one_k1,
+        cpu_model=FNN(specs, EMBED_DIM, FNN_HIDDEN))
+
+    feats, labels = ds.train_arrays()
+    wtrain = DeviceData.from_numpy(with_crosses(feats), labels, BATCH,
+                                   device=device)
+    feats, labels = ds.test_arrays()
+    test_feats = with_crosses(feats)
+    wtest = DeviceData.from_numpy(test_feats, labels, BATCH, device=device)
+    wide_specs = specs + CROSSES
+    wdl = WideDeep(specs, wide_specs, EMBED_DIM, WDL_HIDDEN, generator=gen())
+    run("wdl", wdl, one_k1, wtrain, wtest, wdl_optimizer(wdl),
+        cpu_model=WideDeep(specs, wide_specs, EMBED_DIM, WDL_HIDDEN),
+        feats=test_feats)
+    results["wdl"]["wide_sparsity"] = wide_sparsity(wdl)
+    print(f"wdl wide-weight sparsity (FTRL L1): "
+          f"{results['wdl']['wide_sparsity']:.6f}")
+    del wdl, wtrain, wtest
+
+    run("dcn", DCN(specs, EMBED_DIM, DCN_CROSS_LAYERS, None, DCN_HIDDEN,
+                   generator=gen()).to(device), one_k1,
+        cpu_model=DCN(specs, EMBED_DIM, DCN_CROSS_LAYERS, None, DCN_HIDDEN))
+
+    bf16 = torch.bfloat16
+    run("deepfm_bf16",
+        DeepFM(specs, EMBED_DIM, HIDDEN, compute_dtype=bf16,
+               generator=gen()).to(device),
+        lambda s, e: {"scatter_add_rows_bf16": s},
+        cpu_model=DeepFM(specs, EMBED_DIM, HIDDEN, compute_dtype=bf16),
+        fp32_model=DeepFM(specs, EMBED_DIM, HIDDEN))
+    run("xdeepfm_bf16",
+        XDeepFM(specs, EMBED_DIM, XDEEPFM_MAPS, "relu", XDEEPFM_HIDDEN,
+                compute_dtype=bf16, generator=gen()).to(device),
+        lambda s, e: {"scatter_add_rows": s, "scatter_add_rows_bf16": s,
+                      "cin_stack_pooled.fwd": s + e,
+                      "cin_stack_pooled.bwd": s},
+        cpu_model=XDeepFM(specs, EMBED_DIM, XDEEPFM_MAPS, "relu",
+                          XDEEPFM_HIDDEN, compute_dtype=bf16),
+        fp32_model=XDeepFM(specs, EMBED_DIM, XDEEPFM_MAPS, "relu",
+                           XDEEPFM_HIDDEN),
+        plain=stack_forward_bf16_on_cpu)
+    torch.cuda.empty_cache()
+    return paths, results
 
 
 def deepfm_path(ds: MovielensRanking, model: DeepFM, train: DeviceData,
@@ -1678,6 +1888,7 @@ def imdb_path():
 # Which path's launches each kernel's entry reports.
 ENTRY_PATH = {
     "scatter_add_rows": "deepfm",
+    "scatter_add_rows.bf16": "deepfm_bf16",
     "fm_interaction_fused": "deepfm",
     "fm_interaction_fused.bf16": "deepfm",
     "cin_stack_pooled.fwd": "xdeepfm",
@@ -1692,8 +1903,10 @@ ENTRY_PATH = {
 
 
 # An entry whose launch counter has another name: K2 on bf16 embeddings is
-# the same wrapper, counted in fm_interaction_fused.launches.
-COUNTER = {"fm_interaction_fused.bf16": "fm_interaction_fused"}
+# the same wrapper, counted in fm_interaction_fused.launches; K1 on bf16 g
+# is counted in scatter_add_rows.launches_bf16.
+COUNTER = {"fm_interaction_fused.bf16": "fm_interaction_fused",
+           "scatter_add_rows.bf16": "scatter_add_rows_bf16"}
 
 
 def device_line() -> str:

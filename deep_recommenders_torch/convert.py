@@ -69,9 +69,12 @@ def xdeepfm_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
 
 def _module_name(name: str) -> str:
-    # flax's encoder_i / decoder_i are the port's ModuleList entries.
+    # flax's encoder_i, decoder_i, crosses_i and an MLP's Dense_i are the
+    # port's ModuleList entries.
     for flax_prefix, torch_prefix in (("encoder_", "encoder_layers."),
-                                      ("decoder_", "decoder_layers.")):
+                                      ("decoder_", "decoder_layers."),
+                                      ("crosses_", "crosses."),
+                                      ("Dense_", "dense.")):
         if name.startswith(flax_prefix) and name[len(flax_prefix):].isdigit():
             return torch_prefix + name[len(flax_prefix):]
     return name
@@ -114,3 +117,29 @@ def transformer_from_flax(params: Mapping[str, Any]
 # ``transformer/…`` maps under ``transformer.`` and its ``head`` Dense to
 # ``head``.
 transformer_classifier_from_flax = transformer_from_flax
+
+
+def ranking_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A flax ranking model's parameter tree -> the port's state dict, by
+    the rules of :func:`transformer_from_flax` (each Dense ``kernel``
+    transposed into a Linear ``weight``, every other leaf as it is), with
+    ``Dense_i`` under ``dense.i`` and ``crosses_i`` under ``crosses.i``:
+
+    - ``FactorizationMachine``: ``linear/{weights, bias}``,
+      ``embeddings/table``; ``FMLayer``: ``linear/{kernel, bias}``;
+    - ``FNN``: the same and ``deep/Dense_i``;
+    - ``WideDeep``: ``wide_linear/weights`` and ``wide_extra/{weights,
+      bias}`` (the fused branch) or ``wide/{weights, bias}`` (the separate
+      one), ``embeddings/table``, ``deep/Dense_i``;
+    - ``DCN``: ``crosses_i/dense`` (full rank) or ``crosses_i/{dense_u,
+      dense_v}`` (low rank), ``embeddings/table``, ``deep/Dense_i``,
+      ``head``.
+    """
+    state: Dict[str, torch.Tensor] = {}
+    _flax_modules(params.get("params", params), "", state)
+    return state
+
+
+# One set of rules serves each of the ranking models above.
+fm_from_flax = fnn_from_flax = wide_deep_from_flax = dcn_from_flax = (
+    ranking_from_flax)

@@ -47,10 +47,22 @@
 // So a hot row's gather and chains spread over the cluster's SMs, and no
 // chain is longer than a segment. Every cluster reads all ids once, split
 // over its blocks: Q * n * 4 bytes from L2.
+//
+// bf16 g (scatter_add_rows_bf16, the TPU kernel's function on bf16 g: read
+// as bf16, every sum in fp32, each row rounded once to g's dtype,
+// embedding_kernels.py:157-169). The same plan: step 3 widens each element
+// of g to fp32 as it stages it (a plain 2-byte load each: a bf16 row at
+// c = 17 is 34 bytes, so rows are neither 16- nor 4-byte aligned), and the
+// fold rounds each row to bf16 (nearest even, as PyTorch rounds) where it
+// writes it. When the ids take more than one round, the rounds' partial sums
+// go to an fp32 workspace and the block rounds its slab into the output
+// after the last round: a row is rounded once in every case.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -137,6 +149,17 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
                "l"(src));
 }
 
+// bf16 bits -> fp32 (exact), and fp32 -> bf16 bits rounded to nearest even
+// with NaN as 0x7fc0: PyTorch's conversion (c10::BFloat16), bit for bit.
+__device__ __forceinline__ float bf16_to_float(uint16_t x) {
+  return __uint_as_float((uint32_t)x << 16);
+}
+__device__ __forceinline__ uint16_t float_to_bf16(float x) {
+  const uint32_t u = __float_as_uint(x);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return 0x7fc0;
+  return (uint16_t)((u + 0x7fffu + ((u >> 16) & 1u)) >> 16);
+}
+
 // 0 + src[0] + src[stride] + ... + src[(len - 1) stride], added in that
 // order (len >= 1). While whole groups of kAhead remain, the next group's
 // loads are issued before the current group's adds.
@@ -167,13 +190,19 @@ __device__ __forceinline__ float sum_run(const float* src, int stride,
   return acc;
 }
 
+// In: float or uint16_t (bf16 bits). For float, acc is the output and out16
+// is null. For bf16, out16 is the output; acc is an fp32 (num_rows, c)
+// workspace when the ids take more than one round, else null.
+template <typename In>
 __global__ void __cluster_dims__(kCluster, 1, 1)
     __launch_bounds__(kThreads, 1)
-    scatter_add_rows_kernel(float* __restrict__ out,
-                            const float* __restrict__ g,
+    scatter_add_rows_kernel(float* __restrict__ acc,
+                            uint16_t* __restrict__ out16,
+                            const In* __restrict__ g,
                             const int32_t* __restrict__ ids, int32_t n,
                             int32_t c, int32_t num_rows, int32_t clusters,
                             int32_t log_seg, int32_t slab_rows) {
+  constexpr bool kBf16 = std::is_same<In, uint16_t>::value;
   cg::cluster_group cluster = cg::this_cluster();
   const int q = blockIdx.x / kCluster;
   const int rank = (int)cluster.block_rank();
@@ -182,8 +211,12 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
   const int slab0 = rank * slab_rows;  // this block's first local row
   const int my_rows = max(0, min(slab_rows, rows - slab0));
   // Slab row l is output row (slab0 + l) * clusters + q.
-  float* const my_out = out + ((int64_t)slab0 * clusters + q) * c;
+  const int64_t slab_base = ((int64_t)slab0 * clusters + q) * c;
   const int64_t row_stride = (int64_t)clusters * c;
+  // bf16 in one round: each row's sum is rounded straight into the output.
+  const bool direct16 = kBf16 && acc == nullptr;
+  float* const my_acc = direct16 ? nullptr : acc + slab_base;
+  uint16_t* const my_out16 = kBf16 ? out16 + slab_base : nullptr;
 
   // The segment's gathered rows of g, then the fixed-size parts.
   extern __shared__ __align__(16) unsigned char smem[];
@@ -219,7 +252,10 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
   {
     Walk w(c);
     for (int e = tid; e < my_rows * c; e += kThreads) {
-      my_out[w.i * row_stride + w.col] = 0.f;
+      if (direct16)
+        my_out16[w.i * row_stride + w.col] = 0;
+      else
+        my_acc[w.i * row_stride + w.col] = 0.f;
       w.step(c);
     }
   }
@@ -337,7 +373,25 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
       int16_t* map = cluster.map_shared_rank(where, owner);
       map[rank * slab_rows + x.y - owner * slab_rows] = (int16_t)(x.x & 0xffff);
     }
-    {
+    if constexpr (kBf16) {
+      // kLoads elements a thread at once: their loads all in flight.
+      constexpr int kLoads = 4;
+      Walk w(c);
+      for (int e0 = tid; e0 < m * c; e0 += kLoads * kThreads) {
+        float v[kLoads];
+#pragma unroll
+        for (int f = 0; f < kLoads; ++f) {
+          const bool in = e0 + f * kThreads < m * c;
+          v[f] = in ? bf16_to_float(
+                          __ldg(g + (seg0 + order[w.i]) * c + w.col))
+                    : 0.f;
+          w.step(c);
+        }
+#pragma unroll
+        for (int f = 0; f < kLoads; ++f)
+          if (e0 + f * kThreads < m * c) stage[e0 + f * kThreads] = v[f];
+      }
+    } else {
       Walk w(c);
       for (int e = tid; e < m * c; e += kThreads) {
         cp_async4(stage + e, g + (seg0 + order[w.i]) * c + w.col);
@@ -386,7 +440,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
       const int total = counts[2] * c;
       for (int e0 = tid; e0 < total; e0 += kFold * kThreads) {
         float v[kFold][kCluster];
-        float* dst[kFold];
+        int64_t dst[kFold];  // the element's offset in the slab, or -1
 #pragma unroll
         for (int f = 0; f < kFold; ++f) {
           const bool in = e0 + f * kThreads < total;
@@ -396,16 +450,19 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
             const int s = in ? where[k * slab_rows + l] : -1;
             v[f][k] = s >= 0 ? remote_stage[k][s * c + w.col] : 0.f;
           }
-          dst[f] = in ? my_out + l * row_stride + w.col : nullptr;
+          dst[f] = in ? l * row_stride + w.col : -1;
           w.step(c);
         }
 #pragma unroll
         for (int f = 0; f < kFold; ++f) {
-          if (dst[f] == nullptr) continue;
-          float a = base0 == 0 ? 0.f : *dst[f];
+          if (dst[f] < 0) continue;
+          float a = base0 == 0 ? 0.f : my_acc[dst[f]];
 #pragma unroll
           for (int k = 0; k < kCluster; ++k) a += v[f][k];
-          *dst[f] = a;
+          if (direct16)
+            my_out16[dst[f]] = float_to_bf16(a);
+          else
+            my_acc[dst[f]] = a;
         }
       }
     }
@@ -421,18 +478,24 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
     }
   }
   if (n == 0) cluster_wait();
+  if (kBf16 && !direct16) {
+    // More than one round: the slab's fp32 sums (this block's own writes),
+    // each rounded once into the output.
+    __syncthreads();
+    Walk w(c);
+    for (int e = tid; e < my_rows * c; e += kThreads) {
+      const int64_t at = w.i * row_stride + w.col;
+      my_out16[at] = float_to_bf16(my_acc[at]);
+      w.step(c);
+    }
+  }
 }
 
-}  // namespace
-
-// out: (num_rows, c) fp32, written whole (uninitialised on entry); g: (n, c)
-// fp32 row-major; ids: (n,) int32; segment: a power of two up to kMaxSegment
-// with segment * c <= kStageFloats. Launches on `stream` and returns
-// cudaGetLastError() (or the error of a refused configuration).
-extern "C" int scatter_add_rows_f32(float* out, const float* g,
-                                    const int32_t* ids, int64_t n, int32_t c,
-                                    int32_t num_rows, int32_t segment,
-                                    cudaStream_t stream) {
+// The launch of both entry points (In: float or uint16_t, bf16 bits).
+template <typename In>
+int launch(float* acc, uint16_t* out16, const In* g, const int32_t* ids,
+           int64_t n, int32_t c, int32_t num_rows, int32_t segment,
+           cudaStream_t stream) {
   if (n < 0 || n > INT32_MAX - 2 * kCluster * kMaxSegment || c <= 0 ||
       c > kMaxCols || num_rows <= 0 || segment <= 0 ||
       segment > kMaxSegment || (segment & (segment - 1)) != 0 ||
@@ -445,7 +508,8 @@ extern "C" int scatter_add_rows_f32(float* out, const float* g,
   static int resident = 0;
   if (resident == 0) {
     int err = (int)cudaFuncSetAttribute(
-        scatter_add_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        scatter_add_rows_kernel<In>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         kStageFloats * 4 + kFixedBytes);
     if (err) return err;
     cudaLaunchConfig_t config = {};
@@ -453,7 +517,7 @@ extern "C" int scatter_add_rows_f32(float* out, const float* g,
     config.blockDim = dim3(kThreads);
     config.dynamicSmemBytes = kStageFloats * 4 + kFixedBytes;
     err = (int)cudaOccupancyMaxActiveClusters(
-        &resident, (const void*)scatter_add_rows_kernel, &config);
+        &resident, (const void*)scatter_add_rows_kernel<In>, &config);
     if (err) return err;
     if (resident <= 0) return (int)cudaErrorInvalidConfiguration;
   }
@@ -466,8 +530,36 @@ extern "C" int scatter_add_rows_f32(float* out, const float* g,
   const int cluster_rows = (num_rows + clusters - 1) / clusters;
   // A multiple of 8: the map resets in 16-byte stores.
   const int slab_rows = ((cluster_rows + kCluster - 1) / kCluster + 7) & ~7;
-  scatter_add_rows_kernel<<<clusters * kCluster, kThreads, smem_bytes,
-                            stream>>>(out, g, ids, (int32_t)n, c, num_rows,
-                                      clusters, log_seg, slab_rows);
+  scatter_add_rows_kernel<In><<<clusters * kCluster, kThreads, smem_bytes,
+                                stream>>>(acc, out16, g, ids, (int32_t)n, c,
+                                          num_rows, clusters, log_seg,
+                                          slab_rows);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// out: (num_rows, c) fp32, written whole (uninitialised on entry); g: (n, c)
+// fp32 row-major; ids: (n,) int32; segment: a power of two up to kMaxSegment
+// with segment * c <= kStageFloats. Launches on `stream` and returns
+// cudaGetLastError() (or the error of a refused configuration).
+extern "C" int scatter_add_rows_f32(float* out, const float* g,
+                                    const int32_t* ids, int64_t n, int32_t c,
+                                    int32_t num_rows, int32_t segment,
+                                    cudaStream_t stream) {
+  return launch<float>(out, nullptr, g, ids, n, c, num_rows, segment, stream);
+}
+
+// The same on bf16 g (its bits, uint16_t), into a bf16 out: fp32 sums in
+// the same order, each row rounded once. workspace: null when the ids take
+// one round (n <= kCluster * segment), else (num_rows, c) fp32 scratch
+// (uninitialised on entry).
+extern "C" int scatter_add_rows_bf16(uint16_t* out, const uint16_t* g,
+                                     const int32_t* ids, int64_t n, int32_t c,
+                                     int32_t num_rows, int32_t segment,
+                                     float* workspace, cudaStream_t stream) {
+  if ((workspace == nullptr) != (n <= (int64_t)kCluster * segment))
+    return (int)cudaErrorInvalidValue;
+  return launch<uint16_t>(workspace, out, g, ids, n, c, num_rows, segment,
+                          stream);
 }

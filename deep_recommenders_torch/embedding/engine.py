@@ -124,6 +124,14 @@ def fused_rows(
     return rows, denom
 
 
+def check_compute_dtype(dtype):
+    """The models' mixed precision: None (fp32) or ``torch.bfloat16``."""
+    if dtype not in (None, torch.bfloat16):
+        raise ValueError(f"compute_dtype must be None (fp32) or "
+                         f"torch.bfloat16, got {dtype}")
+    return dtype
+
+
 class EmbeddingCollection(nn.Module):
     """Embeds a set of categorical features into a stacked (B, F, D) tensor.
 
@@ -131,6 +139,11 @@ class EmbeddingCollection(nn.Module):
     dim), initialised normal(0, 1/sqrt(dim)) as in the JAX package.
     Multi-hot features are combined (mean/sum) with their padding weights, so
     every feature contributes exactly one D-vector per example.
+
+    With ``compute_dtype=torch.bfloat16`` the table stays an fp32 parameter
+    and is cast to bf16 before the lookup: the one-hot matmul, the gather and
+    the bag sums run in bf16, the rows come out bf16, and the gather's
+    backward is K1 on bf16 gradients.
     """
 
     def __init__(
@@ -144,10 +157,7 @@ class EmbeddingCollection(nn.Module):
         super().__init__()
         if mesh is not None:
             raise NotImplementedError("mesh sharding is not ported yet")
-        if compute_dtype is not None:
-            raise NotImplementedError(
-                "compute_dtype is not ported yet: the port computes in fp32"
-            )
+        self.compute_dtype = check_compute_dtype(compute_dtype)
         self.specs = tuple(specs)
         self.dim = dim
         self.feature_offsets, total = _offsets(self.specs)
@@ -155,28 +165,35 @@ class EmbeddingCollection(nn.Module):
         nn.init.normal_(self.table, 0.0, 1.0 / math.sqrt(dim),
                         generator=generator)
 
+    def compute_table(self) -> torch.Tensor:
+        """The table in the compute dtype (a cast of the fp32 parameter)."""
+        if self.compute_dtype is None:
+            return self.table
+        return self.table.to(self.compute_dtype)
+
     def forward(self, batch: Batch) -> torch.Tensor:
         """batch: {name: (B,) or (B, L) int32 ids, name__wt: (B, L) f32}."""
         rows, denom = fused_rows(
-            self.table, self.specs, self.feature_offsets, batch
+            self.compute_table(), self.specs, self.feature_offsets, batch
         )
-        return rows / denom
+        return rows / denom.to(rows.dtype)
 
 
 class LinearTerms(nn.Module):
     """First-order (wide/linear) model over categorical features -> (B, 1).
 
     A learned scalar per bucket, summed across features (SUM combiner
-    throughout, as tf.feature_column.linear_model), plus a bias: a fused
-    dim-1 table that shares the engine's routing. Zero-initialised.
+    throughout, as tf.feature_column.linear_model), plus a bias unless
+    ``use_bias`` is False: a fused dim-1 table that shares the engine's
+    routing. Zero-initialised, fp32 always.
     """
 
-    def __init__(self, specs: Sequence[Feature]):
+    def __init__(self, specs: Sequence[Feature], use_bias: bool = True):
         super().__init__()
         self.specs = tuple(specs)
         self.feature_offsets, total = _offsets(self.specs)
         self.weights = nn.Parameter(torch.zeros(total, 1))
-        self.bias = nn.Parameter(torch.zeros(1))
+        self.bias = nn.Parameter(torch.zeros(1)) if use_bias else None
 
     def per_feature(self, batch: Batch) -> torch.Tensor:
         """Un-summed per-feature first-order weights (B, F)."""
@@ -186,7 +203,8 @@ class LinearTerms(nn.Module):
         return rows[..., 0]
 
     def forward(self, batch: Batch) -> torch.Tensor:
-        return self.per_feature(batch).sum(dim=1, keepdim=True) + self.bias
+        total = self.per_feature(batch).sum(dim=1, keepdim=True)
+        return total if self.bias is None else total + self.bias
 
 
 def fused_embedding_linear(
@@ -199,16 +217,19 @@ def fused_embedding_linear(
     The linear weights ride along as column D of a concatenated (V, D+1)
     operand, so the whole FM input is one ``fused_rows`` pass and both
     gradients come out of a single K1 launch (the concat's backward is a
-    slice). Returns ``(stacked, first_order)``: (B, F, D) combined
-    embeddings and (B, F) per-feature SUM-combined linear terms.
+    slice). The operand is in the embeddings' compute dtype. Returns
+    ``(stacked, first_order)``: (B, F, D) combined embeddings in that dtype
+    and (B, F) per-feature SUM-combined linear terms, upcast to fp32 so that
+    the wide sum over features does not round in bf16.
     """
     if embeddings.specs != linear.specs:
         raise ValueError("fused_embedding_linear requires identical specs")
-    fused = torch.cat([embeddings.table, linear.weights], dim=1)
+    table = embeddings.compute_table()
+    fused = torch.cat([table, linear.weights.to(table.dtype)], dim=1)
     rows, denom = fused_rows(
         fused, embeddings.specs, embeddings.feature_offsets, batch
     )
     d = embeddings.dim
-    stacked = rows[..., :d] / denom
+    stacked = rows[..., :d] / denom.to(rows.dtype)
     first_order = rows[..., d].float()
     return stacked, first_order

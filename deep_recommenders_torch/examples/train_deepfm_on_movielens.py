@@ -1,8 +1,9 @@
 """Train DeepFM on MovieLens-1M with the PyTorch port.
 
-Same flags as ``examples/train_deepfm_on_movielens.py`` (minus ``--bf16``
-and ``--native-loader``, which the port does not have yet), plus
-``--device``. Runs on the CUDA card by default:
+Same flags as ``examples/train_deepfm_on_movielens.py`` (minus
+``--native-loader``, which the port does not have yet), plus ``--device``.
+``--bf16`` computes in bf16 with fp32 parameters
+(``compute_dtype=torch.bfloat16``). Runs on the CUDA card by default:
 
     python -m deep_recommenders_torch.examples.train_deepfm_on_movielens \
         --num-ratings 200000 --epochs 3
@@ -34,6 +35,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     p.add_argument("--learning-rate", type=float, default=1e-3)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument(
+        "--bf16", action="store_true",
+        help="bf16 compute (mixed precision; parameters stay fp32)",
+    )
+    p.add_argument(
         "--host-streaming", action="store_true",
         help="feed batches from host per step instead of the "
         "device-resident path",
@@ -56,6 +61,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     )
     model = DeepFM(
         ds.feature_specs, embedding_dim=args.embedding_dim, hidden=(256, 32),
+        compute_dtype=torch.bfloat16 if args.bf16 else None,
         generator=torch.Generator().manual_seed(args.seed),
     )
     trainer = Trainer(

@@ -1,5 +1,6 @@
 from deep_recommenders_torch.features.columns import (
     WEIGHT_SUFFIX,
+    CrossedFeature,
     Feature,
     FeatureEncoder,
     crc32_hash_bucket,

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import zlib
-from typing import Dict, Mapping, Optional, Sequence, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -117,10 +117,38 @@ class Feature:
         }
 
 
-class FeatureEncoder:
-    """Encodes a raw-column dict into the framework's id-tensor batch dict."""
+@dataclasses.dataclass(frozen=True)
+class CrossedFeature:
+    """A hashed cross of two or more raw columns (tf's ``crossed_column``),
+    single-valued: CRC32 of the row's values joined by ``"_X_"``, modulo
+    ``hash_buckets``. A wide model's linear terms take it as a feature."""
 
-    def __init__(self, features: Sequence[Feature]):
+    name: str
+    keys: Tuple[str, ...]
+    hash_buckets: int = 1000
+    max_len: int = 1  # crosses are single-valued
+    combiner: str = "sum"
+
+    @property
+    def cardinality(self) -> int:
+        return int(self.hash_buckets)
+
+    @property
+    def is_multi(self) -> bool:
+        return False
+
+    def encode_cross(self, raw: Mapping[str, Sequence]
+                     ) -> Dict[str, np.ndarray]:
+        cols = [raw[k] for k in self.keys]
+        joined = ["_X_".join(str(v) for v in vals) for vals in zip(*cols)]
+        return {self.name: crc32_hash_bucket(joined, self.hash_buckets)}
+
+
+class FeatureEncoder:
+    """Encodes a raw-column dict into the framework's id-tensor batch dict.
+    A :class:`CrossedFeature` reads the raw columns its keys name."""
+
+    def __init__(self, features: Sequence[Union[Feature, CrossedFeature]]):
         self.features = list(features)
         names = [f.name for f in self.features]
         if len(set(names)) != len(names):
@@ -129,6 +157,9 @@ class FeatureEncoder:
     def encode(self, raw: Mapping[str, Sequence]) -> Dict[str, np.ndarray]:
         out: Dict[str, np.ndarray] = {}
         for f in self.features:
+            if isinstance(f, CrossedFeature):
+                out.update(f.encode_cross(raw))
+                continue
             if f.name not in raw:
                 raise KeyError(f"Missing raw column {f.name!r}")
             out.update(f.encode(raw[f.name]))

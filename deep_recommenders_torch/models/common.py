@@ -1,9 +1,10 @@
-"""Shared model building blocks: MLP tower, activation resolution.
+"""Shared model building blocks: Dense, MLP tower, activation resolution.
 
 Counterpart of ``deep_recommenders_tpu/models/common.py``. Dense layers
-initialise as flax's ``nn.Dense`` does (lecun-normal kernels, zero biases),
-and "gelu" is the tanh approximation, as ``jax.nn.gelu``'s default.
-BatchNorm is not ported: no model of the JAX package turns it on.
+initialise as flax's ``nn.Dense`` does (lecun-normal kernels, zero biases)
+and compute in its ``dtype``; "gelu" is the tanh approximation, as
+``jax.nn.gelu``'s default. BatchNorm is not ported: no model of the JAX
+package turns it on.
 """
 
 from __future__ import annotations
@@ -49,13 +50,36 @@ def lecun_normal_(
     )
 
 
+class Dense(nn.Linear):
+    """flax's ``nn.Dense``: lecun-normal weight, zero bias. With a compute
+    ``dtype`` the input, weight and bias are cast to it and the output is in
+    it: the product is rounded once (fp32 accumulation), then the bias is
+    added in that dtype, as XLA does for ``nn.Dense(dtype=bf16)``. The
+    parameters stay fp32."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(in_features, out_features)
+        self.compute_dtype = dtype
+        lecun_normal_(self.weight, generator)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        return x.to(dt) @ self.weight.to(dt).T + self.bias.to(dt)
+
+
 class MLP(nn.Module):
     """Hidden layers with activation (+ optional dropout), then a final
     linear layer of ``output_dim`` units (omitted when output_dim is None).
 
     ``in_features`` is explicit: flax infers it at the first call. The
-    layers are ``dense.0``, ``dense.1``, ... in the order of flax's
-    ``Dense_0``, ``Dense_1``, ...
+    layers are :class:`Dense` ``dense.0``, ``dense.1``, ... in the order of
+    flax's ``Dense_0``, ``Dense_1``, ..., all in the compute ``dtype``
+    (None: fp32), so the output is in that dtype.
     """
 
     def __init__(
@@ -66,6 +90,7 @@ class MLP(nn.Module):
         activation: Activation = "relu",
         dropout: Optional[float] = None,
         generator: Optional[torch.Generator] = None,
+        dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         widths = [in_features, *hidden]
@@ -73,11 +98,9 @@ class MLP(nn.Module):
             widths.append(output_dim)
         self.num_hidden = len(hidden)
         self.dense = nn.ModuleList(
-            nn.Linear(a, b) for a, b in zip(widths[:-1], widths[1:])
+            Dense(a, b, generator, dtype)
+            for a, b in zip(widths[:-1], widths[1:])
         )
-        for layer in self.dense:
-            lecun_normal_(layer.weight, generator)
-            nn.init.zeros_(layer.bias)
         self.act = resolve_activation(activation)
         self.drop = nn.Dropout(dropout) if dropout else None
 

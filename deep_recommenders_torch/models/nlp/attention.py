@@ -2,8 +2,8 @@
 
 Counterpart of ``deep_recommenders_tpu/models/nlp/attention.py``:
 
-- :class:`Dense`: flax's ``nn.Dense`` as a Linear layer, with its compute
-  ``dtype``.
+- :class:`Dense` (``models/common.py``, shared with the ranking models):
+  flax's ``nn.Dense`` as a Linear layer, with its compute ``dtype``.
 - :class:`TokenEmbedding`: a normal(1.0) table; a lookup is scaled by
   sqrt(dim), and :meth:`TokenEmbedding.attend` is the tied pre-softmax
   projection onto the unscaled table, returning fp32 logits.
@@ -34,30 +34,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from deep_recommenders_torch.models.common import lecun_normal_
+from deep_recommenders_torch.models.common import Dense
 from deep_recommenders_torch.ops.attention import attention
-
-
-class Dense(nn.Linear):
-    """flax's ``nn.Dense``: lecun-normal weight, zero bias. With a compute
-    ``dtype`` the input, weight and bias are cast to it and the output is in
-    it: the product is rounded once (fp32 accumulation), then the bias is
-    added in that dtype, as XLA does for ``nn.Dense(dtype=bf16)``. The
-    parameters stay fp32."""
-
-    def __init__(self, in_features: int, out_features: int,
-                 generator: Optional[torch.Generator] = None,
-                 dtype: Optional[torch.dtype] = None):
-        super().__init__(in_features, out_features)
-        self.compute_dtype = dtype
-        lecun_normal_(self.weight, generator)
-        nn.init.zeros_(self.bias)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.compute_dtype
-        if dt is None:
-            return super().forward(x)
-        return x.to(dt) @ self.weight.to(dt).T + self.bias.to(dt)
 
 
 class TokenEmbedding(nn.Module):

@@ -4,6 +4,11 @@ Counterpart of ``deep_recommenders_tpu/models/ranking/deepfm.py``:
 logits = first_order + fm(emb) + mlp(flatten(emb)), where one fused
 (V, D+1) table pass feeds the embeddings and the first-order weights, so the
 table gradient of a train step is one K1 launch.
+
+With ``compute_dtype=torch.bfloat16`` (mixed precision, as the JAX model's)
+the lookup and the deep tower run in bf16 and the table gradient is K1 on
+bf16 gradients; the parameters, the first-order terms, the FM term's sums
+and the returned logits stay fp32.
 """
 
 from __future__ import annotations
@@ -24,9 +29,10 @@ from deep_recommenders_torch.ops.fm import fm_interaction
 
 
 class DeepFM(nn.Module):
-    """``mesh`` and ``compute_dtype`` raise NotImplementedError until the
-    port has sharding and a bf16 path; parameters are initialised from
-    ``generator`` (linear terms zero, table normal, dense lecun-normal)."""
+    """``mesh`` raises NotImplementedError until the port has sharding;
+    ``compute_dtype`` is None (fp32) or ``torch.bfloat16``. Parameters are
+    initialised from ``generator`` (linear terms zero, table normal, dense
+    lecun-normal)."""
 
     def __init__(
         self,
@@ -47,6 +53,7 @@ class DeepFM(nn.Module):
         self.deep = MLP(
             len(self.embeddings.specs) * embedding_dim, hidden, output_dim=1,
             dropout=dropout if dropout else None, generator=generator,
+            dtype=compute_dtype,
         )
 
     def forward(self, batch) -> torch.Tensor:
@@ -56,4 +63,4 @@ class DeepFM(nn.Module):
         first_order = lin.sum(dim=1, keepdim=True) + self.linear.bias
         fm_logit = fm_interaction(stacked)
         deep_logit = self.deep(stacked.reshape(stacked.shape[0], -1))
-        return first_order + fm_logit + deep_logit
+        return first_order + fm_logit + deep_logit.float()

@@ -9,6 +9,11 @@ depth or activation runs the layered :class:`CIN` in rows mode, whose layer
 is kernel K4 (``ops.cin_kernels.cin2d``). The linear terms and the
 embeddings are two table passes, so a train step launches the
 embedding-gradient kernel K1 twice.
+
+With ``compute_dtype=torch.bfloat16`` the embeddings and the deep tower run
+in bf16 (the embeddings' K1 on bf16 gradients); the linear terms, the
+layered CIN (its rows upcast to fp32), ``cin_head``, the parameters and the
+logits stay fp32. The fused stack reads bf16 rows either way.
 """
 
 from __future__ import annotations
@@ -106,8 +111,9 @@ class CIN(nn.Module):
 class XDeepFM(nn.Module):
     """Full xDeepFM: linear + CIN stack (sum-pooled) + deep MLP -> logits.
 
-    ``mesh`` and ``compute_dtype`` raise NotImplementedError until the port
-    has sharding and a bf16 path. Parameters are initialised from
+    ``mesh`` raises NotImplementedError until the port has sharding;
+    ``compute_dtype`` is None (fp32) or ``torch.bfloat16``. Parameters are
+    initialised from
     ``generator``: linear terms zero, table normal, CIN kernels flax's
     truncated normal (stddev 0.05), dense kernels lecun-normal.
     """
@@ -146,7 +152,7 @@ class XDeepFM(nn.Module):
                 for i, m in enumerate(self.cin_feature_maps)
             )
         self.deep = MLP(f0 * embedding_dim, hidden, output_dim=1,
-                        generator=generator)
+                        generator=generator, dtype=compute_dtype)
         self.cin_head = nn.Linear(sum(self.cin_feature_maps), 1, bias=False)
         lecun_normal_(self.cin_head.weight, generator)
 
@@ -177,4 +183,4 @@ class XDeepFM(nn.Module):
                 pooled.append(xv.reshape(b, d, -1).sum(dim=1))  # (B, M)
         cin_logit = self.cin_head(torch.cat(pooled, dim=-1))
         deep_logit = self.deep(x0.reshape(b, -1))
-        return linear_logit + cin_logit + deep_logit
+        return linear_logit + cin_logit + deep_logit.float()

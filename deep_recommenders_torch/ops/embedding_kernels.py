@@ -8,8 +8,9 @@ plain gather; its backward is ``zeros((V, C)).at[ids].add(g)``.
 - :func:`lookup` is ``table[ids]`` as a ``torch.autograd.Function`` whose
   backward calls :func:`scatter_add_rows`.
 - :func:`scatter_add_rows` launches the CUDA kernel
-  ``csrc/scatter_add_rows.cu`` for a CUDA tensor (the source says what bounds
-  it and how it is built) and takes the plain version for a CPU tensor.
+  ``csrc/scatter_add_rows.cu`` for a CUDA tensor, on fp32 or bf16 g (the
+  source says what bounds it and how it is built), and takes the plain
+  version for a CPU tensor.
 - :func:`scatter_add_rows_reference` is that plain version (``index_add_``).
 - :func:`scatter_add_rows_in_segments` is the kernel's summation order, run
   with plain ops: on the CPU it gives the kernel's result bit for bit.
@@ -38,10 +39,12 @@ _ARGTYPES = [
     ctypes.c_void_p,
 ]
 # The kernel's limits (csrc/scatter_add_rows.cu: kMaxSegment, kStageFloats,
-# kMaxCols): a segment's rows of g are staged in shared memory.
+# kMaxCols): a segment's rows of g are staged in shared memory. A round of
+# the kernel takes CLUSTER (kCluster) segments.
 MAX_SEGMENT = 2048
 STAGE_FLOATS = 2048 * 17
 MAX_COLS = 8192
+CLUSTER = 8
 
 
 def segment_length(c: int) -> int:
@@ -72,10 +75,13 @@ def scatter_add_rows_reference(
     ids in [-num_rows, 0) wrap to ``num_rows + id``, and ``index_add_`` adds
     the rows in index order. Every other id outside [0, num_rows) adds into
     one spare row past the end, which is cut off: dropped, with no
-    data-dependent shape (so no host sync)."""
-    out = torch.zeros((num_rows + 1, g.shape[1]), dtype=g.dtype,
-                      device=g.device)
-    return out.index_add_(0, _rows(ids, num_rows), g)[:num_rows]
+    data-dependent shape (so no host sync). bf16 g is summed in fp32 and
+    each row rounded once to bf16, as the TPU kernel does (JAX's off-TPU
+    scatter in bf16 rounds after every add instead)."""
+    acc = torch.float64 if g.dtype == torch.float64 else torch.float32
+    out = torch.zeros((num_rows + 1, g.shape[1]), dtype=acc, device=g.device)
+    out.index_add_(0, _rows(ids, num_rows), g.to(acc))
+    return out[:num_rows].to(g.dtype)
 
 
 def scatter_add_rows_in_segments(
@@ -100,24 +106,35 @@ def scatter_add_rows_in_segments(
     return out.index_add_(0, keys // nseg, parts)[:num_rows]
 
 
+# The kernel's C function by g's dtype.
+_SYMBOLS = {torch.float32: "scatter_add_rows_f32",
+            torch.bfloat16: "scatter_add_rows_bf16"}
+
+
 def scatter_add_rows(
     g: torch.Tensor, ids: torch.Tensor, num_rows: int
 ) -> torch.Tensor:
-    """``zeros((num_rows, C)).at[ids].add(g)``: (N, C) f32, (N,) i32 -> (V, C).
+    """``zeros((num_rows, C)).at[ids].add(g)``: (N, C), (N,) i32 -> (V, C)
+    in g's dtype, fp32 or bf16.
 
     On a CUDA tensor this launches kernel K1, which writes every row in one
     launch in the fixed order of :func:`scatter_add_rows_in_segments` (no
     atomics: the same bits on every run), and counts the launch in
-    ``scatter_add_rows.launches``; on a CPU tensor it is the plain version.
+    ``scatter_add_rows.launches`` (fp32 g) or
+    ``scatter_add_rows.launches_bf16`` (bf16 g). On bf16 g, as the TPU
+    kernel on bf16 g, every sum is fp32 and each row is rounded once to
+    bf16: ``scatter_add_rows_in_segments(g.float(), ids, V).bfloat16()``
+    bit for bit. Any other dtype raises. On a CPU tensor it is the plain
+    version, in g's dtype.
     """
     if g.device.type == "cpu":
         return scatter_add_rows_reference(g, ids, num_rows)
     if g.device.type != "cuda":
         raise ValueError(f"scatter_add_rows: unsupported device {g.device}")
-    if g.dtype != torch.float32 or g.dim() != 2:
+    if g.dtype not in _SYMBOLS or g.dim() != 2:
         raise TypeError(
-            f"scatter_add_rows: g must be (N, C) float32, got {g.dtype} "
-            f"{tuple(g.shape)}"
+            f"scatter_add_rows: g must be (N, C) float32 or bfloat16, got "
+            f"{g.dtype} {tuple(g.shape)}"
         )
     if ids.dtype != torch.int32 or tuple(ids.shape) != (g.shape[0],):
         raise TypeError(
@@ -130,23 +147,39 @@ def scatter_add_rows(
     if not 0 < num_rows < 2**31 or n >= 2**31 - 2**15:
         raise ValueError(f"scatter_add_rows: bad shape g {(n, c)} into "
                          f"{num_rows} rows")
-    out = torch.empty((num_rows, c), dtype=torch.float32, device=g.device)
+    out = torch.empty((num_rows, c), dtype=g.dtype, device=g.device)
     if c == 0:
         return out
     segment = segment_length(c)
     g = g.contiguous()
     ids = ids.contiguous()
-    fn = _build.function("scatter_add_rows", "scatter_add_rows_f32", _ARGTYPES)
-    code = fn(
-        out.data_ptr(), g.data_ptr(), ids.data_ptr(), n, c, num_rows, segment,
-        torch.cuda.current_stream(g.device).cuda_stream,
-    )
-    _build.check(code, "scatter_add_rows")
-    scatter_add_rows.launches += 1
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    if g.dtype == torch.float32:
+        fn = _build.function("scatter_add_rows", _SYMBOLS[g.dtype],
+                             _ARGTYPES)
+        code = fn(out.data_ptr(), g.data_ptr(), ids.data_ptr(), n, c,
+                  num_rows, segment, stream)
+        _build.check(code, "scatter_add_rows")
+        scatter_add_rows.launches += 1
+        return out
+    # bf16: an fp32 workspace only when the ids take more than one round
+    # of the kernel's segments; else each row is rounded straight out.
+    workspace = (torch.empty((num_rows, c), dtype=torch.float32,
+                             device=g.device)
+                 if n > CLUSTER * segment else None)
+    fn = _build.function("scatter_add_rows", _SYMBOLS[g.dtype],
+                         _ARGTYPES[:-1] + [ctypes.c_void_p,
+                                           ctypes.c_void_p])
+    code = fn(out.data_ptr(), g.data_ptr(), ids.data_ptr(), n, c, num_rows,
+              segment, None if workspace is None else workspace.data_ptr(),
+              stream)
+    _build.check(code, "scatter_add_rows_bf16")
+    scatter_add_rows.launches_bf16 += 1
     return out
 
 
 scatter_add_rows.launches = 0
+scatter_add_rows.launches_bf16 = 0
 
 
 class _Lookup(torch.autograd.Function):
@@ -161,7 +194,13 @@ class _Lookup(torch.autograd.Function):
     def backward(ctx, g: torch.Tensor):
         (ids,) = ctx.saved_tensors
         # g is the gradient of the whole (..., C) gather, e.g. (B, 2, 17) on
-        # DeepFM's path: flatten it to (N, C) rows beside (N,) ids.
+        # DeepFM's path: flatten it to (N, C) rows beside (N,) ids. It is in
+        # the table's dtype, and so is the table gradient returned: for a
+        # bf16 table (a model's compute dtype) K1 reads bf16 g and writes
+        # bf16 rows, and the cast of the fp32 parameter to bf16 upcasts them
+        # in its backward, the one pass over (V, C) the TPU path's cast
+        # makes too. An fp32 result would cost a second: autograd would
+        # round it to the bf16 input's dtype first.
         flat_g = g.reshape(-1, g.shape[-1]).contiguous()
         dt = scatter_add_rows(flat_g, ids.reshape(-1), ctx.num_rows)
         return dt, None
@@ -173,8 +212,10 @@ def lookup(
     """``table[ids]`` (ids.shape + (C,)) with the K1 backward.
 
     ``precision`` is accepted as in the JAX package, where "bf16" rounds g
-    on the TPU's matrix unit. Both values compute in fp32 here: that rounding
-    was an artifact of the MXU, not part of the function.
+    on the TPU's matrix unit. Both values give the same result here: that
+    rounding was an artifact of the MXU, not part of the function. The
+    gradient is in the table's dtype (fp32 or bf16; the kernel's sums are
+    fp32 in both).
     """
     if precision not in ("bf16", "f32"):
         raise ValueError(f"unknown precision {precision!r}")

@@ -9,3 +9,11 @@ from deep_recommenders_torch.training.losses import (
 )
 from deep_recommenders_torch.training.metrics import AUC, Mean, PrecisionRecall
 from deep_recommenders_torch.training.trainer import Trainer, bce_loss
+from deep_recommenders_torch.training.checkpoints import (
+    latest_step_dir,
+    list_step_dirs,
+    restore_checkpoint,
+    save_checkpoint,
+)
+from deep_recommenders_torch.training.optimizers import Ftrl, scoped_optimizer
+from deep_recommenders_torch.training.warmstart import warm_start_from

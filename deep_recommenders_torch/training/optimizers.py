@@ -1,0 +1,136 @@
+"""Optimizers: FTRL-Proximal, and one optimizer per parameter scope.
+
+Counterpart of ``deep_recommenders_tpu/training/optimizers.py``. PyTorch has
+no FTRL, so :class:`Ftrl` is the FTRL-Proximal update (McMahan et al.
+2013) with tf.train.FtrlOptimizer's arguments, as JAX's ``ftrl``.
+:func:`scoped_optimizer` is the per-scope split of JAX's
+``optax.multi_transform`` over parameter paths (FTRL on ``wide``, Adam
+elsewhere, in the Wide & Deep example).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Iterable, Tuple
+
+import torch
+
+
+class Ftrl(torch.optim.Optimizer):
+    """FTRL-Proximal at ``learning_rate_power=-0.5`` (any other power raises
+    NotImplementedError). Per element, with gradient g, weight w, and state
+    z, n (zeros at first)::
+
+        n' = n + g^2
+        z' = z + g - (sqrt(n') - sqrt(n)) / lr * w
+        w' = 0 if |z'| <= l1 else -(z' - sign(z') l1) / ((beta + sqrt(n'))
+             / lr + l2)
+
+    applied as ``w + (w' - w)``, the update JAX adds to the parameter, so
+    the fp32 roundings match. The L1 term sets weights to exactly 0.
+    """
+
+    def __init__(self, params, learning_rate: float = 0.1,
+                 learning_rate_power: float = -0.5,
+                 l1_regularization_strength: float = 0.0,
+                 l2_regularization_strength: float = 0.0,
+                 beta: float = 1.0):
+        if learning_rate_power != -0.5:
+            raise NotImplementedError(
+                "Only learning_rate_power=-0.5 supported")
+        super().__init__(params, dict(
+            lr=learning_rate, l1=l1_regularization_strength,
+            l2=l2_regularization_strength, beta=beta))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            lr, l1, l2, beta = (group[k] for k in ("lr", "l1", "l2", "beta"))
+            for w in group["params"]:
+                if w.grad is None:
+                    continue
+                g = w.grad
+                state = self.state[w]
+                if not state:
+                    state["z"] = torch.zeros_like(w)
+                    state["n"] = torch.zeros_like(w)
+                z, n = state["z"], state["n"]
+                n_new = n + g * g
+                z.copy_(z + g - (n_new.sqrt() - n.sqrt()) / lr * w)
+                n.copy_(n_new)
+                denom = (beta + n.sqrt()) / lr + l2
+                w_new = torch.where(z.abs() <= l1, torch.zeros_like(z),
+                                    -(z - z.sign() * l1) / denom)
+                w.add_(w_new - w)
+        return loss
+
+
+class ScopedOptimizer:
+    """One optimizer per scope over a model's named parameters, presented
+    as one: ``step``, ``zero_grad``, ``state_dict`` and ``load_state_dict``,
+    which is what :class:`~deep_recommenders_torch.training.Trainer`
+    calls. ``optimizers`` maps each scope (and ``"__default__"``) to its
+    optimizer and ``routes`` each parameter name to its scope."""
+
+    def __init__(self, optimizers: Dict[str, torch.optim.Optimizer],
+                 routes: Dict[str, str]):
+        self.optimizers = optimizers
+        self.routes = routes
+
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for opt in self.optimizers.values():
+            opt.step()
+        return loss
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        for opt in self.optimizers.values():
+            opt.zero_grad(set_to_none=set_to_none)
+
+    def state_dict(self) -> dict:
+        return {scope: opt.state_dict()
+                for scope, opt in self.optimizers.items()}
+
+    def load_state_dict(self, state: dict) -> None:
+        if set(state) != set(self.optimizers):
+            raise KeyError(f"scopes {sorted(state)} do not match "
+                           f"{sorted(self.optimizers)}")
+        for scope, opt in self.optimizers.items():
+            opt.load_state_dict(state[scope])
+
+
+OptimizerFactory = Callable[[list], torch.optim.Optimizer]
+
+
+def scoped_optimizer(
+    scope_optimizers: Dict[str, OptimizerFactory],
+    default: OptimizerFactory,
+    named_parameters: Iterable[Tuple[str, torch.nn.Parameter]],
+) -> ScopedOptimizer:
+    """Route each parameter to the optimizer of the first scope found in
+    its ``named_parameters()`` name (a substring, as JAX matches the scope
+    in the joined parameter path), else to ``default``.
+
+    ``scope_optimizers`` maps a scope to a factory that builds its
+    optimizer from a list of parameters (``lambda p: Ftrl(p, 0.1)``), and
+    ``default`` is the factory for the rest (``lambda p:
+    torch.optim.Adam(p, lr=1e-3)``). A scope that no parameter matches
+    gets no optimizer.
+    """
+    groups: Dict[str, list] = {}
+    routes: Dict[str, str] = {}
+    for name, param in named_parameters:
+        scope = next((s for s in scope_optimizers if s in name),
+                     "__default__")
+        groups.setdefault(scope, []).append(param)
+        routes[name] = scope
+    factories = dict(scope_optimizers, __default__=default)
+    return ScopedOptimizer(
+        {scope: factories[scope](params) for scope, params in groups.items()},
+        routes)

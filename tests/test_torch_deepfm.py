@@ -130,7 +130,9 @@ def test_activations_match_jax(rng, name):
 
 
 def test_deepfm_mesh_and_bf16_not_ported():
+    """The mesh is not ported; bf16 is (tests/test_torch_ranking_bf16.py),
+    and any compute dtype but fp32 and bf16 raises."""
     with pytest.raises(NotImplementedError):
         TDeepFM(t_features(), mesh=object())
-    with pytest.raises(NotImplementedError):
-        TDeepFM(t_features(), compute_dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        TDeepFM(t_features(), compute_dtype=torch.float16)

@@ -3,7 +3,8 @@
 Marked ``cuda``: each test skips where no CUDA device is present. This file
 imports neither JAX nor the JAX package, so it runs on the card alone (see
 README, "PyTorch port"). K1 is held bit for bit to its summation order
-run with plain ops on the CPU, and to fp64 within the fp32 summation bound;
+run with plain ops on the CPU (on bf16 g, that order's fp32 sums rounded
+once to bf16), and to fp64 within the fp32 summation bound;
 K2's tolerances follow the fp32 summation bound: kernel and reference sum
 each output in different orders. The CIN
 kernels' checks are ``ops/cin_tolerances.py``'s (K3 and K4, forward and
@@ -152,6 +153,98 @@ def test_scatter_add_rows_rejects_bad_inputs(device):
     with pytest.raises(TypeError):
         ek.scatter_add_rows(g.double(), torch.zeros(4, dtype=torch.int32,
                                                     device=device), 5)
+
+
+def _k1_bf16_ids(rng, n, v, kind):
+    ids = rng.integers(0, v, n).astype(np.int32)
+    if kind == "batch":  # a train batch: a quarter of the ids on one row
+        ids[rng.random(n) < 0.25] = v // 2
+    elif kind == "skewed":  # 90% of the ids on 16 hot rows
+        hot = rng.random(n) < 0.9
+        ids[hot] = rng.integers(0, 16, hot.sum())
+    return torch.from_numpy(ids)
+
+
+@pytest.mark.parametrize("n,c,v,kind", [
+    (16384, 17, 10044, "batch"),    # DeepFM's fused pass, one round
+    (16384, 17, 10044, "skewed"),
+    (16384, 17, 10044, "uniform"),
+    (16384, 16, 10044, "batch"),    # xDeepFM's embeddings
+    (8192, 1, 10044, "batch"),      # a linear pass
+    (16383, 17, 10044, "skewed"),   # an odd N: a ragged last segment
+    (777, 17, 300, "uniform"),
+    (40001, 17, 300, "batch"),      # more than one round: the workspace
+    (30000, 1, 70000, "uniform"),   # one column, rounds over a big table
+    (0, 17, 50, "uniform"),         # no ids: every row +0.0
+])
+def test_scatter_add_rows_bf16_kernel(device, n, c, v, kind):
+    """K1 on bf16 g: bit for bit ``scatter_add_rows_in_segments(g.float(),
+    ids, V).to(bf16)`` run on the CPU (fp32 sums in K1's order, each row
+    rounded once), over two calls, each counted in
+    ``scatter_add_rows.launches_bf16`` and not in the fp32 counter."""
+    rng = np.random.default_rng(n + c + v)
+    ids = _k1_bf16_ids(rng, n, v, kind)
+    g = torch.from_numpy(rng.normal(0, 1, (n, c)).astype(np.float32))
+    g = g.to(torch.bfloat16)
+    want = ek.scatter_add_rows_in_segments(g.float(), ids, v).to(
+        torch.bfloat16)
+    before = (ek.scatter_add_rows.launches, ek.scatter_add_rows.launches_bf16)
+    for _ in range(2):
+        got = ek.scatter_add_rows(g.to(device), ids.to(device), v)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bfloat16 and got.shape == (v, c)
+        assert torch.equal(got.cpu().view(torch.int16),
+                           want.view(torch.int16))
+    assert (ek.scatter_add_rows.launches,
+            ek.scatter_add_rows.launches_bf16) == (before[0], before[1] + 2)
+
+
+def test_scatter_add_rows_bf16_at_an_odd_address(device):
+    """bf16 rows of 34 bytes from a base 2 bytes past a 4-byte boundary,
+    over NaN-filled output memory: bit for bit as above."""
+    rng = np.random.default_rng(5)
+    n, c, v = 5001, 17, 777
+    ids = _k1_bf16_ids(rng, n, v, "skewed")
+    g = torch.from_numpy(rng.normal(0, 1, (n, c)).astype(np.float32))
+    g = g.to(torch.bfloat16)
+    want = ek.scatter_add_rows_in_segments(g.float(), ids, v).to(
+        torch.bfloat16)
+    base = torch.zeros(n * c + 1, dtype=torch.bfloat16, device=device)
+    base[1:] = g.reshape(-1).to(device)
+    g_card = base[1:].view(n, c)
+    assert g_card.data_ptr() % 4 == 2
+    garbage = torch.full((v, c), float("nan"), dtype=torch.bfloat16,
+                         device=device)
+    del garbage
+    got = ek.scatter_add_rows(g_card, ids.to(device), v)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
+
+
+def test_lookup_backward_on_a_bf16_table(device):
+    """A bf16 cast of an fp32 table: the lookup's backward launches the
+    bf16 K1 once and the cast's backward upcasts its rows: the fp32
+    parameter's gradient is the bf16 result, exactly."""
+    table = torch.randn(1000, 17, device=device, requires_grad=True)
+    ids = torch.randint(0, 1000, (512, 2), device=device, dtype=torch.int32)
+    g = torch.randn(512, 2, 17, device=device).to(torch.bfloat16)
+    before = (ek.scatter_add_rows.launches, ek.scatter_add_rows.launches_bf16)
+    ek.lookup(table.to(torch.bfloat16), ids).backward(g)
+    assert (ek.scatter_add_rows.launches,
+            ek.scatter_add_rows.launches_bf16) == (before[0], before[1] + 1)
+    want = ek.scatter_add_rows_in_segments(
+        g.reshape(-1, 17).float().cpu(), ids.reshape(-1).cpu(), 1000)
+    assert table.grad.dtype == torch.float32
+    assert torch.equal(table.grad.cpu(), want.to(torch.bfloat16).float())
+
+
+def test_scatter_add_rows_rejects_other_dtypes(device):
+    """fp32 and bf16 g only: no silent cast, no fallback."""
+    ids = torch.zeros(4, dtype=torch.int32, device=device)
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(TypeError):
+            ek.scatter_add_rows(torch.zeros(4, 3, dtype=dtype,
+                                            device=device), ids, 5)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -138,7 +138,9 @@ def test_xdeepfm_routes_like_jax():
 
 
 def test_xdeepfm_mesh_and_bf16_not_ported():
+    """The mesh is not ported; bf16 is (tests/test_torch_ranking_bf16.py),
+    and any compute dtype but fp32 and bf16 raises."""
     with pytest.raises(NotImplementedError):
         TXDeepFM(t_features(), mesh=object())
-    with pytest.raises(NotImplementedError):
-        TXDeepFM(t_features(), compute_dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        TXDeepFM(t_features(), compute_dtype=torch.float16)
