@@ -13,9 +13,10 @@ In order:
    into a table of 10^6 rows, held bit for bit to its summation order run
    with plain ops on the CPU, three calls each, "bitwise_equal" and
    "deterministic", and to its plain version within the fp32 summation
-   bound, and on ids out of range; K1 on bf16 g at the batch's, skewed
-   and uniform ids, bit for bit its order's fp32 sums rounded once to
-   bf16; K2 on fp32 and bf16 embeddings; K3 forward and backward at xDeepFM's
+   bound, and on ids out of range; K1 at ESMM's row width C = 16 on the
+   same batch's ids, checked the same way; K1 on bf16 g at the batch's,
+   skewed and uniform ids and into 10^6 rows, bit for bit its order's fp32
+   sums rounded once to bf16; K2 on fp32 and bf16 embeddings; K3 forward and backward at xDeepFM's
    flagship shapes; K4 forward and backward at H = 6 and H = 128; K5 and
    K6 at the Transformer's (2048, 512, 16), non-causal and causal), holds
    the result against its plain PyTorch version with the tolerance stated
@@ -46,9 +47,9 @@ In order:
    and bf16, through K5 and K6 padded to the next kernel width and held to
    the same checks at the true D, and a D = 256 call that warns and goes
    dense;
-5. twelve train paths, each with every launch counter set to 0 just before
-   it and read just after, each checked for a finite, falling loss and the
-   exact launches it must make:
+5. seventeen train paths, each with every launch counter set to 0 just
+   before it and read just after, each checked for a finite, falling loss
+   (the examples: finite) and the exact launches it must make:
    - DeepFM at the bench width (D=16, hidden (256, 32)), 2 epochs: one K1
      per train step;
    - xDeepFM's flagship (maps (128, 128) relu, hidden (256, 128)), 2 epochs:
@@ -72,6 +73,20 @@ In order:
      AUC above 0.5 and its logits on the card against the plain CPU path
      (fp32: rtol 1e-4; bf16: nearer the CPU's bf16 logits than those lie
      to its fp32 ones);
+   - ESMM at the zoo's config (the six features through the shared
+     embedding collection, D 16, towers (256, 128)), 2 epochs on the same
+     data with ctcvr = ctr x a seeded Bernoulli(0.3): one fp32 K1 (C = 16)
+     per train step, the ctr AUC above 0.5, its three probabilities on the
+     card against the plain CPU path;
+   - DIN at the zoo's config (B 8192, T 32, D 32, 36 attention units,
+     hidden (200, 80), Dice) on the DIN example's task at 200k examples, 2
+     epochs, in fp32 and in bf16: no launch (JAX's DIN reaches no Pallas
+     kernel), an AUC above 0.5, the logits against the plain CPU path;
+   - the ported DIN example at its defaults, 3 epochs: no launch;
+   - the ported MMoE example at its defaults (512,000 x 256, batch 512, 1
+     epoch) with a checkpoint directory, then with --epochs 2 on it: it
+     resumes at epoch 1 and trains that epoch alone; no launch, each
+     task's eval MSE below the variance of its labels;
    - the Transformer seq2seq slice (the zoo's width at S = 512, batch 256),
      2 epochs of a copy task through Transformer.loss: six K5 and six K6 per
      train step, six K5 per held-out batch, and a held-out loss that falls;
@@ -82,8 +97,9 @@ In order:
      path than that path is to fp32;
    - the ported IMDB example at its defaults, 3 epochs: dense attention,
      no kernel launch;
-6. profiles ten more train steps of every CTR model and the
-   Transformer in fp32 and bf16 (torch.profiler): wall time per step,
+6. profiles ten more train steps of every CTR, DIN and multitask path
+   and the Transformer in fp32 and bf16 (torch.profiler): wall time per
+   step,
    device busy time, idle share and the kernels that take the most time;
 7. prints one JSON line with every kernel's numbers, then, as the last line,
    {"ok": true, "device": {...}}.
@@ -183,6 +199,15 @@ TX_BATCH, TX_LEN, TX_EPOCHS, TX_EPSILON = 256, 512, 2, 0.1
 # Noam warmup: the learning rate rises to 2.7e-3 over the 30 steps (the
 # zoo's 4000 would keep it below 1.1e-5, too small to move the loss).
 TX_WARMUP = 100
+# DIN at the zoo's config (benchmarks/run_models.py:171-204: B 8192, T 32,
+# D 32, attention units 36, hidden (200, 80), Dice, Adam 1e-3) on the DIN
+# example's task (make_data: 500 items) at 200k examples, split 80/20: 19
+# train steps an epoch, 4 eval batches.
+DIN_EXAMPLES, DIN_ITEMS, DIN_LEN, DIN_DIM = 200_000, 500, 32, 32
+DIN_UNITS, DIN_HIDDEN = 36, (200, 80)
+# ESMM at the zoo's config (benchmarks/run_models.py:231-260): the six
+# MovieLens features at D 16, towers (256, 128), cvr drawn Bernoulli(0.3).
+ESMM_HIDDEN, ESMM_CVR_RATE = (256, 128), 0.3
 # Flash attention's kernel phase: fp64 checks over BH rows in chunks.
 ATT_CHUNK = 256
 # A planted fault in dk: the contribution of the first query tile dropped.
@@ -390,27 +415,65 @@ def check_scatter(g, ids, num_rows, calls: int = 3) -> dict:
                                               return_counts=True)[1].max())}
 
 
-def scatter_bf16_entry(g, ids, skewed, spread, num_rows, device) -> dict:
+def esmm_scatter_fields(ids, num_rows, gen, device) -> dict:
+    """K1 at ESMM's row width C = 16 (its shared (V, 16) table; DeepFM's
+    fused table is C = 17, and ``segment_length(C)`` depends on C) on one
+    ESMM train batch's ids: ESMM embeds the same six features as DeepFM,
+    so its collection's offsets and ids are DeepFM's. g (16384, 16) seeded
+    normals. :func:`check_scatter` on three calls (bit for bit its
+    summation order, the same bits each call, within the fp32 summation
+    bound of the plain version), device, eager, plain and library ms
+    (``index_add_`` into ``torch.zeros``), and the bound: g, ids and the
+    output once each."""
+    n, c = ids.shape[0], EMBED_DIM
+    g = torch.randn(n, c, device=device, generator=gen)
+    ids_long = ids.long()
+    bound_ms, bound_by = bound(n * c * 4 + n * 4 + num_rows * c * 4, n * c)
+    return {
+        "shape": {"g": [n, c], "num_rows": num_rows},
+        "ids": "one ESMM train batch's user_id and movie_id",
+        **check_scatter(g, ids, num_rows),
+        **timings(
+            lambda: scatter_add_rows(g, ids, num_rows),
+            lambda: scatter_add_rows_reference(g, ids, num_rows),
+            lambda: torch.zeros(num_rows, c, device=device).index_add_(
+                0, ids_long, g)),
+        "host_us": host_us(lambda: scatter_add_rows(g, ids, num_rows)),
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+    }
+
+
+def scatter_bf16_entry(g, ids, skewed, spread, num_rows, device,
+                       large_ids) -> dict:
     """K1 on bf16 g (the bf16 models' table gradient) on the train batch's,
-    skewed and uniform ids: :func:`check_scatter` (bit for bit its order's
-    fp32 sums rounded once), device, eager and plain ms, and the library
-    call: ``index_add_`` of g.float() into fp32 ``torch.zeros``, then the
-    cast to bf16. Bound: bf16 g, the ids and the bf16 output once each."""
+    skewed and uniform ids, and on uniform ids into LARGE_TABLE_ROWS rows:
+    :func:`check_scatter` (bit for bit its order's fp32 sums rounded once),
+    device, eager and plain ms, and the library call: ``index_add_`` of
+    g.float() into fp32 ``torch.zeros``, then the cast to bf16. Bound: bf16
+    g, the ids and the bf16 output once each."""
     n, c = g.shape
     bound_ms, bound_by = bound(n * c * 2 + n * 4 + num_rows * c * 2, n * c)
     fields = {}
-    for name, rows in (("batch", ids), ("skewed", skewed),
-                       ("uniform", spread)):
+    for name, rows, v in (("batch", ids, num_rows),
+                          ("skewed", skewed, num_rows),
+                          ("uniform", spread, num_rows),
+                          ("large_table", large_ids, LARGE_TABLE_ROWS)):
         rows_long = rows.long()
         fields[name] = {
-            **check_scatter(g, rows, num_rows),
+            **check_scatter(g, rows, v,
+                            calls=2 if name == "large_table" else 3),
             **timings(
-                lambda: scatter_add_rows(g, rows, num_rows),
-                lambda: scatter_add_rows_reference(g, rows, num_rows),
-                lambda: torch.zeros(num_rows, c, device=device).index_add_(
+                lambda: scatter_add_rows(g, rows, v),
+                lambda: scatter_add_rows_reference(g, rows, v),
+                lambda: torch.zeros(v, c, device=device).index_add_(
                     0, rows_long, g.float()).to(torch.bfloat16)),
-            "host_us": host_us(lambda: scatter_add_rows(g, rows, num_rows)),
+            "host_us": host_us(lambda: scatter_add_rows(g, rows, v)),
         }
+    large_bound, large_by = bound(n * c * 2 + n * 4 + LARGE_TABLE_ROWS * c * 2,
+                                  n * c)
+    fields["large_table"].update(num_rows=LARGE_TABLE_ROWS,
+                                 bound_ms=large_bound, bound_by=large_by)
     return {
         "name": "scatter_add_rows.bf16",
         "route": "cuda",
@@ -421,6 +484,7 @@ def scatter_bf16_entry(g, ids, skewed, spread, num_rows, device) -> dict:
         **fields["batch"],
         "skewed": fields["skewed"],
         "uniform": fields["uniform"],
+        "large_table": fields["large_table"],
         "library": "index_add_ of g.float() into fp32 torch.zeros, then "
                    ".to(torch.bfloat16)",
         "bound_ms": bound_ms,
@@ -556,8 +620,9 @@ def kernel_phase(ds: MovielensRanking, model: DeepFM, device):
         "bound_by": bound_by,
     })
 
+    entries[-1]["esmm"] = esmm_scatter_fields(ids, num_rows, gen, device)
     entries.append(scatter_bf16_entry(g.to(torch.bfloat16), ids, skewed,
-                                      spread, num_rows, device))
+                                      spread, num_rows, device, large_ids))
 
     # K2 on the (B, F, D) embeddings of the same batch, in fp32 and bf16.
     b, f, d = emb32.shape
@@ -810,17 +875,26 @@ def read_launches() -> dict:
     }
 
 
+def ctr_quality(name: str, final: dict) -> None:
+    """A CTR path's eval metrics: finite, and an AUC above 0.5."""
+    metrics = [final[k] for k in ("auc", "precision", "recall", "val_loss")]
+    if not all(math.isfinite(v) for v in metrics) or not final["auc"] > 0.5:
+        raise AssertionError(f"{name}: bad eval metrics: {final}")
+
+
 def train_path(name, model, train, test, epochs, expect, device,
-               optimizer=None):
+               optimizer=None, loss_fn=None, eval_spec=None,
+               quality=ctr_quality):
     """``epochs`` of ``fit_device`` with the launch counters set to 0 just
     before and read just after; ``expect(steps, eval_batches)`` gives the
     launches each kernel must make. The optimizer is Adam at LEARNING_RATE
-    unless one is given. Returns the trainer, the launches and the last
-    epoch's eval metrics."""
+    unless one is given; the loss and the eval the Trainer's (BCE, AUC)
+    unless given; ``quality(name, final)`` checks the last epoch's eval
+    metrics. Returns the trainer, the launches and those metrics."""
     trainer = Trainer(
         model, optimizer or torch.optim.Adam(model.parameters(),
                                              lr=LEARNING_RATE),
-        device=device,
+        loss_fn=loss_fn, eval_spec=eval_spec, device=device,
     )
     reset_launches()
     result = trainer.fit_device(train, test, epochs=epochs,
@@ -830,13 +904,14 @@ def train_path(name, model, train, test, epochs, expect, device,
     final = result["history"][-1]
     steps = len(losses)
     eval_batches = epochs * test.steps_per_epoch
-    print(f"{name} train: {steps} steps of {BATCH}, loss {losses[0]:.6f} -> "
+    print(f"{name} train: {steps} steps of {train.batch_size}, loss "
+          f"{losses[0]:.6f} -> "
           f"{losses[-1]:.6f}, {result['examples_per_sec']:.1f} ex/s "
           f"(steady {result.get('examples_per_sec_steady', float('nan')):.1f}"
           f" ex/s, smoke figure)")
     print(f"{name} eval: " + " ".join(
-        f"{k}={final[k]:.6f}" for k in ("auc", "precision", "recall",
-                                        "val_loss")))
+        f"{k}={v:.6f}" for k, v in final.items()
+        if k not in ("epoch", "loss")))
     print(f"{name} launches: {launches}")
     if steps != epochs * train.steps_per_epoch:
         raise AssertionError(f"{name}: {steps} train steps, expected "
@@ -847,9 +922,7 @@ def train_path(name, model, train, test, epochs, expect, device,
         raise AssertionError(f"{name}: launches {launches}, expected {want}")
     if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
         raise AssertionError(f"{name}: loss not finite and falling: {losses}")
-    metrics = [final[k] for k in ("auc", "precision", "recall", "val_loss")]
-    if not all(math.isfinite(v) for v in metrics) or not final["auc"] > 0.5:
-        raise AssertionError(f"{name}: bad eval metrics: {final}")
+    quality(name, final)
     return trainer, launches, final
 
 
@@ -871,15 +944,23 @@ def stack_forward_bf16_on_cpu():
         ck.stack_forward = fp32
 
 
+def _joined(out) -> torch.Tensor:
+    """A model's output as one (B, k) tensor: a tuple of (B, 1) outputs
+    (ESMM's probabilities) side by side."""
+    return torch.cat(out, dim=1) if isinstance(out, (tuple, list)) else out
+
+
 def check_logits(name, model, cpu_model, ds, device, rtol=1e-4, atol=1e-5,
-                 plain=contextlib.nullcontext, feats=None, fp32_model=None):
+                 plain=contextlib.nullcontext, feats=None, fp32_model=None,
+                 outputs=1):
     """The trained model's logits on 256 test rows (``feats``, by default
     the test split's) on the card against the plain CPU path (the kernels'
     plain versions, under ``plain()``) on the same weights: within ``rtol``
     and ``atol``; or, for a bf16 model given the same model in fp32 on the
     CPU (``fp32_model``), nearer the CPU's bf16 logits than those lie to
     the CPU's fp32 logits (the largest difference of each), the rule of the
-    bf16 Transformer."""
+    bf16 Transformer. A model with several ``outputs`` (a tuple) is held on
+    all of them."""
     if feats is None:
         feats, _ = ds.test_arrays()
     rows = {k: torch.from_numpy(v[:256]) for k, v in feats.items()}
@@ -888,13 +969,14 @@ def check_logits(name, model, cpu_model, ds, device, rtol=1e-4, atol=1e-5,
     cpu_model.load_state_dict(weights)
     cpu_model.eval()
     with torch.no_grad():
-        on_card = model({k: v.to(device) for k, v in rows.items()}).cpu()
+        on_card = _joined(model({k: v.to(device)
+                                 for k, v in rows.items()})).cpu()
         with plain():
-            on_cpu = cpu_model(rows)
+            on_cpu = _joined(cpu_model(rows))
             if fp32_model is not None:
                 fp32_model.load_state_dict(weights)
-                on_cpu32 = fp32_model.eval()(rows)
-    if on_card.shape != (256, 1) or on_card.dtype != torch.float32:
+                on_cpu32 = _joined(fp32_model.eval()(rows))
+    if on_card.shape != (256, outputs) or on_card.dtype != torch.float32:
         raise AssertionError(f"{name}: logits {tuple(on_card.shape)} "
                              f"{on_card.dtype}")
     diff = (on_card - on_cpu).abs().max().item()
@@ -1139,9 +1221,10 @@ def trainer_profile(trainer: Trainer, train: DeviceData, test: DeviceData):
     one warm pass over the test split, which the steady examples/s window
     of ``fit_device`` contains."""
     perm = train.permutation(SEED, EPOCHS)
+    batch = train.batch_size
     return profile_phase(
         lambda s: trainer.train_step(
-            *train.gather(perm[s * BATCH:(s + 1) * BATCH])),
+            *train.gather(perm[s * batch:(s + 1) * batch])),
         lambda: trainer._evaluate_device(test))  # ends in a host read
 
 
@@ -1885,6 +1968,225 @@ def imdb_path():
     return launches
 
 
+# -- DIN and the multitask models (imported in each function: --ctr-only
+# and --attention-fp32-only also run in a parent's tree, which may not have
+# them) ------------------------------------------------------------------------
+
+class DINOnBatch(torch.nn.Module):
+    """A DIN over a batch dict {"behaviors", "mask", "candidate"}, the form
+    in which the Trainer's loss and eval and ``check_logits`` pass a
+    batch."""
+
+    def __init__(self, dtype=None, seeded=False):
+        from deep_recommenders_torch.models.ranking import DIN
+
+        super().__init__()
+        self.din = DIN(DIN_UNITS, DIN_HIDDEN, embedding_dim=DIN_DIM,
+                       compute_dtype=dtype,
+                       generator=torch.Generator().manual_seed(SEED)
+                       if seeded else None)
+
+    def forward(self, batch):
+        return self.din(batch["behaviors"], batch["mask"], batch["candidate"])
+
+
+def din_paths(device):
+    """DIN at the zoo's config in fp32 (``din``) and bf16 (``din_bf16``),
+    EPOCHS each through ``Trainer.fit_device`` (its BCE loss and eval, the
+    batch dict unpacked by :class:`DINOnBatch`) on the DIN example's task
+    (``make_data`` at DIN_EXAMPLES, DIN_ITEMS, DIN_LEN, DIN_DIM; the
+    behaviors, ~0.8 GB fp32, live on the card). No kernel of the port is on
+    DIN's path (JAX gathers and scores it with plain ops): zero launches.
+    Each with an AUC above 0.5 and its logits on the card against the plain
+    CPU path (fp32: rtol 1e-4; bf16: nearer the CPU's bf16 logits than
+    those lie to its fp32 ones), and a profile."""
+    from deep_recommenders_torch.examples import train_din_on_synthetic
+
+    behaviors, mask, candidates, labels = train_din_on_synthetic.make_data(
+        DIN_EXAMPLES, DIN_ITEMS, DIN_DIM, DIN_LEN, SEED)
+    n_train = int(DIN_EXAMPLES * 0.8)
+    feats = {"behaviors": behaviors, "mask": mask, "candidate": candidates}
+    train = DeviceData.from_numpy({k: v[:n_train] for k, v in feats.items()},
+                                  labels[:n_train], BATCH, device=device)
+    test_feats = {k: v[n_train:] for k, v in feats.items()}
+    test = DeviceData.from_numpy(test_feats, labels[n_train:], BATCH,
+                                 device=device)
+    del behaviors, feats
+    paths, results = {}, {}
+    for name, dtype in (("din", None), ("din_bf16", torch.bfloat16)):
+        din = DINOnBatch(dtype, seeded=True).to(device)
+        trainer, paths[name], final = train_path(
+            name, din, train, test, EPOCHS, lambda s, e: {}, device)
+        check_logits(name, din, DINOnBatch(dtype), None, device,
+                     feats=test_feats,
+                     fp32_model=DINOnBatch() if dtype else None)
+        results[name] = {"eval": final,
+                         "profile": trainer_profile(trainer, train, test)}
+        print(f"{name} profile: " + json.dumps(results[name]["profile"]))
+        del trainer, din
+    del train, test
+    torch.cuda.empty_cache()
+    return paths, results
+
+
+def din_example_path():
+    """The ported DIN example at its defaults (40k examples, T 20, D 16,
+    batch 256, 3 epochs, its own loop) on the card: zero launches, the loss
+    finite; a profile of its steps."""
+    from deep_recommenders_torch.examples import train_din_on_synthetic as ex
+
+    name = "din_example"
+    reset_launches()
+    result = ex.main(["--device", "cuda"])
+    launches = read_launches()
+    losses = result["step_losses"]
+    print(f"{name} train: {len(losses)} steps of {result['batch_size']}, "
+          f"mean loss of the first 20 {losses[:20].mean():.6f}, of the last "
+          f"20 {losses[-20:].mean():.6f}, test auc "
+          f"{[round(h['auc'], 6) for h in result['history']]}")
+    print(f"{name} launches: {launches}")
+    if any(launches.values()):
+        raise AssertionError(f"{name}: launches {launches}, expected none")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{name}: loss not finite")
+    model, opt, data = result["model"], result["optimizer"], result["data"]
+    n_train, bs = result["n_train"], result["batch_size"]
+    perm = torch.randperm(n_train, device=data[0].device,
+                          generator=torch.Generator(data[0].device)
+                          .manual_seed(SEED))
+    profile = profile_phase(
+        lambda s: ex.train_step(model, opt, *(
+            a.index_select(0, perm[s * bs:(s + 1) * bs]) for a in data)),
+        lambda: ex.evaluate(model, data, n_train, bs))
+    print(f"{name} profile: " + json.dumps(profile))
+    return launches, {"eval": result["history"][-1], "profile": profile}
+
+
+def mmoe_example_path():
+    """The ported MMoE example at its defaults (512,000 x 256, batch 512, 4
+    experts (256,) -> 128, towers (64,), 1 epoch) with a temporary
+    --checkpoint-dir under build/, then again with --epochs 2 on the same
+    directory: it must resume at epoch 1 and train that epoch only. Zero
+    launches over both calls; each task's eval MSE finite and below the
+    variance of its eval labels; a profile of the resumed trainer."""
+    from deep_recommenders_torch.examples import train_mmoe_on_synthetic
+
+    name = "mmoe_example"
+    scratch = os.path.dirname(_build.BUILD_DIR)
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        args = ["--device", "cuda", "--checkpoint-dir", tmp]
+        reset_launches()
+        first = train_mmoe_on_synthetic.main(args)
+        resumed = train_mmoe_on_synthetic.main(args + ["--epochs", "2"])
+        launches = read_launches()
+    steps = resumed["train_data"].steps_per_epoch
+    variance = resumed["eval_data"].labels.var(0, correction=0).tolist()
+    print(f"{name} launches: {launches}")
+    for run, result in (("first", first), ("resumed", resumed)):
+        history = result["history"]
+        losses = result["step_losses"]
+        print(f"{name} {run}: epochs {[h['epoch'] for h in history]}, "
+              f"{len(losses)} steps, loss {losses[0]:.6f} -> "
+              f"{losses[-1]:.6f}, eval " + " ".join(
+                  f"{k}={v:.6f}" for k, v in history[-1].items()
+                  if k not in ("epoch", "loss"))
+              + f", eval label variance {variance}")
+    if [h["epoch"] for h in first["history"]] != [0] \
+            or [h["epoch"] for h in resumed["history"]] != [1] \
+            or len(first["step_losses"]) != steps \
+            or len(resumed["step_losses"]) != steps:
+        raise AssertionError(f"{name}: the resume did not train epoch 1 "
+                             f"alone")
+    if any(launches.values()):
+        raise AssertionError(f"{name}: launches {launches}, expected none")
+    for result in (first, resumed):
+        last = result["history"][-1]
+        if not np.isfinite(result["step_losses"]).all() or not all(
+                math.isfinite(last[f"mse_{t}"])
+                and last[f"mse_{t}"] < variance[t] for t in range(2)):
+            raise AssertionError(f"{name}: bad eval MSE {last}, label "
+                                 f"variance {variance}")
+    del first
+    profile = trainer_profile(resumed["trainer"], resumed["train_data"],
+                              resumed["eval_data"])
+    print(f"{name} profile: " + json.dumps(profile))
+    out = {"eval": resumed["history"][-1], "label_variance": variance,
+           "profile": profile}
+    del resumed
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def esmm_loss(model):
+    """The zoo's ESMM loss (benchmarks/run_models.py:245-251): BCE on the
+    probabilities p_ctr (label column 0) and p_ctcvr (column 1), eps
+    1e-7."""
+
+    def bce(p, y):
+        return -(y * torch.log(p + 1e-7)
+                 + (1 - y) * torch.log(1 - p + 1e-7)).mean()
+
+    def loss_fn(batch, labels):
+        _, p_ctr, p_ctcvr = model(batch)
+        return bce(p_ctr, labels[:, :1]) + bce(p_ctcvr, labels[:, 1:])
+
+    return loss_fn
+
+
+def esmm_quality(name: str, final: dict) -> None:
+    """ESMM's eval: every metric finite, the ctr task's AUC above 0.5."""
+    if not all(math.isfinite(v) for k, v in final.items() if k != "epoch") \
+            or not final["auc_ctr"] > 0.5:
+        raise AssertionError(f"{name}: bad eval metrics: {final}")
+
+
+def esmm_path(ds: MovielensRanking, device):
+    """ESMM at the zoo's config over the six MovieLens features (the
+    ``specs`` front end, D 16, towers (256, 128)), EPOCHS with Adam at
+    LEARNING_RATE and batch 8192 on the CTR paths' data: ctr the ratings'
+    binary label, ctcvr ctr times a seeded Bernoulli(ESMM_CVR_RATE) draw;
+    ``MultiTaskBCEEval`` on (p_ctr, p_ctcvr). One fp32 K1 a train step
+    (the shared table's gradient, C = 16) and no other kernel; the ctr AUC
+    above 0.5; the three probabilities on the card against the plain CPU
+    path; a profile."""
+    from deep_recommenders_torch.models.multitask import ESMM
+    from deep_recommenders_torch.training import MultiTaskBCEEval
+
+    rng = np.random.default_rng(SEED)
+
+    def two_tasks(labels):
+        ctr = labels.reshape(-1, 1).astype(np.float32)
+        cvr = (rng.random(ctr.shape) < ESMM_CVR_RATE).astype(np.float32)
+        return np.concatenate([ctr, ctr * cvr], axis=1)
+
+    feats, labels = ds.train_arrays()
+    train = DeviceData.from_numpy(feats, two_tasks(labels), BATCH,
+                                  device=device)
+    feats, labels = ds.test_arrays()
+    test = DeviceData.from_numpy(feats, two_tasks(labels), BATCH,
+                                 device=device)
+
+    def make(seeded=False):
+        return ESMM(None, ESMM_HIDDEN, ESMM_HIDDEN, specs=ds.feature_specs,
+                    embedding_dim=EMBED_DIM,
+                    generator=torch.Generator().manual_seed(SEED) if seeded
+                    else None)
+
+    model = make(seeded=True).to(device)
+    trainer, launches, final = train_path(
+        "esmm", model, train, test, EPOCHS, one_k1, device,
+        loss_fn=esmm_loss(model),
+        eval_spec=MultiTaskBCEEval(model, 2, ("ctr", "ctcvr"), (1, 2)),
+        quality=esmm_quality)
+    check_logits("esmm", model, make(), ds, device, outputs=3)
+    result = {"eval": final, "profile": trainer_profile(trainer, train, test)}
+    print("esmm profile: " + json.dumps(result["profile"]))
+    del trainer, model, train, test
+    torch.cuda.empty_cache()
+    return launches, result
+
+
 # Which path's launches each kernel's entry reports.
 ENTRY_PATH = {
     "scatter_add_rows": "deepfm",
@@ -1972,8 +2274,12 @@ def main(argv=()) -> int:
     head_widths = head_width_phase(device)
     print(f"kernel phase done ({time.perf_counter() - t0:.1f} s)")
     paths = train_phase(ds, model, device)
+    paths["esmm"] = esmm_path(ds, device)[0]
     del ds, model
     torch.cuda.empty_cache()
+    paths.update(din_paths(device)[0])
+    paths["din_example"] = din_example_path()[0]
+    paths["mmoe_example"] = mmoe_example_path()[0]
     paths["transformer_seq2seq"] = transformer_path(imdb, device)[0]
     paths["transformer_seq2seq_bf16"] = transformer_path(
         imdb, device, torch.bfloat16)[0]

@@ -143,3 +143,60 @@ def ranking_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 # One set of rules serves each of the ranking models above.
 fm_from_flax = fnn_from_flax = wide_deep_from_flax = dcn_from_flax = (
     ranking_from_flax)
+
+
+def din_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A flax ``DIN`` parameter tree -> the port's ``DIN`` state dict.
+
+    - ``ActivationUnit_0/{dense_kernel, dense_output, dense_kernel_bias,
+      dense_output_bias}`` -> ``unit.…`` as they are (the port keeps the
+      flax layer's flat layout);
+    - ``Dense_i/kernel`` (in, out) -> ``dense.i.weight`` (out, in),
+      transposed, and ``Dense_i/bias`` -> ``dense.i.bias``: the hidden
+      layers, then the last Dense(1);
+    - ``Dice_i/alpha`` -> ``dice.i.alpha``;
+    - ``item_table`` (ids mode) as it is.
+    """
+    p = params.get("params", params)
+    state: Dict[str, torch.Tensor] = {}
+    for name, value in p.items():
+        if name == "ActivationUnit_0":
+            for leaf, v in value.items():
+                state[f"unit.{leaf}"] = _tensor(v)
+        elif name.startswith("Dense_"):
+            i = name[len("Dense_"):]
+            state[f"dense.{i}.weight"] = _tensor(np.asarray(value["kernel"]).T)
+            state[f"dense.{i}.bias"] = _tensor(value["bias"])
+        elif name.startswith("Dice_"):
+            state[f"dice.{name[len('Dice_'):]}.alpha"] = _tensor(
+                value["alpha"])
+        else:
+            state[name] = _tensor(value)
+    return state
+
+
+def mmoe_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A flax ``MMoE`` parameter tree -> the port's ``MMoE`` state dict.
+
+    - the vmapped ``experts/Dense_i/kernel`` (E, in, out) and ``/bias``
+      (E, out) -> ``experts.kernels.i`` and ``experts.biases.i`` as they
+      are (the port's :class:`StackedMLP` keeps the leading expert axis
+      and flax's (in, out) layout);
+    - ``gate_t`` and ``tower_t/Dense_i`` by the rules of
+      :func:`ranking_from_flax` (each Dense ``kernel`` transposed into a
+      Linear ``weight``).
+    """
+    p = dict(params.get("params", params))
+    experts = p.pop("experts")
+    state: Dict[str, torch.Tensor] = {}
+    for i in range(len(experts)):
+        layer = experts[f"Dense_{i}"]
+        state[f"experts.kernels.{i}"] = _tensor(layer["kernel"])
+        state[f"experts.biases.{i}"] = _tensor(layer["bias"])
+    _flax_modules(p, "", state)
+    return state
+
+
+# ESMM: ``embeddings/table``, ``cvr_tower/Dense_i`` and ``ctr_tower/Dense_i``
+# by the ranking rules.
+esmm_from_flax = ranking_from_flax

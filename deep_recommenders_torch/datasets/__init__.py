@@ -5,3 +5,7 @@ from deep_recommenders_torch.datasets.movielens import (
     load_ml1m,
     synthesize_ml1m,
 )
+from deep_recommenders_torch.datasets.synthetic_multitask import (
+    SyntheticForMultiTask,
+    synthetic_two_task,
+)

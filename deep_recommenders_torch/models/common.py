@@ -50,6 +50,16 @@ def lecun_normal_(
     )
 
 
+def truncated_normal_(
+    tensor: torch.Tensor, std: float,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """flax's ``truncated_normal(stddev)``: a normal cut at +-2 sigma, not
+    rescaled."""
+    return nn.init.trunc_normal_(tensor, 0.0, std, -2.0 * std, 2.0 * std,
+                                 generator=generator)
+
+
 class Dense(nn.Linear):
     """flax's ``nn.Dense``: lecun-normal weight, zero bias. With a compute
     ``dtype`` the input, weight and bias are cast to it and the output is in

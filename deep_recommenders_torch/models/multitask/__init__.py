@@ -1,0 +1,6 @@
+from deep_recommenders_torch.models.multitask.esmm import ESMM
+from deep_recommenders_torch.models.multitask.mmoe import (
+    MMoE,
+    StackedMLP,
+    shard_expert_params,
+)

@@ -21,15 +21,17 @@ from torch import nn
 
 from deep_recommenders_torch.embedding.engine import EmbeddingCollection
 from deep_recommenders_torch.features.columns import Feature
-from deep_recommenders_torch.models.common import MLP, Dense
+from deep_recommenders_torch.models.common import (
+    MLP,
+    Dense,
+    truncated_normal_,
+)
 
 
 def _cross_dense(in_features: int, out_features: int, use_bias: bool,
                  generator: Optional[torch.Generator]) -> nn.Linear:
-    # flax truncated_normal(stddev=0.05): cut at +-2 sigma, not rescaled.
     layer = nn.Linear(in_features, out_features, bias=use_bias)
-    nn.init.trunc_normal_(layer.weight, 0.0, 0.05, -0.1, 0.1,
-                          generator=generator)
+    truncated_normal_(layer.weight, 0.05, generator)
     if use_bias:
         nn.init.zeros_(layer.bias)
     return layer

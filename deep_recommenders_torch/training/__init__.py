@@ -1,8 +1,14 @@
 from deep_recommenders_torch.training.data import DeviceData, gather_rows
-from deep_recommenders_torch.training.evaluation import BinaryCTREval
+from deep_recommenders_torch.training.evaluation import (
+    BinaryCTREval,
+    MultiTaskBCEEval,
+    MultiTaskMSEEval,
+    multitask_mse_loss,
+)
 from deep_recommenders_torch.training.losses import (
     binary_cross_entropy,
     label_smoothing,
+    mean_squared_error,
     smoothed_sparse_softmax_cross_entropy,
     softmax_cross_entropy,
     tied_smoothed_sparse_softmax_cross_entropy,

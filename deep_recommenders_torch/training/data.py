@@ -5,24 +5,40 @@ batches on the device from shuffled row indices, and only the epoch's
 permutation crosses from the host. The shuffle is the JAX package's
 (``np.random.default_rng(seed + epoch)``), so both packages visit rows in the
 same order.
+
+Features are a tensor (MMoE's dense (N, d) matrix), a dict of tensors (the
+CTR models' feature dict), or a tuple of those (a (query, candidate) pair):
+the structures of the JAX ``DeviceData``'s pytrees that the port's models
+take.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from deep_recommenders_torch.device import DeviceLike, resolve_device
 
-Features = Dict[str, torch.Tensor]
+Features = Union[torch.Tensor, Dict[str, Any], Tuple[Any, ...]]
+
+
+def map_features(fn: Callable, features):
+    """``fn`` on every array of a tensor, dict or tuple (nested) of them,
+    keeping the structure."""
+    if isinstance(features, dict):
+        return {k: map_features(fn, v) for k, v in features.items()}
+    if isinstance(features, tuple):
+        return tuple(map_features(fn, v) for v in features)
+    return fn(features)
 
 
 @dataclasses.dataclass
 class DeviceData:
-    """Encoded features (a dict of row-aligned tensors) + labels on a device."""
+    """Encoded features (row-aligned tensors: one, a dict or a tuple) and
+    labels on a device."""
 
     features: Features
     labels: torch.Tensor
@@ -31,7 +47,7 @@ class DeviceData:
     @classmethod
     def from_numpy(
         cls,
-        features: Dict[str, np.ndarray],
+        features,
         labels: np.ndarray,
         batch_size: int,
         device: DeviceLike = "cuda",
@@ -43,7 +59,7 @@ class DeviceData:
             return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
         return cls(
-            features={k: put(v) for k, v in features.items()},
+            features=map_features(put, features),
             labels=put(labels),
             batch_size=batch_size,
         )
@@ -79,6 +95,6 @@ def gather_rows(
 ) -> Tuple[Features, torch.Tensor]:
     """Batch-gather ``rows`` from row-aligned (features, labels)."""
     return (
-        {k: v.index_select(0, rows) for k, v in features.items()},
+        map_features(lambda v: v.index_select(0, rows), features),
         labels.index_select(0, rows),
     )

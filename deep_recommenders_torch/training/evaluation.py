@@ -9,12 +9,19 @@ An eval program is three methods:
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from deep_recommenders_torch.training import metrics as metrics_lib
-from deep_recommenders_torch.training.losses import binary_cross_entropy
+from deep_recommenders_torch.training.losses import (
+    binary_cross_entropy,
+    mean_squared_error,
+)
+
+
+def _device(model: torch.nn.Module) -> torch.device:
+    return next(model.parameters()).device
 
 
 class BinaryCTREval:
@@ -30,7 +37,7 @@ class BinaryCTREval:
         self.pr = metrics_lib.PrecisionRecall()
 
     def init(self):
-        device = next(self.model.parameters()).device
+        device = _device(self.model)
         return {
             "auc": self.auc.init(device),
             "pr": self.pr.init(device),
@@ -57,3 +64,100 @@ class BinaryCTREval:
             "recall": float(pr["recall"]),
             "val_loss": float(metrics_lib.Mean.compute(state["loss"])),
         }
+
+
+class MultiTaskMSEEval:
+    """Per-task MSE of a multi-output regressor (MMoE on the synthetic
+    two-task data). ``labels``: (B, num_tasks), task t's target in column t.
+    Summary: ``mse_0..mse_{T-1}`` and ``val_loss``, their sum."""
+
+    def __init__(self, model: torch.nn.Module, num_tasks: int = 2):
+        self.model = model
+        self.num_tasks = num_tasks
+
+    def init(self):
+        device = _device(self.model)
+        return {f"mse_{t}": metrics_lib.Mean.init(device)
+                for t in range(self.num_tasks)}
+
+    @torch.no_grad()
+    def update(self, batch, labels, state):
+        self.model.eval()
+        outputs = self.model(batch)
+        return {
+            f"mse_{t}": metrics_lib.Mean.update(
+                state[f"mse_{t}"],
+                (outputs[t].reshape(-1) - labels[:, t]).square())
+            for t in range(self.num_tasks)
+        }
+
+    def compute(self, state) -> Dict[str, float]:
+        out = {f"mse_{t}": float(metrics_lib.Mean.compute(state[f"mse_{t}"]))
+               for t in range(self.num_tasks)}
+        out["val_loss"] = sum(out.values())
+        return out
+
+
+class MultiTaskBCEEval:
+    """Per-task AUC and BCE of a model that returns a sequence of per-task
+    PROBABILITIES (ESMM multiplies sigmoids). ``labels``: (B, num_tasks);
+    ``output_indices`` maps label column t to the model output it scores
+    (ESMM returns (p_cvr, p_ctr, p_ctcvr) and trains on (ctr, ctcvr)
+    labels: ``(1, 2)``). The BCE is on the probabilities with eps 1e-7.
+    Summary: ``auc_{name}``, ``loss_{name}`` per task and ``val_loss``,
+    the sum of the losses."""
+
+    def __init__(self, model: torch.nn.Module, num_tasks: int = 2,
+                 task_names: Optional[Tuple[str, ...]] = None,
+                 output_indices: Optional[Tuple[int, ...]] = None):
+        self.model = model
+        self.num_tasks = num_tasks
+        self.names = tuple(task_names or
+                           (f"task_{t}" for t in range(num_tasks)))
+        self.output_indices = tuple(output_indices or range(num_tasks))
+        self.auc = metrics_lib.AUC()
+
+    def init(self):
+        device = _device(self.model)
+        state = {}
+        for name in self.names:
+            state[f"auc_{name}"] = self.auc.init(device)
+            state[f"loss_{name}"] = metrics_lib.Mean.init(device)
+        return state
+
+    @torch.no_grad()
+    def update(self, batch, labels, state):
+        self.model.eval()
+        probs = self.model(batch)
+        new = {}
+        for t, name in enumerate(self.names):
+            p = probs[self.output_indices[t]].reshape(-1)
+            y = labels[:, t]
+            new[f"auc_{name}"] = self.auc.update(state[f"auc_{name}"], y, p)
+            eps = 1e-7
+            bce = -(y * torch.log(p + eps) + (1 - y) * torch.log(1 - p + eps))
+            new[f"loss_{name}"] = metrics_lib.Mean.update(
+                state[f"loss_{name}"], bce)
+        return new
+
+    def compute(self, state) -> Dict[str, float]:
+        out, total = {}, 0.0
+        for name in self.names:
+            out[f"auc_{name}"] = float(self.auc.compute(state[f"auc_{name}"]))
+            loss = float(metrics_lib.Mean.compute(state[f"loss_{name}"]))
+            out[f"loss_{name}"] = loss
+            total += loss
+        out["val_loss"] = total
+        return out
+
+
+def multitask_mse_loss(model: torch.nn.Module, num_tasks: int = 2):
+    """Summed per-task MSE train loss for ``Trainer(loss_fn=...)``: one
+    update for all tasks."""
+
+    def loss_fn(batch, labels):
+        outputs = model(batch)
+        return sum(mean_squared_error(outputs[t], labels[:, t:t + 1])
+                   for t in range(num_tasks))
+
+    return loss_fn

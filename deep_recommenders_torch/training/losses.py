@@ -22,6 +22,11 @@ def binary_cross_entropy(
     return _reduce(per, reduction)
 
 
+def mean_squared_error(predictions: torch.Tensor,
+                       labels: torch.Tensor) -> torch.Tensor:
+    return (predictions - labels).square().mean()
+
+
 def _reduce(per: torch.Tensor, reduction: str,
             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     if mask is not None:

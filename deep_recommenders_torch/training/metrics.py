@@ -10,7 +10,7 @@ integration), so values compare with the JAX package's.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -97,10 +97,19 @@ class Mean:
                 for k in ("total", "count")}
 
     @staticmethod
-    def update(state: State, values: torch.Tensor) -> State:
+    def update(state: State, values: torch.Tensor,
+               weight: Optional[torch.Tensor] = None) -> State:
+        """Add ``values`` (any shape) to the mean, each with its ``weight``
+        (same number of elements) when one is given, else weight 1."""
         values = values.float().reshape(-1)
-        return {"total": state["total"] + values.sum(),
-                "count": state["count"] + values.numel()}
+        if weight is None:
+            total, count = values.sum(), values.numel()
+        else:
+            w = torch.as_tensor(weight, dtype=torch.float32,
+                                device=values.device).reshape(-1)
+            total, count = (values * w).sum(), w.sum()
+        return {"total": state["total"] + total,
+                "count": state["count"] + count}
 
     @staticmethod
     def compute(state: State) -> torch.Tensor:

@@ -8,6 +8,8 @@ an epoch is a Python loop of steps over batches gathered on the device from
 
 from __future__ import annotations
 
+import os
+import shutil
 import time
 from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 
@@ -15,6 +17,12 @@ import numpy as np
 import torch
 
 from deep_recommenders_torch.device import DeviceLike, resolve_device
+from deep_recommenders_torch.training.checkpoints import (
+    list_step_dirs,
+    restore_checkpoint,
+    save_checkpoint,
+)
+from deep_recommenders_torch.training.data import map_features
 from deep_recommenders_torch.training.evaluation import BinaryCTREval
 from deep_recommenders_torch.training.losses import binary_cross_entropy
 
@@ -75,9 +83,7 @@ class Trainer:
         self.eval_spec = eval_spec or BinaryCTREval(model)
 
     def _put(self, x) -> Any:
-        if isinstance(x, dict):
-            return {k: self._put(v) for k, v in x.items()}
-        return torch.as_tensor(x).to(self.device)
+        return map_features(lambda v: torch.as_tensor(v).to(self.device), x)
 
     # -- steps --------------------------------------------------------------
     def train_step(self, batch, labels) -> torch.Tensor:
@@ -154,23 +160,41 @@ class Trainer:
         monitor: str = "auto",
         monitor_mode: str = "max",
         checkpoint_dir: Optional[str] = None,
+        checkpoint_every_epochs: int = 1,
+        keep_checkpoint_max: int = 10,
         verbose: bool = True,
     ) -> Dict[str, Any]:
         """Epochs over :class:`DeviceData`, batches gathered on the device.
+
+        With ``checkpoint_dir``, training resumes from the latest
+        ``step_{epoch}`` directory there (the model's and the optimizer's
+        state dicts, ``training/checkpoints.py``) at ``epoch + 1``; every
+        ``checkpoint_every_epochs`` epochs the state is saved to
+        ``step_{epoch}``, and the oldest directories are removed past
+        ``keep_checkpoint_max``, counting those left by earlier runs.
 
         Returns ``history`` (per-epoch summaries), ``step_losses`` (every
         step's loss, in order), ``examples_per_sec`` over the whole call and
         ``examples_per_sec_steady`` from the end of the first epoch on.
         """
-        if checkpoint_dir is not None:
-            raise NotImplementedError("checkpoints are not ported yet")
         batch = train_data.batch_size
+        start_epoch, saved_ckpts = 0, []
+        if checkpoint_dir is not None:
+            saved_ckpts = list_step_dirs(checkpoint_dir)
+            if saved_ckpts:
+                latest = saved_ckpts[-1]
+                state = restore_checkpoint(latest)
+                self.model.load_state_dict(state["model"])
+                self.optimizer.load_state_dict(state["optimizer"])
+                start_epoch = int(os.path.basename(latest).split("_")[1]) + 1
+                if verbose:
+                    print(f"resumed from {latest} (epoch {start_epoch})")
         history, step_losses = [], []
         best_metric, best_epoch = -float("inf"), -1
         examples, examples_steady = 0, 0
         t0 = time.perf_counter()
         t_steady = t_last = None
-        for epoch in range(epochs):
+        for epoch in range(start_epoch, epochs):
             perm = train_data.permutation(shuffle_seed, epoch)
             losses = []
             for s in range(perm.shape[0] // batch):
@@ -184,6 +208,14 @@ class Trainer:
             else:
                 t_steady = time.perf_counter()
             t_last = time.perf_counter()
+            if (checkpoint_dir is not None
+                    and (epoch + 1) % checkpoint_every_epochs == 0):
+                saved_ckpts.append(save_checkpoint(
+                    os.path.join(checkpoint_dir, f"step_{epoch}"),
+                    {"model": self.model.state_dict(),
+                     "optimizer": self.optimizer.state_dict()}))
+                while len(saved_ckpts) > keep_checkpoint_max:
+                    shutil.rmtree(saved_ckpts.pop(0), ignore_errors=True)
             summary = {"epoch": epoch, "loss": float(losses[-1])}
             stop = False
             if eval_data is not None:
@@ -204,7 +236,8 @@ class Trainer:
                 break
         result = {
             "history": history,
-            "step_losses": np.concatenate(step_losses),
+            "step_losses": (np.concatenate(step_losses) if step_losses
+                            else np.zeros(0, np.float32)),
             "examples_per_sec": examples / (time.perf_counter() - t0),
         }
         if examples_steady > 0:

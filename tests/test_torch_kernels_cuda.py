@@ -65,6 +65,33 @@ def test_scatter_add_rows_kernel(device, skewed):
                                exact.numpy(), rtol=1e-5, atol=1e-3)
 
 
+@pytest.mark.parametrize("skewed", [False, True])
+def test_scatter_add_rows_kernel_at_esmm_width(device, skewed):
+    """K1 at ESMM's shared table, C = 16 (DeepFM's fused table is C = 17;
+    the segment length depends on C): 16384 ids into 10044 rows, a quarter
+    of them on one row as a train batch's busiest movie, or 90% on 16 hot
+    rows. Bit for bit its summation order run on the CPU on three calls,
+    and within the fp32 summation bound of fp64 (rtol 1e-5, atol 1e-3, as
+    at C = 17)."""
+    rng = np.random.default_rng(16)
+    n, c, v = 16384, 16, 10044
+    ids = rng.integers(0, v, n).astype(np.int32)
+    ids[rng.random(n) < 0.25] = 7000
+    if skewed:
+        hot = rng.random(n) < 0.9
+        ids[hot] = rng.integers(0, 16, hot.sum())
+    g = torch.from_numpy(rng.normal(0, 1, (n, c)).astype(np.float32))
+    ids = torch.from_numpy(ids)
+    assert ek.segment_length(c) == 2048
+    want = ek.scatter_add_rows_in_segments(g, ids, v)
+    exact = ek.scatter_add_rows_reference(g.double(), ids, v)
+    for _ in range(3):
+        got = ek.scatter_add_rows(g.to(device), ids.to(device), v)
+        assert torch.equal(_bits(got.cpu()), _bits(want))
+    np.testing.assert_allclose(got.cpu().double().numpy(), exact.numpy(),
+                               rtol=1e-5, atol=1e-3)
+
+
 @pytest.mark.parametrize("n,c,v,hot", [
     (16384, 17, 10044, 0.25),     # a train batch: a quarter on one row
     (16384, 17, 1_000_000, 0.0),  # a hashed table: 31 clusters, 2 waves

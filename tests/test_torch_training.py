@@ -8,6 +8,8 @@ rounding, so the loss gets rtol 1e-4 and AUC atol 1e-3 (a 1e-7 change in a
 prediction can move it across one of the 200 thresholds).
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +27,7 @@ from deep_recommenders_torch.training import (
     PrecisionRecall,
     Trainer,
     binary_cross_entropy,
+    restore_checkpoint,
 )
 from deep_recommenders_tpu.datasets import movielens as j_ml
 from deep_recommenders_tpu.models.ranking import DeepFM as JDeepFM
@@ -161,15 +164,24 @@ def test_fit_streaming_epoch_matches_jax(jax_epoch):
     _assert_epoch_matches(result["history"][0], want)
 
 
-def test_fit_device_checkpoints_and_mesh_not_ported():
+def test_fit_device_checkpoints_and_mesh_not_ported(tmp_path):
+    """``mesh=`` still raises; ``checkpoint_dir`` is ported: an epoch
+    leaves ``step_0`` with the model's and the optimizer's state dicts
+    (its resume is held in ``tests/test_torch_multitask.py``)."""
     model = TDeepFM(t_ml.default_movielens_features(), embedding_dim=4,
                     hidden=(4,))
     opt = torch.optim.Adam(model.parameters())
     with pytest.raises(NotImplementedError):
         Trainer(model, opt, mesh=object(), device="cpu")
-    trainer = Trainer(model, opt, device="cpu")
-    data = DeviceData.from_numpy({"user_id": np.zeros(4, np.int32)},
+    linear = torch.nn.Linear(3, 1)
+    trainer = Trainer(linear, torch.optim.Adam(linear.parameters()),
+                      device="cpu")
+    data = DeviceData.from_numpy(np.zeros((4, 3), np.float32),
                                  np.zeros((4, 1), np.float32), 2,
                                  device="cpu")
-    with pytest.raises(NotImplementedError):
-        trainer.fit_device(data, checkpoint_dir="ckpt")
+    ckpt = str(tmp_path / "ckpt")
+    trainer.fit_device(data, checkpoint_dir=ckpt, verbose=False)
+    state = restore_checkpoint(os.path.join(ckpt, "step_0"))
+    assert sorted(state) == ["model", "optimizer"]
+    assert torch.equal(state["model"]["weight"], linear.weight.detach())
+    assert len(state["optimizer"]["state"]) == 2
