@@ -47,7 +47,7 @@ In order:
    and bf16, through K5 and K6 padded to the next kernel width and held to
    the same checks at the true D, and a D = 256 call that warns and goes
    dense;
-5. seventeen train paths, each with every launch counter set to 0 just
+5. twenty train paths, each with every launch counter set to 0 just
    before it and read just after, each checked for a finite, falling loss
    (the examples: finite) and the exact launches it must make:
    - DeepFM at the bench width (D=16, hidden (256, 32)), 2 epochs: one K1
@@ -87,6 +87,24 @@ In order:
      epoch) with a checkpoint directory, then with --epochs 2 on it: it
      resumes at epoch 1 and trains that epoch alone; no launch, each
      task's eval MSE below the variance of its labels;
+   - two-tower retrieval at the zoo's config (query tower user_id and
+     demographics, candidate tower movie_id and genres, D 32, hidden (64,),
+     output 32, L2-normalised; the in-batch softmax loss, batch 4096, Adam
+     1e-3) on the positive pairs of the rank-power corpus (200k ratings), 2
+     epochs, in fp32 and with the bf16 score product: two fp32 K1 (C = 32)
+     per train step, none per eval batch; the towers' embeddings and the
+     loss on the card against the plain CPU path (fp32: rtol 1e-4; bf16:
+     each row's loss nearer the CPU's bf16 one than that lies to fp32);
+     then the exact indexes over the distinct test movies: BruteForce's
+     top 100 against Streaming's, InMemoryStreaming's and its own after
+     save_index/load_index, and FactorizedTopK with the index against
+     FactorizedTopK with the candidates;
+   - the ported two-tower example at its defaults (1,000,209 ratings, batch
+     1024, 5 epochs, Adagrad, log-Q correction, accidental negatives
+     removed, then FactorizedTopK over the full corpus of distinct test
+     movies): two K1 per train step and none else, val_loss lower after the
+     last epoch than after the first, top-100 accuracy above twice the
+     chance rate 100 / N;
    - the Transformer seq2seq slice (the zoo's width at S = 512, batch 256),
      2 epochs of a copy task through Transformer.loss: six K5 and six K6 per
      train step, six K5 per held-out batch, and a held-out loss that falls;
@@ -97,10 +115,10 @@ In order:
      path than that path is to fp32;
    - the ported IMDB example at its defaults, 3 epochs: dense attention,
      no kernel launch;
-6. profiles ten more train steps of every CTR, DIN and multitask path
-   and the Transformer in fp32 and bf16 (torch.profiler): wall time per
-   step,
-   device busy time, idle share and the kernels that take the most time;
+6. profiles ten more train steps of every CTR, DIN, multitask and
+   two-tower path and the Transformer in fp32 and bf16 (torch.profiler):
+   wall time per step, device busy time, idle share and the kernels that
+   take the most time;
 7. prints one JSON line with every kernel's numbers, then, as the last line,
    {"ok": true, "device": {...}}.
 
@@ -132,6 +150,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -208,6 +227,17 @@ DIN_UNITS, DIN_HIDDEN = 36, (200, 80)
 # ESMM at the zoo's config (benchmarks/run_models.py:231-260): the six
 # MovieLens features at D 16, towers (256, 128), cvr drawn Bernoulli(0.3).
 ESMM_HIDDEN, ESMM_CVR_RATE = (256, 128), 0.3
+# Two-tower retrieval at the zoo's config (benchmarks/run_models.py:262-290:
+# query tower user_id, user_gender, user_age, user_occupation; candidate
+# tower movie_id, movie_genres; embedding_dim 32, hidden (64,), output_dim
+# 32, L2-normalised; in-batch softmax CE, SUM, batch 4096, Adam 1e-3) on the
+# positive pairs of the rank-power corpus at NUM_RATINGS: 22 train steps an
+# epoch, 5 eval batches. The exact indexes hold the candidate tower's
+# embeddings of the distinct test movies and answer TT_QUERIES test queries
+# for the top TT_K; Streaming takes TT_STREAM candidates a batch and
+# InMemoryStreaming chunks of TT_CHUNK.
+TT_BATCH, TT_DIM, TT_HIDDEN = 4096, 32, (64,)
+TT_QUERIES, TT_K, TT_STREAM, TT_CHUNK = 4096, 100, 1000, 1024
 # Flash attention's kernel phase: fp64 checks over BH rows in chunks.
 ATT_CHUNK = 256
 # A planted fault in dk: the contribution of the first query tile dropped.
@@ -442,6 +472,47 @@ def esmm_scatter_fields(ids, num_rows, gen, device) -> dict:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
     }
+
+
+def two_tower_scatter_fields(tt: dict, device) -> dict:
+    """K1 at the two-tower's row width C = 32 (segments of 1024 ids: 2048 x
+    32 floats do not fit its stage) on one two-tower train batch's ids: the
+    user_id ids (4096) into the query tower's table and the movie_id ids
+    into the candidate tower's, each at offset 0 of its table. g (4096, 32)
+    seeded normals. For each: :func:`check_scatter` on three calls (bit for
+    bit its summation order, the same bits each call, within the fp32
+    summation bound of the plain version), device, eager, plain and
+    library ms (``index_add_`` into ``torch.zeros``), and the bound: g, ids
+    and the output once each."""
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    (user, item, _), model = tt["train"], tt["model"]
+    fields = {}
+    for tower, ids in (("query", user["user_id"]),
+                       ("candidate", item["movie_id"])):
+        table = getattr(model, f"{tower}_tower").embeddings.table
+        num_rows, c = table.shape
+        ids = torch.from_numpy(ids[:TT_BATCH]).to(device)
+        n = ids.shape[0]
+        g = torch.randn(n, c, device=device, generator=gen)
+        ids_long = ids.long()
+        bound_ms, bound_by = bound(n * c * 4 + n * 4 + num_rows * c * 4,
+                                   n * c)
+        fields[tower] = {
+            "shape": {"g": [n, c], "num_rows": num_rows},
+            "ids": f"one two-tower train batch's "
+                   f"{'user_id' if tower == 'query' else 'movie_id'}",
+            **check_scatter(g, ids, num_rows),
+            **timings(
+                lambda: scatter_add_rows(g, ids, num_rows),
+                lambda: scatter_add_rows_reference(g, ids, num_rows),
+                lambda: torch.zeros(num_rows, c, device=device).index_add_(
+                    0, ids_long, g)),
+            "host_us": host_us(lambda: scatter_add_rows(g, ids, num_rows)),
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+        }
+        print(f"K1 at C = {c}, {tower} tower: " + json.dumps(fields[tower]))
+    return fields
 
 
 def scatter_bf16_entry(g, ids, skewed, spread, num_rows, device,
@@ -2187,6 +2258,367 @@ def esmm_path(ds: MovielensRanking, device):
     return launches, result
 
 
+# -- two-tower retrieval ------------------------------------------------------
+
+def make_two_tower(ds: MovielensRanking, seeded: bool = True):
+    from deep_recommenders_torch.models.retrieval import TwoTower
+
+    return TwoTower(ds.user_specs(), ds.item_specs(), TT_DIM, TT_HIDDEN,
+                    TT_DIM, generator=torch.Generator().manual_seed(SEED)
+                    if seeded else None)
+
+
+def two_tower_data() -> dict:
+    """The two-tower paths' data: ``MovielensRanking`` at NUM_RATINGS, seed
+    SEED, with the rank-power movie marginal (the retrieval corpus); each
+    split's positive pairs (user dict, movie dict, movie ids) on the host;
+    and a seeded TwoTower on the CPU, whose tables' shapes the K1 entry
+    reads."""
+    ds = MovielensRanking(batch_size=TT_BATCH, num_ratings=NUM_RATINGS,
+                          seed=SEED, movie_popularity="rank-power")
+    return {"ds": ds, "train": ds.retrieval_arrays("train"),
+            "test": ds.retrieval_arrays("test"), "model": make_two_tower(ds)}
+
+
+def two_k1(s, e):
+    """The two-tower's launches: one fp32 K1 a tower each train step (C =
+    32), none in an eval batch."""
+    return {"scatter_add_rows": 2 * s}
+
+
+def retrieval_quality(name: str, final: dict) -> None:
+    """A two-tower path's in-batch eval: every metric finite, the top-k
+    accuracies in [0, 1] and rising with k. (Its val_loss, per example, is
+    printed beside log(TT_BATCH), the in-batch loss of uniform scores.)"""
+    acc = [final[f"top_{k}_categorical_accuracy"]
+           for k in (1, 5, 10, 50, 100)]
+    if not all(math.isfinite(v) for v in acc + [final["val_loss"]]) \
+            or acc != sorted(acc) or not 0.0 <= acc[0] <= acc[-1] <= 1.0:
+        raise AssertionError(f"{name}: bad eval metrics: {final}")
+    print(f"{name} val_loss {final['val_loss']:.6f}, log(batch) "
+          f"{math.log(TT_BATCH):.6f}")
+
+
+def _on(device, batch: dict, rows=slice(None)) -> dict:
+    return {k: torch.from_numpy(v[rows]).to(device) for k, v in batch.items()}
+
+
+def row_losses(task, q, c) -> torch.Tensor:
+    """Each row's term of the task's SUM-reduced loss: the task with a
+    one-hot sample weight, row by row."""
+    eye = torch.eye(q.shape[0], device=q.device)
+    return torch.stack([task(q, c, sample_weight=w) for w in eye])
+
+
+def check_two_tower(name, model, cpu_model, tt, task, device) -> None:
+    """The trained towers' embeddings and the task's loss on 256 test pairs
+    on the card against the plain CPU path (K1 is not on the forward) on
+    the same weights: the embeddings within rtol 1e-4 (atol 1e-5); the
+    fp32 loss within rtol 1e-4; a bf16 task's loss nearer the CPU's bf16
+    loss than that lies to the CPU's fp32 loss, row by row (each row's
+    term: the sum over 256 rows would add fp32 rounding of its own)."""
+    user, item, _ = tt["test"]
+    rows = slice(0, 256)
+    model.eval()
+    cpu_model.load_state_dict({k: v.cpu()
+                               for k, v in model.state_dict().items()})
+    cpu_model.eval()
+    fp32 = dataclasses.replace(task, compute_dtype=None)
+    with torch.no_grad():
+        q, c = model(_on(device, user, rows), _on(device, item, rows))
+        q_cpu, c_cpu = cpu_model(_on("cpu", user, rows),
+                                 _on("cpu", item, rows))
+        loss = row_losses(task, q, c).cpu()
+        loss_cpu = row_losses(task, q_cpu, c_cpu)
+        loss_cpu32 = row_losses(fp32, q_cpu, c_cpu)
+    for got, want in ((q, q_cpu), (c, c_cpu)):
+        if got.shape != (256, TT_DIM) or got.dtype != torch.float32:
+            raise AssertionError(f"{name}: embeddings {tuple(got.shape)}")
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+    diff = max((q.cpu() - q_cpu).abs().max().item(),
+               (c.cpu() - c_cpu).abs().max().item())
+    loss_diff = (loss - loss_cpu).abs().max().item()
+    gap = (loss_cpu - loss_cpu32).abs().max().item()
+    if task.compute_dtype is None:
+        torch.testing.assert_close(loss, loss_cpu, rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(loss.sum(), loss_cpu.sum(), rtol=1e-4,
+                                   atol=1e-5)
+    elif not (bool(torch.isfinite(loss).all()) and loss_diff < gap):
+        raise AssertionError(f"{name}: row losses card vs cpu bf16 differ "
+                             f"by {loss_diff}, cpu bf16 vs fp32 by {gap}")
+    print(f"{name} card vs cpu: embeddings max abs diff {diff:.3g}; loss "
+          f"card {loss.sum().item():.6f} cpu {loss_cpu.sum().item():.6f} "
+          f"(cpu fp32 {loss_cpu32.sum().item():.6f}); row losses differ by "
+          f"{loss_diff:.3g}, cpu bf16 vs fp32 by {gap:.3g}")
+
+
+def check_two_tower_step(name, model, tt, task, device) -> dict:
+    """The backward on the card: one train step's gradients from the seeded
+    weights on the first TT_BATCH train pairs, on the card (two K1, counted
+    after the path's launches were read) against the plain CPU path. fp32:
+    every parameter's gradient within rtol 1e-4, atol 1e-4 times its
+    largest element (sums of 4096 rows in other orders). bf16: each
+    parameter's gradient nearer (Frobenius) the CPU's bf16 gradient than
+    that lies to the CPU's fp32 gradient. And the trained ``model``: every
+    parameter moved from the seeded weights."""
+    from deep_recommenders_torch.training import retrieval_loss
+
+    user, item, _ = tt["train"]
+    rows = slice(0, TT_BATCH)
+
+    def grads(dev, step_task):
+        tower = make_two_tower(tt["ds"]).to(dev)
+        loss = retrieval_loss(tower, step_task)(
+            (_on(dev, user, rows), _on(dev, item, rows)), None)
+        loss.backward()
+        return loss.item(), {k: p.grad.cpu()
+                             for k, p in tower.named_parameters()}
+
+    loss, got = grads(device, task)
+    loss_cpu, want = grads("cpu", task)
+    worst = {}
+    if task.compute_dtype is None:
+        for key, g in got.items():
+            scale = want[key].abs().max().item()
+            torch.testing.assert_close(g, want[key], rtol=1e-4,
+                                       atol=1e-4 * scale)
+            worst[key] = (g - want[key]).abs().max().item() / scale
+    else:
+        _, want32 = grads("cpu", dataclasses.replace(task,
+                                                     compute_dtype=None))
+        for key, g in got.items():
+            diff = (g - want[key]).norm().item()
+            gap = (want[key] - want32[key]).norm().item()
+            if not diff < gap:
+                raise AssertionError(f"{name}: {key}'s gradient card vs cpu "
+                                     f"bf16 {diff}, cpu bf16 vs fp32 {gap}")
+            worst[key] = diff / gap
+    init = tt["model"].state_dict()
+    still = [k for k, v in model.state_dict().items()
+             if torch.equal(v.cpu(), init[k])]
+    if still:
+        raise AssertionError(f"{name}: training left {still} at the seeded "
+                             f"weights")
+    rule = ("max abs err / max |grad|" if task.compute_dtype is None
+            else "|card - cpu bf16| / |cpu bf16 - cpu fp32|")
+    print(f"{name} train step card vs cpu: loss {loss:.6f} cpu "
+          f"{loss_cpu:.6f}; gradients agree, {rule} at most "
+          f"{max(worst.values()):.3g} ({max(worst, key=worst.get)}); every "
+          f"trained parameter moved from the seeded weights")
+    return worst
+
+
+def two_level_top_k(scores: torch.Tensor, k: int, block: int = 1024):
+    """JAX's exact_top_k on (B, N) rows wider than 2 * block: each block's
+    top-k (the last padded with -inf), then the top-k of the winners. Timed
+    beside the port's one torch.topk; used nowhere in the port."""
+    b, n = scores.shape
+    nb = -(-n // block)
+    padded = torch.nn.functional.pad(scores, (0, nb * block - n),
+                                     value=float("-inf"))
+    sb, ib = torch.topk(padded.reshape(b, nb, block), k, dim=-1)
+    ib = ib + torch.arange(nb, device=scores.device)[:, None] * block
+    top, at = torch.topk(sb.reshape(b, nb * k), k, dim=-1)
+    return top, ib.reshape(b, nb * k).gather(1, at)
+
+
+def check_indexes(name, model, tt, device) -> dict:
+    """The exact indexes on the trained towers: the candidate tower's
+    embeddings of the distinct test movies (by encoded id; the ids as
+    identifiers) and the query tower's of the first TT_QUERIES test pairs.
+    BruteForce's top TT_K + 1 against Streaming's (batches of TT_STREAM, with
+    identifiers), InMemoryStreaming's (chunks of TT_CHUNK) and the
+    BruteForce rebuilt by save_index/load_index (under build/): scores
+    within rtol 1e-6 plus 2 D u, the fp32 summation bound of two products
+    of unit vectors (the loaded index: equal); ids equal at every place
+    whose score lies farther than twice that from its neighbours' (the
+    others tie). FactorizedTopK's hits with the index equal its hits with
+    ``candidates=`` the corpus. Then the time of one query batch (TT_QUERIES
+    queries, top TT_K) of each index, and of the selection alone on the
+    (TT_QUERIES, N) scores, top TT_K + 1: the port's one torch.topk and
+    JAX's two levels (:func:`two_level_top_k`, the same scores), from CUDA
+    events."""
+    from deep_recommenders_torch.models.retrieval import (
+        BruteForce,
+        FactorizedTopK,
+        InMemoryStreaming,
+        Streaming,
+        load_index,
+        save_index,
+    )
+    from deep_recommenders_torch.ops.topk import exact_top_k
+
+    user, item, _ = tt["test"]
+    _, first = np.unique(item["movie_id"], return_index=True)
+    rows = slice(0, TT_QUERIES)
+    model.eval()
+    with torch.no_grad():
+        corpus = model.candidate_tower(_on(device, item, first))
+        qe, ce = model(_on(device, user, rows), _on(device, item, rows))
+    ids = torch.from_numpy(item["movie_id"][first].astype(np.int64)).to(
+        device)
+    n, k = corpus.shape[0], TT_K + 1
+    brute = BruteForce(device=device).index(corpus, ids)
+    results = {"streaming": Streaming(lambda: (
+        (ids[lo:lo + TT_STREAM], corpus[lo:lo + TT_STREAM])
+        for lo in range(0, n, TT_STREAM)), device=device)(qe, k=k)}
+    s, r = InMemoryStreaming(TT_CHUNK, device=device).index(corpus)(qe, k=k)
+    results["in_memory"] = (s, ids[r])
+    scratch = os.path.dirname(_build.BUILD_DIR)
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        loaded = load_index(save_index(os.path.join(tmp, "index"), brute),
+                            device=device)
+        if loaded._candidates.device != corpus.device:
+            raise AssertionError(f"{name}: loaded index on "
+                                 f"{loaded._candidates.device}")
+    ref_s, ref_i = brute(qe, k=k)
+    tol = 1e-6 * ref_s.abs().max().item() + 2 * TT_DIM * U32
+    gaps = ref_s[:, :-1] - ref_s[:, 1:]
+    before = torch.cat([torch.full_like(gaps[:, :1], float("inf")),
+                        gaps[:, :-1]], dim=1)
+    isolated = (before > 2 * tol) & (gaps > 2 * tol)  # places 0..TT_K - 1
+    errors = {}
+    for other, (s, i) in results.items():
+        errors[other] = (s - ref_s).abs().max().item()
+        if errors[other] > tol or not torch.equal(
+                i[:, :TT_K][isolated], ref_i[:, :TT_K][isolated]):
+            raise AssertionError(f"{name}: {other} disagrees with "
+                                 f"BruteForce: score err {errors[other]}")
+    got = loaded(qe, k=k)
+    errors["loaded"] = (got[0] - ref_s).abs().max().item()
+    if not (torch.equal(got[0], ref_s) and torch.equal(got[1], ref_i)):
+        raise AssertionError(f"{name}: the loaded index disagrees")
+    with_index = FactorizedTopK(brute)
+    with_corpus = FactorizedTopK()
+    hits = with_index.update(with_index.init(device), qe, ce)["hits"]
+    want = with_corpus.update(with_corpus.init(device), qe, ce,
+                              candidates=corpus)["hits"]
+    if not torch.equal(hits, want):
+        raise AssertionError(f"{name}: FactorizedTopK hits {hits.tolist()} "
+                             f"with the index, {want.tolist()} with the "
+                             f"candidates")
+    share = isolated.float().mean().item()
+    stream = Streaming(lambda: (
+        (ids[lo:lo + TT_STREAM], corpus[lo:lo + TT_STREAM])
+        for lo in range(0, n, TT_STREAM)), device=device)
+    in_memory = InMemoryStreaming(TT_CHUNK, device=device).index(corpus)
+    query_ms = {key: time_ms(lambda: index(qe, k=TT_K), iters=20, warmup=3)
+                for key, index in (("brute_force", brute),
+                                   ("streaming", stream),
+                                   ("in_memory_streaming", in_memory))}
+    scores = qe @ corpus.T
+    if not torch.equal(exact_top_k(scores, k)[0],
+                       two_level_top_k(scores, k)[0]):
+        raise AssertionError(f"{name}: torch.topk and the two-level "
+                             f"selection disagree")
+    select_ms = {key: time_ms(lambda: fn(scores, k), iters=20, warmup=3)
+                 for key, fn in (("torch_topk", exact_top_k),
+                                 ("two_level", two_level_top_k))}
+    print(f"{name} indexes: N {n} movies, {TT_QUERIES} queries, top {TT_K}: "
+          f"Streaming, InMemoryStreaming and the loaded BruteForce agree "
+          f"(largest score errors {errors}, tolerance {tol:.3g}; ids equal "
+          f"at the {share:.4f} of places without a tie); FactorizedTopK "
+          f"hits {hits.tolist()} with the index and with candidates=; ms a "
+          f"query batch {query_ms}; ms a selection of the top {k} of "
+          f"({TT_QUERIES}, {n}) scores {select_ms}")
+    return {"corpus": n, "isolated_share": share, "hits": hits.tolist(),
+            "score_errors": errors, "tolerance": tol, "query_ms": query_ms,
+            "select_ms": select_ms}
+
+
+def two_tower_paths(tt: dict, device):
+    """The zoo's two-tower (``two_tower``) and its bf16 score product
+    (``two_tower_bf16``: ``Retrieval(compute_dtype=bfloat16)``), EPOCHS
+    each through ``Trainer.fit_device`` with Adam at LEARNING_RATE on the
+    train pairs (labels: the movie ids, unused by the plain task), the
+    in-batch ``RetrievalEval`` on the test pairs: two fp32 K1 a train step
+    (C = 32), none in an eval batch; the eval's metrics finite; the card
+    against the CPU, forward (:func:`check_two_tower`) and one train step's
+    gradients (:func:`check_two_tower_step`); the exact indexes
+    (:func:`check_indexes`); a profile."""
+    from deep_recommenders_torch.models.retrieval import Retrieval
+    from deep_recommenders_torch.training import (
+        RetrievalEval,
+        retrieval_loss,
+    )
+
+    train = DeviceData.from_numpy(tt["train"][:2], tt["train"][2],
+                                  TT_BATCH, device=device)
+    test = DeviceData.from_numpy(tt["test"][:2], tt["test"][2], TT_BATCH,
+                                 device=device)
+    paths, results = {}, {}
+    for name, dtype in (("two_tower", None),
+                        ("two_tower_bf16", torch.bfloat16)):
+        model = make_two_tower(tt["ds"]).to(device)
+        task = Retrieval(compute_dtype=dtype)
+        trainer, paths[name], final = train_path(
+            name, model, train, test, EPOCHS, two_k1, device,
+            loss_fn=retrieval_loss(model, task),
+            eval_spec=RetrievalEval(model, task), quality=retrieval_quality)
+        check_two_tower(name, model, make_two_tower(tt["ds"], seeded=False),
+                        tt, task, device)
+        step = check_two_tower_step(name, model, tt, task, device)
+        indexes = check_indexes(name, model, tt, device)
+        results[name] = {"eval": final, "indexes": indexes, "step": step,
+                         "profile": trainer_profile(trainer, train, test)}
+        print(f"{name} profile: " + json.dumps(results[name]["profile"]))
+        del trainer, model
+    del train, test
+    torch.cuda.empty_cache()
+    return paths, results
+
+
+def two_tower_example_path():
+    """The ported two-tower example at its defaults (1,000,209 ratings of
+    the rank-power corpus, batch 1024, 5 epochs, temperature 0.1, Adagrad
+    0.05, log-Q correction and accidental-negative removal, then
+    FactorizedTopK over the full corpus of distinct test movies) on the
+    card: two K1 a train step and none else; the loss finite; val_loss
+    lower after the last epoch than after the first; the full-corpus
+    top-100 accuracy above twice the chance rate 100 / N; a profile."""
+    from deep_recommenders_torch.examples import (
+        train_two_tower_on_movielens as ex,
+    )
+
+    name = "two_tower_example"
+    reset_launches()
+    result = ex.main(["--device", "cuda"])
+    launches = read_launches()
+    history, losses = result["history"], result["step_losses"]
+    train = result["train_data"]
+    n, metrics = result["corpus_size"], result["metrics"]
+    chance = 100 / n
+    top100 = metrics["top_100_categorical_accuracy"]
+    print(f"{name} train: {len(losses)} steps of {train.batch_size}, loss "
+          f"{losses[0]:.6f} -> {losses[-1]:.6f}; val_loss by epoch "
+          f"{[round(h['val_loss'], 6) for h in history]}; full corpus N {n},"
+          f" chance top-100 {chance:.6f}, " + " ".join(
+              f"{k}={v:.6f}" for k, v in metrics.items()))
+    print(f"{name} launches: {launches}")
+    want = {k: 0 for k in launches}
+    want.update(two_k1(len(losses), 0))
+    if launches != want:
+        raise AssertionError(f"{name}: launches {launches}, expected {want}")
+    if len(losses) != len(history) * train.steps_per_epoch \
+            or not np.isfinite(losses).all():
+        raise AssertionError(f"{name}: {len(losses)} steps, loss finite "
+                             f"{np.isfinite(losses).all()}")
+    if not history[-1]["val_loss"] < history[0]["val_loss"]:
+        raise AssertionError(f"{name}: val_loss did not fall: "
+                             f"{[h['val_loss'] for h in history]}")
+    if not top100 > 2 * chance:
+        raise AssertionError(f"{name}: top-100 {top100} not above twice "
+                             f"the chance rate {chance}")
+    profile = trainer_profile(result["trainer"], train, result["eval_data"])
+    print(f"{name} profile: " + json.dumps(profile))
+    out = {"eval": history[-1], "metrics": metrics, "corpus": n,
+           "profile": profile}
+    del result
+    torch.cuda.empty_cache()
+    return launches, out
+
+
 # Which path's launches each kernel's entry reports.
 ENTRY_PATH = {
     "scatter_add_rows": "deepfm",
@@ -2267,7 +2699,9 @@ def main(argv=()) -> int:
           f"{ds.test_steps} test steps ({time.perf_counter() - t0:.1f} s)")
 
     imdb = SyntheticImdb(num_words=TX_VOCAB, max_len=TX_LEN, seed=SEED)
+    tt = two_tower_data()
     entries = kernel_phase(ds, model, device)
+    entries[0]["two_tower"] = two_tower_scatter_fields(tt, device)
     entries += cin_kernel_phase(ds, device)
     entries += attention_kernel_phase(imdb, device)
     entries += attention_bf16_kernel_phase(imdb, device)
@@ -2280,6 +2714,9 @@ def main(argv=()) -> int:
     paths.update(din_paths(device)[0])
     paths["din_example"] = din_example_path()[0]
     paths["mmoe_example"] = mmoe_example_path()[0]
+    paths.update(two_tower_paths(tt, device)[0])
+    del tt
+    paths["two_tower_example"] = two_tower_example_path()[0]
     paths["transformer_seq2seq"] = transformer_path(imdb, device)[0]
     paths["transformer_seq2seq_bf16"] = transformer_path(
         imdb, device, torch.bfloat16)[0]

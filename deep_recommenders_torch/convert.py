@@ -200,3 +200,9 @@ def mmoe_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 # ESMM: ``embeddings/table``, ``cvr_tower/Dense_i`` and ``ctr_tower/Dense_i``
 # by the ranking rules.
 esmm_from_flax = ranking_from_flax
+
+
+# TwoTower: ``{query,candidate}_tower/embeddings/table`` and
+# ``{query,candidate}_tower/projection/Dense_i`` by the ranking rules (each
+# Dense ``kernel`` (in, out) transposed into a Linear ``weight`` (out, in)).
+two_tower_from_flax = ranking_from_flax

@@ -1,13 +1,15 @@
-"""MovieLens-1M ingest: ETL + ranking task view, as pre-batched id arrays.
+"""MovieLens-1M ingest: ETL, the ranking view and the retrieval view, as
+pre-batched id arrays.
 
-Counterpart of ``deep_recommenders_tpu/datasets/movielens.py`` for the CTR
-ranking view:
+Counterpart of ``deep_recommenders_tpu/datasets/movielens.py``:
 
 - ``load_ml1m`` joins users.dat + movies.dat onto shuffled ratings.dat;
 - ``synthesize_ml1m`` is the deterministic stand-in with the same schema and
-  marginals, bit-identical to the JAX package's for the same arguments;
+  marginals, bit-identical to the JAX package's for the same arguments (both
+  movie-popularity forms);
 - ``MovielensRanking`` encodes the six CTR features, label = rating > 3, and
-  splits 0.8/0.2 once over the shuffled examples.
+  splits 0.8/0.2 once over the shuffled examples; its retrieval view gives
+  the positive (user, movie) pairs of a split for the two-tower task.
 
 The corpus is built in memory on every construction: there is no on-disk
 cache, so nothing here unpickles a file.
@@ -21,7 +23,11 @@ from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
-from deep_recommenders_torch.features.columns import Feature, FeatureEncoder
+from deep_recommenders_torch.features.columns import (
+    WEIGHT_SUFFIX,
+    Feature,
+    FeatureEncoder,
+)
 
 NUM_RATINGS = 1_000_209
 NUM_USERS = 6_040
@@ -95,15 +101,23 @@ def synthesize_ml1m(
     num_movies: int = NUM_MOVIES,
     latent_dim: int = 8,
     seed: int = 42,
+    movie_popularity: str = "zipf-draw",
 ) -> Dict[str, np.ndarray]:
     """Deterministic MovieLens-like corpus with learnable structure.
 
     Ratings follow a latent-factor model (user_factor . movie_factor + biases
     + noise), quantile-mapped to 1..5 with ml-1m's marginals, so
     ``rating > 3`` is predictable from ids and weakly from demographics.
-    Movie popularity is Zipf(1.4) per movie, the JAX package's CTR corpus
-    (its default ``movie_popularity="zipf-draw"``; the retrieval corpus comes
-    with retrieval). The random draws are the JAX package's, in its order.
+    The random draws are the JAX package's, in its order.
+
+    ``movie_popularity``:
+    - ``"zipf-draw"`` (the CTR corpus): popularity drawn per movie from
+      Zipf(1.4). Its unbounded tail puts about half the ratings on a few
+      movies, too few distinct movies for a retrieval corpus.
+    - ``"rank-power"`` (the retrieval corpus): popularity proportional to
+      rank^-0.7 over a seeded permutation of the movies, so 1M draws cover
+      about every movie. It consumes the generator differently from the
+      Zipf branch, so the two forms give two distinct corpora.
     """
     rng = np.random.default_rng(seed)
     user_gender = rng.choice(len(GENDER_VOCAB), num_users)
@@ -131,7 +145,15 @@ def synthesize_ml1m(
         [f"Movie {m} ({movie_year[m]})" for m in range(num_movies)],
         dtype=object,
     )
-    movie_pop = rng.zipf(1.4, num_movies).astype(np.float64)
+    if movie_popularity == "zipf-draw":
+        movie_pop = rng.zipf(1.4, num_movies).astype(np.float64)
+    elif movie_popularity == "rank-power":
+        shuffle = rng.permutation(num_movies)
+        ranks = np.empty(num_movies, np.float64)
+        ranks[shuffle] = np.arange(1, num_movies + 1)
+        movie_pop = ranks**-0.7
+    else:
+        raise ValueError(f"unknown movie_popularity {movie_popularity!r}")
     movie_p = movie_pop / movie_pop.sum()
     uid = rng.integers(0, num_users, num_ratings)
     mid = rng.choice(num_movies, num_ratings, p=movie_p)
@@ -187,13 +209,16 @@ class MovielensRanking:
 
     label = float(rating > 3); the 0.8/0.2 train/test split is taken once
     over the shuffled examples. Reads ``datadir`` when it holds
-    ratings.dat, else synthesizes the corpus.
+    ratings.dat, else synthesizes the corpus with ``movie_popularity``
+    (``"zipf-draw"``, the CTR corpus, or ``"rank-power"``, the retrieval
+    corpus: see :func:`synthesize_ml1m`).
     """
 
     batch_size: int = 1024
     datadir: Optional[str] = None
     num_ratings: int = NUM_RATINGS
     seed: int = 42
+    movie_popularity: str = "zipf-draw"
     features: Tuple[Feature, ...] = dataclasses.field(
         default_factory=default_movielens_features
     )
@@ -204,7 +229,8 @@ class MovielensRanking:
         ):
             raw = load_ml1m(self.datadir, seed=self.seed)
         else:
-            raw = synthesize_ml1m(self.num_ratings, seed=self.seed)
+            raw = synthesize_ml1m(self.num_ratings, seed=self.seed,
+                                  movie_popularity=self.movie_popularity)
         self._data = FeatureEncoder(self.features).encode(
             {
                 "user_id": raw["UserID"],
@@ -216,6 +242,7 @@ class MovielensRanking:
             }
         )
         self._label = (raw["Rating"] > 3).astype(np.float32)[:, None]
+        self._raw_movie_id = np.asarray(raw["MovieID"])
         self._n = len(self._label)
         self._n_train = int(self._n * 0.8)
 
@@ -265,3 +292,60 @@ class MovielensRanking:
         for s in range(self.test_steps):
             lo = self._n_train + s * b
             yield self._slice(lo, lo + b)
+
+    # -- retrieval (two-tower) view ------------------------------------------
+    USER_KEYS = ("user_id", "user_gender", "user_age", "user_occupation")
+    ITEM_KEYS = ("movie_id", "movie_genres")
+
+    def _positives(self, split: str) -> np.ndarray:
+        """Rows of the split's positively rated examples (label 1)."""
+        if split == "train":
+            return np.flatnonzero(self._label[: self._n_train, 0] > 0.5)
+        return self._n_train + np.flatnonzero(
+            self._label[self._n_train :, 0] > 0.5)
+
+    def _pair_view(self, rows: np.ndarray):
+        """The rows' (user features, movie features) dicts; a bag's
+        ``__wt`` weights go with its feature."""
+        def side(keys):
+            return {k: v[rows] for k, v in self._data.items()
+                    if k.split(WEIGHT_SUFFIX)[0] in keys}
+
+        return side(self.USER_KEYS), side(self.ITEM_KEYS)
+
+    def retrieval_batches(
+        self,
+        epochs: int = 1,
+        shuffle_seed: Optional[int] = None,
+        split: str = "train",
+    ) -> Iterator[Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]]:
+        """(user features, watched-movie features) positive pairs of the
+        split in whole batches; in-batch negatives supply the contrast."""
+        pos = self._positives(split)
+        b = self.batch_size
+        for e in range(epochs):
+            idx = pos.copy()
+            if shuffle_seed is not None:
+                np.random.default_rng(shuffle_seed + e).shuffle(idx)
+            for s in range(len(idx) // b):
+                yield self._pair_view(idx[s * b : (s + 1) * b])
+
+    def retrieval_arrays(self, split: str = "train"):
+        """Every positive pair of the split as (user dict, movie dict) and
+        the pairs' encoded movie ids (the two-tower ``labels``: candidate
+        ids for accidental-negative removal)."""
+        pos = self._positives(split)
+        user, item = self._pair_view(pos)
+        return user, item, self._data["movie_id"][pos]
+
+    def raw_movie_ids(self, split: str = "train") -> np.ndarray:
+        """The raw (pre-hash) MovieID of each positive pair of the split.
+        The encoded ids are CRC32 buckets, so distinct raw ids may share
+        one (3,952 raw ids fall into about 2,468 buckets)."""
+        return self._raw_movie_id[self._positives(split)]
+
+    def user_specs(self) -> Tuple[Feature, ...]:
+        return tuple(f for f in self.features if f.name in self.USER_KEYS)
+
+    def item_specs(self) -> Tuple[Feature, ...]:
+        return tuple(f for f in self.features if f.name in self.ITEM_KEYS)

@@ -3,7 +3,9 @@ from deep_recommenders_torch.training.evaluation import (
     BinaryCTREval,
     MultiTaskBCEEval,
     MultiTaskMSEEval,
+    RetrievalEval,
     multitask_mse_loss,
+    retrieval_loss,
 )
 from deep_recommenders_torch.training.losses import (
     binary_cross_entropy,
@@ -21,5 +23,9 @@ from deep_recommenders_torch.training.checkpoints import (
     restore_checkpoint,
     save_checkpoint,
 )
-from deep_recommenders_torch.training.optimizers import Ftrl, scoped_optimizer
+from deep_recommenders_torch.training.optimizers import (
+    Adagrad,
+    Ftrl,
+    scoped_optimizer,
+)
 from deep_recommenders_torch.training.warmstart import warm_start_from

@@ -9,13 +9,14 @@ same order.
 Features are a tensor (MMoE's dense (N, d) matrix), a dict of tensors (the
 CTR models' feature dict), or a tuple of those (a (query, candidate) pair):
 the structures of the JAX ``DeviceData``'s pytrees that the port's models
-take.
+take. Labels take the same structures (the two-tower example's dict of
+candidate ids and sampling probabilities), or None.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -27,7 +28,9 @@ Features = Union[torch.Tensor, Dict[str, Any], Tuple[Any, ...]]
 
 def map_features(fn: Callable, features):
     """``fn`` on every array of a tensor, dict or tuple (nested) of them,
-    keeping the structure."""
+    keeping the structure; None stays None (an empty pytree in JAX)."""
+    if features is None:
+        return None
     if isinstance(features, dict):
         return {k: map_features(fn, v) for k, v in features.items()}
     if isinstance(features, tuple):
@@ -35,20 +38,27 @@ def map_features(fn: Callable, features):
     return fn(features)
 
 
+def leaves(tree) -> List[Any]:
+    """The arrays of a tensor, dict or tuple (nested) of them, in order."""
+    out: List[Any] = []
+    map_features(out.append, tree)
+    return out
+
+
 @dataclasses.dataclass
 class DeviceData:
-    """Encoded features (row-aligned tensors: one, a dict or a tuple) and
-    labels on a device."""
+    """Encoded features and labels on a device: row-aligned tensors, each
+    one tensor, a dict or a tuple of them (labels may also be None)."""
 
     features: Features
-    labels: torch.Tensor
+    labels: Any
     batch_size: int
 
     @classmethod
     def from_numpy(
         cls,
         features,
-        labels: np.ndarray,
+        labels,
         batch_size: int,
         device: DeviceLike = "cuda",
     ) -> "DeviceData":
@@ -60,17 +70,20 @@ class DeviceData:
 
         return cls(
             features=map_features(put, features),
-            labels=put(labels),
+            labels=map_features(put, labels),
             batch_size=batch_size,
         )
 
+    def _first(self) -> torch.Tensor:
+        return (leaves(self.labels) or leaves(self.features))[0]
+
     @property
     def device(self) -> torch.device:
-        return self.labels.device
+        return self._first().device
 
     @property
     def num_examples(self) -> int:
-        return int(self.labels.shape[0])
+        return int(self._first().shape[0])
 
     @property
     def steps_per_epoch(self) -> int:
@@ -85,16 +98,16 @@ class DeviceData:
             np.random.default_rng(seed + epoch).shuffle(idx)
         return torch.from_numpy(idx[:n]).to(self.device)
 
-    def gather(self, rows: torch.Tensor) -> Tuple[Features, torch.Tensor]:
+    def gather(self, rows: torch.Tensor) -> Tuple[Features, Any]:
         """Device-side batch materialization."""
         return gather_rows(self.features, self.labels, rows)
 
 
 def gather_rows(
-    features: Features, labels: torch.Tensor, rows: torch.Tensor
-) -> Tuple[Features, torch.Tensor]:
+    features: Features, labels, rows: torch.Tensor
+) -> Tuple[Features, Any]:
     """Batch-gather ``rows`` from row-aligned (features, labels)."""
-    return (
-        map_features(lambda v: v.index_select(0, rows), features),
-        labels.index_select(0, rows),
-    )
+    def take(v):
+        return v.index_select(0, rows)
+
+    return map_features(take, features), map_features(take, labels)

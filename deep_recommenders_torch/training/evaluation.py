@@ -9,6 +9,7 @@ An eval program is three methods:
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -149,6 +150,76 @@ class MultiTaskBCEEval:
             total += loss
         out["val_loss"] = total
         return out
+
+
+class RetrievalEval:
+    """Two-tower eval: the retrieval loss per example and the in-batch
+    FactorizedTopK accuracy bank. ``batch`` is a (query batch, candidate
+    batch) tuple, or one dict feeding both towers; labels are not read.
+
+    The loss is the task's on the eval batch with single-device semantics:
+    a copy of ``task`` without metrics, mesh, axis and accidental-negative
+    removal (whose candidate ids the eval does not thread). Full-corpus
+    recall against an index is a separate pass, since the corpus's
+    embeddings change with the weights.
+    """
+
+    def __init__(self, model: torch.nn.Module, task=None, metric=None):
+        from deep_recommenders_torch.models.retrieval import (
+            FactorizedTopK,
+            Retrieval,
+        )
+
+        self.model = model
+        self._loss_task = dataclasses.replace(
+            task or Retrieval(), metrics=None, axis_name=None, mesh=None,
+            remove_accidental_negatives=False)
+        self.metric = metric or FactorizedTopK()
+
+    def init(self):
+        device = _device(self.model)
+        return {"loss": metrics_lib.Mean.init(device),
+                "topk": self.metric.init(device)}
+
+    @torch.no_grad()
+    def update(self, batch, labels, state):
+        del labels
+        self.model.eval()
+        qb, cb = batch if isinstance(batch, tuple) else (batch, batch)
+        qe, ce = self.model(qb, cb)
+        loss_sum = self._loss_task(qe, ce)
+        b = qe.shape[0]
+        return {
+            "loss": metrics_lib.Mean.update(state["loss"],
+                                            (loss_sum / b).expand(b)),
+            "topk": self.metric.update(state["topk"], qe, ce),
+        }
+
+    def compute(self, state) -> Dict[str, float]:
+        out = {k: float(v)
+               for k, v in self.metric.compute(state["topk"]).items()}
+        out["val_loss"] = float(metrics_lib.Mean.compute(state["loss"]))
+        return out
+
+
+def retrieval_loss(model: torch.nn.Module, task):
+    """Two-tower train loss for ``Trainer(loss_fn=...)``: ``batch`` is the
+    (query batch, candidate batch) tuple, or one dict for both towers.
+    ``labels`` is None (plain in-batch softmax), a tensor of candidate ids
+    (for accidental-negative removal, when the task has it), or a dict with
+    optional ``candidate_ids`` and ``sampling_prob``, each positive's corpus
+    sampling probability for the log-Q correction."""
+
+    def loss_fn(batch, labels):
+        qb, cb = batch if isinstance(batch, tuple) else (batch, batch)
+        qe, ce = model(qb, cb)
+        if isinstance(labels, dict):
+            return task(
+                qe, ce, candidate_ids=labels.get("candidate_ids"),
+                candidate_sampling_probability=labels.get("sampling_prob"))
+        return task(qe, ce, candidate_ids=labels)
+
+    return loss_fn
 
 
 def multitask_mse_loss(model: torch.nn.Module, num_tasks: int = 2):

@@ -1,8 +1,12 @@
-"""Optimizers: FTRL-Proximal, and one optimizer per parameter scope.
+"""Optimizers: FTRL-Proximal, optax's Adagrad, and one optimizer per
+parameter scope.
 
 Counterpart of ``deep_recommenders_tpu/training/optimizers.py``. PyTorch has
 no FTRL, so :class:`Ftrl` is the FTRL-Proximal update (McMahan et al.
 2013) with tf.train.FtrlOptimizer's arguments, as JAX's ``ftrl``.
+:class:`Adagrad` is ``optax.adagrad``, which the two-tower example trains
+with: ``torch.optim.Adagrad`` starts its accumulator at 0 and divides by
+``sqrt(acc) + eps``, another optimizer.
 :func:`scoped_optimizer` is the per-scope split of JAX's
 ``optax.multi_transform`` over parameter paths (FTRL on ``wide``, Adam
 elsewhere, in the Wide & Deep example).
@@ -65,6 +69,47 @@ class Ftrl(torch.optim.Optimizer):
                 w_new = torch.where(z.abs() <= l1, torch.zeros_like(z),
                                     -(z - z.sign() * l1) / denom)
                 w.add_(w_new - w)
+        return loss
+
+
+class Adagrad(torch.optim.Optimizer):
+    """``optax.adagrad(learning_rate, initial_accumulator_value, eps)``. Per
+    element, with gradient g and accumulator a (``initial_accumulator_value``
+    at first)::
+
+        a' = g^2 + a
+        w' = w + (-lr) * (g * (rsqrt(a' + eps) if a' > 0 else 0))
+
+    in optax's order of fp32 operations. The accumulator is the state
+    ``sum_of_squares``, saved by ``state_dict``.
+    """
+
+    def __init__(self, params, learning_rate: float,
+                 initial_accumulator_value: float = 0.1, eps: float = 1e-7):
+        super().__init__(params, dict(
+            lr=learning_rate,
+            initial_accumulator_value=initial_accumulator_value, eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            lr, eps = group["lr"], group["eps"]
+            for w in group["params"]:
+                if w.grad is None:
+                    continue
+                state = self.state[w]
+                if not state:
+                    state["sum_of_squares"] = torch.full_like(
+                        w, group["initial_accumulator_value"])
+                acc = state["sum_of_squares"]
+                acc.copy_(w.grad * w.grad + acc)
+                scale = torch.where(acc > 0, torch.rsqrt(acc + eps),
+                                    torch.zeros_like(acc))
+                w.add_((scale * w.grad) * -lr)
         return loss
 
 

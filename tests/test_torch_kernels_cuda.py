@@ -92,6 +92,83 @@ def test_scatter_add_rows_kernel_at_esmm_width(device, skewed):
                                rtol=1e-5, atol=1e-3)
 
 
+def _two_tower_batch(batch=4096):
+    """One two-tower train batch of the rank-power corpus (20k ratings,
+    seed 42) and a TwoTower at the zoo's widths (embedding_dim 32): each
+    tower's big-vocab gather takes the batch's user_id or movie_id ids, at
+    offset 0 of its (V, 32) table."""
+    from deep_recommenders_torch.datasets import MovielensRanking
+    from deep_recommenders_torch.models.retrieval import TwoTower
+
+    ds = MovielensRanking(batch_size=batch, num_ratings=20_000, seed=42,
+                          movie_popularity="rank-power")
+    user, item, _ = ds.retrieval_arrays("train")
+    model = TwoTower(ds.user_specs(), ds.item_specs(), embedding_dim=32,
+                     generator=torch.Generator().manual_seed(0))
+    user = {k: torch.from_numpy(v[:batch]) for k, v in user.items()}
+    item = {k: torch.from_numpy(v[:batch]) for k, v in item.items()}
+    return model, user, item
+
+
+@pytest.mark.parametrize("tower", ["query", "candidate"])
+def test_scatter_add_rows_kernel_at_two_tower_width(device, tower):
+    """K1 at the two-tower's row width C = 32, where the segment is 1024
+    ids (2048 x 32 floats do not fit the stage): one train batch's user_id
+    (query tower) or movie_id (candidate tower) ids, 4096 of them, into the
+    tower's table. Bit for bit its summation order at segment 1024 run on
+    the CPU, on three calls, and within the fp32 summation bound of fp64
+    (rtol 1e-5, atol 1e-3, as at C = 17)."""
+    model, user, item = _two_tower_batch()
+    emb = getattr(model, f"{tower}_tower").embeddings
+    ids = (user["user_id"] if tower == "query" else item["movie_id"])
+    v, c = emb.table.shape
+    assert c == 32 and ek.segment_length(c) == 1024
+    assert emb.feature_offsets[0] == 0
+    g = torch.from_numpy(np.random.default_rng(32).normal(
+        0, 1, (ids.shape[0], c)).astype(np.float32))
+    want = ek.scatter_add_rows_in_segments(g, ids, v, segment=1024)
+    exact = ek.scatter_add_rows_reference(g.double(), ids, v)
+    for _ in range(3):
+        got = ek.scatter_add_rows(g.to(device), ids.to(device), v)
+        assert torch.equal(_bits(got.cpu()), _bits(want))
+    np.testing.assert_allclose(got.cpu().double().numpy(), exact.numpy(),
+                               rtol=1e-5, atol=1e-3)
+
+
+def test_two_tower_step_launches_k1_once_a_tower(device, monkeypatch):
+    """A two-tower train step on the card (the in-batch loss over 4096
+    pairs): two K1 launches, one a tower, each on g (4096, 32) into its
+    tower's table, each bit for bit K1's order run on the CPU on the same
+    g and ids."""
+    from deep_recommenders_torch.ops.retrieval import in_batch_retrieval_loss
+
+    model, user, item = _two_tower_batch()
+    model = model.to(device)
+    launch, calls = ek.scatter_add_rows, []
+
+    def recording(g, ids, num_rows):
+        out = launch(g, ids, num_rows)
+        calls.append((g.cpu(), ids.cpu(), num_rows, out.cpu()))
+        return out
+
+    # The wrapper counts its launches on the module's scatter_add_rows,
+    # which is now this recording one.
+    recording.launches = recording.launches_bf16 = 0
+    monkeypatch.setattr(ek, "scatter_add_rows", recording)
+    qe, ce = model({k: x.to(device) for k, x in user.items()},
+                   {k: x.to(device) for k, x in item.items()})
+    in_batch_retrieval_loss(qe, ce).backward()
+    torch.cuda.synchronize()
+    assert recording.launches == 2 and recording.launches_bf16 == 0
+    assert sorted(v for _, _, v, _ in calls) == sorted(
+        t.embeddings.table.shape[0]
+        for t in (model.query_tower, model.candidate_tower))
+    for g, ids, v, out in calls:
+        assert tuple(g.shape) == (4096, 32)
+        want = ek.scatter_add_rows_in_segments(g, ids, v)
+        assert torch.equal(_bits(out), _bits(want))
+
+
 @pytest.mark.parametrize("n,c,v,hot", [
     (16384, 17, 10044, 0.25),     # a train batch: a quarter on one row
     (16384, 17, 1_000_000, 0.0),  # a hashed table: 31 clusters, 2 waves
