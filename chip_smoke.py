@@ -119,7 +119,35 @@ In order:
    two-tower path and the Transformer in fp32 and bf16 (torch.profiler):
    wall time per step, device busy time, idle share and the kernels that
    take the most time;
-7. prints one JSON line with every kernel's numbers, then, as the last line,
+7. serving (``serving_phase``): exports with ``serving.export_model`` and
+   loads with ``load_serving_module`` the trained DeepFM, the flagship
+   xDeepFM and the layered one (seeded) with a polymorphic batch, served at
+   8192 and 1000 test rows, and the Transformer seq2seq in fp32 and bf16
+   (the zoo's width, seeded) at its batch of 256 x 512, whose polymorphic
+   export must raise ValueError (its attention's dispatch reads the batch
+   size); each program must call its kernel's op (none for DeepFM, K3's
+   pooled forward, K4's, K5's fp32 or bf16), each served batch must launch
+   exactly one K3, three K4 or six K5 (counters set to 0 just before it),
+   its output must equal the eager model's on the card bit for bit (the
+   flagship within 1e-6: K3 pools with atomic adds) and the plain CPU
+   path's at the train paths' logit tolerances; one flagship batch is
+   served under ``training.profiler.trace``, whose trace must name K3's
+   CUDA kernel;
+8. model artifacts (``model_io_phase``): ``save_model`` and ``load_model``
+   on the card for the 13 zoo cases of tests/test_model_io.py, configs
+   equal and predictions equal;
+9. the indexes at the zoo's index config (``index_phase``: 100,000 x 64
+   N(0, 1) candidates, 4096 queries, top 100): ApproxTopK and IVF(128, 128)
+   against BruteForce, IVF(128, 8)'s recall@100, kmeans on the card
+   against the CPU, both index files through save_index/load_index, and
+   the queries/s of BruteForce, InMemoryStreaming(16384), ApproxTopK and
+   IVF(128, 8) with IVF's bucket cap, gather bytes and peak memory;
+10. GCN (``gcn_phase``): the ported example at its defaults, dense and
+   with --sparse-adjacency, test accuracy above 0.95; dense against sparse
+   logits on the trained weights; one Adam step on the card against the
+   CPU;
+11. prints one JSON line with every kernel's numbers (with each forward
+   kernel's launches a served batch), then, as the last line,
    {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --ctr-only
@@ -141,6 +169,14 @@ builds the kernels, times the fp32 K5 and K6 at the kernel phase's shapes
 profile, and prints them as its last line, one JSON object. It calls only
 what every tree of the port since K5 and K6 has, so a copy of this script
 in a parent's tree measures the parent.
+
+    python3 chip_smoke.py --wrapper-host-us
+
+builds the kernels and times only the host's us a call of the K3, K4 and
+K5 forward wrappers at the main paths' shapes, and prints them as its last
+line (no "ok" line). It calls only what every tree since K5's bf16
+instance has, so a copy of this script in a parent's tree times the
+parent's wrappers.
 
 Any failure raises and exits non-zero; with no CUDA device it exits 1
 before printing any result. It imports nothing of JAX.
@@ -1598,6 +1634,8 @@ def attention_kernel_phase(imdb: SyntheticImdb, device):
                 fwd_call,
                 lambda: att.flash_attention_reference(q, k, v, mask, causal),
                 None, iters=5, replays=4, eager_iters=10),
+            "host_us": host_us(lambda: att.flash_attention(q, k, v, mask,
+                                                           causal)),
             **library_fields(q, k, v, mask, causal),
             # q, k, v and out; the mask and lse. Per scored pair: 4 D
             # products (q.k and p v) and one exp; on the CUDA cores 5
@@ -1705,6 +1743,8 @@ def attention_bf16_kernel_phase(imdb: SyntheticImdb, device):
                 lambda: att.flash_attention_reference_bf16(q, k, v, mask,
                                                            causal),
                 None, iters=10, replays=4, eager_iters=20),
+            "host_us": host_us(lambda: att.flash_attention(q, k, v, mask,
+                                                           causal)),
             **library_fields(q, k, v, mask, causal),
             # q, k, v and out in bf16; the mask and lse in fp32. Per scored
             # pair 4 D tensor-core operations (q.k and p v).
@@ -2619,6 +2659,592 @@ def two_tower_example_path():
     return launches, out
 
 
+# -- serving, model artifacts, the approximate indexes and GCN (imported in
+# each function: --wrapper-host-us also runs in a parent's tree, which has
+# none of them) -----------------------------------------------------------------
+
+# A second batch size for the polymorphic programs (the first is BATCH).
+SERVE_BATCH_2 = 1000
+# The zoo's index config (benchmarks/run_models.py:395-409): a 100,000 x 64
+# N(0, 1) corpus, 4096 queries, top 100; IVF with 128 lists, probing 8, and
+# InMemoryStreaming in chunks of 16384 candidates.
+IX_CORPUS, IX_DIM, IX_QUERIES, IX_K = 100_000, 64, 4096, 100
+IX_NLIST, IX_NPROBE, IX_CHUNK = 128, 8, 16384
+# The full probe's (B, nprobe * cap, D) gather is held under this many bytes
+# by querying in blocks of rows.
+IX_GATHER_BYTES = 4e9
+
+
+class Seq2Seq(torch.nn.Module):
+    """The Transformer called on a batch dict {"inputs", "targets"}, as
+    ``export_model`` calls a model."""
+
+    def __init__(self, model: Transformer):
+        super().__init__()
+        self.model = model
+
+    def forward(self, batch):
+        return self.model(batch["inputs"], batch["targets"])
+
+
+@contextlib.contextmanager
+def cin2d_forward_bf16_on_cpu():
+    """K4's forward on a CPU tensor as the card computes it
+    (``cin2d_reference_bf16``), the layered model's counterpart of
+    :func:`stack_forward_bf16_on_cpu`."""
+    fp32 = ck.cin2d_forward
+    ck.cin2d_forward = ck.cin2d_reference_bf16
+    try:
+        yield
+    finally:
+        ck.cin2d_forward = fp32
+
+
+def serve_path(name, model, samples, op, expect, device, tmp,
+               polymorphic=True, exact=True):
+    """Export ``model`` on the card (``samples[0]`` the sample batch), load
+    the artifact and serve each of ``samples``: the program's graph must
+    hold the kernel op ``op`` (or none), each served batch must make
+    exactly the launches ``expect`` (counters set to 0 just before it and
+    read just after), and its output must equal the eager model's on the
+    card bit for bit (``exact``: the same ops on the same inputs), or for
+    K3, which pools with atomic adds in an order that varies from run to
+    run, within rtol 1e-6 and atol 1e-6. Returns the served module and
+    its numbers (ms a batch served and eager, from CUDA events)."""
+    from deep_recommenders_torch.ops import custom_ops
+    from deep_recommenders_torch.serving import (
+        export_model,
+        load_serving_module,
+    )
+
+    t0 = time.perf_counter()
+    path = export_model(os.path.join(tmp, name), model, samples[0],
+                        polymorphic_batch=polymorphic)
+    export_s = time.perf_counter() - t0
+    served = load_serving_module(path, device=device)
+    ops = custom_ops.graph_ops(served.program.graph_module)
+    if ops != ({op} if op else set()):
+        raise AssertionError(f"{name}: the program calls {ops}, not {op}")
+    model.eval()
+    batches = []
+    for batch in samples:
+        reset_launches()
+        out = served(batch)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        want = {k: 0 for k in launches}
+        want.update(expect)
+        if launches != want:
+            raise AssertionError(f"{name}: a served batch launched "
+                                 f"{launches}, expected {want}")
+        with torch.no_grad():
+            eager = model(batch)
+        diff = (out - eager).abs().max().item()
+        if exact and not torch.equal(out, eager):
+            raise AssertionError(f"{name}: served and eager differ by {diff}")
+        if not exact:
+            torch.testing.assert_close(out, eager, rtol=1e-6, atol=1e-6)
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{name}: served output not finite")
+        b = next(iter(batch.values())).shape[0]
+        with torch.no_grad():
+            batches.append({
+                "batch": b, "max_abs_diff_eager": diff,
+                "served_ms": time_ms(lambda: served(batch), iters=10,
+                                     warmup=2),
+                "eager_ms": time_ms(lambda: model(batch), iters=10,
+                                    warmup=2)})
+        del out, eager
+    print(f"{name} served: program ops {sorted(ops)}, export "
+          f"{export_s:.1f} s, launches a batch {expect}, per batch "
+          f"{batches}")
+    return served, {"ops": sorted(ops), "export_s": export_s,
+                    "launches_per_batch": expect, "batches": batches}
+
+
+def served_vs_cpu(name, served, cpu_model, rows, device, rtol, atol,
+                  plain=contextlib.nullcontext):
+    """The served program's output on 256 test rows against the plain CPU
+    path on the same weights (under ``plain()``), at the tolerances of the
+    train paths' logit checks."""
+    on_card = served({k: v.to(device) for k, v in rows.items()}).cpu()
+    cpu_model.eval()
+    with torch.no_grad(), plain():
+        on_cpu = cpu_model(rows)
+    torch.testing.assert_close(on_card, on_cpu, rtol=rtol, atol=atol)
+    diff = (on_card - on_cpu).abs().max().item()
+    print(f"{name} served vs cpu: max abs diff {diff:.3g}")
+    return diff
+
+
+def trace_names_kernel(served, batch, kernel: str, tmp) -> list:
+    """One served call under ``training.profiler.trace``: the names of the
+    CUDA kernels its trace file holds that contain ``kernel``."""
+    from deep_recommenders_torch.training import profiler
+
+    logdir = os.path.join(tmp, "trace")
+    with profiler.trace(logdir):
+        served(batch)
+        torch.cuda.synchronize()
+    (path,) = [os.path.join(logdir, f) for f in os.listdir(logdir)]
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = sorted({e["name"] for e in events
+                    if e.get("cat") == "kernel" and kernel in e["name"]})
+    if not names:
+        raise AssertionError(f"the trace names no kernel with {kernel!r}")
+    return names
+
+
+def serving_phase(ds: MovielensRanking, deepfm: DeepFM, imdb: SyntheticImdb,
+                  device) -> dict:
+    """Serving on the card: DeepFM (the trained model of the DeepFM path),
+    the flagship xDeepFM (K3) and the layered one (K4) at seeded weights,
+    each exported with a polymorphic batch and served at BATCH and
+    SERVE_BATCH_2 test rows, and the Transformer (K5) in fp32 and bf16 at
+    the zoo's width (seeded), exported at TX_BATCH x TX_LEN with a fixed
+    batch (a polymorphic export raises ValueError: its attention's
+    dispatch reads the batch size). Each against the eager model and the
+    plain CPU path; one flagship call profiled. Returns the launches of
+    one served batch by kernel, and the numbers."""
+    feats, _ = ds.test_arrays()
+    samples = [{k: torch.from_numpy(v[:n]).to(device)
+                for k, v in feats.items()} for n in (BATCH, SERVE_BATCH_2)]
+    rows = {k: torch.from_numpy(v[:256]) for k, v in feats.items()}
+    scratch = os.path.dirname(_build.BUILD_DIR)
+    os.makedirs(scratch, exist_ok=True)
+    out, launches = {}, {}
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        served, out["deepfm"] = serve_path("deepfm", deepfm, samples, None,
+                                           {}, device, tmp)
+        out["deepfm"]["cpu_diff"] = served_vs_cpu(
+            "deepfm", served, _cpu_copy(deepfm, DeepFM(
+                ds.feature_specs, EMBED_DIM, HIDDEN)), rows, device, 1e-4,
+            1e-5)
+
+        flagship = make_xdeepfm(ds, XDEEPFM_MAPS, device)
+        served, out["xdeepfm"] = serve_path(
+            "xdeepfm", flagship, samples, "cin_stack_fwd_pooled",
+            {"cin_stack_pooled.fwd": 1}, device, tmp, exact=False)
+        out["xdeepfm"]["cpu_diff"] = served_vs_cpu(
+            "xdeepfm", served, _cpu_copy(flagship, XDeepFM(
+                ds.feature_specs, EMBED_DIM, XDEEPFM_MAPS, "relu",
+                XDEEPFM_HIDDEN)), rows, device, 1e-4, 2e-4,
+            plain=stack_forward_bf16_on_cpu)
+        out["xdeepfm"]["trace_kernels"] = trace_names_kernel(
+            served, samples[1], "cin_stack_fwd", tmp)
+        print(f"xdeepfm served under profiler.trace: kernels "
+              f"{out['xdeepfm']['trace_kernels']}")
+        launches["xdeepfm_served"] = out["xdeepfm"]["launches_per_batch"]
+        del flagship, served
+
+        layered = make_xdeepfm(ds, LAYERED_MAPS, device)
+        served, out["xdeepfm_layered"] = serve_path(
+            "xdeepfm_layered", layered, samples, "cin2d_fwd",
+            {"cin2d.fwd": len(LAYERED_MAPS)}, device, tmp)
+        out["xdeepfm_layered"]["cpu_diff"] = served_vs_cpu(
+            "xdeepfm_layered", served, _cpu_copy(layered, XDeepFM(
+                ds.feature_specs, EMBED_DIM, LAYERED_MAPS, "relu",
+                XDEEPFM_HIDDEN)), rows, device, 1e-4, 2e-4,
+            plain=cin2d_forward_bf16_on_cpu)
+        launches["xdeepfm_layered_served"] = out["xdeepfm_layered"][
+            "launches_per_batch"]
+        del layered, served
+
+        tokens = torch.from_numpy(imdb.test[0][:TX_BATCH]).to(device)
+        inp, tgt_in, _, _ = copy_task(tokens)
+        sample = {"inputs": inp, "targets": tgt_in}
+        for dtype, key in ((None, "transformer_seq2seq"),
+                           (torch.bfloat16, "transformer_seq2seq_bf16")):
+            from deep_recommenders_torch.serving import export_model
+
+            model = Seq2Seq(make_transformer(device, dtype))
+            try:
+                export_model(os.path.join(tmp, "polymorphic"), model, sample)
+            except ValueError as err:
+                refused = str(err).split(":")[0]
+            else:
+                raise AssertionError(f"{key}: a polymorphic export of the "
+                                     "Transformer on the card did not raise")
+            fwd = flash_keys(dtype)[0]
+            op = ("flash_attention_fwd_bf16" if dtype else
+                  "flash_attention_fwd")
+            served, out[key] = serve_path(
+                key, model, [sample], op, {fwd: 6}, device, tmp,
+                polymorphic=False)
+            out[key]["polymorphic_refused"] = refused
+            with torch.no_grad():
+                on_card = served(sample)[:8].cpu()
+            out[key]["cpu_diff"] = transformer_rows_vs_cpu(
+                key, model.model, on_card, inp[:8], tgt_in[:8], dtype)
+            launches[key + "_served"] = {fwd: 6}
+            del model, served, on_card
+            torch.cuda.empty_cache()
+    return launches, out
+
+
+def _cpu_copy(model: torch.nn.Module, cpu_model: torch.nn.Module):
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               model.state_dict().items()})
+    return cpu_model
+
+
+def transformer_rows_vs_cpu(name, model, on_card, inp, tgt_in, dtype):
+    """Served logits of 8 rows against the plain CPU path on the same
+    weights, by :func:`check_transformer_logits`'s rules: fp32 within rtol
+    1e-4 and atol 1e-3; bf16 nearer the CPU's bf16 logits than those lie
+    to its fp32 ones."""
+    cpu_model = make_transformer("cpu", dtype)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               model.state_dict().items()})
+    with torch.no_grad():
+        on_cpu = cpu_model(inp.cpu(), tgt_in.cpu())
+    diff = (on_card - on_cpu).abs().max().item()
+    if dtype is None:
+        torch.testing.assert_close(on_card, on_cpu, rtol=1e-4, atol=1e-3)
+    else:
+        fp32_model = make_transformer("cpu")
+        fp32_model.load_state_dict(cpu_model.state_dict())
+        with torch.no_grad():
+            gap = (on_cpu - fp32_model(inp.cpu(), tgt_in.cpu())
+                   ).abs().max().item()
+        if not diff < gap:
+            raise AssertionError(f"{name}: served vs cpu {diff}, cpu bf16 "
+                                 f"vs fp32 {gap}")
+    print(f"{name} served vs cpu (8 rows): max abs diff {diff:.3g}")
+    return diff
+
+
+def model_io_cases(device):
+    """The zoo cases of tests/test_model_io.py:52-157 in the port: (name,
+    the model seeded, its inputs on ``device``); the port's constructors
+    take the input widths flax infers."""
+    from deep_recommenders_torch.features.columns import (
+        CrossedFeature,
+        Feature,
+    )
+    from deep_recommenders_torch.models.multitask import ESMM, MMoE
+    from deep_recommenders_torch.models.ranking import (
+        DCN,
+        DIN,
+        FNN,
+        FactorizationMachine,
+        WideDeep,
+    )
+    from deep_recommenders_torch.models.retrieval import GCN, TwoTower
+
+    rng = np.random.default_rng(SEED)
+    specs = (Feature("user", hash_buckets=50),
+             Feature("gender", vocab=("F", "M")),
+             Feature("item", hash_buckets=60),
+             Feature("tags", vocab=tuple(range(7)), max_len=3))
+
+    def ids(b=8):
+        return {"user": rng.integers(0, 50, b), "gender": rng.integers(0, 3, b),
+                "item": rng.integers(0, 60, b),
+                "tags": rng.integers(0, 8, (b, 3))}
+
+    def on(batch):
+        return {k: torch.from_numpy(v.astype(np.float32 if k.endswith("__wt")
+                                             else np.int32)).to(device)
+                for k, v in batch.items()}
+
+    def id_batch():
+        return (on({**ids(), "tags__wt": rng.random((8, 3)) < 0.8}),)
+
+    def dense(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(device)
+
+    cross = CrossedFeature("gxi", ("gender", "item"), hash_buckets=40)
+    cases = [
+        ("deepfm", lambda g: DeepFM(specs, 8, (16,), generator=g), id_batch),
+        ("fm", lambda g: FactorizationMachine(specs, 8, generator=g),
+         id_batch),
+        ("fnn", lambda g: FNN(specs, 8, (16,), generator=g), id_batch),
+        ("widedeep", lambda g: WideDeep(specs, specs + (cross,), 8, (16,),
+                                        generator=g),
+         lambda: (on({**ids(), "tags__wt": rng.random((8, 3)) < 0.8,
+                      "gxi": rng.integers(0, 40, 8)}),)),
+        ("dcn", lambda g: DCN(specs, 8, 2, 4, (16,), generator=g), id_batch),
+        ("xdeepfm", lambda g: XDeepFM(specs, 8, (8,), hidden=(16,),
+                                      generator=g), id_batch),
+        ("xdeepfm_stack", lambda g: XDeepFM(specs, 8, (6, 6), hidden=(16,),
+                                            generator=g), id_batch),
+        ("mmoe", lambda g: MMoE(16, 2, 3, (16,), 8, (8,), generator=g),
+         lambda: (dense(8, 16),)),
+        ("esmm", lambda g: ESMM(16, (16,), (16,), generator=g),
+         lambda: (dense(8, 16),)),
+        ("gcn", lambda g: GCN(12, (8,), 3, 0.0, generator=g),
+         lambda: (dense(10, 12), torch.eye(10, device=device))),
+        ("transformer", lambda g: Transformer(30, 16, 2, 1, 1, 32,
+                                              dropout=0.0, generator=g),
+         lambda: tuple(torch.from_numpy(rng.integers(1, 30, s)).to(device)
+                       for s in ((2, 6), (2, 5)))),
+        ("two_tower", lambda g: TwoTower(specs[:2], specs[2:], 8, (16,), 8,
+                                         generator=g),
+         lambda: (on({k: v for k, v in ids().items()
+                      if k in ("user", "gender")}),
+                  on({"item": rng.integers(0, 60, 8),
+                      "tags": rng.integers(0, 8, (8, 3)),
+                      "tags__wt": np.ones((8, 3))}))),
+        ("din", lambda g: DIN(8, (16,), True, embedding_dim=8, generator=g),
+         lambda: (dense(4, 5, 8), torch.ones(4, 5, device=device),
+                  dense(4, 8))),
+    ]
+    return [(name, build(torch.Generator().manual_seed(SEED)).to(device),
+             inputs()) for name, build, inputs in cases]
+
+
+def _flat(out):
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for o in out for t in _flat(o)]
+
+
+def model_io_phase(device) -> dict:
+    """``save_model`` and ``load_model`` on the card for the 13 zoo cases:
+    the reloaded model's class and config must equal the saved one's, and
+    its predictions the saved model's bit for bit, but for the fused
+    xDeepFM stack, whose K3 pools with atomic adds (within rtol 1e-6 and
+    atol 1e-6)."""
+    from deep_recommenders_torch.serving import (
+        load_model,
+        model_config,
+        save_model,
+    )
+
+    scratch = os.path.dirname(_build.BUILD_DIR)
+    os.makedirs(scratch, exist_ok=True)
+    diffs = {}
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        for name, model, inputs in model_io_cases(device):
+            model.eval()
+            with torch.no_grad():
+                before = _flat(model(*inputs))
+            loaded = load_model(save_model(os.path.join(tmp, name), model),
+                                device=device).eval()
+            if type(loaded) is not type(model) or \
+                    model_config(loaded) != model_config(model):
+                raise AssertionError(f"model_io {name}: the config differs")
+            with torch.no_grad():
+                after = _flat(loaded(*inputs))
+            diffs[name] = max((a - b).abs().max().item()
+                              for a, b in zip(before, after))
+            for a, b in zip(before, after):
+                if name == "xdeepfm_stack":
+                    torch.testing.assert_close(b, a, rtol=1e-6, atol=1e-6)
+                elif not torch.equal(a, b):
+                    raise AssertionError(f"model_io {name}: predictions "
+                                         f"differ by {diffs[name]}")
+    print(f"model_io on the card: {len(diffs)} zoo models saved and "
+          f"reloaded, max abs diff of the predictions {diffs}")
+    return diffs
+
+
+def index_phase(device) -> dict:
+    """The approximate indexes at the zoo's index config: ApproxTopK and
+    IVF(nlist=128, nprobe=128) against BruteForce (scores within rtol 1e-6
+    plus 2 D u, the fp32 bound of two sums of the D products; ids equal at
+    every place whose score lies farther than twice that from its
+    neighbours'; ApproxTopK computes BruteForce's product and selection:
+    equal), IVF(128, 8)'s recall@100 against the exact ids, kmeans on the
+    card against the CPU from the same init, both index files through
+    save_index/load_index (equal results), and queries/s of BruteForce,
+    InMemoryStreaming(16384), ApproxTopK and IVF(128, 8), with IVF's bucket
+    cap, the bytes of its (B, nprobe * cap, D) gather and the peak
+    memory of a query batch."""
+    from deep_recommenders_torch.models.retrieval import (
+        IVF,
+        ApproxTopK,
+        BruteForce,
+        InMemoryStreaming,
+        kmeans,
+        load_index,
+        save_index,
+    )
+
+    rng = np.random.default_rng(SEED)
+    corpus = rng.normal(0, 1, (IX_CORPUS, IX_DIM)).astype(np.float32)
+    queries = torch.from_numpy(rng.normal(0, 1, (IX_QUERIES, IX_DIM)).astype(
+        np.float32)).to(device)
+    k = IX_K
+    t0 = time.perf_counter()
+    brute = BruteForce(device=device).index(corpus)
+    approx = ApproxTopK(device=device).index(corpus)
+    full = IVF(IX_NLIST, IX_NLIST, device=device).index(corpus)
+    ivf = IVF(IX_NLIST, IX_NPROBE, device=device).index(corpus)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ref_s, ref_i = brute(queries, k=k)
+    tol = 1e-6 * ref_s.abs().max().item() + 2 * IX_DIM * U32
+    gaps = ref_s[:, :-1] - ref_s[:, 1:]
+    isolated = torch.cat([gaps[:, :1] > 2 * tol, (gaps[:, 1:] > 2 * tol)
+                          & (gaps[:, :-1] > 2 * tol)], dim=1)
+    s, i = approx(queries, k=k)
+    if not (torch.equal(s, ref_s) and torch.equal(i, ref_i)):
+        raise AssertionError("ApproxTopK disagrees with BruteForce")
+    # The full probe gathers nlist * cap rows a query: blocks of queries.
+    block = max(1, int(IX_GATHER_BYTES // (IX_NLIST * full.cap * IX_DIM * 4)))
+    parts = [full(queries[lo:lo + block], k=k)
+             for lo in range(0, IX_QUERIES, block)]
+    s = torch.cat([p[0] for p in parts])
+    i = torch.cat([p[1] for p in parts])
+    full_err = (s - ref_s).abs().max().item()
+    if full_err > tol or not torch.equal(i[:, :-1][isolated],
+                                         ref_i[:, :-1][isolated]):
+        raise AssertionError(f"IVF({IX_NLIST}, {IX_NLIST}) disagrees with "
+                             f"BruteForce: score err {full_err}, tol {tol}")
+    s, i = ivf(queries, k=k)
+    recall = np.mean([len(set(a) & set(b)) / k for a, b in zip(
+        i.cpu().tolist(), ref_i.cpu().tolist())])
+    if not (0.0 < recall <= 1.0 and bool(torch.isfinite(s).all())):
+        raise AssertionError(f"IVF({IX_NLIST}, {IX_NPROBE}): recall {recall}")
+
+    # kmeans on the card against the CPU from the same init: after one
+    # iteration (only near ties may assign apart) and after ten (a flipped
+    # point moves its centroids, and the runs may drift apart).
+    init = corpus[np.random.default_rng(0).choice(IX_CORPUS, IX_NLIST,
+                                                  replace=False)]
+    kmeans_fields = {}
+    for iters in (1, 10):
+        c_card, a_card = kmeans(torch.from_numpy(corpus).to(device),
+                                torch.from_numpy(init).to(device), IX_NLIST,
+                                iters)
+        c_cpu, a_cpu = kmeans(torch.from_numpy(corpus),
+                              torch.from_numpy(init), IX_NLIST, iters)
+        kmeans_fields[f"iters_{iters}"] = {
+            "centroid_max_dist": (c_card.cpu() - c_cpu).norm(dim=1).max(
+            ).item(),
+            "assignments_agree": (a_card.cpu() == a_cpu).float().mean(
+            ).item()}
+    if not kmeans_fields["iters_1"]["assignments_agree"] > 0.999:
+        raise AssertionError(f"kmeans card vs cpu: {kmeans_fields}")
+
+    scratch = os.path.dirname(_build.BUILD_DIR)
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        for name, index in (("approx", approx), ("ivf", ivf)):
+            loaded = load_index(save_index(os.path.join(tmp, name), index),
+                                device=device)
+            a, b = index(queries, k=k), loaded(queries, k=k)
+            if type(loaded) is not type(index) or not (
+                    torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+                raise AssertionError(f"{name}: the loaded index disagrees")
+
+    stream = InMemoryStreaming(IX_CHUNK, device=device).index(corpus)
+    qps, peak = {}, {}
+    for name, index in (("BruteForce", brute),
+                        ("InMemoryStreaming", stream),
+                        ("ApproxTopK", approx), ("IVF", ivf)):
+        ms = time_ms(lambda: index(queries, k=k), iters=10, warmup=2)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        index(queries, k=k)
+        torch.cuda.synchronize()
+        peak[name] = torch.cuda.max_memory_allocated() - base
+        qps[name] = {"ms": ms, "queries_per_s": IX_QUERIES / ms * 1e3}
+    fields = {
+        "corpus": IX_CORPUS, "dim": IX_DIM, "queries": IX_QUERIES, "k": k,
+        "build_s": build_s, "tolerance": tol, "ivf_full_probe_err": full_err,
+        "ivf_full_probe_block": block,
+        "isolated_share": isolated.float().mean().item(),
+        "ivf_recall_at_100": recall, "ivf_cap": ivf.cap,
+        "ivf_gather_bytes": IX_QUERIES * IX_NPROBE * ivf.cap * IX_DIM * 4,
+        "kmeans": kmeans_fields, "query": qps, "peak_bytes_over_index": peak}
+    print("indexes " + json.dumps(fields))
+    del brute, approx, full, ivf, stream
+    torch.cuda.empty_cache()
+    return fields
+
+
+def gcn_phase(device) -> dict:
+    """The ported GCN example at its defaults (synthetic Cora, 200 epochs,
+    Adam 0.01, hidden 16), dense and with --sparse-adjacency: test
+    accuracy above 0.95 each; the dense run's trained model with the
+    sparse adjacency against the dense one (the sparse product's row sums
+    add with atomics: within rtol 1e-5 and atol 1e-6); and one Adam step
+    without dropout from the seeded weights, on the card and on the CPU:
+    the logits after it within rtol 1e-4 and atol 1e-5, as the CTR
+    paths' logits."""
+    from deep_recommenders_torch.datasets import Cora
+    from deep_recommenders_torch.examples import train_gcn_on_cora
+    from deep_recommenders_torch.models.retrieval import GCN
+    from deep_recommenders_torch.ops.sparse import SparseAdjacency
+    from deep_recommenders_torch.training.losses import softmax_cross_entropy
+
+    out = {}
+    for key, argv in (("dense", []), ("sparse", ["--sparse-adjacency"])):
+        t0 = time.perf_counter()
+        result = train_gcn_on_cora.main(argv)
+        torch.cuda.synchronize()
+        out[key] = {"test_accuracy": result["test_accuracy"],
+                    "final_loss": result["losses"][-1],
+                    "wall_s": time.perf_counter() - t0}
+        if not result["test_accuracy"] > 0.95:
+            raise AssertionError(f"gcn {key}: test accuracy "
+                                 f"{result['test_accuracy']}")
+        if key == "dense":
+            model, x, adj = (result[n] for n in ("model", "features",
+                                                  "adjacency"))
+            with torch.no_grad():
+                dense = model(x, adj)
+                sparse = model(x, SparseAdjacency.from_dense(adj).to(device))
+            torch.testing.assert_close(sparse, dense, rtol=1e-5, atol=1e-6)
+            out["dense_vs_sparse"] = (sparse - dense).abs().max().item()
+
+    cora = Cora(seed=SEED)
+    labels, mask = cora.splits()["train"]
+    logits = {}
+    for key, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        gen = torch.Generator().manual_seed(SEED)
+        model = GCN(cora.features.shape[1], generator=gen).to(dev)
+        x = torch.from_numpy(cora.features).to(dev)
+        adj = torch.from_numpy(cora.spectral_adjacency).to(dev)
+        opt = torch.optim.Adam(model.parameters(), lr=0.01)
+        softmax_cross_entropy(model(x, adj), torch.from_numpy(labels).to(dev),
+                              mask=torch.from_numpy(mask).float().to(dev)
+                              ).backward()
+        opt.step()
+        with torch.no_grad():
+            logits[key] = model(x, adj).cpu()
+    torch.testing.assert_close(logits["card"], logits["cpu"], rtol=1e-4,
+                               atol=1e-5)
+    out["step_card_vs_cpu"] = (logits["card"] - logits["cpu"]).abs().max(
+    ).item()
+    print("gcn " + json.dumps(out))
+    return out
+
+
+def wrapper_host_us(device) -> dict:
+    """The host's us a call of the forward wrappers K3 (flagship rows), K4
+    (H = 128) and K5 (fp32, bf16) at the main paths' shapes, on seeded
+    inputs: the median of five :func:`host_us` runs of 20 calls. Calls only
+    what every tree since K5's bf16 instance has (a parent's tree, with
+    this script copied in, times the parent)."""
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    r, f0, m = BATCH * EMBED_DIM, 6, 128
+    x0 = torch.randn(r, f0, device=device, generator=gen)
+    x0b = x0.bfloat16()
+    w1 = torch.randn(f0, f0, m, device=device, generator=gen) * 0.05
+    w2 = torch.randn(f0, m, m, device=device, generator=gen) * 0.05
+    xv = torch.randn(r, m, device=device, generator=gen)
+    bh, s, d = TX_BATCH * TX_HEADS, TX_LEN, TX_DIM // TX_HEADS
+    q = torch.randn(bh, s, d, device=device, generator=gen)
+    mask = torch.ones(bh, s, device=device)
+    qb = q.bfloat16()
+    calls = {
+        "cin_stack_pooled.fwd": lambda: ck.stack_forward(x0b, w1, w2,
+                                                         EMBED_DIM),
+        "cin2d.fwd": lambda: ck.cin2d_forward(x0, xv, w2),
+        "flash_attention.fwd": lambda: att.flash_attention(q, q, q, mask),
+        "flash_attention_bf16.fwd": lambda: att.flash_attention(qb, qb, qb,
+                                                                mask),
+    }
+    return {name: float(np.median([host_us(fn) for _ in range(5)]))
+            for name, fn in calls.items()}
+
+
 # Which path's launches each kernel's entry reports.
 ENTRY_PATH = {
     "scatter_add_rows": "deepfm",
@@ -2633,6 +3259,16 @@ ENTRY_PATH = {
     "flash_attention.bwd": "transformer_seq2seq",
     "flash_attention_bf16.fwd": "transformer_seq2seq_bf16",
     "flash_attention_bf16.bwd": "transformer_seq2seq_bf16",
+}
+
+
+# Which served path's launches (one served batch) each forward kernel's
+# entry reports.
+SERVED_PATH = {
+    "cin_stack_pooled.fwd": "xdeepfm_served",
+    "cin2d.fwd": "xdeepfm_layered_served",
+    "flash_attention.fwd": "transformer_seq2seq_served",
+    "flash_attention_bf16.fwd": "transformer_seq2seq_bf16_served",
 }
 
 
@@ -2659,6 +3295,9 @@ def main(argv=()) -> int:
     parser.add_argument("--attention-fp32-only", action="store_true",
                         help="time only the fp32 K5 and K6 and run the "
                              "fp32 Transformer path")
+    parser.add_argument("--wrapper-host-us", action="store_true",
+                        help="time only the host's us a call of the K3, K4 "
+                             "and K5 forward wrappers")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2670,6 +3309,10 @@ def main(argv=()) -> int:
         print(f"--- nvcc {name}\n{log}", file=sys.stderr)
     print(f"kernels built in {time.perf_counter() - t0:.1f} s")
 
+    if args.wrapper_host_us:
+        # Not the full smoke run: no checks of the kernels, no "ok" line.
+        print(json.dumps({"wrapper_host_us": wrapper_host_us(device)}))
+        return 0
     if args.attention_fp32_only:
         imdb = SyntheticImdb(num_words=TX_VOCAB, max_len=TX_LEN, seed=SEED)
         times = fp32_attention_times(imdb, device)
@@ -2708,6 +3351,7 @@ def main(argv=()) -> int:
     head_widths = head_width_phase(device)
     print(f"kernel phase done ({time.perf_counter() - t0:.1f} s)")
     paths = train_phase(ds, model, device)
+    served, serving = serving_phase(ds, model, imdb, device)
     paths["esmm"] = esmm_path(ds, device)[0]
     del ds, model
     torch.cuda.empty_cache()
@@ -2721,12 +3365,19 @@ def main(argv=()) -> int:
     paths["transformer_seq2seq_bf16"] = transformer_path(
         imdb, device, torch.bfloat16)[0]
     paths["transformer_imdb"] = imdb_path()
+    model_io_phase(device)
+    index_phase(device)
+    gcn_phase(device)
     for entry in entries:
         path = ENTRY_PATH[entry["name"]]
         counter = COUNTER.get(entry["name"], entry["name"])
         entry["path"] = path
         entry["launches"] = paths[path][counter]
         entry["launches_by_path"] = {p: n[counter] for p, n in paths.items()}
+        if entry["name"] in SERVED_PATH:
+            entry["serving_launches_per_batch"] = served[SERVED_PATH[
+                entry["name"]]][counter]
+    print("serving " + json.dumps(serving))
     print("head_widths " + json.dumps(head_widths))
     print(json.dumps({"kernels": entries}))
     print(device_line())

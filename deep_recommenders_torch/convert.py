@@ -206,3 +206,16 @@ esmm_from_flax = ranking_from_flax
 # ``{query,candidate}_tower/projection/Dense_i`` by the ranking rules (each
 # Dense ``kernel`` (in, out) transposed into a Linear ``weight`` (out, in)).
 two_tower_from_flax = ranking_from_flax
+
+
+def gcn_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A flax ``GCN`` parameter tree -> the port's ``GCN`` state dict:
+    ``GCNLayer_i/{kernel, bias}`` -> ``layers.i.{kernel, bias}`` as they
+    are (the port keeps flax's (in, units) kernel layout)."""
+    p = params.get("params", params)
+    state: Dict[str, torch.Tensor] = {}
+    for name, layer in p.items():
+        i = name[len("GCNLayer_"):]
+        for leaf, value in layer.items():
+            state[f"layers.{i}.{leaf}"] = _tensor(value)
+    return state

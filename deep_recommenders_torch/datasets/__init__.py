@@ -1,3 +1,7 @@
+from deep_recommenders_torch.datasets.cora import (
+    Cora,
+    normalize_adjacency,
+)
 from deep_recommenders_torch.datasets.imdb import SyntheticImdb
 from deep_recommenders_torch.datasets.movielens import (
     MovielensRanking,

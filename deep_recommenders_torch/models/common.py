@@ -10,6 +10,7 @@ package turns it on.
 from __future__ import annotations
 
 import functools
+import inspect
 import math
 from typing import Callable, Optional, Sequence, Union
 
@@ -18,6 +19,28 @@ import torch.nn.functional as F
 from torch import nn
 
 Activation = Union[str, Callable[[torch.Tensor], torch.Tensor], None]
+
+
+def records_config(cls):
+    """Class decorator of the zoo's models: each instance keeps the
+    arguments it was constructed with, bound to ``__init__``'s signature
+    with the defaults filled in, as the dict ``constructor_args``. It is
+    the model's config (``serving.model_io.model_config``), the counterpart
+    of a flax module's dataclass fields."""
+    init = cls.__init__
+    signature = inspect.signature(init)
+
+    @functools.wraps(init)
+    def __init__(self, *args, **kwargs):
+        bound = signature.bind(self, *args, **kwargs)
+        bound.apply_defaults()
+        init(self, *args, **kwargs)
+        if type(self) is cls:  # a subclass records its own arguments
+            self.constructor_args = dict(list(bound.arguments.items())[1:])
+
+    cls.__init__ = __init__
+    cls._records_config = True
+    return cls
 
 _ACTIVATIONS = {
     "relu": torch.relu,

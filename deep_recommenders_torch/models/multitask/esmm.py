@@ -20,9 +20,10 @@ from torch import nn
 
 from deep_recommenders_torch.embedding.engine import EmbeddingCollection
 from deep_recommenders_torch.features.columns import Feature
-from deep_recommenders_torch.models.common import MLP
+from deep_recommenders_torch.models.common import MLP, records_config
 
 
+@records_config
 class ESMM(nn.Module):
     """Either ``input_dim`` (the dense mode) or ``specs`` (the embedding
     front end, F features of ``embedding_dim``: tower input F * D)."""

@@ -19,7 +19,12 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from deep_recommenders_torch.models.common import MLP, Dense, lecun_normal_
+from deep_recommenders_torch.models.common import (
+    MLP,
+    Dense,
+    lecun_normal_,
+    records_config,
+)
 
 
 def shard_expert_params(params, mesh, *, model_axis: str = "model"):
@@ -57,6 +62,7 @@ class StackedMLP(nn.Module):
         return h
 
 
+@records_config
 class MMoE(nn.Module):
     """``forward(x)``: x (B, ``input_dim``) dense -> a list of
     ``num_tasks`` (B, 1) outputs. ``input_dim`` is explicit (flax infers

@@ -34,6 +34,7 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
+from deep_recommenders_torch.models.common import records_config
 from deep_recommenders_torch.models.nlp.attention import (
     Dense,
     MultiHeadAttention,
@@ -130,6 +131,7 @@ class DecoderLayer(nn.Module):
         return self.ffn_norm(x + self.ffn(x))
 
 
+@records_config
 class Transformer(nn.Module):
     """Encoder-decoder over token ids; 0 is the padding token.
 

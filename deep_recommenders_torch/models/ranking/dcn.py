@@ -24,6 +24,7 @@ from deep_recommenders_torch.features.columns import Feature
 from deep_recommenders_torch.models.common import (
     MLP,
     Dense,
+    records_config,
     truncated_normal_,
 )
 
@@ -97,6 +98,7 @@ class Cross(nn.Module):
         return x0 * prod + x
 
 
+@records_config
 class DCN(nn.Module):
     """Full DCN: embeddings -> stacked cross layers -> MLP -> logit, or,
     with ``structure="parallel"``, the crosses and the MLP both over the

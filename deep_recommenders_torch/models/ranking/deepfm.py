@@ -24,10 +24,11 @@ from deep_recommenders_torch.embedding.engine import (
     fused_embedding_linear,
 )
 from deep_recommenders_torch.features.columns import Feature
-from deep_recommenders_torch.models.common import MLP
+from deep_recommenders_torch.models.common import MLP, records_config
 from deep_recommenders_torch.ops.fm import fm_interaction
 
 
+@records_config
 class DeepFM(nn.Module):
     """``mesh`` raises NotImplementedError until the port has sharding;
     ``compute_dtype`` is None (fp32) or ``torch.bfloat16``. Parameters are

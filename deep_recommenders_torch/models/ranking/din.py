@@ -32,6 +32,7 @@ from torch import nn
 from deep_recommenders_torch.embedding.engine import check_compute_dtype
 from deep_recommenders_torch.models.common import (
     Dense,
+    records_config,
     resolve_activation,
     truncated_normal_,
 )
@@ -141,6 +142,7 @@ class ActivationUnit(nn.Module):
         return out
 
 
+@records_config
 class DIN(nn.Module):
     """Full DIN head over a user-behavior sequence.
 

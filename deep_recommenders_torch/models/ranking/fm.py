@@ -27,6 +27,7 @@ from deep_recommenders_torch.embedding.engine import (
     fused_embedding_linear,
 )
 from deep_recommenders_torch.features.columns import Feature
+from deep_recommenders_torch.models.common import records_config
 from deep_recommenders_torch.ops.fm import fm_interaction
 
 
@@ -51,6 +52,7 @@ class FMLayer(nn.Module):
         return linear + fm_interaction(embedding_inputs)
 
 
+@records_config
 class FactorizationMachine(nn.Module):
     """End-to-end FM over categorical features -> (B, 1) logits.
 

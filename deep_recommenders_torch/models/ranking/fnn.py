@@ -22,9 +22,10 @@ from deep_recommenders_torch.embedding.engine import (
     fused_embedding_linear,
 )
 from deep_recommenders_torch.features.columns import Feature
-from deep_recommenders_torch.models.common import MLP
+from deep_recommenders_torch.models.common import MLP, records_config
 
 
+@records_config
 class FNN(nn.Module):
     """``mesh`` raises NotImplementedError until the port has sharding;
     ``compute_dtype`` is None (fp32) or ``torch.bfloat16`` (the lookup and

@@ -29,11 +29,12 @@ from deep_recommenders_torch.embedding.engine import (
     fused_embedding_linear,
 )
 from deep_recommenders_torch.features.columns import CrossedFeature, Feature
-from deep_recommenders_torch.models.common import MLP
+from deep_recommenders_torch.models.common import MLP, records_config
 
 Spec = Union[Feature, CrossedFeature]
 
 
+@records_config
 class WideDeep(nn.Module):
     """``mesh`` raises NotImplementedError until the port has sharding;
     ``compute_dtype`` is None (fp32) or ``torch.bfloat16`` (the lookup and

@@ -31,6 +31,7 @@ from deep_recommenders_torch.features.columns import Feature
 from deep_recommenders_torch.models.common import (
     MLP,
     lecun_normal_,
+    records_config,
     resolve_activation,
 )
 from deep_recommenders_torch.ops.cin import cin_interaction
@@ -108,6 +109,7 @@ class CIN(nn.Module):
         return self.act(out) if self.act is not None else out
 
 
+@records_config
 class XDeepFM(nn.Module):
     """Full xDeepFM: linear + CIN stack (sum-pooled) + deep MLP -> logits.
 

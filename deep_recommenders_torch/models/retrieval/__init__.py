@@ -1,3 +1,8 @@
+from deep_recommenders_torch.models.retrieval.ann import (
+    IVF,
+    ApproxTopK,
+    kmeans,
+)
 from deep_recommenders_torch.models.retrieval.factorized_top_k import (
     BruteForce,
     FactorizedTopK,
@@ -7,6 +12,7 @@ from deep_recommenders_torch.models.retrieval.factorized_top_k import (
     load_index,
     save_index,
 )
+from deep_recommenders_torch.models.retrieval.gcn import GCN, GCNLayer
 from deep_recommenders_torch.models.retrieval.two_tower import (
     Retrieval,
     Tower,

@@ -18,9 +18,8 @@ The indexes hold their candidates (and integer identifiers) as tensors on a
 device: the tensor's own when ``index`` is given a tensor, else the
 constructor's ``device``, the card unless the caller asks for the CPU.
 String identifiers stay a numpy array on the host. ``ShardedBruteForce``
-(the corpus over a mesh) is not ported yet; nor are the approximate
-indexes of the JAX package's ``ann.py``, so :func:`load_index` knows the
-classes of this module only.
+(the corpus over a mesh) is not ported yet. :func:`load_index` also knows
+the approximate indexes of ``ann.py`` (ApproxTopK, IVF).
 """
 
 from __future__ import annotations
@@ -69,7 +68,8 @@ class TopK:
 
     def __init_subclass__(cls, **kwargs):
         super().__init_subclass__(**kwargs)
-        _INDEX_REGISTRY[cls.__name__] = cls
+        if not cls.__name__.startswith("_"):  # a shared base is no index
+            _INDEX_REGISTRY[cls.__name__] = cls
 
     def __init__(self, query_model: Optional[Callable] = None,
                  device: DeviceLike = "cuda"):
@@ -133,6 +133,9 @@ def load_index(path: str, query_model: Optional[Callable] = None,
     """Rebuild a saved index, its arrays on ``device`` (the card unless the
     caller asks for the CPU), read with ``allow_pickle=False``.
     ``query_model`` is not saved: give it again here."""
+    # ann.py registers its index classes on import.
+    from deep_recommenders_torch.models.retrieval import ann  # noqa: F401
+
     path = os.path.abspath(path)
     with open(os.path.join(path, "config.json")) as f:
         spec = json.load(f)

@@ -26,7 +26,7 @@ from deep_recommenders_torch.embedding.engine import (
     check_compute_dtype,
 )
 from deep_recommenders_torch.features.columns import Feature
-from deep_recommenders_torch.models.common import MLP
+from deep_recommenders_torch.models.common import MLP, records_config
 from deep_recommenders_torch.models.retrieval.factorized_top_k import (
     FactorizedTopK,
 )
@@ -69,6 +69,7 @@ class Tower(nn.Module):
         return out
 
 
+@records_config
 class TwoTower(nn.Module):
     """Query and candidate towers into a shared embedding space:
     ``model(query_batch, candidate_batch)`` -> (queries, candidates), each

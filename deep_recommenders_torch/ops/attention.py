@@ -20,7 +20,9 @@ JAX package's: heads folded into the batch, q (BH, Sq, D), k and v
   bf16. Launches are counted in ``flash_attention.launches``: "fwd" and
   "bwd" for the fp32 kernels, "fwd_bf16" and "bwd_bf16" for the bf16 ones
   (one count per forward call; one per backward call, which runs both of
-  K6's kernels).
+  K6's kernels). K5 is an op that ``torch.export`` records
+  (``ops/custom_ops.py``): ``flash_attention_fwd`` (fp32) and
+  ``flash_attention_fwd_bf16``.
 - :class:`FlashAttention` is the autograd Function over K5 and K6 (the
   counterpart of ``flash_attention_diff``). JAX's kernels take any head
   width D; the card's are built for ``KERNEL_HEAD_DIMS``. On the card,
@@ -53,7 +55,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from deep_recommenders_torch.ops import _build
+from deep_recommenders_torch.ops import _build, custom_ops
 
 NEG_INF = -1e30
 
@@ -330,6 +332,43 @@ def _scale_arg(scale: Optional[float], d: int) -> float:
     return 1.0 / math.sqrt(d) if scale is None else float(scale)
 
 
+def _flash_fwd_cuda(q, k, v, key_mask, causal, scale):
+    # The CUDA implementation of the ops flash_attention_fwd and
+    # flash_attention_fwd_bf16: the checks (the alignment check reads the
+    # data pointers) and the launch.
+    bh, sq, sk, d = _check_inputs("flash_attention", q, k, v, key_mask)
+    out = torch.empty_like(q)
+    lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    if bh and sq:
+        source, symbol, _, suffix = _KERNELS[q.dtype]
+        fn = _build.function(source, symbol,
+                             [_P] * 6 + [_I32] * 5 + [_F64, _P])
+        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  key_mask.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                  bh, sq, sk, d, int(causal), _scale_arg(scale, d),
+                  torch.cuda.current_stream(q.device).cuda_stream)
+        _build.check(code, "flash_attention forward")
+        flash_attention.launches["fwd" + suffix] += 1
+    return out, lse
+
+
+def _flash_fwd_fake(q, k, v, key_mask, causal, scale):
+    return (torch.empty_like(q),
+            q.new_empty(q.shape[:2], dtype=torch.float32))
+
+
+# The op of each operand dtype, registered in ops/custom_ops.py's namespace.
+_FLASH_FWD_OPS = {
+    dtype: custom_ops.kernel_op(
+        "flash_attention_fwd" + _KERNELS[dtype][3],
+        "(Tensor q, Tensor k, Tensor v, Tensor key_mask, bool causal, "
+        "float? scale) -> (Tensor, Tensor)",
+        _flash_fwd_cuda, plain, _flash_fwd_fake)
+    for dtype, plain in ((torch.float32, flash_attention_reference),
+                         (torch.bfloat16, flash_attention_reference_bf16))
+}
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -343,27 +382,13 @@ def flash_attention(
     all fp32 or all bf16; key_mask (BH, Sk), > 0 = valid (None = all
     valid); the scores are q k^T ``scale``, by default D ** -0.5. Returns
     out (BH, Sq, D) in q's dtype, and with ``return_lse`` also lse (BH, Sq)
-    fp32. On the card D must be one of ``KERNEL_HEAD_DIMS``."""
+    fp32. It calls the op ``deep_recommenders_torch::flash_attention_fwd``
+    (fp32) or ``flash_attention_fwd_bf16`` (``ops/custom_ops.py``), which
+    ``torch.export`` records: on the card the kernel, where D must be one
+    of ``KERNEL_HEAD_DIMS``; on the CPU the plain version."""
     dtype = _operand_dtype("flash_attention", q, k, v)
     key_mask = _mask_or_ones(key_mask, k)
-    if q.device.type == "cpu":
-        plain = (flash_attention_reference_bf16 if dtype == torch.bfloat16
-                 else flash_attention_reference)
-        out, lse = plain(q, k, v, key_mask, causal, scale)
-        return (out, lse) if return_lse else out
-    bh, sq, sk, d = _check_inputs("flash_attention", q, k, v, key_mask)
-    out = torch.empty_like(q)
-    lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
-    if bh and sq:
-        source, symbol, _, suffix = _KERNELS[dtype]
-        fn = _build.function(source, symbol,
-                             [_P] * 6 + [_I32] * 5 + [_F64, _P])
-        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  key_mask.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                  bh, sq, sk, d, int(causal), _scale_arg(scale, d),
-                  torch.cuda.current_stream(q.device).cuda_stream)
-        _build.check(code, "flash_attention forward")
-        flash_attention.launches["fwd" + suffix] += 1
+    out, lse = _FLASH_FWD_OPS[dtype](q, k, v, key_mask, causal, scale)
     return (out, lse) if return_lse else out
 
 
@@ -495,11 +520,23 @@ def use_flash_for(bh: int, sq: int, sk: int, device_type: str,
     card where the dense path's fwd+bwd score tensors would exceed
     ``FLASH_SCORE_BYTES``, dense otherwise and whenever dropout is active.
     The scores are fp32 whatever the operands' dtype, so the byte count is
-    BH Sq Sk 4 for bf16 operands too, as JAX's."""
+    BH Sq Sk 4 for bf16 operands too, as JAX's.
+
+    On the card the rule reads the batch size, so a symbolic one (a
+    ``torch.export`` trace with a polymorphic batch) cannot be decided: it
+    raises ValueError rather than let the program guard on, or specialise
+    to, the traced batch size. On the CPU the rule never reads the
+    sizes."""
+    if device_type != "cuda" or dropout_active:
+        return False
+    if not all(isinstance(n, int) for n in (bh, sq, sk)):
+        raise ValueError(
+            f"attention on the card with symbolic sizes (BH, Sq, Sk) = "
+            f"({bh}, {sq}, {sk}): whether it goes to K5 or to the dense path "
+            "depends on the batch size, so no one exported program serves "
+            "every batch; export with polymorphic_batch=False")
     score_bytes = bh * sq * sk * 4
-    return (device_type == "cuda"
-            and score_bytes * DENSE_RESIDENT_SCORE_TENSORS > FLASH_SCORE_BYTES
-            and not dropout_active)
+    return score_bytes * DENSE_RESIDENT_SCORE_TENSORS > FLASH_SCORE_BYTES
 
 
 def attention(

@@ -17,6 +17,11 @@ is 2-D:
   tensor takes the plain version; a CUDA tensor launches the kernel or
   raises. Launches are counted per direction in ``cin2d.launches`` and
   ``cin_stack_pooled.launches``.
+- The forwards are ops that ``torch.export`` records
+  (``ops/custom_ops.py``): ``cin2d_fwd`` (K4), ``cin_stack_fwd`` (K3 with
+  its residuals, for training) and ``cin_stack_fwd_pooled`` (K3 without
+  them, for inference). The backwards stay plain calls inside the
+  autograd Functions.
 
 K3 and K4, forward and backward, run on the card's tensor cores at the TPU
 kernels' bf16 contract: bf16 operands, each pair product x0v[r, f] * xv[r, g]
@@ -37,7 +42,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from deep_recommenders_torch.ops import _build
+from deep_recommenders_torch.ops import _build, custom_ops
 
 _P = ctypes.c_void_p
 _I64, _I32 = ctypes.c_int64, ctypes.c_int32
@@ -182,17 +187,10 @@ def _cin2d_shapes(name, x0v, xv, w):
     return r, f0, h, m
 
 
-def cin2d_forward(
-    x0v: torch.Tensor, xv: torch.Tensor, w: torch.Tensor
-) -> torch.Tensor:
-    """K4 forward: x0v (R, F0), xv (R, H), w (F0, H, M) f32 -> (R, M) f32.
-
-    On the card it computes :func:`cin2d_reference_bf16` on the tensor
-    cores; W goes to the kernel as bf16 (F0, Mp, Hp), transposed and
-    zero-padded to the kernel's tiles (Hp a multiple of 16, Mp of 128).
-    """
-    if x0v.device.type == "cpu":
-        return cin2d_reference(x0v, xv, w)
+def _cin2d_fwd_cuda(x0v: torch.Tensor, xv: torch.Tensor,
+                    w: torch.Tensor) -> torch.Tensor:
+    # The CUDA implementation of the op cin2d_fwd: the checks, the padded
+    # bf16 W and the launch.
     _check_cuda("cin2d", x0v, xv, w)
     r, f0, h, m = _cin2d_shapes("cin2d", x0v, xv, w)
     out = torch.empty((r, m), dtype=torch.float32, device=x0v.device)
@@ -208,6 +206,30 @@ def cin2d_forward(
     _build.check(code, "cin2d forward")
     cin2d.launches["fwd"] += 1
     return out
+
+
+def _cin2d_fwd_fake(x0v, xv, w):
+    return x0v.new_empty((x0v.shape[0], w.shape[2]), dtype=torch.float32)
+
+
+_cin2d_fwd_op = custom_ops.kernel_op(
+    "cin2d_fwd", "(Tensor x0v, Tensor xv, Tensor w) -> Tensor",
+    _cin2d_fwd_cuda, cin2d_reference, _cin2d_fwd_fake)
+
+
+def cin2d_forward(
+    x0v: torch.Tensor, xv: torch.Tensor, w: torch.Tensor
+) -> torch.Tensor:
+    """K4 forward: x0v (R, F0), xv (R, H), w (F0, H, M) f32 -> (R, M) f32,
+    through the op ``deep_recommenders_torch::cin2d_fwd``
+    (``ops/custom_ops.py``), which ``torch.export`` records.
+
+    On the card it computes :func:`cin2d_reference_bf16` on the tensor
+    cores; W goes to the kernel as bf16 (F0, Mp, Hp), transposed and
+    zero-padded to the kernel's tiles (Hp a multiple of 16, Mp of 128). On
+    a CPU tensor it is :func:`cin2d_reference`.
+    """
+    return _cin2d_fwd_op(x0v, xv, w)
 
 
 def cin2d_backward(
@@ -480,38 +502,15 @@ def _stack_shapes(name, x0v, w1, w2):
     return r, f0, m1, m2
 
 
-def stack_forward(
-    x0v: torch.Tensor,
-    w1: torch.Tensor,
-    w2: torch.Tensor,
-    d: int,
-    residuals: bool = True,
-) -> Tuple[torch.Tensor, torch.Tensor,
-           Optional[torch.Tensor], Optional[torch.Tensor]]:
-    """K3 forward: (p1, p2, z1, z2); z1 and z2 are None without residuals.
-
-    x0v: (R, F0) bf16 rows r = b * d + j; w1 (F0, F0, M1), w2 (F0, M1, M2)
-    f32. R must be a multiple of d. On the card it computes
-    :func:`stack_forward_reference_bf16` on the tensor cores and returns
-    z1 and z2 in bf16; W1 goes to the kernel as bf16 (N1p, K1p), W1[f, g, c]
-    at [c, f * F0 + g], and W2 as bf16 (F0, M2p, K2p), W2[f, g, c] at
-    [f, c, g], zero-padded (K1p = F0^2 and K2p = M1 rounded up to 16, N1p
-    and M2p = M1 and M2 rounded up to 128). A block holds 128 rows of x0,
-    their pair tensor and bf16 z1, so the card takes
-    512 F0 + 256 (K1p + K2p + 16) + max(36864, 256 (K1p + 8), 12288)
-    <= 232448 bytes (F0 <= 18 at M1 = 128, M1 <= 688 at F0 = 6); it raises
-    ValueError on larger shapes. On a CPU tensor it takes the fp32
-    :func:`stack_forward_reference`, with fp32 residuals.
-    """
-    if x0v.shape[0] % d:
-        raise ValueError(f"cin_stack_pooled: R={x0v.shape[0]} is not a "
-                         f"multiple of d={d}")
-    if x0v.device.type == "cpu":
-        p1, p2, z1, z2 = stack_forward_reference(x0v, w1, w2, d)
-        return (p1, p2, z1, z2) if residuals else (p1, p2, None, None)
+def _stack_fwd_cuda(x0v, w1, w2, d, residuals):
+    # The CUDA implementation of the ops cin_stack_fwd (with residuals) and
+    # cin_stack_fwd_pooled (without): the checks, the padded bf16 W tiles
+    # and the launch.
     name = "cin_stack_pooled"
     _check_cuda(name, x0v, w1, w2)
     r, f0, m1, m2 = _stack_shapes(name, x0v, w1, w2)
+    if r % d:
+        raise ValueError(f"{name}: R={r} is not a multiple of d={d}")
     smem = _build.function("cin_stack", "cin_stack_fwd_smem", [_I32] * 3,
                            restype=_I64)
     _check_smem(name, smem(f0, m1, 1), f"F0={f0} M1={m1}")
@@ -540,6 +539,66 @@ def stack_forward(
     _build.check(code, "cin_stack_pooled forward")
     cin_stack_pooled.launches["fwd"] += 1
     return p1, p2, z1, z2
+
+
+def _stack_fwd_fake(x0v, w1, w2, d, residuals):
+    b = x0v.shape[0] // d
+    p1 = x0v.new_empty((b, w1.shape[2]), dtype=torch.float32)
+    p2 = x0v.new_empty((b, w2.shape[2]), dtype=torch.float32)
+    if not residuals:
+        return p1, p2
+    # bf16 residuals on the card, fp32 from the plain version on the CPU.
+    z = torch.bfloat16 if x0v.device.type == "cuda" else torch.float32
+    return (p1, p2, x0v.new_empty((x0v.shape[0], w1.shape[2]), dtype=z),
+            x0v.new_empty((x0v.shape[0], w2.shape[2]), dtype=z))
+
+
+_STACK_ARGS = "(Tensor x0v, Tensor w1, Tensor w2, int d)"
+_stack_fwd_op = custom_ops.kernel_op(
+    "cin_stack_fwd", _STACK_ARGS + " -> (Tensor, Tensor, Tensor, Tensor)",
+    lambda x0v, w1, w2, d: _stack_fwd_cuda(x0v, w1, w2, d, True),
+    stack_forward_reference,
+    lambda x0v, w1, w2, d: _stack_fwd_fake(x0v, w1, w2, d, True))
+_stack_fwd_pooled_op = custom_ops.kernel_op(
+    "cin_stack_fwd_pooled", _STACK_ARGS + " -> (Tensor, Tensor)",
+    lambda x0v, w1, w2, d: _stack_fwd_cuda(x0v, w1, w2, d, False)[:2],
+    lambda x0v, w1, w2, d: stack_forward_reference(x0v, w1, w2, d)[:2],
+    lambda x0v, w1, w2, d: _stack_fwd_fake(x0v, w1, w2, d, False))
+
+
+def stack_forward(
+    x0v: torch.Tensor,
+    w1: torch.Tensor,
+    w2: torch.Tensor,
+    d: int,
+    residuals: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor,
+           Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """K3 forward: (p1, p2, z1, z2); z1 and z2 are None without residuals.
+
+    It calls the op ``deep_recommenders_torch::cin_stack_fwd``, or without
+    residuals ``cin_stack_fwd_pooled``, which writes none
+    (``ops/custom_ops.py``); ``torch.export`` records either.
+    x0v: (R, F0) bf16 rows r = b * d + j; w1 (F0, F0, M1), w2 (F0, M1, M2)
+    f32. R must be a multiple of d. On the card it computes
+    :func:`stack_forward_reference_bf16` on the tensor cores and returns
+    z1 and z2 in bf16; W1 goes to the kernel as bf16 (N1p, K1p), W1[f, g, c]
+    at [c, f * F0 + g], and W2 as bf16 (F0, M2p, K2p), W2[f, g, c] at
+    [f, c, g], zero-padded (K1p = F0^2 and K2p = M1 rounded up to 16, N1p
+    and M2p = M1 and M2 rounded up to 128). A block holds 128 rows of x0,
+    their pair tensor and bf16 z1, so the card takes
+    512 F0 + 256 (K1p + K2p + 16) + max(36864, 256 (K1p + 8), 12288)
+    <= 232448 bytes (F0 <= 18 at M1 = 128, M1 <= 688 at F0 = 6); it raises
+    ValueError on larger shapes. On a CPU tensor it takes the fp32
+    :func:`stack_forward_reference`, with fp32 residuals.
+    """
+    if x0v.shape[0] % d:
+        raise ValueError(f"cin_stack_pooled: R={x0v.shape[0]} is not a "
+                         f"multiple of d={d}")
+    if residuals:
+        return tuple(_stack_fwd_op(x0v, w1, w2, d))
+    p1, p2 = _stack_fwd_pooled_op(x0v, w1, w2, d)
+    return p1, p2, None, None
 
 
 def stack_backward(

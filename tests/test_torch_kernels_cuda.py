@@ -943,3 +943,169 @@ def test_attention_dispatch_pads_or_goes_dense_by_head_width(device):
         wide, wide, wide))
     with pytest.raises(ValueError, match="head width"):
         att.attention(wide, wide, wide, use_flash=True)
+
+
+# -- the forward kernels as ops (ops/custom_ops.py) ------------------------------
+
+def _op_cases(device):
+    """(op name, its arguments, the wrapper's eager call) at small shapes:
+    K3 with and without residuals, K4, K5 in fp32 and bf16."""
+    gen = torch.Generator(device=device).manual_seed(12)
+    x0 = _normal(gen, 1024, 6)
+    x0b = x0.to(torch.bfloat16)
+    w1, w2 = _normal(gen, 6, 6, 32) * 0.1, _normal(gen, 6, 32, 16) * 0.1
+    xv, w = _normal(gen, 1024, 8), _normal(gen, 6, 8, 16) * 0.1
+    q, k, v, mask = _attention_inputs(gen, 8, 96, 80, 32)
+    qb, kb, vb = _bf16(q, k, v)
+    return [
+        ("cin_stack_fwd", (x0b, w1, w2, 16),
+         lambda: ck.stack_forward(x0b, w1, w2, 16)),
+        ("cin_stack_fwd_pooled", (x0b, w1, w2, 16),
+         lambda: ck.stack_forward(x0b, w1, w2, 16, residuals=False)[:2]),
+        ("cin2d_fwd", (x0, xv, w), lambda: ck.cin2d_forward(x0, xv, w)),
+        ("flash_attention_fwd", (q, k, v, mask, True, None),
+         lambda: att.flash_attention(q, k, v, mask, True, return_lse=True)),
+        ("flash_attention_fwd_bf16", (qb, kb, vb, mask, False, 0.3),
+         lambda: att.flash_attention(qb, kb, vb, mask, False,
+                                     return_lse=True, scale=0.3)),
+    ]
+
+
+def _as_list(out):
+    return list(out) if isinstance(out, (tuple, list)) else [out]
+
+
+def test_kernel_ops_run_the_kernels_and_their_fakes_match(device):
+    """Each op's CUDA implementation launches its kernel once and equals
+    the wrapper's eager result (the same kernel on the same inputs: within
+    rtol 1e-6); its fake implementation gives the real outputs' shapes,
+    dtypes and device."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from deep_recommenders_torch.ops import custom_ops
+    for name, args, eager in _op_cases(device):
+        op = getattr(getattr(torch.ops, custom_ops.NAMESPACE), name)
+        launches = (dict(ck.cin_stack_pooled.launches),
+                    dict(ck.cin2d.launches), dict(att.flash_attention.launches))
+        real = _as_list(op(*args))
+        torch.cuda.synchronize()
+        after = (ck.cin_stack_pooled.launches, ck.cin2d.launches,
+                 att.flash_attention.launches)
+        moved = [(i, key) for i, (b, a) in enumerate(zip(launches, after))
+                 for key in a if a[key] != b[key]]
+        assert len(moved) == 1, (name, moved)
+        i, key = moved[0]
+        assert after[i][key] == launches[i][key] + 1
+        want = [t for t in _as_list(eager()) if t is not None]
+        assert len(real) == len(want)
+        for got, ref in zip(real, want):
+            torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6)
+        with FakeTensorMode() as mode:
+            fake_args = [mode.from_tensor(a) if isinstance(a, torch.Tensor)
+                         else a for a in args]
+            fakes = _as_list(op(*fake_args))
+        assert [(t.shape, t.dtype, t.device) for t in fakes] == [
+            (t.shape, t.dtype, t.device) for t in real], name
+
+
+def test_kernel_ops_are_captured_in_a_cuda_graph(device):
+    """The op dispatch stays capturable: the wrappers recorded in a CUDA
+    graph and replayed give the eager results bit for bit."""
+    for name, _, eager in _op_cases(device):
+        want = [t.clone() for t in _as_list(eager()) if t is not None]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            eager()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = [t for t in _as_list(eager()) if t is not None]
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, ref in zip(out, want):
+            assert torch.equal(got, ref), name
+
+
+def test_served_xdeepfm_programs_launch_their_kernels(device, tmp_path):
+    """An exported xDeepFM on the card: the program holds K3's (two relu
+    layers) or K4's (three layers) op, serves two batch sizes, launches
+    one K3 or three K4 a batch, and equals the eager model bit for bit."""
+    from deep_recommenders_torch.features.columns import Feature
+    from deep_recommenders_torch.models.ranking import XDeepFM
+    from deep_recommenders_torch.ops import custom_ops
+    from deep_recommenders_torch.serving import (
+        export_model,
+        load_serving_module,
+    )
+    specs = (Feature("a", hash_buckets=50), Feature("b", hash_buckets=40),
+             Feature("c", vocab=tuple(range(8)), max_len=3))
+    rng = np.random.default_rng(3)
+
+    def batch(b):
+        ids = {"a": rng.integers(0, 50, b), "b": rng.integers(0, 40, b),
+               "c": rng.integers(0, 8, (b, 3))}
+        out = {k: torch.from_numpy(v.astype(np.int32)).to(device)
+               for k, v in ids.items()}
+        return dict(out, c__wt=torch.ones(b, 3, device=device))
+
+    for maps, op, counter, per_batch in (
+            ((32, 32), "cin_stack_fwd_pooled", ck.cin_stack_pooled, 1),
+            ((32, 32, 32), "cin2d_fwd", ck.cin2d, 3)):
+        model = XDeepFM(specs, 8, maps, hidden=(16,),
+                        generator=torch.Generator().manual_seed(0)).to(device)
+        path = export_model(str(tmp_path / op), model, batch(64))
+        served = load_serving_module(path, device=device)
+        assert custom_ops.graph_ops(served.program.graph_module) == {op}
+        for b in (64, 200):
+            x = batch(b)
+            before = counter.launches["fwd"]
+            got = served(x)
+            assert counter.launches["fwd"] == before + per_batch
+            with torch.no_grad():
+                assert torch.equal(got, model.eval()(x))
+
+
+def test_transformer_export_on_the_card(device, tmp_path):
+    """On the card the attention dispatch reads the batch size: a
+    polymorphic export raises ValueError; with use_flash=True the program
+    holds K5's op and launches it three times a batch (encoder self,
+    decoder self and cross), equal to the eager model bit for bit."""
+    from deep_recommenders_torch.models.nlp import Transformer
+    from deep_recommenders_torch.ops import custom_ops
+    from deep_recommenders_torch.serving import (
+        export_model,
+        load_serving_module,
+    )
+
+    class Seq2Seq(torch.nn.Module):
+        def __init__(self, t):
+            super().__init__()
+            self.t = t
+
+        def forward(self, batch):
+            return self.t(batch["inputs"], batch["targets"])
+
+    model = Seq2Seq(Transformer(30, 32, 2, 1, 1, 64, dropout=0.0)).to(device)
+    gen = torch.Generator(device=device).manual_seed(1)
+
+    def tokens(b):
+        return {n: torch.randint(1, 30, (b, s), generator=gen, device=device)
+                for n, s in (("inputs", 40), ("targets", 24))}
+
+    with pytest.raises(ValueError, match="polymorphic_batch=False"):
+        export_model(str(tmp_path / "p"), model, tokens(4))
+    for m in model.modules():
+        if hasattr(m, "use_flash"):
+            m.use_flash = True
+    served = load_serving_module(
+        export_model(str(tmp_path / "f"), model, tokens(4)), device=device)
+    assert custom_ops.graph_ops(served.program.graph_module) == {
+        "flash_attention_fwd"}
+    for b in (4, 9):
+        x = tokens(b)
+        before = att.flash_attention.launches["fwd"]
+        got = served(x)
+        assert att.flash_attention.launches["fwd"] == before + 3
+        with torch.no_grad():
+            assert torch.equal(got, model.eval()(x))

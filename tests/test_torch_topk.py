@@ -20,6 +20,10 @@ FactorizedTopK's hit counts are equal exactly, on data checked to have no
 candidate score within 1e-5 of its row's hit threshold.
 """
 
+import json
+import os
+import shutil
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -360,8 +364,8 @@ def test_index_round_trips_and_reads_jax_files(tmp_path, rng, cls, ids):
 def test_load_index_with_query_model_and_unknown_class(tmp_path, rng,
                                                        monkeypatch):
     """The query_model is given again at load; an index class this port
-    lacks (JAX's ann.py) raises; the default device is the card, which
-    raises without one."""
+    lacks (JAX's ShardedBruteForce) raises, and one of JAX's ann.py loads;
+    the default device is the card, which raises without one."""
     cands = rng.normal(0, 1, (32, 8)).astype(np.float32)
     q = t(rng.normal(0, 1, (4, 8)).astype(np.float32))
 
@@ -375,8 +379,13 @@ def test_load_index_with_query_model_and_unknown_class(tmp_path, rng,
         np.testing.assert_array_equal(a.numpy(), b.numpy())
     ann = jret.save_index(str(tmp_path / "ann"),
                           jret.ApproxTopK().index(cands))
-    with pytest.raises(ValueError, match="ApproxTopK"):
-        load_index(ann, device=CPU)
+    assert type(load_index(ann, device=CPU)).__name__ == "ApproxTopK"
+    sharded = str(tmp_path / "sharded")
+    shutil.copytree(path, sharded)
+    with open(os.path.join(sharded, "config.json"), "w") as f:
+        json.dump({"class": "ShardedBruteForce", "config": {}}, f)
+    with pytest.raises(ValueError, match="ShardedBruteForce"):
+        load_index(sharded, device=CPU)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         load_index(path)
