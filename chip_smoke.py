@@ -47,8 +47,9 @@ In order:
    and bf16, through K5 and K6 padded to the next kernel width and held to
    the same checks at the true D, and a D = 256 call that warns and goes
    dense;
-5. twenty train paths, each with every launch counter set to 0 just
-   before it and read just after, each checked for a finite, falling loss
+5. twenty train paths (and those of 11-13), each with every launch
+   counter set to 0 just before it and read just after, each checked for
+   a finite, falling loss
    (the examples: finite) and the exact launches it must make:
    - DeepFM at the bench width (D=16, hidden (256, 32)), 2 epochs: one K1
      per train step;
@@ -146,9 +147,35 @@ In order:
    with --sparse-adjacency, test accuracy above 0.95; dense against sparse
    logits on the trained weights; one Adam step on the card against the
    CPU;
-11. prints one JSON line with every kernel's numbers (with each forward
-   kernel's launches a served batch), then, as the last line,
-   {"ok": true, "device": {...}}.
+11. the native ETL (``native_phase``): the port's library built with g++
+   here (the run fails if it cannot be), ``crc32_bucket`` and
+   ``pack_bags`` equal to their Python loops on the corpus's 200,000
+   user ids and genre bags, and DeepFM at the bench width fed by
+   ``NativeStreamLoader`` (``shuffle=False``) through ``Trainer.fit`` for
+   an epoch: each batch the split's rows at its step, one K1 a step, a
+   finite, falling loss;
+12. the mesh on one rank (``mesh_one_rank_phase``): a process group of
+   one on NCCL, a (data=1, model=1) mesh, DeepFM at the bench width
+   through ``Trainer(mesh=).fit_device`` over
+   ``DeviceData.from_numpy(mesh=)`` for an epoch: one K1 and exactly
+   three NCCL all-reduces a step (the rows over "model", the linear
+   weights' gradient over "model", the gradients and the loss over
+   "data"), per-step losses equal to the unmeshed run's from the same
+   weights (rtol MESH_ONE_RANK_RTOL; equal bits expected);
+13. the mesh on two ranks on the one card (``mesh_two_rank_phase``): two
+   processes of this script (``--mesh-rank``) with gloo on CUDA tensors,
+   the meshes (data=1, model=2) and (data=2, model=1), DeepFM and the
+   flagship xDeepFM at the bench width for MESH_STEPS steps of the global
+   batch: each rank one K1 a step on its table (half the fused table at
+   model = 2; xDeepFM one more on its replicated linear terms), xDeepFM
+   one K3 forward and one K3 backward a step on its rows; the first
+   step's loss and gradients (the shards put back together) within
+   MESH_FIRST_STEP_RTOL of the unmeshed run on the card from the same
+   weights, every loss within MESH_LOSSES_RTOL; each rank's step time and
+   K1's device time on its shard printed (nothing is claimed from them);
+14. prints one JSON line with every kernel's numbers (with each forward
+   kernel's launches a served batch, and each path's launches), then, as
+   the last line, {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --ctr-only
 
@@ -190,17 +217,28 @@ import dataclasses
 import json
 import math
 import os
+import socket
 import subprocess
 import sys
 import tempfile
 import time
 import warnings
+import zlib
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from deep_recommenders_torch import convert, native, parallel
 from deep_recommenders_torch.datasets import MovielensRanking, SyntheticImdb
+from deep_recommenders_torch.datasets.movielens import (
+    GENRES_VOCAB,
+    MAX_GENRES,
+    default_movielens_features,
+    synthesize_ml1m,
+)
 from deep_recommenders_torch.device import resolve_device
+from deep_recommenders_torch.embedding.engine import SMALL_VOCAB_MAX
 from deep_recommenders_torch.examples import train_transformer_on_imdb
 from deep_recommenders_torch.models.nlp import (
     MultiHeadAttention,
@@ -218,7 +256,8 @@ from deep_recommenders_torch.ops.embedding_kernels import (
     scatter_add_rows_reference,
 )
 from deep_recommenders_torch.ops.fm import fm_interaction, fm_interaction_fused
-from deep_recommenders_torch.training import DeviceData, Trainer
+from deep_recommenders_torch.parallel.sharding import all_reduce
+from deep_recommenders_torch.training import DeviceData, Trainer, bce_loss
 
 # The bench configuration (bench.py's DeepFM) and the smoke run's length.
 BATCH = 8192
@@ -3245,6 +3284,388 @@ def wrapper_host_us(device) -> dict:
             for name, fn in calls.items()}
 
 
+# -- the native ETL and loader; the mesh ------------------------------------
+
+# Steps of each model in each two-rank mesh: the train split's whole
+# batches (160,000 rows of NUM_RATINGS, in batches of BATCH).
+MESH_STEPS = 19
+# The two-rank meshes, (data, model).
+MESH_CONFIGS = ((1, 2), (2, 1))
+# The first step's loss and each gradient against the unmeshed run on the
+# card: relative error (a gradient's in norm). All MESH_STEPS losses: the
+# looser bound, after that many Adam steps in another summation order.
+MESH_FIRST_STEP_RTOL = 1e-5
+MESH_LOSSES_RTOL = 1e-3
+# The one-rank NCCL mesh runs every op of the unmeshed path on the same
+# values and all-reduces over groups of one: its per-step losses are
+# expected equal; they are held to this.
+MESH_ONE_RANK_RTOL = 1e-6
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def native_phase(ds: MovielensRanking, device) -> dict:
+    """The port's native library, built with g++ here (the run fails if it
+    cannot be built); ``crc32_bucket`` and ``pack_bags`` on the data
+    phase's corpus against their Python versions; then DeepFM at the bench
+    width fed by ``NativeStreamLoader`` (``shuffle=False``) through
+    ``Trainer.fit``, one epoch: each batch equal to the numpy slice of the
+    train split at its step, one K1 per step, a finite, falling loss."""
+    native.library()  # built at first use (the data phase's hashing)
+    raw = synthesize_ml1m(NUM_RATINGS, seed=SEED)
+    buckets = ds.feature_specs[0].hash_buckets
+    got = native.crc32_bucket(raw["UserID"], buckets)
+    want = np.asarray([zlib.crc32(str(v).encode("utf-8")) % buckets
+                       for v in raw["UserID"]], np.int32)
+    if not np.array_equal(got, want):
+        raise AssertionError("native crc32_bucket differs from zlib")
+    index = {g: i for i, g in enumerate(GENRES_VOCAB)}
+    bags = [[index[g] for g in genres] for genres in raw["Genres"]]
+    offsets = np.zeros(len(bags) + 1, np.int64)
+    np.cumsum([len(b) for b in bags], out=offsets[1:])
+    ids, wt = native.pack_bags(
+        np.asarray([i for b in bags for i in b], np.int32), offsets,
+        MAX_GENRES)
+    want_ids = np.zeros((len(bags), MAX_GENRES), np.int32)
+    want_wt = np.zeros((len(bags), MAX_GENRES), np.float32)
+    for r, bag in enumerate(bags):
+        bag = bag[:MAX_GENRES]
+        want_ids[r, :len(bag)] = bag
+        want_wt[r, :len(bag)] = 1.0
+    if not (np.array_equal(ids, want_ids) and np.array_equal(wt, want_wt)):
+        raise AssertionError("native pack_bags differs from its Python loop")
+
+    feats, labels = ds.train_arrays()
+    model = DeepFM(ds.feature_specs, EMBED_DIM, HIDDEN,
+                   generator=torch.Generator().manual_seed(SEED))
+    bce = bce_loss(model)
+    losses = []
+
+    def loss_fn(batch, y):
+        loss = bce(batch, y)
+        losses.append(loss.detach())
+        return loss
+
+    trainer = Trainer(model, torch.optim.Adam(model.parameters(),
+                                              lr=LEARNING_RATE),
+                      loss_fn=loss_fn, device=device)
+    with native.NativeStreamLoader(feats, labels, BATCH,
+                                   shuffle=False) as loader:
+        def batches():  # a factory with no argument, as JAX's fit takes
+            for s in range(loader.steps_per_epoch):
+                f, y = loader.next_batch()
+                rows = slice(s * BATCH, (s + 1) * BATCH)
+                if not (all(np.array_equal(f[k], feats[k][rows])
+                            for k in feats)
+                        and np.array_equal(y, labels[rows])):
+                    raise AssertionError(f"native loader: batch {s} is not "
+                                         "the split's rows in order")
+                yield f, y
+
+        reset_launches()
+        result = trainer.fit(batches, epochs=1, verbose=False)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        steps = loader.steps_per_epoch
+    losses = torch.stack(losses).cpu().numpy()
+    want = {k: 0 for k in launches}
+    want["scatter_add_rows"] = steps
+    if launches != want or len(losses) != steps:
+        raise AssertionError(f"native: launches {launches}, expected {want}")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"native: loss not finite and falling: {losses}")
+    out = {"library": os.path.basename(native.library_path()),
+           "crc32_bucket_rows": len(got),
+           "pack_bags_rows": len(bags), "steps": steps,
+           "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+           "examples": result["examples"],
+           "examples_per_sec": result["examples_per_sec"]}
+    print("native " + json.dumps(out))
+    print(f"native_deepfm launches: {launches}")
+    return launches
+
+
+def mesh_one_rank_phase(ds: MovielensRanking, device) -> dict:
+    """A process group of one on NCCL, a (data=1, model=1) mesh, and
+    DeepFM at the bench width through ``Trainer(mesh=).fit_device`` for one
+    epoch over ``DeviceData.from_numpy(mesh=)``: one K1 per step, three
+    NCCL all-reduces per step (the rows over "model", the linear weights'
+    gradient over "model", the gradients and the loss over "data"), and
+    per-step losses equal to the unmeshed run's from the same weights on
+    the same batches."""
+    parallel.initialize_distributed(f"127.0.0.1:{_free_port()}", 1, 0,
+                                    device=device.type)
+    try:
+        backend = parallel.distributed.BACKENDS[device.type]
+        if dist.get_backend() != backend:
+            raise AssertionError(f"backend {dist.get_backend()}, not "
+                                 f"{backend}")
+        mesh = parallel.create_mesh(parallel.MeshConfig(data=1, model=1),
+                                    device=device.type)
+        state = DeepFM(ds.feature_specs, EMBED_DIM, HIDDEN,
+                       generator=torch.Generator().manual_seed(SEED)
+                       ).state_dict()
+        plain = DeepFM(ds.feature_specs, EMBED_DIM, HIDDEN)
+        plain.load_state_dict(state)
+        train = DeviceData.from_numpy(*ds.train_arrays(), BATCH,
+                                      device=device)
+        want = Trainer(plain, torch.optim.Adam(plain.parameters(),
+                                               lr=LEARNING_RATE),
+                       device=device).fit_device(
+            train, epochs=1, shuffle_seed=SEED, verbose=False)["step_losses"]
+        meshed = DeepFM(ds.feature_specs, EMBED_DIM, HIDDEN, mesh=mesh)
+        meshed.load_state_dict(convert.shard_state(state, 1, 0))
+        trainer = Trainer(meshed, torch.optim.Adam(meshed.parameters(),
+                                                   lr=LEARNING_RATE),
+                          mesh=mesh, device=device)
+        mtrain = DeviceData.from_numpy(*ds.train_arrays(), BATCH,
+                                       device=device, mesh=mesh)
+        reset_launches()
+        calls = all_reduce.calls
+        got = trainer.fit_device(mtrain, epochs=1, shuffle_seed=SEED,
+                                 verbose=False)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        calls = all_reduce.calls - calls
+        losses = got["step_losses"]
+        steps = len(losses)
+    finally:
+        dist.destroy_process_group()
+    expect = {k: 0 for k in launches}
+    expect["scatter_add_rows"] = steps
+    if launches != expect:
+        raise AssertionError(f"mesh_nccl: launches {launches}, "
+                             f"expected {expect}")
+    if calls != 3 * steps:
+        raise AssertionError(f"mesh_nccl: {calls} all-reduces in {steps} "
+                             "steps, expected 3 a step")
+    err = float(np.max(np.abs(losses - want) / np.abs(want)))
+    if len(losses) != len(want) or not err <= MESH_ONE_RANK_RTOL:
+        raise AssertionError(f"mesh_nccl: losses {losses} vs unmeshed "
+                             f"{want}")
+    out = {"steps": steps, "all_reduces_per_step": calls / steps,
+           "loss_max_rel_err": err, "loss_bitwise_equal":
+           bool(np.array_equal(losses, want)),
+           "examples_per_sec": got["examples_per_sec"]}
+    print("mesh_nccl " + json.dumps(out))
+    print(f"mesh_nccl_deepfm launches: {launches}")
+    return launches
+
+
+def _mesh_model(name: str, specs, mesh=None):
+    gen = torch.Generator().manual_seed(SEED)
+    if name == "deepfm":
+        return DeepFM(specs, EMBED_DIM, HIDDEN, mesh=mesh, generator=gen)
+    return XDeepFM(specs, EMBED_DIM, XDEEPFM_MAPS, "relu", XDEEPFM_HIDDEN,
+                   mesh=mesh, generator=gen)
+
+
+def _mesh_steps(trainer, batches):
+    """MESH_STEPS train steps: the losses, the first step's gradients (on
+    the host) and the mean time of a step after the first (ms, host clock
+    to a synchronise; the first step warms the libraries up)."""
+    losses = [trainer.train_step(*batches[0])]
+    grads = {k: p.grad.detach().cpu()
+             for k, p in trainer.model.named_parameters()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b, y in batches[1:]:
+        losses.append(trainer.train_step(b, y))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / (len(batches) - 1)
+    return torch.stack(losses).cpu().numpy(), grads, step_ms
+
+
+def _k1_times(model, batch, specs, lo: int, rows: int) -> dict:
+    """K1's device time on the big-vocab ids of a batch as a table of
+    ``rows`` rows starting at ``lo`` sees them (ids off the shard at local
+    row 0, as ``embedding/sharded.py`` sends them), g of the fused table's
+    width: the hot row 0's count beside it."""
+    offsets = model.embeddings.feature_offsets
+    ids = torch.stack([batch[s.name] + o for s, o in zip(specs, offsets)
+                       if s.cardinality > SMALL_VOCAB_MAX
+                       and not s.is_multi], dim=1).reshape(-1) - lo
+    ok = (ids >= 0) & (ids < rows)
+    local = torch.where(ok, ids, 0)
+    g = torch.randn(local.shape[0], EMBED_DIM + 1, device=local.device)
+    ms = graph_ms(lambda: scatter_add_rows(g, local, rows))
+    return {"ms": ms, "ids": int(local.shape[0]), "rows": rows,
+            "resident": int(ok.sum()),
+            "row0_count": int((local == 0).sum())}
+
+
+def mesh_rank_main(rank: int, port: int, tmp: str) -> int:
+    """One of the two ranks of ``mesh_two_rank_phase``."""
+    torch.set_num_threads(1)  # two processes share the machine's cores
+    # NCCL refuses two ranks on one device ("Duplicate GPU detected"), so
+    # the two ranks on the one H100 run gloo, whose all-reduce and
+    # broadcast take CUDA tensors: the only way model sharding runs on one
+    # card.
+    parallel.initialize_distributed(f"127.0.0.1:{port}", 2, rank,
+                                    device="cuda", backend="gloo")
+    with np.load(os.path.join(tmp, "train.npz")) as f:
+        feats = {k: f[k] for k in f.files if k != "__labels__"}
+        labels = f["__labels__"]
+    specs = default_movielens_features()
+    results = {}
+    for n_data, n_model in MESH_CONFIGS:
+        mesh = parallel.create_mesh(parallel.MeshConfig(n_data, n_model))
+        d = parallel.axis_index(mesh, "data")
+        m = parallel.axis_index(mesh, "model")
+        b = BATCH // n_data
+        batches = []
+        for s in range(MESH_STEPS):
+            rows = slice(s * BATCH + d * b, s * BATCH + (d + 1) * b)
+            batches.append(parallel.shard_batch(
+                ({k: v[rows] for k, v in feats.items()}, labels[rows]),
+                mesh))
+        for name in ("deepfm", "xdeepfm"):
+            state = torch.load(os.path.join(tmp, f"{name}_init.pt"))
+            model = _mesh_model(name, specs, mesh)
+            model.load_state_dict(convert.shard_state(state, n_model, m))
+            trainer = Trainer(model, torch.optim.Adam(model.parameters(),
+                                                      lr=LEARNING_RATE),
+                              mesh=mesh, device="cuda")
+            reset_launches()
+            losses, grads, step_ms = _mesh_steps(trainer, batches)
+            launches = read_launches()
+            key = f"{n_data}x{n_model}_{name}"
+            torch.save(grads, os.path.join(tmp, f"rank{rank}_{key}.pt"))
+            results[key] = {"losses": losses.tolist(), "launches": launches,
+                            "step_ms": step_ms, "coords": [d, m],
+                            "local_rows": b}
+            if name == "deepfm":
+                # One rank at a time: the two share the card.
+                lo, hi = parallel.row_range(
+                    sum(s.cardinality for s in specs), mesh)
+                for r in range(2):
+                    if r == rank:
+                        results[key]["k1"] = _k1_times(
+                            model, batches[0][0], specs, lo, hi - lo)
+                    dist.barrier()
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(results, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def mesh_two_rank_phase(ds: MovielensRanking, device) -> dict:
+    """Two processes on the card, gloo on CUDA tensors, in the meshes
+    (data=1, model=2) and (data=2, model=1): DeepFM and the flagship
+    xDeepFM at the bench width, MESH_STEPS steps of the global batch of
+    BATCH rows. Each rank launches one K1 a step on its table (half the
+    table at model = 2; xDeepFM adds one on its replicated linear terms'
+    table) and xDeepFM one K3 forward and one K3 backward a step on its
+    rows (BATCH / data examples). The first step's loss and gradients,
+    the shards put back together, against the unmeshed run on the card
+    from the same weights (MESH_FIRST_STEP_RTOL), every loss within
+    MESH_LOSSES_RTOL; each rank's step time and K1's device time on its
+    shard are printed, and nothing is claimed from them."""
+    tmp = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "mesh_smoke")
+    os.makedirs(tmp, exist_ok=True)
+    feats, labels = ds.train_arrays()
+    n = MESH_STEPS * BATCH
+    np.savez(os.path.join(tmp, "train.npz"), __labels__=labels[:n],
+             **{k: v[:n] for k, v in feats.items()})
+    specs = ds.feature_specs
+    want, plain_k1 = {}, None
+    batches = [({k: torch.from_numpy(v[s * BATCH:(s + 1) * BATCH])
+                 .to(device) for k, v in feats.items()},
+                torch.from_numpy(labels[s * BATCH:(s + 1) * BATCH])
+                .to(device)) for s in range(MESH_STEPS)]
+    for name in ("deepfm", "xdeepfm"):
+        model = _mesh_model(name, specs)
+        torch.save(model.state_dict(), os.path.join(tmp, f"{name}_init.pt"))
+        trainer = Trainer(model, torch.optim.Adam(model.parameters(),
+                                                  lr=LEARNING_RATE),
+                          device=device)
+        want[name] = _mesh_steps(trainer, batches)
+        if name == "deepfm":
+            plain_k1 = _k1_times(model, batches[0][0], specs, 0,
+                                 model.embeddings.table.shape[0])
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-rank",
+         str(rank), "--mesh-port", str(port), "--mesh-dir", tmp],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for rank in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"mesh rank {rank} failed:\n{log[-4000:]}")
+    ranks = []
+    for rank in range(2):
+        with open(os.path.join(tmp, f"rank{rank}.json")) as f:
+            ranks.append(json.load(f))
+    paths, summary = {}, {"unmeshed": {
+        "deepfm_step_ms": want["deepfm"][2],
+        "xdeepfm_step_ms": want["xdeepfm"][2], "deepfm_k1": plain_k1}}
+    for n_data, n_model in MESH_CONFIGS:
+        for name in ("deepfm", "xdeepfm"):
+            key = f"{n_data}x{n_model}_{name}"
+            ref_losses, ref_grads, _ = want[name]
+            grads = [torch.load(os.path.join(tmp, f"rank{r}_{key}.pt"))
+                     for r in range(2)]
+            if n_model == 2:  # rank = model index at data = 1
+                grads = [convert.join_shards(grads)]
+            errs = {}
+            for g in grads:
+                for k, ref in ref_grads.items():
+                    if g[k][ref.shape[0]:].any():
+                        raise AssertionError(f"{key}: padding rows of {k}")
+                    errs[k] = max(errs.get(k, 0.0),
+                                  _rel(g[k][:ref.shape[0]], ref))
+            for rank, r in enumerate(ranks):
+                res = r[key]
+                losses = np.asarray(res["losses"])
+                first = abs(losses[0] - ref_losses[0]) / abs(ref_losses[0])
+                steps_err = float(np.max(np.abs(losses - ref_losses)
+                                         / np.abs(ref_losses)))
+                expect = {k: 0 for k in res["launches"]}
+                expect["scatter_add_rows"] = MESH_STEPS * (
+                    1 if name == "deepfm" else 2)
+                if name == "xdeepfm":
+                    expect["cin_stack_pooled.fwd"] = MESH_STEPS
+                    expect["cin_stack_pooled.bwd"] = MESH_STEPS
+                if res["launches"] != expect:
+                    raise AssertionError(f"{key} rank {rank}: launches "
+                                         f"{res['launches']}, expected "
+                                         f"{expect}")
+                if not (first <= MESH_FIRST_STEP_RTOL
+                        and max(errs.values()) <= MESH_FIRST_STEP_RTOL
+                        and steps_err <= MESH_LOSSES_RTOL):
+                    raise AssertionError(
+                        f"{key} rank {rank}: first loss rel err {first}, "
+                        f"gradient rel errs {errs}, losses rel err "
+                        f"{steps_err}")
+                paths[f"mesh_gloo_{key}_rank{rank}"] = res["launches"]
+                summary[f"{key}_rank{rank}"] = {
+                    "coords": res["coords"], "local_rows": res["local_rows"],
+                    "step_ms": res["step_ms"], "first_loss_rel_err": first,
+                    "loss_max_rel_err": steps_err,
+                    "max_grad_rel_err": max(errs.values()),
+                    **({"k1": res["k1"]} if "k1" in res else {})}
+                print(f"mesh_gloo_{key}_rank{rank} launches: "
+                      f"{res['launches']}")
+    print("mesh_gloo " + json.dumps(summary))
+    return paths
+
+
 # Which path's launches each kernel's entry reports.
 ENTRY_PATH = {
     "scatter_add_rows": "deepfm",
@@ -3298,10 +3719,16 @@ def main(argv=()) -> int:
     parser.add_argument("--wrapper-host-us", action="store_true",
                         help="time only the host's us a call of the K3, K4 "
                              "and K5 forward wrappers")
+    # One rank of the two-rank mesh phase, which starts it (internal).
+    parser.add_argument("--mesh-rank", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--mesh-port", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--mesh-dir", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    if args.mesh_rank is not None:
+        return mesh_rank_main(args.mesh_rank, args.mesh_port, args.mesh_dir)
     print(card_line())
     device = resolve_device("cuda")
     t0 = time.perf_counter()
@@ -3353,7 +3780,7 @@ def main(argv=()) -> int:
     paths = train_phase(ds, model, device)
     served, serving = serving_phase(ds, model, imdb, device)
     paths["esmm"] = esmm_path(ds, device)[0]
-    del ds, model
+    del model
     torch.cuda.empty_cache()
     paths.update(din_paths(device)[0])
     paths["din_example"] = din_example_path()[0]
@@ -3368,6 +3795,11 @@ def main(argv=()) -> int:
     model_io_phase(device)
     index_phase(device)
     gcn_phase(device)
+    t0 = time.perf_counter()
+    paths["native_deepfm"] = native_phase(ds, device)
+    paths["mesh_nccl_deepfm"] = mesh_one_rank_phase(ds, device)
+    paths.update(mesh_two_rank_phase(ds, device))
+    print(f"native and mesh phases done ({time.perf_counter() - t0:.1f} s)")
     for entry in entries:
         path = ENTRY_PATH[entry["name"]]
         counter = COUNTER.get(entry["name"], entry["name"])

@@ -1,12 +1,14 @@
 """Weight conversion from the JAX package's flax parameter trees.
 
 The tree arrives as numpy arrays (``jax.tree.map(np.asarray, params)``), so
-this module needs neither JAX nor flax.
+this module needs neither JAX nor flax. :func:`shard_state` cuts a converted
+state dict to one process's under a mesh, and :func:`join_shards` puts the
+processes' state dicts back together.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -219,3 +221,49 @@ def gcn_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         for leaf, value in layer.items():
             state[f"layers.{i}.{leaf}"] = _tensor(value)
     return state
+
+
+# The parameters a mesh row-shards over "model": the fused embedding tables
+# (CTR models, ESMM) and DIN's item table. Everything else is replicated.
+ROW_SHARDED = ("embeddings.table", "item_table")
+
+
+def _row_sharded(key: str) -> bool:
+    return key in ROW_SHARDED or key.endswith(".embeddings.table")
+
+
+def shard_state(state: Mapping[str, torch.Tensor], n_model: int,
+                index: int) -> Dict[str, torch.Tensor]:
+    """One process's state dict under a mesh whose model axis has
+    ``n_model`` processes, from a whole state dict (e.g.
+    ``deepfm_from_flax`` of a JAX meshed model's tree, whose tables are
+    padded to a multiple of the model size): each row-sharded table cut to
+    the rows of model coordinate ``index`` (padded with zero rows first if
+    it is not padded yet), every other entry as it is. The models it
+    serves: DeepFM, FM, FNN, Wide & Deep, DCN, xDeepFM, DIN (``num_items``)
+    and ESMM (``specs``)."""
+    out = {}
+    for key, value in state.items():
+        if _row_sharded(key):
+            v = value.shape[0]
+            padded = -(-v // n_model) * n_model
+            if padded != v:
+                value = torch.cat([value, value.new_zeros(
+                    (padded - v,) + tuple(value.shape[1:]))])
+            rows = padded // n_model
+            value = value[index * rows:(index + 1) * rows].clone()
+        out[key] = value
+    return out
+
+
+def join_shards(states: Sequence[Mapping[str, torch.Tensor]]
+                ) -> Dict[str, torch.Tensor]:
+    """The reverse of :func:`shard_state`: the state dicts of one data
+    group's processes, in model-coordinate order, put back into one whole
+    state dict (the padded tables whole, the replicated entries from the
+    first)."""
+    out = dict(states[0])
+    for key in out:
+        if _row_sharded(key):
+            out[key] = torch.cat([s[key] for s in states])
+    return out

@@ -3,26 +3,34 @@ pre-batched id arrays.
 
 Counterpart of ``deep_recommenders_tpu/datasets/movielens.py``:
 
-- ``load_ml1m`` joins users.dat + movies.dat onto shuffled ratings.dat;
+- ``load_ml1m`` joins users.dat + movies.dat onto shuffled ratings.dat
+  (ratings.dat through the native parser when the library can be built);
 - ``synthesize_ml1m`` is the deterministic stand-in with the same schema and
   marginals, bit-identical to the JAX package's for the same arguments (both
   movie-popularity forms);
+- ``serialize_corpus`` / ``read_corpus`` write and read the joined corpus
+  as one artifact (``CORPUS_COLUMNS``, no object arrays);
 - ``MovielensRanking`` encodes the six CTR features, label = rating > 3, and
-  splits 0.8/0.2 once over the shuffled examples; its retrieval view gives
-  the positive (user, movie) pairs of a split for the two-tower task.
+  splits ``train_size``/rest once over the shuffled examples; its retrieval
+  view gives the positive (user, movie) pairs of a split for the two-tower
+  task.
 
-The corpus is built in memory on every construction: there is no on-disk
-cache, so nothing here unpickles a file.
+With a ``cache_dir`` the encoded arrays are kept there between
+constructions, in files of the port's own (``torch_movielens_v1_<key>.npz``,
+numeric and fixed-width string arrays only). Every file here is read with
+``allow_pickle=False``, so nothing unpickles a file.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import os
 from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
+from deep_recommenders_torch import native
 from deep_recommenders_torch.features.columns import (
     WEIGHT_SUFFIX,
     Feature,
@@ -53,8 +61,19 @@ def _load_dat(path: str, columns) -> Dict[str, Dict[str, str]]:
     return data
 
 
+def _objects(values) -> np.ndarray:
+    arr = np.empty(len(values), dtype=object)  # one cell per genre tuple
+    for i, v in enumerate(values):
+        arr[i] = v
+    return arr
+
+
 def load_ml1m(datadir: str, seed: int = 42) -> Dict[str, np.ndarray]:
-    """ml-1m ETL: join users/movies onto ratings, shuffled with ``seed``."""
+    """ml-1m ETL: join users/movies onto ratings, shuffled with ``seed``.
+
+    ratings.dat is parsed by the native library when it can be built (ids
+    joined by integer index), else line by line; both give the same
+    columns."""
     users = _load_dat(
         os.path.join(datadir, "users.dat"),
         ["UserID", "Gender", "Age", "Occupation", "Zip-code"],
@@ -62,37 +81,45 @@ def load_ml1m(datadir: str, seed: int = 42) -> Dict[str, np.ndarray]:
     movies = _load_dat(
         os.path.join(datadir, "movies.dat"), ["MovieID", "Title", "Genres"]
     )
-    cols = {k: [] for k in (
-        "UserID", "MovieID", "Rating", "Timestamp", "Gender", "Age",
-        "Occupation", "Zip-code", "Title", "Genres",
-    )}
-    with open(
-        os.path.join(datadir, "ratings.dat"), "r", encoding="unicode_escape"
-    ) as f:
-        for line in f:
-            u, m, r, t = line.strip().split("::")
-            urow, mrow = users[u], movies[m]
-            cols["UserID"].append(u)
-            cols["MovieID"].append(m)
-            cols["Rating"].append(int(r))
-            cols["Timestamp"].append(int(t))
-            cols["Gender"].append(urow["Gender"])
-            cols["Age"].append(int(urow["Age"]))
-            cols["Occupation"].append(int(urow["Occupation"]))
-            cols["Zip-code"].append(urow["Zip-code"])
-            cols["Title"].append(mrow["Title"])
-            cols["Genres"].append(tuple(mrow["Genres"].split("|")))
+    ratings_path = os.path.join(datadir, "ratings.dat")
+    if native.available():
+        uid_i, mid_i, rating, ts = native.parse_ml1m_ratings(ratings_path)
+        u_attr = np.empty((int(uid_i.max()) + 1, 4), dtype=object)
+        for k, row in users.items():
+            u_attr[int(k)] = (row["Gender"], int(row["Age"]),
+                              int(row["Occupation"]), row["Zip-code"])
+        m_attr = np.empty((int(mid_i.max()) + 1, 2), dtype=object)
+        for k, row in movies.items():
+            m_attr[int(k), 0] = row["Title"]
+            m_attr[int(k), 1] = tuple(row["Genres"].split("|"))
+        ua, ma = u_attr[uid_i], m_attr[mid_i]
+        cols = {
+            "UserID": np.char.mod("%d", uid_i).astype(object),
+            "MovieID": np.char.mod("%d", mid_i).astype(object),
+            "Rating": rating, "Timestamp": ts, "Gender": ua[:, 0],
+            "Age": ua[:, 1].astype(np.int64),
+            "Occupation": ua[:, 2].astype(np.int64), "Zip-code": ua[:, 3],
+            "Title": ma[:, 0], "Genres": _objects(list(ma[:, 1])),
+        }
+    else:
+        rows = {k: [] for k in CORPUS_COLUMNS}
+        with open(ratings_path, "r", encoding="unicode_escape") as f:
+            for line in f:
+                u, m, r, t = line.strip().split("::")
+                urow, mrow = users[u], movies[m]
+                for k, v in (
+                    ("UserID", u), ("MovieID", m), ("Rating", int(r)),
+                    ("Timestamp", int(t)), ("Gender", urow["Gender"]),
+                    ("Age", int(urow["Age"])),
+                    ("Occupation", int(urow["Occupation"])),
+                    ("Zip-code", urow["Zip-code"]), ("Title", mrow["Title"]),
+                    ("Genres", tuple(mrow["Genres"].split("|"))),
+                ):
+                    rows[k].append(v)
+        cols = {k: (np.asarray(v, dtype=np.int64) if k in _INT_COLUMNS
+                    else _objects(v)) for k, v in rows.items()}
     perm = np.random.default_rng(seed).permutation(len(cols["UserID"]))
-    out = {}
-    for k, values in cols.items():
-        if isinstance(values[0], int):
-            out[k] = np.asarray(values, dtype=np.int64)[perm]
-            continue
-        arr = np.empty(len(values), dtype=object)  # one cell per genre tuple
-        for i, v in enumerate(values):
-            arr[i] = v
-        out[k] = arr[perm]
-    return out
+    return {k: v[perm] for k, v in cols.items()}
 
 
 def synthesize_ml1m(
@@ -182,6 +209,52 @@ def synthesize_ml1m(
     }
 
 
+# The corpus schema: 10 columns per example (int64 Rating, Timestamp, Age
+# and Occupation; string UserID, MovieID, Gender, Zip-code and Title; the
+# variable-length Genres).
+CORPUS_COLUMNS = (
+    "UserID", "MovieID", "Rating", "Timestamp", "Gender", "Age",
+    "Occupation", "Zip-code", "Title", "Genres",
+)
+_STR_COLUMNS = ("UserID", "MovieID", "Gender", "Zip-code", "Title")
+_INT_COLUMNS = ("Rating", "Timestamp", "Age", "Occupation")
+
+
+def serialize_corpus(raw: Dict[str, np.ndarray], path: str) -> str:
+    """Write the joined corpus as one compressed .npz artifact, so ETL runs
+    once. Strings are stored as fixed-width unicode arrays and Genres
+    '|'-joined (movies.dat's own encoding), so the file holds no object
+    arrays. The JAX package's ``read_corpus`` reads it, and this module's
+    reads the JAX package's."""
+    missing = [c for c in CORPUS_COLUMNS if c not in raw]
+    if missing:
+        raise ValueError(f"corpus missing columns {missing}")
+    cols = {}
+    for c in CORPUS_COLUMNS:
+        if c == "Genres":
+            cols[c] = np.asarray(["|".join(g) for g in raw[c]], dtype=np.str_)
+        elif c in _STR_COLUMNS:
+            cols[c] = np.asarray(raw[c]).astype(np.str_)
+        else:
+            cols[c] = np.asarray(raw[c], dtype=np.int64)
+    path = os.path.abspath(path)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez_compressed(path, **cols)
+    return path
+
+
+def read_corpus(path: str) -> Dict[str, np.ndarray]:
+    """Load a :func:`serialize_corpus` artifact back into raw columns
+    (strings as object arrays, Genres re-split into tuples)."""
+    with np.load(path, allow_pickle=False) as f:
+        out = {k: f[k] for k in f.files}
+    out["Genres"] = _objects(
+        [tuple(s.split("|")) if s else () for s in out["Genres"]])
+    for c in _STR_COLUMNS:
+        out[c] = out[c].astype(object)
+    return out
+
+
 def default_movielens_features(
     user_hash_buckets: int = NUM_USERS,
     movie_hash_buckets: int = NUM_MOVIES,
@@ -207,24 +280,45 @@ def default_movielens_features(
 class MovielensRanking:
     """CTR ranking view of MovieLens: encoded id arrays + binary label.
 
-    label = float(rating > 3); the 0.8/0.2 train/test split is taken once
-    over the shuffled examples. Reads ``datadir`` when it holds
-    ratings.dat, else synthesizes the corpus with ``movie_popularity``
-    (``"zipf-draw"``, the CTR corpus, or ``"rank-power"``, the retrieval
-    corpus: see :func:`synthesize_ml1m`).
+    label = float(rating > 3); the ``train_size``/rest train/test split is
+    taken once over the shuffled examples. The corpus is read from
+    ``corpus_path`` (a :func:`serialize_corpus` artifact) when that file
+    exists, else from ``datadir`` when it holds ratings.dat, else
+    synthesized with ``movie_popularity`` (``"zipf-draw"``, the CTR corpus,
+    or ``"rank-power"``, the retrieval corpus: see :func:`synthesize_ml1m`).
+
+    With ``cache_dir`` the encoded arrays are written there on a first
+    construction and read back on the next one with the same features,
+    sizes, seed and sources (file ``torch_movielens_v1_<key>.npz``, read
+    with ``allow_pickle=False``). The JAX package caches by default; the
+    port caches only when asked.
     """
 
     batch_size: int = 1024
+    train_size: float = 0.8
     datadir: Optional[str] = None
+    corpus_path: Optional[str] = None
     num_ratings: int = NUM_RATINGS
     seed: int = 42
     movie_popularity: str = "zipf-draw"
     features: Tuple[Feature, ...] = dataclasses.field(
         default_factory=default_movielens_features
     )
+    cache_dir: Optional[str] = None
 
-    def __post_init__(self):
-        if self.datadir and os.path.exists(
+    def _cache_path(self) -> Optional[str]:
+        if not self.cache_dir:
+            return None
+        key = hashlib.md5(repr((
+            self.features, self.num_ratings, self.seed, self.datadir,
+            self.corpus_path, self.movie_popularity,
+        )).encode()).hexdigest()[:12]
+        return os.path.join(self.cache_dir, f"torch_movielens_v1_{key}.npz")
+
+    def _build(self) -> None:
+        if self.corpus_path and os.path.exists(self.corpus_path):
+            raw = read_corpus(self.corpus_path)
+        elif self.datadir and os.path.exists(
             os.path.join(self.datadir, "ratings.dat")
         ):
             raw = load_ml1m(self.datadir, seed=self.seed)
@@ -242,9 +336,26 @@ class MovielensRanking:
             }
         )
         self._label = (raw["Rating"] > 3).astype(np.float32)[:, None]
-        self._raw_movie_id = np.asarray(raw["MovieID"])
+        self._raw_movie_id = np.asarray(raw["MovieID"]).astype(np.str_)
+
+    def __post_init__(self):
+        cache_path = self._cache_path()
+        if cache_path and os.path.exists(cache_path):
+            with np.load(cache_path, allow_pickle=False) as f:
+                self._data = {k: f[k] for k in f.files
+                              if k not in ("__label__", "__raw_movie_id__")}
+                self._label = f["__label__"]
+                self._raw_movie_id = f["__raw_movie_id__"]
+        else:
+            self._build()
+            if cache_path:
+                os.makedirs(self.cache_dir, exist_ok=True)
+                tmp = f"{cache_path}.{os.getpid()}.tmp.npz"
+                np.savez(tmp, __label__=self._label,
+                         __raw_movie_id__=self._raw_movie_id, **self._data)
+                os.replace(tmp, cache_path)
         self._n = len(self._label)
-        self._n_train = int(self._n * 0.8)
+        self._n_train = int(self._n * self.train_size)
 
     @property
     def feature_specs(self) -> Tuple[Feature, ...]:

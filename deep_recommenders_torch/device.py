@@ -34,3 +34,11 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
     elif device.type != "cpu":
         raise ValueError(f"unsupported device {device}")
     return device
+
+
+def check_compute_dtype(dtype):
+    """The models' mixed precision: None (fp32) or ``torch.bfloat16``."""
+    if dtype not in (None, torch.bfloat16):
+        raise ValueError(f"compute_dtype must be None (fp32) or "
+                         f"torch.bfloat16, got {dtype}")
+    return dtype

@@ -1,9 +1,8 @@
 """Embedding engine: one fused table per collection, routed lookups, combiners.
 
-Counterpart of ``deep_recommenders_tpu/embedding/engine.py`` without its mesh
-branch. All features of a collection share one fused (total_vocab, D) table
-with per-feature row offsets; ``fused_rows`` routes each feature by
-cardinality:
+Counterpart of ``deep_recommenders_tpu/embedding/engine.py``. All features of
+a collection share one fused (total_vocab, D) table with per-feature row
+offsets; ``fused_rows`` routes each feature by cardinality:
 
 - small vocab (<= SMALL_VOCAB_MAX): every such feature folds into ONE
   block-diagonal one-hot matmul (bags (B, sum_V) @ block_diag(slices));
@@ -13,6 +12,12 @@ cardinality:
 
 Host-side encoding (features/columns.py) produced dense int32 ids, so the
 device never sees strings or ragged shapes.
+
+Under a mesh (``mesh=``, a ("data", "model") ``DeviceMesh``) the fused table
+is padded to a multiple of the model axis's size and each process keeps its
+model coordinate's rows as its own parameter, a plain local tensor; the
+lookup runs ``fused_rows`` on that shard and one all-reduce over "model"
+completes it (``embedding/sharded.py``).
 """
 
 from __future__ import annotations
@@ -23,8 +28,19 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from deep_recommenders_torch.device import check_compute_dtype  # noqa: F401
+from deep_recommenders_torch.embedding.sharded import (
+    shard_rows,
+    sharded_fused_rows,
+)
 from deep_recommenders_torch.features.columns import WEIGHT_SUFFIX, Feature
 from deep_recommenders_torch.ops.embedding_kernels import lookup
+from deep_recommenders_torch.parallel.mesh import check_mesh
+from deep_recommenders_torch.parallel.sharding import (
+    padded_rows,
+    row_range,
+    row_shard,
+)
 
 Batch = Dict[str, torch.Tensor]
 
@@ -74,6 +90,9 @@ def fused_rows(
     specs: Sequence[Feature],
     offsets: Sequence[int],
     batch: Batch,
+    *,
+    gather=None,
+    slice_rows=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-feature table-row bundles with the combiner fused in.
 
@@ -81,7 +100,17 @@ def fused_rows(
     SUM-combined table rows in spec order, and denom (B, F, 1), the
     mean-combiner divisor (1.0 where the combiner is sum or the feature is
     single-valued). Embeddings divide; first-order terms do not.
+
+    ``gather(ids) -> rows`` and ``slice_rows(offset, card) -> (card, C)``
+    give the row access: by default the whole table (``lookup`` and a
+    slice); under a mesh, one shard's masked access
+    (``embedding/sharded.local_access_fns``), so the same routing runs per
+    shard and one all-reduce completes every feature.
     """
+    if gather is None:
+        gather = lambda ids: lookup(table, ids)  # noqa: E731
+    if slice_rows is None:
+        slice_rows = lambda off, card: table[off:off + card]  # noqa: E731
     b = batch[specs[0].name].shape[0]
     c = table.shape[1]
     parts: Dict[int, torch.Tensor] = {}
@@ -98,7 +127,7 @@ def fused_rows(
             [_sum_bag(s, batch, table.dtype) for _, s, _ in small], dim=-1
         )  # (B, sum_V)
         block = torch.block_diag(
-            *[table[o : o + s.cardinality] for _, s, o in small]
+            *[slice_rows(o, s.cardinality) for _, s, o in small]
         )  # (sum_V, n_small * C)
         out = (bags @ block).reshape(b, len(small), c)
         for slot, (i, _, _) in enumerate(small):
@@ -108,12 +137,12 @@ def fused_rows(
         ids = torch.stack(
             [batch[s.name] + o for _, s, o in big_single], dim=1
         )  # (B, n_big)
-        rows = lookup(table, ids)  # (B, n_big, C); K1 backward
+        rows = gather(ids)  # (B, n_big, C); K1 backward
         for slot, (i, _, _) in enumerate(big_single):
             parts[i] = rows[:, slot]
 
     for i, s, o in big_multi:
-        vecs = lookup(table, batch[s.name] + o)  # (B, L, C)
+        vecs = gather(batch[s.name] + o)  # (B, L, C)
         wt = batch[s.name + WEIGHT_SUFFIX].to(vecs.dtype)
         parts[i] = torch.einsum("blc,bl->bc", vecs, wt)
 
@@ -122,14 +151,6 @@ def fused_rows(
         [_mean_denom(s, batch, b) for s in specs], dim=1
     )[..., None]  # (B, F, 1)
     return rows, denom
-
-
-def check_compute_dtype(dtype):
-    """The models' mixed precision: None (fp32) or ``torch.bfloat16``."""
-    if dtype not in (None, torch.bfloat16):
-        raise ValueError(f"compute_dtype must be None (fp32) or "
-                         f"torch.bfloat16, got {dtype}")
-    return dtype
 
 
 class EmbeddingCollection(nn.Module):
@@ -144,6 +165,12 @@ class EmbeddingCollection(nn.Module):
     and is cast to bf16 before the lookup: the one-hot matmul, the gather and
     the bag sums run in bf16, the rows come out bf16, and the gather's
     backward is K1 on bf16 gradients.
+
+    With ``mesh`` the fused vocab is padded to a multiple of the model
+    axis's size (``total_vocab``) and ``table`` holds this process's rows
+    ``[shard_lo, shard_lo + total_vocab / n_model)`` of the table the
+    unmeshed module would draw from the same ``generator`` (the padding
+    rows drawn after it).
     """
 
     def __init__(
@@ -155,15 +182,23 @@ class EmbeddingCollection(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        if mesh is not None:
-            raise NotImplementedError("mesh sharding is not ported yet")
         self.compute_dtype = check_compute_dtype(compute_dtype)
         self.specs = tuple(specs)
         self.dim = dim
+        self.mesh = mesh
         self.feature_offsets, total = _offsets(self.specs)
-        self.table = nn.Parameter(torch.empty(total, dim))
-        nn.init.normal_(self.table, 0.0, 1.0 / math.sqrt(dim),
-                        generator=generator)
+        self.shard_lo = 0
+        if mesh is not None:
+            check_mesh(mesh)
+            self.shard_lo, hi = row_range(total, mesh)
+            total = padded_rows(total, mesh)
+        self.total_vocab = total
+        table = torch.empty(total, dim)
+        nn.init.normal_(table, 0.0, 1.0 / math.sqrt(dim), generator=generator)
+        if mesh is None:
+            self.table = nn.Parameter(table)
+        else:
+            self.table = row_shard(table[self.shard_lo:hi].clone())
 
     def compute_table(self) -> torch.Tensor:
         """The table in the compute dtype (a cast of the fp32 parameter)."""
@@ -171,11 +206,24 @@ class EmbeddingCollection(nn.Module):
             return self.table
         return self.table.to(self.compute_dtype)
 
+    def rows(self, table: torch.Tensor, batch: Batch
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``fused_rows`` of ``table`` (this collection's table, or it with
+        columns appended) over the batch: on the whole table, or under a
+        mesh on this process's shard, completed by one all-reduce."""
+        if self.mesh is None:
+            return fused_rows(table, self.specs, self.feature_offsets, batch)
+        rows = sharded_fused_rows(table, self.specs, self.feature_offsets,
+                                  batch, self.mesh)
+        b = rows.shape[0]
+        denom = torch.stack(
+            [_mean_denom(s, batch, b) for s in self.specs], dim=1
+        )[..., None]
+        return rows, denom
+
     def forward(self, batch: Batch) -> torch.Tensor:
         """batch: {name: (B,) or (B, L) int32 ids, name__wt: (B, L) f32}."""
-        rows, denom = fused_rows(
-            self.compute_table(), self.specs, self.feature_offsets, batch
-        )
+        rows, denom = self.rows(self.compute_table(), batch)
         return rows / denom.to(rows.dtype)
 
 
@@ -217,18 +265,27 @@ def fused_embedding_linear(
     The linear weights ride along as column D of a concatenated (V, D+1)
     operand, so the whole FM input is one ``fused_rows`` pass and both
     gradients come out of a single K1 launch (the concat's backward is a
-    slice). The operand is in the embeddings' compute dtype. Returns
-    ``(stacked, first_order)``: (B, F, D) combined embeddings in that dtype
-    and (B, F) per-feature SUM-combined linear terms, upcast to fp32 so that
-    the wide sum over features does not round in bf16.
+    slice). Under a mesh the operand is this process's shard of the fused
+    (V, D+1) table, and the linear weights' rows of it are cut from the
+    replicated weights. The operand is in the embeddings' compute dtype.
+    Returns ``(stacked, first_order)``: (B, F, D) combined embeddings in
+    that dtype and (B, F) per-feature SUM-combined linear terms, upcast to
+    fp32 so that the wide sum over features does not round in bf16.
     """
     if embeddings.specs != linear.specs:
         raise ValueError("fused_embedding_linear requires identical specs")
     table = embeddings.compute_table()
-    fused = torch.cat([table, linear.weights.to(table.dtype)], dim=1)
-    rows, denom = fused_rows(
-        fused, embeddings.specs, embeddings.feature_offsets, batch
-    )
+    w = linear.weights
+    if embeddings.mesh is not None:
+        # The linear weights stay replicated (as in JAX): pad them as the
+        # table is padded and take this shard's rows; their gradient is
+        # made whole again by one all-reduce over "model".
+        lo = embeddings.shard_lo
+        w = nn.functional.pad(w, (0, 0, 0, embeddings.total_vocab
+                                  - w.shape[0]))
+        w = shard_rows(w, lo, lo + table.shape[0], embeddings.mesh)
+    fused = torch.cat([table, w.to(table.dtype)], dim=1)
+    rows, denom = embeddings.rows(fused, batch)
     d = embeddings.dim
     stacked = rows[..., :d] / denom.to(rows.dtype)
     first_order = rows[..., d].float()

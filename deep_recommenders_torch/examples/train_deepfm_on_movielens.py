@@ -1,9 +1,11 @@
 """Train DeepFM on MovieLens-1M with the PyTorch port.
 
-Same flags as ``examples/train_deepfm_on_movielens.py`` (minus
-``--native-loader``, which the port does not have yet), plus ``--device``.
+Same flags as ``examples/train_deepfm_on_movielens.py``, plus ``--device``.
 ``--bf16`` computes in bf16 with fp32 parameters
-(``compute_dtype=torch.bfloat16``). Runs on the CUDA card by default:
+(``compute_dtype=torch.bfloat16``); ``--host-streaming --native-loader``
+feeds the per-step loop from the C++ prefetch ring
+(``native.NativeStreamLoader``), which raises if the native library cannot
+be built. Runs on the CUDA card by default:
 
     python -m deep_recommenders_torch.examples.train_deepfm_on_movielens \
         --num-ratings 200000 --epochs 3
@@ -15,6 +17,7 @@ synthetic corpus (same schema and marginals; see datasets/movielens.py).
 from __future__ import annotations
 
 import argparse
+import contextlib
 from typing import Optional, Sequence
 
 import torch
@@ -22,6 +25,7 @@ import torch
 from deep_recommenders_torch.datasets import MovielensRanking
 from deep_recommenders_torch.device import resolve_device
 from deep_recommenders_torch.models.ranking import DeepFM
+from deep_recommenders_torch.native import NativeStreamLoader
 from deep_recommenders_torch.training import DeviceData, Trainer
 
 
@@ -43,9 +47,17 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         help="feed batches from host per step instead of the "
         "device-resident path",
     )
+    p.add_argument(
+        "--native-loader", action="store_true",
+        help="with --host-streaming: assemble batches in the C++ prefetch "
+        "ring (native/loader.cpp) instead of the Python iterator",
+    )
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default) or 'cpu'")
     args = p.parse_args(argv)
+    if args.native_loader and not args.host_streaming:
+        p.error("--native-loader requires --host-streaming (the C++ ring "
+                "feeds the per-step host loop, not the device-resident path)")
     device = resolve_device(args.device)  # fail before building the data
 
     print("Loading MovieLens ...")
@@ -69,15 +81,22 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         device=device,
     )
     if args.host_streaming:
-        result = trainer.fit(
-            lambda epoch: ds.train_batches(
-                epochs=1, shuffle_seed=args.seed + epoch
-            ),
-            lambda: ds.test_batches(),
-            epochs=args.epochs,
-            early_stopping_patience=3,
-            log_every=200,
-        )
+        with contextlib.ExitStack() as stack:
+            if args.native_loader:
+                loader = stack.enter_context(NativeStreamLoader(
+                    *ds.train_arrays(), ds.batch_size, seed=args.seed))
+                train_batches = loader.epoch_batches
+            else:
+                def train_batches(epoch):
+                    return ds.train_batches(epochs=1,
+                                            shuffle_seed=args.seed + epoch)
+            result = trainer.fit(
+                train_batches,
+                lambda: ds.test_batches(),
+                epochs=args.epochs,
+                early_stopping_patience=3,
+                log_every=200,
+            )
     else:
         train = DeviceData.from_numpy(*ds.train_arrays(), ds.batch_size,
                                       device=device)

@@ -9,8 +9,10 @@ the device only sees statically shaped int32 id tensors:
                              "<name>__wt" : (B, L) float32 pad mask/weights
 
 Out-of-vocabulary values map to a bucket of their own at index len(vocab);
-hash bucketing is CRC32(bytes) % buckets, computed with ``zlib`` (bit-identical
-to the JAX package's native kernel, which is not ported).
+hash bucketing is CRC32(bytes) % buckets: past 512 values through the native
+library (``native.crc32_bucket``) when it can be built, else with ``zlib``,
+bit for bit the same buckets. A :class:`DenseFeature` passes float values
+through.
 """
 
 from __future__ import annotations
@@ -25,7 +27,16 @@ WEIGHT_SUFFIX = "__wt"
 
 
 def crc32_hash_bucket(values: Sequence, num_buckets: int) -> np.ndarray:
-    """Deterministic hash bucketing of arbitrary values (via str encoding)."""
+    """Deterministic hash bucketing of arbitrary values (via str encoding).
+
+    Past 512 values the native loop runs when the library is available; the
+    ``zlib`` loop is its bit-identical fallback.
+    """
+    if len(values) > 512:
+        from deep_recommenders_torch import native
+
+        if native.available():
+            return native.crc32_bucket(values, num_buckets)
     out = np.empty(len(values), dtype=np.int32)
     for i, v in enumerate(values):
         b = v if isinstance(v, bytes) else str(v).encode("utf-8")
@@ -144,15 +155,38 @@ class CrossedFeature:
         return {self.name: crc32_hash_bucket(joined, self.hash_buckets)}
 
 
+@dataclasses.dataclass(frozen=True)
+class DenseFeature:
+    """A dense float feature (e.g. the synthetic multitask C0..Cd columns):
+    (B,) values, or (B, ``dim``) when ``dim`` > 1."""
+
+    name: str
+    dim: int = 1
+
+    def encode(self, values: Sequence) -> Dict[str, np.ndarray]:
+        arr = np.asarray(values, dtype=np.float32)
+        if self.dim > 1 and arr.ndim == 1:
+            raise ValueError(f"DenseFeature {self.name}: expected 2-D values")
+        return {self.name: arr}
+
+
 class FeatureEncoder:
     """Encodes a raw-column dict into the framework's id-tensor batch dict.
     A :class:`CrossedFeature` reads the raw columns its keys name."""
 
-    def __init__(self, features: Sequence[Union[Feature, CrossedFeature]]):
+    def __init__(
+        self,
+        features: Sequence[Union[Feature, CrossedFeature, DenseFeature]],
+    ):
         self.features = list(features)
         names = [f.name for f in self.features]
         if len(set(names)) != len(names):
             raise ValueError("Duplicate feature names")
+
+    @property
+    def categorical(self) -> Tuple[Feature, ...]:
+        """The :class:`Feature` specs, in order (what an embedding takes)."""
+        return tuple(f for f in self.features if isinstance(f, Feature))
 
     def encode(self, raw: Mapping[str, Sequence]) -> Dict[str, np.ndarray]:
         out: Dict[str, np.ndarray] = {}

@@ -7,8 +7,9 @@ Returns (p_cvr, p_ctr, p_ctcvr), each (B, 1), as probabilities.
 With ``specs`` the shared input is an :class:`EmbeddingCollection` over a
 batch dict of categorical ids (the reference's shared input layer), so the
 table gradient of a train step is kernel K1 on the card; without them the
-input is a dense (B, ``input_dim``) tensor. ``mesh`` raises
-NotImplementedError until the port has sharding.
+input is a dense (B, ``input_dim``) tensor. ``mesh`` (a ("data", "model")
+``DeviceMesh``, which needs ``specs``: ValueError without) row-shards the
+shared table over "model" (``embedding/engine.py``).
 """
 
 from __future__ import annotations
@@ -39,14 +40,16 @@ class ESMM(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        if mesh is not None:
-            raise NotImplementedError("mesh sharding is not ported yet")
+        if mesh is not None and specs is None:
+            raise ValueError("ESMM(mesh=...) requires specs (the shared "
+                             "embedding table is what the mesh partitions)")
         if (specs is None) == (input_dim is None):
             raise ValueError("ESMM takes either input_dim (dense input) or "
                              "specs (categorical input), not both")
         self.embeddings = None
         if specs is not None:
             self.embeddings = EmbeddingCollection(specs, embedding_dim,
+                                                  mesh=mesh,
                                                   generator=generator)
             input_dim = len(self.embeddings.specs) * embedding_dim
         self.cvr_tower = MLP(input_dim, cvr_hidden, output_dim=1,

@@ -9,7 +9,7 @@ Python loop over experts. Each task has its own softmax gate ``gate_{t}``
 over the experts and its own tower ``tower_{t}``.
 
 Expert parallelism (``expert_parallel=True``, ``shard_expert_params``)
-raises NotImplementedError until the port has sharding.
+raises NotImplementedError: it is ``ROADMAP.md`` queue 1, item 2b.
 """
 
 from __future__ import annotations
@@ -26,10 +26,13 @@ from deep_recommenders_torch.models.common import (
     records_config,
 )
 
+_NOT_PORTED = ("expert parallelism is not ported yet (ROADMAP.md queue 1, "
+               "item 2b)")
+
 
 def shard_expert_params(params, mesh, *, model_axis: str = "model"):
     """Expert-parallel placement of the stacked expert parameters."""
-    raise NotImplementedError("expert sharding is not ported yet")
+    raise NotImplementedError(_NOT_PORTED)
 
 
 class StackedMLP(nn.Module):
@@ -81,7 +84,7 @@ class MMoE(nn.Module):
     ):
         super().__init__()
         if expert_parallel:
-            raise NotImplementedError("expert parallelism is not ported yet")
+            raise NotImplementedError(_NOT_PORTED)
         self.num_tasks = num_tasks
         self.experts = StackedMLP(num_experts, input_dim, expert_hidden,
                                   expert_dim, generator)

@@ -104,7 +104,8 @@ class DCN(nn.Module):
     with ``structure="parallel"``, the crosses and the MLP both over the
     embeddings, concatenated before the head.
 
-    ``mesh`` raises NotImplementedError until the port has sharding;
+    ``mesh`` (a ("data", "model") ``DeviceMesh``) row-shards the
+    embedding table over "model" (``embedding/engine.py``);
     ``compute_dtype`` is None (fp32) or ``torch.bfloat16`` (the lookup and
     the MLP in bf16, the crosses in fp32 as above, the ``head`` Dense in
     fp32 always). Parameters: table normal(0, 1/sqrt(D)), cross kernels

@@ -30,10 +30,10 @@ from deep_recommenders_torch.ops.fm import fm_interaction
 
 @records_config
 class DeepFM(nn.Module):
-    """``mesh`` raises NotImplementedError until the port has sharding;
-    ``compute_dtype`` is None (fp32) or ``torch.bfloat16``. Parameters are
-    initialised from ``generator`` (linear terms zero, table normal, dense
-    lecun-normal)."""
+    """``mesh`` (a ("data", "model") ``DeviceMesh``) row-shards the fused
+    table over "model" (``embedding/engine.py``); ``compute_dtype`` is None
+    (fp32) or ``torch.bfloat16``. Parameters are initialised from
+    ``generator`` (linear terms zero, table normal, dense lecun-normal)."""
 
     def __init__(
         self,

@@ -30,6 +30,13 @@ import torch
 from torch import nn
 
 from deep_recommenders_torch.embedding.engine import check_compute_dtype
+from deep_recommenders_torch.embedding.sharded import sharded_lookup
+from deep_recommenders_torch.parallel.mesh import check_mesh
+from deep_recommenders_torch.parallel.sharding import (
+    padded_rows,
+    row_range,
+    row_shard,
+)
 from deep_recommenders_torch.models.common import (
     Dense,
     records_config,
@@ -153,11 +160,15 @@ class DIN(nn.Module):
     With ``num_items`` set, DIN owns the item table (``num_items``, D),
     initialised normal(0, 1/sqrt(D)), and takes int ids ((B, T) and (B,))
     instead of vectors; the rows are gathered with plain PyTorch, as JAX
-    gathers them with ``jnp.take``. ``mesh`` raises NotImplementedError
-    until the port has sharding. ``compute_dtype`` is None (fp32) or
-    ``torch.bfloat16`` (see the module docstring). Masked positions score
-    -1e9, not -inf, so a row with no valid position gets uniform weights
-    and not NaN.
+    gathers them with ``jnp.take``. With ``mesh`` (a ("data", "model")
+    ``DeviceMesh``, which needs ``num_items``: ValueError without) the
+    table is padded to a multiple of the model axis's size and this
+    process keeps its rows (``item_table``, a local shard); the behaviors'
+    and the candidate's ids go through one ``sharded_lookup`` together, so
+    a train step's table gradient is one K1 launch on the shard.
+    ``compute_dtype`` is None (fp32) or ``torch.bfloat16`` (see the module
+    docstring). Masked positions score -1e9, not -inf, so a row with no
+    valid position gets uniform weights and not NaN.
     """
 
     def __init__(
@@ -174,15 +185,25 @@ class DIN(nn.Module):
     ):
         super().__init__()
         if mesh is not None:
-            raise NotImplementedError("mesh sharding is not ported yet")
+            check_mesh(mesh)
+            if num_items is None:
+                raise ValueError("DIN(mesh=...) requires num_items (the "
+                                 "sharded item table is what the mesh "
+                                 "partitions)")
         self.compute_dtype = check_compute_dtype(compute_dtype)
         self.num_items = num_items
+        self.mesh = mesh
         d = embedding_dim
         if num_items is not None:
-            table = torch.empty(num_items, d)
+            n, lo, hi = num_items, 0, num_items
+            if mesh is not None:
+                n = padded_rows(num_items, mesh)
+                lo, hi = row_range(num_items, mesh)
+            table = torch.empty(n, d)
             nn.init.normal_(table, 0.0, 1.0 / math.sqrt(d),
                             generator=generator)
-            self.item_table = nn.Parameter(table)
+            self.item_table = (nn.Parameter(table) if mesh is None
+                               else row_shard(table[lo:hi].clone()))
         self.unit = ActivationUnit(d, attention_units,
                                    interacter=subtract_interacter,
                                    dtype=compute_dtype, generator=generator)
@@ -201,7 +222,13 @@ class DIN(nn.Module):
         candidate: torch.Tensor,
         context: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
-        if self.num_items is not None:
+        if self.mesh is not None:
+            t = behaviors.shape[1]
+            rows = sharded_lookup(
+                self.item_table,
+                torch.cat([behaviors, candidate[:, None]], dim=1), self.mesh)
+            behaviors, candidate = rows[:, :t], rows[:, t]
+        elif self.num_items is not None:
             behaviors = nn.functional.embedding(behaviors, self.item_table)
             candidate = nn.functional.embedding(candidate, self.item_table)
         scores = self.unit(behaviors, candidate)[..., 0]  # (B, T)

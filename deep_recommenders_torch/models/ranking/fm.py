@@ -56,11 +56,12 @@ class FMLayer(nn.Module):
 class FactorizationMachine(nn.Module):
     """End-to-end FM over categorical features -> (B, 1) logits.
 
-    ``mesh`` raises NotImplementedError until the port has sharding;
-    ``compute_dtype`` is None (fp32) or ``torch.bfloat16`` (the lookup in
-    bf16; the first-order terms, the pairwise term's sums, the parameters
-    and the logits fp32). Parameters: linear terms zero, table normal(0,
-    1/sqrt(D)) from ``generator``.
+    ``mesh`` (a ("data", "model") ``DeviceMesh``) row-shards the fused
+    table over "model" (``embedding/engine.py``); ``compute_dtype`` is None
+    (fp32) or ``torch.bfloat16`` (the lookup in bf16; the first-order
+    terms, the pairwise term's sums, the parameters and the logits fp32).
+    Parameters: linear terms zero, table normal(0, 1/sqrt(D)) from
+    ``generator``.
     """
 
     def __init__(

@@ -27,9 +27,10 @@ from deep_recommenders_torch.models.common import MLP, records_config
 
 @records_config
 class FNN(nn.Module):
-    """``mesh`` raises NotImplementedError until the port has sharding;
-    ``compute_dtype`` is None (fp32) or ``torch.bfloat16`` (the lookup and
-    the MLP in bf16; parameters and logits fp32)."""
+    """``mesh`` (a ("data", "model") ``DeviceMesh``) row-shards the fused
+    table over "model" (``embedding/engine.py``); ``compute_dtype`` is None
+    (fp32) or ``torch.bfloat16`` (the lookup and the MLP in bf16;
+    parameters and logits fp32)."""
 
     def __init__(
         self,

@@ -36,9 +36,11 @@ Spec = Union[Feature, CrossedFeature]
 
 @records_config
 class WideDeep(nn.Module):
-    """``mesh`` raises NotImplementedError until the port has sharding;
-    ``compute_dtype`` is None (fp32) or ``torch.bfloat16`` (the lookup and
-    the MLP in bf16; the wide terms, parameters and logits fp32)."""
+    """``mesh`` (a ("data", "model") ``DeviceMesh``) row-shards the
+    embedding table over "model" (``embedding/engine.py``; the wide terms
+    stay replicated); ``compute_dtype`` is None (fp32) or
+    ``torch.bfloat16`` (the lookup and the MLP in bf16; the wide terms,
+    parameters and logits fp32)."""
 
     def __init__(
         self,

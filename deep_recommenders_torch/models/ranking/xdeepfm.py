@@ -113,11 +113,14 @@ class CIN(nn.Module):
 class XDeepFM(nn.Module):
     """Full xDeepFM: linear + CIN stack (sum-pooled) + deep MLP -> logits.
 
-    ``mesh`` raises NotImplementedError until the port has sharding;
+    ``mesh`` (a ("data", "model") ``DeviceMesh``) row-shards the embedding
+    table over "model" (``embedding/engine.py``); the linear terms' table
+    and the CIN weights stay replicated, and each process runs the CIN
+    stack on its own rows (its data coordinate's slice of the batch).
     ``compute_dtype`` is None (fp32) or ``torch.bfloat16``. Parameters are
-    initialised from
-    ``generator``: linear terms zero, table normal, CIN kernels flax's
-    truncated normal (stddev 0.05), dense kernels lecun-normal.
+    initialised from ``generator``: linear terms zero, table normal, CIN
+    kernels flax's truncated normal (stddev 0.05), dense kernels
+    lecun-normal.
     """
 
     def __init__(

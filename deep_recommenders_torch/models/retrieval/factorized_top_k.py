@@ -18,8 +18,9 @@ The indexes hold their candidates (and integer identifiers) as tensors on a
 device: the tensor's own when ``index`` is given a tensor, else the
 constructor's ``device``, the card unless the caller asks for the CPU.
 String identifiers stay a numpy array on the host. ``ShardedBruteForce``
-(the corpus over a mesh) is not ported yet. :func:`load_index` also knows
-the approximate indexes of ``ann.py`` (ApproxTopK, IVF).
+(the corpus over a mesh) is not ported yet (``ROADMAP.md`` queue 1, item
+2b). :func:`load_index` also knows the approximate indexes of ``ann.py``
+(ApproxTopK, IVF).
 """
 
 from __future__ import annotations

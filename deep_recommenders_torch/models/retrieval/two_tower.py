@@ -10,7 +10,7 @@ Counterpart of ``deep_recommenders_tpu/models/retrieval/two_tower.py``:
   and an optional FactorizedTopK metric.
 
 ``mesh=`` (sharded tables) and ``axis_name=`` (pod-wide negatives) raise
-NotImplementedError until the port has its parallelism.
+NotImplementedError: they are ``ROADMAP.md`` queue 1, item 2b.
 """
 
 from __future__ import annotations
@@ -53,7 +53,11 @@ class Tower(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        self.embeddings = EmbeddingCollection(specs, embedding_dim, mesh=mesh,
+        if mesh is not None:
+            raise NotImplementedError(
+                "the two-tower mesh is not ported yet (ROADMAP.md queue 1, "
+                "item 2b)")
+        self.embeddings = EmbeddingCollection(specs, embedding_dim,
                                               generator=generator)
         self.projection = MLP(len(self.embeddings.specs) * embedding_dim,
                               hidden, output_dim=output_dim,

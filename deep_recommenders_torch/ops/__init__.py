@@ -1,4 +1,6 @@
-"""Ops with hand-written CUDA kernels, each beside its plain version."""
+"""Ops with hand-written CUDA kernels, each beside its plain version, and
+the JAX package's other exported ops (``deep_recommenders_tpu/ops``).
+JAX's ``fm_interaction_pallas`` (K2) is ``fm_interaction_fused`` here."""
 
 from deep_recommenders_torch.ops.attention import (
     FlashAttention,
@@ -24,4 +26,17 @@ from deep_recommenders_torch.ops.embedding_kernels import (
     scatter_add_rows,
     scatter_add_rows_reference,
 )
+from deep_recommenders_torch.ops.dice import dice
 from deep_recommenders_torch.ops.fm import fm_interaction, fm_interaction_fused
+from deep_recommenders_torch.ops.retrieval import (
+    hard_negative_mining,
+    in_batch_retrieval_loss,
+    remove_accidental_negatives,
+    sampling_probability_correction,
+)
+from deep_recommenders_torch.ops.topk import (
+    chunked_top_k,
+    exclude,
+    merge_top_k,
+    top_k_scores,
+)

@@ -19,14 +19,14 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from deep_recommenders_torch.embedding.engine import check_compute_dtype
+from deep_recommenders_torch.device import check_compute_dtype
 
 MAX_FLOAT = float(np.finfo(np.float32).max / 100.0)
 MIN_FLOAT = float(np.finfo(np.float32).min / 100.0)
 
 _NOT_PORTED = ("pod-wide in-batch negatives (axis_name, pod_retrieval_loss) "
                "are not ported yet: they come with the port's parallelism "
-               "(ROADMAP.md, queue 1, item 9)")
+               "(ROADMAP.md, queue 1, item 2b)")
 
 
 def hard_negative_mining(

@@ -11,8 +11,8 @@ Ties: ``lax.top_k`` returns the lower index first among equal scores;
 ``torch.topk`` promises no order among them (on the card least of all). The
 selected scores are the same either way; only which of two equal-scoring
 candidates comes first, or is kept at the k-th place, may differ.
-``sharded_top_k`` (the corpus over a mesh) is not ported yet: it comes with
-the port's parallelism.
+``sharded_top_k`` (the corpus over a mesh) is not ported yet: it is
+``ROADMAP.md`` queue 1, item 2b.
 """
 
 from __future__ import annotations

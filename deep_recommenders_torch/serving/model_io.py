@@ -10,12 +10,12 @@ encoding of its arguments (``config.json``) beside a checkpoint of its
 state dict (``params/``); :func:`load_model` re-imports the class,
 rebuilds it from the decoded arguments and loads the state.
 
-The encoding is JAX's: ``Feature`` and ``CrossedFeature`` specs as
-``{"__spec__": name, "fields": ...}``, tuples as ``{"__tuple__": [...]}``,
-so round-tripped configs compare equal. Runtime arguments (``generator``,
-``mesh``) are stored as null. A value JAX refuses is refused here with
-``TypeError``, a ``torch.dtype`` in ``compute_dtype`` among them, as a jnp
-dtype is in JAX's ``_encode``.
+The encoding is JAX's: ``Feature``, ``CrossedFeature`` and ``DenseFeature``
+specs as ``{"__spec__": name, "fields": ...}``, tuples as
+``{"__tuple__": [...]}``, so round-tripped configs compare equal. Runtime
+arguments (``generator``, ``mesh``) are stored as null. A value JAX refuses
+is refused here with ``TypeError``, a ``torch.dtype`` in ``compute_dtype``
+among them, as a jnp dtype is in JAX's ``_encode``.
 """
 
 from __future__ import annotations
@@ -29,7 +29,11 @@ from typing import Any, Dict, Optional
 import torch
 
 from deep_recommenders_torch.device import DeviceLike, resolve_device
-from deep_recommenders_torch.features.columns import CrossedFeature, Feature
+from deep_recommenders_torch.features.columns import (
+    CrossedFeature,
+    DenseFeature,
+    Feature,
+)
 from deep_recommenders_torch.training.checkpoints import (
     restore_checkpoint,
     save_checkpoint,
@@ -38,6 +42,7 @@ from deep_recommenders_torch.training.checkpoints import (
 _SPEC_TYPES = {
     "Feature": Feature,
     "CrossedFeature": CrossedFeature,
+    "DenseFeature": DenseFeature,
 }
 
 # Arguments holding runtime objects, stored as null.
@@ -117,10 +122,13 @@ def load_model(path: str, mesh: Optional[object] = None,
 
     The class must be one of this package's that record their config, so
     a config file cannot make it import anything else. ``mesh`` raises
-    NotImplementedError until the port has sharding.
+    NotImplementedError: loading onto a mesh is ``ROADMAP.md`` queue 1,
+    item 2b.
     """
     if mesh is not None:
-        raise NotImplementedError("mesh sharding is not ported yet")
+        raise NotImplementedError(
+            "load_model(mesh=) is not ported yet (ROADMAP.md queue 1, "
+            "item 2b)")
     path = os.path.abspath(path)
     device = resolve_device(device)
     with open(os.path.join(path, "config.json")) as f:

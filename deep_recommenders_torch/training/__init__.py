@@ -15,7 +15,12 @@ from deep_recommenders_torch.training.losses import (
     softmax_cross_entropy,
     tied_smoothed_sparse_softmax_cross_entropy,
 )
-from deep_recommenders_torch.training.metrics import AUC, Mean, PrecisionRecall
+from deep_recommenders_torch.training.metrics import (
+    AUC,
+    Mean,
+    PrecisionRecall,
+    binary_accuracy,
+)
 from deep_recommenders_torch.training.trainer import Trainer, bce_loss
 from deep_recommenders_torch.training.checkpoints import (
     latest_step_dir,

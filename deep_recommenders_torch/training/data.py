@@ -61,12 +61,52 @@ class DeviceData:
         labels,
         batch_size: int,
         device: DeviceLike = "cuda",
+        mesh=None,
     ) -> "DeviceData":
-        """Upload an encoded split to ``device`` (the card by default)."""
+        """Upload an encoded split to ``device`` (the card by default).
+
+        With ``mesh`` each process passes ITS slice of the split, in data
+        coordinate order (global rows = local rows x data size, the same
+        on every process), as in JAX. The port assembles the whole split on
+        every process once, at upload, so that an epoch draws the same
+        global batches as JAX's global permutation and each process takes
+        its data coordinate's share of every batch (``Trainer(mesh=)``).
+        ``batch_size`` is the global batch. The assembly is one all-reduce
+        per array over the data group, of each slice placed at its rows of
+        a zero array on the device (collectives on device tensors work
+        with NCCL and gloo alike); it costs the whole split's memory on
+        every process. A float -0.0 comes back as +0.0.
+        """
         device = resolve_device(device)
 
         def put(x):
             return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+        if mesh is not None:
+            from deep_recommenders_torch.parallel.sharding import (
+                DATA_AXIS,
+                all_reduce,
+                axis_index,
+                axis_size,
+                mesh_device,
+            )
+
+            device = mesh_device(mesh)
+            n, d = axis_size(mesh, DATA_AXIS), axis_index(mesh, DATA_AXIS)
+            local = (leaves(labels) or leaves(features))[0].shape[0]
+            counts = torch.zeros(n, dtype=torch.int64, device=device)
+            counts[d] = local
+            all_reduce(counts, mesh, DATA_AXIS)
+            if (counts != local).any():
+                raise ValueError("every data shard must pass the same "
+                                 f"number of rows, got {counts.tolist()}")
+
+            def put(x):  # noqa: F811
+                x = torch.from_numpy(np.ascontiguousarray(x))
+                whole = torch.zeros((n * local,) + tuple(x.shape[1:]),
+                                    dtype=x.dtype, device=device)
+                whole[d * local:(d + 1) * local] = x.to(device)
+                return all_reduce(whole, mesh, DATA_AXIS)
 
         return cls(
             features=map_features(put, features),

@@ -1,10 +1,13 @@
 """Streaming metrics as state dicts of device tensors.
 
 Counterpart of ``deep_recommenders_tpu/training/metrics.py``: each metric is
-a state + ``init/update/compute``, updated on the device with no host
-sync per batch. AUC follows tf.metrics.auc's thresholded confusion matrix
-(200 thresholds on an epsilon-padded [0, 1] grid, trapezoidal ROC
-integration), so values compare with the JAX package's.
+a state + ``init/update/merge/compute``, updated on the device with no host
+sync per batch. ``merge`` adds two states elementwise, so the states of
+data shards merge into the state of their union (``Trainer(mesh=)`` merges
+them over the mesh's data group with one all-reduce of the sums). AUC
+follows tf.metrics.auc's thresholded confusion matrix (200 thresholds on an
+epsilon-padded [0, 1] grid, trapezoidal ROC integration), so values compare
+with the JAX package's.
 """
 
 from __future__ import annotations
@@ -15,6 +18,10 @@ from typing import Dict, Optional
 import torch
 
 State = Dict[str, torch.Tensor]
+
+
+def _merge(a: State, b: State) -> State:
+    return {k: a[k] + b[k] for k in a}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +58,10 @@ class AUC:
         }
 
     @staticmethod
+    def merge(a: State, b: State) -> State:
+        return _merge(a, b)
+
+    @staticmethod
     def compute(state: State) -> torch.Tensor:
         eps = 1e-7
         tpr = state["tp"] / (state["tp"] + state["fn"] + eps)
@@ -78,6 +89,10 @@ class PrecisionRecall:
             "fp": state["fp"] + (preds & ~labels).sum(),
             "fn": state["fn"] + (~preds & labels).sum(),
         }
+
+    @staticmethod
+    def merge(a: State, b: State) -> State:
+        return _merge(a, b)
 
     @staticmethod
     def compute(state: State) -> Dict[str, torch.Tensor]:
@@ -112,5 +127,18 @@ class Mean:
                 "count": state["count"] + count}
 
     @staticmethod
+    def merge(a: State, b: State) -> State:
+        return _merge(a, b)
+
+    @staticmethod
     def compute(state: State) -> torch.Tensor:
         return state["total"] / state["count"].clamp_min(1e-12)
+
+
+def binary_accuracy(labels: torch.Tensor, predictions: torch.Tensor,
+                    threshold: float = 0.5) -> torch.Tensor:
+    """The share of rows whose prediction above ``threshold`` agrees with
+    its label above 0.5."""
+    labels = labels.reshape(-1) > 0.5
+    preds = predictions.reshape(-1) > threshold
+    return (labels == preds).float().mean()

@@ -130,9 +130,11 @@ def test_activations_match_jax(rng, name):
 
 
 def test_deepfm_mesh_and_bf16_not_ported():
-    """The mesh is not ported; bf16 is (tests/test_torch_ranking_bf16.py),
-    and any compute dtype but fp32 and bf16 raises."""
-    with pytest.raises(NotImplementedError):
+    """``mesh`` takes a ("data", "model") DeviceMesh
+    (tests/test_torch_parallel.py) and refuses anything else with
+    TypeError; bf16 is ported (tests/test_torch_ranking_bf16.py), and any
+    compute dtype but fp32 and bf16 raises."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         TDeepFM(t_features(), mesh=object())
     with pytest.raises(ValueError):
         TDeepFM(t_features(), compute_dtype=torch.float16)

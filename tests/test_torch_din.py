@@ -295,7 +295,7 @@ def test_din_initialisation_and_errors():
     assert not any(d.alpha.any() for d in model.dice)
     assert abs(model.item_table.std().item() - 32 ** -0.5) < 2e-3
     assert tuple(model.dense[-1].weight.shape) == (1, 80)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tdin.DIN(mesh=object(), num_items=10)
     with pytest.raises(ValueError):
         tdin.DIN(compute_dtype=torch.float16)

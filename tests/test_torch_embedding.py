@@ -174,9 +174,11 @@ def test_modules_match_flax(rng):
 @pytest.mark.parametrize("kwargs", [dict(mesh=object()),
                                     dict(compute_dtype=torch.float16)])
 def test_mesh_and_bf16_not_ported(kwargs):
-    """The mesh is not ported; bf16 is (tests/test_torch_ranking_bf16.py),
-    and any compute dtype but fp32 and bf16 raises."""
-    error = NotImplementedError if "mesh" in kwargs else ValueError
+    """``mesh`` takes a ("data", "model") DeviceMesh
+    (tests/test_torch_parallel.py) and refuses anything else with
+    TypeError; bf16 is ported (tests/test_torch_ranking_bf16.py), and any
+    compute dtype but fp32 and bf16 raises."""
+    error = TypeError if "mesh" in kwargs else ValueError
     with pytest.raises(error):
         t_engine.EmbeddingCollection(_specs(TFeature), 4, **kwargs)
 

@@ -467,15 +467,20 @@ def test_mmoe_example_with_checkpoints_on_the_cpu(tmp_path, capsys):
 
 
 def test_parts_without_sharding_raise():
-    """Expert parallelism and mesh= raise until the port has sharding;
-    ESMM takes exactly one of input_dim and specs."""
-    with pytest.raises(NotImplementedError):
+    """Expert parallelism raises NotImplementedError (ROADMAP.md queue 1,
+    item 2b); ``mesh=`` takes a ("data", "model") DeviceMesh
+    (tests/test_torch_parallel.py) and refuses anything else with
+    TypeError, and needs ESMM's specs (ValueError, as JAX); ESMM takes
+    exactly one of input_dim and specs."""
+    with pytest.raises(NotImplementedError, match="item 2b"):
         tm.MMoE(X, expert_parallel=True)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 2b"):
         tm.shard_expert_params({}, object())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tm.ESMM(specs=t_features(), mesh=object())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="requires specs"):
+        tm.ESMM(input_dim=4, mesh=object())
+    with pytest.raises(TypeError, match="DeviceMesh"):
         DIN(num_items=10, mesh=object())
     with pytest.raises(ValueError):
         tm.ESMM()

@@ -35,7 +35,9 @@ print(len([m for m in sys.modules if m.startswith("deep_recommenders_torch")]))
 assert not bad, bad
 for name in ("ops.retrieval", "ops.topk", "models.retrieval.two_tower",
              "models.retrieval.factorized_top_k",
-             "examples.train_two_tower_on_movielens"):
+             "examples.train_two_tower_on_movielens", "parallel",
+             "parallel.distributed", "parallel.mesh", "parallel.sharding",
+             "embedding.sharded", "native"):
     assert "deep_recommenders_torch." + name in sys.modules, name
 """
 

@@ -577,7 +577,7 @@ def test_parts_without_parallelism_raise(monkeypatch):
     bf16 raise ValueError, as JAX's; the example runs on the card by
     default, which raises without one."""
     q = torch.zeros(4, 3)
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 2b"):
         tret.Retrieval(axis_name="data")
     with pytest.raises(NotImplementedError):
         tret.Retrieval(mesh=object())

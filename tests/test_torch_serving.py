@@ -480,3 +480,23 @@ def test_trace_writes_a_chrome_trace_naming_the_op(tmp_path):
     with open(files[0]) as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
     assert f"{NS}::cin_stack_fwd_pooled" in names
+
+
+def test_dense_feature_spec_round_trip_matches_jax():
+    """A config holding a ``DenseFeature`` (beside the other two spec
+    types) encodes to JAX's JSON, tag and fields, and decodes back equal,
+    in both packages."""
+    from deep_recommenders_torch.features.columns import DenseFeature
+    from deep_recommenders_torch.serving import model_io as t_io
+    from deep_recommenders_tpu.serving import model_io as j_io
+
+    mine = (DenseFeature("c", 4), Feature("u", hash_buckets=9),
+            CrossedFeature("x", keys=("u", "v"), hash_buckets=5))
+    theirs = (jfeatures.DenseFeature("c", 4),
+              jfeatures.Feature("u", hash_buckets=9),
+              jfeatures.CrossedFeature("x", keys=("u", "v"), hash_buckets=5))
+    text = json.dumps(t_io._encode(mine), sort_keys=True)
+    assert text == json.dumps(j_io._encode(theirs), sort_keys=True)
+    assert '"__spec__": "DenseFeature"' in text
+    assert t_io._decode(json.loads(text)) == mine
+    assert j_io._decode(json.loads(text)) == theirs

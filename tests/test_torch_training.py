@@ -26,6 +26,7 @@ from deep_recommenders_torch.training import (
     Mean,
     PrecisionRecall,
     Trainer,
+    binary_accuracy,
     binary_cross_entropy,
     restore_checkpoint,
 )
@@ -165,13 +166,15 @@ def test_fit_streaming_epoch_matches_jax(jax_epoch):
 
 
 def test_fit_device_checkpoints_and_mesh_not_ported(tmp_path):
-    """``mesh=`` still raises; ``checkpoint_dir`` is ported: an epoch
-    leaves ``step_0`` with the model's and the optimizer's state dicts
-    (its resume is held in ``tests/test_torch_multitask.py``)."""
+    """``mesh=`` takes a ("data", "model") DeviceMesh (the meshed trainer
+    is held in ``tests/test_torch_parallel.py``) and refuses anything else
+    with TypeError; ``checkpoint_dir`` is ported: an epoch leaves
+    ``step_0`` with the model's and the optimizer's state dicts (its
+    resume is held in ``tests/test_torch_multitask.py``)."""
     model = TDeepFM(t_ml.default_movielens_features(), embedding_dim=4,
                     hidden=(4,))
     opt = torch.optim.Adam(model.parameters())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         Trainer(model, opt, mesh=object(), device="cpu")
     linear = torch.nn.Linear(3, 1)
     trainer = Trainer(linear, torch.optim.Adam(linear.parameters()),
@@ -185,3 +188,92 @@ def test_fit_device_checkpoints_and_mesh_not_ported(tmp_path):
     assert sorted(state) == ["model", "optimizer"]
     assert torch.equal(state["model"]["weight"], linear.weight.detach())
     assert len(state["optimizer"]["state"]) == 2
+
+
+def test_merges_and_binary_accuracy_match_jax(rng):
+    labels = (rng.random((300, 1)) < 0.4).astype(np.float32)
+    probs = rng.random((300, 1)).astype(np.float32)
+    halves = (slice(0, 140), slice(140, 300))
+    pairs = ((AUC(), j_metrics.AUC()),
+             (PrecisionRecall(), j_metrics.PrecisionRecall()))
+    for t_metric, j_metric in pairs:
+        t_states = [t_metric.update(t_metric.init(),
+                                    torch.from_numpy(labels[h]),
+                                    torch.from_numpy(probs[h]))
+                    for h in halves]
+        j_states = [j_metric.update(j_metric.init(), jnp.asarray(labels[h]),
+                                    jnp.asarray(probs[h])) for h in halves]
+        merged = t_metric.merge(*t_states)
+        whole = t_metric.update(t_metric.init(), torch.from_numpy(labels),
+                                torch.from_numpy(probs))
+        j_merged = j_metric.merge(*j_states)
+        for k in merged:
+            np.testing.assert_array_equal(merged[k].numpy(),
+                                          whole[k].numpy())
+            np.testing.assert_array_equal(merged[k].numpy(),
+                                          np.asarray(j_merged[k]))
+    values, weight = rng.random(300).astype(np.float32), rng.random(300)
+    t_states = [Mean.update(Mean.init(), torch.from_numpy(values[h]),
+                            weight[h]) for h in halves]
+    j_states = [j_metrics.Mean.update(j_metrics.Mean.init(), values[h],
+                                      weight[h]) for h in halves]
+    merged, j_merged = Mean.merge(*t_states), j_metrics.Mean.merge(*j_states)
+    np.testing.assert_allclose(Mean.compute(merged).item(),
+                               float(j_metrics.Mean.compute(j_merged)),
+                               rtol=1e-6)
+    for threshold in (0.5, 0.3):
+        np.testing.assert_allclose(
+            binary_accuracy(torch.from_numpy(labels), torch.from_numpy(probs),
+                            threshold).item(),
+            float(j_metrics.binary_accuracy(jnp.asarray(labels),
+                                            jnp.asarray(probs), threshold)),
+            rtol=1e-6)
+
+
+def _rows_trainer():
+    model = torch.nn.Linear(3, 1)
+    return Trainer(model, torch.optim.SGD(model.parameters(), lr=0.1),
+                   loss_fn=lambda batch, labels: model(batch).square().mean(),
+                   device="cpu")
+
+
+@pytest.mark.parametrize("labels", ["dict", "tuple", "none"])
+def test_fit_counts_rows_of_any_labels(labels, rng):
+    """4 batches of 8 rows: 32 examples, whatever the labels' structure
+    (the rows of their first array, else of the features)."""
+    x = rng.random((8, 3)).astype(np.float32)
+    y = {"dict": {"ctr": np.zeros(8), "cvr": np.ones(8)},
+         "tuple": (np.zeros((8, 1)), np.zeros((8, 2))),
+         "none": None}[labels]
+    result = _rows_trainer().fit(lambda epoch: [(x, y)] * 4, epochs=1,
+                                 verbose=False)
+    assert result["examples"] == 32
+
+
+def test_fit_takes_both_kinds_of_factory_as_jax(jax_epoch):
+    """A factory with no argument is called without one; one that takes
+    the epoch gets it. Each against JAX's ``Trainer.fit`` on the same
+    batches from the same weights, two epochs."""
+    init_params, _ = jax_epoch
+    ds, _ = _port_trainer(init_params)
+    feats, labels = ds.train_arrays()
+
+    def batches(seed):
+        idx = np.arange(len(labels))
+        np.random.default_rng(seed).shuffle(idx)
+        for s in range(len(idx) // BATCH):
+            rows = idx[s * BATCH:(s + 1) * BATCH]
+            yield {k: v[rows] for k, v in feats.items()}, labels[rows]
+
+    factories = {"no_argument": lambda: batches(0),
+                 "epoch": lambda epoch: batches(epoch)}
+    for name, factory in factories.items():
+        _, trainer = _port_trainer(init_params)
+        got = trainer.fit(factory, epochs=2, verbose=False)
+        jtrainer = JTrainer(JDeepFM(ds.feature_specs, embedding_dim=D,
+                                    hidden=HIDDEN), optax.adam(1e-3), seed=0)
+        want = jtrainer.fit(factory, epochs=2, verbose=False)
+        assert got["examples"] == 2 * (len(labels) // BATCH) * BATCH
+        for g, w in zip(got["history"], want["history"]):
+            np.testing.assert_allclose(g["loss"], w["loss"], rtol=1e-4,
+                                       err_msg=name)

@@ -138,9 +138,11 @@ def test_xdeepfm_routes_like_jax():
 
 
 def test_xdeepfm_mesh_and_bf16_not_ported():
-    """The mesh is not ported; bf16 is (tests/test_torch_ranking_bf16.py),
-    and any compute dtype but fp32 and bf16 raises."""
-    with pytest.raises(NotImplementedError):
+    """``mesh`` takes a ("data", "model") DeviceMesh
+    (tests/test_torch_parallel.py) and refuses anything else with
+    TypeError; bf16 is ported (tests/test_torch_ranking_bf16.py), and any
+    compute dtype but fp32 and bf16 raises."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         TXDeepFM(t_features(), mesh=object())
     with pytest.raises(ValueError):
         TXDeepFM(t_features(), compute_dtype=torch.float16)
