@@ -42,10 +42,14 @@ In order:
    and K6 at the same shapes on bf16 q, k, v, g, held against their fp64 and
    bf16 plain versions (``check_forward_bf16``, ``check_backward_bf16``),
    timed beside the bf16 SDPA call, with the exp floor beside their bounds;
-   then the head widths no kernel is built for (``head_width_phase``):
+   then the D = 256 instances of K5 and K6, fp32 and bf16
+   (``wide_attention_phase``), at (256, 512, 256) on one SyntheticImdb
+   batch's key masks, held and timed as those at D = 16, beside the
+   library's SDPA where it takes the shape ("refused" where not); then
+   the head widths no kernel is built for (``head_width_phase``):
    attention() over the budget at D = 8 and FlashAttention at D = 24, fp32
    and bf16, through K5 and K6 padded to the next kernel width and held to
-   the same checks at the true D, and a D = 256 call that warns and goes
+   the same checks at the true D, and a D = 257 call that warns and goes
    dense;
 5. twenty train paths (and those of 11-13), each with every launch
    counter set to 0 just before it and read just after, each checked for
@@ -53,6 +57,10 @@ In order:
    (the examples: finite) and the exact launches it must make:
    - DeepFM at the bench width (D=16, hidden (256, 32)), 2 epochs: one K1
      per train step;
+   - attention() over the budget at D = 200, (160, 1024), in fp32 and then
+     bf16, forward and backward (``attention_d200_path``): no warning, one
+     launch of each D = 256 instance, held to the plain versions at
+     D = 200 on 64 rows;
    - xDeepFM's flagship (maps (128, 128) relu, hidden (256, 128)), 2 epochs:
      two K1, one K3 forward and one K3 backward per train step, one K3
      forward per eval batch;
@@ -173,6 +181,19 @@ In order:
    MESH_FIRST_STEP_RTOL of the unmeshed run on the card from the same
    weights, every loss within MESH_LOSSES_RTOL; each rank's step time and
    K1's device time on its shard printed (nothing is claimed from them);
+   at both meshes, the two-tower at the zoo's width with
+   ``Retrieval(axis_name="data", mesh=)`` for MESH_STEPS steps of 4096
+   pairs (two K1 a step a rank, on its towers' table shards), held as
+   DeepFM is, and one step with the log-Q correction and accidental-
+   negative removal; at (1, 2), ShardedBruteForce over the index corpus
+   against BruteForce (scores within SHARDED_SCORES_RTOL, ids equal on
+   tie-free rows) and a load_index(mesh=) round trip, expert-parallel
+   MMoE at its example's defaults against the replicated run
+   (MESH_FIRST_STEP_RTOL), DeepFM's CKPT_EPOCHS epochs through a sharded
+   checkpoint resumed by a fresh model (the step losses of an
+   uninterrupted run, bit for bit), load_model(mesh=) of an unmeshed
+   artifact (logits within LOAD_MODEL_RTOL); at (2, 1), that checkpoint
+   restored equal to its shards joined, Adam's moments included;
 14. prints one JSON line with every kernel's numbers (with each forward
    kernel's launches a served batch, and each path's launches), then, as
    the last line, {"ok": true, "device": {...}}.
@@ -217,6 +238,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import socket
 import subprocess
 import sys
@@ -320,8 +342,12 @@ ATT_PLANTED_ROWS = 64
 # Head widths without a kernel: the IMDB example's --model-dim 32
 # --max-len 1024 (batch 64 x 4 heads, D = 8; 256 x 1024^2 x 4 B x 3 = 3.2 GB
 # of dense score tensors, over the 2 GB budget), checked in chunks of rows;
-# and D = 256 over the budget (160 x 1024^2 x 4 B x 3 = 2.01 GB).
+# and D = 200 (the D = 256 kernels, padded) and D = 257 (dense) over the
+# budget (160 x 1024^2 x 4 B x 3 = 2.01 GB).
 HW_BH, HW_LEN, HW_CHUNK, HW_WIDE_BH = 256, 1024, 64, 160
+# The D = 256 instances of K5 and K6: one SyntheticImdb batch's key masks,
+# one head an example, at the Transformer's S.
+WIDE_BH, WIDE_D = 256, 256
 
 # Published H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bandwidth, fp32
 # outside the tensor cores, and dense bf16 on the tensor cores.
@@ -1466,17 +1492,17 @@ def _valid_pairs(mask: torch.Tensor, causal: bool) -> int:
     return int((mask.double() * after).sum().item())
 
 
-def sdpa_inputs(q, k, v, mask, causal):
+def sdpa_inputs(q, k, v, mask, causal, heads=TX_HEADS):
     """q, k, v as (B, H, S, D) views and the boolean mask that
     ``F.scaled_dot_product_attention`` takes for the same function: the
-    key mask of each example (its rows repeat over the TX_HEADS heads),
+    key mask of each example (its rows repeat over the ``heads`` heads),
     broadcast over heads and queries, with the causal triangle. The 4-D
     layout lets the library choose a fused backend; the 3-D one runs its
     math path."""
     bh, s, d = q.shape
-    b = bh // TX_HEADS
-    q4, k4, v4 = (t.view(b, TX_HEADS, s, d) for t in (q, k, v))
-    allowed = (mask.view(b, TX_HEADS, s)[:, 0] > 0)[:, None, None, :]
+    b = bh // heads
+    q4, k4, v4 = (t.view(b, heads, s, d) for t in (q, k, v))
+    allowed = (mask.view(b, heads, s)[:, 0] > 0)[:, None, None, :]
     if causal:
         allowed = allowed & torch.ones(s, s, dtype=torch.bool,
                                        device=q.device).tril()
@@ -1517,22 +1543,28 @@ def kernel_times(fn, top: int = 3):
             for e in kernels[:top]]
 
 
-def library_fields(q, k, v, mask, causal, g=None) -> dict:
+def library_fields(q, k, v, mask, causal, g=None, heads=TX_HEADS) -> dict:
     """The library yardstick of K5 (``g`` None) or K6: one
     ``F.scaled_dot_product_attention`` call on the same inputs, or its
     backward, timed, with the kernels it ran. The forward is timed from
     CUDA-graph replays as the kernels are; the backward eagerly with CUDA
     events (autograd's backward is not captured in a graph; at
-    milliseconds a call, the launch cost is noise)."""
-    args = sdpa_inputs(q, k, v, mask, causal)
-    if g is None:
-        call = sdpa_forward(*args)
-        fields = {"library_ms": graph_ms(call, 5, 4),
-                  "library_timing": "CUDA-graph replays"}
-    else:
-        call = sdpa_backward(*args, g.view(args[0].shape))
-        fields = {"library_ms": time_ms(call, iters=5, warmup=2),
-                  "library_timing": "eager, CUDA events"}
+    milliseconds a call, the launch cost is noise). A shape the library
+    refuses gives ``library_ms`` null and "refused" with its message."""
+    args = sdpa_inputs(q, k, v, mask, causal, heads)
+    try:
+        if g is None:
+            call = sdpa_forward(*args)
+            fields = {"library_ms": graph_ms(call, 5, 4),
+                      "library_timing": "CUDA-graph replays"}
+        else:
+            call = sdpa_backward(*args, g.view(args[0].shape))
+            fields = {"library_ms": time_ms(call, iters=5, warmup=2),
+                      "library_timing": "eager, CUDA events"}
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        return {"library_ms": None, "library": "refused",
+                "library_refusal": str(e)[:200]}
     fields["library_kernels"] = kernel_times(call)
     del call, args
     torch.cuda.empty_cache()
@@ -1615,9 +1647,12 @@ def fp32_attention_times(imdb: SyntheticImdb, device) -> dict:
     return times
 
 
-def attention_kernel_phase(imdb: SyntheticImdb, device):
+def attention_kernel_phase(imdb: SyntheticImdb, device, inputs=None,
+                           heads=TX_HEADS, suffix=""):
     """K5 and K6 at the Transformer slice's shapes
-    (:func:`attention_inputs`), non-causal and causal. Each is held against
+    (:func:`attention_inputs`; or ``inputs``, whose (bh) rows are
+    examples of ``heads`` heads, with ``suffix`` on the entries' names),
+    non-causal and causal. Each is held against
     its plain version in fp64 (``ops/attention_tolerances.py`` states the
     tolerances of the kernels' 3xTF32 products), in chunks of ATT_CHUNK
     rows, on the same inputs, forward residuals and incoming gradient; the
@@ -1628,7 +1663,8 @@ def attention_kernel_phase(imdb: SyntheticImdb, device):
     its backward), with the kernels that call ran. Bounds: the 3xTF32
     design's (:func:`tf32_bound_fields`), the fp32 CUDA-core bound
     beside it."""
-    q, k, v, g, mask = attention_inputs(imdb, device)
+    q, k, v, g, mask = inputs or attention_inputs(imdb, device)
+    del inputs
     bh, s, d = q.shape
     chunks = [slice(i, i + ATT_CHUNK) for i in range(0, bh, ATT_CHUNK)]
     shape = {"q": [bh, s, d], "k": [bh, s, d],
@@ -1651,7 +1687,7 @@ def attention_kernel_phase(imdb: SyntheticImdb, device):
                               planted_rows=ATT_PLANTED_ROWS,
                               planted_tf32=True)
             for c in chunks)
-        print(f"flash_attention causal={causal} shares: out "
+        print(f"flash_attention{suffix} causal={causal} shares: out "
               f"{fwd_checks['out']['err_over_tol']:.6g} / fro "
               f"{fwd_checks['out']['fro_over_tol']:.6g}, lse "
               f"{fwd_checks['lse']['err_over_tol']:.6g}; " + ", ".join(
@@ -1675,7 +1711,7 @@ def attention_kernel_phase(imdb: SyntheticImdb, device):
                 None, iters=5, replays=4, eager_iters=10),
             "host_us": host_us(lambda: att.flash_attention(q, k, v, mask,
                                                            causal)),
-            **library_fields(q, k, v, mask, causal),
+            **library_fields(q, k, v, mask, causal, heads=heads),
             # q, k, v and out; the mask and lse. Per scored pair: 4 D
             # products (q.k and p v) and one exp; on the CUDA cores 5
             # softmax operations beside them.
@@ -1693,7 +1729,7 @@ def attention_kernel_phase(imdb: SyntheticImdb, device):
                 lambda: att.flash_attention_backward_reference(
                     q, k, v, mask, out, lse, g, causal),
                 None, iters=5, replays=4, eager_iters=10),
-            **library_fields(q, k, v, mask, causal, g),
+            **library_fields(q, k, v, mask, causal, g, heads),
             # The dq kernel and the dk/dv kernel, one launch each.
             "kernel_split": kernel_times(bwd_call, top=2),
             # q, k, v, g, out, dq, dk and dv; the mask and lse. Per scored
@@ -1720,9 +1756,11 @@ def attention_kernel_phase(imdb: SyntheticImdb, device):
         del out, lse, grads, fwd_call, bwd_call
     source = "deep_recommenders_torch/csrc/flash_attention.cu"
     entries = [
-        {"name": "flash_attention.fwd", "route": "cuda", "source": source,
+        {"name": "flash_attention.fwd" + suffix, "route": "cuda",
+         "source": source,
          "replaces": "deep_recommenders_tpu/ops/attention.py:165", **fwd},
-        {"name": "flash_attention.bwd", "route": "cuda", "source": source,
+        {"name": "flash_attention.bwd" + suffix, "route": "cuda",
+         "source": source,
          "replaces": "deep_recommenders_tpu/ops/attention.py:377", **bwd},
     ]
     del q, k, v, g
@@ -1730,11 +1768,13 @@ def attention_kernel_phase(imdb: SyntheticImdb, device):
     return entries
 
 
-def attention_bf16_kernel_phase(imdb: SyntheticImdb, device):
+def attention_bf16_kernel_phase(imdb: SyntheticImdb, device, inputs=None,
+                                heads=TX_HEADS, suffix=""):
     """The bf16 K5 and K6 at the bf16 Transformer path's shapes: q, k, v, g
     (2048, 512, 16) seeded normals rounded to bf16, with the same key
-    masks as the fp32 phase, non-causal and causal. Each is held against
-    its fp64 and its bf16 plain version (``check_forward_bf16``,
+    masks as the fp32 phase (or ``inputs``, ``heads`` and ``suffix`` as in
+    :func:`attention_kernel_phase`), non-causal and causal. Each is held
+    against its fp64 and its bf16 plain version (``check_forward_bf16``,
     ``check_backward_bf16`` in ``ops/attention_tolerances.py``), in chunks
     of ATT_CHUNK rows; the dk check must reject dk less its first query
     tile. Times: kernel, bf16 plain version, and one bf16
@@ -1742,7 +1782,9 @@ def attention_bf16_kernel_phase(imdb: SyntheticImdb, device):
     its backward). Bounds: bf16 bytes and bf16 tensor-core operations,
     with the exp floor beside them (one exp per lane of a scored tile, two
     in K6, at 16 a clock per SM at the largest SM clock)."""
-    q, k, v, g, mask = attention_inputs(imdb, device, torch.bfloat16)
+    q, k, v, g, mask = inputs or attention_inputs(imdb, device,
+                                                  torch.bfloat16)
+    del inputs
     bh, s, d = q.shape
     chunks = [slice(i, i + ATT_CHUNK) for i in range(0, bh, ATT_CHUNK)]
     shape = {"q": [bh, s, d], "k": [bh, s, d], "dtype": "bfloat16",
@@ -1762,7 +1804,7 @@ def attention_bf16_kernel_phase(imdb: SyntheticImdb, device):
                                    mask[c], out[c], lse[c], g[c], causal,
                                    planted_rows=ATT_PLANTED_ROWS)
             for c in chunks)
-        print(f"flash_attention_bf16 causal={causal} shares: out "
+        print(f"flash_attention_bf16{suffix} causal={causal} shares: out "
               f"{fwd_checks['out']['err_over_tol']:.6g} (fp64), "
               f"{fwd_checks['out_bf16_plain']['err_over_tol']:.6g} (bf16 "
               f"plain); dk {bwd_checks['dk']['err_over_tol']:.6g}, fro "
@@ -1784,7 +1826,7 @@ def attention_bf16_kernel_phase(imdb: SyntheticImdb, device):
                 None, iters=10, replays=4, eager_iters=20),
             "host_us": host_us(lambda: att.flash_attention(q, k, v, mask,
                                                            causal)),
-            **library_fields(q, k, v, mask, causal),
+            **library_fields(q, k, v, mask, causal, heads=heads),
             # q, k, v and out in bf16; the mask and lse in fp32. Per scored
             # pair 4 D tensor-core operations (q.k and p v).
             **bound_fields((4 * bh * s * d) * 2 + 2 * bh * s * 4,
@@ -1805,7 +1847,7 @@ def attention_bf16_kernel_phase(imdb: SyntheticImdb, device):
                 lambda: att.flash_attention_backward_reference_bf16(
                     q, k, v, mask, out, lse, g, causal),
                 None, iters=10, replays=4, eager_iters=20),
-            **library_fields(q, k, v, mask, causal, g),
+            **library_fields(q, k, v, mask, causal, g, heads),
             # The dq kernel and the dk/dv kernel, one launch each.
             "kernel_split": kernel_times(
                 lambda: att.flash_attention_backward(q, k, v, mask, out, lse,
@@ -1831,16 +1873,100 @@ def attention_bf16_kernel_phase(imdb: SyntheticImdb, device):
         del out, lse, grads
     source = "deep_recommenders_torch/csrc/flash_attention_bf16.cu"
     entries = [
-        {"name": "flash_attention_bf16.fwd", "route": "cuda",
+        {"name": "flash_attention_bf16.fwd" + suffix, "route": "cuda",
          "source": source,
          "replaces": "deep_recommenders_tpu/ops/attention.py:165", **fwd},
-        {"name": "flash_attention_bf16.bwd", "route": "cuda",
+        {"name": "flash_attention_bf16.bwd" + suffix, "route": "cuda",
          "source": source,
          "replaces": "deep_recommenders_tpu/ops/attention.py:377", **bwd},
     ]
     del q, k, v, g
     torch.cuda.empty_cache()
     return entries
+
+
+def wide_attention_inputs(imdb: SyntheticImdb, device, dtype):
+    """The D = 256 phase's inputs: q, k, v, g (WIDE_BH, TX_LEN, 256)
+    seeded normals in ``dtype``, and the key masks of one SyntheticImdb
+    train batch (WIDE_BH examples, one head each)."""
+    tokens = torch.from_numpy(imdb.train[0][:WIDE_BH]).to(device)
+    mask = (tokens != 0).float()
+    gen = torch.Generator(device=device).manual_seed(SEED + 256)
+    q, k, v, g = (torch.randn(WIDE_BH, TX_LEN, WIDE_D, device=device,
+                              generator=gen).to(dtype) for _ in range(4))
+    return q, k, v, g, mask
+
+
+def wide_attention_phase(imdb: SyntheticImdb, device):
+    """The D = 256 instances of K5 and K6, fp32 and bf16, at (BH, S, D) =
+    (WIDE_BH, TX_LEN, 256) (:func:`wide_attention_inputs`), non-causal and
+    causal, by the fp32 and bf16 kernel phases' checks, planted faults,
+    times, bounds and library calls (``fmha_cutlassF/B_f32`` and cuDNN's
+    bf16 SDPA where they take D = 256, "refused" where not)."""
+    entries = attention_kernel_phase(
+        imdb, device, wide_attention_inputs(imdb, device, torch.float32),
+        heads=1, suffix=".d256")
+    entries += attention_bf16_kernel_phase(
+        imdb, device, wide_attention_inputs(imdb, device, torch.bfloat16),
+        heads=1, suffix=".d256")
+    return entries
+
+
+def attention_d200_path(device) -> dict:
+    """The D = 256 kernels' main path: ``attention()`` over the memory
+    budget at a head width of 200, (BH, S) = (HW_WIDE_BH, HW_LEN), in fp32
+    and then in bf16, forward and backward, with seeded post-padding key
+    masks. It must warn of nothing and launch the fp32 and the bf16 K5
+    and K6 once each (D padded to 256), and agree with the plain versions
+    at D = 200 (``ops/attention_tolerances.py``) on HW_CHUNK rows.
+    Returns the launches of the two calls."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 200)
+    bh, s, d = HW_WIDE_BH, HW_LEN, 200
+    if not att.use_flash_for(bh, s, s, "cuda", False):
+        raise AssertionError("attention_d200: under the budget")
+    lengths = torch.randint(s // 16, s + 1, (bh,), device=device,
+                            generator=gen)
+    mask = (torch.arange(s, device=device)[None, :]
+            < lengths[:, None]).float()
+    reset_launches()
+    runs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, g = (torch.randn(bh, s, d, device=device, generator=gen)
+                      .to(dtype) for _ in range(4))
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            out = att.attention(*leaves, key_mask=mask)
+            out.backward(g)
+        runs[dtype] = (q, k, v, g, out.detach(), [t.grad for t in leaves])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = {key: 0 for key in launches}
+    for key in (*flash_keys(torch.float32), *flash_keys(torch.bfloat16)):
+        want[key] = 1
+    if launches != want:
+        raise AssertionError(f"attention_d200: launches {launches}, "
+                             f"expected {want}")
+    shares, rows = {}, slice(0, HW_CHUNK)
+    for dtype, (q, k, v, g, out, grads) in runs.items():
+        bf16 = dtype == torch.bfloat16
+        lse = att.flash_attention(
+            *(att.pad_head_dim(t[rows], 256) for t in (q, k, v)), mask[rows],
+            False, return_lse=True, scale=d ** -0.5)[1]
+        forward = at.check_forward_bf16 if bf16 else at.check_forward
+        backward = at.check_backward_bf16 if bf16 else at.check_backward
+        fwd_checks = forward((out[rows], lse), q[rows], k[rows], v[rows],
+                             mask[rows], False)
+        bwd_checks = backward([t[rows] for t in grads], q[rows], k[rows],
+                              v[rows], mask[rows], out[rows], lse, g[rows],
+                              False)
+        shares["bf16" if bf16 else "fp32"] = max(
+            ct.worst_share(fwd_checks), ct.worst_share(bwd_checks))
+    del runs
+    torch.cuda.empty_cache()
+    print(f"attention_d200 launches: {launches}; worst shares {shares}; "
+          "no warning")
+    return launches
 
 
 def head_width_phase(device) -> dict:
@@ -1851,8 +1977,9 @@ def head_width_phase(device) -> dict:
     backward must launch K5 and K6 once each (padded to D = 16) and pass the
     checks of ``ops/attention_tolerances.py`` at D = 8 against the plain
     versions (in chunks of HW_CHUNK rows); FlashAttention at D = 24 on
-    (6, 150, 130) the same way; a D = 256 call over the budget must warn,
-    go dense (no launch) and equal the dense SDPA."""
+    (6, 150, 130) the same way; a D = 257 call over the budget, wider than
+    every kernel, must warn, go dense (no launch) and equal the dense
+    SDPA."""
     gen = torch.Generator(device=device).manual_seed(SEED)
     result = {}
     for name, (bh, s, d, call) in {
@@ -1905,24 +2032,24 @@ def head_width_phase(device) -> dict:
                                    ct.worst_share(bwd_checks)),
                 "checks": {**fwd_checks, **bwd_checks}}
             del q, k, v, g, leaves, out, grads, lse
-    wide = torch.randn(HW_WIDE_BH, HW_LEN, 256, device=device, generator=gen)
+    wide = torch.randn(HW_WIDE_BH, HW_LEN, 257, device=device, generator=gen)
     reset_launches()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         got = att.attention(wide, wide, wide)
-    if not any("head width D=256" in str(w.message) for w in caught) or \
+    if not any("head width D=257" in str(w.message) for w in caught) or \
             any(read_launches().values()):
-        raise AssertionError(f"attention D=256: warnings {caught}, "
+        raise AssertionError(f"attention D=257: warnings {caught}, "
                              f"launches {read_launches()}")
     torch.testing.assert_close(got, att.scaled_dot_product_attention(
         wide, wide, wide))
-    result["attention_d256_dense"] = {"shape": [HW_WIDE_BH, HW_LEN, 256],
+    result["attention_d257_dense"] = {"shape": [HW_WIDE_BH, HW_LEN, 257],
                                       "warned": True, "launches": 0}
     del wide, got
     torch.cuda.empty_cache()
     print("head widths: " + ", ".join(
         f"{k} worst share {v['worst_share']:.6g}" for k, v in result.items()
-        if "worst_share" in v) + "; D=256 dense with a warning")
+        if "worst_share" in v) + "; D=257 dense with a warning")
     return result
 
 
@@ -3302,6 +3429,20 @@ MESH_LOSSES_RTOL = 1e-3
 MESH_ONE_RANK_RTOL = 1e-6
 
 
+# The meshed models of the two-rank phase: the two-tower at the zoo's width
+# (TT_*) for MESH_STEPS steps of TT_BATCH pairs; ShardedBruteForce over the
+# index phase's corpus (IX_*); MMoE at its example's defaults, expert
+# parallel; DeepFM at the bench width through sharded checkpoints
+# (CKPT_EPOCHS, resumed after the first) and load_model(mesh=). Scores of
+# ShardedBruteForce against BruteForce: relative; a meshed artifact's
+# logits against the unmeshed load: relative.
+MMOE_INPUT, MMOE_BATCH, MMOE_EXPERTS = 256, 512, 4
+MMOE_EXPERT_HIDDEN, MMOE_EXPERT_DIM, MMOE_TOWER = (256,), 128, (64,)
+CKPT_EPOCHS = 2
+SHARDED_SCORES_RTOL = 1e-6
+LOAD_MODEL_RTOL = 1e-6
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -3480,22 +3621,247 @@ def _mesh_steps(trainer, batches):
     return torch.stack(losses).cpu().numpy(), grads, step_ms
 
 
-def _k1_times(model, batch, specs, lo: int, rows: int) -> dict:
+def _k1_times(model, batch, specs, lo: int, rows: int,
+              width: int = EMBED_DIM + 1) -> dict:
     """K1's device time on the big-vocab ids of a batch as a table of
     ``rows`` rows starting at ``lo`` sees them (ids off the shard at local
     row 0, as ``embedding/sharded.py`` sends them), g of the fused table's
-    width: the hot row 0's count beside it."""
+    ``width`` (DeepFM's: its embeddings and linear weights): the hot row
+    0's count beside it."""
     offsets = model.embeddings.feature_offsets
     ids = torch.stack([batch[s.name] + o for s, o in zip(specs, offsets)
                        if s.cardinality > SMALL_VOCAB_MAX
                        and not s.is_multi], dim=1).reshape(-1) - lo
     ok = (ids >= 0) & (ids < rows)
     local = torch.where(ok, ids, 0)
-    g = torch.randn(local.shape[0], EMBED_DIM + 1, device=local.device)
+    g = torch.randn(local.shape[0], width, device=local.device)
     ms = graph_ms(lambda: scatter_add_rows(g, local, rows))
     return {"ms": ms, "ids": int(local.shape[0]), "rows": rows,
             "resident": int(ok.sum()),
             "row0_count": int((local == 0).sum())}
+
+
+def _tower_specs():
+    specs = default_movielens_features()
+    return (tuple(f for f in specs if f.name in MovielensRanking.USER_KEYS),
+            tuple(f for f in specs if f.name in MovielensRanking.ITEM_KEYS))
+
+
+def _two_tower(mesh=None):
+    from deep_recommenders_torch.models.retrieval import TwoTower
+
+    return TwoTower(*_tower_specs(), TT_DIM, TT_HIDDEN, TT_DIM, mesh=mesh)
+
+
+def _tt_batches(tmp: str, device, rows=None):
+    """The two-tower's MESH_STEPS batches ((user, movie) dicts, labels:
+    each pair's movie id and its sampling probability), at ``rows`` of
+    each global batch (all by default)."""
+    with np.load(os.path.join(tmp, "tt.npz")) as f:
+        data = {k: f[k] for k in f.files}
+    rows = rows or slice(0, TT_BATCH)
+    out = []
+    for s in range(MESH_STEPS):
+        lo = s * TT_BATCH
+        part = slice(lo + rows.start, lo + rows.stop)
+        pick = {k: torch.from_numpy(v[part]).to(device)
+                for k, v in data.items()}
+        user = {k[2:]: v for k, v in pick.items() if k.startswith("u/")}
+        item = {k[2:]: v for k, v in pick.items() if k.startswith("i/")}
+        out.append(((user, item), {"candidate_ids": pick["ids"],
+                                   "sampling_prob": pick["prob"]}))
+    return out
+
+
+def _tt_trainer(model, task, mesh, device):
+    from deep_recommenders_torch.training import retrieval_loss
+
+    return Trainer(model, torch.optim.Adam(model.parameters(),
+                                           lr=LEARNING_RATE),
+                   loss_fn=retrieval_loss(model, task), mesh=mesh,
+                   device=device)
+
+
+def _options_step(trainer, batch):
+    """One step with the log-Q correction and accidental-negative
+    removal: its loss and gradients (on the host)."""
+    loss = trainer.train_step(*batch)
+    return float(loss), {k: p.grad.detach().cpu()
+                         for k, p in trainer.model.named_parameters()}
+
+
+def _mmoe(expert_parallel: bool = False):
+    from deep_recommenders_torch.models.multitask import MMoE
+
+    return MMoE(MMOE_INPUT, 2, MMOE_EXPERTS, MMOE_EXPERT_HIDDEN,
+                MMOE_EXPERT_DIM, MMOE_TOWER, expert_parallel=expert_parallel)
+
+
+def _mmoe_step(model, mesh, x, y, device):
+    """One SGD step at lr 0 of the summed two-task MSE: its loss and
+    gradients (on the host)."""
+    from deep_recommenders_torch.training import multitask_mse_loss
+
+    trainer = Trainer(model, torch.optim.SGD(model.parameters(), lr=0.0),
+                      loss_fn=multitask_mse_loss(model), mesh=mesh,
+                      device=device)
+    loss = trainer.train_step(x, y)
+    return float(loss), {k: p.grad.detach().cpu()
+                         for k, p in model.named_parameters()}
+
+
+def _ckpt_deepfm(mesh, tmp):
+    model = DeepFM(default_movielens_features(), EMBED_DIM, HIDDEN,
+                   mesh=mesh)
+    state = torch.load(os.path.join(tmp, "deepfm_init.pt"))
+    n_model = parallel.axis_size(mesh, "model")
+    model.load_state_dict(convert.shard_state(
+        state, n_model, parallel.axis_index(mesh, "model")))
+    return model, torch.optim.Adam(model.parameters(), lr=LEARNING_RATE)
+
+
+def mesh_rank_models(rank: int, mesh, tmp: str) -> dict:
+    """This rank's meshed models in ``mesh_two_rank_phase``, at both meshes:
+    the two-tower with pod-wide negatives (MESH_STEPS steps and their K1
+    launches, the first step's gradients, one step with the options, step
+    times and K1's time on the query tower's shard). At (1, 2) also:
+    ShardedBruteForce over the index corpus and a load_index(mesh=) round
+    trip; MMoE expert parallel, one step; DeepFM's CKPT_EPOCHS epochs of
+    fit_device at once, and again through a sharded checkpoint resumed by
+    a fresh model; load_model(mesh=) of the unmeshed artifact. At (2, 1):
+    the (1, 2) checkpoint restored."""
+    from deep_recommenders_torch.models.retrieval import (
+        Retrieval,
+        ShardedBruteForce,
+        load_index,
+        save_index,
+    )
+    from deep_recommenders_torch.models.multitask import shard_expert_params
+    from deep_recommenders_torch.serving.model_io import load_model
+    from deep_recommenders_torch.training import restore_train_state
+
+    n_data = parallel.axis_size(mesh, "data")
+    n_model = parallel.axis_size(mesh, "model")
+    d = parallel.axis_index(mesh, "data")
+    key = f"{n_data}x{n_model}"
+    device = parallel.sharding.mesh_device(mesh)
+    b = TT_BATCH // n_data
+    batches = _tt_batches(tmp, device, slice(d * b, (d + 1) * b))
+    state = torch.load(os.path.join(tmp, "tt_init.pt"))
+    m = parallel.axis_index(mesh, "model")
+    out = {}
+
+    model = _two_tower(mesh)
+    model.load_state_dict(convert.shard_state(state, n_model, m))
+    task = Retrieval(axis_name="data", mesh=mesh)
+    trainer = _tt_trainer(model, task, mesh, device.type)
+    reset_launches()
+    losses, grads, step_ms = _mesh_steps(
+        trainer, [(bt, None) for bt, _ in batches])
+    launches = read_launches()
+    torch.save(grads, os.path.join(tmp, f"rank{rank}_{key}_tt.pt"))
+    tt = {"losses": losses.tolist(), "launches": launches,
+          "step_ms": step_ms, "local_rows": b}
+    lo = m * model.query_tower.embeddings.table.shape[0]
+    for r in range(2):  # one rank at a time: the two share the card
+        if r == rank:
+            tt["k1"] = _k1_times(
+                model.query_tower, batches[0][0][0], _tower_specs()[0], lo,
+                model.query_tower.embeddings.table.shape[0], TT_DIM)
+        dist.barrier()
+    model = _two_tower(mesh)
+    model.load_state_dict(convert.shard_state(state, n_model, m))
+    options = Retrieval(remove_accidental_negatives=True, axis_name="data",
+                        mesh=mesh)
+    loss, grads = _options_step(_tt_trainer(model, options, mesh, device.type),
+                                batches[0])
+    tt["options_loss"] = loss
+    torch.save(grads, os.path.join(tmp, f"rank{rank}_{key}_tt_options.pt"))
+    out[f"{key}_two_tower"] = tt
+    del model, trainer, batches
+    if (n_data, n_model) == (2, 1):
+        model, opt = _ckpt_deepfm(mesh, tmp)
+        restore_train_state(os.path.join(tmp, "ckpt", "step_0"), model, opt,
+                            mesh)
+        torch.save({"model": model.state_dict(),
+                    "optimizer": opt.state_dict()},
+                   os.path.join(tmp, f"rank{rank}_restored.pt"))
+        return out
+
+    # ShardedBruteForce over the index phase's corpus.
+    rng = np.random.default_rng(SEED)
+    corpus = torch.from_numpy(rng.normal(0, 1, (IX_CORPUS, IX_DIM)).astype(
+        np.float32)).to(device)
+    queries = torch.from_numpy(rng.normal(0, 1, (IX_QUERIES, IX_DIM)).astype(
+        np.float32)).to(device)
+    index = ShardedBruteForce(mesh).index(corpus)
+    got = index(queries, IX_K)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        index(queries, IX_K)
+    torch.cuda.synchronize()
+    path = os.path.join(tmp, "sharded_index")
+    loaded = load_index(save_index(path, index), device=device.type, mesh=mesh)
+    again = loaded(queries, IX_K)
+    if rank == 0:
+        torch.save({"scores": got[0].cpu(), "ids": got[1].cpu(),
+                    "loaded_equal": torch.equal(got[0], again[0])
+                    and torch.equal(got[1], again[1])},
+                   os.path.join(tmp, "sharded_top_k.pt"))
+    out["sharded_brute_force"] = {
+        "rows_held": int(index._candidates.shape[0]),
+        "query_ms": (time.perf_counter() - t0) * 1e3 / 5}
+    del corpus, queries, index, loaded, got, again
+
+    # MMoE, expert parallel.
+    with np.load(os.path.join(tmp, "mmoe.npz")) as f:
+        x, y = (torch.from_numpy(f[k]).to(device) for k in ("x", "y"))
+    parallel.set_default_mesh(mesh)
+    model = _mmoe(expert_parallel=True)
+    model.load_state_dict(shard_expert_params(
+        torch.load(os.path.join(tmp, "mmoe_init.pt")), mesh))
+    loss, grads = _mmoe_step(model, mesh, x, y, device.type)
+    parallel.set_default_mesh(None)
+    torch.save(grads, os.path.join(tmp, f"rank{rank}_mmoe.pt"))
+    out["mmoe"] = {"loss": loss,
+                   "experts_held": int(model.experts.kernels[0].shape[0])}
+
+    # DeepFM through a sharded checkpoint.
+    with np.load(os.path.join(tmp, "train.npz")) as f:
+        feats = {k: f[k] for k in f.files if k != "__labels__"}
+        labels = f["__labels__"]
+    data = DeviceData.from_numpy(feats, labels, BATCH, device=device.type,
+                                 mesh=mesh)
+    model, opt = _ckpt_deepfm(mesh, tmp)
+    whole = Trainer(model, opt, mesh=mesh, device=device.type).fit_device(
+        data, epochs=CKPT_EPOCHS, shuffle_seed=SEED, verbose=False)
+    ckpt = os.path.join(tmp, "ckpt")
+    model, opt = _ckpt_deepfm(mesh, tmp)
+    first = Trainer(model, opt, mesh=mesh, device=device.type).fit_device(
+        data, epochs=1, shuffle_seed=SEED, checkpoint_dir=ckpt,
+        verbose=False)
+    model, opt = _ckpt_deepfm(mesh, tmp)
+    resumed = Trainer(model, opt, mesh=mesh, device=device.type).fit_device(
+        data, epochs=CKPT_EPOCHS, shuffle_seed=SEED, checkpoint_dir=ckpt,
+        verbose=False)
+    out["checkpoint"] = {
+        "uninterrupted": whole["step_losses"].tolist(),
+        "resumed": np.concatenate([first["step_losses"],
+                                   resumed["step_losses"]]).tolist(),
+        "resumed_epochs": [h["epoch"] for h in resumed["history"]]}
+    del model, opt, data
+
+    # load_model(mesh=) of the unmeshed artifact.
+    served = load_model(os.path.join(tmp, "artifact"), mesh=mesh,
+                        device=device.type)
+    with torch.no_grad():
+        logits = served({k: torch.from_numpy(v[:BATCH]).to(device)
+                         for k, v in feats.items()})
+    torch.save(logits.cpu(), os.path.join(tmp, f"rank{rank}_logits.pt"))
+    out["load_model"] = {
+        "table_rows": int(served.embeddings.table.shape[0])}
+    return out
 
 
 def mesh_rank_main(rank: int, port: int, tmp: str) -> int:
@@ -3547,6 +3913,7 @@ def mesh_rank_main(rank: int, port: int, tmp: str) -> int:
                         results[key]["k1"] = _k1_times(
                             model, batches[0][0], specs, lo, hi - lo)
                     dist.barrier()
+        results.update(mesh_rank_models(rank, mesh, tmp))
     with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
         json.dump(results, f)
     dist.destroy_process_group()
@@ -3555,6 +3922,227 @@ def mesh_rank_main(rank: int, port: int, tmp: str) -> int:
 
 def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def mesh_model_references(device, tmp: str) -> dict:
+    """The unmeshed runs on the card that ``mesh_rank_models``' results are
+    held to, and the inputs the ranks read from ``tmp``: the two-tower's
+    batches and seeded weights (its MESH_STEPS steps, and one step with
+    the options), MMoE's seeded weights and batch (one step), DeepFM's
+    artifact and its logits on a batch, BruteForce over the index
+    corpus (top IX_K + 1)."""
+    from deep_recommenders_torch.models.retrieval import (
+        BruteForce,
+        Retrieval,
+    )
+    from deep_recommenders_torch.serving.model_io import load_model, save_model
+
+    shutil.rmtree(os.path.join(tmp, "ckpt"), ignore_errors=True)
+    refs = {}
+    ds = MovielensRanking(batch_size=TT_BATCH, num_ratings=NUM_RATINGS,
+                          seed=SEED, movie_popularity="rank-power")
+    user, item, ids = ds.retrieval_arrays("train")
+    n = MESH_STEPS * TT_BATCH
+    if len(ids) < n:
+        raise AssertionError(f"two-tower: {len(ids)} train pairs, fewer "
+                             f"than {MESH_STEPS} batches")
+    prob = (np.bincount(ids)[ids] / len(ids)).astype(np.float32)
+    np.savez(os.path.join(tmp, "tt.npz"), ids=ids[:n], prob=prob[:n],
+             **{f"u/{k}": v[:n] for k, v in user.items()},
+             **{f"i/{k}": v[:n] for k, v in item.items()})
+    model = make_two_tower(ds)
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    torch.save(state, os.path.join(tmp, "tt_init.pt"))
+    batches = _tt_batches(tmp, device)
+    refs["tt"] = _mesh_steps(_tt_trainer(model, Retrieval(), None, device),
+                             [(b, None) for b, _ in batches])
+    model = _two_tower()
+    model.load_state_dict(state)
+    refs["tt_options"] = _options_step(_tt_trainer(
+        model, Retrieval(remove_accidental_negatives=True), None, device),
+        batches[0])
+    del model, batches
+
+    rng = np.random.default_rng(SEED)
+    x = rng.normal(size=(MMOE_BATCH, MMOE_INPUT)).astype(np.float32)
+    y = rng.normal(size=(MMOE_BATCH, 2)).astype(np.float32)
+    np.savez(os.path.join(tmp, "mmoe.npz"), x=x, y=y)
+    torch.manual_seed(SEED)
+    model = _mmoe()
+    torch.save(model.state_dict(), os.path.join(tmp, "mmoe_init.pt"))
+    refs["mmoe"] = _mmoe_step(model, None, torch.from_numpy(x).to(device),
+                              torch.from_numpy(y).to(device), device)
+
+    model = DeepFM(default_movielens_features(), EMBED_DIM, HIDDEN)
+    model.load_state_dict(torch.load(os.path.join(tmp, "deepfm_init.pt")))
+    save_model(os.path.join(tmp, "artifact"), model)
+    with np.load(os.path.join(tmp, "train.npz")) as f:
+        batch = {k: torch.from_numpy(f[k][:BATCH]).to(device)
+                 for k in f.files if k != "__labels__"}
+    with torch.no_grad():
+        refs["logits"] = load_model(os.path.join(tmp, "artifact"),
+                                    device=device)(batch).cpu()
+
+    rng = np.random.default_rng(SEED)
+    corpus = rng.normal(0, 1, (IX_CORPUS, IX_DIM)).astype(np.float32)
+    queries = torch.from_numpy(rng.normal(0, 1, (IX_QUERIES, IX_DIM)).astype(
+        np.float32)).to(device)
+    s, i = BruteForce(device=device).index(corpus)(queries, IX_K + 1)
+    refs["brute"] = (s.cpu(), i.cpu())
+    torch.cuda.empty_cache()
+    return refs
+
+
+def _grad_errs(grads, want, what) -> dict:
+    """Each gradient's relative error (in norm) against ``want``; the
+    padding rows of a joined table must be zero."""
+    errs = {}
+    for g in grads:
+        for k, ref in want.items():
+            if g[k][ref.shape[0]:].any():
+                raise AssertionError(f"{what}: padding rows of {k}")
+            errs[k] = max(errs.get(k, 0.0), _rel(g[k][:ref.shape[0]], ref))
+    return errs
+
+
+def _joined_checkpoint(path: str):
+    """The (1, 2) checkpoint's two files joined by hand: the fused table
+    and its Adam moments concatenated and cut to the unpadded rows."""
+    parts = [torch.load(os.path.join(path, f"model_{m}.pt"),
+                        map_location="cpu") for m in (0, 1)]
+    rows = sum(s.cardinality for s in default_movielens_features())
+    model = dict(parts[0]["model"])
+    model["embeddings.table"] = torch.cat(
+        [p["model"]["embeddings.table"] for p in parts])[:rows]
+    names = list(model)  # Adam was built on model.parameters()
+    opt = {}
+    for i, entry in parts[0]["optimizer"]["state"].items():
+        opt[i] = dict(entry)
+        if names[i] == "embeddings.table":
+            for k in ("exp_avg", "exp_avg_sq"):
+                opt[i][k] = torch.cat([p["optimizer"]["state"][i][k]
+                                       for p in parts])[:rows]
+    return model, opt
+
+
+def mesh_model_checks(tmp: str, ranks, refs) -> tuple:
+    """``mesh_rank_models``' results against ``refs``: the two-tower's
+    launches (two K1 a step a rank), first step and losses as DeepFM's
+    are held, and its options step; ShardedBruteForce's scores
+    (SHARDED_SCORES_RTOL) and ids (on tie-free rows) against BruteForce
+    and its loaded copy equal; expert-parallel MMoE's loss and gradients
+    (MESH_FIRST_STEP_RTOL); the checkpoint's resume bit for bit and its
+    restore at (2, 1) equal to the joined state; load_model(mesh=)'s
+    logits (LOAD_MODEL_RTOL). Returns (paths, summary)."""
+    paths, summary = {}, {}
+    ref_losses, ref_grads, ref_ms = refs["tt"]
+    opt_loss, opt_grads = refs["tt_options"]
+    summary["unmeshed_two_tower_step_ms"] = ref_ms
+    for n_data, n_model in MESH_CONFIGS:
+        key = f"{n_data}x{n_model}"
+        grads, options = ([torch.load(os.path.join(
+            tmp, f"rank{r}_{key}_{name}.pt")) for r in range(2)]
+            for name in ("tt", "tt_options"))
+        if n_model == 2:  # rank = model index at data = 1
+            grads = [convert.join_shards(grads)]
+            options = [convert.join_shards(options)]
+        errs = _grad_errs(grads, ref_grads, key)
+        opt_errs = _grad_errs(options, opt_grads, key)
+        for rank, r in enumerate(ranks):
+            res = r[f"{key}_two_tower"]
+            losses = np.asarray(res["losses"])
+            first = abs(losses[0] - ref_losses[0]) / abs(ref_losses[0])
+            steps_err = float(np.max(np.abs(losses - ref_losses)
+                                     / np.abs(ref_losses)))
+            opt_err = abs(res["options_loss"] - opt_loss) / abs(opt_loss)
+            expect = {k: 0 for k in res["launches"]}
+            expect["scatter_add_rows"] = 2 * MESH_STEPS
+            if res["launches"] != expect:
+                raise AssertionError(f"{key} two-tower rank {rank}: "
+                                     f"launches {res['launches']}")
+            worst = max(max(errs.values()), max(opt_errs.values()),
+                        first, opt_err)
+            if not (worst <= MESH_FIRST_STEP_RTOL
+                    and steps_err <= MESH_LOSSES_RTOL):
+                raise AssertionError(
+                    f"{key} two-tower rank {rank}: first loss {first}, "
+                    f"options loss {opt_err}, gradients {errs}, options "
+                    f"gradients {opt_errs}, losses {steps_err}")
+            paths[f"mesh_gloo_{key}_two_tower_rank{rank}"] = res["launches"]
+            summary[f"{key}_two_tower_rank{rank}"] = {
+                "local_rows": res["local_rows"], "step_ms": res["step_ms"],
+                "first_loss_rel_err": first, "loss_max_rel_err": steps_err,
+                "max_grad_rel_err": max(errs.values()),
+                "options_loss_rel_err": opt_err,
+                "options_max_grad_rel_err": max(opt_errs.values()),
+                "k1_query_tower_shard": res["k1"]}
+            print(f"mesh_gloo_{key}_two_tower_rank{rank} launches: "
+                  f"{res['launches']}")
+
+    got = torch.load(os.path.join(tmp, "sharded_top_k.pt"))
+    ref_s, ref_i = refs["brute"]
+    tol = SHARDED_SCORES_RTOL * ref_s.abs().max().item() + 2 * IX_DIM * U32
+    score_err = ((got["scores"] - ref_s[:, :IX_K]).abs()
+                 / ref_s[:, :IX_K].abs().clamp_min(1e-30)).max().item()
+    tie_free = ((ref_s[:, :-1] - ref_s[:, 1:]) > 2 * tol).all(1)
+    ids_equal = torch.equal(got["ids"][tie_free], ref_i[tie_free, :IX_K])
+    if not (score_err <= SHARDED_SCORES_RTOL and ids_equal
+            and got["loaded_equal"] and tie_free.float().mean() > 0.5):
+        raise AssertionError(
+            f"ShardedBruteForce: score rel err {score_err}, ids equal on "
+            f"{int(tie_free.sum())} tie-free rows {ids_equal}, loaded index "
+            f"equal {got['loaded_equal']}")
+    summary["sharded_brute_force"] = {
+        "score_max_rel_err": score_err, "tie_free_rows": int(tie_free.sum()),
+        "ids_equal_on_tie_free_rows": ids_equal,
+        "loaded_index_equal": got["loaded_equal"],
+        **{f"rank{r}": ranks[r]["sharded_brute_force"] for r in range(2)}}
+
+    loss, want = refs["mmoe"]
+    grads = convert.join_shards([torch.load(os.path.join(
+        tmp, f"rank{r}_mmoe.pt")) for r in range(2)])
+    errs = _grad_errs([grads], want, "mmoe")
+    loss_err = max(abs(r["mmoe"]["loss"] - loss) / abs(loss) for r in ranks)
+    if not (max(errs.values()) <= MESH_FIRST_STEP_RTOL
+            and loss_err <= MESH_FIRST_STEP_RTOL
+            and all(r["mmoe"]["experts_held"] == MMOE_EXPERTS // 2
+                    for r in ranks)):
+        raise AssertionError(f"expert-parallel MMoE: loss {loss_err}, "
+                             f"gradients {errs}")
+    summary["mmoe_expert_parallel"] = {
+        "loss_rel_err": loss_err, "max_grad_rel_err": max(errs.values())}
+
+    for rank, r in enumerate(ranks):
+        c = r["checkpoint"]
+        if c["resumed"] != c["uninterrupted"] or c["resumed_epochs"] != [1]:
+            raise AssertionError(f"checkpoint rank {rank}: resumed losses "
+                                 f"{c['resumed']} against "
+                                 f"{c['uninterrupted']}")
+    model, opt = _joined_checkpoint(os.path.join(tmp, "ckpt", "step_0"))
+    for rank in range(2):
+        got = torch.load(os.path.join(tmp, f"rank{rank}_restored.pt"),
+                         map_location="cpu")
+        same = all(torch.equal(got["model"][k].cpu(), v)
+                   for k, v in model.items()) and all(
+            torch.equal(got["optimizer"]["state"][i][k].cpu(), t.cpu())
+            for i, e in opt.items() for k, t in e.items())
+        if not same or sorted(got["model"]) != sorted(model):
+            raise AssertionError(f"checkpoint restored at (2, 1) rank "
+                                 f"{rank}: not the joined state")
+    summary["checkpoint"] = {
+        "steps": len(ranks[0]["checkpoint"]["uninterrupted"]),
+        "resume_bitwise_equal": True, "restored_2x1_equal_joined": True}
+
+    ref = refs["logits"]
+    logit_err = max(_rel(torch.load(os.path.join(
+        tmp, f"rank{r}_logits.pt")), ref) for r in range(2))
+    if not logit_err <= LOAD_MODEL_RTOL:
+        raise AssertionError(f"load_model(mesh=): logits rel err "
+                             f"{logit_err}")
+    summary["load_model_mesh"] = {
+        "logits_rel_err": logit_err,
+        "table_rows": [r["load_model"]["table_rows"] for r in ranks]}
+    return paths, summary
 
 
 def mesh_two_rank_phase(ds: MovielensRanking, device) -> dict:
@@ -3592,6 +4180,7 @@ def mesh_two_rank_phase(ds: MovielensRanking, device) -> dict:
         if name == "deepfm":
             plain_k1 = _k1_times(model, batches[0][0], specs, 0,
                                  model.embeddings.table.shape[0])
+    refs = mesh_model_references(device, tmp)
     port = _free_port()
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--mesh-rank",
@@ -3662,6 +4251,9 @@ def mesh_two_rank_phase(ds: MovielensRanking, device) -> dict:
                     **({"k1": res["k1"]} if "k1" in res else {})}
                 print(f"mesh_gloo_{key}_rank{rank} launches: "
                       f"{res['launches']}")
+    more_paths, more = mesh_model_checks(tmp, ranks, refs)
+    paths.update(more_paths)
+    summary.update(more)
     print("mesh_gloo " + json.dumps(summary))
     return paths
 
@@ -3680,6 +4272,10 @@ ENTRY_PATH = {
     "flash_attention.bwd": "transformer_seq2seq",
     "flash_attention_bf16.fwd": "transformer_seq2seq_bf16",
     "flash_attention_bf16.bwd": "transformer_seq2seq_bf16",
+    "flash_attention.fwd.d256": "attention_d200",
+    "flash_attention.bwd.d256": "attention_d200",
+    "flash_attention_bf16.fwd.d256": "attention_d200",
+    "flash_attention_bf16.bwd.d256": "attention_d200",
 }
 
 
@@ -3695,9 +4291,13 @@ SERVED_PATH = {
 
 # An entry whose launch counter has another name: K2 on bf16 embeddings is
 # the same wrapper, counted in fm_interaction_fused.launches; K1 on bf16 g
-# is counted in scatter_add_rows.launches_bf16.
+# is counted in scatter_add_rows.launches_bf16; the D = 256 instances of K5
+# and K6 in their dtype's counters, on the path that runs D = 256 alone.
 COUNTER = {"fm_interaction_fused.bf16": "fm_interaction_fused",
-           "scatter_add_rows.bf16": "scatter_add_rows_bf16"}
+           "scatter_add_rows.bf16": "scatter_add_rows_bf16",
+           **{f"{k}.d256": k for k in (
+               "flash_attention.fwd", "flash_attention.bwd",
+               "flash_attention_bf16.fwd", "flash_attention_bf16.bwd")}}
 
 
 def device_line() -> str:
@@ -3775,9 +4375,11 @@ def main(argv=()) -> int:
     entries += cin_kernel_phase(ds, device)
     entries += attention_kernel_phase(imdb, device)
     entries += attention_bf16_kernel_phase(imdb, device)
+    entries += wide_attention_phase(imdb, device)
     head_widths = head_width_phase(device)
     print(f"kernel phase done ({time.perf_counter() - t0:.1f} s)")
     paths = train_phase(ds, model, device)
+    paths["attention_d200"] = attention_d200_path(device)
     served, serving = serving_phase(ds, model, imdb, device)
     paths["esmm"] = esmm_path(ds, device)[0]
     del model

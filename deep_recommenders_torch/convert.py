@@ -3,12 +3,13 @@
 The tree arrives as numpy arrays (``jax.tree.map(np.asarray, params)``), so
 this module needs neither JAX nor flax. :func:`shard_state` cuts a converted
 state dict to one process's under a mesh, and :func:`join_shards` puts the
-processes' state dicts back together.
+processes' state dicts back together; :func:`shard_optimizer_state` and
+:func:`join_optimizer_shards` do the same for an optimizer's state.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Sequence
+from typing import Any, Collection, Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -224,46 +225,122 @@ def gcn_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
 
 # The parameters a mesh row-shards over "model": the fused embedding tables
-# (CTR models, ESMM) and DIN's item table. Everything else is replicated.
+# (CTR models, ESMM, each two-tower tower's ``*.embeddings.table``) and
+# DIN's item table, padded to a multiple of the model size; and MMoE's
+# stacked experts under expert parallelism, cut along their leading expert
+# axis with no padding. Everything else is replicated.
 ROW_SHARDED = ("embeddings.table", "item_table")
+EXPERT_SHARDED = ("experts.kernels.", "experts.biases.")
 
 
 def _row_sharded(key: str) -> bool:
     return key in ROW_SHARDED or key.endswith(".embeddings.table")
 
 
+def _expert_sharded(key: str) -> bool:
+    return key.startswith(EXPERT_SHARDED)
+
+
+def sharded_key(key: str) -> bool:
+    """Whether a mesh cuts state dict entry ``key`` over "model"."""
+    return _row_sharded(key) or _expert_sharded(key)
+
+
+def cut(value: torch.Tensor, key: str, n_model: int,
+        index: int) -> torch.Tensor:
+    """Model coordinate ``index``'s rows of the whole entry ``key``: a
+    table padded with zero rows to a multiple of ``n_model`` first, an
+    expert axis that must divide (ValueError otherwise)."""
+    v = value.shape[0]
+    if _expert_sharded(key):
+        if v % n_model:
+            raise ValueError(f"{key}: {v} experts do not divide over the "
+                             f"model axis ({n_model})")
+    elif v % n_model:
+        value = torch.cat([value, value.new_zeros(
+            (-v % n_model,) + tuple(value.shape[1:]))])
+    rows = value.shape[0] // n_model
+    return value[index * rows:(index + 1) * rows].clone()
+
+
 def shard_state(state: Mapping[str, torch.Tensor], n_model: int,
-                index: int) -> Dict[str, torch.Tensor]:
+                index: int, keys: Optional[Collection[str]] = None
+                ) -> Dict[str, torch.Tensor]:
     """One process's state dict under a mesh whose model axis has
     ``n_model`` processes, from a whole state dict (e.g.
     ``deepfm_from_flax`` of a JAX meshed model's tree, whose tables are
-    padded to a multiple of the model size): each row-sharded table cut to
-    the rows of model coordinate ``index`` (padded with zero rows first if
-    it is not padded yet), every other entry as it is. The models it
-    serves: DeepFM, FM, FNN, Wide & Deep, DCN, xDeepFM, DIN (``num_items``)
-    and ESMM (``specs``)."""
-    out = {}
-    for key, value in state.items():
-        if _row_sharded(key):
-            v = value.shape[0]
-            padded = -(-v // n_model) * n_model
-            if padded != v:
-                value = torch.cat([value, value.new_zeros(
-                    (padded - v,) + tuple(value.shape[1:]))])
-            rows = padded // n_model
-            value = value[index * rows:(index + 1) * rows].clone()
-        out[key] = value
-    return out
+    padded to a multiple of the model size): each sharded entry
+    (:func:`sharded_key`, or the entries named in ``keys``) cut to model
+    coordinate ``index`` (:func:`cut`), every other entry as it is. The
+    models it serves: DeepFM, FM, FNN, Wide & Deep, DCN, xDeepFM, DIN
+    (``num_items``), ESMM (``specs``), the two-tower (both towers' tables)
+    and MMoE with ``expert_parallel``."""
+    is_sharded = sharded_key if keys is None else keys.__contains__
+    return {key: cut(value, key, n_model, index) if is_sharded(key)
+            else value for key, value in state.items()}
 
 
-def join_shards(states: Sequence[Mapping[str, torch.Tensor]]
+def join_shards(states: Sequence[Mapping[str, torch.Tensor]],
+                keys: Optional[Collection[str]] = None
                 ) -> Dict[str, torch.Tensor]:
     """The reverse of :func:`shard_state`: the state dicts of one data
     group's processes, in model-coordinate order, put back into one whole
     state dict (the padded tables whole, the replicated entries from the
     first)."""
+    is_sharded = sharded_key if keys is None else keys.__contains__
     out = dict(states[0])
     for key in out:
-        if _row_sharded(key):
+        if is_sharded(key):
             out[key] = torch.cat([s[key] for s in states])
     return out
+
+
+def _param_keys(optimizer_state: Mapping[str, Any],
+                names: Sequence[str]) -> Dict[Any, str]:
+    ids = [i for g in optimizer_state["param_groups"] for i in g["params"]]
+    return dict(zip(ids, names))
+
+
+def _map_moments(optimizer_state, names, fn, keys=None):
+    """``optimizer_state`` with ``fn(key, tensor)`` applied to each
+    non-scalar tensor of a sharded parameter's state, a moment of the
+    parameter's shape (``names``: the parameter names in the optimizer's
+    order)."""
+    is_sharded = sharded_key if keys is None else keys.__contains__
+    by_id = _param_keys(optimizer_state, names)
+    out = {"param_groups": optimizer_state["param_groups"], "state": {}}
+    for i, entry in optimizer_state["state"].items():
+        key = by_id[i]
+        out["state"][i] = {
+            k: fn(key, t) if (is_sharded(key) and isinstance(t, torch.Tensor)
+                              and t.dim() > 0) else t
+            for k, t in entry.items()}
+    return out
+
+
+def shard_optimizer_state(optimizer_state: Mapping[str, Any],
+                          names: Sequence[str], n_model: int, index: int,
+                          keys: Optional[Collection[str]] = None
+                          ) -> Dict[str, Any]:
+    """:func:`shard_state` of an optimizer's state dict: the moments of
+    each sharded parameter (Adam's ``exp_avg``, ``exp_avg_sq``, Adagrad's
+    ``sum``) cut as the parameter is; scalars (``step``) and the
+    replicated parameters' state as they are. ``names`` are the
+    parameters' state dict keys in the optimizer's order; ``keys`` as in
+    :func:`shard_state`."""
+    return _map_moments(optimizer_state, names,
+                        lambda key, t: cut(t, key, n_model, index), keys)
+
+
+def join_optimizer_shards(states: Sequence[Mapping[str, Any]],
+                          names: Sequence[str],
+                          keys: Optional[Collection[str]] = None
+                          ) -> Dict[str, Any]:
+    """The reverse of :func:`shard_optimizer_state`, from one data group's
+    optimizer states in model-coordinate order."""
+    joined = _map_moments(states[0], names, lambda key, t: None, keys)
+    for i, entry in joined["state"].items():
+        for k, t in entry.items():
+            if t is None:
+                entry[k] = torch.cat([s["state"][i][k] for s in states])
+    return joined

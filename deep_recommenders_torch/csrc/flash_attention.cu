@@ -75,6 +75,21 @@
 //   keys past Sk are masked. A query row with no valid key gives out 0 and
 //   lse 0, and its p is 0 in the backward.
 //
+// D = 256. A tile of 64 rows of 260 floats is 66,560 bytes, so a block
+// holds three of them (232,448 bytes at most), and a 16-row warp's output
+// fragments over D would take 128 registers (256 for dk and dv). So at
+// D = 256 a block computes a slice of the output columns, one grid column
+// (blockIdx.y) a slice, and scores over the whole of D in every slice:
+// K5 and dq 128 columns (two slices), dk/dv 64 (four slices), the
+// accumulators then as large as at D = 128 and 64. The tiles are staged
+// once, not double-buffered: K5 holds q, one key tile and one value tile;
+// dq holds q and g and streams v, then k, of each key tile through one
+// buffer (dp = g v^T first, then s, p, ds and dq += ds k); dk/dv holds its
+// keys and values and streams g, then q, of each query tile through one
+// buffer, with g's slice kept beside it for dv += p^T g. Slice 0 writes
+// lse; every slice computes the same statistics. The products recomputed
+// in each slice are the price: 2x K5's and dq's scores, 4x dk/dv's.
+//
 // Every exported function launches on the stream it is given and returns
 // cudaGetLastError(), or cudaErrorInvalidValue for what it does not take.
 
@@ -99,6 +114,12 @@ struct Dims {
   static constexpr int TILE = kCols * LD;
   static constexpr int KSTEPS = D / 8;  // mma k-steps over D
   static constexpr int NT = D / 8;      // n8 tiles over D
+  // Output columns a block computes (a slice per grid column at D = 256),
+  // and whether it stages its tiles once (no double buffer).
+  static constexpr int FWD_COLS = D <= 128 ? D : 128;
+  static constexpr int DQ_COLS = D <= 128 ? D : 128;
+  static constexpr int DKV_COLS = D <= 128 ? D : 64;
+  static constexpr bool ONE_STAGE = D > 128;
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -192,16 +213,17 @@ struct Lane {
   }
 };
 
-// dst[r][c] = src[r * D + c] for r < n, 0 for n <= r < R (cp.async).
-template <int D, int R>
+// dst[r][c] = src[r * LDG + c] for c < W and r < n, 0 for n <= r < R
+// (cp.async); dst rows are W + 4 floats.
+template <int W, int R, int LDG = W>
 __device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           int n) {
-  constexpr int CH = D / 4;  // 16-byte chunks per row
+  constexpr int CH = W / 4;  // 16-byte chunks per row
   for (int e = threadIdx.x; e < R * CH; e += kThreads) {
     const int r = e / CH, c = (e - r * CH) * 4;
     const bool in = r < n;
-    cp_async16(dst + r * Dims<D>::LD + c,
-               in ? src + (int64_t)r * D + c : src, in);
+    cp_async16(dst + r * Dims<W>::LD + c,
+               in ? src + (int64_t)r * LDG + c : src, in);
   }
 }
 
@@ -250,17 +272,16 @@ __device__ __forceinline__ void scores(float (&acc)[8][4], const float* a,
   }
 }
 
-// acc[n] += X B over a 64-row tile b ([64][LD], rows are the k index): X
-// is the warp's 16 x 64 fp32 accumulator fragments x, split in registers.
-// Lane (g, t) holds x's columns 2t, 2t + 1 of each 8-group kk; as the A
-// fragment's k indices t and t + 4 they stand for tile rows 8 kk + 2t and
-// 8 kk + 2t + 1, so b is read there: b[8 kk + 2t (+ 1)][8 n + g].
-template <int D>
-__device__ __forceinline__ void accumulate(float (&acc)[Dims<D>::NT][4],
+// acc[n] += X B over the 8 NT columns at b of a 64-row tile (rows of LD
+// floats, rows are the k index): X is the warp's 16 x 64 fp32 accumulator
+// fragments x, split in registers. Lane (g, t) holds x's columns 2t,
+// 2t + 1 of each 8-group kk; as the A fragment's k indices t and t + 4
+// they stand for tile rows 8 kk + 2t and 8 kk + 2t + 1, so b is read
+// there: b[8 kk + 2t (+ 1)][8 n + g].
+template <int NT, int LD>
+__device__ __forceinline__ void accumulate(float (&acc)[NT][4],
                                            const float (&x)[8][4],
                                            const float* b, const Lane& ln) {
-  constexpr int LD = Dims<D>::LD;
-  constexpr int NT = Dims<D>::NT;
   // With fewer than 8 n8 tiles the chains of dependent mma on each
   // accumulator (8 k-steps x 3 passes) set the pace: the two corrections
   // then go to accumulators of their own, added at the end.
@@ -313,10 +334,11 @@ __device__ __forceinline__ float quad_sum(float x) {
 }
 
 // Rows grp (half 0) and grp + 8 (half 1) of the warp's 16 rows of a
-// [rows][D] output, from the fragments times s[half].
-template <int D>
+// [rows][D] output, its 8 NT columns from out on, from the fragments times
+// s[half].
+template <int NT, int D>
 __device__ __forceinline__ void store_rows(float* out, int64_t row0, int rows,
-                                           const float (&acc)[Dims<D>::NT][4],
+                                           const float (&acc)[NT][4],
                                            const float (&s)[2],
                                            const Lane& ln) {
 #pragma unroll
@@ -325,7 +347,7 @@ __device__ __forceinline__ void store_rows(float* out, int64_t row0, int rows,
     if (r >= rows) continue;
     float* o = out + (row0 + r) * D + 2 * ln.tig;
 #pragma unroll
-    for (int n = 0; n < Dims<D>::NT; ++n) {
+    for (int n = 0; n < NT; ++n) {
       *reinterpret_cast<float2*>(o + 8 * n) = make_float2(
           acc[n][2 * half] * s[half], acc[n][2 * half + 1] * s[half]);
     }
@@ -402,7 +424,8 @@ __device__ __forceinline__ void rebuild_p_ds(float (&p)[8][4],
 
 template <int D>
 constexpr size_t fwd_smem(int ntiles) {
-  return sizeof(float) * (kRows + 4 * kCols) * Dims<D>::LD +
+  constexpr int stages = Dims<D>::ONE_STAGE ? 1 : 2;
+  return sizeof(float) * (kRows + 2 * stages * kCols) * Dims<D>::LD +
          sizeof(uint32_t) * 2 * ntiles;
 }
 
@@ -413,11 +436,14 @@ __global__ void __launch_bounds__(kThreads)
                float* __restrict__ out, float* __restrict__ lse, int sq,
                int sk, int causal, float scale_log2) {
   using T = Dims<D>;
+  constexpr int S = T::ONE_STAGE ? 1 : 2;  // staged tiles
+  constexpr int NV = T::FWD_COLS / 8;      // n8 tiles of the block's slice
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);  // [64][LD]
-  float* ks = qs + kRows * T::LD;              // [2][64][LD]
-  float* vs = ks + 2 * T::TILE;                // [2][64][LD]
-  uint32_t* bits = reinterpret_cast<uint32_t*>(vs + 2 * T::TILE);
+  float* ks = qs + kRows * T::LD;              // [S][64][LD]
+  float* vs = ks + S * T::TILE;                // [S][64][LD]
+  uint32_t* bits = reinterpret_cast<uint32_t*>(vs + S * T::TILE);
+  const int col0 = blockIdx.y * T::FWD_COLS;  // the block's output slice
 
   const Lane ln;
   const int nq = (sq + kRows - 1) / kRows;
@@ -441,22 +467,26 @@ __global__ void __launch_bounds__(kThreads)
 
   const int row0 = q0 + 16 * ln.warp + ln.grp;  // and row0 + 8
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float o[T::NT][4];
+  float o[NV][4];
 #pragma unroll
-  for (int n = 0; n < T::NT; ++n)
+  for (int n = 0; n < NV; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
 
-  for (int stage = 0; t < nrun; stage ^= 1) {
+  for (int stage = 0; t < nrun; stage ^= S - 1) {
     const int tn = next_live(bits, t + 1, nrun);
-    if (tn < nrun) {
-      load_tile<D, kCols>(ks + (stage ^ 1) * T::TILE,
-                          kb + (int64_t)tn * kCols * D, sk - tn * kCols);
-      load_tile<D, kCols>(vs + (stage ^ 1) * T::TILE,
-                          vb + (int64_t)tn * kCols * D, sk - tn * kCols);
+    if constexpr (S == 2) {
+      if (tn < nrun) {
+        load_tile<D, kCols>(ks + (stage ^ 1) * T::TILE,
+                            kb + (int64_t)tn * kCols * D, sk - tn * kCols);
+        load_tile<D, kCols>(vs + (stage ^ 1) * T::TILE,
+                            vb + (int64_t)tn * kCols * D, sk - tn * kCols);
+      }
+      cp_async_commit();
+      cp_async_wait<1>();  // tile t (and q) have landed
+    } else {
+      cp_async_wait<0>();
     }
-    cp_async_commit();
-    cp_async_wait<1>();  // tile t (and q) have landed
     __syncthreads();
 
     float s[8][4];
@@ -475,11 +505,20 @@ __global__ void __launch_bounds__(kThreads)
                            });
     }
 #pragma unroll
-    for (int n = 0; n < T::NT; ++n)
+    for (int n = 0; n < NV; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
-    accumulate<D>(o, s, vs + stage * T::TILE, ln);
+    accumulate<NV, T::LD>(o, s, vs + stage * T::TILE + col0, ln);
     __syncthreads();  // this stage's readers are done before its next load
+    if constexpr (S == 1) {
+      if (tn < nrun) {
+        load_tile<D, kCols>(ks, kb + (int64_t)tn * kCols * D,
+                            sk - tn * kCols);
+        load_tile<D, kCols>(vs, vb + (int64_t)tn * kCols * D,
+                            sk - tn * kCols);
+      }
+      cp_async_commit();
+    }
     t = tn;
   }
   cp_async_wait<0>();  // no copy outlives the block
@@ -488,8 +527,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int h = 0; h < 2; ++h) inv[h] = 1.f / fmaxf(l[h], 1e-30f);
   const int64_t first = bh * sq + q0 + 16 * ln.warp;
-  store_rows<D>(out, first, sq - (q0 + 16 * ln.warp), o, inv, ln);
-  if (ln.tig == 0) {
+  store_rows<NV, D>(out + col0, first, sq - (q0 + 16 * ln.warp), o, inv, ln);
+  if (ln.tig == 0 && blockIdx.y == 0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = row0 + 8 * h;
@@ -506,7 +545,9 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int D>
 constexpr size_t dq_smem(int ntiles) {
-  return sizeof(float) * (2 * kRows + 4 * kCols) * Dims<D>::LD +
+  // D = 256: q, g and one buffer that takes v, then k, of each key tile.
+  constexpr int tiles = Dims<D>::ONE_STAGE ? 1 : 4;
+  return sizeof(float) * (2 * kRows + tiles * kCols) * Dims<D>::LD +
          sizeof(uint32_t) * 2 * ntiles;
 }
 
@@ -518,12 +559,16 @@ __global__ void __launch_bounds__(kThreads)
               const float* __restrict__ g, float* __restrict__ dq, int sq,
               int sk, int causal, float scale, float scale_log2) {
   using T = Dims<D>;
+  constexpr bool kSeq = T::ONE_STAGE;
+  constexpr int NV = T::DQ_COLS / 8;  // n8 tiles of the block's slice
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);  // [64][LD]
   float* gs = qs + kRows * T::LD;              // [64][LD]
-  float* ks = gs + kRows * T::LD;              // [2][64][LD]
-  float* vs = ks + 2 * T::TILE;                // [2][64][LD]
-  uint32_t* bits = reinterpret_cast<uint32_t*>(vs + 2 * T::TILE);
+  float* ks = gs + kRows * T::LD;              // [2][64][LD] (kSeq: [64][LD])
+  float* vs = ks + 2 * T::TILE;                // [2][64][LD] (kSeq: none)
+  uint32_t* bits =
+      reinterpret_cast<uint32_t*>(kSeq ? ks + T::TILE : vs + 2 * T::TILE);
+  const int col0 = blockIdx.y * T::DQ_COLS;  // the block's output slice
 
   const Lane ln;
   const int nq = (sq + kRows - 1) / kRows;
@@ -541,8 +586,10 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   int t = next_live(bits, 0, nrun);
   if (t < nrun) {
-    load_tile<D, kCols>(ks, kb + (int64_t)t * kCols * D, sk - t * kCols);
-    load_tile<D, kCols>(vs, vb + (int64_t)t * kCols * D, sk - t * kCols);
+    if constexpr (!kSeq)
+      load_tile<D, kCols>(ks, kb + (int64_t)t * kCols * D, sk - t * kCols);
+    load_tile<D, kCols>(kSeq ? ks : vs, vb + (int64_t)t * kCols * D,
+                        sk - t * kCols);
   }
   cp_async_commit();
 
@@ -554,28 +601,41 @@ __global__ void __launch_bounds__(kThreads)
     row_lse[h] = row < sq ? lse[bh * sq + row] * kLog2e : 0.f;
     row_delta[h] = row < sq ? delta[bh * sq + row] : 0.f;
   }
-  float acc[T::NT][4];
+  float acc[NV][4];
 #pragma unroll
-  for (int n = 0; n < T::NT; ++n)
+  for (int n = 0; n < NV; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
-  for (int stage = 0; t < nrun; stage ^= 1) {
+  for (int stage = 0; t < nrun; stage ^= kSeq ? 0 : 1) {
     const int tn = next_live(bits, t + 1, nrun);
-    if (tn < nrun) {
-      load_tile<D, kCols>(ks + (stage ^ 1) * T::TILE,
-                          kb + (int64_t)tn * kCols * D, sk - tn * kCols);
-      load_tile<D, kCols>(vs + (stage ^ 1) * T::TILE,
-                          vb + (int64_t)tn * kCols * D, sk - tn * kCols);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-
-    const float* kt = ks + stage * T::TILE;
+    const float* kt;
     float s[8][4], dp[8][4];
-    scores<D>(s, qs, 16 * ln.warp, kt, ln);
-    scores<D>(dp, gs, 16 * ln.warp, vs + stage * T::TILE, ln);
+    if constexpr (kSeq) {
+      cp_async_wait<0>();  // v of tile t
+      __syncthreads();
+      scores<D>(dp, gs, 16 * ln.warp, ks, ln);
+      __syncthreads();  // v is read before k replaces it
+      load_tile<D, kCols>(ks, kb + (int64_t)t * kCols * D, sk - t * kCols);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      kt = ks;
+      scores<D>(s, qs, 16 * ln.warp, kt, ln);
+    } else {
+      if (tn < nrun) {
+        load_tile<D, kCols>(ks + (stage ^ 1) * T::TILE,
+                            kb + (int64_t)tn * kCols * D, sk - tn * kCols);
+        load_tile<D, kCols>(vs + (stage ^ 1) * T::TILE,
+                            vb + (int64_t)tn * kCols * D, sk - tn * kCols);
+      }
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+      kt = ks + stage * T::TILE;
+      scores<D>(s, qs, 16 * ln.warp, kt, ln);
+      scores<D>(dp, gs, 16 * ln.warp, vs + stage * T::TILE, ln);
+    }
     const uint32_t w0 = bits[2 * t], w1 = bits[2 * t + 1];
     const int k0 = t * kCols;
     const auto lse2 = [=](int, int h) { return row_lse[h]; };
@@ -594,22 +654,33 @@ __global__ void __launch_bounds__(kThreads)
                          lse2, dlt);
     }
     // dq += ds k: k's tile rows are the k index.
-    accumulate<D>(acc, dp, kt, ln);
+    accumulate<NV, T::LD>(acc, dp, kt + col0, ln);
     __syncthreads();
+    if constexpr (kSeq) {
+      if (tn < nrun)
+        load_tile<D, kCols>(ks, vb + (int64_t)tn * kCols * D,
+                            sk - tn * kCols);
+      cp_async_commit();
+    }
     t = tn;
   }
   cp_async_wait<0>();  // no copy outlives the block
   const float one[2] = {1.f, 1.f};
-  store_rows<D>(dq, first + 16 * ln.warp, sq - (q0 + 16 * ln.warp), acc, one,
-                ln);
+  store_rows<NV, D>(dq + col0, first + 16 * ln.warp,
+                    sq - (q0 + 16 * ln.warp), acc, one, ln);
 }
 
 // -- K6: dk and dv ------------------------------------------------------------
 
 template <int D>
 constexpr size_t dkv_smem() {
-  return sizeof(float) * (2 * kRows + 4 * kCols) * Dims<D>::LD +
-         sizeof(float) * 4 * kCols;
+  using T = Dims<D>;
+  // D = 256: k, v, one buffer that takes g, then q, of each query tile,
+  // and g's slice.
+  return T::ONE_STAGE
+             ? sizeof(float) * ((2 * kRows + kCols) * T::LD +
+                                kCols * Dims<T::DKV_COLS>::LD + 2 * kCols)
+             : sizeof(float) * ((2 * kRows + 4 * kCols) * T::LD + 4 * kCols);
 }
 
 // At D = 16 ptxas left to itself settles on 128 registers and spills; asked
@@ -623,13 +694,18 @@ __global__ void __launch_bounds__(kThreads, D == 16 ? 4 : 1)
                float* __restrict__ dv, int sq, int sk, int causal, float scale,
                float scale_log2) {
   using T = Dims<D>;
+  constexpr bool kSeq = T::ONE_STAGE;
+  constexpr int DV = T::DKV_COLS;
+  constexpr int NV = DV / 8;  // n8 tiles of the block's slice
   extern __shared__ __align__(16) unsigned char smem[];
   float* ks = reinterpret_cast<float*>(smem);  // [64][LD], this block's keys
   float* vs = ks + kRows * T::LD;              // [64][LD]
-  float* qs = vs + kRows * T::LD;              // [2][64][LD]
-  float* gs = qs + 2 * T::TILE;                // [2][64][LD]
-  float* lse_s = gs + 2 * T::TILE;             // [2][64]
-  float* delta_s = lse_s + 2 * kCols;          // [2][64]
+  float* qs = vs + kRows * T::LD;              // [2][64][LD] (kSeq: [64][LD])
+  // [2][64][LD] (kSeq: g's slice, [64][DV + 4])
+  float* gs = qs + (kSeq ? 1 : 2) * T::TILE;
+  float* lse_s = kSeq ? gs + kCols * Dims<DV>::LD : gs + 2 * T::TILE;
+  float* delta_s = lse_s + (kSeq ? 1 : 2) * kCols;  // [2][64] (kSeq: [64])
+  const int col0 = blockIdx.y * DV;  // the block's output slice
 
   const Lane ln;
   const int nkb = (sk + kRows - 1) / kRows;
@@ -644,9 +720,9 @@ __global__ void __launch_bounds__(kThreads, D == 16 ? 4 : 1)
     const int key = key0 + 8 * h;
     key_ok[h] = key < sk && mask[bh * sk + key] > 0.f;
   }
-  float acc_k[T::NT][4], acc_v[T::NT][4];
+  float acc_k[NV][4], acc_v[NV][4];
 #pragma unroll
-  for (int n = 0; n < T::NT; ++n)
+  for (int n = 0; n < NV; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
 
@@ -657,10 +733,18 @@ __global__ void __launch_bounds__(kThreads, D == 16 ? 4 : 1)
   if (!__syncthreads_or(key_ok[0] || key_ok[1])) qt = nq;
   const bool all_keys = __syncthreads_and(key_ok[0] && key_ok[1]);
 
+  // A query tile's lse and delta, and its g (kSeq: g and g's slice).
   auto stage_rows = [&](int tile, int stage) {
     const int q0 = tile * kCols;
-    load_tile<D, kCols>(qs + stage * T::TILE, qb + (int64_t)q0 * D, sq - q0);
-    load_tile<D, kCols>(gs + stage * T::TILE, gb + (int64_t)q0 * D, sq - q0);
+    if constexpr (kSeq) {
+      load_tile<D, kCols>(qs, gb + (int64_t)q0 * D, sq - q0);
+      load_tile<DV, kCols, D>(gs, gb + (int64_t)q0 * D + col0, sq - q0);
+    } else {
+      load_tile<D, kCols>(qs + stage * T::TILE, qb + (int64_t)q0 * D,
+                          sq - q0);
+      load_tile<D, kCols>(gs + stage * T::TILE, gb + (int64_t)q0 * D,
+                          sq - q0);
+    }
     for (int e = threadIdx.x; e < kCols; e += kThreads) {
       const bool in = q0 + e < sq;
       lse_s[stage * kCols + e] = in ? lse[bh * sq + q0 + e] * kLog2e : 0.f;
@@ -672,20 +756,35 @@ __global__ void __launch_bounds__(kThreads, D == 16 ? 4 : 1)
   if (qt < nq) stage_rows(qt, 0);
   cp_async_commit();
 
-  for (int stage = 0; qt < nq; stage ^= 1, ++qt) {
-    if (qt + 1 < nq) stage_rows(qt + 1, stage ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-
-    const float* qt_s = qs + stage * T::TILE;
-    const float* gt_s = gs + stage * T::TILE;
-    const float* lse_t = lse_s + stage * kCols;
-    const float* delta_t = delta_s + stage * kCols;
+  for (int stage = 0; qt < nq; stage ^= kSeq ? 0 : 1, ++qt) {
+    const float* qt_s;
+    const float* gt_s;  // g's rows at the block's slice
     // Transposed tiles: rows are this warp's keys, columns the queries.
     float p[8][4], ds[8][4];
-    scores<D>(p, ks, 16 * ln.warp, qt_s, ln);
-    scores<D>(ds, vs, 16 * ln.warp, gt_s, ln);
+    if constexpr (kSeq) {
+      cp_async_wait<0>();  // g of tile qt
+      __syncthreads();
+      scores<D>(ds, vs, 16 * ln.warp, qs, ln);
+      __syncthreads();  // g is read before q replaces it
+      load_tile<D, kCols>(qs, qb + (int64_t)qt * kCols * D, sq - qt * kCols);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      scores<D>(p, ks, 16 * ln.warp, qs, ln);
+      qt_s = qs;
+      gt_s = gs;
+    } else {
+      if (qt + 1 < nq) stage_rows(qt + 1, stage ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+      qt_s = qs + stage * T::TILE;
+      gt_s = gs + stage * T::TILE;
+      scores<D>(p, ks, 16 * ln.warp, qt_s, ln);
+      scores<D>(ds, vs, 16 * ln.warp, gt_s, ln);
+    }
+    const float* lse_t = lse_s + stage * kCols;
+    const float* delta_t = delta_s + stage * kCols;
     const int q0 = qt * kCols;
     const auto lse2 = [=](int c, int) { return lse_t[c]; };
     const auto dlt = [=](int c, int) { return delta_t[c]; };
@@ -702,16 +801,20 @@ __global__ void __launch_bounds__(kThreads, D == 16 ? 4 : 1)
                          lse2, dlt);
     }
     // dv += p^T g and dk += ds^T q: the query tiles' rows are the k index.
-    accumulate<D>(acc_v, p, gt_s, ln);
-    accumulate<D>(acc_k, ds, qt_s, ln);
+    accumulate<NV, Dims<DV>::LD>(acc_v, p, kSeq ? gt_s : gt_s + col0, ln);
+    accumulate<NV, T::LD>(acc_k, ds, qt_s + col0, ln);
     __syncthreads();
+    if constexpr (kSeq) {
+      if (qt + 1 < nq) stage_rows(qt + 1, 0);
+      cp_async_commit();
+    }
   }
   cp_async_wait<0>();  // no copy outlives the block
   const float one[2] = {1.f, 1.f};
   const int64_t first = bh * sk + k0 + 16 * ln.warp;
   const int rows = sk - (k0 + 16 * ln.warp);
-  store_rows<D>(dk, first, rows, acc_k, one, ln);
-  store_rows<D>(dv, first, rows, acc_v, one, ln);
+  store_rows<NV, D>(dk + col0, first, rows, acc_k, one, ln);
+  store_rows<NV, D>(dv + col0, first, rows, acc_v, one, ln);
 }
 
 // -- launchers ----------------------------------------------------------------
@@ -734,7 +837,8 @@ int fwd(const float* q, const float* k, const float* v, const float* mask,
   const int err = configure(fwd_kernel<D>, smem, blocks);
   if (err) return err;
   const float scale_log2 = (float)(kLog2e * softmax_scale);
-  fwd_kernel<D><<<(unsigned)blocks, kThreads, smem, stream>>>(
+  const dim3 grid((unsigned)blocks, D / Dims<D>::FWD_COLS);
+  fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
       q, k, v, mask, out, lse, sq, sk, causal, scale_log2);
   return (int)cudaGetLastError();
 }
@@ -750,7 +854,8 @@ int bwd(const float* q, const float* k, const float* v, const float* mask,
   const size_t dq_bytes = dq_smem<D>((sk + kCols - 1) / kCols);
   int err = configure(dq_kernel<D>, dq_bytes, dq_blocks);
   if (err) return err;
-  dq_kernel<D><<<(unsigned)dq_blocks, kThreads, dq_bytes, stream>>>(
+  const dim3 dq_grid((unsigned)dq_blocks, D / Dims<D>::DQ_COLS);
+  dq_kernel<D><<<dq_grid, kThreads, dq_bytes, stream>>>(
       q, k, v, mask, lse, delta, g, dq, sq, sk, causal, scale, scale_log2);
   err = (int)cudaGetLastError();
   if (err) return err;
@@ -758,7 +863,8 @@ int bwd(const float* q, const float* k, const float* v, const float* mask,
   constexpr size_t dkv_bytes = dkv_smem<D>();
   err = configure(dkv_kernel<D>, dkv_bytes, dkv_blocks);
   if (err) return err;
-  dkv_kernel<D><<<(unsigned)dkv_blocks, kThreads, dkv_bytes, stream>>>(
+  const dim3 dkv_grid((unsigned)dkv_blocks, D / Dims<D>::DKV_COLS);
+  dkv_kernel<D><<<dkv_grid, kThreads, dkv_bytes, stream>>>(
       q, k, v, mask, lse, delta, g, dk, dv, sq, sk, causal, scale,
       scale_log2);
   return (int)cudaGetLastError();
@@ -768,7 +874,7 @@ int bwd(const float* q, const float* k, const float* v, const float* mask,
 
 // K5. q (bh, sq, d), k and v (bh, sk, d), mask (bh, sk), out (bh, sq, d),
 // lse (bh, sq); all fp32 and contiguous, q, k, v and out 16-byte aligned;
-// d in {16, 32, 64, 128}; the scores are q.k scale (the wrapper's
+// d in {16, 32, 64, 128, 256}; the scores are q.k scale (the wrapper's
 // default 1/sqrt(d); a head width padded with zero columns passes its own).
 extern "C" int flash_attention_fwd_f32(const float* q, const float* k,
                                        const float* v, const float* mask,
@@ -784,6 +890,7 @@ extern "C" int flash_attention_fwd_f32(const float* q, const float* k,
     case 32: FLASH_FWD(32);
     case 64: FLASH_FWD(64);
     case 128: FLASH_FWD(128);
+    case 256: FLASH_FWD(256);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef FLASH_FWD
@@ -811,6 +918,7 @@ extern "C" int flash_attention_bwd_f32(const float* q, const float* k,
     case 32: FLASH_BWD(32);
     case 64: FLASH_BWD(64);
     case 128: FLASH_BWD(128);
+    case 256: FLASH_BWD(256);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef FLASH_BWD

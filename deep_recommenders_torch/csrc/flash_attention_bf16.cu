@@ -65,6 +65,20 @@
 // so far, which depends on the tile width (JAX uses 128 keys, this kernel
 // 64); ops/attention_tolerances.py bounds the difference.
 //
+// D = 256. A warp's output fragments over D would take 128 registers
+// (256 for dk and dv), and its q fragments over D 64 more. So at D = 256 a
+// block computes a slice of the output columns, one grid column
+// (blockIdx.y) a slice, and scores over the whole of D in every slice: K5
+// and dq 128 columns (two slices), dk/dv 64 (four slices), the
+// accumulators then as large as at D = 128 and 64; the A fragments of the
+// block's own rows are read from shared memory at each k-step instead of
+// being held. The tiles stay double-buffered (a 64-row tile of 264 bf16 is
+// 33,792 bytes): dq's copy of out, read only to form delta, shares the
+// second key buffer, whose first load comes after delta is formed. Slice 0
+// writes lse and delta; every slice computes the same values. The products
+// recomputed in each slice are the price: 2x K5's and dq's scores, 4x
+// dk/dv's.
+//
 // Every exported function launches on the stream it is given and returns
 // cudaGetLastError(), or cudaErrorInvalidValue for what it does not take.
 
@@ -92,6 +106,12 @@ struct Dims {
   static constexpr int TILE = kCols * LD;
   static constexpr int KSTEPS = D / 16;  // mma k-steps over D
   static constexpr int NT = D / 8;       // n8 tiles over D
+  // Output columns a block computes (a slice per grid column at D = 256),
+  // and whether a warp holds the A fragments of its rows over D.
+  static constexpr int FWD_COLS = D <= 128 ? D : 128;
+  static constexpr int DQ_COLS = D <= 128 ? D : 128;
+  static constexpr int DKV_COLS = D <= 128 ? D : 64;
+  static constexpr bool HOLD_A = D <= 128;
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -227,10 +247,50 @@ __device__ __forceinline__ void scores(float (&acc)[8][4],
   }
 }
 
-// acc[n] += P B over a 64-row tile b ([64][LD], rows are the k index):
-// P is the warp's 16 x 64 fp32 fragments x, rounded to bf16 in registers.
+// acc[j] = A B^T as scores() computes it, with the A fragments of the
+// warp's 16 rows of a ([rows][LD], from row0) read at each k-step.
 template <int D>
-__device__ __forceinline__ void accumulate(float (&acc)[Dims<D>::NT][4],
+__device__ __forceinline__ void scores_of(float (&acc)[8][4], const bf16* a,
+                                          int row0, const bf16* b,
+                                          const Lane& ln) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < Dims<D>::KSTEPS; ++kk) {
+    uint32_t af[4];
+    load_a<D>(af, a, row0, kk, ln);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      uint32_t f[4];
+      ldmatrix_x4(f, b + (16 * j + ln.li + (ln.lq >> 1) * 8) * Dims<D>::LD +
+                         kk * 16 + (ln.lq & 1) * 8);
+      mma_bf16(acc[2 * j], af, f[0], f[1]);
+      mma_bf16(acc[2 * j + 1], af, f[2], f[3]);
+    }
+  }
+}
+
+// acc = A B^T of the warp's rows of a (from row0) and the tile b: from
+// the held fragments ah where the warp holds them, else from a.
+template <int D>
+__device__ __forceinline__ void scores_rows(
+    float (&acc)[8][4], const uint32_t (&ah)[Dims<D>::HOLD_A
+                                                  ? Dims<D>::KSTEPS
+                                                  : 1][4],
+    const bf16* a, int row0, const bf16* b, const Lane& ln) {
+  if constexpr (Dims<D>::HOLD_A)
+    scores<D>(acc, ah, b, ln);
+  else
+    scores_of<D>(acc, a, row0, b, ln);
+}
+
+// acc[n] += P B over the 8 NT columns at b of a 64-row tile (rows of LD
+// bf16, rows are the k index): P is the warp's 16 x 64 fp32 fragments x,
+// rounded to bf16 in registers.
+template <int NT, int LD>
+__device__ __forceinline__ void accumulate(float (&acc)[NT][4],
                                            const float (&x)[8][4],
                                            const bf16* b, const Lane& ln) {
 #pragma unroll
@@ -240,10 +300,9 @@ __device__ __forceinline__ void accumulate(float (&acc)[Dims<D>::NT][4],
                            pack_bf16x2(x[2 * kk + 1][0], x[2 * kk + 1][1]),
                            pack_bf16x2(x[2 * kk + 1][2], x[2 * kk + 1][3])};
 #pragma unroll
-    for (int jj = 0; jj < D / 16; ++jj) {
+    for (int jj = 0; jj < NT / 2; ++jj) {
       uint32_t f[4];
-      ldmatrix_x4_trans(f, b + (16 * kk + ln.li + (ln.lq & 1) * 8) *
-                                   Dims<D>::LD +
+      ldmatrix_x4_trans(f, b + (16 * kk + ln.li + (ln.lq & 1) * 8) * LD +
                                16 * jj + (ln.lq >> 1) * 8);
       mma_bf16(acc[2 * jj], a, f[0], f[1]);
       mma_bf16(acc[2 * jj + 1], a, f[2], f[3]);
@@ -267,10 +326,11 @@ __device__ __forceinline__ float quad_sum(float x) {
 }
 
 // Rows grp (half 0) and grp + 8 (half 1) of the warp's 16 rows of a
-// [rows][D] bf16 output, from fp32 fragments times s[half].
-template <int D>
+// [rows][D] bf16 output, its 8 NT columns from out on, from fp32 fragments
+// times s[half].
+template <int NT, int D>
 __device__ __forceinline__ void store_rows(bf16* out, int64_t row0, int rows,
-                                           const float (&acc)[Dims<D>::NT][4],
+                                           const float (&acc)[NT][4],
                                            const float (&s)[2],
                                            const Lane& ln) {
 #pragma unroll
@@ -279,7 +339,7 @@ __device__ __forceinline__ void store_rows(bf16* out, int64_t row0, int rows,
     if (r >= rows) continue;
     bf16* o = out + (row0 + r) * D + 2 * ln.tig;
 #pragma unroll
-    for (int n = 0; n < Dims<D>::NT; ++n) {
+    for (int n = 0; n < NT; ++n) {
       *reinterpret_cast<uint32_t*>(o + 8 * n) = pack_bf16x2(
           acc[n][2 * half] * s[half], acc[n][2 * half + 1] * s[half]);
     }
@@ -372,6 +432,8 @@ __global__ void __launch_bounds__(kThreads)
   bf16* ks = qs + kRows * T::LD;             // [2][64][LD]
   bf16* vs = ks + 2 * T::TILE;               // [2][64][LD]
   uint32_t* bits = reinterpret_cast<uint32_t*>(vs + 2 * T::TILE);
+  constexpr int NV = T::FWD_COLS / 8;          // n8 tiles of the slice
+  const int col0 = blockIdx.y * T::FWD_COLS;  // the block's output slice
 
   const Lane ln;
   const int nq = (sq + kRows - 1) / kRows;
@@ -395,16 +457,18 @@ __global__ void __launch_bounds__(kThreads)
   cp_async_wait<0>();
   __syncthreads();
 
-  uint32_t qa[T::KSTEPS][4];
+  uint32_t qa[T::HOLD_A ? T::KSTEPS : 1][4];
+  if constexpr (T::HOLD_A) {
 #pragma unroll
-  for (int kk = 0; kk < T::KSTEPS; ++kk)
-    load_a<D>(qa[kk], qs, 16 * ln.warp, kk, ln);
+    for (int kk = 0; kk < T::KSTEPS; ++kk)
+      load_a<D>(qa[kk], qs, 16 * ln.warp, kk, ln);
+  }
 
   const int row0 = q0 + 16 * ln.warp + ln.grp;  // and row0 + 8
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float o[T::NT][4];
+  float o[NV][4];
 #pragma unroll
-  for (int n = 0; n < T::NT; ++n)
+  for (int n = 0; n < NV; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
 
@@ -421,7 +485,7 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
 
     float s[8][4];
-    scores<D>(s, qa, ks + stage * T::TILE, ln);
+    scores_rows<D>(s, qa, qs, 16 * ln.warp, ks + stage * T::TILE, ln);
     const uint32_t w0 = bits[2 * t], w1 = bits[2 * t + 1];
     const int k0 = t * kCols;
     float alpha[2];
@@ -436,10 +500,10 @@ __global__ void __launch_bounds__(kThreads)
                            });
     }
 #pragma unroll
-    for (int n = 0; n < T::NT; ++n)
+    for (int n = 0; n < NV; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
-    accumulate<D>(o, s, vs + stage * T::TILE, ln);
+    accumulate<NV, T::LD>(o, s, vs + stage * T::TILE + col0, ln);
     __syncthreads();  // this stage's readers are done before its next load
     t = tn;
   }
@@ -448,8 +512,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int h = 0; h < 2; ++h) inv[h] = 1.f / fmaxf(l[h], 1e-30f);
   const int64_t first = bh * sq + q0 + 16 * ln.warp;
-  store_rows<D>(out, first, sq - (q0 + 16 * ln.warp), o, inv, ln);
-  if (ln.tig == 0) {
+  store_rows<NV, D>(out + col0, first, sq - (q0 + 16 * ln.warp), o, inv, ln);
+  if (ln.tig == 0 && blockIdx.y == 0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = row0 + 8 * h;
@@ -464,9 +528,12 @@ __global__ void __launch_bounds__(kThreads)
 
 // -- K6: dq -------------------------------------------------------------------
 
+// Without held A fragments (D = 256) out's rows share the second key
+// buffer (see the kernel).
 template <int D>
 constexpr size_t dq_smem(int ntiles) {
-  return sizeof(bf16) * (3 * kRows + 4 * kCols) * Dims<D>::LD +
+  constexpr int own = Dims<D>::HOLD_A ? 3 : 2;
+  return sizeof(bf16) * (own * kRows + 4 * kCols) * Dims<D>::LD +
          sizeof(float) * kRows + sizeof(uint32_t) * 2 * ntiles;
 }
 
@@ -480,13 +547,18 @@ __global__ void __launch_bounds__(kThreads)
               float scale_log2) {
   using T = Dims<D>;
   extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int NV = T::DQ_COLS / 8;  // n8 tiles of the block's slice
   bf16* qs = reinterpret_cast<bf16*>(smem);  // [64][LD]
   bf16* gs = qs + kRows * T::LD;             // [64][LD]
-  bf16* os = gs + kRows * T::LD;             // [64][LD]
-  bf16* ks = os + kRows * T::LD;             // [2][64][LD]
+  // [64][LD]; at D = 256 the second key buffer, which is first loaded
+  // after delta is formed.
+  bf16* os = gs + kRows * T::LD;
+  bf16* ks = T::HOLD_A ? os + kRows * T::LD : os;  // [2][64][LD]
+  if constexpr (!T::HOLD_A) os = ks + T::TILE;
   bf16* vs = ks + 2 * T::TILE;               // [2][64][LD]
   float* delta_s = reinterpret_cast<float*>(vs + 2 * T::TILE);  // [64]
   uint32_t* bits = reinterpret_cast<uint32_t*>(delta_s + kRows);
+  const int col0 = blockIdx.y * T::DQ_COLS;  // the block's output slice
 
   const Lane ln;
   const int nq = (sq + kRows - 1) / kRows;
@@ -522,7 +594,7 @@ __global__ void __launch_bounds__(kThreads)
       sum = fmaf(__bfloat162float(gs[r * T::LD + c]),
                  __bfloat162float(os[r * T::LD + c]), sum);
     delta_s[r] = sum;
-    if (q0 + r < sq) delta[first + r] = sum;
+    if (q0 + r < sq && blockIdx.y == 0) delta[first + r] = sum;
   }
   __syncthreads();
 
@@ -534,9 +606,9 @@ __global__ void __launch_bounds__(kThreads)
     row_lse[h] = row < sq ? lse[bh * sq + row] * kLog2e : 0.f;
     row_delta[h] = delta_s[row - q0];
   }
-  float acc[T::NT][4];
+  float acc[NV][4];
 #pragma unroll
-  for (int n = 0; n < T::NT; ++n)
+  for (int n = 0; n < NV; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
@@ -555,15 +627,19 @@ __global__ void __launch_bounds__(kThreads)
     const bf16* kt = ks + stage * T::TILE;
     float s[8][4], dp[8][4];
     {
-      uint32_t a[T::KSTEPS][4];
+      uint32_t a[T::HOLD_A ? T::KSTEPS : 1][4];
+      if constexpr (T::HOLD_A) {
 #pragma unroll
-      for (int kk = 0; kk < T::KSTEPS; ++kk)
-        load_a<D>(a[kk], qs, 16 * ln.warp, kk, ln);
-      scores<D>(s, a, kt, ln);
+        for (int kk = 0; kk < T::KSTEPS; ++kk)
+          load_a<D>(a[kk], qs, 16 * ln.warp, kk, ln);
+      }
+      scores_rows<D>(s, a, qs, 16 * ln.warp, kt, ln);
+      if constexpr (T::HOLD_A) {
 #pragma unroll
-      for (int kk = 0; kk < T::KSTEPS; ++kk)
-        load_a<D>(a[kk], gs, 16 * ln.warp, kk, ln);
-      scores<D>(dp, a, vs + stage * T::TILE, ln);
+        for (int kk = 0; kk < T::KSTEPS; ++kk)
+          load_a<D>(a[kk], gs, 16 * ln.warp, kk, ln);
+      }
+      scores_rows<D>(dp, a, gs, 16 * ln.warp, vs + stage * T::TILE, ln);
     }
     const uint32_t w0 = bits[2 * t], w1 = bits[2 * t + 1];
     const int k0 = t * kCols;
@@ -583,14 +659,14 @@ __global__ void __launch_bounds__(kThreads)
                          lse2, dlt);
     }
     // dq += ds k: k's tile rows are the k index.
-    accumulate<D>(acc, dp, kt, ln);
+    accumulate<NV, T::LD>(acc, dp, kt + col0, ln);
     __syncthreads();
     t = tn;
   }
   cp_async_wait<0>();  // no copy outlives the block
   const float one[2] = {1.f, 1.f};
-  store_rows<D>(dq, first + 16 * ln.warp, sq - (q0 + 16 * ln.warp), acc, one,
-                ln);
+  store_rows<NV, D>(dq + col0, first + 16 * ln.warp,
+                    sq - (q0 + 16 * ln.warp), acc, one, ln);
 }
 
 // -- K6: dk and dv ------------------------------------------------------------
@@ -617,6 +693,8 @@ __global__ void __launch_bounds__(kThreads)
   bf16* gs = qs + 2 * T::TILE;               // [2][64][LD]
   float* lse_s = reinterpret_cast<float*>(gs + 2 * T::TILE);  // [2][64]
   float* delta_s = lse_s + 2 * kCols;                         // [2][64]
+  constexpr int NV = T::DKV_COLS / 8;         // n8 tiles of the slice
+  const int col0 = blockIdx.y * T::DKV_COLS;  // the block's output slice
 
   const Lane ln;
   const int nkb = (sk + kRows - 1) / kRows;
@@ -631,9 +709,9 @@ __global__ void __launch_bounds__(kThreads)
     const int key = key0 + 8 * h;
     key_ok[h] = key < sk && mask[bh * sk + key] > 0.f;
   }
-  float acc_k[T::NT][4], acc_v[T::NT][4];
+  float acc_k[NV][4], acc_v[NV][4];
 #pragma unroll
-  for (int n = 0; n < T::NT; ++n)
+  for (int n = 0; n < NV; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
 
@@ -672,15 +750,19 @@ __global__ void __launch_bounds__(kThreads)
     // Transposed tiles: rows are this warp's keys, columns the queries.
     float p[8][4], ds[8][4];
     {
-      uint32_t a[T::KSTEPS][4];
+      uint32_t a[T::HOLD_A ? T::KSTEPS : 1][4];
+      if constexpr (T::HOLD_A) {
 #pragma unroll
-      for (int kk = 0; kk < T::KSTEPS; ++kk)
-        load_a<D>(a[kk], ks, 16 * ln.warp, kk, ln);
-      scores<D>(p, a, qt_s, ln);
+        for (int kk = 0; kk < T::KSTEPS; ++kk)
+          load_a<D>(a[kk], ks, 16 * ln.warp, kk, ln);
+      }
+      scores_rows<D>(p, a, ks, 16 * ln.warp, qt_s, ln);
+      if constexpr (T::HOLD_A) {
 #pragma unroll
-      for (int kk = 0; kk < T::KSTEPS; ++kk)
-        load_a<D>(a[kk], vs, 16 * ln.warp, kk, ln);
-      scores<D>(ds, a, gt_s, ln);
+        for (int kk = 0; kk < T::KSTEPS; ++kk)
+          load_a<D>(a[kk], vs, 16 * ln.warp, kk, ln);
+      }
+      scores_rows<D>(ds, a, vs, 16 * ln.warp, gt_s, ln);
     }
     const int q0 = qt * kCols;
     const auto lse2 = [=](int c, int) { return lse_t[c]; };
@@ -698,16 +780,16 @@ __global__ void __launch_bounds__(kThreads)
                          lse2, dlt);
     }
     // dv += p^T g and dk += ds^T q: the query tiles' rows are the k index.
-    accumulate<D>(acc_v, p, gt_s, ln);
-    accumulate<D>(acc_k, ds, qt_s, ln);
+    accumulate<NV, T::LD>(acc_v, p, gt_s + col0, ln);
+    accumulate<NV, T::LD>(acc_k, ds, qt_s + col0, ln);
     __syncthreads();
   }
   cp_async_wait<0>();  // no copy outlives the block
   const float one[2] = {1.f, 1.f};
   const int64_t first = bh * sk + k0 + 16 * ln.warp;
   const int rows = sk - (k0 + 16 * ln.warp);
-  store_rows<D>(dk, first, rows, acc_k, one, ln);
-  store_rows<D>(dv, first, rows, acc_v, one, ln);
+  store_rows<NV, D>(dk + col0, first, rows, acc_k, one, ln);
+  store_rows<NV, D>(dv + col0, first, rows, acc_v, one, ln);
 }
 
 // -- launchers ----------------------------------------------------------------
@@ -730,7 +812,8 @@ int fwd(const bf16* q, const bf16* k, const bf16* v, const float* mask,
   const int err = configure(fwd_kernel<D>, smem, blocks);
   if (err) return err;
   const float scale_log2 = (float)(kLog2e * softmax_scale);
-  fwd_kernel<D><<<(unsigned)blocks, kThreads, smem, stream>>>(
+  const dim3 grid((unsigned)blocks, D / Dims<D>::FWD_COLS);
+  fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
       q, k, v, mask, out, lse, sq, sk, causal, scale_log2);
   return (int)cudaGetLastError();
 }
@@ -746,7 +829,8 @@ int bwd(const bf16* q, const bf16* k, const bf16* v, const float* mask,
   const size_t dq_bytes = dq_smem<D>((sk + kCols - 1) / kCols);
   int err = configure(dq_kernel<D>, dq_bytes, dq_blocks);
   if (err) return err;
-  dq_kernel<D><<<(unsigned)dq_blocks, kThreads, dq_bytes, stream>>>(
+  const dim3 dq_grid((unsigned)dq_blocks, D / Dims<D>::DQ_COLS);
+  dq_kernel<D><<<dq_grid, kThreads, dq_bytes, stream>>>(
       q, k, v, mask, lse, out, g, delta, dq, sq, sk, causal, scale,
       scale_log2);
   err = (int)cudaGetLastError();
@@ -755,7 +839,8 @@ int bwd(const bf16* q, const bf16* k, const bf16* v, const float* mask,
   constexpr size_t dkv_bytes = dkv_smem<D>();
   err = configure(dkv_kernel<D>, dkv_bytes, dkv_blocks);
   if (err) return err;
-  dkv_kernel<D><<<(unsigned)dkv_blocks, kThreads, dkv_bytes, stream>>>(
+  const dim3 dkv_grid((unsigned)dkv_blocks, D / Dims<D>::DKV_COLS);
+  dkv_kernel<D><<<dkv_grid, kThreads, dkv_bytes, stream>>>(
       q, k, v, mask, lse, delta, g, dk, dv, sq, sk, causal, scale,
       scale_log2);
   return (int)cudaGetLastError();
@@ -765,7 +850,7 @@ int bwd(const bf16* q, const bf16* k, const bf16* v, const float* mask,
 
 // K5 in bf16. q (bh, sq, d), k and v (bh, sk, d), out (bh, sq, d) bf16;
 // mask (bh, sk) and lse (bh, sq) fp32; all contiguous, the bf16 tensors
-// 16-byte aligned; d in {16, 32, 64, 128}; the scores are q.k scale (the
+// 16-byte aligned; d in {16, 32, 64, 128, 256}; the scores are q.k scale (the
 // wrapper's default 1/sqrt(d); a head width padded with zero columns passes
 // its own).
 extern "C" int flash_attention_fwd_bf16(const bf16* q, const bf16* k,
@@ -782,6 +867,7 @@ extern "C" int flash_attention_fwd_bf16(const bf16* q, const bf16* k,
     case 32: FLASH_FWD(32);
     case 64: FLASH_FWD(64);
     case 128: FLASH_FWD(128);
+    case 256: FLASH_FWD(256);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef FLASH_FWD
@@ -810,6 +896,7 @@ extern "C" int flash_attention_bwd_bf16(const bf16* q, const bf16* k,
     case 32: FLASH_BWD(32);
     case 64: FLASH_BWD(64);
     case 128: FLASH_BWD(128);
+    case 256: FLASH_BWD(256);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef FLASH_BWD

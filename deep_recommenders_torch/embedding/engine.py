@@ -186,19 +186,19 @@ class EmbeddingCollection(nn.Module):
         self.specs = tuple(specs)
         self.dim = dim
         self.mesh = mesh
-        self.feature_offsets, total = _offsets(self.specs)
-        self.shard_lo = 0
+        self.feature_offsets, vocab = _offsets(self.specs)
+        self.shard_lo, total = 0, vocab
         if mesh is not None:
             check_mesh(mesh)
-            self.shard_lo, hi = row_range(total, mesh)
-            total = padded_rows(total, mesh)
+            self.shard_lo, hi = row_range(vocab, mesh)
+            total = padded_rows(vocab, mesh)
         self.total_vocab = total
         table = torch.empty(total, dim)
         nn.init.normal_(table, 0.0, 1.0 / math.sqrt(dim), generator=generator)
         if mesh is None:
             self.table = nn.Parameter(table)
         else:
-            self.table = row_shard(table[self.shard_lo:hi].clone())
+            self.table = row_shard(table[self.shard_lo:hi].clone(), vocab)
 
     def compute_table(self) -> torch.Tensor:
         """The table in the compute dtype (a cast of the fp32 parameter)."""

@@ -202,8 +202,9 @@ class DIN(nn.Module):
             table = torch.empty(n, d)
             nn.init.normal_(table, 0.0, 1.0 / math.sqrt(d),
                             generator=generator)
-            self.item_table = (nn.Parameter(table) if mesh is None
-                               else row_shard(table[lo:hi].clone()))
+            self.item_table = (
+                nn.Parameter(table) if mesh is None
+                else row_shard(table[lo:hi].clone(), num_items))
         self.unit = ActivationUnit(d, attention_units,
                                    interacter=subtract_interacter,
                                    dtype=compute_dtype, generator=generator)

@@ -7,6 +7,7 @@ from deep_recommenders_torch.models.retrieval.factorized_top_k import (
     BruteForce,
     FactorizedTopK,
     InMemoryStreaming,
+    ShardedBruteForce,
     Streaming,
     TopK,
     load_index,

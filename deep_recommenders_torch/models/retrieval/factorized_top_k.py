@@ -1,13 +1,14 @@
 """Factorized top-k retrieval: exact indexes and the FactorizedTopK metric.
 
-Counterpart of ``deep_recommenders_tpu/models/retrieval/factorized_top_k.py``,
-single-device part:
+Counterpart of ``deep_recommenders_tpu/models/retrieval/factorized_top_k.py``:
 
 - ``TopK``: ``index(candidates[, identifiers])``, then ``index(queries, k)``
   -> (scores, identifiers); ``query_with_exclusions``; persistence through
   ``config``/``state_dict``/``load_state`` and :func:`save_index` /
   :func:`load_index`;
 - ``BruteForce``: the candidates on the device, one product and top-k;
+- ``ShardedBruteForce``: the corpus row-sharded over a mesh's "model"
+  axis, searched by ``ops/topk.sharded_top_k``;
 - ``Streaming``: top-k over a stream of candidate batches, folded with the
   merge algebra (``ops/topk.py``);
 - ``InMemoryStreaming``: the candidates on the device, scored in chunks;
@@ -17,9 +18,8 @@ single-device part:
 The indexes hold their candidates (and integer identifiers) as tensors on a
 device: the tensor's own when ``index`` is given a tensor, else the
 constructor's ``device``, the card unless the caller asks for the CPU.
-String identifiers stay a numpy array on the host. ``ShardedBruteForce``
-(the corpus over a mesh) is not ported yet (``ROADMAP.md`` queue 1, item
-2b). :func:`load_index` also knows the approximate indexes of ``ann.py``
+String identifiers stay a numpy array on the host. :func:`load_index`
+also knows the approximate indexes of ``ann.py``
 (ApproxTopK, IVF).
 """
 
@@ -31,6 +31,7 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from deep_recommenders_torch.device import DeviceLike, resolve_device
 from deep_recommenders_torch.ops.topk import (
@@ -38,7 +39,15 @@ from deep_recommenders_torch.ops.topk import (
     exact_top_k,
     exclude as exclude_op,
     merge_top_k,
+    sharded_top_k,
     top_k_scores,
+)
+from deep_recommenders_torch.parallel.mesh import check_mesh
+from deep_recommenders_torch.parallel.sharding import (
+    all_gather,
+    axis_index,
+    axis_size,
+    mesh_device,
 )
 
 # The classes save_index/load_index know, by name; filled by
@@ -119,21 +128,30 @@ class TopK:
 def save_index(path: str, index: TopK) -> str:
     """Persist a built index under ``path``: ``config.json`` (its class and
     constructor arguments) and ``state.npz`` (its arrays; string identifiers
-    as a unicode array, so nothing is pickled)."""
+    as a unicode array, so nothing is pickled). A ``ShardedBruteForce`` is
+    saved by every process of its mesh: its state gathers the corpus, and
+    rank 0 writes it."""
     path = os.path.abspath(path)
-    os.makedirs(path, exist_ok=True)
-    with open(os.path.join(path, "config.json"), "w") as f:
-        json.dump({"class": type(index).__name__, "config": index.config()},
-                  f)
-    np.savez(os.path.join(path, "state.npz"), **index.state_dict())
+    state = index.state_dict()
+    sharded = isinstance(index, ShardedBruteForce)
+    if not sharded or dist.get_rank() == 0:
+        os.makedirs(path, exist_ok=True)
+        with open(os.path.join(path, "config.json"), "w") as f:
+            json.dump({"class": type(index).__name__,
+                       "config": index.config()}, f)
+        np.savez(os.path.join(path, "state.npz"), **state)
+    if sharded:
+        dist.barrier()
     return path
 
 
 def load_index(path: str, query_model: Optional[Callable] = None,
-               device: DeviceLike = "cuda") -> TopK:
+               device: DeviceLike = "cuda", mesh=None) -> TopK:
     """Rebuild a saved index, its arrays on ``device`` (the card unless the
     caller asks for the CPU), read with ``allow_pickle=False``.
-    ``query_model`` is not saved: give it again here."""
+    ``query_model`` and ``mesh`` are not saved: give them again here (a
+    ``ShardedBruteForce`` needs its mesh, and lives on the mesh's
+    device)."""
     # ann.py registers its index classes on import.
     from deep_recommenders_torch.models.retrieval import ann  # noqa: F401
 
@@ -143,8 +161,10 @@ def load_index(path: str, query_model: Optional[Callable] = None,
     if spec["class"] not in _INDEX_REGISTRY:
         raise ValueError(f"unknown index class {spec['class']!r}; this port "
                          f"has {sorted(_INDEX_REGISTRY)}")
-    idx = _INDEX_REGISTRY[spec["class"]](
-        query_model=query_model, device=device, **spec["config"])
+    kwargs = dict(spec["config"], query_model=query_model, device=device)
+    if mesh is not None:
+        kwargs["mesh"] = mesh
+    idx = _INDEX_REGISTRY[spec["class"]](**kwargs)
     with np.load(os.path.join(path, "state.npz"), allow_pickle=False) as data:
         return idx.load_state({k: data[k] for k in data.files})
 
@@ -207,6 +227,80 @@ class BruteForce(TopK):
     def load_state(self, state) -> "BruteForce":
         ids = state.get("int_identifiers", state.get("str_identifiers"))
         return self.index(state["candidates"], ids)
+
+
+class ShardedBruteForce(BruteForce):
+    """Exact search with the corpus row-sharded over the mesh's "model"
+    axis: ``index`` pads the corpus with zero rows to a multiple of the
+    model size and keeps this process's rows on the mesh's device;
+    ``__call__`` runs ``ops/topk.sharded_top_k`` (each shard's product and
+    top-k, one exchange of the (B, n_model k) partials over "model") and
+    gives what ``BruteForce`` gives on the whole corpus: the same scores,
+    the same ids where no two candidates tie. Identifiers (integer ones
+    on the device, strings on the host) are kept whole on every process.
+    The sentinel id -1 of a slot past the corpus (k larger than N) picks
+    the last identifier, as JAX's gather wraps it; its score is -inf.
+
+    ``queries_data_sharded``: each data group queries its own rows (see
+    ``sharded_top_k``). ``state_dict`` gathers the whole corpus over
+    "model", so every process of the group calls it."""
+
+    def __init__(self, mesh, query_model: Optional[Callable] = None,
+                 queries_data_sharded: bool = False,
+                 model_axis: str = "model", data_axis: str = "data",
+                 device: DeviceLike = None):
+        self._mesh = check_mesh(mesh)
+        super().__init__(query_model, mesh_device(self._mesh)
+                         if device is None else device)
+        self._queries_data_sharded = queries_data_sharded
+        self._model_axis = model_axis
+        self._data_axis = data_axis
+        self._num_valid = 0
+
+    def index(self, candidates, identifiers=None) -> "ShardedBruteForce":
+        whole = self._to_device(candidates)
+        self._num_valid = whole.shape[0]
+        n_model = axis_size(self._mesh, self._model_axis)
+        pad = (-whole.shape[0]) % n_model
+        if pad:
+            whole = torch.cat([whole, whole.new_zeros(pad, whole.shape[1])])
+        rows = whole.shape[0] // n_model
+        lo = axis_index(self._mesh, self._model_axis) * rows
+        super().index(whole[:self._num_valid], identifiers)
+        self._candidates = whole[lo:lo + rows].clone()
+        return self
+
+    def __call__(self, queries, k: int = 10):
+        if self._candidates is None:
+            raise ValueError("index() must be called before querying")
+        queries = self._queries(queries, self._candidates.device)
+        scores, indices = sharded_top_k(
+            queries, self._candidates, k, self._mesh,
+            num_valid=self._num_valid, model_axis=self._model_axis,
+            data_axis=self._data_axis,
+            queries_data_sharded=self._queries_data_sharded)
+        if self._int_identifiers is not None:
+            return scores, self._int_identifiers[indices]
+        if self._identifiers is not None:
+            return scores, np.take(self._identifiers, indices.cpu().numpy(),
+                                   axis=0, mode="wrap")
+        return scores, indices
+
+    def config(self) -> dict:
+        return {"queries_data_sharded": self._queries_data_sharded,
+                "model_axis": self._model_axis,
+                "data_axis": self._data_axis}
+
+    def state_dict(self) -> Dict[str, np.ndarray]:
+        if self._candidates is None:
+            raise ValueError("index() must be called before saving")
+        whole = all_gather(self._candidates, self._mesh, self._model_axis)
+        out = {"candidates": whole[:self._num_valid].cpu().numpy()}
+        if self._int_identifiers is not None:
+            out["int_identifiers"] = self._int_identifiers.cpu().numpy()
+        if self._identifiers is not None:
+            out["str_identifiers"] = self._identifiers.astype(np.str_)
+        return out
 
 
 class Streaming(TopK):

@@ -9,8 +9,11 @@ Counterpart of ``deep_recommenders_tpu/models/retrieval/two_tower.py``:
 - ``Retrieval``: the loss's options (``ops/retrieval.in_batch_retrieval_loss``)
   and an optional FactorizedTopK metric.
 
-``mesh=`` (sharded tables) and ``axis_name=`` (pod-wide negatives) raise
-NotImplementedError: they are ``ROADMAP.md`` queue 1, item 2b.
+With ``mesh=`` each tower's fused table is row-sharded over the mesh's
+"model" axis (``EmbeddingCollection(mesh=)``: one all-reduce a tower, K1 on
+the process's shard in the backward). ``Retrieval(axis_name="data",
+mesh=)`` is the loss of the global batch with pod-wide negatives
+(``ops/retrieval.pod_retrieval_loss``).
 """
 
 from __future__ import annotations
@@ -31,8 +34,8 @@ from deep_recommenders_torch.models.retrieval.factorized_top_k import (
     FactorizedTopK,
 )
 from deep_recommenders_torch.ops.retrieval import (
-    _NOT_PORTED,
     in_batch_retrieval_loss,
+    pod_retrieval_loss,
 )
 
 
@@ -40,7 +43,8 @@ class Tower(nn.Module):
     """One tower: embed the ``specs`` features -> (B, F * D) -> MLP
     (``hidden``, then ``output_dim``) -> divided by max(||x||, 1e-12) when
     ``l2_normalize``. Submodules ``embeddings`` and ``projection``, as
-    flax's."""
+    flax's. With ``mesh`` the embedding table is this process's row shard
+    (``EmbeddingCollection(mesh=)``)."""
 
     def __init__(
         self,
@@ -53,11 +57,7 @@ class Tower(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        if mesh is not None:
-            raise NotImplementedError(
-                "the two-tower mesh is not ported yet (ROADMAP.md queue 1, "
-                "item 2b)")
-        self.embeddings = EmbeddingCollection(specs, embedding_dim,
+        self.embeddings = EmbeddingCollection(specs, embedding_dim, mesh=mesh,
                                               generator=generator)
         self.projection = MLP(len(self.embeddings.specs) * embedding_dim,
                               hidden, output_dim=output_dim,
@@ -106,8 +106,14 @@ class TwoTower(nn.Module):
 class Retrieval:
     """The retrieval task: the loss's options and an optional
     :class:`FactorizedTopK`. ``compute_dtype`` (None or ``torch.bfloat16``)
-    is the score product's operand dtype. ``axis_name`` and ``mesh``
-    (pod-wide negatives) raise NotImplementedError."""
+    is the score product's operand dtype.
+
+    Pod-wide negatives, as JAX's two ways: ``axis_name`` alone is
+    ``in_batch_retrieval_loss(axis_name=)``, this process's SUM over its
+    rows against the candidates gathered over that axis (of the default
+    mesh); ``axis_name`` and ``mesh`` are ``pod_retrieval_loss``, the
+    global batch's loss on every process, trainable by ``Trainer(mesh=)``.
+    """
 
     temperature: Optional[float] = None
     num_hard_negatives: Optional[int] = None
@@ -118,8 +124,6 @@ class Retrieval:
     compute_dtype: Optional[torch.dtype] = None
 
     def __post_init__(self):
-        if self.axis_name is not None or self.mesh is not None:
-            raise NotImplementedError(_NOT_PORTED)
         check_compute_dtype(self.compute_dtype)
 
     def __call__(
@@ -137,9 +141,7 @@ class Retrieval:
         if self.remove_accidental_negatives and candidate_ids is None:
             raise ValueError(
                 "remove_accidental_negatives requires candidate_ids")
-        loss = in_batch_retrieval_loss(
-            query_embeddings,
-            candidate_embeddings,
+        options = dict(
             sample_weight=sample_weight,
             candidate_sampling_probability=candidate_sampling_probability,
             candidate_ids=(candidate_ids if self.remove_accidental_negatives
@@ -148,6 +150,15 @@ class Retrieval:
             temperature=self.temperature,
             compute_dtype=self.compute_dtype,
         )
+        if self.mesh is not None and self.axis_name is not None:
+            loss = pod_retrieval_loss(query_embeddings, candidate_embeddings,
+                                      self.mesh, data_axis=self.axis_name,
+                                      **options)
+        else:
+            loss = in_batch_retrieval_loss(query_embeddings,
+                                           candidate_embeddings,
+                                           axis_name=self.axis_name,
+                                           **options)
         if self.metrics is None or metric_state is None:
             return loss
         with torch.no_grad():

@@ -31,6 +31,7 @@ from deep_recommenders_torch.ops.fm import fm_interaction, fm_interaction_fused
 from deep_recommenders_torch.ops.retrieval import (
     hard_negative_mining,
     in_batch_retrieval_loss,
+    pod_retrieval_loss,
     remove_accidental_negatives,
     sampling_probability_correction,
 )
@@ -38,5 +39,6 @@ from deep_recommenders_torch.ops.topk import (
     chunked_top_k,
     exclude,
     merge_top_k,
+    sharded_top_k,
     top_k_scores,
 )

@@ -66,8 +66,9 @@ NEG_INF = -1e30
 FLASH_SCORE_BYTES = 2_000_000_000
 DENSE_RESIDENT_SCORE_TENSORS = 3
 
-# Head widths the kernels are built for (template instances in the source).
-KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+# Head widths the kernels are built for (template instances in the source;
+# at 256 each block computes a slice of the output columns).
+KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
 # Operand dtypes of q, k, v and g; the mask and lse are always fp32.
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 

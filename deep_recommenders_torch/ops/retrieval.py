@@ -6,6 +6,11 @@ computes all of it with plain ops (no Pallas kernel): the score product
 ``Q C^T`` is a dense matrix product, here ``torch.matmul``, and the top-k of
 hard-negative mining is ``torch.topk`` where JAX uses ``lax.top_k``.
 
+Pod-wide negatives (``axis_name=``, :func:`pod_retrieval_loss`) gather the
+candidates of every process along the mesh's "data" axis
+(``parallel.all_gather``), so each process scores its own queries against
+the global batch's candidates.
+
 The huge constants are JAX's: ``labels * MAX_FLOAT`` pins the positive into
 the hard-negative top-k, and ``duplicate * MIN_FLOAT`` pushes an accidental
 negative to about -3.4e36 (-3.4e37 after a temperature of 0.1): finite in
@@ -20,13 +25,17 @@ import numpy as np
 import torch
 
 from deep_recommenders_torch.device import check_compute_dtype
+from deep_recommenders_torch.parallel.mesh import check_mesh, get_default_mesh
+from deep_recommenders_torch.parallel.sharding import (
+    DATA_AXIS,
+    all_gather,
+    all_reduce,
+    axis_index,
+    axis_size,
+)
 
 MAX_FLOAT = float(np.finfo(np.float32).max / 100.0)
 MIN_FLOAT = float(np.finfo(np.float32).min / 100.0)
-
-_NOT_PORTED = ("pod-wide in-batch negatives (axis_name, pod_retrieval_loss) "
-               "are not ported yet: they come with the port's parallelism "
-               "(ROADMAP.md, queue 1, item 2b)")
 
 
 def hard_negative_mining(
@@ -54,12 +63,15 @@ def remove_accidental_negatives(
 
 
 def _remove_diagonal_duplicates(logits: torch.Tensor,
-                                identifiers: torch.Tensor) -> torch.Tensor:
-    """:func:`remove_accidental_negatives` with labels = eye, without the
-    label matrix: MIN_FLOAT on every column j != i whose identifier equals
-    row i's positive's, ``identifiers[i]``."""
-    duplicate = identifiers[:logits.shape[0], None] == identifiers[None, :]
-    duplicate.fill_diagonal_(False)
+                                identifiers: torch.Tensor,
+                                offset: int = 0) -> torch.Tensor:
+    """:func:`remove_accidental_negatives` with the positive of row i at
+    column i + ``offset``, without the label matrix: MIN_FLOAT on every
+    other column whose identifier equals the positive's."""
+    b = logits.shape[0]
+    positive = identifiers[offset:offset + b]
+    duplicate = positive[:, None] == identifiers[None, :]
+    duplicate[torch.arange(b), torch.arange(b) + offset] = False
     return logits + duplicate.to(logits.dtype) * MIN_FLOAT
 
 
@@ -95,6 +107,7 @@ def in_batch_retrieval_loss(
     temperature: Optional[float] = None,
     axis_name: Optional[str] = None,
     compute_dtype: Optional[torch.dtype] = None,
+    mesh=None,
 ) -> torch.Tensor:
     """The two-tower in-batch sampled-softmax loss, SUM-reduced.
 
@@ -107,23 +120,39 @@ def in_batch_retrieval_loss(
     them, -sum(labels * log_softmax). ``sample_weight`` scales each row's
     loss. ``compute_dtype`` (None or ``torch.bfloat16``) is the score
     product's operand dtype; the softmax and the loss stay fp32.
-    ``axis_name`` (pod-wide negatives) raises NotImplementedError.
+
+    ``axis_name`` (pod-wide negatives): the candidates, their ids and
+    sampling probabilities are gathered over that axis of ``mesh`` (or,
+    without one, of ``parallel.get_default_mesh()``), this process's
+    queries are scored against all of them, and row i's positive is column
+    ``axis_index * B + i``. Returns this process's SUM over its own rows;
+    the candidates' gradient flows back to the process that holds them.
     """
-    if axis_name is not None:
-        raise NotImplementedError(_NOT_PORTED)
     compute_dtype = check_compute_dtype(compute_dtype)
+    offset = 0
+    if axis_name is not None:
+        mesh = check_mesh(mesh if mesh is not None else get_default_mesh())
+        offset = axis_index(mesh, axis_name) * candidate_embeddings.shape[0]
+        candidate_embeddings = all_gather(candidate_embeddings, mesh,
+                                          axis_name)
+        if candidate_ids is not None:
+            candidate_ids = all_gather(candidate_ids, mesh, axis_name)
+        if candidate_sampling_probability is not None:
+            candidate_sampling_probability = all_gather(
+                candidate_sampling_probability, mesh, axis_name)
     scores = _scores(query_embeddings, candidate_embeddings, compute_dtype)
     b, n = scores.shape
-    diagonal = torch.arange(b, device=scores.device)
+    rows = torch.arange(b, device=scores.device)
+    positive = rows + offset
 
     if candidate_sampling_probability is not None:
         scores = sampling_probability_correction(
             scores, candidate_sampling_probability)
     if candidate_ids is not None:
-        scores = _remove_diagonal_duplicates(scores, candidate_ids)
+        scores = _remove_diagonal_duplicates(scores, candidate_ids, offset)
     if num_hard_negatives is not None:
         labels = (torch.arange(n, device=scores.device)[None, :]
-                  == diagonal[:, None]).to(scores.dtype)
+                  == positive[:, None]).to(scores.dtype)
         scores, labels = hard_negative_mining(scores, labels,
                                               num_hard_negatives)
     if temperature is not None:
@@ -131,7 +160,7 @@ def in_batch_retrieval_loss(
 
     if num_hard_negatives is None:
         per_row = (torch.logsumexp(scores, dim=-1)
-                   - scores[diagonal, diagonal])
+                   - scores[rows, positive])
     else:
         per_row = -(labels * torch.log_softmax(scores, dim=-1)).sum(-1)
     if sample_weight is not None:
@@ -139,6 +168,59 @@ def in_batch_retrieval_loss(
     return per_row.sum()
 
 
-def pod_retrieval_loss(*args, **kwargs) -> torch.Tensor:
-    """Pod-wide in-batch negatives over a mesh: not ported yet."""
-    raise NotImplementedError(_NOT_PORTED)
+class _SumOverData(torch.autograd.Function):
+    """The sum of every data shard's loss, on each of them. The backward
+    hands each process the cotangent times the data size: under the port's
+    data-parallel rule (``Trainer(mesh=)`` averages the gradients over the
+    data group) the mean of those gradients is the gradient of the summed
+    loss, which JAX differentiates."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.scale = axis_size(mesh, axis)
+        return all_reduce(x.clone(), mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None, None
+
+
+def pod_retrieval_loss(
+    query_embeddings: torch.Tensor,
+    candidate_embeddings: torch.Tensor,
+    mesh,
+    sample_weight: Optional[torch.Tensor] = None,
+    candidate_sampling_probability: Optional[torch.Tensor] = None,
+    candidate_ids: Optional[torch.Tensor] = None,
+    num_hard_negatives: Optional[int] = None,
+    temperature: Optional[float] = None,
+    data_axis: str = DATA_AXIS,
+    compute_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Pod-wide in-batch negatives: the loss of the global batch.
+
+    Each process passes its data coordinate's rows (queries, candidates and
+    the optional per-row tensors). It scores its queries against the
+    candidates gathered over ``data_axis``
+    (:func:`in_batch_retrieval_loss` with ``axis_name``), and the local SUM
+    losses are summed over the axis: every process returns the global
+    batch's loss, equal to the unmeshed loss of the whole batch.
+
+    Gradients follow the port's data-parallel rule: averaged over the data
+    group (as ``Trainer(mesh=)`` does), they are the gradients of that
+    global loss. Each process's share is scaled by the data size for it,
+    since the rule was made for losses that are means over local rows.
+    """
+    mesh = check_mesh(mesh)
+    loss = in_batch_retrieval_loss(
+        query_embeddings, candidate_embeddings,
+        sample_weight=sample_weight,
+        candidate_sampling_probability=candidate_sampling_probability,
+        candidate_ids=candidate_ids,
+        num_hard_negatives=num_hard_negatives,
+        temperature=temperature,
+        axis_name=data_axis,
+        compute_dtype=compute_dtype,
+        mesh=mesh,
+    )
+    return _SumOverData.apply(loss, mesh, data_axis)

@@ -21,6 +21,7 @@ from deep_recommenders_torch.parallel.mesh import (
 from deep_recommenders_torch.parallel.sharding import (
     DATA_AXIS,
     MODEL_AXIS,
+    all_gather,
     all_reduce,
     axis_group,
     axis_index,

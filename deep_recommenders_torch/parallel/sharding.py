@@ -12,9 +12,10 @@ Conventions, as in the JAX package:
 JAX states these as ``NamedSharding`` constraints and lets GSPMD insert the
 collectives. torch has no such compiler pass, so the port issues them
 itself: :func:`all_reduce` over an axis's process group, counted in
-``all_reduce.calls``. JAX's ``replicated``, ``batch_sharding``,
-``table_sharding`` and ``with_sharding`` build or apply those constraints
-and have no counterpart here.
+``all_reduce.calls``, and :func:`all_gather` built on it. JAX's
+``replicated``, ``batch_sharding``, ``table_sharding`` and
+``with_sharding`` build or apply those constraints and have no counterpart
+here.
 """
 
 from __future__ import annotations
@@ -56,6 +57,48 @@ def all_reduce(x: torch.Tensor, mesh: DeviceMesh, axis: str) -> torch.Tensor:
 all_reduce.calls = 0
 
 
+class _AllGather(torch.autograd.Function):
+    """The blocks of every process along an axis, stacked in axis order;
+    the backward is the transpose of JAX's ``lax.all_gather``, a
+    reduce-scatter: the cotangent summed over the axis, this process's
+    block kept."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        ctx.index, ctx.rows = axis_index(mesh, axis), x.shape[0]
+        return _gather(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = all_reduce(g.contiguous().clone(), ctx.mesh, ctx.axis)
+        lo = ctx.index * ctx.rows
+        return g[lo:lo + ctx.rows], None, None
+
+
+def _gather(x: torch.Tensor, mesh: DeviceMesh, axis: str) -> torch.Tensor:
+    # Each process writes its block into zeros and one all-reduce sums
+    # them: x + 0 is exact, and gloo takes an all-reduce of CUDA tensors
+    # where it takes no all-gather of them.
+    n = axis_size(mesh, axis)
+    out = x.new_zeros((n,) + tuple(x.shape))
+    out[axis_index(mesh, axis)] = x
+    all_reduce(out, mesh, axis)
+    return out.reshape((n * x.shape[0],) + tuple(x.shape[1:]))
+
+
+def all_gather(x: torch.Tensor, mesh: DeviceMesh, axis: str) -> torch.Tensor:
+    """``lax.all_gather(x, axis).reshape(-1, ...)``: the (B, ...) blocks of
+    the processes along ``axis`` concatenated in axis order, (n B, ...),
+    on every one of them. Differentiable: the gradient of this process's
+    block is the sum over the axis of the cotangents of its rows. One
+    all-reduce forward (and one backward), counted in
+    ``all_reduce.calls``."""
+    if x.requires_grad:
+        return _AllGather.apply(x, mesh, axis)
+    return _gather(x, mesh, axis)
+
+
 def mesh_device(mesh: DeviceMesh) -> torch.device:
     """The device this process computes on: its current card, or the CPU."""
     if mesh.device_type == "cuda":
@@ -79,12 +122,15 @@ def row_range(num_rows: int, mesh: DeviceMesh) -> Tuple[int, int]:
     return lo, lo + size
 
 
-def row_shard(table: torch.Tensor) -> torch.nn.Parameter:
+def row_shard(table: torch.Tensor, rows: int) -> torch.nn.Parameter:
     """``table`` (this process's rows) as a parameter marked as a row shard:
     it holds different rows on each process of a data group's peers along
-    "model", and the same rows across its data group."""
+    "model", and the same rows across its data group. ``rows`` is the
+    whole tensor's leading size before any padding (``full_rows``), which
+    a checkpoint records to cut the joined state again."""
     p = torch.nn.Parameter(table)
     p.row_shard = True
+    p.full_rows = rows
     return p
 
 

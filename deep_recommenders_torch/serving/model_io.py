@@ -16,6 +16,11 @@ specs as ``{"__spec__": name, "fields": ...}``, tuples as
 arguments (``generator``, ``mesh``) are stored as null. A value JAX refuses
 is refused here with ``TypeError``, a ``torch.dtype`` in ``compute_dtype``
 among them, as a jnp dtype is in JAX's ``_encode``.
+
+A model whose tables (or experts) are sharded over a mesh's "model" axis
+saves its whole state: the shards joined over "model", their padding rows
+dropped. So an artifact loads meshed or unmeshed; ``load_model(mesh=)``
+cuts it to the process's shard.
 """
 
 from __future__ import annotations
@@ -27,16 +32,26 @@ import os
 from typing import Any, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
+from deep_recommenders_torch import convert
 from deep_recommenders_torch.device import DeviceLike, resolve_device
 from deep_recommenders_torch.features.columns import (
     CrossedFeature,
     DenseFeature,
     Feature,
 )
+from deep_recommenders_torch.parallel.mesh import check_mesh
+from deep_recommenders_torch.parallel.sharding import (
+    MODEL_AXIS,
+    all_gather,
+    axis_index,
+    axis_size,
+)
 from deep_recommenders_torch.training.checkpoints import (
     restore_checkpoint,
     save_checkpoint,
+    sharded_rows,
 )
 
 _SPEC_TYPES = {
@@ -97,20 +112,45 @@ def model_config(model: torch.nn.Module) -> Dict[str, Any]:
             for k, v in args.items()}
 
 
+def _mesh_of(model: torch.nn.Module):
+    """The mesh a model's sharded parameters live on, or None."""
+    return next((m.mesh for m in model.modules()
+                 if getattr(m, "mesh", None) is not None), None)
+
+
+def _whole_state(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The model's state dict with each row-sharded entry gathered over
+    "model" and cut to its rows before padding."""
+    state = model.state_dict()
+    for name, rows in sharded_rows(model).items():
+        state[name] = all_gather(state[name], _mesh_of(model),
+                                 MODEL_AXIS)[:rows]
+    return state
+
+
 def save_model(path: str, model: torch.nn.Module) -> str:
     """Persist ``config.json`` (class path and arguments) and ``params/``
     (the state dict). The port takes the module where JAX takes
-    ``(model, params)``: a port module holds its parameters."""
+    ``(model, params)``: a port module holds its parameters.
+
+    A model built on a mesh is saved by every process of the mesh: its
+    sharded entries are gathered over "model" and rank 0 writes the whole
+    state."""
     path = os.path.abspath(path)
     spec = {
         "module": type(model).__module__,
         "class": type(model).__qualname__,
         "config": model_config(model),
     }
-    os.makedirs(path, exist_ok=True)
-    with open(os.path.join(path, "config.json"), "w") as f:
-        json.dump(spec, f, indent=1)
-    save_checkpoint(os.path.join(path, "params"), model.state_dict())
+    state = _whole_state(model)
+    meshed = _mesh_of(model) is not None
+    if not meshed or dist.get_rank() == 0:
+        os.makedirs(path, exist_ok=True)
+        with open(os.path.join(path, "config.json"), "w") as f:
+            json.dump(spec, f, indent=1)
+        save_checkpoint(os.path.join(path, "params"), state)
+    if meshed:
+        dist.barrier()
     return path
 
 
@@ -121,14 +161,13 @@ def load_model(path: str, mesh: Optional[object] = None,
     CPU). JAX returns ``(model, params)``; the port's model holds them.
 
     The class must be one of this package's that record their config, so
-    a config file cannot make it import anything else. ``mesh`` raises
-    NotImplementedError: loading onto a mesh is ``ROADMAP.md`` queue 1,
-    item 2b.
+    a config file cannot make it import anything else.
+
+    ``mesh`` re-attaches a runtime mesh (a ("data", "model")
+    ``DeviceMesh``) to a model with a ``mesh`` argument, ValueError for one
+    without, as JAX's: the model is rebuilt on the mesh and the saved whole
+    state cut to this process's shard (``convert.shard_state``).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "load_model(mesh=) is not ported yet (ROADMAP.md queue 1, "
-            "item 2b)")
     path = os.path.abspath(path)
     device = resolve_device(device)
     with open(os.path.join(path, "config.json")) as f:
@@ -139,9 +178,19 @@ def load_model(path: str, mesh: Optional[object] = None,
     if not getattr(cls, "_records_config", False):
         raise ValueError(f"{cls.__name__} records no config")
     kwargs = {k: _decode(v) for k, v in spec["config"].items()}
+    if mesh is not None:
+        if "mesh" not in kwargs:
+            raise ValueError(f"{cls.__name__} has no mesh field to "
+                             "re-attach")
+        kwargs["mesh"] = check_mesh(mesh)
     # The initial draw is overwritten by the saved state: keep it off the
     # caller's random stream.
     with torch.random.fork_rng(devices=[]):
         model = cls(**kwargs)
-    model.load_state_dict(restore_checkpoint(os.path.join(path, "params")))
+    state = restore_checkpoint(os.path.join(path, "params"))
+    if mesh is not None:
+        state = convert.shard_state(state, axis_size(mesh, MODEL_AXIS),
+                                    axis_index(mesh, MODEL_AXIS),
+                                    sharded_rows(model))
+    model.load_state_dict(state)
     return model.to(device)

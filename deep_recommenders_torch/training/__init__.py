@@ -26,7 +26,9 @@ from deep_recommenders_torch.training.checkpoints import (
     latest_step_dir,
     list_step_dirs,
     restore_checkpoint,
+    restore_train_state,
     save_checkpoint,
+    save_train_state,
 )
 from deep_recommenders_torch.training.optimizers import (
     Adagrad,

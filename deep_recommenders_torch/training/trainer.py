@@ -44,8 +44,8 @@ from deep_recommenders_torch.parallel.sharding import (
 )
 from deep_recommenders_torch.training.checkpoints import (
     list_step_dirs,
-    restore_checkpoint,
-    save_checkpoint,
+    restore_train_state,
+    save_train_state,
 )
 from deep_recommenders_torch.training.data import leaves, map_features
 from deep_recommenders_torch.training.evaluation import BinaryCTREval
@@ -308,26 +308,22 @@ class Trainer:
 
         Under a mesh ``train_data`` holds the whole split on every process
         (``DeviceData.from_numpy(mesh=)``) and each step trains on this
-        process's share of the global batch. With ``checkpoint_dir`` rank 0
-        writes and every process resumes; a mesh whose model axis is
-        larger than 1 raises NotImplementedError, because its checkpoint
-        would be sharded.
+        process's share of the global batch. With ``checkpoint_dir`` every
+        process saves and resumes (``checkpoints.save_train_state``,
+        ``restore_train_state``): at model = 1 rank 0 writes the whole
+        state; at model > 1 the processes of data coordinate 0 write their
+        model coordinate's shard, and a checkpoint resumes under this mesh
+        or is joined and cut again for another (or for none).
         """
         verbose = verbose and self.verbose_rank
-        if (checkpoint_dir is not None and self.mesh is not None
-                and axis_size(self.mesh, MODEL_AXIS) > 1):
-            raise NotImplementedError(
-                "sharded checkpoints (a mesh with model > 1) are not ported "
-                "yet (ROADMAP.md queue 1, item 2b)")
         batch = train_data.batch_size
         start_epoch, saved_ckpts = 0, []
         if checkpoint_dir is not None:
             saved_ckpts = list_step_dirs(checkpoint_dir)
             if saved_ckpts:
                 latest = saved_ckpts[-1]
-                state = restore_checkpoint(latest)
-                self.model.load_state_dict(state["model"])
-                self.optimizer.load_state_dict(state["optimizer"])
+                restore_train_state(latest, self.model, self.optimizer,
+                                    self.mesh)
                 start_epoch = int(os.path.basename(latest).split("_")[1]) + 1
                 if verbose:
                     print(f"resumed from {latest} (epoch {start_epoch})")
@@ -354,13 +350,12 @@ class Trainer:
             if (checkpoint_dir is not None
                     and (epoch + 1) % checkpoint_every_epochs == 0):
                 path = os.path.join(checkpoint_dir, f"step_{epoch}")
-                if self.mesh is None or dist.get_rank() == 0:
-                    save_checkpoint(path,
-                                    {"model": self.model.state_dict(),
-                                     "optimizer": self.optimizer.state_dict()})
-                    saved_ckpts.append(path)
-                    while len(saved_ckpts) > keep_checkpoint_max:
-                        shutil.rmtree(saved_ckpts.pop(0), ignore_errors=True)
+                save_train_state(path, self.model, self.optimizer, self.mesh)
+                saved_ckpts.append(path)
+                while len(saved_ckpts) > keep_checkpoint_max:
+                    old = saved_ckpts.pop(0)
+                    if self.mesh is None or dist.get_rank() == 0:
+                        shutil.rmtree(old, ignore_errors=True)
                 if self.mesh is not None:
                     dist.barrier()
             summary = {"epoch": epoch, "loss": float(losses[-1])}

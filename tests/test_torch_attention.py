@@ -10,6 +10,10 @@ against blockwise with online rescaling; outputs and lse agree to 2e-5
 gradients to atol 3e-5 and rtol 1e-4 (likewise).
 """
 
+import os
+import subprocess
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -486,22 +490,125 @@ def test_padded_flash_attention_matches_jax_interpret(rng, monkeypatch, d,
 
 
 def test_attention_dispatch_above_the_widest_kernel(rng, monkeypatch):
-    """kernel_head_dim's widths; a head width above the widest kernel goes
-    dense, with a warning where the budget would send it blockwise, and
+    """kernel_head_dim's widths (every width from 129 to 256 pads to the
+    D = 256 kernels); a head width above the widest kernel goes dense,
+    with a warning where the budget would send it blockwise, and
     use_flash=True refuses it. The budget's verdict is forced on the CPU
     (there it always says dense): D = 8 then goes through FlashAttention,
-    D = 256 dense with the warning."""
+    D = 257 dense with the warning."""
     assert [att.kernel_head_dim(d) for d in (1, 8, 16, 24, 48, 96, 128,
                                              129)] == \
-        [16, 16, 16, 32, 64, 128, 128, None]
-    wide = _t(*_inputs(rng, 2, 6, 6, 256))
+        [16, 16, 16, 32, 64, 128, 128, 256]
+    assert all(att.kernel_head_dim(d) == 256 for d in range(129, 257))
+    assert att.kernel_head_dim(257) is None
+    wide = _t(*_inputs(rng, 2, 6, 6, 257))
     with pytest.raises(ValueError, match="head width"):
         att.attention(*wide[:3], use_flash=True)
     monkeypatch.setattr(att, "use_flash_for", lambda *a: not a[-1])
-    with pytest.warns(UserWarning, match="head width D=256"):
+    with pytest.warns(UserWarning, match="head width D=257"):
         got = att.attention(*wide[:3], key_mask=wide[3])
     torch.testing.assert_close(got, att.scaled_dot_product_attention(
         *wide[:3], key_mask=wide[3]))
     narrow = [t.requires_grad_() for t in _t(*_inputs(rng, 2, 6, 6, 8))[:3]]
     att.attention(*narrow, causal=True).sum().backward()  # FlashAttention
     assert all(t.grad is not None for t in narrow)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [200, 256])
+def test_wide_heads_use_flash_match_jax_interpret(rng, monkeypatch, d,
+                                                  causal):
+    """attention(use_flash=True) at D = 256 and at D = 200, which the card
+    pads to the D = 256 kernels (the padding forced here on the CPU, the
+    plain versions in the kernels' place), forward and gradients, against
+    JAX's flash_attention_diff in interpret mode, whose blocks take any D:
+    out rtol 1e-5 with atol 2e-5, the gradients rtol 1e-5 with atol 3e-5,
+    the file's bounds for the two summation orders."""
+    monkeypatch.setattr(att, "_operand_width",
+                        lambda t: att.kernel_head_dim(t.shape[-1]))
+    q, k, v, mask = _inputs(rng, 2, 64, 64, d, masked_row=1)
+    g = rng.normal(size=q.shape).astype(np.float32)
+    jq, jk, jv, jg, jmask = (jnp.asarray(a) for a in (q, k, v, g, mask))
+    want_out, vjp = jax.vjp(lambda *a: jatt.flash_attention_diff(
+        *a, jmask, causal, True), jq, jk, jv)
+    want = vjp(jg)
+    args = [t.requires_grad_() for t in _t(q, k, v)]
+    before = dict(att.flash_attention.launches)
+    out = att.attention(*args, key_mask=_t(mask)[0], causal=causal,
+                        use_flash=True)
+    out.backward(torch.from_numpy(g))
+    assert att.flash_attention.launches == before  # plain on the CPU
+    assert out.shape == q.shape
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_out),
+                               rtol=1e-5, atol=2e-5)
+    for name, arg, ref in zip("qkv", args, want):
+        np.testing.assert_allclose(arg.grad.numpy(), np.asarray(ref),
+                                   rtol=1e-5, atol=3e-5, err_msg=f"d{name}")
+        assert not arg.grad[1].any()
+
+
+# JAX's side of the bf16 test at D = 256: its Pallas forward and backward
+# in interpret mode on bf16 inputs, in a subprocess under
+# --xla_allow_excess_precision=false, so that XLA on the CPU keeps every
+# bf16 rounding that the TPU kernels make.
+_JAX_WIDE_BF16 = r"""
+import sys
+import jax
+jax.config.update("jax_platforms", "cpu")
+import jax.numpy as jnp
+import numpy as np
+from deep_recommenders_tpu.ops import attention as jatt
+
+a = dict(np.load(sys.argv[1]))
+out = {}
+for causal in (False, True):
+    q, k, v, g = (jnp.asarray(a[n], jnp.bfloat16) for n in "qkvg")
+    mask = jnp.asarray(a["mask"])
+    o, lse = jatt.flash_attention(q, k, v, key_mask=mask, causal=causal,
+                                  interpret=True, return_lse=True)
+    grads = jatt._flash_backward_impl(q, k, v, mask, o, lse, g,
+                                      causal=causal, interpret=True)
+    for name, t in zip(("out", "lse", "dq", "dk", "dv"), (o, lse, *grads)):
+        out[f"{int(causal)}/{name}"] = np.asarray(t.astype(jnp.float32))
+np.savez(sys.argv[2], **out)
+"""
+
+
+def test_wide_head_bf16_plain_versions_match_jax_pallas(rng, tmp_path):
+    """The bf16 plain K5 and K6 at D = 256, non-causal and causal, against
+    JAX's Pallas kernels in interpret mode on the same bf16 inputs (JAX in
+    a subprocess with excess precision off): out within one bf16 rounding
+    and 2^-7 of max|v|, lse to 2e-5, each gradient (from JAX's out and
+    lse) within 2^-7 relative and 2^-7 of its largest element, as the bf16
+    tests above."""
+    q, k, v, mask = _inputs(rng, 2, 64, 64, 256, masked_row=1)
+    g = rng.normal(size=q.shape).astype(np.float32)
+    np.savez(tmp_path / "in.npz", q=q, k=k, v=v, g=g, mask=mask)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=root,
+               XLA_FLAGS=(os.environ.get("XLA_FLAGS", "")
+                          + " --xla_allow_excess_precision=false").strip())
+    subprocess.run([sys.executable, "-c", _JAX_WIDE_BF16,
+                    str(tmp_path / "in.npz"), str(tmp_path / "out.npz")],
+                   check=True, cwd=root, env=env, timeout=300)
+    want = dict(np.load(tmp_path / "out.npz"))
+    tq, tk, tv, tg = (torch.from_numpy(a).to(torch.bfloat16)
+                      for a in (q, k, v, g))
+    tmask = _t(mask)[0]
+    vmax = float(np.abs(_f32(tv)).max())
+    for causal in (False, True):
+        w = {n: want[f"{int(causal)}/{n}"] for n in
+             ("out", "lse", "dq", "dk", "dv")}
+        out, lse = att.flash_attention(tq, tk, tv, tmask, causal,
+                                       return_lse=True)
+        np.testing.assert_allclose(_f32(out), w["out"], rtol=2**-7,
+                                   atol=2**-7 * vmax)
+        np.testing.assert_allclose(lse.numpy(), w["lse"], atol=2e-5)
+        got = att.flash_attention_backward(
+            tq, tk, tv, tmask, torch.from_numpy(w["out"]).to(torch.bfloat16),
+            torch.from_numpy(w["lse"]), tg, causal)
+        for name, grad in zip(("dq", "dk", "dv"), got):
+            assert grad.dtype == torch.bfloat16 and not grad[1].any()
+            np.testing.assert_allclose(
+                _f32(grad), w[name], rtol=2**-7,
+                atol=2**-7 * np.abs(w[name]).max(), err_msg=name)

@@ -13,6 +13,8 @@ emulations and fp64), the attention kernels' ``ops/attention_tolerances.py``'s;
 each module states them.
 """
 
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -635,6 +637,7 @@ def _attention_inputs(gen, bh, sq, sk, d):
     (6, 130, 150, 32),
     (4, 64, 200, 64),
     (4, 100, 100, 128),
+    (4, 100, 140, 256),  # output slices, tiles staged once
     (64, 512, 512, 16),  # the Transformer slice's sequence length
 ])
 def test_flash_attention_kernels(device, bh, sq, sk, d, causal):
@@ -682,6 +685,9 @@ def _edge_mask(mask, case, sk):
     ("last_tile_only", 4, 100, 140, 64),
     ("ragged_sk", 4, 70, 67, 16),  # Sk not a multiple of 8
     ("ragged_sk", 4, 33, 61, 32),
+    ("padding_tiles", 4, 130, 260, 256),
+    ("last_tile_only", 4, 100, 140, 256),
+    ("ragged_sk", 4, 70, 67, 256),
 ])
 def test_flash_attention_kernels_at_tile_edges(device, case, bh, sq, sk, d,
                                                causal):
@@ -792,6 +798,8 @@ def _bf16(*tensors):
     (6, 130, 150, 32),
     (4, 64, 200, 64),
     (4, 100, 100, 128),
+    (4, 100, 140, 256),  # output slices, A fragments read at each k-step
+    (4, 70, 67, 256),
     (64, 512, 512, 16),  # the Transformer slice's sequence length
 ])
 def test_flash_attention_bf16_kernels(device, bh, sq, sk, d, causal):
@@ -877,7 +885,7 @@ def _padded_lse(q, k, v, mask, causal):
 
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [8, 24, 48, 96])
+@pytest.mark.parametrize("d", [8, 24, 48, 96, 200])
 def test_flash_attention_pads_head_widths(device, d, dtype, causal):
     """FlashAttention at head widths without a kernel: q, k, v and g go to
     K5 and K6 padded with zero columns to the next kernel width at scale
@@ -915,7 +923,7 @@ def test_flash_attention_pads_head_widths(device, d, dtype, causal):
 def test_attention_dispatch_pads_or_goes_dense_by_head_width(device):
     """attention() over the memory budget: at D = 8 (the IMDB example's
     --model-dim 32 --max-len 1024, BH 256) it goes through K5 and K6 and
-    agrees with the plain versions on 32 of its rows; at D = 256, wider
+    agrees with the plain versions on 32 of its rows; at D = 257, wider
     than every kernel, it warns and goes dense, and use_flash=True
     raises."""
     gen = torch.Generator(device=device).manual_seed(12)
@@ -934,9 +942,20 @@ def test_attention_dispatch_pads_or_goes_dense_by_head_width(device):
     at.check_backward([a.grad[rows] for a in args], q[rows], k[rows],
                       v[rows], mask[rows], out.detach()[rows], lse, g[rows],
                       False)
-    wide = _normal(gen, 160, 1024, 256)
+    # D = 200 over the budget: the D = 256 kernels, padded, no warning.
+    mid = _normal(gen, 160, 1024, 200)
     before = dict(att.flash_attention.launches)
-    with pytest.warns(UserWarning, match="head width D=256"):
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        got = att.attention(mid, mid, mid, key_mask=mask[:160])
+    assert att.flash_attention.launches == {**before,
+                                            "fwd": before["fwd"] + 1}
+    lse = _padded_lse(mid[:4], mid[:4], mid[:4], mask[:4], False)
+    at.check_forward((got[:4], lse), mid[:4], mid[:4], mid[:4], mask[:4],
+                     False)
+    wide = _normal(gen, 160, 1024, 257)
+    before = dict(att.flash_attention.launches)
+    with pytest.warns(UserWarning, match="head width D=257"):
         got = att.attention(wide, wide, wide)
     assert att.flash_attention.launches == before
     torch.testing.assert_close(got, att.scaled_dot_product_attention(

@@ -467,15 +467,20 @@ def test_mmoe_example_with_checkpoints_on_the_cpu(tmp_path, capsys):
 
 
 def test_parts_without_sharding_raise():
-    """Expert parallelism raises NotImplementedError (ROADMAP.md queue 1,
-    item 2b); ``mesh=`` takes a ("data", "model") DeviceMesh
-    (tests/test_torch_parallel.py) and refuses anything else with
-    TypeError, and needs ESMM's specs (ValueError, as JAX); ESMM takes
-    exactly one of input_dim and specs."""
-    with pytest.raises(NotImplementedError, match="item 2b"):
+    """Expert parallelism takes the default mesh, which needs a process
+    group (RuntimeError here; tests/test_torch_parallel_models.py runs it
+    on one), and its experts must divide over the model axis (ValueError);
+    ``shard_expert_params`` and ``mesh=`` take a ("data", "model")
+    DeviceMesh (tests/test_torch_parallel.py) and refuse anything else
+    with TypeError, and ESMM's mesh needs its specs (ValueError, as JAX);
+    ESMM takes exactly one of input_dim and specs."""
+    with pytest.raises(RuntimeError, match="process group"):
         tm.MMoE(X, expert_parallel=True)
-    with pytest.raises(NotImplementedError, match="item 2b"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tm.shard_expert_params({}, object())
+    with pytest.raises(ValueError, match="divide"):
+        tm.expert_range(5, 2, 0)
+    assert tm.expert_range(4, 2, 1) == (2, 4)
     with pytest.raises(TypeError, match="DeviceMesh"):
         tm.ESMM(specs=t_features(), mesh=object())
     with pytest.raises(ValueError, match="requires specs"):

@@ -17,8 +17,9 @@ DeepFM's step against JAX's MESHED step at (2, 2) on four of conftest's
 eight virtual devices (the padding and the shard layout), the 5-step
 losses of tests/multihost_worker.py's DeepFM at (data=2, model=1) against
 ``train_losses(mesh=None)``, one epoch of ``fit_device`` over
-``DeviceData.from_numpy(mesh=)`` against the unmeshed epoch, its
-checkpoints at model = 1 (rank 0 writes, both resume), merged
+``DeviceData.from_numpy(mesh=)`` against the unmeshed epoch (and its
+sharded checkpoint at model = 2), checkpoints at model = 1 (rank 0 writes,
+both resume), merged
 evaluation against unmeshed evaluation, and an all-reduce whose backward
 sums (``torch.distributed.nn.functional.all_reduce``), which the gradient
 check must reject.
@@ -412,8 +413,10 @@ def test_fit_device_over_a_mesh_matches_unmeshed(run):
         for k, v in want["history"][0].items():
             np.testing.assert_allclose(float(r[f"fit/history/{k}"]), v,
                                        rtol=1e-4, err_msg=k)
-        assert "ROADMAP.md queue 1, item 2b" in str(
-            r["fit/checkpoint_refused"])
+        # At model = 2 the checkpoint is sharded: each model coordinate's
+        # file, written by data coordinate 0, and the mesh's record.
+        assert r["fit/checkpoint_files"].tolist() == [
+            "model_0.pt", "model_1.pt", "sharding.json"]
 
 
 def test_two_process_losses_match_multihost_worker(run):

@@ -572,20 +572,23 @@ def test_two_tower_example_on_the_cpu(capsys):
 
 
 def test_parts_without_parallelism_raise(monkeypatch):
-    """mesh= and axis_name= (pod-wide negatives) raise NotImplementedError;
-    accidental-negative removal without ids and a compute dtype other than
-    bf16 raise ValueError, as JAX's; the example runs on the card by
-    default, which raises without one."""
+    """Pod-wide negatives and the meshed towers need a mesh: ``axis_name``
+    without one takes the default mesh, which needs a process group
+    (RuntimeError here; tests/test_torch_parallel_models.py runs them on
+    one), and anything but a ("data", "model") DeviceMesh is refused with
+    TypeError; accidental-negative removal without ids and a compute dtype
+    other than bf16 raise ValueError, as JAX's; the example runs on the
+    card by default, which raises without one."""
     q = torch.zeros(4, 3)
-    with pytest.raises(NotImplementedError, match="queue 1, item 2b"):
-        tret.Retrieval(axis_name="data")
-    with pytest.raises(NotImplementedError):
-        tret.Retrieval(mesh=object())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="process group"):
+        tret.Retrieval(axis_name="data")(q, q)
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        tret.Retrieval(axis_name="data", mesh=object())(q, q)
+    with pytest.raises(RuntimeError, match="process group"):
         tops.in_batch_retrieval_loss(q, q, axis_name="data")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tops.pod_retrieval_loss(q, q, object())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tret.TwoTower(t_ml.default_movielens_features()[:1],
                       t_ml.default_movielens_features()[4:5], mesh=object())
     with pytest.raises(ValueError):

@@ -425,10 +425,18 @@ def test_save_load_round_trip(name, rng, tmp_path):
 
 
 def test_load_model_with_a_mesh_raises(tmp_path):
+    """``load_model(mesh=)`` takes a ("data", "model") DeviceMesh
+    (TypeError for anything else) and a model with a ``mesh`` argument:
+    one without raises ValueError, as JAX's. On a mesh it runs in
+    tests/test_torch_parallel_models.py."""
     model = DeepFM(_specs(_Port), embedding_dim=8, hidden=(16,))
     path = save_model(str(tmp_path / "m"), model)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         load_model(path, mesh=object(), device=CPU)
+    gcn = save_model(str(tmp_path / "gcn"),
+                     ZOO["gcn"][0](_Port, None, **PORT_ARGS["gcn"]))
+    with pytest.raises(ValueError, match="no mesh field"):
+        load_model(gcn, mesh=object(), device=CPU)
 
 
 def test_unserializable_configs_are_refused_as_in_jax(tmp_path):

@@ -364,8 +364,9 @@ def test_index_round_trips_and_reads_jax_files(tmp_path, rng, cls, ids):
 def test_load_index_with_query_model_and_unknown_class(tmp_path, rng,
                                                        monkeypatch):
     """The query_model is given again at load; an index class this port
-    lacks (JAX's ShardedBruteForce) raises, and one of JAX's ann.py loads;
-    the default device is the card, which raises without one."""
+    lacks raises, a ShardedBruteForce needs its mesh (TypeError without
+    one, as JAX's), and one of JAX's ann.py loads; the default device is
+    the card, which raises without one."""
     cands = rng.normal(0, 1, (32, 8)).astype(np.float32)
     q = t(rng.normal(0, 1, (4, 8)).astype(np.float32))
 
@@ -384,7 +385,11 @@ def test_load_index_with_query_model_and_unknown_class(tmp_path, rng,
     shutil.copytree(path, sharded)
     with open(os.path.join(sharded, "config.json"), "w") as f:
         json.dump({"class": "ShardedBruteForce", "config": {}}, f)
-    with pytest.raises(ValueError, match="ShardedBruteForce"):
+    with pytest.raises(TypeError, match="mesh"):
+        load_index(sharded, device=CPU)
+    with open(os.path.join(sharded, "config.json"), "w") as f:
+        json.dump({"class": "ScaNN", "config": {}}, f)
+    with pytest.raises(ValueError, match="ScaNN"):
         load_index(sharded, device=CPU)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
