@@ -42,25 +42,26 @@ In order:
    and K6 at the same shapes on bf16 q, k, v, g, held against their fp64 and
    bf16 plain versions (``check_forward_bf16``, ``check_backward_bf16``),
    timed beside the bf16 SDPA call, with the exp floor beside their bounds;
-   then the D = 256 instances of K5 and K6, fp32 and bf16
-   (``wide_attention_phase``), at (256, 512, 256) on one SyntheticImdb
-   batch's key masks, held and timed as those at D = 16, beside the
-   library's SDPA where it takes the shape ("refused" where not); then
-   the head widths no kernel is built for (``head_width_phase``):
-   attention() over the budget at D = 8 and FlashAttention at D = 24, fp32
-   and bf16, through K5 and K6 padded to the next kernel width and held to
-   the same checks at the true D, and a D = 257 call that warns and goes
-   dense;
+   then K5 and K6 at D = 256 and at D = 512, fp32 and bf16
+   (``wide_attention_phase``: K6 from 256 and K5 above it are
+   csrc/flash_attention_wide(_bf16).cu's), at (256, 512, 256) and
+   (128, 512, 512) on one SyntheticImdb batch's key masks, held and timed
+   as those at D = 16, beside the library's SDPA where it takes the shape
+   ("refused" where not); then the head widths no kernel is built for
+   (``head_width_phase``): attention() over the budget at D = 8 and
+   FlashAttention at D = 24, fp32 and bf16, through K5 and K6 padded to
+   the next kernel width and held to the same checks at the true D;
 5. twenty train paths (and those of 11-13), each with every launch
    counter set to 0 just before it and read just after, each checked for
    a finite, falling loss
    (the examples: finite) and the exact launches it must make:
    - DeepFM at the bench width (D=16, hidden (256, 32)), 2 epochs: one K1
      per train step;
-   - attention() over the budget at D = 200, (160, 1024), in fp32 and then
-     bf16, forward and backward (``attention_d200_path``): no warning, one
-     launch of each D = 256 instance, held to the plain versions at
-     D = 200 on 64 rows;
+   - attention() over the budget at D = 200 and at D = 257, (160, 1024),
+     in fp32 and then bf16, forward and backward
+     (``attention_width_path``): no warning, one launch of each of the
+     four K5/K6 kernels (padded to D = 256 and to D = 320), held to the
+     plain versions at the true D on 64 rows;
    - xDeepFM's flagship (maps (128, 128) relu, hidden (256, 128)), 2 epochs:
      two K1, one K3 forward and one K3 backward per train step, one K3
      forward per eval batch;
@@ -218,6 +219,15 @@ profile, and prints them as its last line, one JSON object. It calls only
 what every tree of the port since K5 and K6 has, so a copy of this script
 in a parent's tree measures the parent.
 
+    python3 chip_smoke.py --attention-times
+
+builds the kernels and times the fp32 and the bf16 K5 and K6 at the
+Transformer's shapes (D = 16) and at D = 256 (the wide phase's inputs;
+device and eager ms, K6's split between its two kernels, no checks), and
+prints them as its last line, one JSON object (no "ok" line). It calls
+only what every tree since the D = 256 instances has, so a copy of this
+script in a parent's tree measures the parent.
+
     python3 chip_smoke.py --wrapper-host-us
 
 builds the kernels and times only the host's us a call of the K3, K4 and
@@ -342,12 +352,13 @@ ATT_PLANTED_ROWS = 64
 # Head widths without a kernel: the IMDB example's --model-dim 32
 # --max-len 1024 (batch 64 x 4 heads, D = 8; 256 x 1024^2 x 4 B x 3 = 3.2 GB
 # of dense score tensors, over the 2 GB budget), checked in chunks of rows;
-# and D = 200 (the D = 256 kernels, padded) and D = 257 (dense) over the
-# budget (160 x 1024^2 x 4 B x 3 = 2.01 GB).
+# and D = 200 (the D = 256 kernels, padded) and D = 257 (the D = 320
+# kernels, padded) over the budget (160 x 1024^2 x 4 B x 3 = 2.01 GB).
 HW_BH, HW_LEN, HW_CHUNK, HW_WIDE_BH = 256, 1024, 64, 160
-# The D = 256 instances of K5 and K6: one SyntheticImdb batch's key masks,
-# one head an example, at the Transformer's S.
-WIDE_BH, WIDE_D = 256, 256
+# The D = 256 instances of K5 and K6, and those above 256 at D = 512: one
+# SyntheticImdb batch's key masks, one head an example, at the
+# Transformer's S; (BH, D) of each.
+WIDE_SHAPES = {"d256": (256, 256), "d512": (128, 512)}
 
 # Published H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bandwidth, fp32
 # outside the tensor cores, and dense bf16 on the tensor cores.
@@ -1621,8 +1632,9 @@ def tf32_bound_fields(num_bytes: float, product_flop: float, exps: float,
             "gflop": product_flop / 1e9}
 
 
-def fp32_attention_calls(q, k, v, g, mask, causal):
-    """The fp32 K5 call and the K6 call on its residuals."""
+def attention_calls(q, k, v, g, mask, causal):
+    """The K5 call and the K6 call on its residuals (the kernels of the
+    operands' dtype)."""
     out, lse = att.flash_attention(q, k, v, mask, causal, return_lse=True)
     return (lambda: att.flash_attention(q, k, v, mask, causal,
                                         return_lse=True),
@@ -1630,20 +1642,40 @@ def fp32_attention_calls(q, k, v, g, mask, causal):
                                                  causal))
 
 
-def fp32_attention_times(imdb: SyntheticImdb, device) -> dict:
-    """Device and eager ms of the fp32 K5 and K6 at the slice's shapes,
-    non-causal and causal, and how K6's time splits between its two
-    kernels: the same measurement on any tree of the port."""
-    q, k, v, g, mask = attention_inputs(imdb, device)
+def attention_times(q, k, v, g, mask) -> dict:
+    """Device and eager ms of K5 and K6 on these inputs, non-causal and
+    causal, and how K6's time splits between its two kernels: the same
+    measurement on any tree of the port."""
     times = {}
     for causal in (False, True):
-        fwd, bwd = fp32_attention_calls(q, k, v, g, mask, causal)
+        fwd, bwd = attention_calls(q, k, v, g, mask, causal)
         times[f"causal={causal}"] = {
             "fwd_ms": graph_ms(fwd, 5, 4), "fwd_eager_ms": time_ms(fwd, 10),
             "bwd_ms": graph_ms(bwd, 5, 4), "bwd_eager_ms": time_ms(bwd, 10),
             "bwd_kernel_split": kernel_times(bwd, top=2)}
     del q, k, v, g
     torch.cuda.empty_cache()
+    return times
+
+
+def fp32_attention_times(imdb: SyntheticImdb, device) -> dict:
+    """:func:`attention_times` of the fp32 K5 and K6 at the slice's
+    shapes."""
+    return attention_times(*attention_inputs(imdb, device))
+
+
+def attention_times_by_width(imdb: SyntheticImdb, device) -> dict:
+    """:func:`attention_times` of the fp32 and the bf16 K5 and K6 at the
+    Transformer slice's shapes (D = 16, :func:`attention_inputs`) and at
+    D = 256 (:func:`wide_attention_inputs`): calls that every tree since
+    the D = 256 instances takes, for setting a change beside its
+    parent."""
+    times = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        times[f"d16/{dtype}"] = attention_times(
+            *attention_inputs(imdb, device, dtype))
+        times[f"d256/{dtype}"] = attention_times(
+            *wide_attention_inputs(imdb, device, dtype))
     return times
 
 
@@ -1700,7 +1732,7 @@ def attention_kernel_phase(imdb: SyntheticImdb, device, inputs=None,
               "limit; dk less a query tile "
               f"{bwd_checks['dk']['planted']['query_tile_dropped']:.6g}")
         pairs = _valid_pairs(mask, causal)
-        fwd_call, bwd_call = fp32_attention_calls(q, k, v, g, mask, causal)
+        fwd_call, bwd_call = attention_calls(q, k, v, g, mask, causal)
         fwd_entry = {
             "shape": {**shape, "causal": causal},
             "precision": precision,
@@ -1885,45 +1917,55 @@ def attention_bf16_kernel_phase(imdb: SyntheticImdb, device, inputs=None,
     return entries
 
 
-def wide_attention_inputs(imdb: SyntheticImdb, device, dtype):
-    """The D = 256 phase's inputs: q, k, v, g (WIDE_BH, TX_LEN, 256)
-    seeded normals in ``dtype``, and the key masks of one SyntheticImdb
-    train batch (WIDE_BH examples, one head each)."""
-    tokens = torch.from_numpy(imdb.train[0][:WIDE_BH]).to(device)
+def wide_attention_inputs(imdb: SyntheticImdb, device, dtype,
+                          which: str = "d256"):
+    """The wide phase's inputs at ``WIDE_SHAPES[which]`` = (BH, D): q, k,
+    v, g (BH, TX_LEN, D) seeded normals in ``dtype``, and the key masks of
+    one SyntheticImdb train batch (BH examples, one head each)."""
+    bh, d = WIDE_SHAPES[which]
+    tokens = torch.from_numpy(imdb.train[0][:bh]).to(device)
     mask = (tokens != 0).float()
-    gen = torch.Generator(device=device).manual_seed(SEED + 256)
-    q, k, v, g = (torch.randn(WIDE_BH, TX_LEN, WIDE_D, device=device,
+    gen = torch.Generator(device=device).manual_seed(SEED + d)
+    q, k, v, g = (torch.randn(bh, TX_LEN, d, device=device,
                               generator=gen).to(dtype) for _ in range(4))
     return q, k, v, g, mask
 
 
 def wide_attention_phase(imdb: SyntheticImdb, device):
-    """The D = 256 instances of K5 and K6, fp32 and bf16, at (BH, S, D) =
-    (WIDE_BH, TX_LEN, 256) (:func:`wide_attention_inputs`), non-causal and
-    causal, by the fp32 and bf16 kernel phases' checks, planted faults,
-    times, bounds and library calls (``fmha_cutlassF/B_f32`` and cuDNN's
-    bf16 SDPA where they take D = 256, "refused" where not)."""
-    entries = attention_kernel_phase(
-        imdb, device, wide_attention_inputs(imdb, device, torch.float32),
-        heads=1, suffix=".d256")
-    entries += attention_bf16_kernel_phase(
-        imdb, device, wide_attention_inputs(imdb, device, torch.bfloat16),
-        heads=1, suffix=".d256")
+    """K5 and K6 at D = 256 and at D = 512 (above 256:
+    ``csrc/flash_attention_wide(_bf16).cu``), fp32 and bf16, at
+    (BH, S, D) = (256, TX_LEN, 256) and (128, TX_LEN, 512)
+    (:func:`wide_attention_inputs`), non-causal and causal, by the fp32
+    and bf16 kernel phases' checks, planted faults, times, bounds and
+    library calls (the SDPA call's kernels where it takes the shape,
+    "refused" where not); entries ``*.d256`` and ``*.d512``."""
+    entries = []
+    for which in WIDE_SHAPES:
+        entries += attention_kernel_phase(
+            imdb, device,
+            wide_attention_inputs(imdb, device, torch.float32, which),
+            heads=1, suffix="." + which)
+        entries += attention_bf16_kernel_phase(
+            imdb, device,
+            wide_attention_inputs(imdb, device, torch.bfloat16, which),
+            heads=1, suffix="." + which)
     return entries
 
 
-def attention_d200_path(device) -> dict:
-    """The D = 256 kernels' main path: ``attention()`` over the memory
-    budget at a head width of 200, (BH, S) = (HW_WIDE_BH, HW_LEN), in fp32
+def attention_width_path(device, d: int) -> dict:
+    """A wide head width's main path: ``attention()`` over the memory
+    budget at head width ``d``, (BH, S) = (HW_WIDE_BH, HW_LEN), in fp32
     and then in bf16, forward and backward, with seeded post-padding key
     masks. It must warn of nothing and launch the fp32 and the bf16 K5
-    and K6 once each (D padded to 256), and agree with the plain versions
-    at D = 200 (``ops/attention_tolerances.py``) on HW_CHUNK rows.
-    Returns the launches of the two calls."""
-    gen = torch.Generator(device=device).manual_seed(SEED + 200)
-    bh, s, d = HW_WIDE_BH, HW_LEN, 200
+    and K6 once each (D padded to ``kernel_head_dim(d)``: 256 for 200,
+    320 for 257), and agree with the plain versions at the true D
+    (``ops/attention_tolerances.py``) on HW_CHUNK rows. Returns the
+    launches of the two calls."""
+    name = f"attention_d{d}"
+    gen = torch.Generator(device=device).manual_seed(SEED + d)
+    bh, s, width = HW_WIDE_BH, HW_LEN, att.kernel_head_dim(d)
     if not att.use_flash_for(bh, s, s, "cuda", False):
-        raise AssertionError("attention_d200: under the budget")
+        raise AssertionError(f"{name}: under the budget")
     lengths = torch.randint(s // 16, s + 1, (bh,), device=device,
                             generator=gen)
     mask = (torch.arange(s, device=device)[None, :]
@@ -1945,14 +1987,13 @@ def attention_d200_path(device) -> dict:
     for key in (*flash_keys(torch.float32), *flash_keys(torch.bfloat16)):
         want[key] = 1
     if launches != want:
-        raise AssertionError(f"attention_d200: launches {launches}, "
-                             f"expected {want}")
+        raise AssertionError(f"{name}: launches {launches}, expected {want}")
     shares, rows = {}, slice(0, HW_CHUNK)
     for dtype, (q, k, v, g, out, grads) in runs.items():
         bf16 = dtype == torch.bfloat16
         lse = att.flash_attention(
-            *(att.pad_head_dim(t[rows], 256) for t in (q, k, v)), mask[rows],
-            False, return_lse=True, scale=d ** -0.5)[1]
+            *(att.pad_head_dim(t[rows], width) for t in (q, k, v)),
+            mask[rows], False, return_lse=True, scale=d ** -0.5)[1]
         forward = at.check_forward_bf16 if bf16 else at.check_forward
         backward = at.check_backward_bf16 if bf16 else at.check_backward
         fwd_checks = forward((out[rows], lse), q[rows], k[rows], v[rows],
@@ -1964,8 +2005,8 @@ def attention_d200_path(device) -> dict:
             ct.worst_share(fwd_checks), ct.worst_share(bwd_checks))
     del runs
     torch.cuda.empty_cache()
-    print(f"attention_d200 launches: {launches}; worst shares {shares}; "
-          "no warning")
+    print(f"{name} launches: {launches}; kernel width {width}; worst "
+          f"shares {shares}; no warning")
     return launches
 
 
@@ -1977,9 +2018,8 @@ def head_width_phase(device) -> dict:
     backward must launch K5 and K6 once each (padded to D = 16) and pass the
     checks of ``ops/attention_tolerances.py`` at D = 8 against the plain
     versions (in chunks of HW_CHUNK rows); FlashAttention at D = 24 on
-    (6, 150, 130) the same way; a D = 257 call over the budget, wider than
-    every kernel, must warn, go dense (no launch) and equal the dense
-    SDPA."""
+    (6, 150, 130) the same way. (D = 200 and D = 257 over the budget are
+    main paths: :func:`attention_width_path`.)"""
     gen = torch.Generator(device=device).manual_seed(SEED)
     result = {}
     for name, (bh, s, d, call) in {
@@ -2032,24 +2072,9 @@ def head_width_phase(device) -> dict:
                                    ct.worst_share(bwd_checks)),
                 "checks": {**fwd_checks, **bwd_checks}}
             del q, k, v, g, leaves, out, grads, lse
-    wide = torch.randn(HW_WIDE_BH, HW_LEN, 257, device=device, generator=gen)
-    reset_launches()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        got = att.attention(wide, wide, wide)
-    if not any("head width D=257" in str(w.message) for w in caught) or \
-            any(read_launches().values()):
-        raise AssertionError(f"attention D=257: warnings {caught}, "
-                             f"launches {read_launches()}")
-    torch.testing.assert_close(got, att.scaled_dot_product_attention(
-        wide, wide, wide))
-    result["attention_d257_dense"] = {"shape": [HW_WIDE_BH, HW_LEN, 257],
-                                      "warned": True, "launches": 0}
-    del wide, got
-    torch.cuda.empty_cache()
     print("head widths: " + ", ".join(
         f"{k} worst share {v['worst_share']:.6g}" for k, v in result.items()
-        if "worst_share" in v) + "; D=257 dense with a warning")
+        if "worst_share" in v))
     return result
 
 
@@ -4276,6 +4301,10 @@ ENTRY_PATH = {
     "flash_attention.bwd.d256": "attention_d200",
     "flash_attention_bf16.fwd.d256": "attention_d200",
     "flash_attention_bf16.bwd.d256": "attention_d200",
+    "flash_attention.fwd.d512": "attention_d257",
+    "flash_attention.bwd.d512": "attention_d257",
+    "flash_attention_bf16.fwd.d512": "attention_d257",
+    "flash_attention_bf16.bwd.d512": "attention_d257",
 }
 
 
@@ -4291,13 +4320,15 @@ SERVED_PATH = {
 
 # An entry whose launch counter has another name: K2 on bf16 embeddings is
 # the same wrapper, counted in fm_interaction_fused.launches; K1 on bf16 g
-# is counted in scatter_add_rows.launches_bf16; the D = 256 instances of K5
-# and K6 in their dtype's counters, on the path that runs D = 256 alone.
+# is counted in scatter_add_rows.launches_bf16; the D = 256 and D > 256
+# instances of K5 and K6 in their dtype's counters, on the paths that run
+# those widths alone.
 COUNTER = {"fm_interaction_fused.bf16": "fm_interaction_fused",
            "scatter_add_rows.bf16": "scatter_add_rows_bf16",
-           **{f"{k}.d256": k for k in (
+           **{f"{k}.{which}": k for k in (
                "flash_attention.fwd", "flash_attention.bwd",
-               "flash_attention_bf16.fwd", "flash_attention_bf16.bwd")}}
+               "flash_attention_bf16.fwd", "flash_attention_bf16.bwd")
+              for which in WIDE_SHAPES}}
 
 
 def device_line() -> str:
@@ -4316,6 +4347,9 @@ def main(argv=()) -> int:
     parser.add_argument("--attention-fp32-only", action="store_true",
                         help="time only the fp32 K5 and K6 and run the "
                              "fp32 Transformer path")
+    parser.add_argument("--attention-times", action="store_true",
+                        help="time only the fp32 and bf16 K5 and K6 at "
+                             "D = 16 and D = 256")
     parser.add_argument("--wrapper-host-us", action="store_true",
                         help="time only the host's us a call of the K3, K4 "
                              "and K5 forward wrappers")
@@ -4349,6 +4383,12 @@ def main(argv=()) -> int:
             "kernels": times, "transformer_seq2seq": {
                 "launches": launches, "profile": profile}}}))
         return 0
+    if args.attention_times:
+        imdb = SyntheticImdb(num_words=TX_VOCAB, max_len=TX_LEN, seed=SEED)
+        # Not the full smoke run: no checks of the kernels, no "ok" line.
+        print(json.dumps({"attention_times": attention_times_by_width(
+            imdb, device)}))
+        return 0
     t0 = time.perf_counter()
     ds = MovielensRanking(batch_size=BATCH, num_ratings=NUM_RATINGS,
                           seed=SEED)
@@ -4379,7 +4419,8 @@ def main(argv=()) -> int:
     head_widths = head_width_phase(device)
     print(f"kernel phase done ({time.perf_counter() - t0:.1f} s)")
     paths = train_phase(ds, model, device)
-    paths["attention_d200"] = attention_d200_path(device)
+    paths["attention_d200"] = attention_width_path(device, 200)
+    paths["attention_d257"] = attention_width_path(device, 257)
     served, serving = serving_phase(ds, model, imdb, device)
     paths["esmm"] = esmm_path(ds, device)[0]
     del model

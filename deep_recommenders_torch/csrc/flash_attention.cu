@@ -64,10 +64,10 @@
 // - K5: one block per (bh, 64 query rows); loops over 64-key tiles with an
 //   online softmax on the accumulator fragments (running max and sum per
 //   row, reduced over the 4 lanes of a quad).
-// - K6, as JAX splits it (s and dp are computed in both kernels; sharing
-//   them in one pass is later work): a dq kernel, one block per (bh, 64
-//   query rows) over key tiles; a dk/dv kernel, one block per (bh, 64
-//   keys) over query tiles, on transposed tiles (keys are rows).
+// - K6, as JAX splits it (s and dp are computed in both kernels): a dq
+//   kernel, one block per (bh, 64 query rows) over key tiles; a dk/dv
+//   kernel, one block per (bh, 64 keys) over query tiles, on transposed
+//   tiles (keys are rows).
 //   delta = rowsum(dO * O) comes in from the caller (JAX leaves it to XLA).
 // - Each block writes its own rows once: no atomics, and the result does
 //   not depend on the order blocks run in.
@@ -75,132 +75,38 @@
 //   keys past Sk are masked. A query row with no valid key gives out 0 and
 //   lse 0, and its p is 0 in the backward.
 //
-// D = 256. A tile of 64 rows of 260 floats is 66,560 bytes, so a block
-// holds three of them (232,448 bytes at most), and a 16-row warp's output
-// fragments over D would take 128 registers (256 for dk and dv). So at
-// D = 256 a block computes a slice of the output columns, one grid column
-// (blockIdx.y) a slice, and scores over the whole of D in every slice:
-// K5 and dq 128 columns (two slices), dk/dv 64 (four slices), the
-// accumulators then as large as at D = 128 and 64. The tiles are staged
-// once, not double-buffered: K5 holds q, one key tile and one value tile;
-// dq holds q and g and streams v, then k, of each key tile through one
-// buffer (dp = g v^T first, then s, p, ds and dq += ds k); dk/dv holds its
-// keys and values and streams g, then q, of each query tile through one
-// buffer, with g's slice kept beside it for dv += p^T g. Slice 0 writes
-// lse; every slice computes the same statistics. The products recomputed
-// in each slice are the price: 2x K5's and dq's scores, 4x dk/dv's.
+// Head widths. This file holds K5 and K6 at D = 16, 32, 64 and 128, and
+// K5 at D = 256; K6 at D >= 256 and K5 above 256 are
+// flash_attention_wide.cu's (8 warps, D streamed in 64-column chunks, each
+// tile pair scored once). K5 at D = 256: a tile of 64 rows of 260 floats
+// is 66,560 bytes, so a block holds three of them (232,448 bytes at most),
+// and a 16-row warp's output fragments over D would take 128 registers. So
+// a block computes a slice of 128 output columns, one grid column
+// (blockIdx.y) a slice, and scores over the whole of D in each (the
+// scores twice); it holds q, one key tile and one value tile, staged once.
+// Slice 0 writes lse.
 //
 // Every exported function launches on the stream it is given and returns
 // cudaGetLastError(), or cudaErrorInvalidValue for what it does not take.
 
-#include <cuda_runtime.h>
-#include <limits.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;  // 4 warps
 constexpr int kRows = 64;      // rows a block owns: 16 per warp
 constexpr int kCols = 64;      // rows of a streamed tile
-constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-constexpr size_t kMaxSmem = 232448;
 
 template <int D>
 struct Dims {
   static constexpr int LD = D + 4;      // floats per staged row
   static constexpr int TILE = kCols * LD;
   static constexpr int KSTEPS = D / 8;  // mma k-steps over D
-  static constexpr int NT = D / 8;      // n8 tiles over D
-  // Output columns a block computes (a slice per grid column at D = 256),
-  // and whether it stages its tiles once (no double buffer).
+  // K5 at D = 256 computes a slice of 128 output columns a block and
+  // stages its tiles once (no double buffer).
   static constexpr int FWD_COLS = D <= 128 ? D : 128;
-  static constexpr int DQ_COLS = D <= 128 ? D : 128;
-  static constexpr int DKV_COLS = D <= 128 ? D : 64;
   static constexpr bool ONE_STAGE = D > 128;
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes from src, or 16 zero bytes when !in (src is then not read).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(in ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// x rounded to TF32 (10 explicit mantissa bits), to nearest with ties away
-// from zero, as fp32 bits with the low 13 bits 0: cvt.rna.tf32.f32 for
-// finite x. Half of the dropped bits' range is added to the magnitude and
-// they are cleared: two integer instructions, where the cvt compiles to a
-// sequence with checks for NaN and infinity.
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = hi + lo + r, |lo| <= 2^-11 |x|, |r| <= 2^-22 |x|.
-struct Split {
-  uint32_t hi, lo;
-};
-
-__device__ __forceinline__ Split split(float x) {
-  const uint32_t hi = to_tf32(x);
-  return {hi, to_tf32(x - __uint_as_float(hi))};
-}
-
-// 2^x in one MUFU instruction (ex2.approx.ftz: within 2 ulp, results below
-// 2^-126 flushed to 0), where exp2f adds a range check and two products.
-__device__ __forceinline__ float fast_exp2(float x) {
-  float r;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(x));
-  return r;
-}
-
-// d += a b on one 16 x 8 x 8 tile: TF32 operands, fp32 accumulators.
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a b in three passes: the two corrections, then hi hi.
-__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4], Split b0,
-                                     Split b1) {
-  mma(d, al, b0.hi, b1.hi);
-  mma(d, ah, b0.lo, b1.lo);
-  mma(d, ah, b0.hi, b1.hi);
-}
-
-// A fragment (row-major 16 x 8) from four fp32 values, split.
-__device__ __forceinline__ void split_a(uint32_t (&hi)[4], uint32_t (&lo)[4],
-                                        float a0, float a1, float a2,
-                                        float a3) {
-  const float x[4] = {a0, a1, a2, a3};
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const Split s = split(x[e]);
-    hi[e] = s.hi;
-    lo[e] = s.lo;
-  }
-}
 
 // Fragment coordinates of a lane: mma's group and thread in group.
 struct Lane {
@@ -213,9 +119,9 @@ struct Lane {
   }
 };
 
-// dst[r][c] = src[r * LDG + c] for c < W and r < n, 0 for n <= r < R
-// (cp.async); dst rows are W + 4 floats.
-template <int W, int R, int LDG = W>
+// dst[r][c] = src[r * W + c] for r < n, 0 for n <= r < R (cp.async); dst
+// rows are W + 4 floats.
+template <int W, int R>
 __device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           int n) {
   constexpr int CH = W / 4;  // 16-byte chunks per row
@@ -223,27 +129,8 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src,
     const int r = e / CH, c = (e - r * CH) * 4;
     const bool in = r < n;
     cp_async16(dst + r * Dims<W>::LD + c,
-               in ? src + (int64_t)r * LDG + c : src, in);
+               in ? src + (int64_t)r * W + c : src, in);
   }
-}
-
-// bits[w] bit b = key 32 w + b is valid (< sk and mask > 0), for
-// w < 2 ntiles: two words per 64-key tile.
-__device__ __forceinline__ void load_key_bits(uint32_t* bits,
-                                              const float* __restrict__ mask,
-                                              int sk, int ntiles) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int w = warp; w < 2 * ntiles; w += kThreads / 32) {
-    const int key = w * 32 + lane;
-    const uint32_t b = __ballot_sync(0xffffffffu, key < sk && mask[key] > 0.f);
-    if (lane == 0) bits[w] = b;
-  }
-}
-
-// The first tile at or after t, below n, with a valid key.
-__device__ __forceinline__ int next_live(const uint32_t* bits, int t, int n) {
-  while (t < n && (bits[2 * t] | bits[2 * t + 1]) == 0) ++t;
-  return t;
 }
 
 // acc[j] = A B^T over a 64-row tile b ([64][LD]): the warp's 16 rows of a
@@ -318,21 +205,6 @@ __device__ __forceinline__ void accumulate(float (&acc)[NT][4],
   }
 }
 
-// Is column c (0..63) of a tile a valid key, from the tile's two words?
-__device__ __forceinline__ bool key_bit(uint32_t w0, uint32_t w1, int c) {
-  return ((c < 32 ? w0 : w1) >> (c & 31)) & 1u;
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
 // Rows grp (half 0) and grp + 8 (half 1) of the warp's 16 rows of a
 // [rows][D] output, its 8 NT columns from out on, from the fragments times
 // s[half].
@@ -352,72 +224,6 @@ __device__ __forceinline__ void store_rows(float* out, int64_t row0, int rows,
           acc[n][2 * half] * s[half], acc[n][2 * half + 1] * s[half]);
     }
   }
-}
-
-// The online softmax of one key tile on the warp's score fragments s (the
-// raw q.k): s becomes p = exp2(s c - m), with c = scale log2(e) and m the
-// running max of s c over the key tiles so far; l is the running row sum
-// and alpha the factor the accumulator takes. kMasked: a lane where
-// valid(col, half) is false takes p = 0. Without it every lane is valid: a
-// tile of valid keys wholly in the causal past, which skips the selects.
-template <bool kMasked, typename Valid>
-__device__ __forceinline__ void online_softmax(float (&s)[8][4], float (&m)[2],
-                                               float (&l)[2],
-                                               float (&alpha)[2], float c,
-                                               const Lane& ln, Valid valid) {
-  float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if (kMasked && !valid(8 * j + 2 * ln.tig + (e & 1), e >> 1))
-        s[j][e] = kNegInf;
-      mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-    }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const float tile_max = quad_max(mx[h]);
-    const float m_new =
-        tile_max <= kNegInf / 2 ? m[h] : fmaxf(m[h], tile_max * c);
-    // Guard rows masked so far: exp(NEG_INF - NEG_INF) would be 1.
-    alpha[h] = m[h] <= kNegInf / 2 ? 0.f : fast_exp2(m[h] - m_new);
-    m[h] = m_new;
-  }
-  float sum[2] = {0.f, 0.f};
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int h = e >> 1;
-      const float p = fast_exp2(fmaf(s[j][e], c, -m[h]));
-      s[j][e] = kMasked && s[j][e] <= kNegInf / 2 ? 0.f : p;
-      sum[h] += s[j][e];
-    }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) l[h] = alpha[h] * l[h] + quad_sum(sum[h]);
-}
-
-// K6's rebuild on the warp's fragments: p (the raw q.k on entry) becomes
-// exp2(p c - lse2(col, half)), with lse2 = lse log2(e); ds (dp on entry)
-// becomes p (dp - delta(col, half)) scale. kMasked: a lane where
-// valid(col, half) is false takes p = 0 (a select, never a product: exp
-// may overflow on masked lanes); without it every lane is valid.
-template <bool kMasked, typename Valid, typename Lse, typename Delta>
-__device__ __forceinline__ void rebuild_p_ds(float (&p)[8][4],
-                                             float (&ds)[8][4], float c,
-                                             float scale, const Lane& ln,
-                                             Valid valid, Lse lse2,
-                                             Delta delta) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int col = 8 * j + 2 * ln.tig + (e & 1), h = e >> 1;
-      float pe = fast_exp2(fmaf(p[j][e], c, -lse2(col, h)));
-      if (kMasked && !valid(col, h)) pe = 0.f;
-      p[j][e] = pe;
-      ds[j][e] = pe * (ds[j][e] - delta(col, h)) * scale;
-    }
 }
 
 // -- K5 -----------------------------------------------------------------------
@@ -456,7 +262,7 @@ __global__ void __launch_bounds__(kThreads)
   const int nrun = causal ? min(ntiles, (q0 + kRows - 1) / kCols + 1) : ntiles;
 
   load_tile<D, kRows>(qs, q + (bh * sq + q0) * D, sq - q0);
-  load_key_bits(bits, mask + bh * sk, sk, ntiles);
+  load_key_bits<kThreads / 32>(bits, mask + bh * sk, sk, ntiles);
   __syncthreads();  // the bits
   int t = next_live(bits, 0, nrun);
   if (t < nrun) {
@@ -495,11 +301,11 @@ __global__ void __launch_bounds__(kThreads)
     const int k0 = t * kCols;
     float alpha[2];
     if ((w0 & w1) == ~0u && (!causal || k0 + kCols - 1 <= q0)) {
-      online_softmax<false>(s, m, l, alpha, scale_log2, ln,
-                            [](int, int) { return true; });
+      online_softmax<true, false>(s, m, l, alpha, scale_log2, ln.tig,
+                                  [](int, int) { return true; });
     } else {
-      online_softmax<true>(s, m, l, alpha, scale_log2, ln,
-                           [=](int c, int h) {
+      online_softmax<true, true>(s, m, l, alpha, scale_log2, ln.tig,
+                                 [=](int c, int h) {
                              return key_bit(w0, w1, c) &&
                                     (!causal || k0 + c <= row0 + 8 * h);
                            });
@@ -542,12 +348,11 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // -- K6: dq -------------------------------------------------------------------
+// Head widths up to 128; K6 at D >= 256 is flash_attention_wide.cu's.
 
 template <int D>
 constexpr size_t dq_smem(int ntiles) {
-  // D = 256: q, g and one buffer that takes v, then k, of each key tile.
-  constexpr int tiles = Dims<D>::ONE_STAGE ? 1 : 4;
-  return sizeof(float) * (2 * kRows + tiles * kCols) * Dims<D>::LD +
+  return sizeof(float) * (2 * kRows + 4 * kCols) * Dims<D>::LD +
          sizeof(uint32_t) * 2 * ntiles;
 }
 
@@ -559,16 +364,13 @@ __global__ void __launch_bounds__(kThreads)
               const float* __restrict__ g, float* __restrict__ dq, int sq,
               int sk, int causal, float scale, float scale_log2) {
   using T = Dims<D>;
-  constexpr bool kSeq = T::ONE_STAGE;
-  constexpr int NV = T::DQ_COLS / 8;  // n8 tiles of the block's slice
+  constexpr int NT = D / 8;  // n8 tiles over D
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);  // [64][LD]
   float* gs = qs + kRows * T::LD;              // [64][LD]
-  float* ks = gs + kRows * T::LD;              // [2][64][LD] (kSeq: [64][LD])
-  float* vs = ks + 2 * T::TILE;                // [2][64][LD] (kSeq: none)
-  uint32_t* bits =
-      reinterpret_cast<uint32_t*>(kSeq ? ks + T::TILE : vs + 2 * T::TILE);
-  const int col0 = blockIdx.y * T::DQ_COLS;  // the block's output slice
+  float* ks = gs + kRows * T::LD;              // [2][64][LD]
+  float* vs = ks + 2 * T::TILE;                // [2][64][LD]
+  uint32_t* bits = reinterpret_cast<uint32_t*>(vs + 2 * T::TILE);
 
   const Lane ln;
   const int nq = (sq + kRows - 1) / kRows;
@@ -582,14 +384,12 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t first = bh * sq + q0;  // the block's first row
   load_tile<D, kRows>(qs, q + first * D, sq - q0);
   load_tile<D, kRows>(gs, g + first * D, sq - q0);
-  load_key_bits(bits, mask + bh * sk, sk, ntiles);
+  load_key_bits<kThreads / 32>(bits, mask + bh * sk, sk, ntiles);
   __syncthreads();
   int t = next_live(bits, 0, nrun);
   if (t < nrun) {
-    if constexpr (!kSeq)
-      load_tile<D, kCols>(ks, kb + (int64_t)t * kCols * D, sk - t * kCols);
-    load_tile<D, kCols>(kSeq ? ks : vs, vb + (int64_t)t * kCols * D,
-                        sk - t * kCols);
+    load_tile<D, kCols>(ks, kb + (int64_t)t * kCols * D, sk - t * kCols);
+    load_tile<D, kCols>(vs, vb + (int64_t)t * kCols * D, sk - t * kCols);
   }
   cp_async_commit();
 
@@ -601,86 +401,61 @@ __global__ void __launch_bounds__(kThreads)
     row_lse[h] = row < sq ? lse[bh * sq + row] * kLog2e : 0.f;
     row_delta[h] = row < sq ? delta[bh * sq + row] : 0.f;
   }
-  float acc[NV][4];
+  float acc[NT][4];
 #pragma unroll
-  for (int n = 0; n < NV; ++n)
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
-  for (int stage = 0; t < nrun; stage ^= kSeq ? 0 : 1) {
+  for (int stage = 0; t < nrun; stage ^= 1) {
     const int tn = next_live(bits, t + 1, nrun);
-    const float* kt;
-    float s[8][4], dp[8][4];
-    if constexpr (kSeq) {
-      cp_async_wait<0>();  // v of tile t
-      __syncthreads();
-      scores<D>(dp, gs, 16 * ln.warp, ks, ln);
-      __syncthreads();  // v is read before k replaces it
-      load_tile<D, kCols>(ks, kb + (int64_t)t * kCols * D, sk - t * kCols);
-      cp_async_commit();
-      cp_async_wait<0>();
-      __syncthreads();
-      kt = ks;
-      scores<D>(s, qs, 16 * ln.warp, kt, ln);
-    } else {
-      if (tn < nrun) {
-        load_tile<D, kCols>(ks + (stage ^ 1) * T::TILE,
-                            kb + (int64_t)tn * kCols * D, sk - tn * kCols);
-        load_tile<D, kCols>(vs + (stage ^ 1) * T::TILE,
-                            vb + (int64_t)tn * kCols * D, sk - tn * kCols);
-      }
-      cp_async_commit();
-      cp_async_wait<1>();
-      __syncthreads();
-      kt = ks + stage * T::TILE;
-      scores<D>(s, qs, 16 * ln.warp, kt, ln);
-      scores<D>(dp, gs, 16 * ln.warp, vs + stage * T::TILE, ln);
+    if (tn < nrun) {
+      load_tile<D, kCols>(ks + (stage ^ 1) * T::TILE,
+                          kb + (int64_t)tn * kCols * D, sk - tn * kCols);
+      load_tile<D, kCols>(vs + (stage ^ 1) * T::TILE,
+                          vb + (int64_t)tn * kCols * D, sk - tn * kCols);
     }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* kt = ks + stage * T::TILE;
+    float s[8][4], dp[8][4];
+    scores<D>(s, qs, 16 * ln.warp, kt, ln);
+    scores<D>(dp, gs, 16 * ln.warp, vs + stage * T::TILE, ln);
     const uint32_t w0 = bits[2 * t], w1 = bits[2 * t + 1];
     const int k0 = t * kCols;
     const auto lse2 = [=](int, int h) { return row_lse[h]; };
     const auto dlt = [=](int, int h) { return row_delta[h]; };
     // Rows past Sq need no mask: their q is 0 and their dq is not written.
     if ((w0 & w1) == ~0u && (!causal || k0 + kCols - 1 <= q0)) {
-      rebuild_p_ds<false>(s, dp, scale_log2, scale, ln,
-                          [](int, int) { return true; }, lse2, dlt);
+      rebuild_p_ds<true, false>(s, dp, scale_log2, scale, ln.tig,
+                                [](int, int) { return true; }, lse2,
+                                dlt);
     } else {
-      rebuild_p_ds<true>(s, dp, scale_log2, scale, ln,
-                         [=](int c, int h) {
-                           const int row = row0 + 8 * h;
-                           return row < sq && key_bit(w0, w1, c) &&
-                                  (!causal || k0 + c <= row);
-                         },
-                         lse2, dlt);
+      rebuild_p_ds<true, true>(s, dp, scale_log2, scale, ln.tig,
+                               [=](int c, int h) {
+                                 const int row = row0 + 8 * h;
+                                 return row < sq && key_bit(w0, w1, c) &&
+                                        (!causal || k0 + c <= row);
+                               },
+                               lse2, dlt);
     }
     // dq += ds k: k's tile rows are the k index.
-    accumulate<NV, T::LD>(acc, dp, kt + col0, ln);
+    accumulate<NT, T::LD>(acc, dp, kt, ln);
     __syncthreads();
-    if constexpr (kSeq) {
-      if (tn < nrun)
-        load_tile<D, kCols>(ks, vb + (int64_t)tn * kCols * D,
-                            sk - tn * kCols);
-      cp_async_commit();
-    }
     t = tn;
   }
   cp_async_wait<0>();  // no copy outlives the block
   const float one[2] = {1.f, 1.f};
-  store_rows<NV, D>(dq + col0, first + 16 * ln.warp,
-                    sq - (q0 + 16 * ln.warp), acc, one, ln);
+  store_rows<NT, D>(dq, first + 16 * ln.warp, sq - (q0 + 16 * ln.warp), acc,
+                    one, ln);
 }
 
 // -- K6: dk and dv ------------------------------------------------------------
 
 template <int D>
 constexpr size_t dkv_smem() {
-  using T = Dims<D>;
-  // D = 256: k, v, one buffer that takes g, then q, of each query tile,
-  // and g's slice.
-  return T::ONE_STAGE
-             ? sizeof(float) * ((2 * kRows + kCols) * T::LD +
-                                kCols * Dims<T::DKV_COLS>::LD + 2 * kCols)
-             : sizeof(float) * ((2 * kRows + 4 * kCols) * T::LD + 4 * kCols);
+  return sizeof(float) * ((2 * kRows + 4 * kCols) * Dims<D>::LD + 4 * kCols);
 }
 
 // At D = 16 ptxas left to itself settles on 128 registers and spills; asked
@@ -694,18 +469,14 @@ __global__ void __launch_bounds__(kThreads, D == 16 ? 4 : 1)
                float* __restrict__ dv, int sq, int sk, int causal, float scale,
                float scale_log2) {
   using T = Dims<D>;
-  constexpr bool kSeq = T::ONE_STAGE;
-  constexpr int DV = T::DKV_COLS;
-  constexpr int NV = DV / 8;  // n8 tiles of the block's slice
+  constexpr int NT = D / 8;  // n8 tiles over D
   extern __shared__ __align__(16) unsigned char smem[];
   float* ks = reinterpret_cast<float*>(smem);  // [64][LD], this block's keys
   float* vs = ks + kRows * T::LD;              // [64][LD]
-  float* qs = vs + kRows * T::LD;              // [2][64][LD] (kSeq: [64][LD])
-  // [2][64][LD] (kSeq: g's slice, [64][DV + 4])
-  float* gs = qs + (kSeq ? 1 : 2) * T::TILE;
-  float* lse_s = kSeq ? gs + kCols * Dims<DV>::LD : gs + 2 * T::TILE;
-  float* delta_s = lse_s + (kSeq ? 1 : 2) * kCols;  // [2][64] (kSeq: [64])
-  const int col0 = blockIdx.y * DV;  // the block's output slice
+  float* qs = vs + kRows * T::LD;              // [2][64][LD]
+  float* gs = qs + 2 * T::TILE;                // [2][64][LD]
+  float* lse_s = gs + 2 * T::TILE;             // [2][64]
+  float* delta_s = lse_s + 2 * kCols;          // [2][64]
 
   const Lane ln;
   const int nkb = (sk + kRows - 1) / kRows;
@@ -720,9 +491,9 @@ __global__ void __launch_bounds__(kThreads, D == 16 ? 4 : 1)
     const int key = key0 + 8 * h;
     key_ok[h] = key < sk && mask[bh * sk + key] > 0.f;
   }
-  float acc_k[NV][4], acc_v[NV][4];
+  float acc_k[NT][4], acc_v[NT][4];
 #pragma unroll
-  for (int n = 0; n < NV; ++n)
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
 
@@ -733,18 +504,11 @@ __global__ void __launch_bounds__(kThreads, D == 16 ? 4 : 1)
   if (!__syncthreads_or(key_ok[0] || key_ok[1])) qt = nq;
   const bool all_keys = __syncthreads_and(key_ok[0] && key_ok[1]);
 
-  // A query tile's lse and delta, and its g (kSeq: g and g's slice).
+  // A query tile's q, g, lse and delta.
   auto stage_rows = [&](int tile, int stage) {
     const int q0 = tile * kCols;
-    if constexpr (kSeq) {
-      load_tile<D, kCols>(qs, gb + (int64_t)q0 * D, sq - q0);
-      load_tile<DV, kCols, D>(gs, gb + (int64_t)q0 * D + col0, sq - q0);
-    } else {
-      load_tile<D, kCols>(qs + stage * T::TILE, qb + (int64_t)q0 * D,
-                          sq - q0);
-      load_tile<D, kCols>(gs + stage * T::TILE, gb + (int64_t)q0 * D,
-                          sq - q0);
-    }
+    load_tile<D, kCols>(qs + stage * T::TILE, qb + (int64_t)q0 * D, sq - q0);
+    load_tile<D, kCols>(gs + stage * T::TILE, gb + (int64_t)q0 * D, sq - q0);
     for (int e = threadIdx.x; e < kCols; e += kThreads) {
       const bool in = q0 + e < sq;
       lse_s[stage * kCols + e] = in ? lse[bh * sq + q0 + e] * kLog2e : 0.f;
@@ -756,77 +520,49 @@ __global__ void __launch_bounds__(kThreads, D == 16 ? 4 : 1)
   if (qt < nq) stage_rows(qt, 0);
   cp_async_commit();
 
-  for (int stage = 0; qt < nq; stage ^= kSeq ? 0 : 1, ++qt) {
-    const float* qt_s;
-    const float* gt_s;  // g's rows at the block's slice
+  for (int stage = 0; qt < nq; stage ^= 1, ++qt) {
+    if (qt + 1 < nq) stage_rows(qt + 1, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* qt_s = qs + stage * T::TILE;
+    const float* gt_s = gs + stage * T::TILE;
     // Transposed tiles: rows are this warp's keys, columns the queries.
     float p[8][4], ds[8][4];
-    if constexpr (kSeq) {
-      cp_async_wait<0>();  // g of tile qt
-      __syncthreads();
-      scores<D>(ds, vs, 16 * ln.warp, qs, ln);
-      __syncthreads();  // g is read before q replaces it
-      load_tile<D, kCols>(qs, qb + (int64_t)qt * kCols * D, sq - qt * kCols);
-      cp_async_commit();
-      cp_async_wait<0>();
-      __syncthreads();
-      scores<D>(p, ks, 16 * ln.warp, qs, ln);
-      qt_s = qs;
-      gt_s = gs;
-    } else {
-      if (qt + 1 < nq) stage_rows(qt + 1, stage ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-      __syncthreads();
-      qt_s = qs + stage * T::TILE;
-      gt_s = gs + stage * T::TILE;
-      scores<D>(p, ks, 16 * ln.warp, qt_s, ln);
-      scores<D>(ds, vs, 16 * ln.warp, gt_s, ln);
-    }
+    scores<D>(p, ks, 16 * ln.warp, qt_s, ln);
+    scores<D>(ds, vs, 16 * ln.warp, gt_s, ln);
     const float* lse_t = lse_s + stage * kCols;
     const float* delta_t = delta_s + stage * kCols;
     const int q0 = qt * kCols;
     const auto lse2 = [=](int c, int) { return lse_t[c]; };
     const auto dlt = [=](int c, int) { return delta_t[c]; };
     if (all_keys && q0 + kCols <= sq && (!causal || k0 + kRows - 1 <= q0)) {
-      rebuild_p_ds<false>(p, ds, scale_log2, scale, ln,
-                          [](int, int) { return true; }, lse2, dlt);
+      rebuild_p_ds<true, false>(p, ds, scale_log2, scale, ln.tig,
+                                [](int, int) { return true; }, lse2,
+                                dlt);
     } else {
-      rebuild_p_ds<true>(p, ds, scale_log2, scale, ln,
-                         [=](int c, int h) {
-                           const int row = q0 + c;
-                           return key_ok[h] && row < sq &&
-                                  (!causal || key0 + 8 * h <= row);
-                         },
-                         lse2, dlt);
+      rebuild_p_ds<true, true>(p, ds, scale_log2, scale, ln.tig,
+                               [=](int c, int h) {
+                                 const int row = q0 + c;
+                                 return key_ok[h] && row < sq &&
+                                        (!causal || key0 + 8 * h <= row);
+                               },
+                               lse2, dlt);
     }
     // dv += p^T g and dk += ds^T q: the query tiles' rows are the k index.
-    accumulate<NV, Dims<DV>::LD>(acc_v, p, kSeq ? gt_s : gt_s + col0, ln);
-    accumulate<NV, T::LD>(acc_k, ds, qt_s + col0, ln);
+    accumulate<NT, T::LD>(acc_v, p, gt_s, ln);
+    accumulate<NT, T::LD>(acc_k, ds, qt_s, ln);
     __syncthreads();
-    if constexpr (kSeq) {
-      if (qt + 1 < nq) stage_rows(qt + 1, 0);
-      cp_async_commit();
-    }
   }
   cp_async_wait<0>();  // no copy outlives the block
   const float one[2] = {1.f, 1.f};
   const int64_t first = bh * sk + k0 + 16 * ln.warp;
   const int rows = sk - (k0 + 16 * ln.warp);
-  store_rows<NV, D>(dk + col0, first, rows, acc_k, one, ln);
-  store_rows<NV, D>(dv + col0, first, rows, acc_v, one, ln);
+  store_rows<NT, D>(dk, first, rows, acc_k, one, ln);
+  store_rows<NT, D>(dv, first, rows, acc_v, one, ln);
 }
 
 // -- launchers ----------------------------------------------------------------
-
-template <typename Kernel>
-int configure(Kernel kernel, size_t smem, int64_t blocks) {
-  if (blocks > INT_MAX || smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
-bool aligned(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 template <int D>
 int fwd(const float* q, const float* k, const float* v, const float* mask,
@@ -854,8 +590,7 @@ int bwd(const float* q, const float* k, const float* v, const float* mask,
   const size_t dq_bytes = dq_smem<D>((sk + kCols - 1) / kCols);
   int err = configure(dq_kernel<D>, dq_bytes, dq_blocks);
   if (err) return err;
-  const dim3 dq_grid((unsigned)dq_blocks, D / Dims<D>::DQ_COLS);
-  dq_kernel<D><<<dq_grid, kThreads, dq_bytes, stream>>>(
+  dq_kernel<D><<<(unsigned)dq_blocks, kThreads, dq_bytes, stream>>>(
       q, k, v, mask, lse, delta, g, dq, sq, sk, causal, scale, scale_log2);
   err = (int)cudaGetLastError();
   if (err) return err;
@@ -863,8 +598,7 @@ int bwd(const float* q, const float* k, const float* v, const float* mask,
   constexpr size_t dkv_bytes = dkv_smem<D>();
   err = configure(dkv_kernel<D>, dkv_bytes, dkv_blocks);
   if (err) return err;
-  const dim3 dkv_grid((unsigned)dkv_blocks, D / Dims<D>::DKV_COLS);
-  dkv_kernel<D><<<dkv_grid, kThreads, dkv_bytes, stream>>>(
+  dkv_kernel<D><<<(unsigned)dkv_blocks, kThreads, dkv_bytes, stream>>>(
       q, k, v, mask, lse, delta, g, dk, dv, sq, sk, causal, scale,
       scale_log2);
   return (int)cudaGetLastError();
@@ -898,8 +632,9 @@ extern "C" int flash_attention_fwd_f32(const float* q, const float* k,
 
 // K6. The forward's inputs, its lse (bh, sq), delta = rowsum(g * out)
 // (bh, sq) and the output gradient g (bh, sq, d); writes dq (bh, sq, d),
-// dk and dv (bh, sk, d). q, k, v, g, dq, dk and dv 16-byte aligned. Runs
-// the dq kernel, then the dk/dv kernel.
+// dk and dv (bh, sk, d). q, k, v, g, dq, dk and dv 16-byte aligned;
+// d in {16, 32, 64, 128} (from 256 on, flash_attention_wide.cu). Runs the
+// dq kernel, then the dk/dv kernel.
 extern "C" int flash_attention_bwd_f32(const float* q, const float* k,
                                        const float* v, const float* mask,
                                        const float* lse, const float* delta,
@@ -918,7 +653,6 @@ extern "C" int flash_attention_bwd_f32(const float* q, const float* k,
     case 32: FLASH_BWD(32);
     case 64: FLASH_BWD(64);
     case 128: FLASH_BWD(128);
-    case 256: FLASH_BWD(256);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef FLASH_BWD

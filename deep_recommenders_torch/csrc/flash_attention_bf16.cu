@@ -44,10 +44,10 @@
 // - K5: one block per (bh, 64 query rows); loops over 64-key tiles with an
 //   online softmax on the accumulator fragments (running max and sum per
 //   row, reduced over the 4 lanes of a quad).
-// - K6, as JAX splits it (s and dp are computed in both kernels; sharing
-//   them in one pass is later work): a dq kernel, one block per (bh, 64
-//   query rows) over key tiles; a dk/dv kernel, one block per (bh, 64
-//   keys) over query tiles, working on transposed tiles (keys are rows).
+// - K6, as JAX splits it (s and dp are computed in both kernels): a dq
+//   kernel, one block per (bh, 64 query rows) over key tiles; a dk/dv
+//   kernel, one block per (bh, 64 keys) over query tiles, working on
+//   transposed tiles (keys are rows).
 //   delta = rowsum(dO * O), which JAX leaves to XLA, is formed in fp32 by
 //   the dq kernel from its own rows of dO and O and written for the dk/dv
 //   kernel: no fp32 copies of dO and O.
@@ -65,28 +65,21 @@
 // so far, which depends on the tile width (JAX uses 128 keys, this kernel
 // 64); ops/attention_tolerances.py bounds the difference.
 //
-// D = 256. A warp's output fragments over D would take 128 registers
-// (256 for dk and dv), and its q fragments over D 64 more. So at D = 256 a
-// block computes a slice of the output columns, one grid column
-// (blockIdx.y) a slice, and scores over the whole of D in every slice: K5
-// and dq 128 columns (two slices), dk/dv 64 (four slices), the
-// accumulators then as large as at D = 128 and 64; the A fragments of the
-// block's own rows are read from shared memory at each k-step instead of
-// being held. The tiles stay double-buffered (a 64-row tile of 264 bf16 is
-// 33,792 bytes): dq's copy of out, read only to form delta, shares the
-// second key buffer, whose first load comes after delta is formed. Slice 0
-// writes lse and delta; every slice computes the same values. The products
-// recomputed in each slice are the price: 2x K5's and dq's scores, 4x
-// dk/dv's.
+// Head widths. This file holds K5 and K6 at D = 16, 32, 64 and 128, and
+// K5 at D = 256; K6 at D >= 256 and K5 above 256 are
+// flash_attention_wide_bf16.cu's. K5 at D = 256: a warp's output fragments
+// over D would take 128 registers, and its q fragments over D 64 more. So
+// a block computes a slice of 128 output columns, one grid column
+// (blockIdx.y) a slice, and scores over the whole of D in each (the
+// scores twice); the A fragments of the block's rows are read from shared
+// memory at each k-step instead of being held. The tiles stay
+// double-buffered (a 64-row tile of 264 bf16 is 33,792 bytes). Slice 0
+// writes lse.
 //
 // Every exported function launches on the stream it is given and returns
 // cudaGetLastError(), or cudaErrorInvalidValue for what it does not take.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <limits.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
@@ -95,79 +88,18 @@ using bf16 = __nv_bfloat16;
 constexpr int kThreads = 128;  // 4 warps
 constexpr int kRows = 64;      // rows a block owns: 16 per warp
 constexpr int kCols = 64;      // rows of a streamed tile
-constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-constexpr size_t kMaxSmem = 232448;
 
 template <int D>
 struct Dims {
   static constexpr int LD = D + 8;       // bf16 per staged row
   static constexpr int TILE = kCols * LD;
   static constexpr int KSTEPS = D / 16;  // mma k-steps over D
-  static constexpr int NT = D / 8;       // n8 tiles over D
-  // Output columns a block computes (a slice per grid column at D = 256),
-  // and whether a warp holds the A fragments of its rows over D.
+  // K5 at D = 256 computes a slice of 128 output columns a block, and its
+  // warps read the A fragments of their rows at each k-step instead of
+  // holding them.
   static constexpr int FWD_COLS = D <= 128 ? D : 128;
-  static constexpr int DQ_COLS = D <= 128 ? D : 128;
-  static constexpr int DKV_COLS = D <= 128 ? D : 64;
   static constexpr bool HOLD_A = D <= 128;
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes from src, or 16 zero bytes when !in (src is then not read).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(in ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Four 8 x 8 bf16 matrices; lane l gives the address of row l % 8 of
-// matrix l / 8 and receives row l / 4, columns 2 (l % 4), 2 (l % 4) + 1 of
-// each (with .trans: rows 2 (l % 4), 2 (l % 4) + 1 of column l / 4).
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// d += a b on one 16 x 8 x 16 tile: bf16 operands, fp32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&p);
-}
 
 // Fragment coordinates of a lane: mma's (group, thread in group) and
 // ldmatrix's (matrix, row).
@@ -193,25 +125,6 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int n) {
     cp_async16(dst + r * Dims<D>::LD + c, in ? src + (int64_t)r * D + c : src,
                in);
   }
-}
-
-// bits[w] bit b = key 32 w + b is valid (< sk and mask > 0), for
-// w < 2 ntiles: two words per 64-key tile.
-__device__ __forceinline__ void load_key_bits(uint32_t* bits,
-                                              const float* __restrict__ mask,
-                                              int sk, int ntiles) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int w = warp; w < 2 * ntiles; w += kThreads / 32) {
-    const int key = w * 32 + lane;
-    const uint32_t b = __ballot_sync(0xffffffffu, key < sk && mask[key] > 0.f);
-    if (lane == 0) bits[w] = b;
-  }
-}
-
-// The first tile at or after t, below n, with a valid key.
-__device__ __forceinline__ int next_live(const uint32_t* bits, int t, int n) {
-  while (t < n && (bits[2 * t] | bits[2 * t + 1]) == 0) ++t;
-  return t;
 }
 
 // A fragments of the 16 rows [row0, row0 + 16) of a [rows][LD] tile, over
@@ -310,21 +223,6 @@ __device__ __forceinline__ void accumulate(float (&acc)[NT][4],
   }
 }
 
-// Is column c (0..63) of a tile a valid key, from the tile's two words?
-__device__ __forceinline__ bool key_bit(uint32_t w0, uint32_t w1, int c) {
-  return ((c < 32 ? w0 : w1) >> (c & 31)) & 1u;
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
 // Rows grp (half 0) and grp + 8 (half 1) of the warp's 16 rows of a
 // [rows][D] bf16 output, its 8 NT columns from out on, from fp32 fragments
 // times s[half].
@@ -346,72 +244,6 @@ __device__ __forceinline__ void store_rows(bf16* out, int64_t row0, int rows,
   }
 }
 
-// The online softmax of one key tile on the warp's score fragments s (the
-// raw q.k): s becomes p = exp2(s c - m), with c = scale log2(e) and m the
-// running max of s c over the key tiles so far; l is the running row sum
-// and alpha the factor the accumulator takes. kMasked: a lane where
-// valid(col, half) is false takes p = 0. Without it every lane is valid: a
-// tile of valid keys wholly in the causal past, which skips the selects.
-template <bool kMasked, typename Valid>
-__device__ __forceinline__ void online_softmax(float (&s)[8][4], float (&m)[2],
-                                               float (&l)[2],
-                                               float (&alpha)[2], float c,
-                                               const Lane& ln, Valid valid) {
-  float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if (kMasked && !valid(8 * j + 2 * ln.tig + (e & 1), e >> 1))
-        s[j][e] = kNegInf;
-      mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-    }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const float tile_max = quad_max(mx[h]);
-    const float m_new =
-        tile_max <= kNegInf / 2 ? m[h] : fmaxf(m[h], tile_max * c);
-    // Guard rows masked so far: exp(NEG_INF - NEG_INF) would be 1.
-    alpha[h] = m[h] <= kNegInf / 2 ? 0.f : exp2f(m[h] - m_new);
-    m[h] = m_new;
-  }
-  float sum[2] = {0.f, 0.f};
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int h = e >> 1;
-      const float p = exp2f(fmaf(s[j][e], c, -m[h]));
-      s[j][e] = kMasked && s[j][e] <= kNegInf / 2 ? 0.f : p;
-      sum[h] += s[j][e];
-    }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) l[h] = alpha[h] * l[h] + quad_sum(sum[h]);
-}
-
-// K6's rebuild on the warp's fragments: p (the raw q.k on entry) becomes
-// exp2(p c - lse2(col, half)), with lse2 = lse log2(e); ds (dp on entry)
-// becomes p (dp - delta(col, half)) scale. kMasked: a lane where
-// valid(col, half) is false takes p = 0 (a select, never a product: exp
-// may overflow on masked lanes); without it every lane is valid.
-template <bool kMasked, typename Valid, typename Lse, typename Delta>
-__device__ __forceinline__ void rebuild_p_ds(float (&p)[8][4],
-                                             float (&ds)[8][4], float c,
-                                             float scale, const Lane& ln,
-                                             Valid valid, Lse lse2,
-                                             Delta delta) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int col = 8 * j + 2 * ln.tig + (e & 1), h = e >> 1;
-      float pe = exp2f(fmaf(p[j][e], c, -lse2(col, h)));
-      if (kMasked && !valid(col, h)) pe = 0.f;
-      p[j][e] = pe;
-      ds[j][e] = pe * (ds[j][e] - delta(col, h)) * scale;
-    }
-}
-
 // -- K5 -----------------------------------------------------------------------
 
 template <int D>
@@ -420,8 +252,10 @@ constexpr size_t fwd_smem(int ntiles) {
          sizeof(uint32_t) * 2 * ntiles;
 }
 
+// At D = 16 the kernel is held to seven blocks an SM (72 registers, a few
+// bytes spilled): at 80 registers, six blocks, it ran 2-4% slower.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, D == 16 ? 7 : 1)
     fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, const float* __restrict__ mask,
                bf16* __restrict__ out, float* __restrict__ lse, int sq, int sk,
@@ -446,7 +280,7 @@ __global__ void __launch_bounds__(kThreads)
   const int nrun = causal ? min(ntiles, (q0 + kRows - 1) / kCols + 1) : ntiles;
 
   load_tile<D, kRows>(qs, q + (bh * sq + q0) * D, sq - q0);
-  load_key_bits(bits, mask + bh * sk, sk, ntiles);
+  load_key_bits<kThreads / 32>(bits, mask + bh * sk, sk, ntiles);
   __syncthreads();  // the bits
   int t = next_live(bits, 0, nrun);
   if (t < nrun) {
@@ -490,11 +324,11 @@ __global__ void __launch_bounds__(kThreads)
     const int k0 = t * kCols;
     float alpha[2];
     if ((w0 & w1) == ~0u && (!causal || k0 + kCols - 1 <= q0)) {
-      online_softmax<false>(s, m, l, alpha, scale_log2, ln,
-                            [](int, int) { return true; });
+      online_softmax<false, false>(s, m, l, alpha, scale_log2, ln.tig,
+                                   [](int, int) { return true; });
     } else {
-      online_softmax<true>(s, m, l, alpha, scale_log2, ln,
-                           [=](int c, int h) {
+      online_softmax<false, true>(s, m, l, alpha, scale_log2, ln.tig,
+                                  [=](int c, int h) {
                              return key_bit(w0, w1, c) &&
                                     (!causal || k0 + c <= row0 + 8 * h);
                            });
@@ -527,13 +361,11 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // -- K6: dq -------------------------------------------------------------------
+// Head widths up to 128; K6 at D >= 256 is flash_attention_wide_bf16.cu's.
 
-// Without held A fragments (D = 256) out's rows share the second key
-// buffer (see the kernel).
 template <int D>
 constexpr size_t dq_smem(int ntiles) {
-  constexpr int own = Dims<D>::HOLD_A ? 3 : 2;
-  return sizeof(bf16) * (own * kRows + 4 * kCols) * Dims<D>::LD +
+  return sizeof(bf16) * (3 * kRows + 4 * kCols) * Dims<D>::LD +
          sizeof(float) * kRows + sizeof(uint32_t) * 2 * ntiles;
 }
 
@@ -546,19 +378,15 @@ __global__ void __launch_bounds__(kThreads)
               bf16* __restrict__ dq, int sq, int sk, int causal, float scale,
               float scale_log2) {
   using T = Dims<D>;
+  constexpr int NT = D / 8;  // n8 tiles over D
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int NV = T::DQ_COLS / 8;  // n8 tiles of the block's slice
   bf16* qs = reinterpret_cast<bf16*>(smem);  // [64][LD]
   bf16* gs = qs + kRows * T::LD;             // [64][LD]
-  // [64][LD]; at D = 256 the second key buffer, which is first loaded
-  // after delta is formed.
-  bf16* os = gs + kRows * T::LD;
-  bf16* ks = T::HOLD_A ? os + kRows * T::LD : os;  // [2][64][LD]
-  if constexpr (!T::HOLD_A) os = ks + T::TILE;
+  bf16* os = gs + kRows * T::LD;             // [64][LD]
+  bf16* ks = os + kRows * T::LD;             // [2][64][LD]
   bf16* vs = ks + 2 * T::TILE;               // [2][64][LD]
   float* delta_s = reinterpret_cast<float*>(vs + 2 * T::TILE);  // [64]
   uint32_t* bits = reinterpret_cast<uint32_t*>(delta_s + kRows);
-  const int col0 = blockIdx.y * T::DQ_COLS;  // the block's output slice
 
   const Lane ln;
   const int nq = (sq + kRows - 1) / kRows;
@@ -574,7 +402,7 @@ __global__ void __launch_bounds__(kThreads)
   load_tile<D, kRows>(gs, g + first * D, sq - q0);
   load_tile<D, kRows>(os, out + first * D, sq - q0);
   cp_async_commit();
-  load_key_bits(bits, mask + bh * sk, sk, ntiles);
+  load_key_bits<kThreads / 32>(bits, mask + bh * sk, sk, ntiles);
   __syncthreads();
   int t = next_live(bits, 0, nrun);
   if (t < nrun) {
@@ -594,7 +422,7 @@ __global__ void __launch_bounds__(kThreads)
       sum = fmaf(__bfloat162float(gs[r * T::LD + c]),
                  __bfloat162float(os[r * T::LD + c]), sum);
     delta_s[r] = sum;
-    if (q0 + r < sq && blockIdx.y == 0) delta[first + r] = sum;
+    if (q0 + r < sq) delta[first + r] = sum;
   }
   __syncthreads();
 
@@ -606,9 +434,9 @@ __global__ void __launch_bounds__(kThreads)
     row_lse[h] = row < sq ? lse[bh * sq + row] * kLog2e : 0.f;
     row_delta[h] = delta_s[row - q0];
   }
-  float acc[NV][4];
+  float acc[NT][4];
 #pragma unroll
-  for (int n = 0; n < NV; ++n)
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
@@ -627,19 +455,15 @@ __global__ void __launch_bounds__(kThreads)
     const bf16* kt = ks + stage * T::TILE;
     float s[8][4], dp[8][4];
     {
-      uint32_t a[T::HOLD_A ? T::KSTEPS : 1][4];
-      if constexpr (T::HOLD_A) {
+      uint32_t a[T::KSTEPS][4];
 #pragma unroll
-        for (int kk = 0; kk < T::KSTEPS; ++kk)
-          load_a<D>(a[kk], qs, 16 * ln.warp, kk, ln);
-      }
-      scores_rows<D>(s, a, qs, 16 * ln.warp, kt, ln);
-      if constexpr (T::HOLD_A) {
+      for (int kk = 0; kk < T::KSTEPS; ++kk)
+        load_a<D>(a[kk], qs, 16 * ln.warp, kk, ln);
+      scores<D>(s, a, kt, ln);
 #pragma unroll
-        for (int kk = 0; kk < T::KSTEPS; ++kk)
-          load_a<D>(a[kk], gs, 16 * ln.warp, kk, ln);
-      }
-      scores_rows<D>(dp, a, gs, 16 * ln.warp, vs + stage * T::TILE, ln);
+      for (int kk = 0; kk < T::KSTEPS; ++kk)
+        load_a<D>(a[kk], gs, 16 * ln.warp, kk, ln);
+      scores<D>(dp, a, vs + stage * T::TILE, ln);
     }
     const uint32_t w0 = bits[2 * t], w1 = bits[2 * t + 1];
     const int k0 = t * kCols;
@@ -647,26 +471,27 @@ __global__ void __launch_bounds__(kThreads)
     const auto dlt = [=](int, int h) { return row_delta[h]; };
     // Rows past Sq need no mask: their q is 0 and their dq is not written.
     if ((w0 & w1) == ~0u && (!causal || k0 + kCols - 1 <= q0)) {
-      rebuild_p_ds<false>(s, dp, scale_log2, scale, ln,
-                          [](int, int) { return true; }, lse2, dlt);
+      rebuild_p_ds<false, false>(s, dp, scale_log2, scale, ln.tig,
+                                 [](int, int) { return true; }, lse2,
+                                 dlt);
     } else {
-      rebuild_p_ds<true>(s, dp, scale_log2, scale, ln,
-                         [=](int c, int h) {
-                           const int row = row0 + 8 * h;
-                           return row < sq && key_bit(w0, w1, c) &&
-                                  (!causal || k0 + c <= row);
-                         },
-                         lse2, dlt);
+      rebuild_p_ds<false, true>(s, dp, scale_log2, scale, ln.tig,
+                                [=](int c, int h) {
+                                  const int row = row0 + 8 * h;
+                                  return row < sq && key_bit(w0, w1, c) &&
+                                         (!causal || k0 + c <= row);
+                                },
+                                lse2, dlt);
     }
     // dq += ds k: k's tile rows are the k index.
-    accumulate<NV, T::LD>(acc, dp, kt + col0, ln);
+    accumulate<NT, T::LD>(acc, dp, kt, ln);
     __syncthreads();
     t = tn;
   }
   cp_async_wait<0>();  // no copy outlives the block
   const float one[2] = {1.f, 1.f};
-  store_rows<NV, D>(dq + col0, first + 16 * ln.warp,
-                    sq - (q0 + 16 * ln.warp), acc, one, ln);
+  store_rows<NT, D>(dq, first + 16 * ln.warp, sq - (q0 + 16 * ln.warp), acc,
+                    one, ln);
 }
 
 // -- K6: dk and dv ------------------------------------------------------------
@@ -686,6 +511,7 @@ __global__ void __launch_bounds__(kThreads)
                bf16* __restrict__ dv, int sq, int sk, int causal, float scale,
                float scale_log2) {
   using T = Dims<D>;
+  constexpr int NT = D / 8;  // n8 tiles over D
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* ks = reinterpret_cast<bf16*>(smem);  // [64][LD], this block's keys
   bf16* vs = ks + kRows * T::LD;             // [64][LD]
@@ -693,8 +519,6 @@ __global__ void __launch_bounds__(kThreads)
   bf16* gs = qs + 2 * T::TILE;               // [2][64][LD]
   float* lse_s = reinterpret_cast<float*>(gs + 2 * T::TILE);  // [2][64]
   float* delta_s = lse_s + 2 * kCols;                         // [2][64]
-  constexpr int NV = T::DKV_COLS / 8;         // n8 tiles of the slice
-  const int col0 = blockIdx.y * T::DKV_COLS;  // the block's output slice
 
   const Lane ln;
   const int nkb = (sk + kRows - 1) / kRows;
@@ -709,9 +533,9 @@ __global__ void __launch_bounds__(kThreads)
     const int key = key0 + 8 * h;
     key_ok[h] = key < sk && mask[bh * sk + key] > 0.f;
   }
-  float acc_k[NV][4], acc_v[NV][4];
+  float acc_k[NT][4], acc_v[NT][4];
 #pragma unroll
-  for (int n = 0; n < NV; ++n)
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
 
@@ -750,58 +574,46 @@ __global__ void __launch_bounds__(kThreads)
     // Transposed tiles: rows are this warp's keys, columns the queries.
     float p[8][4], ds[8][4];
     {
-      uint32_t a[T::HOLD_A ? T::KSTEPS : 1][4];
-      if constexpr (T::HOLD_A) {
+      uint32_t a[T::KSTEPS][4];
 #pragma unroll
-        for (int kk = 0; kk < T::KSTEPS; ++kk)
-          load_a<D>(a[kk], ks, 16 * ln.warp, kk, ln);
-      }
-      scores_rows<D>(p, a, ks, 16 * ln.warp, qt_s, ln);
-      if constexpr (T::HOLD_A) {
+      for (int kk = 0; kk < T::KSTEPS; ++kk)
+        load_a<D>(a[kk], ks, 16 * ln.warp, kk, ln);
+      scores<D>(p, a, qt_s, ln);
 #pragma unroll
-        for (int kk = 0; kk < T::KSTEPS; ++kk)
-          load_a<D>(a[kk], vs, 16 * ln.warp, kk, ln);
-      }
-      scores_rows<D>(ds, a, vs, 16 * ln.warp, gt_s, ln);
+      for (int kk = 0; kk < T::KSTEPS; ++kk)
+        load_a<D>(a[kk], vs, 16 * ln.warp, kk, ln);
+      scores<D>(ds, a, gt_s, ln);
     }
     const int q0 = qt * kCols;
     const auto lse2 = [=](int c, int) { return lse_t[c]; };
     const auto dlt = [=](int c, int) { return delta_t[c]; };
     if (all_keys && q0 + kCols <= sq && (!causal || k0 + kRows - 1 <= q0)) {
-      rebuild_p_ds<false>(p, ds, scale_log2, scale, ln,
-                          [](int, int) { return true; }, lse2, dlt);
+      rebuild_p_ds<false, false>(p, ds, scale_log2, scale, ln.tig,
+                                 [](int, int) { return true; }, lse2,
+                                 dlt);
     } else {
-      rebuild_p_ds<true>(p, ds, scale_log2, scale, ln,
-                         [=](int c, int h) {
-                           const int row = q0 + c;
-                           return key_ok[h] && row < sq &&
-                                  (!causal || key0 + 8 * h <= row);
-                         },
-                         lse2, dlt);
+      rebuild_p_ds<false, true>(p, ds, scale_log2, scale, ln.tig,
+                                [=](int c, int h) {
+                                  const int row = q0 + c;
+                                  return key_ok[h] && row < sq &&
+                                         (!causal || key0 + 8 * h <= row);
+                                },
+                                lse2, dlt);
     }
     // dv += p^T g and dk += ds^T q: the query tiles' rows are the k index.
-    accumulate<NV, T::LD>(acc_v, p, gt_s + col0, ln);
-    accumulate<NV, T::LD>(acc_k, ds, qt_s + col0, ln);
+    accumulate<NT, T::LD>(acc_v, p, gt_s, ln);
+    accumulate<NT, T::LD>(acc_k, ds, qt_s, ln);
     __syncthreads();
   }
   cp_async_wait<0>();  // no copy outlives the block
   const float one[2] = {1.f, 1.f};
   const int64_t first = bh * sk + k0 + 16 * ln.warp;
   const int rows = sk - (k0 + 16 * ln.warp);
-  store_rows<NV, D>(dk + col0, first, rows, acc_k, one, ln);
-  store_rows<NV, D>(dv + col0, first, rows, acc_v, one, ln);
+  store_rows<NT, D>(dk, first, rows, acc_k, one, ln);
+  store_rows<NT, D>(dv, first, rows, acc_v, one, ln);
 }
 
 // -- launchers ----------------------------------------------------------------
-
-template <typename Kernel>
-int configure(Kernel kernel, size_t smem, int64_t blocks) {
-  if (blocks > INT_MAX || smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
-bool aligned(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 template <int D>
 int fwd(const bf16* q, const bf16* k, const bf16* v, const float* mask,
@@ -829,8 +641,7 @@ int bwd(const bf16* q, const bf16* k, const bf16* v, const float* mask,
   const size_t dq_bytes = dq_smem<D>((sk + kCols - 1) / kCols);
   int err = configure(dq_kernel<D>, dq_bytes, dq_blocks);
   if (err) return err;
-  const dim3 dq_grid((unsigned)dq_blocks, D / Dims<D>::DQ_COLS);
-  dq_kernel<D><<<dq_grid, kThreads, dq_bytes, stream>>>(
+  dq_kernel<D><<<(unsigned)dq_blocks, kThreads, dq_bytes, stream>>>(
       q, k, v, mask, lse, out, g, delta, dq, sq, sk, causal, scale,
       scale_log2);
   err = (int)cudaGetLastError();
@@ -839,8 +650,7 @@ int bwd(const bf16* q, const bf16* k, const bf16* v, const float* mask,
   constexpr size_t dkv_bytes = dkv_smem<D>();
   err = configure(dkv_kernel<D>, dkv_bytes, dkv_blocks);
   if (err) return err;
-  const dim3 dkv_grid((unsigned)dkv_blocks, D / Dims<D>::DKV_COLS);
-  dkv_kernel<D><<<dkv_grid, kThreads, dkv_bytes, stream>>>(
+  dkv_kernel<D><<<(unsigned)dkv_blocks, kThreads, dkv_bytes, stream>>>(
       q, k, v, mask, lse, delta, g, dk, dv, sq, sk, causal, scale,
       scale_log2);
   return (int)cudaGetLastError();
@@ -876,8 +686,9 @@ extern "C" int flash_attention_fwd_bf16(const bf16* q, const bf16* k,
 // K6 in bf16. The forward's inputs, its out (bh, sq, d) bf16 and lse
 // (bh, sq) fp32, and the output gradient g (bh, sq, d) bf16; writes dq
 // (bh, sq, d), dk and dv (bh, sk, d) in bf16, and delta = rowsum(g * out)
-// (bh, sq) fp32, scratch that the dq kernel fills for the dk/dv kernel.
-// Runs the dq kernel, then the dk/dv kernel.
+// (bh, sq) fp32, scratch that the dq kernel fills for the dk/dv kernel;
+// d in {16, 32, 64, 128} (from 256 on, flash_attention_wide_bf16.cu). Runs
+// the dq kernel, then the dk/dv kernel.
 extern "C" int flash_attention_bwd_bf16(const bf16* q, const bf16* k,
                                         const bf16* v, const float* mask,
                                         const float* lse, const bf16* out,
@@ -896,7 +707,6 @@ extern "C" int flash_attention_bwd_bf16(const bf16* q, const bf16* k,
     case 32: FLASH_BWD(32);
     case 64: FLASH_BWD(64);
     case 128: FLASH_BWD(128);
-    case 256: FLASH_BWD(256);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef FLASH_BWD

@@ -14,7 +14,10 @@ JAX package's: heads folded into the batch, q (BH, Sq, D), k and v
 - :func:`flash_attention` (K5) and :func:`flash_attention_backward` (K6)
   take fp32 or bf16 q, k, v (and g), all of one dtype; the mask and lse are
   fp32. On a CUDA tensor they launch ``csrc/flash_attention.cu`` (fp32) or
-  ``csrc/flash_attention_bf16.cu`` (bf16) or raise; on a CPU tensor they
+  ``csrc/flash_attention_bf16.cu`` (bf16) at head widths up to 128 (K5 also
+  at 256), ``csrc/flash_attention_wide.cu`` or
+  ``csrc/flash_attention_wide_bf16.cu`` for K6 from 256 and K5 above it,
+  or raise; on a CPU tensor they
   take their plain versions, :func:`flash_attention_reference` and
   :func:`flash_attention_backward_reference` in fp32, the ``_bf16`` ones in
   bf16. Launches are counted in ``flash_attention.launches``: "fwd" and
@@ -25,7 +28,8 @@ JAX package's: heads folded into the batch, q (BH, Sq, D), k and v
   ``flash_attention_fwd_bf16``.
 - :class:`FlashAttention` is the autograd Function over K5 and K6 (the
   counterpart of ``flash_attention_diff``). JAX's kernels take any head
-  width D; the card's are built for ``KERNEL_HEAD_DIMS``. On the card,
+  width D; the card's take ``KERNEL_HEAD_DIMS`` and every multiple of
+  ``WIDE_HEAD_STEP`` above the widest of them. On the card,
   FlashAttention pads q, k, v (and g) with zero columns up to the next
   kernel width (:func:`kernel_head_dim`), passes the true D's scale, and
   slices out, dq, dk and dv back to D: zero columns leave every score, the
@@ -33,8 +37,7 @@ JAX package's: heads folded into the batch, q (BH, Sq, D), k and v
   exactly 0.
 - :func:`attention` dispatches between the two paths by the JAX package's
   rule, with "the tensor is on the card" in place of "the backend is TPU";
-  above the widest kernel width a call over the budget goes dense with a
-  warning.
+  it takes every head width, as JAX's does.
 
 The fp32 path is the JAX kernels' fp32-accurate products
 (``attention.py:107-115``): on the card every product runs on the tensor
@@ -66,9 +69,13 @@ NEG_INF = -1e30
 FLASH_SCORE_BYTES = 2_000_000_000
 DENSE_RESIDENT_SCORE_TENSORS = 3
 
-# Head widths the kernels are built for (template instances in the source;
-# at 256 each block computes a slice of the output columns).
+# Head widths the kernels are built for (template instances of
+# csrc/flash_attention(_bf16).cu up to 128, and K5 at 256); K6 from 256
+# and K5 above it (csrc/flash_attention_wide(_bf16).cu) take every multiple
+# of WIDE_HEAD_STEP from the widest of KERNEL_HEAD_DIMS on, streaming D in
+# chunks of that many columns.
 KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
+WIDE_HEAD_STEP = 64
 # Operand dtypes of q, k, v and g; the mask and lse are always fp32.
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -304,9 +311,10 @@ def _check_inputs(name, q, k, v, key_mask, operands=(), stats=()):
     if tuple(key_mask.shape) != (bh, sk):
         raise TypeError(f"{name}: key_mask must be {(bh, sk)}, got "
                         f"{tuple(key_mask.shape)}")
-    if d not in KERNEL_HEAD_DIMS:
+    if kernel_head_dim(d) != d:
         raise ValueError(f"{name}: head width D={d} is not one of "
-                         f"{KERNEL_HEAD_DIMS}")
+                         f"{KERNEL_HEAD_DIMS} nor a multiple of "
+                         f"{WIDE_HEAD_STEP} above {KERNEL_HEAD_DIMS[-1]}")
     if bh >= 2**31 or max(sq, sk) * d >= 2**31 or \
             bh * max(sq, sk) * d >= 2**40:
         raise ValueError(f"{name}: unsupported shape BH={bh} Sq={sq} Sk={sk}")
@@ -319,13 +327,21 @@ def _mask_or_ones(key_mask, k):
     return key_mask.to(torch.float32)
 
 
-# (source, forward symbol, backward symbol, launch-count suffix) by dtype.
-_KERNELS = {
-    torch.float32: ("flash_attention", "flash_attention_fwd_f32",
-                    "flash_attention_bwd_f32", ""),
-    torch.bfloat16: ("flash_attention_bf16", "flash_attention_fwd_bf16",
-                     "flash_attention_bwd_bf16", "_bf16"),
-}
+# The launch-count suffix and the C functions' type suffix by dtype.
+_SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16"}
+_C_TYPE = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def _kernel(dtype, d: int, backward: bool) -> Tuple[str, str]:
+    """(source, C function) of K5 or K6 (``backward``) for operands of
+    ``dtype`` at head width ``d``: csrc/flash_attention(_bf16).cu's up to
+    128 (K5 also at 256), csrc/flash_attention_wide(_bf16).cu's for K6 from
+    256 and K5 above it."""
+    widest = KERNEL_HEAD_DIMS[-1]
+    wide = "_wide" if (d >= widest if backward else d > widest) else ""
+    return (f"flash_attention{wide}{_SUFFIX[dtype]}",
+            f"flash_attention{wide}_{'bwd' if backward else 'fwd'}_"
+            f"{_C_TYPE[dtype]}")
 
 
 def _scale_arg(scale: Optional[float], d: int) -> float:
@@ -341,7 +357,7 @@ def _flash_fwd_cuda(q, k, v, key_mask, causal, scale):
     out = torch.empty_like(q)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     if bh and sq:
-        source, symbol, _, suffix = _KERNELS[q.dtype]
+        source, symbol = _kernel(q.dtype, d, backward=False)
         fn = _build.function(source, symbol,
                              [_P] * 6 + [_I32] * 5 + [_F64, _P])
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -349,7 +365,7 @@ def _flash_fwd_cuda(q, k, v, key_mask, causal, scale):
                   bh, sq, sk, d, int(causal), _scale_arg(scale, d),
                   torch.cuda.current_stream(q.device).cuda_stream)
         _build.check(code, "flash_attention forward")
-        flash_attention.launches["fwd" + suffix] += 1
+        flash_attention.launches["fwd" + _SUFFIX[q.dtype]] += 1
     return out, lse
 
 
@@ -361,7 +377,7 @@ def _flash_fwd_fake(q, k, v, key_mask, causal, scale):
 # The op of each operand dtype, registered in ops/custom_ops.py's namespace.
 _FLASH_FWD_OPS = {
     dtype: custom_ops.kernel_op(
-        "flash_attention_fwd" + _KERNELS[dtype][3],
+        "flash_attention_fwd" + _SUFFIX[dtype],
         "(Tensor q, Tensor k, Tensor v, Tensor key_mask, bool causal, "
         "float? scale) -> (Tensor, Tensor)",
         _flash_fwd_cuda, plain, _flash_fwd_fake)
@@ -386,7 +402,8 @@ def flash_attention(
     fp32. It calls the op ``deep_recommenders_torch::flash_attention_fwd``
     (fp32) or ``flash_attention_fwd_bf16`` (``ops/custom_ops.py``), which
     ``torch.export`` records: on the card the kernel, where D must be one
-    of ``KERNEL_HEAD_DIMS``; on the CPU the plain version."""
+    of ``KERNEL_HEAD_DIMS`` or a multiple of ``WIDE_HEAD_STEP`` above them
+    (:func:`kernel_head_dim`); on the CPU the plain version."""
     dtype = _operand_dtype("flash_attention", q, k, v)
     key_mask = _mask_or_ones(key_mask, k)
     out, lse = _FLASH_FWD_OPS[dtype](q, k, v, key_mask, causal, scale)
@@ -430,7 +447,7 @@ def flash_attention_backward(
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     if bh and sk and sq:
-        source, _, symbol, suffix = _KERNELS[dtype]
+        source, symbol = _kernel(dtype, d, backward=True)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         scale = _scale_arg(scale, d)
         if dtype == torch.bfloat16:
@@ -454,7 +471,7 @@ def flash_attention_backward(
                       dv.data_ptr(), bh, sq, sk, d, int(causal), scale,
                       stream)
         _build.check(code, name)
-        flash_attention.launches["bwd" + suffix] += 1
+        flash_attention.launches["bwd" + _SUFFIX[dtype]] += 1
     else:  # no scores: every gradient is 0
         dq.zero_()
         dk.zero_()
@@ -462,10 +479,13 @@ def flash_attention_backward(
     return dq, dk, dv
 
 
-def kernel_head_dim(d: int) -> Optional[int]:
-    """The narrowest of ``KERNEL_HEAD_DIMS`` that holds head width ``d``,
-    or None above the widest."""
-    return next((w for w in KERNEL_HEAD_DIMS if d <= w), None)
+def kernel_head_dim(d: int) -> int:
+    """The narrowest kernel width that holds head width ``d``: one of
+    ``KERNEL_HEAD_DIMS``, or above the widest of them the next multiple of
+    ``WIDE_HEAD_STEP``."""
+    if d > KERNEL_HEAD_DIMS[-1]:
+        return -(-d // WIDE_HEAD_STEP) * WIDE_HEAD_STEP
+    return next(w for w in KERNEL_HEAD_DIMS if d <= w)
 
 
 def pad_head_dim(t: torch.Tensor, width: int) -> torch.Tensor:
@@ -476,12 +496,12 @@ def pad_head_dim(t: torch.Tensor, width: int) -> torch.Tensor:
 
 def _operand_width(q: torch.Tensor) -> int:
     """The head width FlashAttention hands the kernels: on the card the
-    next kernel width (D itself above the widest, which the kernels
-    refuse); on the CPU, where the plain versions take any D, D."""
+    next kernel width; on the CPU, where the plain versions take any D,
+    D."""
     d = q.shape[-1]
     if q.device.type == "cpu":
         return d
-    return kernel_head_dim(d) or d
+    return kernel_head_dim(d)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -551,27 +571,24 @@ def attention(
     generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Dense SDPA where its score tensors fit the memory budget, the
-    blockwise kernels beyond (:func:`use_flash_for`). Layout (BH, S, D).
+    blockwise kernels beyond (:func:`use_flash_for`), at any head width.
+    Layout (BH, S, D).
 
     Attention-weight dropout exists only in the dense path: the blockwise
-    kernels never hold the weight matrix. Nor is there a kernel for a head
-    width D above the widest of ``KERNEL_HEAD_DIMS``. A call that the
-    budget would send blockwise goes dense with a warning in either case;
+    kernels never hold the weight matrix. A dropout-active call that the
+    budget would send blockwise goes dense with a warning;
     ``use_flash=True`` raises instead of changing the semantics or the
     memory it takes."""
     dropout_active = dropout_rate > 0.0 and generator is not None
-    too_wide = kernel_head_dim(q.shape[-1]) is None
     if use_flash is None:
         shape = (q.shape[0], q.shape[1], k.shape[1], q.device.type)
-        use_flash = use_flash_for(*shape, dropout_active) and not too_wide
-        if (dropout_active or too_wide) and use_flash_for(*shape, False):
-            why = ("attention-weight dropout" if dropout_active else
-                   f"head width D={q.shape[-1]} (no kernel is wider than "
-                   f"{KERNEL_HEAD_DIMS[-1]})")
+        use_flash = use_flash_for(*shape, dropout_active)
+        if dropout_active and use_flash_for(*shape, False):
             warnings.warn(
-                f"{why} sends this call to the dense path although its "
-                f"score tensors (BH, Sq, Sk) = {shape[:3]} exceed the memory "
-                "budget for which the flash kernels exist", stacklevel=2)
+                "attention-weight dropout sends this call to the dense path "
+                f"although its score tensors (BH, Sq, Sk) = {shape[:3]} "
+                "exceed the memory budget for which the flash kernels exist",
+                stacklevel=2)
     if use_flash:
         if dropout_active:
             raise ValueError(
@@ -579,11 +596,6 @@ def attention(
                 "kernel (the weight matrix is never materialized); call "
                 "with use_flash=False/None for dropout-active steps"
             )
-        if too_wide:
-            raise ValueError(
-                f"no flash kernel for head width D={q.shape[-1]} (the "
-                f"widest is {KERNEL_HEAD_DIMS[-1]}); call with "
-                "use_flash=False/None")
         key_mask = _mask_or_ones(key_mask, k).contiguous()
         return FlashAttention.apply(q.contiguous(), k.contiguous(),
                                     v.contiguous(), key_mask, causal)

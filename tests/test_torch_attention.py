@@ -13,6 +13,7 @@ gradients to atol 3e-5 and rtol 1e-4 (likewise).
 import os
 import subprocess
 import sys
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -490,40 +491,56 @@ def test_padded_flash_attention_matches_jax_interpret(rng, monkeypatch, d,
 
 
 def test_attention_dispatch_above_the_widest_kernel(rng, monkeypatch):
-    """kernel_head_dim's widths (every width from 129 to 256 pads to the
-    D = 256 kernels); a head width above the widest kernel goes dense,
-    with a warning where the budget would send it blockwise, and
-    use_flash=True refuses it. The budget's verdict is forced on the CPU
-    (there it always says dense): D = 8 then goes through FlashAttention,
-    D = 257 dense with the warning."""
+    """kernel_head_dim's widths: every width from 129 to 256 pads to the
+    D = 256 kernels, a wider one to the next multiple of 64 (257 to 320;
+    512 stays). attention() takes every head width: at D = 257
+    use_flash=True raises nothing, and a call that the budget sends
+    blockwise (its verdict forced on the CPU, where it always says dense)
+    goes through FlashAttention with no warning and equals the plain
+    versions. Attention-weight dropout still warns there and still raises
+    with use_flash=True."""
     assert [att.kernel_head_dim(d) for d in (1, 8, 16, 24, 48, 96, 128,
                                              129)] == \
         [16, 16, 16, 32, 64, 128, 128, 256]
     assert all(att.kernel_head_dim(d) == 256 for d in range(129, 257))
-    assert att.kernel_head_dim(257) is None
+    assert [att.kernel_head_dim(d) for d in (257, 300, 320, 321, 448, 512,
+                                             513, 1000)] == \
+        [320, 320, 320, 384, 448, 512, 576, 1024]
+    assert all(att.kernel_head_dim(d) % att.WIDE_HEAD_STEP == 0 and
+               att.kernel_head_dim(d) - d < att.WIDE_HEAD_STEP
+               for d in range(257, 1025))
     wide = _t(*_inputs(rng, 2, 6, 6, 257))
-    with pytest.raises(ValueError, match="head width"):
-        att.attention(*wide[:3], use_flash=True)
-    monkeypatch.setattr(att, "use_flash_for", lambda *a: not a[-1])
-    with pytest.warns(UserWarning, match="head width D=257"):
+    want = att.flash_attention_reference(*wide[:3], wide[3])[0]
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        got = att.attention(*wide[:3], key_mask=wide[3], use_flash=True)
+        torch.testing.assert_close(got, want)
+        monkeypatch.setattr(att, "use_flash_for", lambda *a: not a[-1])
         got = att.attention(*wide[:3], key_mask=wide[3])
-    torch.testing.assert_close(got, att.scaled_dot_product_attention(
-        *wide[:3], key_mask=wide[3]))
+    torch.testing.assert_close(got, want)
+    gen = torch.Generator().manual_seed(0)
+    with pytest.warns(UserWarning, match="attention-weight dropout"):
+        att.attention(*wide[:3], key_mask=wide[3], dropout_rate=0.1,
+                      generator=gen)
+    with pytest.raises(ValueError, match="dropout"):
+        att.attention(*wide[:3], key_mask=wide[3], use_flash=True,
+                      dropout_rate=0.1, generator=gen)
     narrow = [t.requires_grad_() for t in _t(*_inputs(rng, 2, 6, 6, 8))[:3]]
     att.attention(*narrow, causal=True).sum().backward()  # FlashAttention
     assert all(t.grad is not None for t in narrow)
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [200, 256])
+@pytest.mark.parametrize("d", [200, 256, 257, 320, 512])
 def test_wide_heads_use_flash_match_jax_interpret(rng, monkeypatch, d,
                                                   causal):
-    """attention(use_flash=True) at D = 256 and at D = 200, which the card
-    pads to the D = 256 kernels (the padding forced here on the CPU, the
-    plain versions in the kernels' place), forward and gradients, against
-    JAX's flash_attention_diff in interpret mode, whose blocks take any D:
-    out rtol 1e-5 with atol 2e-5, the gradients rtol 1e-5 with atol 3e-5,
-    the file's bounds for the two summation orders."""
+    """attention(use_flash=True) at D = 256, 320 and 512 and at D = 200 and
+    257, which the card pads to the D = 256 and D = 320 kernels (the
+    padding forced here on the CPU, the plain versions in the kernels'
+    place), forward and gradients, against JAX's flash_attention_diff in
+    interpret mode, whose blocks take any D: out rtol 1e-5 with atol 2e-5,
+    the gradients rtol 1e-5 with atol 3e-5, the file's bounds for the two
+    summation orders."""
     monkeypatch.setattr(att, "_operand_width",
                         lambda t: att.kernel_head_dim(t.shape[-1]))
     q, k, v, mask = _inputs(rng, 2, 64, 64, d, masked_row=1)

@@ -637,7 +637,9 @@ def _attention_inputs(gen, bh, sq, sk, d):
     (6, 130, 150, 32),
     (4, 64, 200, 64),
     (4, 100, 100, 128),
-    (4, 100, 140, 256),  # output slices, tiles staged once
+    (4, 100, 140, 256),  # K6 of flash_attention_wide.cu, k/v resident
+    (4, 100, 140, 320),  # K5/K6 above 256: two output slices of 3 + 2
+    (2, 130, 70, 512),  # chunks, scores recomputed in each
     (64, 512, 512, 16),  # the Transformer slice's sequence length
 ])
 def test_flash_attention_kernels(device, bh, sq, sk, d, causal):
@@ -688,6 +690,11 @@ def _edge_mask(mask, case, sk):
     ("padding_tiles", 4, 130, 260, 256),
     ("last_tile_only", 4, 100, 140, 256),
     ("ragged_sk", 4, 70, 67, 256),
+    ("ragged_sk", 4, 33, 61, 256),
+    ("padding_tiles", 4, 130, 260, 320),
+    ("last_tile_only", 4, 100, 140, 512),
+    ("ragged_sk", 4, 70, 67, 320),
+    ("ragged_sk", 2, 33, 61, 512),
 ])
 def test_flash_attention_kernels_at_tile_edges(device, case, bh, sq, sk, d,
                                                causal):
@@ -798,8 +805,10 @@ def _bf16(*tensors):
     (6, 130, 150, 32),
     (4, 64, 200, 64),
     (4, 100, 100, 128),
-    (4, 100, 140, 256),  # output slices, A fragments read at each k-step
+    (4, 100, 140, 256),  # K6 of flash_attention_wide_bf16.cu
     (4, 70, 67, 256),
+    (4, 100, 140, 320),  # K5/K6 above 256
+    (4, 70, 67, 512),
     (64, 512, 512, 16),  # the Transformer slice's sequence length
 ])
 def test_flash_attention_bf16_kernels(device, bh, sq, sk, d, causal):
@@ -824,6 +833,60 @@ def test_flash_attention_bf16_kernels(device, bh, sq, sk, d, causal):
     assert not out[1].any() and not lse[1].any()
     for grad in grads:
         assert grad.dtype == torch.bfloat16 and not grad[1].any()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("case,bh,sq,sk,d", [
+    ("padding_tiles", 4, 130, 260, 256),
+    ("last_tile_only", 4, 100, 140, 256),
+    ("ragged_sk", 4, 33, 61, 256),
+    ("padding_tiles", 4, 130, 260, 320),
+    ("last_tile_only", 4, 100, 140, 512),
+    ("ragged_sk", 4, 70, 67, 320),
+    ("ragged_sk", 2, 33, 61, 512),
+])
+def test_flash_attention_bf16_kernels_at_tile_edges(device, case, bh, sq, sk,
+                                                    d, causal):
+    """The bf16 K6 at D = 256 and K5/K6 above it where whole 64-key tiles
+    are padding (skipped), where a row's only valid keys lie in the last
+    tile, and at ragged Sq and Sk: against their fp64 and bf16 plain
+    versions, one launch each."""
+    gen = torch.Generator(device=device).manual_seed(13)
+    q, k, v, mask = _attention_inputs(gen, bh, sq, sk, d)
+    mask = _edge_mask(mask, case, sk)
+    q, k, v, g = _bf16(q, k, v, _normal(gen, bh, sq, d))
+    before = dict(att.flash_attention.launches)
+    out, lse = att.flash_attention(q, k, v, mask, causal, return_lse=True)
+    grads = att.flash_attention_backward(q, k, v, mask, out, lse, g, causal)
+    torch.cuda.synchronize()
+    assert att.flash_attention.launches == {
+        **before, "fwd_bf16": before["fwd_bf16"] + 1,
+        "bwd_bf16": before["bwd_bf16"] + 1}
+    at.check_forward_bf16((out, lse), q, k, v, mask, causal)
+    at.check_backward_bf16(grads, q, k, v, mask, out, lse, g, causal)
+    assert not out[1].any() and not lse[1].any()
+    for grad in grads:
+        assert grad.dtype == torch.bfloat16 and not grad[1].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [256, 512])
+def test_wide_attention_kernels_are_deterministic(device, d, dtype):
+    """K5 and K6 of flash_attention_wide(_bf16).cu (and K5 at D = 256) give
+    the same bits on two calls: each block writes its own rows once, and
+    the two warpgroups' partial sums are added in a fixed order."""
+    gen = torch.Generator(device=device).manual_seed(14)
+    q, k, v, mask = _attention_inputs(gen, 8, 300, 260, d)
+    g = _normal(gen, 8, 300, d)
+    q, k, v, g = (t.to(dtype) for t in (q, k, v, g))
+    runs = []
+    for _ in range(2):
+        out, lse = att.flash_attention(q, k, v, mask, True, return_lse=True)
+        runs.append((out, lse, *att.flash_attention_backward(
+            q, k, v, mask, out, lse, g, True)))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 def test_flash_attention_bf16_autograd_and_dispatch(device):
@@ -885,7 +948,7 @@ def _padded_lse(q, k, v, mask, causal):
 
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [8, 24, 48, 96, 200])
+@pytest.mark.parametrize("d", [8, 24, 48, 96, 200, 257])
 def test_flash_attention_pads_head_widths(device, d, dtype, causal):
     """FlashAttention at head widths without a kernel: q, k, v and g go to
     K5 and K6 padded with zero columns to the next kernel width at scale
@@ -923,9 +986,9 @@ def test_flash_attention_pads_head_widths(device, d, dtype, causal):
 def test_attention_dispatch_pads_or_goes_dense_by_head_width(device):
     """attention() over the memory budget: at D = 8 (the IMDB example's
     --model-dim 32 --max-len 1024, BH 256) it goes through K5 and K6 and
-    agrees with the plain versions on 32 of its rows; at D = 257, wider
-    than every kernel, it warns and goes dense, and use_flash=True
-    raises."""
+    agrees with the plain versions on 32 of its rows; at D = 200 and
+    D = 257 it goes through the D = 256 and D = 320 kernels, padded, with
+    no warning, and agrees with the plain versions on 4 rows."""
     gen = torch.Generator(device=device).manual_seed(12)
     q, k, v, mask = _attention_inputs(gen, 256, 1024, 1024, 8)
     g = _normal(gen, 256, 1024, 8)
@@ -955,13 +1018,14 @@ def test_attention_dispatch_pads_or_goes_dense_by_head_width(device):
                      False)
     wide = _normal(gen, 160, 1024, 257)
     before = dict(att.flash_attention.launches)
-    with pytest.warns(UserWarning, match="head width D=257"):
-        got = att.attention(wide, wide, wide)
-    assert att.flash_attention.launches == before
-    torch.testing.assert_close(got, att.scaled_dot_product_attention(
-        wide, wide, wide))
-    with pytest.raises(ValueError, match="head width"):
-        att.attention(wide, wide, wide, use_flash=True)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        got = att.attention(wide, wide, wide, key_mask=mask[:160])
+    assert att.flash_attention.launches == {**before,
+                                            "fwd": before["fwd"] + 1}
+    lse = _padded_lse(wide[:4], wide[:4], wide[:4], mask[:4], False)
+    at.check_forward((got[:4], lse), wide[:4], wide[:4], wide[:4], mask[:4],
+                     False)
 
 
 # -- the forward kernels as ops (ops/custom_ops.py) ------------------------------
