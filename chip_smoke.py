@@ -1599,6 +1599,13 @@ def live_tile_pairs(mask: torch.Tensor, causal: bool) -> int:
     return int((live * seen).sum().item()) * ATT_TILE * ATT_TILE
 
 
+def kernel_source(dtype, d: int, backward: bool) -> str:
+    """The repo path of the source whose kernel K5 (or K6) runs for
+    operands of ``dtype`` at head width ``d``."""
+    return (f"deep_recommenders_torch/csrc/"
+            f"{att._kernel(dtype, d, backward)[0]}.cu")
+
+
 def attention_inputs(imdb: SyntheticImdb, device, dtype=torch.float32):
     """The attention kernels' inputs at the Transformer slice's shapes:
     q, k, v, g (2048, 512, 16) seeded normals in ``dtype``, and the key
@@ -1667,15 +1674,16 @@ def fp32_attention_times(imdb: SyntheticImdb, device) -> dict:
 def attention_times_by_width(imdb: SyntheticImdb, device) -> dict:
     """:func:`attention_times` of the fp32 and the bf16 K5 and K6 at the
     Transformer slice's shapes (D = 16, :func:`attention_inputs`) and at
-    D = 256 (:func:`wide_attention_inputs`): calls that every tree since
-    the D = 256 instances takes, for setting a change beside its
-    parent."""
+    D = 256 and 512 (:func:`wide_attention_inputs`, ``WIDE_SHAPES``):
+    calls that every tree since the D > 256 instances takes, for setting a
+    change beside its parent."""
     times = {}
     for dtype in (torch.float32, torch.bfloat16):
         times[f"d16/{dtype}"] = attention_times(
             *attention_inputs(imdb, device, dtype))
-        times[f"d256/{dtype}"] = attention_times(
-            *wide_attention_inputs(imdb, device, dtype))
+        for which in WIDE_SHAPES:
+            times[f"{which}/{dtype}"] = attention_times(
+                *wide_attention_inputs(imdb, device, dtype, which))
     return times
 
 
@@ -1786,13 +1794,12 @@ def attention_kernel_phase(imdb: SyntheticImdb, device, inputs=None,
             fwd.update(fwd_entry)
             bwd.update(bwd_entry)
         del out, lse, grads, fwd_call, bwd_call
-    source = "deep_recommenders_torch/csrc/flash_attention.cu"
     entries = [
         {"name": "flash_attention.fwd" + suffix, "route": "cuda",
-         "source": source,
+         "source": kernel_source(torch.float32, d, False),
          "replaces": "deep_recommenders_tpu/ops/attention.py:165", **fwd},
         {"name": "flash_attention.bwd" + suffix, "route": "cuda",
-         "source": source,
+         "source": kernel_source(torch.float32, d, True),
          "replaces": "deep_recommenders_tpu/ops/attention.py:377", **bwd},
     ]
     del q, k, v, g
@@ -1903,13 +1910,12 @@ def attention_bf16_kernel_phase(imdb: SyntheticImdb, device, inputs=None,
             fwd.update(fwd_entry)
             bwd.update(bwd_entry)
         del out, lse, grads
-    source = "deep_recommenders_torch/csrc/flash_attention_bf16.cu"
     entries = [
         {"name": "flash_attention_bf16.fwd" + suffix, "route": "cuda",
-         "source": source,
+         "source": kernel_source(torch.bfloat16, d, False),
          "replaces": "deep_recommenders_tpu/ops/attention.py:165", **fwd},
         {"name": "flash_attention_bf16.bwd" + suffix, "route": "cuda",
-         "source": source,
+         "source": kernel_source(torch.bfloat16, d, True),
          "replaces": "deep_recommenders_tpu/ops/attention.py:377", **bwd},
     ]
     del q, k, v, g
@@ -4349,7 +4355,7 @@ def main(argv=()) -> int:
                              "fp32 Transformer path")
     parser.add_argument("--attention-times", action="store_true",
                         help="time only the fp32 and bf16 K5 and K6 at "
-                             "D = 16 and D = 256")
+                             "D = 16, 256 and 512")
     parser.add_argument("--wrapper-host-us", action="store_true",
                         help="time only the host's us a call of the K3, K4 "
                              "and K5 forward wrappers")

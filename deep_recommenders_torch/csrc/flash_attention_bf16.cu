@@ -65,16 +65,9 @@
 // so far, which depends on the tile width (JAX uses 128 keys, this kernel
 // 64); ops/attention_tolerances.py bounds the difference.
 //
-// Head widths. This file holds K5 and K6 at D = 16, 32, 64 and 128, and
-// K5 at D = 256; K6 at D >= 256 and K5 above 256 are
-// flash_attention_wide_bf16.cu's. K5 at D = 256: a warp's output fragments
-// over D would take 128 registers, and its q fragments over D 64 more. So
-// a block computes a slice of 128 output columns, one grid column
-// (blockIdx.y) a slice, and scores over the whole of D in each (the
-// scores twice); the A fragments of the block's rows are read from shared
-// memory at each k-step instead of being held. The tiles stay
-// double-buffered (a 64-row tile of 264 bf16 is 33,792 bytes). Slice 0
-// writes lse.
+// Head widths. This file holds K5 and K6 at D = 16, 32, 64 and 128; K5 at
+// D = 256 is flash_attention_d256_bf16.cu's (wgmma fed by TMA), K6 at
+// D >= 256 and K5 above 256 flash_attention_wide_bf16.cu's.
 //
 // Every exported function launches on the stream it is given and returns
 // cudaGetLastError(), or cudaErrorInvalidValue for what it does not take.
@@ -94,11 +87,6 @@ struct Dims {
   static constexpr int LD = D + 8;       // bf16 per staged row
   static constexpr int TILE = kCols * LD;
   static constexpr int KSTEPS = D / 16;  // mma k-steps over D
-  // K5 at D = 256 computes a slice of 128 output columns a block, and its
-  // warps read the A fragments of their rows at each k-step instead of
-  // holding them.
-  static constexpr int FWD_COLS = D <= 128 ? D : 128;
-  static constexpr bool HOLD_A = D <= 128;
 };
 
 // Fragment coordinates of a lane: mma's (group, thread in group) and
@@ -158,45 +146,6 @@ __device__ __forceinline__ void scores(float (&acc)[8][4],
       mma_bf16(acc[2 * j + 1], a[kk], f[2], f[3]);
     }
   }
-}
-
-// acc[j] = A B^T as scores() computes it, with the A fragments of the
-// warp's 16 rows of a ([rows][LD], from row0) read at each k-step.
-template <int D>
-__device__ __forceinline__ void scores_of(float (&acc)[8][4], const bf16* a,
-                                          int row0, const bf16* b,
-                                          const Lane& ln) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < Dims<D>::KSTEPS; ++kk) {
-    uint32_t af[4];
-    load_a<D>(af, a, row0, kk, ln);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      uint32_t f[4];
-      ldmatrix_x4(f, b + (16 * j + ln.li + (ln.lq >> 1) * 8) * Dims<D>::LD +
-                         kk * 16 + (ln.lq & 1) * 8);
-      mma_bf16(acc[2 * j], af, f[0], f[1]);
-      mma_bf16(acc[2 * j + 1], af, f[2], f[3]);
-    }
-  }
-}
-
-// acc = A B^T of the warp's rows of a (from row0) and the tile b: from
-// the held fragments ah where the warp holds them, else from a.
-template <int D>
-__device__ __forceinline__ void scores_rows(
-    float (&acc)[8][4], const uint32_t (&ah)[Dims<D>::HOLD_A
-                                                  ? Dims<D>::KSTEPS
-                                                  : 1][4],
-    const bf16* a, int row0, const bf16* b, const Lane& ln) {
-  if constexpr (Dims<D>::HOLD_A)
-    scores<D>(acc, ah, b, ln);
-  else
-    scores_of<D>(acc, a, row0, b, ln);
 }
 
 // acc[n] += P B over the 8 NT columns at b of a 64-row tile (rows of LD
@@ -266,8 +215,7 @@ __global__ void __launch_bounds__(kThreads, D == 16 ? 7 : 1)
   bf16* ks = qs + kRows * T::LD;             // [2][64][LD]
   bf16* vs = ks + 2 * T::TILE;               // [2][64][LD]
   uint32_t* bits = reinterpret_cast<uint32_t*>(vs + 2 * T::TILE);
-  constexpr int NV = T::FWD_COLS / 8;          // n8 tiles of the slice
-  const int col0 = blockIdx.y * T::FWD_COLS;  // the block's output slice
+  constexpr int NV = D / 8;  // n8 tiles over D
 
   const Lane ln;
   const int nq = (sq + kRows - 1) / kRows;
@@ -291,12 +239,10 @@ __global__ void __launch_bounds__(kThreads, D == 16 ? 7 : 1)
   cp_async_wait<0>();
   __syncthreads();
 
-  uint32_t qa[T::HOLD_A ? T::KSTEPS : 1][4];
-  if constexpr (T::HOLD_A) {
+  uint32_t qa[T::KSTEPS][4];
 #pragma unroll
-    for (int kk = 0; kk < T::KSTEPS; ++kk)
-      load_a<D>(qa[kk], qs, 16 * ln.warp, kk, ln);
-  }
+  for (int kk = 0; kk < T::KSTEPS; ++kk)
+    load_a<D>(qa[kk], qs, 16 * ln.warp, kk, ln);
 
   const int row0 = q0 + 16 * ln.warp + ln.grp;  // and row0 + 8
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
@@ -319,7 +265,7 @@ __global__ void __launch_bounds__(kThreads, D == 16 ? 7 : 1)
     __syncthreads();
 
     float s[8][4];
-    scores_rows<D>(s, qa, qs, 16 * ln.warp, ks + stage * T::TILE, ln);
+    scores<D>(s, qa, ks + stage * T::TILE, ln);
     const uint32_t w0 = bits[2 * t], w1 = bits[2 * t + 1];
     const int k0 = t * kCols;
     float alpha[2];
@@ -337,7 +283,7 @@ __global__ void __launch_bounds__(kThreads, D == 16 ? 7 : 1)
     for (int n = 0; n < NV; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
-    accumulate<NV, T::LD>(o, s, vs + stage * T::TILE + col0, ln);
+    accumulate<NV, T::LD>(o, s, vs + stage * T::TILE, ln);
     __syncthreads();  // this stage's readers are done before its next load
     t = tn;
   }
@@ -346,8 +292,8 @@ __global__ void __launch_bounds__(kThreads, D == 16 ? 7 : 1)
 #pragma unroll
   for (int h = 0; h < 2; ++h) inv[h] = 1.f / fmaxf(l[h], 1e-30f);
   const int64_t first = bh * sq + q0 + 16 * ln.warp;
-  store_rows<NV, D>(out + col0, first, sq - (q0 + 16 * ln.warp), o, inv, ln);
-  if (ln.tig == 0 && blockIdx.y == 0) {
+  store_rows<NV, D>(out, first, sq - (q0 + 16 * ln.warp), o, inv, ln);
+  if (ln.tig == 0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = row0 + 8 * h;
@@ -624,8 +570,7 @@ int fwd(const bf16* q, const bf16* k, const bf16* v, const float* mask,
   const int err = configure(fwd_kernel<D>, smem, blocks);
   if (err) return err;
   const float scale_log2 = (float)(kLog2e * softmax_scale);
-  const dim3 grid((unsigned)blocks, D / Dims<D>::FWD_COLS);
-  fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+  fwd_kernel<D><<<(unsigned)blocks, kThreads, smem, stream>>>(
       q, k, v, mask, out, lse, sq, sk, causal, scale_log2);
   return (int)cudaGetLastError();
 }
@@ -660,7 +605,8 @@ int bwd(const bf16* q, const bf16* k, const bf16* v, const float* mask,
 
 // K5 in bf16. q (bh, sq, d), k and v (bh, sk, d), out (bh, sq, d) bf16;
 // mask (bh, sk) and lse (bh, sq) fp32; all contiguous, the bf16 tensors
-// 16-byte aligned; d in {16, 32, 64, 128, 256}; the scores are q.k scale (the
+// 16-byte aligned; d in {16, 32, 64, 128} (256: flash_attention_d256_bf16.cu;
+// above: flash_attention_wide_bf16.cu); the scores are q.k scale (the
 // wrapper's default 1/sqrt(d); a head width padded with zero columns passes
 // its own).
 extern "C" int flash_attention_fwd_bf16(const bf16* q, const bf16* k,
@@ -677,7 +623,6 @@ extern "C" int flash_attention_fwd_bf16(const bf16* q, const bf16* k,
     case 32: FLASH_FWD(32);
     case 64: FLASH_FWD(64);
     case 128: FLASH_FWD(128);
-    case 256: FLASH_FWD(256);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef FLASH_FWD

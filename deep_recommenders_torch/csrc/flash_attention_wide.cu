@@ -15,27 +15,37 @@
 // masks (42 M scored pairs non-causal) K6 needs 10 D products a pair:
 // 3 x 0.215 TFLOP of TF32 passes, 0.654 ms at 495 TFLOP/s, beside 0.161
 // ms of bytes. So the tensor cores bound it, and the design serves them:
-// - Each (query tile, key tile) pair is scored once over the whole of D.
-//   A block owns 64 rows and up to 256 output columns (kSliceChunks
-//   64-column chunks); a wider D takes ceil(D / 256) grid columns, each
-//   scoring over all of D, so the scores are recomputed that many times.
 // - 8 warps in two warpgroups, and 256 threads hold a 64 x 256 fp32
-//   accumulator (128 registers a thread). dk/dv gives the warpgroups
-//   roles, as FlashAttention-3 does: warpgroup 0 scores s^T = k q^T and
-//   accumulates dv += p^T g, warpgroup 1 scores dp^T = v g^T, reads p^T
-//   through shared memory and accumulates dk += ds^T q. dq and K5 split
-//   each key tile between them: warp (r, w) takes rows 16 r .. 16 r + 15
-//   and keys 32 w .. 32 w + 31, so p and ds stay in registers; the two
-//   warpgroups' partial sums are added in a fixed order at the end (K5
-//   merges the two online softmaxes).
+//   accumulator (128 registers a thread): a block owns 64 rows and at most
+//   4 64-column output chunks. dk/dv gives the warpgroups roles, as
+//   FlashAttention-3 does: warpgroup 0 scores s^T = k q^T and accumulates
+//   dv += p^T g, warpgroup 1 scores dp^T = v g^T, reads p^T through shared
+//   memory and accumulates dk += ds^T q. dq and K5 split each key tile
+//   between them: warp (r, w) takes rows 16 r .. 16 r + 15 and keys
+//   32 w .. 32 w + 31, so p and ds stay in registers; the two warpgroups'
+//   partial sums are added in a fixed order at the end (K5 merges the two
+//   online softmaxes).
 // - D is streamed in 64-column chunks through a ring of stages filled by
 //   cp.async, several chunks ahead of the products: a 64-row fp32 tile at
 //   D = 256 is 66,560 bytes, so whole tiles cannot be double-buffered. A
-//   query tile (dk/dv) or key tile (dq, K5) takes nc score steps, one a
-//   chunk of D, then one step a chunk of the block's output columns,
-//   which loads that chunk again (from L2). At D = 256 the block's own
-//   rows (k and v; q and g) stay resident and only the other side
-//   streams.
+//   query tile (dk/dv) or key tile (dq, K5) takes a score step a chunk,
+//   then one step a chunk of the block's output columns, which loads that
+//   chunk again (from L2).
+// - K6 splits D over a thread-block cluster, so each (query tile, key
+//   tile) pair is scored once. The cluster of G = ceil(D / 256) blocks
+//   (one at D = 256, at most 8) serves one (bh, 64-row tile); block r owns
+//   its share of the chunks (at most 4: 3 + 2 at D = 320), keeps its own
+//   rows' chunks resident (k and v; q and g) and streams only its columns
+//   of the other side. Each block scores partial s and dp (s^T, dp^T) over
+//   its chunks and writes them into the ring stage its last score step
+//   read; after a cluster barrier every block adds the G partials, read
+//   through distributed shared memory, in rank order, so all hold the same
+//   bits; a second cluster barrier keeps that stage's next load until
+//   every block has read it. The block then carries on over its own
+//   chunks only. Above 8 x 256 the grid keeps columns: each column is a
+//   cluster whose blocks score over their shares of all of D (streamed)
+//   and compute their shares of the column's output. K5 above 256 still
+//   takes ceil(D / 256) grid columns, each scoring over all of D.
 // - One __syncthreads a step: it publishes the step's chunks, frees the
 //   stage the next load takes, and orders the p^T handover (written at the
 //   last score step, read at the first output step).
@@ -43,9 +53,10 @@
 // products stay on mma.sync m16n8k8 (wgmma takes TF32 only K-major, and
 // hi/lo copies of every chunk would double its shared memory).
 //
-// ptxas (-Xptxas -v, sm_90a), registers a thread: fwd_wide 248,
-// dq_wide<RES> 245, dq_wide<streamed> 251, dkv_wide<RES> 235,
-// dkv_wide<streamed> 246; no spill, no stack frame.
+// ptxas (-Xptxas -v, sm_90a, CUDA 12.9), registers a thread: fwd_wide
+// 248; dq_wide and dkv_wide at D = 256 (one block, RES) 241 and 238, split
+// over a cluster with their chunks resident 246 and 239, split and
+// streamed (D > 2048) 255 and 253; no spill, no stack frame.
 //
 // Each block writes its own rows once: no atomics, and the result does not
 // depend on the order blocks run in. Ragged Sq and Sk, key tiles that are
@@ -55,7 +66,11 @@
 // Every exported function launches on the stream it is given and returns
 // cudaGetLastError(), or cudaErrorInvalidValue for what it does not take.
 
+#include <cooperative_groups.h>
+
 #include "flash_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -65,7 +80,8 @@ constexpr int kC = 64;              // columns of D in a chunk
 constexpr int LDC = kC + 4;         // floats per staged chunk row
 constexpr int CHUNK = kRows * LDC;  // floats of a staged chunk
 constexpr int kSliceChunks = 4;     // output chunks a block computes, at most
-constexpr int kOwnChunks = 4;       // chunks of a resident operand (D = 256)
+constexpr int kOwnChunks = 4;       // chunks of a resident operand, at most
+constexpr int kClusterMax = 8;      // blocks a cluster: the portable most
 
 // Fragment coordinates: the warp's row group (0..3) and warpgroup, mma's
 // group and thread in group.
@@ -194,14 +210,6 @@ __device__ __forceinline__ void get_frags(float (&x)[NJ][4], const float* buf,
       x[j][2 * h] = v.x;
       x[j][2 * h + 1] = v.y;
     }
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&x)[N][4]) {
-#pragma unroll
-  for (int j = 0; j < N; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) x[j][e] = 0.f;
 }
 
 // The accumulators of the block's output chunks, and their partial sums
@@ -380,10 +388,115 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// -- K6: a cluster splits D --------------------------------------------------
+
+// The chunks of D a block scores over, [sfirst, sfirst + scount), and the
+// output chunks it computes, [ofirst, ofirst + ocount).
+struct Part {
+  int sfirst, scount, ofirst, ocount;
+};
+
+// Part i of n items split evenly over `parts`: (first, count).
+__host__ __device__ __forceinline__ int2 share(int n, int parts, int i) {
+  const int base = n / parts, extra = n % parts;
+  return make_int2(i * base + (i < extra ? i : extra),
+                   base + (i < extra ? 1 : 0));
+}
+
+// Block `rank` of the cluster of `group` blocks that is grid column
+// blockIdx.y / group: the column's output chunks (nc split evenly over the
+// gridDim.y / group columns) split evenly over the cluster. RES (one
+// column): it scores over its own output chunks, which stay resident;
+// else over its share of all nc, streamed.
+template <bool RES>
+__device__ __forceinline__ Part part_of(int nc, int group, int rank) {
+  const int2 col = share(nc, gridDim.y / group, blockIdx.y / group);
+  const int2 own = share(col.y, group, rank);
+  const int2 sc =
+      RES ? make_int2(col.x + own.x, own.y) : share(nc, group, rank);
+  return {sc.x, sc.y, col.x + own.x, own.y};
+}
+
+// peers[r] = (steps a tile takes, score steps of a tile) of the cluster's
+// block r, for r < group; read after the kernel's first __syncthreads.
+template <bool RES>
+__device__ __forceinline__ void steps_of_peers(int2* peers, int nc,
+                                               int group) {
+  if ((int)threadIdx.x < group) {
+    const Part p = part_of<RES>(nc, group, threadIdx.x);
+    peers[threadIdx.x] = make_int2(p.scount + p.ocount, p.scount);
+  }
+}
+
+// The ring stage that a block's last score step of tile n read, n tiles
+// done before it (its steps count from 0, steps.x a tile, the first
+// steps.y of them score steps).
+template <int S>
+__device__ __forceinline__ int last_score_stage(int2 steps, int n) {
+  return (n * steps.x + steps.y - 1) % S;
+}
+
+// Cluster barrier halves: arrive with release semantics, wait with
+// acquire.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The address in block `rank`'s shared memory (distributed shared memory)
+// of what lies at p in this block's, and a load from there.
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, int rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a)
+               : "r"(smem_addr(p)), "r"(rank));
+  return a;
+}
+
+__device__ __forceinline__ float2 ld_cluster(uint32_t a) {
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(a)
+               : "memory");
+  return v;
+}
+
+// x (this block's partial fragments, 16 rows x 8 NJ columns from col0)
+// becomes the sum of the cluster's `group` partials, added in rank order:
+// block r's is in its shared memory at slot(r) (a [64][LDC] buffer; this
+// block's address of it), this block's own (`rank`) read from its shared
+// memory, the others' through distributed shared memory. Every block adds
+// the same values in the same order, so all hold the same bits.
+template <int NJ, typename Slot>
+__device__ __forceinline__ void cluster_sum(float (&x)[NJ][4], int col0,
+                                            int group, int rank, Slot slot,
+                                            const Lane& ln) {
+  const int at = (16 * ln.wq + ln.grp) * LDC + col0 + 2 * ln.tig;
+  for (int r = 0; r < group; ++r) {
+    const float* b = slot(r) + at;
+    const uint32_t remote = cluster_addr(b, r);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int off = 8 * h * LDC + 8 * j;
+        const float2 v =
+            r == rank ? *reinterpret_cast<const float2*>(b + off)
+                      : ld_cluster(remote + sizeof(float) * off);
+        x[j][2 * h] = r == 0 ? v.x : x[j][2 * h] + v.x;
+        x[j][2 * h + 1] = r == 0 ? v.y : x[j][2 * h + 1] + v.y;
+      }
+  }
+}
+
 // -- K6: dq -------------------------------------------------------------------
 
 // Stages of the ring, and the chunks a stage holds: k and v, with q and g
-// too unless they are resident (RES, D = 256).
+// too unless they are resident (RES).
 template <bool RES>
 struct DqRing {
   static constexpr int S = RES ? 2 : 3;
@@ -395,25 +508,32 @@ template <bool RES>
 constexpr size_t dq_wide_smem(int ntiles) {
   using R = DqRing<RES>;
   return sizeof(float) * (R::OWN + R::S * R::PER) * CHUNK +
-         sizeof(uint32_t) * 2 * ntiles;
+         sizeof(int2) * kClusterMax + sizeof(uint32_t) * 2 * ntiles;
 }
 
-template <bool RES>
+template <bool RES, bool SPLIT>
 __global__ void __launch_bounds__(kThreads, 1)
     dq_wide(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, const float* __restrict__ mask,
             const float* __restrict__ lse, const float* __restrict__ delta,
             const float* __restrict__ g, float* __restrict__ dq, int sq,
-            int sk, int nc, int causal, float scale, float scale_log2) {
+            int sk, int nc, int group, int causal, float scale,
+            float scale_log2) {
   using R = DqRing<RES>;
   constexpr int S = R::S;
   extern __shared__ __align__(16) unsigned char smem[];
   float* own = reinterpret_cast<float*>(smem);  // RES: [q, g][4][64][LDC]
   float* ring = own + R::OWN * CHUNK;           // [S][k, v (, q, g)][64][LDC]
-  uint32_t* bits = reinterpret_cast<uint32_t*>(ring + S * R::PER * CHUNK);
+  int2* peers = reinterpret_cast<int2*>(ring + S * R::PER * CHUNK);
+  uint32_t* bits = reinterpret_cast<uint32_t*>(peers + kClusterMax);
   const int d = nc * kC;
   const Lane ln;
-  const Slice sl = slice_of(nc);
+  int rank = 0;
+  if constexpr (SPLIT) {
+    rank = (int)cg::this_cluster().block_rank();
+    steps_of_peers<RES>(peers, nc, group);
+  }
+  const Part pt = part_of<RES>(nc, group, rank);
   const int nq = (sq + kRows - 1) / kRows;
   const int64_t bh = blockIdx.x / nq;
   const int q0 = (int)(blockIdx.x % nq) * kRows;
@@ -426,24 +546,26 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int nrun = causal ? min(ntiles, (q0 + kRows - 1) / kRows + 1) : ntiles;
   load_key_bits<kThreads / 32>(bits, mask + bh * sk, sk, ntiles);
   if constexpr (RES) {
-    for (int c = 0; c < nc; ++c) {
-      load_chunk(own + c * CHUNK, qb + c * kC, d, sq - q0);
-      load_chunk(own + (kOwnChunks + c) * CHUNK, gb + c * kC, d, sq - q0);
+    for (int c = 0; c < pt.ocount; ++c) {
+      load_chunk(own + c * CHUNK, qb + (pt.ofirst + c) * kC, d, sq - q0);
+      load_chunk(own + (kOwnChunks + c) * CHUNK, gb + (pt.ofirst + c) * kC,
+                 d, sq - q0);
     }
   }
   __syncthreads();  // the bits
 
-  // A key tile takes nc score steps (k, v, and q, g chunks), then one
-  // step a k chunk of the slice.
-  const int nst = nc + sl.count;
+  // A key tile takes a score step a chunk the block scores over (k, v,
+  // and unless RES q, g chunks), then one step a k chunk of its output.
+  const int nst = pt.scount + pt.ocount;
   int lt = next_live(bits, 0, nrun), lj = 0, li = 0;  // the next load
   auto issue = [&]() {
     if (lt < nrun) {
       float* st = ring + (li % S) * R::PER * CHUNK;
       const int kt0 = lt * kRows;
-      const int c = lj < nc ? lj : sl.first + lj - nc;
+      const bool scoring = lj < pt.scount;
+      const int c = scoring ? pt.sfirst + lj : pt.ofirst + lj - pt.scount;
       load_chunk(st, kb + (int64_t)kt0 * d + c * kC, d, sk - kt0);
-      if (lj < nc) {
+      if (scoring) {
         load_chunk(st + CHUNK, vb + (int64_t)kt0 * d + c * kC, d, sk - kt0);
         if constexpr (!RES) {
           load_chunk(st + 2 * CHUNK, qb + c * kC, d, sq - q0);
@@ -475,23 +597,53 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int c = 0; c < kSliceChunks; ++c) zero(acc[c]);
 
   int i = 0;  // steps so far
+  // SPLIT: the cluster barrier after the partial scores were read, arrived
+  // at and not yet waited for (the stage they were read from takes the
+  // next step's load).
+  bool owed = false;
   auto step = [&]() {
     cp_async_wait<S - 2>();
     __syncthreads();  // the step's chunks landed; the stage before it free
+    if (SPLIT && owed) {
+      cluster_wait();
+      owed = false;
+    }
     issue();
     return ring + (i++ % S) * R::PER * CHUNK;
   };
+  int n = 0;  // key tiles done
   for (int t = next_live(bits, 0, nrun); t < nrun;
-       t = next_live(bits, t + 1, nrun)) {
+       t = next_live(bits, t + 1, nrun), ++n) {
     zero(s);
     zero(dp);
-    // s = q k^T and dp = g v^T: the warp's 16 rows, its 32 keys.
-    for (int j = 0; j < nc; ++j) {
-      const float* st = step();
+    // s = q k^T and dp = g v^T over the block's chunks: the warp's 16
+    // rows, its 32 keys.
+    float* st = nullptr;
+    for (int j = 0; j < pt.scount; ++j) {
+      st = step();
       const float* qa = RES ? own + j * CHUNK : st + 2 * CHUNK;
       const float* ga = RES ? own + (kOwnChunks + j) * CHUNK : st + 3 * CHUNK;
       chunk_scores<4>(s, qa, 16 * ln.wq, st, kbase, ln);
       chunk_scores<4>(dp, ga, 16 * ln.wq, st + CHUNK, kbase, ln);
+    }
+    if constexpr (SPLIT) {
+      // The cluster's partial s and dp go through the stage the last score
+      // step read (its k and v chunks: s, then dp). The second cluster
+      // barrier, waited for at the next step, keeps that stage's next load
+      // until every block has read it.
+      __syncthreads();
+      put_frags(st, LDC, kbase, s, ln);
+      put_frags(st + CHUNK, LDC, kbase, dp, ln);
+      cluster_arrive();
+      cluster_wait();
+      const auto slot = [&](int r) {
+        return ring + last_score_stage<S>(peers[r], n) * R::PER * CHUNK;
+      };
+      cluster_sum(s, kbase, group, rank, slot, ln);
+      cluster_sum(dp, kbase, group, rank,
+                  [&](int r) { return slot(r) + CHUNK; }, ln);
+      cluster_arrive();
+      owed = true;
     }
     const uint32_t w0 = bits[2 * t], w1 = bits[2 * t + 1];
     const int k0 = t * kRows;
@@ -512,13 +664,13 @@ __global__ void __launch_bounds__(kThreads, 1)
                                },
                                lse2, dlt);
     }
-    // dq += ds k over the warp's 32 keys, a k chunk a step: the chunk's
-    // rows are the k index.
+    // dq += ds k over the warp's 32 keys, a k chunk of the block's output
+    // a step: the chunk's rows are the k index.
 #pragma unroll
     for (int c = 0; c < kSliceChunks; ++c) {
-      if (c < sl.count) {
-        const float* st = step();
-        chunk_accumulate<4>(acc[c], dp, st + kbase * LDC, ln);
+      if (c < pt.ocount) {
+        const float* so = step();
+        chunk_accumulate<4>(acc[c], dp, so + kbase * LDC, ln);
       }
     }
   }
@@ -531,21 +683,21 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (ln.wg == 1) {
 #pragma unroll
     for (int c = 0; c < kSliceChunks; ++c)
-      if (c < sl.count) put_frags(buf, LDR, c * kC, acc[c], ln);
+      if (c < pt.ocount) put_frags(buf, LDR, c * kC, acc[c], ln);
   }
   __syncthreads();
   if (ln.wg == 1) return;
   const float one[2] = {1.f, 1.f};
 #pragma unroll
   for (int c = 0; c < kSliceChunks; ++c) {
-    if (c >= sl.count) continue;
+    if (c >= pt.ocount) continue;
     float other[8][4];
     get_frags(other, buf, LDR, c * kC, ln);
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n8 = 0; n8 < 8; ++n8)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[c][n][e] += other[n][e];
-    store_chunk(dq + (sl.first + c) * kC, first + 16 * ln.wq,
+      for (int e = 0; e < 4; ++e) acc[c][n8][e] += other[n8][e];
+    store_chunk(dq + (pt.ofirst + c) * kC, first + 16 * ln.wq,
                 sq - (q0 + 16 * ln.wq), d, acc[c], one, ln);
   }
 }
@@ -553,7 +705,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 // -- K6: dk and dv ------------------------------------------------------------
 
 // Stages of the ring, and the chunks a stage holds: q and g, with k and v
-// too unless they are resident (RES, D = 256).
+// too unless they are resident (RES).
 template <bool RES>
 struct DkvRing {
   static constexpr int S = RES ? 2 : 3;
@@ -566,17 +718,18 @@ struct DkvRing {
 template <bool RES>
 constexpr size_t dkv_wide_smem() {
   using R = DkvRing<RES>;
-  return sizeof(float) * ((R::OWN + R::S * R::PER + 1) * CHUNK + 4 * kRows);
+  return sizeof(float) * ((R::OWN + R::S * R::PER + 1) * CHUNK + 4 * kRows) +
+         sizeof(int2) * kClusterMax;
 }
 
-template <bool RES>
+template <bool RES, bool SPLIT>
 __global__ void __launch_bounds__(kThreads, 1)
     dkv_wide(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, const float* __restrict__ mask,
              const float* __restrict__ lse, const float* __restrict__ delta,
              const float* __restrict__ g, float* __restrict__ dk,
-             float* __restrict__ dv, int sq, int sk, int nc, int causal,
-             float scale, float scale_log2) {
+             float* __restrict__ dv, int sq, int sk, int nc, int group,
+             int causal, float scale, float scale_log2) {
   using R = DkvRing<RES>;
   constexpr int S = R::S;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -584,9 +737,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* ring = own + R::OWN * CHUNK;           // [S][q, g (, k, v)][64][LDC]
   float* xp = ring + S * R::PER * CHUNK;        // p^T, [64][LDC]
   float* lsd = xp + CHUNK;                      // [2][lse, delta][64]
+  int2* peers = reinterpret_cast<int2*>(lsd + 4 * kRows);
   const int d = nc * kC;
   const Lane ln;
-  const Slice sl = slice_of(nc);
+  int rank = 0;
+  if constexpr (SPLIT) {
+    rank = (int)cg::this_cluster().block_rank();
+    steps_of_peers<RES>(peers, nc, group);
+  }
+  const Part pt = part_of<RES>(nc, group, rank);
   const int nkb = (sk + kRows - 1) / kRows;
   const int64_t bh = blockIdx.x / nkb;
   const int k0 = (int)(blockIdx.x % nkb) * kRows;
@@ -603,25 +762,28 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   const int nq = (sq + kRows - 1) / kRows;
   // Causal: query tiles that end before this key tile starts see none of
-  // its keys. A block of padding keys only has gradients 0.
+  // its keys. A block of padding keys only has gradients 0. (The blocks of
+  // a cluster share their keys, so they walk the same query tiles.)
   int qt = causal ? k0 / kRows : 0;
   if (!__syncthreads_or(key_ok[0] || key_ok[1])) qt = nq;
   const bool all_keys = __syncthreads_and(key_ok[0] && key_ok[1]);
 
-  // A query tile takes nc score steps (q, g, and k, v chunks), then one
-  // step a q and g chunk of the slice. Step i's loads go to stage i % S;
-  // the first step of a tile also stages its lse and delta.
-  const int nst = nc + sl.count;
+  // A query tile takes a score step a chunk the block scores over (q, g,
+  // and unless RES k, v chunks), then one step a q and g chunk of its
+  // output. Step i's loads go to stage i % S; the first step of a tile
+  // also stages its lse and delta.
+  const int nst = pt.scount + pt.ocount;
   const int total = (nq - qt) * nst;
   auto issue = [&](int i) {
     if (i < total) {
       const int t = qt + i / nst, j = i % nst, q0 = t * kRows;
       float* st = ring + (i % S) * R::PER * CHUNK;
-      const int c = j < nc ? j : sl.first + j - nc;
+      const bool scoring = j < pt.scount;
+      const int c = scoring ? pt.sfirst + j : pt.ofirst + j - pt.scount;
       load_chunk(st, qb + (int64_t)q0 * d + c * kC, d, sq - q0);
       load_chunk(st + CHUNK, gb + (int64_t)q0 * d + c * kC, d, sq - q0);
       if constexpr (!RES) {
-        if (j < nc) {
+        if (scoring) {
           load_chunk(st + 2 * CHUNK, kb + c * kC, d, sk - k0);
           load_chunk(st + 3 * CHUNK, vb + c * kC, d, sk - k0);
         }
@@ -639,9 +801,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   };
   if constexpr (RES) {
     if (qt < nq) {
-      for (int c = 0; c < nc; ++c) {
-        load_chunk(own + c * CHUNK, kb + c * kC, d, sk - k0);
-        load_chunk(own + (kOwnChunks + c) * CHUNK, vb + c * kC, d, sk - k0);
+      for (int c = 0; c < pt.ocount; ++c) {
+        load_chunk(own + c * CHUNK, kb + (pt.ofirst + c) * kC, d, sk - k0);
+        load_chunk(own + (kOwnChunks + c) * CHUNK, vb + (pt.ofirst + c) * kC,
+                   d, sk - k0);
       }
     }
   }
@@ -655,9 +818,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int c = 0; c < kSliceChunks; ++c) zero(acc[c]);
 
   int i = 0;  // steps so far
+  bool owed = false;  // as in dq_wide
   auto step = [&]() {
     cp_async_wait<S - 2>();
     __syncthreads();  // the step's chunks landed; the stage before it free
+    if (SPLIT && owed) {
+      cluster_wait();
+      owed = false;
+    }
     issue(i + S - 1);
     return ring + (i++ % S) * R::PER * CHUNK;
   };
@@ -665,12 +833,30 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int q0 = t * kRows;
     const float* ls = lsd + (t & 1) * 2 * kRows;
     zero(x);
-    // s^T = k q^T (warpgroup 0), dp^T = v g^T (warpgroup 1).
-    for (int j = 0; j < nc; ++j) {
-      const float* st = step();
+    // s^T = k q^T (warpgroup 0), dp^T = v g^T (warpgroup 1), over the
+    // block's chunks.
+    float* st = nullptr;
+    for (int j = 0; j < pt.scount; ++j) {
+      st = step();
       const float* a = RES ? own + (kOwnChunks * ln.wg + j) * CHUNK
                          : st + (2 + ln.wg) * CHUNK;
       chunk_scores<8>(x, a, 16 * ln.wq, st + ln.wg * CHUNK, 0, ln);
+    }
+    if constexpr (SPLIT) {
+      // The cluster's partial s^T (warpgroup 0) and dp^T (warpgroup 1) go
+      // through the stage the last score step read (its q and g chunks),
+      // as in dq_wide.
+      __syncthreads();
+      put_frags(st + ln.wg * CHUNK, LDC, 0, x, ln);
+      cluster_arrive();
+      cluster_wait();
+      const int n = t - qt;  // query tiles done
+      cluster_sum(x, 0, group, rank, [&](int r) {
+        return ring + last_score_stage<S>(peers[r], n) * R::PER * CHUNK +
+               ln.wg * CHUNK;
+      }, ln);
+      cluster_arrive();
+      owed = true;
     }
     if (ln.wg == 0) {
       const auto lse2 = [=](int c, int) { return ls[c]; };
@@ -689,11 +875,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       put_frags(xp, LDC, 0, x, ln);  // p^T for warpgroup 1
     }
     // dv += p^T g (warpgroup 0), dk += ds^T q (warpgroup 1), a q and g
-    // chunk a step: the query tile's rows are the k index.
+    // chunk of the block's output a step: the query tile's rows are the k
+    // index.
 #pragma unroll
     for (int c = 0; c < kSliceChunks; ++c) {
-      if (c < sl.count) {
-        const float* st = step();
+      if (c < pt.ocount) {
+        const float* so = step();
         if (c == 0 && ln.wg == 1) {
           // ds^T = p^T (dp^T - delta) scale; p^T is 0 on every masked
           // lane. The step's barrier orders it after warpgroup 0's write.
@@ -702,7 +889,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           form_ds(x, p, scale, ln.tig,
                   [=](int col, int) { return ls[kRows + col]; });
         }
-        chunk_accumulate<8>(acc[c], x, st + (1 - ln.wg) * CHUNK, ln);
+        chunk_accumulate<8>(acc[c], x, so + (1 - ln.wg) * CHUNK, ln);
       }
     }
   }
@@ -713,41 +900,62 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int rows = sk - (k0 + 16 * ln.wq);
 #pragma unroll
   for (int c = 0; c < kSliceChunks; ++c)
-    if (c < sl.count)
-      store_chunk(out + (sl.first + c) * kC, first, rows, d, acc[c], one, ln);
+    if (c < pt.ocount)
+      store_chunk(out + (pt.ofirst + c) * kC, first, rows, d, acc[c], one,
+                  ln);
 }
 
 // -- launchers ----------------------------------------------------------------
 
-// Grid columns of a head width of nc chunks: at most kSliceChunks each.
+// Grid columns of K5 at a head width of nc chunks: at most kSliceChunks
+// each.
 unsigned slices(int nc) { return (nc + kSliceChunks - 1) / kSliceChunks; }
 
-template <bool RES>
+// A launch in clusters of (1, group, 1) blocks (none when group is 1); a
+// cluster the card cannot place returns its error.
+template <typename... Args, typename... Actual>
+int launch(void (*kernel)(Args...), dim3 grid, size_t smem, int group,
+           cudaStream_t stream, Actual... args) {
+  cudaLaunchConfig_t config = {};
+  config.gridDim = grid;
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = 1;
+  cluster[0].val.clusterDim.y = (unsigned)group;
+  cluster[0].val.clusterDim.z = 1;
+  config.attrs = cluster;
+  config.numAttrs = group > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(&config, kernel, args...);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+template <bool RES, bool SPLIT>
 int bwd(const float* q, const float* k, const float* v, const float* mask,
         const float* lse, const float* delta, const float* g, float* dq,
-        float* dk, float* dv, int bh, int sq, int sk, int nc, int causal,
-        double softmax_scale, cudaStream_t stream) {
+        float* dk, float* dv, int bh, int sq, int sk, int nc, int ncol,
+        int group, int causal, double softmax_scale, cudaStream_t stream) {
   const float scale = (float)softmax_scale;
   const float scale_log2 = (float)(kLog2e * softmax_scale);
   const int64_t dq_blocks = (int64_t)bh * ((sq + kRows - 1) / kRows);
   const size_t dq_bytes = dq_wide_smem<RES>((sk + kRows - 1) / kRows);
-  int err = configure(dq_wide<RES>, dq_bytes, dq_blocks);
+  int err = configure(dq_wide<RES, SPLIT>, dq_bytes, dq_blocks);
   if (err) return err;
-  const dim3 dq_grid((unsigned)dq_blocks, slices(nc));
-  dq_wide<RES><<<dq_grid, kThreads, dq_bytes, stream>>>(
-      q, k, v, mask, lse, delta, g, dq, sq, sk, nc, causal, scale,
-      scale_log2);
-  err = (int)cudaGetLastError();
+  err = launch(dq_wide<RES, SPLIT>,
+               dim3((unsigned)dq_blocks, ncol * group), dq_bytes, group,
+               stream, q, k, v, mask, lse, delta, g, dq, sq,
+               sk, nc, group, causal, scale, scale_log2);
   if (err) return err;
   const int64_t dkv_blocks = (int64_t)bh * ((sk + kRows - 1) / kRows);
   constexpr size_t dkv_bytes = dkv_wide_smem<RES>();
-  err = configure(dkv_wide<RES>, dkv_bytes, dkv_blocks);
+  err = configure(dkv_wide<RES, SPLIT>, dkv_bytes, dkv_blocks);
   if (err) return err;
-  const dim3 dkv_grid((unsigned)dkv_blocks, slices(nc));
-  dkv_wide<RES><<<dkv_grid, kThreads, dkv_bytes, stream>>>(
-      q, k, v, mask, lse, delta, g, dk, dv, sq, sk, nc, causal, scale,
-      scale_log2);
-  return (int)cudaGetLastError();
+  return launch(dkv_wide<RES, SPLIT>,
+                dim3((unsigned)dkv_blocks, ncol * group), dkv_bytes, group,
+                stream, q, k, v, mask, lse, delta, g, dk,
+                dv, sq, sk, nc, group, causal, scale, scale_log2);
 }
 
 }  // namespace
@@ -776,7 +984,10 @@ extern "C" int flash_attention_wide_fwd_f32(const float* q, const float* k,
 }
 
 // K6 at a head width d >= 256, d a multiple of 64. Arguments as
-// flash_attention_bwd_f32's; runs the dq kernel, then the dk/dv kernel.
+// flash_attention_bwd_f32's; runs the dq kernel, then the dk/dv kernel, each
+// in clusters of ceil(d / 256) blocks up to kClusterMax (one block at
+// d = 256), and above kClusterMax * 256 in as many grid columns of clusters
+// as that takes.
 extern "C" int flash_attention_wide_bwd_f32(
     const float* q, const float* k, const float* v, const float* mask,
     const float* lse, const float* delta, const float* g, float* dq,
@@ -786,9 +997,17 @@ extern "C" int flash_attention_wide_bwd_f32(
       !aligned(dq) || !aligned(dk) || !aligned(dv) || d < 256 || d % kC)
     return (int)cudaErrorInvalidValue;
   const int nc = d / kC;
-  return nc <= kOwnChunks
-             ? bwd<true>(q, k, v, mask, lse, delta, g, dq, dk, dv, bh, sq, sk,
-                         nc, causal, scale, stream)
-             : bwd<false>(q, k, v, mask, lse, delta, g, dq, dk, dv, bh, sq,
-                          sk, nc, causal, scale, stream);
+  constexpr int kPerColumn = kClusterMax * kOwnChunks;
+  const int ncol = (nc + kPerColumn - 1) / kPerColumn;
+  const int per_col = (nc + ncol - 1) / ncol;
+  const int group = (per_col + kOwnChunks - 1) / kOwnChunks;
+  if (group == 1)  // d = 256: one block, no exchange
+    return bwd<true, false>(q, k, v, mask, lse, delta, g, dq, dk, dv, bh, sq,
+                            sk, nc, ncol, group, causal, scale, stream);
+  return ncol == 1
+             ? bwd<true, true>(q, k, v, mask, lse, delta, g, dq, dk, dv, bh,
+                               sq, sk, nc, ncol, group, causal, scale, stream)
+             : bwd<false, true>(q, k, v, mask, lse, delta, g, dq, dk, dv, bh,
+                                sq, sk, nc, ncol, group, causal, scale,
+                                stream);
 }

@@ -8,10 +8,11 @@
 // deep_recommenders_tpu/ops/attention.py: flash_attention (K5, body
 // _flash_kernel :82, pallas_call :199) and _flash_backward_impl (K6, bodies
 // _flash_bwd_dq_kernel :285 and _flash_bwd_dkv_kernel :326, pallas_calls
-// :436 and :463). flash_attention_bf16.cu keeps K5 and K6 up to 128 and K5
-// at 256. The layout, the masks, lse, delta (formed by the dq kernel from
-// its rows of g and out, written for the dk/dv kernel) and the results are
-// flash_attention_bf16.cu's, D a multiple of 64.
+// :436 and :463). flash_attention_bf16.cu keeps K5 and K6 up to 128,
+// flash_attention_d256_bf16.cu K5 at 256. The layout, the masks, lse,
+// delta (formed by the dq kernel from its rows of g and out, written for
+// the dk/dv kernel) and the results are flash_attention_bf16.cu's, D a
+// multiple of 64.
 //
 // What bounds them. At (BH 256, S 512, D 256) with a SyntheticImdb batch's
 // masks K6 needs 10 D products a scored pair (0.215 TFLOP, 0.218 ms at
@@ -23,9 +24,10 @@
 //   B once a warpgroup, straight from shared memory: the scores with A
 //   from shared memory too (A and B K-major), the output products with p
 //   or ds as A in registers (their accumulator fragments rounded to bf16,
-//   the mma.sync layout) and B read transposed (MN-major). A chunk is 64
-//   rows of 128 bytes in wgmma's 128-byte swizzle, loaded by cp.async to
-//   the swizzled address; fence.proxy.async makes it visible to wgmma.
+//   the mma.sync layout) and B read transposed (MN-major), through
+//   wgmma.cuh's helpers. A chunk is 64 rows of 128 bytes in wgmma's
+//   128-byte swizzle, loaded by cp.async to the swizzled address;
+//   fence.proxy.async makes it visible to wgmma.
 //   Each batch of wgmma is fenced, committed and waited for before its
 //   accumulators are read.
 // - The block layout is flash_attention_wide.cu's (see there): a block
@@ -52,6 +54,7 @@
 // cudaGetLastError(), or cudaErrorInvalidValue for what it does not take.
 
 #include "flash_common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -104,104 +107,6 @@ __device__ __forceinline__ void load_chunk(bf16* dst, const bf16* src, int ld,
   }
 }
 
-// The shared-memory matrix descriptor of wgmma for a swizzled chunk from p
-// on: 128-byte swizzle, 8-row groups 1024 bytes apart (the leading byte
-// offset is unused: no operand is wider than one 128-byte row).
-__device__ __forceinline__ uint64_t desc(const bf16* p) {
-  return (uint64_t)((smem_addr(p) & 0x3ffff) >> 4) | (1ull << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t a,
-                                         uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_ss(float (&d)[4][4], uint64_t a,
-                                         uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[8][4],
-                                         const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// cp.async's writes to shared memory made visible to wgmma (the async
-// proxy): each thread fences its own landed copies before the barrier.
-__device__ __forceinline__ void fence_async_proxy() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// wgmma's ordering: a fence before a batch (its accumulators and A
-// registers were written since), commit and wait for it before they are
-// read; the empty asm statements pin the accumulators in between.
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait(float (&d)[N][4]) {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-#pragma unroll
-  for (int j = 0; j < N; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
-}
-
-template <int N, int M>
-__device__ __forceinline__ void wgmma_wait(float (&d)[N][M][4]) {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-#pragma unroll
-  for (int c = 0; c < N; ++c)
-#pragma unroll
-    for (int j = 0; j < M; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        asm volatile("" : "+f"(d[c][j][e])::"memory");
-}
-
 // acc += A B^T over n chunks (4 k16 steps each), by the warpgroup, in one
 // batch: A the chunks from a (64 rows), B the 8 NJ rows of the chunks from
 // b, consecutive chunks CHUNK apart; a warp's fragments are its 16 rows
@@ -236,20 +141,6 @@ __device__ __forceinline__ void tile_scores2(float (&s)[NJ][4], const bf16* a,
     }
   wgmma_wait(s);
   wgmma_wait(t);
-}
-
-// The A fragments of the warp's 16 x 8 NJ fp32 fragments x rounded to
-// bf16: k16 step kk covers x's n8 tiles 2 kk and 2 kk + 1.
-template <int NJ>
-__device__ __forceinline__ void pack_a(uint32_t (&a)[NJ / 2][4],
-                                       const float (&x)[NJ][4]) {
-#pragma unroll
-  for (int kk = 0; kk < NJ / 2; ++kk) {
-    a[kk][0] = pack_bf16x2(x[2 * kk][0], x[2 * kk][1]);
-    a[kk][1] = pack_bf16x2(x[2 * kk][2], x[2 * kk][3]);
-    a[kk][2] = pack_bf16x2(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-    a[kk][3] = pack_bf16x2(x[2 * kk + 1][2], x[2 * kk + 1][3]);
-  }
 }
 
 // acc[c] += A B_c for the output chunks c < n in one batch, by the
@@ -327,14 +218,6 @@ __device__ __forceinline__ void get_frags(float (&x)[NJ][4], const float* buf,
       x[j][2 * h] = v.x;
       x[j][2 * h + 1] = v.y;
     }
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&x)[N][4]) {
-#pragma unroll
-  for (int j = 0; j < N; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) x[j][e] = 0.f;
 }
 
 // Warpgroup 1's fp32 partial sums of the block's output chunks, for

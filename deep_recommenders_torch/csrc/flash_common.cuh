@@ -1,5 +1,6 @@
 // Device helpers shared by the attention kernels (K5, K6): flash_attention.cu
-// and flash_attention_bf16.cu (head widths up to 256, and K5 at 256), and
+// and flash_attention_bf16.cu (head widths up to 128, and fp32 K5 at 256),
+// flash_attention_d256_bf16.cu (bf16 K5 at 256), and
 // flash_attention_wide.cu and flash_attention_wide_bf16.cu (K6 at D >= 256,
 // K5 above 256). Each source includes it once; everything here has internal
 // linkage.
@@ -280,6 +281,14 @@ __device__ __forceinline__ void form_ds(float (&ds)[NJ][4],
     for (int e = 0; e < 4; ++e)
       ds[j][e] = p[j][e] *
                  (ds[j][e] - delta(8 * j + 2 * tig + (e & 1), e >> 1)) * scale;
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&x)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[j][e] = 0.f;
 }
 
 template <typename Kernel>

@@ -530,6 +530,51 @@ def test_attention_dispatch_above_the_widest_kernel(rng, monkeypatch):
     assert all(t.grad is not None for t in narrow)
 
 
+# (source, C function) of K5 ("fwd") and K6 ("bwd") by operand dtype and
+# head width: csrc/flash_attention(_bf16).cu up to 128 and the fp32 K5 at
+# 256, csrc/flash_attention_d256_bf16.cu for the bf16 K5 at 256,
+# csrc/flash_attention_wide(_bf16).cu for K6 from 256 and K5 above it.
+_ROUTES = {
+    ("float32", "fwd"): {16: "flash_attention", 128: "flash_attention",
+                         256: "flash_attention", 320: "flash_attention_wide",
+                         512: "flash_attention_wide"},
+    ("float32", "bwd"): {16: "flash_attention", 128: "flash_attention",
+                         256: "flash_attention_wide",
+                         320: "flash_attention_wide",
+                         512: "flash_attention_wide"},
+    ("bfloat16", "fwd"): {16: "flash_attention_bf16",
+                          128: "flash_attention_bf16",
+                          256: "flash_attention_d256_bf16",
+                          320: "flash_attention_wide_bf16",
+                          512: "flash_attention_wide_bf16"},
+    ("bfloat16", "bwd"): {16: "flash_attention_bf16",
+                          128: "flash_attention_bf16",
+                          256: "flash_attention_wide_bf16",
+                          320: "flash_attention_wide_bf16",
+                          512: "flash_attention_wide_bf16"},
+}
+
+
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+@pytest.mark.parametrize("d", [16, 128, 256, 320, 512])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_routing_by_dtype_width_and_direction(dtype, d, direction):
+    """_kernel() names the source and C function the card launches for each
+    operand dtype, head width and direction; the source is one the build
+    compiles and defines that function."""
+    from deep_recommenders_torch.ops import _build
+
+    source, symbol = att._kernel(getattr(torch, dtype), d,
+                                 backward=direction == "bwd")
+    assert source == _ROUTES[dtype, direction][d]
+    prefix = source[:-len("_bf16")] if dtype == "bfloat16" else source
+    suffix = "bf16" if dtype == "bfloat16" else "f32"
+    assert symbol == f"{prefix}_{direction}_{suffix}"
+    assert source in _build.SOURCES
+    with open(_build.source_path(source)) as f:
+        assert f'extern "C" int {symbol}(' in f.read()
+
+
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("d", [200, 256, 257, 320, 512])
 def test_wide_heads_use_flash_match_jax_interpret(rng, monkeypatch, d,
