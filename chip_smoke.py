@@ -43,11 +43,16 @@ In order:
    bf16 plain versions (``check_forward_bf16``, ``check_backward_bf16``),
    timed beside the bf16 SDPA call, with the exp floor beside their bounds;
    then K5 and K6 at D = 256 and at D = 512, fp32 and bf16
-   (``wide_attention_phase``: K6 from 256 and K5 above it are
-   csrc/flash_attention_wide(_bf16).cu's), at (256, 512, 256) and
-   (128, 512, 512) on one SyntheticImdb batch's key masks, held and timed
-   as those at D = 16, beside the library's SDPA where it takes the shape
-   ("refused" where not); then the head widths no kernel is built for
+   (``wide_attention_phase``: K6 and the fp32 K5 from 256 are
+   csrc/flash_attention_wide(_bf16).cu's, the bf16 K5
+   csrc/flash_attention_cluster_bf16.cu's; both K5 on clusters that split
+   D above 256), at (256, 512, 256) and (128, 512, 512) on one
+   SyntheticImdb batch's key masks, held and timed as those at D = 16,
+   beside the library's SDPA where it takes the shape ("refused" where
+   not); at D = 512 the forward checks must also reject the forward that
+   loses a block's partial scores, and the bf16 K5's kernels must show
+   Hopper's wgmma and TMA instructions in their SASS and no mma.sync;
+   then the head widths no kernel is built for
    (``head_width_phase``): attention() over the budget at D = 8 and
    FlashAttention at D = 24, fp32 and bf16, through K5 and K6 padded to
    the next kernel width and held to the same checks at the true D;
@@ -60,8 +65,9 @@ In order:
    - attention() over the budget at D = 200 and at D = 257, (160, 1024),
      in fp32 and then bf16, forward and backward
      (``attention_width_path``): no warning, one launch of each of the
-     four K5/K6 kernels (padded to D = 256 and to D = 320), held to the
-     plain versions at the true D on 64 rows;
+     four K5/K6 kernels (padded to D = 256 and to D = 320: both K5 on
+     clusters of two blocks at 320), held to the plain versions at the
+     true D on 64 rows;
    - xDeepFM's flagship (maps (128, 128) relu, hidden (256, 128)), 2 epochs:
      two K1, one K3 forward and one K3 backward per train step, one K3
      forward per eval batch;
@@ -222,10 +228,11 @@ in a parent's tree measures the parent.
     python3 chip_smoke.py --attention-times
 
 builds the kernels and times the fp32 and the bf16 K5 and K6 at the
-Transformer's shapes (D = 16) and at D = 256 (the wide phase's inputs;
-device and eager ms, K6's split between its two kernels, no checks), and
+Transformer's shapes (D = 16), at D = 256 and 512 (the wide phase's
+inputs) and at D = 1024, (64, 512, 1024) (K5 on clusters of 4 blocks);
+device and eager ms, K6's split between its two kernels, no checks; and
 prints them as its last line, one JSON object (no "ok" line). It calls
-only what every tree since the D = 256 instances has, so a copy of this
+only what every tree since the D > 256 instances has, so a copy of this
 script in a parent's tree measures the parent.
 
     python3 chip_smoke.py --wrapper-host-us
@@ -359,6 +366,9 @@ HW_BH, HW_LEN, HW_CHUNK, HW_WIDE_BH = 256, 1024, 64, 160
 # SyntheticImdb batch's key masks, one head an example, at the
 # Transformer's S; (BH, D) of each.
 WIDE_SHAPES = {"d256": (256, 256), "d512": (128, 512)}
+# --attention-times also takes D = 1024 (K5 on clusters of 4 blocks), BH
+# halved again: how the clusters' exchange grows with their size.
+TIMED_SHAPES = {**WIDE_SHAPES, "d1024": (64, 1024)}
 
 # Published H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bandwidth, fp32
 # outside the tensor cores, and dense bf16 on the tensor cores.
@@ -1674,17 +1684,25 @@ def fp32_attention_times(imdb: SyntheticImdb, device) -> dict:
 def attention_times_by_width(imdb: SyntheticImdb, device) -> dict:
     """:func:`attention_times` of the fp32 and the bf16 K5 and K6 at the
     Transformer slice's shapes (D = 16, :func:`attention_inputs`) and at
-    D = 256 and 512 (:func:`wide_attention_inputs`, ``WIDE_SHAPES``):
-    calls that every tree since the D > 256 instances takes, for setting a
-    change beside its parent."""
+    D = 256, 512 and 1024 (:func:`wide_attention_inputs`,
+    ``TIMED_SHAPES``): calls that every tree since the D > 256 instances
+    takes, for setting a change beside its parent."""
     times = {}
     for dtype in (torch.float32, torch.bfloat16):
         times[f"d16/{dtype}"] = attention_times(
             *attention_inputs(imdb, device, dtype))
-        for which in WIDE_SHAPES:
+        for which in TIMED_SHAPES:
             times[f"{which}/{dtype}"] = attention_times(
                 *wide_attention_inputs(imdb, device, dtype, which))
     return times
+
+
+def lost_partial(fwd_checks) -> str:
+    """The share line's end where the forward check also ran the planted
+    fault of a lost partial score (K5 on a cluster that splits D)."""
+    share = fwd_checks.get("planted", {}).get("partial_dropped")
+    return "" if share is None else (
+        f"; forward less a block's partial scores {share:.6g}")
 
 
 def attention_kernel_phase(imdb: SyntheticImdb, device, inputs=None,
@@ -1706,6 +1724,7 @@ def attention_kernel_phase(imdb: SyntheticImdb, device, inputs=None,
     q, k, v, g, mask = inputs or attention_inputs(imdb, device)
     del inputs
     bh, s, d = q.shape
+    split = d > at.PARTIAL_WIDTH  # K5 on clusters that split D
     chunks = [slice(i, i + ATT_CHUNK) for i in range(0, bh, ATT_CHUNK)]
     shape = {"q": [bh, s, d], "k": [bh, s, d],
              "valid_keys": mask.mean().item()}
@@ -1720,7 +1739,8 @@ def attention_kernel_phase(imdb: SyntheticImdb, device, inputs=None,
         torch.cuda.synchronize()
         fwd_checks = _merge_checks(
             at.check_forward((out[c], lse[c]), q[c], k[c], v[c], mask[c],
-                             causal, planted_tf32=True) for c in chunks)
+                             causal, planted_tf32=True,
+                             planted_partial=split) for c in chunks)
         bwd_checks = _merge_checks(
             at.check_backward([t[c] for t in grads], q[c], k[c], v[c],
                               mask[c], out[c], lse[c], g[c], causal,
@@ -1738,7 +1758,8 @@ def attention_kernel_phase(imdb: SyntheticImdb, device, inputs=None,
               f"{fwd_checks['planted']['single_pass_tf32']:.6g}, backward "
               f"{bwd_checks['planted']['single_pass_tf32']:.6g} times its "
               "limit; dk less a query tile "
-              f"{bwd_checks['dk']['planted']['query_tile_dropped']:.6g}")
+              f"{bwd_checks['dk']['planted']['query_tile_dropped']:.6g}"
+              + lost_partial(fwd_checks))
         pairs = _valid_pairs(mask, causal)
         fwd_call, bwd_call = attention_calls(q, k, v, g, mask, causal)
         fwd_entry = {
@@ -1825,6 +1846,7 @@ def attention_bf16_kernel_phase(imdb: SyntheticImdb, device, inputs=None,
                                                   torch.bfloat16)
     del inputs
     bh, s, d = q.shape
+    split = d > at.PARTIAL_WIDTH  # K5 on clusters that split D
     chunks = [slice(i, i + ATT_CHUNK) for i in range(0, bh, ATT_CHUNK)]
     shape = {"q": [bh, s, d], "k": [bh, s, d], "dtype": "bfloat16",
              "valid_keys": mask.mean().item()}
@@ -1837,7 +1859,8 @@ def attention_bf16_kernel_phase(imdb: SyntheticImdb, device, inputs=None,
         torch.cuda.synchronize()
         fwd_checks = _merge_checks(
             at.check_forward_bf16((out[c], lse[c]), q[c], k[c], v[c],
-                                  mask[c], causal) for c in chunks)
+                                  mask[c], causal, planted_partial=split)
+            for c in chunks)
         bwd_checks = _merge_checks(
             at.check_backward_bf16([t[c] for t in grads], q[c], k[c], v[c],
                                    mask[c], out[c], lse[c], g[c], causal,
@@ -1848,7 +1871,8 @@ def attention_bf16_kernel_phase(imdb: SyntheticImdb, device, inputs=None,
               f"{fwd_checks['out_bf16_plain']['err_over_tol']:.6g} (bf16 "
               f"plain); dk {bwd_checks['dk']['err_over_tol']:.6g}, fro "
               f"{bwd_checks['dk']['fro_over_tol']:.6g}; planted dk fault "
-              f"{bwd_checks['dk']['planted']['query_tile_dropped']:.6g}")
+              f"{bwd_checks['dk']['planted']['query_tile_dropped']:.6g}"
+              + lost_partial(fwd_checks))
         pairs = _valid_pairs(mask, causal)
         lanes = live_tile_pairs(mask, causal)
         fwd_entry = {
@@ -1925,10 +1949,10 @@ def attention_bf16_kernel_phase(imdb: SyntheticImdb, device, inputs=None,
 
 def wide_attention_inputs(imdb: SyntheticImdb, device, dtype,
                           which: str = "d256"):
-    """The wide phase's inputs at ``WIDE_SHAPES[which]`` = (BH, D): q, k,
+    """The wide phase's inputs at ``TIMED_SHAPES[which]`` = (BH, D): q, k,
     v, g (BH, TX_LEN, D) seeded normals in ``dtype``, and the key masks of
     one SyntheticImdb train batch (BH examples, one head each)."""
-    bh, d = WIDE_SHAPES[which]
+    bh, d = TIMED_SHAPES[which]
     tokens = torch.from_numpy(imdb.train[0][:bh]).to(device)
     mask = (tokens != 0).float()
     gen = torch.Generator(device=device).manual_seed(SEED + d)
@@ -1937,14 +1961,55 @@ def wide_attention_inputs(imdb: SyntheticImdb, device, dtype,
     return q, k, v, g, mask
 
 
+# SASS opcodes counted in the bf16 K5's kernels: Hopper's warpgroup
+# products and TMA loads and stores, and mma.sync (which they must not use).
+SASS_OPCODES = ("HGMMA", "UTMALDG", "UTMASTG", "HMMA")
+
+
+def sass_opcodes(source: str) -> dict:
+    """Each kernel's count of ``SASS_OPCODES`` in the built library of
+    ``source`` (cuobjdump -sass of build/kernels/lib<source>-<hash>.so)."""
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", _build.library_path(source)],
+                          capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ")[1].strip()
+            counts[name] = dict.fromkeys(SASS_OPCODES, 0)
+        elif name is not None and "*/" in line:
+            op = line.split("*/", 1)[1].split()
+            op = op[1] if op and op[0].startswith("@") and len(op) > 1 else (
+                op[0] if op else "")
+            base = op.split(".")[0]
+            if base in counts[name]:
+                counts[name][base] += 1
+    return counts
+
+
+def check_cluster_sass() -> dict:
+    """The bf16 K5 from D = 256 to 2048 runs on wgmma and TMA: every kernel
+    of csrc/flash_attention_cluster_bf16.cu has HGMMA, UTMALDG and
+    UTMASTG instructions and no HMMA (mma.sync)."""
+    counts = sass_opcodes("flash_attention_cluster_bf16")
+    bad = {k: c for k, c in counts.items()
+           if c["HMMA"] or not (c["HGMMA"] and c["UTMALDG"] and c["UTMASTG"])}
+    if not counts or bad:
+        raise AssertionError(f"flash_attention_cluster_bf16 SASS: {counts}")
+    print(f"flash_attention_cluster_bf16 SASS: {list(counts.values())}")
+    return counts
+
+
 def wide_attention_phase(imdb: SyntheticImdb, device):
-    """K5 and K6 at D = 256 and at D = 512 (above 256:
-    ``csrc/flash_attention_wide(_bf16).cu``), fp32 and bf16, at
+    """K5 and K6 at D = 256 and at D = 512, fp32 and bf16, at
     (BH, S, D) = (256, TX_LEN, 256) and (128, TX_LEN, 512)
     (:func:`wide_attention_inputs`), non-causal and causal, by the fp32
-    and bf16 kernel phases' checks, planted faults, times, bounds and
-    library calls (the SDPA call's kernels where it takes the shape,
-    "refused" where not); entries ``*.d256`` and ``*.d512``."""
+    and bf16 kernel phases' checks, planted faults (at D = 512 also the
+    forward less a block's partial scores), times, bounds and library
+    calls (the SDPA call's kernels where it takes the shape, "refused"
+    where not); entries ``*.d256`` and ``*.d512``, the bf16 K5's with its
+    kernels' SASS opcode counts (:func:`check_cluster_sass`)."""
+    sass = check_cluster_sass()
     entries = []
     for which in WIDE_SHAPES:
         entries += attention_kernel_phase(
@@ -1955,6 +2020,7 @@ def wide_attention_phase(imdb: SyntheticImdb, device):
             imdb, device,
             wide_attention_inputs(imdb, device, torch.bfloat16, which),
             heads=1, suffix="." + which)
+        entries[-2]["sass"] = sass
     return entries
 
 
@@ -4355,7 +4421,7 @@ def main(argv=()) -> int:
                              "fp32 Transformer path")
     parser.add_argument("--attention-times", action="store_true",
                         help="time only the fp32 and bf16 K5 and K6 at "
-                             "D = 16, 256 and 512")
+                             "D = 16, 256, 512 and 1024")
     parser.add_argument("--wrapper-host-us", action="store_true",
                         help="time only the host's us a call of the K3, K4 "
                              "and K5 forward wrappers")

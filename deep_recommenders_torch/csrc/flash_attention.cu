@@ -75,16 +75,10 @@
 //   keys past Sk are masked. A query row with no valid key gives out 0 and
 //   lse 0, and its p is 0 in the backward.
 //
-// Head widths. This file holds K5 and K6 at D = 16, 32, 64 and 128, and
-// K5 at D = 256; K6 at D >= 256 and K5 above 256 are
-// flash_attention_wide.cu's (8 warps, D streamed in 64-column chunks, each
-// tile pair scored once). K5 at D = 256: a tile of 64 rows of 260 floats
-// is 66,560 bytes, so a block holds three of them (232,448 bytes at most),
-// and a 16-row warp's output fragments over D would take 128 registers. So
-// a block computes a slice of 128 output columns, one grid column
-// (blockIdx.y) a slice, and scores over the whole of D in each (the
-// scores twice); it holds q, one key tile and one value tile, staged once.
-// Slice 0 writes lse.
+// Head widths. This file holds K5 and K6 at D = 16, 32, 64 and 128; from
+// D = 256 on they are flash_attention_wide.cu's (8 warps, D streamed in
+// 64-column chunks, split over a thread-block cluster above 256, each tile
+// pair scored once).
 //
 // Every exported function launches on the stream it is given and returns
 // cudaGetLastError(), or cudaErrorInvalidValue for what it does not take.
@@ -102,10 +96,6 @@ struct Dims {
   static constexpr int LD = D + 4;      // floats per staged row
   static constexpr int TILE = kCols * LD;
   static constexpr int KSTEPS = D / 8;  // mma k-steps over D
-  // K5 at D = 256 computes a slice of 128 output columns a block and
-  // stages its tiles once (no double buffer).
-  static constexpr int FWD_COLS = D <= 128 ? D : 128;
-  static constexpr bool ONE_STAGE = D > 128;
 };
 
 // Fragment coordinates of a lane: mma's group and thread in group.
@@ -228,10 +218,10 @@ __device__ __forceinline__ void store_rows(float* out, int64_t row0, int rows,
 
 // -- K5 -----------------------------------------------------------------------
 
+// q, and the key and value tiles double-buffered; the key bits.
 template <int D>
 constexpr size_t fwd_smem(int ntiles) {
-  constexpr int stages = Dims<D>::ONE_STAGE ? 1 : 2;
-  return sizeof(float) * (kRows + 2 * stages * kCols) * Dims<D>::LD +
+  return sizeof(float) * (kRows + 4 * kCols) * Dims<D>::LD +
          sizeof(uint32_t) * 2 * ntiles;
 }
 
@@ -242,14 +232,12 @@ __global__ void __launch_bounds__(kThreads)
                float* __restrict__ out, float* __restrict__ lse, int sq,
                int sk, int causal, float scale_log2) {
   using T = Dims<D>;
-  constexpr int S = T::ONE_STAGE ? 1 : 2;  // staged tiles
-  constexpr int NV = T::FWD_COLS / 8;      // n8 tiles of the block's slice
+  constexpr int NV = D / 8;  // n8 tiles of the output
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);  // [64][LD]
-  float* ks = qs + kRows * T::LD;              // [S][64][LD]
-  float* vs = ks + S * T::TILE;                // [S][64][LD]
-  uint32_t* bits = reinterpret_cast<uint32_t*>(vs + S * T::TILE);
-  const int col0 = blockIdx.y * T::FWD_COLS;  // the block's output slice
+  float* ks = qs + kRows * T::LD;              // [2][64][LD]
+  float* vs = ks + 2 * T::TILE;                // [2][64][LD]
+  uint32_t* bits = reinterpret_cast<uint32_t*>(vs + 2 * T::TILE);
 
   const Lane ln;
   const int nq = (sq + kRows - 1) / kRows;
@@ -279,20 +267,16 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
 
-  for (int stage = 0; t < nrun; stage ^= S - 1) {
+  for (int stage = 0; t < nrun; stage ^= 1) {
     const int tn = next_live(bits, t + 1, nrun);
-    if constexpr (S == 2) {
-      if (tn < nrun) {
-        load_tile<D, kCols>(ks + (stage ^ 1) * T::TILE,
-                            kb + (int64_t)tn * kCols * D, sk - tn * kCols);
-        load_tile<D, kCols>(vs + (stage ^ 1) * T::TILE,
-                            vb + (int64_t)tn * kCols * D, sk - tn * kCols);
-      }
-      cp_async_commit();
-      cp_async_wait<1>();  // tile t (and q) have landed
-    } else {
-      cp_async_wait<0>();
+    if (tn < nrun) {
+      load_tile<D, kCols>(ks + (stage ^ 1) * T::TILE,
+                          kb + (int64_t)tn * kCols * D, sk - tn * kCols);
+      load_tile<D, kCols>(vs + (stage ^ 1) * T::TILE,
+                          vb + (int64_t)tn * kCols * D, sk - tn * kCols);
     }
+    cp_async_commit();
+    cp_async_wait<1>();  // tile t (and q) have landed
     __syncthreads();
 
     float s[8][4];
@@ -314,17 +298,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int n = 0; n < NV; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
-    accumulate<NV, T::LD>(o, s, vs + stage * T::TILE + col0, ln);
+    accumulate<NV, T::LD>(o, s, vs + stage * T::TILE, ln);
     __syncthreads();  // this stage's readers are done before its next load
-    if constexpr (S == 1) {
-      if (tn < nrun) {
-        load_tile<D, kCols>(ks, kb + (int64_t)tn * kCols * D,
-                            sk - tn * kCols);
-        load_tile<D, kCols>(vs, vb + (int64_t)tn * kCols * D,
-                            sk - tn * kCols);
-      }
-      cp_async_commit();
-    }
     t = tn;
   }
   cp_async_wait<0>();  // no copy outlives the block
@@ -333,8 +308,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int h = 0; h < 2; ++h) inv[h] = 1.f / fmaxf(l[h], 1e-30f);
   const int64_t first = bh * sq + q0 + 16 * ln.warp;
-  store_rows<NV, D>(out + col0, first, sq - (q0 + 16 * ln.warp), o, inv, ln);
-  if (ln.tig == 0 && blockIdx.y == 0) {
+  store_rows<NV, D>(out, first, sq - (q0 + 16 * ln.warp), o, inv, ln);
+  if (ln.tig == 0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = row0 + 8 * h;
@@ -573,8 +548,7 @@ int fwd(const float* q, const float* k, const float* v, const float* mask,
   const int err = configure(fwd_kernel<D>, smem, blocks);
   if (err) return err;
   const float scale_log2 = (float)(kLog2e * softmax_scale);
-  const dim3 grid((unsigned)blocks, D / Dims<D>::FWD_COLS);
-  fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+  fwd_kernel<D><<<(unsigned)blocks, kThreads, smem, stream>>>(
       q, k, v, mask, out, lse, sq, sk, causal, scale_log2);
   return (int)cudaGetLastError();
 }
@@ -608,8 +582,9 @@ int bwd(const float* q, const float* k, const float* v, const float* mask,
 
 // K5. q (bh, sq, d), k and v (bh, sk, d), mask (bh, sk), out (bh, sq, d),
 // lse (bh, sq); all fp32 and contiguous, q, k, v and out 16-byte aligned;
-// d in {16, 32, 64, 128, 256}; the scores are q.k scale (the wrapper's
-// default 1/sqrt(d); a head width padded with zero columns passes its own).
+// d in {16, 32, 64, 128} (from 256 on, flash_attention_wide.cu); the
+// scores are q.k scale (the wrapper's default 1/sqrt(d); a head width
+// padded with zero columns passes its own).
 extern "C" int flash_attention_fwd_f32(const float* q, const float* k,
                                        const float* v, const float* mask,
                                        float* out, float* lse, int bh, int sq,
@@ -624,7 +599,6 @@ extern "C" int flash_attention_fwd_f32(const float* q, const float* k,
     case 32: FLASH_FWD(32);
     case 64: FLASH_FWD(64);
     case 128: FLASH_FWD(128);
-    case 256: FLASH_FWD(256);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef FLASH_FWD

@@ -65,9 +65,10 @@
 // so far, which depends on the tile width (JAX uses 128 keys, this kernel
 // 64); ops/attention_tolerances.py bounds the difference.
 //
-// Head widths. This file holds K5 and K6 at D = 16, 32, 64 and 128; K5 at
-// D = 256 is flash_attention_d256_bf16.cu's (wgmma fed by TMA), K6 at
-// D >= 256 and K5 above 256 flash_attention_wide_bf16.cu's.
+// Head widths. This file holds K5 and K6 at D = 16, 32, 64 and 128; K5
+// from D = 256 to 2048 is flash_attention_cluster_bf16.cu's (wgmma fed by
+// TMA, clusters that split D above 256), K6 from D = 256 and K5 above 2048
+// flash_attention_wide_bf16.cu's.
 //
 // Every exported function launches on the stream it is given and returns
 // cudaGetLastError(), or cudaErrorInvalidValue for what it does not take.
@@ -605,10 +606,10 @@ int bwd(const bf16* q, const bf16* k, const bf16* v, const float* mask,
 
 // K5 in bf16. q (bh, sq, d), k and v (bh, sk, d), out (bh, sq, d) bf16;
 // mask (bh, sk) and lse (bh, sq) fp32; all contiguous, the bf16 tensors
-// 16-byte aligned; d in {16, 32, 64, 128} (256: flash_attention_d256_bf16.cu;
-// above: flash_attention_wide_bf16.cu); the scores are q.k scale (the
-// wrapper's default 1/sqrt(d); a head width padded with zero columns passes
-// its own).
+// 16-byte aligned; d in {16, 32, 64, 128} (256 to 2048:
+// flash_attention_cluster_bf16.cu; above: flash_attention_wide_bf16.cu);
+// the scores are q.k scale (the wrapper's default 1/sqrt(d); a head width
+// padded with zero columns passes its own).
 extern "C" int flash_attention_fwd_bf16(const bf16* q, const bf16* k,
                                         const bf16* v, const float* mask,
                                         bf16* out, float* lse, int bh, int sq,

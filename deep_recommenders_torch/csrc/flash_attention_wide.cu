@@ -1,13 +1,13 @@
-// K6 at head widths D >= 256 and K5 above 256, on fp32 operands, on the
-// tensor cores at fp32 accuracy (3xTF32, the contract of flash_attention.cu).
+// K5 and K6 at head widths D >= 256, on fp32 operands, on the tensor cores
+// at fp32 accuracy (3xTF32, the contract of flash_attention.cu).
 //
 // Replaces, for fp32 operands at these widths,
 // deep_recommenders_tpu/ops/attention.py: flash_attention (K5, body
 // _flash_kernel :82, pallas_call :199) and _flash_backward_impl (K6, bodies
 // _flash_bwd_dq_kernel :285 and _flash_bwd_dkv_kernel :326, pallas_calls
 // :436 and :463). JAX's blocks take the whole of D, so it accepts any
-// width; flash_attention.cu keeps K5 and K6 up to 128 and K5 at 256. The
-// layout, the masks, lse, delta and the results are flash_attention.cu's:
+// width; flash_attention.cu keeps K5 and K6 up to 128. The layout, the
+// masks, lse, delta and the results are flash_attention.cu's:
 // D a multiple of 64 (ops/attention.py pads a head width with zero
 // columns and passes the true width's scale).
 //
@@ -31,21 +31,21 @@
 //   query tile (dk/dv) or key tile (dq, K5) takes a score step a chunk,
 //   then one step a chunk of the block's output columns, which loads that
 //   chunk again (from L2).
-// - K6 splits D over a thread-block cluster, so each (query tile, key
-//   tile) pair is scored once. The cluster of G = ceil(D / 256) blocks
+// - K5 and K6 split D over a thread-block cluster, so each (query tile,
+//   key tile) pair is scored once. The cluster of G = ceil(D / 256) blocks
 //   (one at D = 256, at most 8) serves one (bh, 64-row tile); block r owns
 //   its share of the chunks (at most 4: 3 + 2 at D = 320), keeps its own
-//   rows' chunks resident (k and v; q and g) and streams only its columns
-//   of the other side. Each block scores partial s and dp (s^T, dp^T) over
-//   its chunks and writes them into the ring stage its last score step
-//   read; after a cluster barrier every block adds the G partials, read
-//   through distributed shared memory, in rank order, so all hold the same
-//   bits; a second cluster barrier keeps that stage's next load until
-//   every block has read it. The block then carries on over its own
-//   chunks only. Above 8 x 256 the grid keeps columns: each column is a
-//   cluster whose blocks score over their shares of all of D (streamed)
-//   and compute their shares of the column's output. K5 above 256 still
-//   takes ceil(D / 256) grid columns, each scoring over all of D.
+//   rows' chunks resident (K5: q; dq: q and g; dk/dv: k and v) and streams
+//   only its columns of the other side. Each block scores partial s (and
+//   in K6 dp, or s^T and dp^T) over its chunks and writes them into the
+//   ring stage its last score step read; after a cluster barrier every
+//   block adds the G partials, read through distributed shared memory, in
+//   rank order, so all hold the same bits (K5: the same m, l and lse); a
+//   second cluster barrier keeps that stage's next load until every block
+//   has read it. The block then carries on over its own chunks only (K5:
+//   o += p v over its v chunks). Above 8 x 256 the grid keeps columns:
+//   each column is a cluster whose blocks score over their shares of all
+//   of D (streamed) and compute their shares of the column's output.
 // - One __syncthreads a step: it publishes the step's chunks, frees the
 //   stage the next load takes, and orders the p^T handover (written at the
 //   last score step, read at the first output step).
@@ -53,10 +53,10 @@
 // products stay on mma.sync m16n8k8 (wgmma takes TF32 only K-major, and
 // hi/lo copies of every chunk would double its shared memory).
 //
-// ptxas (-Xptxas -v, sm_90a, CUDA 12.9), registers a thread: fwd_wide
-// 248; dq_wide and dkv_wide at D = 256 (one block, RES) 241 and 238, split
-// over a cluster with their chunks resident 246 and 239, split and
-// streamed (D > 2048) 255 and 253; no spill, no stack frame.
+// ptxas (-Xptxas -v, sm_90a, CUDA 12.9), registers a thread: fwd_wide,
+// dq_wide and dkv_wide at D = 256 (one block, RES) 227, 241 and 238, split
+// over a cluster with their chunks resident 227, 246 and 239, split and
+// streamed (D > 2048) 250, 255 and 253; no spill, no stack frame.
 //
 // Each block writes its own rows once: no atomics, and the result does not
 // depend on the order blocks run in. Ragged Sq and Sk, key tiles that are
@@ -95,18 +95,6 @@ struct Lane {
     tig = lane & 3;
   }
 };
-
-// The output chunks of grid column blockIdx.y, [first, first + count): the
-// nc chunks of D shared evenly over gridDim.y = ceil(nc / 4) columns.
-struct Slice {
-  int first, count;
-};
-
-__device__ __forceinline__ Slice slice_of(int nc) {
-  const int per = (nc + gridDim.y - 1) / gridDim.y;
-  const int first = blockIdx.y * per;
-  return {first, min(per, nc - first)};
-}
 
 // dst[r][c] = src[r * ld + c] for c < 64 and r < n, 0 for n <= r < 64
 // (cp.async); dst rows are LDC floats.
@@ -216,179 +204,7 @@ __device__ __forceinline__ void get_frags(float (&x)[NJ][4], const float* buf,
 // from warpgroup 1 added in (dq, K5): through buf, [64][LDR].
 constexpr int LDR = kSliceChunks * kC + 4;
 
-// -- K5 above 256 -------------------------------------------------------------
-
-constexpr int kFwdStages = 3;  // stage: k or v chunk, q chunk
-
-constexpr size_t fwd_wide_smem(int ntiles) {
-  return sizeof(float) * kFwdStages * 2 * CHUNK +
-         sizeof(uint32_t) * 2 * ntiles;
-}
-
-__global__ void __launch_bounds__(kThreads, 1)
-    fwd_wide(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, const float* __restrict__ mask,
-             float* __restrict__ out, float* __restrict__ lse, int sq, int sk,
-             int nc, int causal, float scale_log2) {
-  constexpr int S = kFwdStages;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* ring = reinterpret_cast<float*>(smem);  // [S][k or v, q][64][LDC]
-  uint32_t* bits = reinterpret_cast<uint32_t*>(ring + S * 2 * CHUNK);
-  const int d = nc * kC;
-  const Lane ln;
-  const Slice sl = slice_of(nc);
-  const int nq = (sq + kRows - 1) / kRows;
-  const int64_t bh = blockIdx.x / nq;
-  const int q0 = (int)(blockIdx.x % nq) * kRows;
-  const int64_t first = bh * sq + q0;  // the block's first row
-  const float* qb = q + first * d;
-  const float* kb = k + bh * sk * d;
-  const float* vb = v + bh * sk * d;
-  const int ntiles = (sk + kRows - 1) / kRows;
-  // Causal: tiles that start after the block's last row are all future.
-  const int nrun = causal ? min(ntiles, (q0 + kRows - 1) / kRows + 1) : ntiles;
-  load_key_bits<kThreads / 32>(bits, mask + bh * sk, sk, ntiles);
-  __syncthreads();  // the bits
-
-  // A key tile takes nc score steps (k and q chunks), then one step a
-  // value chunk of the slice.
-  const int nst = nc + sl.count;
-  int lt = next_live(bits, 0, nrun), lj = 0, li = 0;  // the next load
-  auto issue = [&]() {
-    if (lt < nrun) {
-      float* st = ring + (li % S) * 2 * CHUNK;
-      const int kt0 = lt * kRows;
-      if (lj < nc) {
-        load_chunk(st, kb + (int64_t)kt0 * d + lj * kC, d, sk - kt0);
-        load_chunk(st + CHUNK, qb + lj * kC, d, sq - q0);
-      } else {
-        load_chunk(st, vb + (int64_t)kt0 * d + (sl.first + lj - nc) * kC, d,
-                   sk - kt0);
-      }
-      if (++lj == nst) {
-        lj = 0;
-        lt = next_live(bits, lt + 1, nrun);
-      }
-    }
-    ++li;
-    cp_async_commit();
-  };
-  for (int i = 0; i < S - 1; ++i) issue();
-
-  const int row0 = q0 + 16 * ln.wq + ln.grp;  // and row0 + 8
-  const int kbase = 32 * ln.wg;               // the warp's keys of a tile
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float s[4][4];
-  float o[kSliceChunks][8][4];
-#pragma unroll
-  for (int c = 0; c < kSliceChunks; ++c) zero(o[c]);
-
-  // One step: its chunks landed, the stage before it freed, the next load
-  // issued.
-  int i = 0;
-  auto step = [&]() {
-    cp_async_wait<S - 2>();
-    __syncthreads();
-    issue();
-    return ring + (i++ % S) * 2 * CHUNK;
-  };
-  for (int t = next_live(bits, 0, nrun); t < nrun;
-       t = next_live(bits, t + 1, nrun)) {
-    zero(s);
-    for (int j = 0; j < nc; ++j) {
-      const float* st = step();
-      chunk_scores<4>(s, st + CHUNK, 16 * ln.wq, st, kbase, ln);
-    }
-    const uint32_t w0 = bits[2 * t], w1 = bits[2 * t + 1];
-    const int k0 = t * kRows;
-    float alpha[2];
-    if ((w0 & w1) == ~0u && (!causal || k0 + kRows - 1 <= q0)) {
-      online_softmax<true, false>(s, m, l, alpha, scale_log2, ln.tig,
-                                  [](int, int) { return true; });
-    } else {
-      online_softmax<true, true>(
-          s, m, l, alpha, scale_log2, ln.tig, [=](int c, int h) {
-            return key_bit(w0, w1, kbase + c) &&
-                   (!causal || k0 + kbase + c <= row0 + 8 * h);
-          });
-    }
-#pragma unroll
-    for (int c = 0; c < kSliceChunks; ++c)
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[c][n][e] *= alpha[e >> 1];
-    // o += p v over the warp's 32 keys, a value chunk a step: the chunk's
-    // rows are the k index.
-#pragma unroll
-    for (int c = 0; c < kSliceChunks; ++c) {
-      if (c < sl.count) {
-        const float* st = step();
-        chunk_accumulate<4>(o[c], s, st + kbase * LDC, ln);
-      }
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // the ring is free
-
-  // Warpgroup 1's softmax (m, l) and o go to warpgroup 0, which merges
-  // them with its own (keys 0..31 of each tile, then 32..63) and writes.
-  float* buf = reinterpret_cast<float*>(smem);  // [64][LDR]
-  float* ml = buf + kRows * LDR;                // [64][m, l]
-  if (ln.wg == 1) {
-#pragma unroll
-    for (int c = 0; c < kSliceChunks; ++c)
-      if (c < sl.count) put_frags(buf, LDR, c * kC, o[c], ln);
-    if (ln.tig == 0) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = 16 * ln.wq + ln.grp + 8 * h;
-        ml[2 * r] = m[h];
-        ml[2 * r + 1] = l[h];
-      }
-    }
-  }
-  __syncthreads();
-  if (ln.wg == 1) return;
-  float a0[2], a1[2], inv[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = 16 * ln.wq + ln.grp + 8 * h;
-    const float m1 = ml[2 * r], l1 = ml[2 * r + 1];
-    const float mm = fmaxf(m[h], m1);
-    a0[h] = m[h] <= kNegInf / 2 ? 0.f : fast_exp2(m[h] - mm);
-    a1[h] = m1 <= kNegInf / 2 ? 0.f : fast_exp2(m1 - mm);
-    l[h] = a0[h] * l[h] + a1[h] * l1;
-    m[h] = mm;
-    inv[h] = 1.f / fmaxf(l[h], 1e-30f);
-  }
-#pragma unroll
-  for (int c = 0; c < kSliceChunks; ++c) {
-    if (c >= sl.count) continue;
-    float other[8][4];
-    get_frags(other, buf, LDR, c * kC, ln);
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        o[c][n][e] = a0[e >> 1] * o[c][n][e] + a1[e >> 1] * other[n][e];
-    store_chunk(out + (sl.first + c) * kC, first + 16 * ln.wq,
-                sq - (q0 + 16 * ln.wq), d, o[c], inv, ln);
-  }
-  if (ln.tig == 0 && blockIdx.y == 0) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = row0 + 8 * h;
-      // Rows with no valid key get lse = 0: their backward p is zeroed by
-      // the same masks, so the value only has to be finite.
-      if (row < sq)
-        lse[bh * sq + row] =
-            l[h] > 0.f ? m[h] * kLn2 + logf(fmaxf(l[h], 1e-30f)) : 0.f;
-    }
-  }
-}
-
-// -- K6: a cluster splits D --------------------------------------------------
+// -- a cluster splits D (K5 and K6) -------------------------------------------
 
 // The chunks of D a block scores over, [sfirst, sfirst + scount), and the
 // output chunks it computes, [ofirst, ofirst + ocount).
@@ -436,35 +252,6 @@ __device__ __forceinline__ int last_score_stage(int2 steps, int n) {
   return (n * steps.x + steps.y - 1) % S;
 }
 
-// Cluster barrier halves: arrive with release semantics, wait with
-// acquire.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// The address in block `rank`'s shared memory (distributed shared memory)
-// of what lies at p in this block's, and a load from there.
-__device__ __forceinline__ uint32_t cluster_addr(const void* p, int rank) {
-  uint32_t a;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(a)
-               : "r"(smem_addr(p)), "r"(rank));
-  return a;
-}
-
-__device__ __forceinline__ float2 ld_cluster(uint32_t a) {
-  float2 v;
-  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
-               : "=f"(v.x), "=f"(v.y)
-               : "r"(a)
-               : "memory");
-  return v;
-}
-
 // x (this block's partial fragments, 16 rows x 8 NJ columns from col0)
 // becomes the sum of the cluster's `group` partials, added in rank order:
 // block r's is in its shared memory at slot(r) (a [64][LDC] buffer; this
@@ -490,6 +277,231 @@ __device__ __forceinline__ void cluster_sum(float (&x)[NJ][4], int col0,
         x[j][2 * h] = r == 0 ? v.x : x[j][2 * h] + v.x;
         x[j][2 * h + 1] = r == 0 ? v.y : x[j][2 * h + 1] + v.y;
       }
+  }
+}
+
+// -- K5 -----------------------------------------------------------------------
+
+// Stages of the ring, and the chunks a stage holds: a k or a v chunk, with
+// a q chunk beside a k chunk unless q is resident (RES).
+template <bool RES>
+struct FwdRing {
+  static constexpr int S = RES ? 4 : 3;
+  static constexpr int PER = RES ? 1 : 2;
+  static constexpr int OWN = RES ? kOwnChunks : 0;
+};
+
+// Resident q, the ring, the cluster's step counts and the key bits. After
+// the tiles, warpgroup 1's o ([64][LDR]) and its m and l ([64][2]) take
+// the place of q and the ring.
+template <bool RES>
+constexpr size_t fwd_wide_smem(int ntiles) {
+  using R = FwdRing<RES>;
+  static_assert((R::OWN + R::S * R::PER) * CHUNK >= kRows * (LDR + 2),
+                "the merge buffer must fit");
+  return sizeof(float) * (R::OWN + R::S * R::PER) * CHUNK +
+         sizeof(int2) * kClusterMax + sizeof(uint32_t) * 2 * ntiles;
+}
+
+template <bool RES, bool SPLIT>
+__global__ void __launch_bounds__(kThreads, 1)
+    fwd_wide(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, const float* __restrict__ mask,
+             float* __restrict__ out, float* __restrict__ lse, int sq, int sk,
+             int nc, int group, int causal, float scale_log2) {
+  using R = FwdRing<RES>;
+  constexpr int S = R::S;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* own = reinterpret_cast<float*>(smem);  // RES: q [4][64][LDC]
+  float* ring = own + R::OWN * CHUNK;           // [S][k or v (, q)][64][LDC]
+  int2* peers = reinterpret_cast<int2*>(ring + S * R::PER * CHUNK);
+  uint32_t* bits = reinterpret_cast<uint32_t*>(peers + kClusterMax);
+  const int d = nc * kC;
+  const Lane ln;
+  int rank = 0;
+  if constexpr (SPLIT) {
+    rank = (int)cg::this_cluster().block_rank();
+    steps_of_peers<RES>(peers, nc, group);
+  }
+  const Part pt = part_of<RES>(nc, group, rank);
+  const int nq = (sq + kRows - 1) / kRows;
+  const int64_t bh = blockIdx.x / nq;
+  const int q0 = (int)(blockIdx.x % nq) * kRows;
+  const int64_t first = bh * sq + q0;  // the block's first row
+  const float* qb = q + first * d;
+  const float* kb = k + bh * sk * d;
+  const float* vb = v + bh * sk * d;
+  const int ntiles = (sk + kRows - 1) / kRows;
+  // Causal: tiles that start after the block's last row are all future.
+  const int nrun = causal ? min(ntiles, (q0 + kRows - 1) / kRows + 1) : ntiles;
+  load_key_bits<kThreads / 32>(bits, mask + bh * sk, sk, ntiles);
+  if constexpr (RES) {
+    for (int c = 0; c < pt.scount; ++c)
+      load_chunk(own + c * CHUNK, qb + (pt.sfirst + c) * kC, d, sq - q0);
+  }
+  __syncthreads();  // the bits
+
+  // A key tile takes a score step a chunk the block scores over (a k
+  // chunk, and unless RES a q chunk), then one step a v chunk of its
+  // output.
+  const int nst = pt.scount + pt.ocount;
+  int lt = next_live(bits, 0, nrun), lj = 0, li = 0;  // the next load
+  auto issue = [&]() {
+    if (lt < nrun) {
+      float* st = ring + (li % S) * R::PER * CHUNK;
+      const int kt0 = lt * kRows;
+      if (lj < pt.scount) {
+        const int c = pt.sfirst + lj;
+        load_chunk(st, kb + (int64_t)kt0 * d + c * kC, d, sk - kt0);
+        if constexpr (!RES) load_chunk(st + CHUNK, qb + c * kC, d, sq - q0);
+      } else {
+        const int c = pt.ofirst + lj - pt.scount;
+        load_chunk(st, vb + (int64_t)kt0 * d + c * kC, d, sk - kt0);
+      }
+      if (++lj == nst) {
+        lj = 0;
+        lt = next_live(bits, lt + 1, nrun);
+      }
+    }
+    ++li;
+    cp_async_commit();
+  };
+  for (int i = 0; i < S - 1; ++i) issue();
+
+  const int row0 = q0 + 16 * ln.wq + ln.grp;  // and row0 + 8
+  const int kbase = 32 * ln.wg;               // the warp's keys of a tile
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float s[4][4];
+  float o[kSliceChunks][8][4];
+#pragma unroll
+  for (int c = 0; c < kSliceChunks; ++c) zero(o[c]);
+
+  int i = 0;  // steps so far
+  // SPLIT: the cluster barrier after the partial scores were read, as in
+  // dq_wide.
+  bool owed = false;
+  auto step = [&]() {
+    cp_async_wait<S - 2>();
+    __syncthreads();  // the step's chunks landed; the stage before it free
+    if (SPLIT && owed) {
+      cluster_wait();
+      owed = false;
+    }
+    issue();
+    return ring + (i++ % S) * R::PER * CHUNK;
+  };
+  int n = 0;  // key tiles done
+  for (int t = next_live(bits, 0, nrun); t < nrun;
+       t = next_live(bits, t + 1, nrun), ++n) {
+    zero(s);
+    // s = q k^T over the block's chunks: the warp's 16 rows, its 32 keys.
+    float* st = nullptr;
+    for (int j = 0; j < pt.scount; ++j) {
+      st = step();
+      const float* qa = RES ? own + j * CHUNK : st + CHUNK;
+      chunk_scores<4>(s, qa, 16 * ln.wq, st, kbase, ln);
+    }
+    if constexpr (SPLIT) {
+      // The cluster's partial s go through the stage the last score step
+      // read (its k chunk), as in dq_wide.
+      __syncthreads();
+      put_frags(st, LDC, kbase, s, ln);
+      cluster_arrive();
+      cluster_wait();
+      cluster_sum(s, kbase, group, rank, [&](int r) {
+        return ring + last_score_stage<S>(peers[r], n) * R::PER * CHUNK;
+      }, ln);
+      cluster_arrive();
+      owed = true;
+    }
+    const uint32_t w0 = bits[2 * t], w1 = bits[2 * t + 1];
+    const int k0 = t * kRows;
+    float alpha[2];
+    if ((w0 & w1) == ~0u && (!causal || k0 + kRows - 1 <= q0)) {
+      online_softmax<true, false>(s, m, l, alpha, scale_log2, ln.tig,
+                                  [](int, int) { return true; });
+    } else {
+      online_softmax<true, true>(
+          s, m, l, alpha, scale_log2, ln.tig, [=](int c, int h) {
+            return key_bit(w0, w1, kbase + c) &&
+                   (!causal || k0 + kbase + c <= row0 + 8 * h);
+          });
+    }
+#pragma unroll
+    for (int c = 0; c < kSliceChunks; ++c)
+#pragma unroll
+      for (int n8 = 0; n8 < 8; ++n8)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[c][n8][e] *= alpha[e >> 1];
+    // o += p v over the warp's 32 keys, a v chunk of the block's output a
+    // step: the chunk's rows are the k index.
+#pragma unroll
+    for (int c = 0; c < kSliceChunks; ++c) {
+      if (c < pt.ocount) {
+        const float* so = step();
+        chunk_accumulate<4>(o[c], s, so + kbase * LDC, ln);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free
+
+  // Warpgroup 1's softmax (m, l) and o go to warpgroup 0, which merges
+  // them with its own (keys 0..31 of each tile, then 32..63) and writes.
+  float* buf = reinterpret_cast<float*>(smem);  // [64][LDR]
+  float* ml = buf + kRows * LDR;                // [64][m, l]
+  if (ln.wg == 1) {
+#pragma unroll
+    for (int c = 0; c < kSliceChunks; ++c)
+      if (c < pt.ocount) put_frags(buf, LDR, c * kC, o[c], ln);
+    if (ln.tig == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 16 * ln.wq + ln.grp + 8 * h;
+        ml[2 * r] = m[h];
+        ml[2 * r + 1] = l[h];
+      }
+    }
+  }
+  __syncthreads();
+  if (ln.wg == 1) return;
+  float a0[2], a1[2], inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = 16 * ln.wq + ln.grp + 8 * h;
+    const float m1 = ml[2 * r], l1 = ml[2 * r + 1];
+    const float mm = fmaxf(m[h], m1);
+    a0[h] = m[h] <= kNegInf / 2 ? 0.f : fast_exp2(m[h] - mm);
+    a1[h] = m1 <= kNegInf / 2 ? 0.f : fast_exp2(m1 - mm);
+    l[h] = a0[h] * l[h] + a1[h] * l1;
+    m[h] = mm;
+    inv[h] = 1.f / fmaxf(l[h], 1e-30f);
+  }
+#pragma unroll
+  for (int c = 0; c < kSliceChunks; ++c) {
+    if (c >= pt.ocount) continue;
+    float other[8][4];
+    get_frags(other, buf, LDR, c * kC, ln);
+#pragma unroll
+    for (int n8 = 0; n8 < 8; ++n8)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        o[c][n8][e] = a0[e >> 1] * o[c][n8][e] + a1[e >> 1] * other[n8][e];
+    store_chunk(out + (pt.ofirst + c) * kC, first + 16 * ln.wq,
+                sq - (q0 + 16 * ln.wq), d, o[c], inv, ln);
+  }
+  // Every block of the cluster holds the same m and l: block 0 of the first
+  // grid column writes lse.
+  if (ln.tig == 0 && blockIdx.y == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      // Rows with no valid key get lse = 0: their backward p is zeroed by
+      // the same masks, so the value only has to be finite.
+      if (row < sq)
+        lse[bh * sq + row] =
+            l[h] > 0.f ? m[h] * kLn2 + logf(fmaxf(l[h], 1e-30f)) : 0.f;
+    }
   }
 }
 
@@ -907,9 +919,16 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // -- launchers ----------------------------------------------------------------
 
-// Grid columns of K5 at a head width of nc chunks: at most kSliceChunks
-// each.
-unsigned slices(int nc) { return (nc + kSliceChunks - 1) / kSliceChunks; }
+// The layout of a head width of nc chunks: (grid columns, blocks a
+// cluster). One column up to kClusterMax * kOwnChunks chunks, in clusters
+// of ceil(nc / kOwnChunks) blocks (one block, no cluster, at nc = 4);
+// above that as many columns as it takes, their chunks split evenly.
+int2 clusters(int nc) {
+  constexpr int kPerColumn = kClusterMax * kOwnChunks;
+  const int ncol = (nc + kPerColumn - 1) / kPerColumn;
+  const int per_col = (nc + ncol - 1) / ncol;
+  return make_int2(ncol, (per_col + kOwnChunks - 1) / kOwnChunks);
+}
 
 // A launch in clusters of (1, group, 1) blocks (none when group is 1); a
 // cluster the card cannot place returns its error.
@@ -930,6 +949,19 @@ int launch(void (*kernel)(Args...), dim3 grid, size_t smem, int group,
   config.numAttrs = group > 1 ? 1 : 0;
   const cudaError_t err = cudaLaunchKernelEx(&config, kernel, args...);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+template <bool RES, bool SPLIT>
+int fwd(const float* q, const float* k, const float* v, const float* mask,
+        float* out, float* lse, int bh, int sq, int sk, int nc, int2 cl,
+        int causal, double softmax_scale, cudaStream_t stream) {
+  const int64_t blocks = (int64_t)bh * ((sq + kRows - 1) / kRows);
+  const size_t bytes = fwd_wide_smem<RES>((sk + kRows - 1) / kRows);
+  const int err = configure(fwd_wide<RES, SPLIT>, bytes, blocks);
+  if (err) return err;
+  return launch(fwd_wide<RES, SPLIT>, dim3((unsigned)blocks, cl.x * cl.y),
+                bytes, cl.y, stream, q, k, v, mask, out, lse, sq, sk, nc,
+                cl.y, causal, (float)(kLog2e * softmax_scale));
 }
 
 template <bool RES, bool SPLIT>
@@ -960,9 +992,10 @@ int bwd(const float* q, const float* k, const float* v, const float* mask,
 
 }  // namespace
 
-// K5 at a head width d > 256 (d = 256 also runs, for comparison with
-// flash_attention.cu's instance), d a multiple of 64. Arguments as
-// flash_attention_fwd_f32's.
+// K5 at a head width d >= 256, d a multiple of 64. Arguments as
+// flash_attention_fwd_f32's; in clusters of ceil(d / 256) blocks up to
+// kClusterMax (one block at d = 256), and above kClusterMax * 256 in as
+// many grid columns of clusters as that takes.
 extern "C" int flash_attention_wide_fwd_f32(const float* q, const float* k,
                                             const float* v, const float* mask,
                                             float* out, float* lse, int bh,
@@ -972,15 +1005,15 @@ extern "C" int flash_attention_wide_fwd_f32(const float* q, const float* k,
   if (!aligned(q) || !aligned(k) || !aligned(v) || !aligned(out) ||
       d < 256 || d % kC)
     return (int)cudaErrorInvalidValue;
-  const int64_t blocks = (int64_t)bh * ((sq + kRows - 1) / kRows);
-  const size_t smem = fwd_wide_smem((sk + kRows - 1) / kRows);
-  const int err = configure(fwd_wide, smem, blocks);
-  if (err) return err;
-  const dim3 grid((unsigned)blocks, slices(d / kC));
-  fwd_wide<<<grid, kThreads, smem, stream>>>(q, k, v, mask, out, lse, sq, sk,
-                                             d / kC, causal,
-                                             (float)(kLog2e * scale));
-  return (int)cudaGetLastError();
+  const int nc = d / kC;
+  const int2 cl = clusters(nc);
+  if (cl.y == 1)  // d = 256: one block, no exchange
+    return fwd<true, false>(q, k, v, mask, out, lse, bh, sq, sk, nc, cl,
+                            causal, scale, stream);
+  return cl.x == 1 ? fwd<true, true>(q, k, v, mask, out, lse, bh, sq, sk, nc,
+                                     cl, causal, scale, stream)
+                   : fwd<false, true>(q, k, v, mask, out, lse, bh, sq, sk,
+                                      nc, cl, causal, scale, stream);
 }
 
 // K6 at a head width d >= 256, d a multiple of 64. Arguments as
@@ -997,10 +1030,8 @@ extern "C" int flash_attention_wide_bwd_f32(
       !aligned(dq) || !aligned(dk) || !aligned(dv) || d < 256 || d % kC)
     return (int)cudaErrorInvalidValue;
   const int nc = d / kC;
-  constexpr int kPerColumn = kClusterMax * kOwnChunks;
-  const int ncol = (nc + kPerColumn - 1) / kPerColumn;
-  const int per_col = (nc + ncol - 1) / ncol;
-  const int group = (per_col + kOwnChunks - 1) / kOwnChunks;
+  const int2 cl = clusters(nc);
+  const int ncol = cl.x, group = cl.y;
   if (group == 1)  // d = 256: one block, no exchange
     return bwd<true, false>(q, k, v, mask, lse, delta, g, dq, dk, dv, bh, sq,
                             sk, nc, ncol, group, causal, scale, stream);

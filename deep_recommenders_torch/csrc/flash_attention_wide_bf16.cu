@@ -1,4 +1,4 @@
-// K6 at head widths D >= 256 and K5 above 256, on bf16 operands, at the TPU
+// K6 at head widths D >= 256 and K5 above 2048, on bf16 operands, at the TPU
 // kernels' bf16 contract (flash_attention_bf16.cu's: fp32 scores of bf16
 // operands, fp32 softmax statistics, p and ds rounded to bf16 before the
 // products that consume them, fp32 accumulation, out, dq, dk and dv
@@ -9,7 +9,10 @@
 // _flash_kernel :82, pallas_call :199) and _flash_backward_impl (K6, bodies
 // _flash_bwd_dq_kernel :285 and _flash_bwd_dkv_kernel :326, pallas_calls
 // :436 and :463). flash_attention_bf16.cu keeps K5 and K6 up to 128,
-// flash_attention_d256_bf16.cu K5 at 256. The layout, the masks, lse,
+// flash_attention_cluster_bf16.cu K5 from 256 to 2048 (a cluster of
+// ceil(D / 256) blocks that splits D; this file's K5 takes ceil(D / 256)
+// grid columns, each scoring over all of D, where a cluster would need more
+// than 8 blocks). The layout, the masks, lse,
 // delta (formed by the dq kernel from its rows of g and out, written for
 // the dk/dv kernel) and the results are flash_attention_bf16.cu's, D a
 // multiple of 64.
@@ -847,9 +850,8 @@ int bwd(const bf16* q, const bf16* k, const bf16* v, const float* mask,
 
 }  // namespace
 
-// K5 in bf16 at a head width d > 256 (d = 256 also runs, for comparison
-// with flash_attention_bf16.cu's instance), d a multiple of 64. Arguments
-// as flash_attention_fwd_bf16's.
+// K5 in bf16 at a head width d > 2048, d a multiple of 64 (up to 2048:
+// flash_attention_cluster_bf16.cu). Arguments as flash_attention_fwd_bf16's.
 extern "C" int flash_attention_wide_fwd_bf16(const bf16* q, const bf16* k,
                                              const bf16* v, const float* mask,
                                              bf16* out, float* lse, int bh,
@@ -857,7 +859,7 @@ extern "C" int flash_attention_wide_fwd_bf16(const bf16* q, const bf16* k,
                                              int causal, double scale,
                                              cudaStream_t stream) {
   if (!aligned(q) || !aligned(k) || !aligned(v) || !aligned(out) ||
-      d < 256 || d % kC)
+      d <= 2048 || d % kC)
     return (int)cudaErrorInvalidValue;
   const int64_t blocks = (int64_t)bh * ((sq + kRows - 1) / kRows);
   const size_t smem = fwd_wide_smem((sk + kRows - 1) / kRows);

@@ -1,9 +1,9 @@
 // Device helpers shared by the attention kernels (K5, K6): flash_attention.cu
-// and flash_attention_bf16.cu (head widths up to 128, and fp32 K5 at 256),
-// flash_attention_d256_bf16.cu (bf16 K5 at 256), and
+// and flash_attention_bf16.cu (head widths up to 128),
+// flash_attention_cluster_bf16.cu (bf16 K5 from 256 to 2048), and
 // flash_attention_wide.cu and flash_attention_wide_bf16.cu (K6 at D >= 256,
-// K5 above 256). Each source includes it once; everything here has internal
-// linkage.
+// the fp32 K5 from 256, the bf16 K5 above 2048). Each source includes it
+// once; everything here has internal linkage.
 
 #pragma once
 
@@ -138,7 +138,7 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&p);
 }
 
-// -- masks, reductions, launches ----------------------------------------------
+// -- masks, reductions --------------------------------------------------------
 
 // bits[w] bit b = key 32 w + b is valid (< sk and mask > 0), for
 // w < 2 ntiles: two words per 64-key tile. Each of the block's kWarps
@@ -290,6 +290,39 @@ __device__ __forceinline__ void zero(float (&x)[N][4]) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) x[j][e] = 0.f;
 }
+
+// -- thread-block clusters ----------------------------------------------------
+
+// Cluster barrier halves: arrive with release semantics, wait with
+// acquire.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The address in block `rank`'s shared memory (distributed shared memory)
+// of what lies at p in this block's, and a load from there.
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, int rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a)
+               : "r"(smem_addr(p)), "r"(rank));
+  return a;
+}
+
+__device__ __forceinline__ float2 ld_cluster(uint32_t a) {
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(a)
+               : "memory");
+  return v;
+}
+
+// -- launches ------------------------------------------------------------------
 
 template <typename Kernel>
 int configure(Kernel kernel, size_t smem, int64_t blocks) {

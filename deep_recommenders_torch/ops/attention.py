@@ -14,11 +14,12 @@ JAX package's: heads folded into the batch, q (BH, Sq, D), k and v
 - :func:`flash_attention` (K5) and :func:`flash_attention_backward` (K6)
   take fp32 or bf16 q, k, v (and g), all of one dtype; the mask and lse are
   fp32. On a CUDA tensor they launch ``csrc/flash_attention.cu`` (fp32) or
-  ``csrc/flash_attention_bf16.cu`` (bf16) at head widths up to 128 (the
-  fp32 K5 also at 256; the bf16 K5 at 256 is
-  ``csrc/flash_attention_d256_bf16.cu``), ``csrc/flash_attention_wide.cu``
-  or ``csrc/flash_attention_wide_bf16.cu`` for K6 from 256 and K5 above it
-  (:func:`_kernel`), or raise; on a CPU tensor they
+  ``csrc/flash_attention_bf16.cu`` (bf16) at head widths up to 128,
+  ``csrc/flash_attention_wide.cu`` or ``csrc/flash_attention_wide_bf16.cu``
+  for K6 from 256 and the fp32 K5 from 256, and
+  ``csrc/flash_attention_cluster_bf16.cu`` for the bf16 K5 from 256 to
+  ``CLUSTER_HEAD_DIM_MAX`` (:func:`_kernel`; both K5 from 256 on
+  thread-block clusters that split D), or raise; on a CPU tensor they
   take their plain versions, :func:`flash_attention_reference` and
   :func:`flash_attention_backward_reference` in fp32, the ``_bf16`` ones in
   bf16. Launches are counted in ``flash_attention.launches``: "fwd" and
@@ -71,13 +72,15 @@ FLASH_SCORE_BYTES = 2_000_000_000
 DENSE_RESIDENT_SCORE_TENSORS = 3
 
 # Head widths the kernels are built for (template instances of
-# csrc/flash_attention(_bf16).cu up to 128; K5 at 256 in fp32 there, in
-# bf16 csrc/flash_attention_d256_bf16.cu); K6 from 256 and K5 above it
-# (csrc/flash_attention_wide(_bf16).cu) take every multiple of
-# WIDE_HEAD_STEP from the widest of KERNEL_HEAD_DIMS on, streaming D in
-# chunks of that many columns.
+# csrc/flash_attention(_bf16).cu up to 128); from the widest of
+# KERNEL_HEAD_DIMS on, K5 and K6 (csrc/flash_attention_wide(_bf16).cu,
+# csrc/flash_attention_cluster_bf16.cu) take every multiple of
+# WIDE_HEAD_STEP, in chunks of D of that many columns.
 KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
 WIDE_HEAD_STEP = 64
+# The widest head width of the bf16 K5 on a thread-block cluster: 8 blocks
+# (the portable cluster size) of 256 columns each.
+CLUSTER_HEAD_DIM_MAX = 2048
 # Operand dtypes of q, k, v and g; the mask and lse are always fp32.
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -336,15 +339,18 @@ _C_TYPE = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 def _kernel(dtype, d: int, backward: bool) -> Tuple[str, str]:
     """(source, C function) of K5 or K6 (``backward``) for operands of
-    ``dtype`` at head width ``d``: csrc/flash_attention(_bf16).cu's up to
-    128 (the fp32 K5 also at 256), csrc/flash_attention_d256_bf16.cu's for
-    the bf16 K5 at 256, csrc/flash_attention_wide(_bf16).cu's for K6 from
-    256 and K5 above it."""
-    widest = KERNEL_HEAD_DIMS[-1]
-    if d == widest and not backward and dtype == torch.bfloat16:
-        width = f"_d{widest}"
+    ``dtype`` at head width ``d``, chosen by width, never as a fallback:
+    csrc/flash_attention(_bf16).cu's up to 128; from 256 on
+    csrc/flash_attention_wide(_bf16).cu's (K6, and the fp32 K5 on clusters
+    that split D), except the bf16 K5 up to ``CLUSTER_HEAD_DIM_MAX``:
+    csrc/flash_attention_cluster_bf16.cu's (clusters that split D)."""
+    if d < KERNEL_HEAD_DIMS[-1]:
+        width = ""
+    elif (dtype == torch.bfloat16 and not backward
+          and d <= CLUSTER_HEAD_DIM_MAX):
+        width = "_cluster"
     else:
-        width = "_wide" if (d >= widest if backward else d > widest) else ""
+        width = "_wide"
     return (f"flash_attention{width}{_SUFFIX[dtype]}",
             f"flash_attention{width}_{'bwd' if backward else 'fwd'}_"
             f"{_C_TYPE[dtype]}")

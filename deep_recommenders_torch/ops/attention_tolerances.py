@@ -133,6 +133,9 @@ _FWD_TILE = 64
 SPLIT = 13
 # How far over its limit the single-pass TF32 function must land.
 TF32_REJECT_FACTOR = 10.0
+# The columns of D whose partial scores a block of a cluster forms, for the
+# planted fault of a lost exchange.
+PARTIAL_WIDTH = 256
 
 
 # -- TF32 products ------------------------------------------------------------
@@ -196,6 +199,48 @@ def flash_attention_backward_tf32(q, k, v, key_mask, out, lse, g,
     return (tf32_product("...qk,...kd->...qd", ds, k, passes),
             tf32_product("...qk,...qd->...kd", ds, q, passes),
             tf32_product("...qk,...qd->...kd", p, g, passes))
+
+
+def flash_attention_partial_scores(q, k, v, key_mask, causal: bool,
+                                   drop: Optional[int] = None,
+                                   width: int = PARTIAL_WIDTH):
+    """(out, lse) of K5 with the scores summed in fp32 from partials over
+    ``width`` columns of D each, q_r k_r^T, added in rank order, as a
+    cluster that splits D adds its blocks' partials; ``drop`` leaves rank
+    ``drop``'s partial out (a lost exchange: the planted fault). fp32 q, k,
+    v give the fp32 plain version's function; bf16 ones the bf16 plain
+    version's (p rounded to bf16 before P V, out rounded once)."""
+    d = q.shape[-1]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    s = torch.zeros(q.shape[:2] + k.shape[1:2], dtype=torch.float32,
+                    device=q.device)
+    for rank, c in enumerate(range(0, d, width)):
+        if rank != drop:
+            s = s + torch.einsum("...qd,...kd->...qk", qf[..., c:c + width],
+                                 kf[..., c:c + width])
+    s = s / math.sqrt(d)
+    valid = att._valid_lanes(s.shape, key_mask, causal, s.device)
+    if valid is not None:
+        s = torch.where(valid, s, att.NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.where(s <= att.NEG_INF / 2, 0.0, torch.exp(s - m[..., None]))
+    l = p.sum(-1).clamp_min(1e-30)
+    if q.dtype == torch.bfloat16:
+        p = p.to(torch.bfloat16).float()
+    out = torch.einsum("...qk,...kd->...qd", p, vf) / l[..., None]
+    lse = torch.where(m > att.NEG_INF / 2, m + torch.log(l), 0.0)
+    return out.to(q.dtype), lse
+
+
+def reject_lost_partial(name: str, share: float) -> Dict[str, float]:
+    """The forward check must reject K5 with one block's partial scores
+    left out (:func:`flash_attention_partial_scores` with ``drop``):
+    ``share`` is its largest share of a tolerance. Returns it; raises if
+    the check accepts the fault."""
+    if not share > 1:
+        raise AssertionError(f"{name}: the check accepts a planted fault "
+                             f"(a partial score lost): {share:.3g}")
+    return {"partial_dropped": share}
 
 
 # -- fp32 kernels -------------------------------------------------------------
@@ -270,14 +315,25 @@ def _held(name: str, got, want, errors) -> Dict[str, float]:
     return errors
 
 
+def _lost_partial(q, k, v, mask, causal):
+    """:func:`flash_attention_partial_scores` on the check's inputs with
+    the last block's partial left out."""
+    last = (q.shape[-1] - 1) // PARTIAL_WIDTH
+    return flash_attention_partial_scores(q, k, v, mask.float(), causal,
+                                          drop=last)
+
+
 def check_forward(got: Sequence[torch.Tensor], q, k, v,
                   key_mask: Optional[torch.Tensor], causal: bool,
-                  planted_tf32: bool = False
+                  planted_tf32: bool = False, planted_partial: bool = False
                   ) -> Dict[str, Dict[str, float]]:
     """K5's (out, lse) against the fp64 plain version: out element-wise
     and by relative Frobenius error, lse element-wise. With
     ``planted_tf32``, also :func:`reject_tf32` on the single-pass TF32
-    forward of the same fp32 inputs, under "planted"."""
+    forward of the same fp32 inputs, under "planted"; with
+    ``planted_partial`` (D above PARTIAL_WIDTH), :func:`reject_lost_partial`
+    on the forward that loses the last block's partial scores, under
+    "planted" too."""
     mask = _mask(key_mask, k)
     args = [t.double() for t in (q, k, v)]
     out, lse, _, tol_out, tol_lse = _forward_bounds(*args, mask, causal,
@@ -293,6 +349,11 @@ def check_forward(got: Sequence[torch.Tensor], q, k, v,
         checks["planted"] = reject_tf32(name, {
             "out": worst(_fro_errors(fault[0], out, tol_out, fro_tol)),
             "lse": within_errors(fault[1], lse, tol_lse)["err_over_tol"]})
+    if planted_partial:
+        fault = _lost_partial(q.float(), k.float(), v.float(), mask, causal)
+        checks.setdefault("planted", {}).update(reject_lost_partial(name, max(
+            worst(_fro_errors(fault[0], out, tol_out, fro_tol)),
+            within_errors(fault[1], lse, tol_lse)["err_over_tol"])))
     return checks
 
 
@@ -434,11 +495,14 @@ def _rounded_tol(t, terms, want):
 
 
 def check_forward_bf16(got: Sequence[torch.Tensor], q, k, v,
-                       key_mask: Optional[torch.Tensor], causal: bool
+                       key_mask: Optional[torch.Tensor], causal: bool,
+                       planted_partial: bool = False
                        ) -> Dict[str, Dict[str, float]]:
     """The bf16 K5's (out, lse) on bf16 q, k, v: out against the fp64 plain
     version ("out") and the bf16 plain version ("out_bf16_plain"), lse
-    against fp64."""
+    against fp64. With ``planted_partial``, also :func:`reject_lost_partial`
+    on the bf16 forward that loses the last block's partial scores, under
+    "planted"."""
     mask = _mask(key_mask, k)
     qd, kd, vd = q.double(), k.double(), v.double()
     out, lse, w_abs, t_out, tol_lse = _forward_bounds(qd, kd, vd, mask,
@@ -453,13 +517,19 @@ def check_forward_bf16(got: Sequence[torch.Tensor], q, k, v,
     name = f"flash_attention bf16 forward causal={causal}"
     if got[0].dtype != torch.bfloat16 or got[1].dtype != torch.float32:
         raise AssertionError(f"{name}: dtypes {got[0].dtype}, {got[1].dtype}")
-    return {
+    checks = {
         "out": _hold(f"{name} out", _rounded_errors(
             got[0], out, tol, sq_terms, sk)),
         "out_bf16_plain": _hold(f"{name} out (bf16 plain)", _rounded_errors(
             got[0], plain.double(), 2 * tol, sq_terms, sk, factor=2.0)),
         "lse": check_within(f"{name} lse", got[1], lse, tol_lse),
     }
+    if planted_partial:
+        fault = _lost_partial(q, k, v, mask, causal)
+        checks["planted"] = reject_lost_partial(name, max(
+            worst(_rounded_errors(fault[0], out, tol, sq_terms, sk)),
+            within_errors(fault[1], lse, tol_lse)["err_over_tol"]))
+    return checks
 
 
 def check_backward_bf16(got: Sequence[torch.Tensor], q, k, v,

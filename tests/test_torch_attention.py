@@ -531,32 +531,30 @@ def test_attention_dispatch_above_the_widest_kernel(rng, monkeypatch):
 
 
 # (source, C function) of K5 ("fwd") and K6 ("bwd") by operand dtype and
-# head width: csrc/flash_attention(_bf16).cu up to 128 and the fp32 K5 at
-# 256, csrc/flash_attention_d256_bf16.cu for the bf16 K5 at 256,
-# csrc/flash_attention_wide(_bf16).cu for K6 from 256 and K5 above it.
+# head width: csrc/flash_attention(_bf16).cu up to 128;
+# csrc/flash_attention_wide(_bf16).cu for K6 and the fp32 K5 from 256 on;
+# csrc/flash_attention_cluster_bf16.cu for the bf16 K5 from 256 to 2048,
+# csrc/flash_attention_wide_bf16.cu above.
+_WIDTHS = (16, 128, 256, 320, 512, 768, 2048, 2304)
 _ROUTES = {
     ("float32", "fwd"): {16: "flash_attention", 128: "flash_attention",
-                         256: "flash_attention", 320: "flash_attention_wide",
-                         512: "flash_attention_wide"},
+                         **{d: "flash_attention_wide" for d in _WIDTHS[2:]}},
     ("float32", "bwd"): {16: "flash_attention", 128: "flash_attention",
-                         256: "flash_attention_wide",
-                         320: "flash_attention_wide",
-                         512: "flash_attention_wide"},
+                         **{d: "flash_attention_wide" for d in _WIDTHS[2:]}},
     ("bfloat16", "fwd"): {16: "flash_attention_bf16",
                           128: "flash_attention_bf16",
-                          256: "flash_attention_d256_bf16",
-                          320: "flash_attention_wide_bf16",
-                          512: "flash_attention_wide_bf16"},
+                          **{d: "flash_attention_cluster_bf16"
+                             for d in _WIDTHS[2:-1]},
+                          2304: "flash_attention_wide_bf16"},
     ("bfloat16", "bwd"): {16: "flash_attention_bf16",
                           128: "flash_attention_bf16",
-                          256: "flash_attention_wide_bf16",
-                          320: "flash_attention_wide_bf16",
-                          512: "flash_attention_wide_bf16"},
+                          **{d: "flash_attention_wide_bf16"
+                             for d in _WIDTHS[2:]}},
 }
 
 
 @pytest.mark.parametrize("direction", ["fwd", "bwd"])
-@pytest.mark.parametrize("d", [16, 128, 256, 320, 512])
+@pytest.mark.parametrize("d", _WIDTHS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernel_routing_by_dtype_width_and_direction(dtype, d, direction):
     """_kernel() names the source and C function the card launches for each
@@ -573,6 +571,32 @@ def test_kernel_routing_by_dtype_width_and_direction(dtype, d, direction):
     assert source in _build.SOURCES
     with open(_build.source_path(source)) as f:
         assert f'extern "C" int {symbol}(' in f.read()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [512, 1024])
+def test_forward_checks_reject_a_lost_partial_score(rng, d, dtype, causal):
+    """The forward checks keep the power to catch a lost exchange between
+    the blocks of a cluster that splits D: K5 with its scores summed in
+    fp32 from per-256-column partials in rank order passes check_forward
+    (fp32 operands) or check_forward_bf16 (bf16 operands); the same with
+    the last partial left out fails, its worst share of a tolerance above
+    1 (reported as reject_planted reports a gradient's)."""
+    q, k, v, mask = _t(*_inputs(rng, 2, 70, 90, d, masked_row=1))
+    check = at.check_forward
+    if dtype == "bfloat16":
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+        check = at.check_forward_bf16
+    whole = at.flash_attention_partial_scores(q, k, v, mask, causal)
+    checks = check(whole, q, k, v, mask, causal, planted_partial=True)
+    assert max(c["err_over_tol"] for name, c in checks.items()
+               if name != "planted") < 1
+    assert checks["planted"]["partial_dropped"] > 1
+    lost = at.flash_attention_partial_scores(
+        q, k, v, mask, causal, drop=d // at.PARTIAL_WIDTH - 1)
+    with pytest.raises(AssertionError, match="disagrees|outside"):
+        check(lost, q, k, v, mask, causal)
 
 
 @pytest.mark.parametrize("causal", [False, True])

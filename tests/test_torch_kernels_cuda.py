@@ -638,7 +638,7 @@ def _attention_inputs(gen, bh, sq, sk, d):
     (4, 64, 200, 64),
     (4, 100, 100, 128),
     (4, 100, 140, 256),  # K6 of flash_attention_wide.cu, k/v resident
-    (4, 100, 140, 320),  # K6 above 256: a cluster of 2 blocks, 3 + 2 chunks
+    (4, 100, 140, 320),  # K5, K6 above 256: clusters of 2 blocks, 3 + 2 chunks
     (2, 130, 70, 512),  # 2 blocks, 4 + 4
     (2, 100, 140, 768),  # 3 blocks
     (2, 70, 67, 2304),  # two grid columns of clusters of 5 blocks
@@ -809,11 +809,14 @@ def _bf16(*tensors):
     (6, 130, 150, 32),
     (4, 64, 200, 64),
     (4, 100, 100, 128),
-    (4, 100, 140, 256),  # K5 of flash_attention_d256_bf16.cu (Sq not a
-    (4, 70, 67, 256),  # multiple of its 128 rows a block, causal rows split
-    (4, 130, 200, 256),  # between its warpgroups), K6 of _wide_bf16.cu
-    (4, 100, 140, 320),  # K5/K6 above 256
-    (4, 70, 67, 512),
+    (4, 100, 140, 256),  # K5 of flash_attention_cluster_bf16.cu, one
+    (4, 70, 67, 256),  # block (Sq not a multiple of its 128 rows a block,
+    (4, 130, 200, 256),  # causal rows split between its warpgroups), K6 of
+    # _wide_bf16.cu
+    (4, 100, 140, 320),  # K5 on a cluster of 2 blocks, the last chunk past D
+    (4, 70, 67, 512),  # 2 blocks, 4 + 4 chunks
+    (3, 100, 140, 768),  # 3 blocks
+    (3, 70, 67, 2304),  # above 2048: K5 of flash_attention_wide_bf16.cu
     (64, 512, 512, 16),  # the Transformer slice's sequence length
 ])
 def test_flash_attention_bf16_kernels(device, bh, sq, sk, d, causal):
@@ -850,6 +853,8 @@ def test_flash_attention_bf16_kernels(device, bh, sq, sk, d, causal):
     ("last_tile_only", 4, 100, 140, 512),
     ("ragged_sk", 4, 70, 67, 320),
     ("ragged_sk", 2, 33, 61, 512),
+    ("padding_tiles", 4, 130, 260, 768),
+    ("last_tile_only", 4, 100, 140, 2304),
 ])
 def test_flash_attention_bf16_kernels_at_tile_edges(device, case, bh, sq, sk,
                                                     d, causal):
@@ -876,12 +881,12 @@ def test_flash_attention_bf16_kernels_at_tile_edges(device, case, bh, sq, sk,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [256, 320, 512, 2304])
+@pytest.mark.parametrize("d", [256, 320, 512, 768, 2304])
 def test_wide_attention_kernels_are_deterministic(device, d, dtype):
-    """K5 and K6 of flash_attention_wide(_bf16).cu (and K5 at D = 256)
-    give the same bits on two calls: each block writes its own rows once,
-    the two warpgroups' partial sums are added in a fixed order, and the
-    fp32 K6's cluster adds its blocks' partial scores in rank order."""
+    """K5 and K6 from D = 256 on give the same bits on two calls: each
+    block writes its own rows once, the two warpgroups' partial sums are
+    added in a fixed order, and a cluster that splits D (K5 in both dtypes,
+    the fp32 K6) adds its blocks' partial scores in rank order."""
     gen = torch.Generator(device=device).manual_seed(14)
     q, k, v, mask = _attention_inputs(gen, 8, 300, 260, d)
     g = _normal(gen, 8, 300, d)
