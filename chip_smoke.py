@@ -89,6 +89,20 @@ In order:
      AUC above 0.5 and its logits on the card against the plain CPU path
      (fp32: rtol 1e-4; bf16: nearer the CPU's bf16 logits than those lie
      to its fp32 ones);
+   - a table stored in bf16 (``bf16_table_phase``): DeepFM's composition
+     over ``EmbeddingCollection(param_dtype=torch.bfloat16)`` (D 16,
+     hidden (256, 32), no compute dtype), 1 epoch (19 steps) with the
+     port's Adam 1e-3 (optax's order on the bf16 table), evaluated with
+     ``BinaryCTREval(model, auc=AUC(num_thresholds=500))``: one bf16 K1 a
+     step and no fp32 K1, an AUC above 0.5; then K1 on one step's real
+     bf16 gradient bit for bit its order model (``check_scatter``) and
+     timed, the table and its Adam moments still bf16, a checkpoint round
+     trip bit for bit with no dtype cast, the logits on the card against
+     the plain CPU path (nearer the CPU's bf16 logits than those lie to
+     the same weights in fp32), ``AUC(from_logits=True)`` on raw logits
+     equal to ``AUC()`` on their sigmoid, and the ms of a train step; one
+     ``bf16_table {...}`` line, and its K1 fields in the bf16 K1 entry's
+     ``"bf16_table"``;
    - ESMM at the zoo's config (the six features through the shared
      embedding collection, D 16, towers (256, 128)), 2 epochs on the same
      data with ctcvr = ctr x a seeded Bernoulli(0.3): one fp32 K1 (C = 16)
@@ -277,13 +291,19 @@ from deep_recommenders_torch.datasets.movielens import (
     synthesize_ml1m,
 )
 from deep_recommenders_torch.device import resolve_device
-from deep_recommenders_torch.embedding.engine import SMALL_VOCAB_MAX
+from deep_recommenders_torch.embedding.engine import (
+    SMALL_VOCAB_MAX,
+    EmbeddingCollection,
+    LinearTerms,
+    fused_embedding_linear,
+)
 from deep_recommenders_torch.examples import train_transformer_on_imdb
 from deep_recommenders_torch.models.nlp import (
     MultiHeadAttention,
     Transformer,
     noam_schedule,
 )
+from deep_recommenders_torch.models.common import MLP
 from deep_recommenders_torch.models.ranking import DeepFM, XDeepFM
 from deep_recommenders_torch.ops import _build
 from deep_recommenders_torch.ops import attention as att
@@ -308,6 +328,8 @@ NUM_RATINGS = 200_000
 LARGE_TABLE_ROWS = 1_000_000
 EPOCHS = 2
 SEED = 42
+# The bf16-stored table's path: one epoch, 19 steps at NUM_RATINGS.
+BF16_TABLE_EPOCHS = 1
 # xDeepFM's flagship (benchmarks/run_models.py:164-169), and the first
 # configuration that XDeepFM sends to the layered CIN.
 XDEEPFM_MAPS = (128, 128)
@@ -1328,6 +1350,163 @@ def deepfm_path(ds: MovielensRanking, model: DeepFM, train: DeviceData,
     profile = trainer_profile(trainer, train, test)
     print("deepfm profile: " + json.dumps(profile))
     return launches, {"eval": final, "profile": profile}
+
+
+class Bf16TableModel(torch.nn.Module):
+    """DeepFM's composition (``models/ranking/deepfm.py``) over a table
+    stored in bf16 (``EmbeddingCollection(param_dtype=torch.bfloat16)``):
+    one fused pass of the table and the linear weights (cast to bf16
+    beside it), the first-order sum and bias, the FM term and an MLP with
+    no compute dtype, whose first layer promotes the bf16 rows to fp32.
+    No model of the zoo stores its table in bf16: this is a user's model
+    built on the collection."""
+
+    def __init__(self, specs, param_dtype=torch.bfloat16, generator=None):
+        super().__init__()
+        self.linear = LinearTerms(specs)
+        self.embeddings = EmbeddingCollection(
+            specs, EMBED_DIM, generator=generator, param_dtype=param_dtype)
+        self.deep = MLP(len(specs) * EMBED_DIM, HIDDEN, output_dim=1,
+                        generator=generator)
+
+    def forward(self, batch) -> torch.Tensor:
+        stacked, lin = fused_embedding_linear(self.embeddings, self.linear,
+                                              batch)
+        first_order = lin.sum(dim=1, keepdim=True) + self.linear.bias
+        deep_logit = self.deep(stacked.reshape(stacked.shape[0], -1))
+        return first_order + fm_interaction(stacked) + deep_logit.float()
+
+
+def bf16_table_phase(ds: MovielensRanking, device) -> tuple:
+    """The bf16-stored table: :class:`Bf16TableModel` trained one epoch
+    (BF16_TABLE_EPOCHS) with the port's Adam at LEARNING_RATE (optax's
+    order on the bf16 table) through ``fit_device``, evaluated with
+    ``BinaryCTREval(model, auc=AUC(num_thresholds=500))``: one bf16 K1 a
+    step and no fp32 K1. Then, outside the counted run: K1 on one step's
+    real bf16 gradient against its order model (``check_scatter``, bit for
+    bit) and timed; the table and its Adam moments still bf16; a
+    checkpoint round trip bit for bit; the logits on the card against the
+    plain CPU path (nearer the CPU's bf16 logits than those lie to the
+    same weights in fp32); ``AUC(from_logits=True)`` on raw logits equal to
+    ``AUC()`` on their sigmoid; the ms of a train step. Returns the
+    launches and the K1 fields for its kernel entry."""
+    # Imported here: --ctr-only also runs in a parent's tree, which may
+    # not have these.
+    from deep_recommenders_torch.ops import embedding_kernels as ek
+    from deep_recommenders_torch.training import (
+        AUC,
+        Adam,
+        BinaryCTREval,
+        restore_train_state,
+        save_train_state,
+    )
+
+    t0 = time.perf_counter()
+    specs = ds.feature_specs
+    bf16 = torch.bfloat16
+    model = Bf16TableModel(
+        specs, generator=torch.Generator().manual_seed(SEED)).to(device)
+    train = DeviceData.from_numpy(*ds.train_arrays(), BATCH, device=device)
+    test = DeviceData.from_numpy(*ds.test_arrays(), BATCH, device=device)
+    trainer, launches, final = train_path(
+        "bf16_table", model, train, test, BF16_TABLE_EPOCHS,
+        lambda s, e: {"scatter_add_rows_bf16": s}, device,
+        optimizer=Adam(model.parameters(), lr=LEARNING_RATE),
+        eval_spec=BinaryCTREval(model, auc=AUC(num_thresholds=500)))
+    table = model.embeddings.table
+    state = trainer.optimizer.state[table]
+    dtypes = {"table": str(table.dtype), "exp_avg": str(state["exp_avg"]
+                                                      .dtype),
+              "exp_avg_sq": str(state["exp_avg_sq"].dtype)}
+    if set(dtypes.values()) != {str(bf16)}:
+        raise AssertionError(f"bf16_table: dtypes after training {dtypes}")
+
+    # One more step, its K1 input kept: the real bf16 gradient of the rows.
+    feats, labels = ds.train_arrays()
+    batch = {k: torch.from_numpy(v[:BATCH]).to(device)
+             for k, v in feats.items()}
+    y_train = torch.from_numpy(labels[:BATCH]).to(device)
+    seen, real = {}, ek.scatter_add_rows
+
+    def keep(g, ids, num_rows):
+        ek.scatter_add_rows = real  # the kernel counts itself by this name
+        seen.update(g=g.clone(), ids=ids.clone(), num_rows=num_rows)
+        return real(g, ids, num_rows)
+
+    ek.scatter_add_rows = keep
+    try:
+        trainer.train_step(batch, y_train)
+    finally:
+        ek.scatter_add_rows = real
+    g, ids, v = seen["g"], seen["ids"], seen["num_rows"]
+    if g.dtype != bf16:
+        raise AssertionError(f"bf16_table: K1 got {g.dtype} g")
+    n, c = g.shape
+    k1 = {"shape": {"g": [n, c], "dtype": "bfloat16", "num_rows": v},
+          **check_scatter(g, ids, v),
+          **timings(lambda: scatter_add_rows(g, ids, v),
+                    lambda: scatter_add_rows_reference(g, ids, v),
+                    lambda: torch.zeros(v, c, device=device).index_add_(
+                        0, ids.long(), g.float()).to(bf16))}
+    k1["bound_ms"], k1["bound_by"] = bound(n * c * 2 + n * 4 + v * c * 2,
+                                           n * c)
+
+    # The checkpoint: the bf16 table and its bf16 moments, bit for bit.
+    scratch = os.path.dirname(_build.BUILD_DIR)
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        save_train_state(tmp, model, trainer.optimizer)
+        fresh = Bf16TableModel(specs).to(device)
+        opt = Adam(fresh.parameters(), lr=LEARNING_RATE)
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")  # no dtype may be cast
+            restore_train_state(tmp, fresh, opt)
+    restored = opt.state[fresh.embeddings.table]
+    pairs = [(fresh.embeddings.table, table)] + [
+        (restored[k], state[k]) for k in ("exp_avg", "exp_avg_sq")]
+    round_trip = all(a.dtype == bf16 and torch.equal(
+        a.view(torch.int16), b.view(torch.int16)) for a, b in pairs)
+    round_trip &= all(torch.equal(a.detach(), b.detach()) for a, b in zip(
+        fresh.parameters(), model.parameters()))
+    if not round_trip:
+        raise AssertionError("bf16_table: checkpoint round trip changed "
+                             "bits")
+    del fresh, opt
+
+    check_logits("bf16_table", model, Bf16TableModel(specs), ds, device,
+                 fp32_model=Bf16TableModel(specs,
+                                           param_dtype=torch.float32))
+    test_feats, test_labels = ds.test_arrays()
+    rows = {k: torch.from_numpy(v[:BATCH]).to(device)
+            for k, v in test_feats.items()}
+    y = torch.from_numpy(test_labels[:BATCH]).to(device)
+    with torch.no_grad():
+        logits = model.eval()(rows)
+    auc, from_logits = AUC(num_thresholds=500), AUC(500, from_logits=True)
+    on_probs = auc.update(auc.init(device), y, torch.sigmoid(logits))
+    on_logits = from_logits.update(from_logits.init(device), y, logits)
+    same_auc = all(torch.equal(on_probs[k], on_logits[k]) for k in on_probs)
+    if not same_auc:
+        raise AssertionError("bf16_table: AUC(from_logits=True) differs "
+                             "from AUC() on the sigmoid")
+    step_ms = time_ms(lambda: trainer.train_step(batch, y_train), iters=10,
+                      warmup=2)
+    summary = {
+        "card": card_line(), "launches": launches,
+        "k1_bf16_on_a_step_gradient": {
+            key: k1[key] for key in ("bitwise_equal", "deterministic",
+                                     "max_abs_err", "ms", "eager_ms",
+                                     "plain_ms", "library_ms", "bound_ms",
+                                     "max_row_updates")},
+        "dtypes_after_training": dtypes, "checkpoint_bit_for_bit": round_trip,
+        "auc_from_logits_equals_auc_of_sigmoid": same_auc,
+        "eval_auc": final["auc"], "eval": final, "train_step_ms": step_ms,
+        "seconds": time.perf_counter() - t0,
+    }
+    print("bf16_table " + json.dumps(summary))
+    del model, trainer
+    torch.cuda.empty_cache()
+    return launches, k1
 
 
 def ctr_kernel_times(ds: MovielensRanking, model: DeepFM, device) -> dict:
@@ -4491,6 +4670,9 @@ def main(argv=()) -> int:
     head_widths = head_width_phase(device)
     print(f"kernel phase done ({time.perf_counter() - t0:.1f} s)")
     paths = train_phase(ds, model, device)
+    paths["bf16_table"], bf16_k1 = bf16_table_phase(ds, device)
+    next(e for e in entries
+         if e["name"] == "scatter_add_rows.bf16")["bf16_table"] = bf16_k1
     paths["attention_d200"] = attention_width_path(device, 200)
     paths["attention_d257"] = attention_width_path(device, 257)
     served, serving = serving_phase(ds, model, imdb, device)

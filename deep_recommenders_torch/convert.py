@@ -1,10 +1,12 @@
 """Weight conversion from the JAX package's flax parameter trees.
 
 The tree arrives as numpy arrays (``jax.tree.map(np.asarray, params)``), so
-this module needs neither JAX nor flax. :func:`shard_state` cuts a converted
-state dict to one process's under a mesh, and :func:`join_shards` puts the
-processes' state dicts back together; :func:`shard_optimizer_state` and
-:func:`join_optimizer_shards` do the same for an optimizer's state.
+this module needs neither JAX nor flax. A bf16 leaf (a table stored in
+bf16) stays bf16; every other leaf becomes fp32. :func:`shard_state` cuts
+a converted state dict to one process's under a mesh, and
+:func:`join_shards` puts the processes' state dicts back together;
+:func:`shard_optimizer_state` and :func:`join_optimizer_shards` do the
+same for an optimizer's state.
 """
 
 from __future__ import annotations
@@ -16,7 +18,14 @@ import torch
 
 
 def _tensor(x: Any) -> torch.Tensor:
-    return torch.from_numpy(np.array(x, dtype=np.float32))
+    """A leaf as a tensor: bf16 (``ml_dtypes.bfloat16``, which
+    ``torch.from_numpy`` refuses) carried bit for bit through an int16
+    view, anything else as fp32."""
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)
+                                .copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
 def _tables_and_deep(p: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

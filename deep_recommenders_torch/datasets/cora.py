@@ -12,16 +12,20 @@ the same draws, so every array is bit-identical to the JAX package's:
 
 Without the files under ``path`` a deterministic synthetic graph of the
 same size stands in (class-assortative edges, class-correlated features).
-The JAX package's ``download_cora`` is not ported: nothing here fetches
-data.
+``download_cora`` fetches the real corpus and extracts it through
+``tarfile``'s ``data`` filter, which refuses members that leave the
+destination; nothing else here fetches data.
 """
 
 from __future__ import annotations
 
 import os
+import tarfile
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+
+from deep_recommenders_torch.datasets._download import fetch
 
 CORA_CLASSES = (
     "Case_Based",
@@ -33,6 +37,34 @@ CORA_CLASSES = (
     "Theory",
 )
 NUM_CLASSES = len(CORA_CLASSES)
+
+CORA_URL = "https://linqs-data.soe.ucsc.edu/public/lbc/cora.tgz"
+
+
+def download_cora(
+    dest_dir: str, url: str = CORA_URL, timeout: float = 60.0
+) -> str:
+    """Download and extract the real Cora corpus; return ``dest_dir``,
+    which then holds ``cora/cora.content`` and ``cora/cora.cites`` (pass
+    it as ``Cora(path=...)``).
+
+    Skips both steps when ``cora/cora.content`` is already there, and the
+    download when ``cora.tgz`` is. Raises ``OSError`` when the URL is
+    unreachable (``Cora`` falls back to the synthetic graph), and
+    ``tarfile.FilterError`` (a ``ValueError``) for a member that leaves
+    ``dest_dir``.
+    """
+    content = os.path.join(dest_dir, "cora", "cora.content")
+    if os.path.exists(content):
+        return dest_dir
+    os.makedirs(dest_dir, exist_ok=True)
+    tgz_path = os.path.join(dest_dir, "cora.tgz")
+    fetch(url, tgz_path, timeout)
+    # The data filter refuses absolute paths, "..", links out of dest_dir
+    # and device files.
+    with tarfile.open(tgz_path, "r:gz") as tf:
+        tf.extractall(dest_dir, filter="data")
+    return dest_dir
 
 
 def normalize_adjacency(adj: np.ndarray) -> np.ndarray:

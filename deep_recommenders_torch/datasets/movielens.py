@@ -10,6 +10,8 @@ Counterpart of ``deep_recommenders_tpu/datasets/movielens.py``:
   movie-popularity forms);
 - ``serialize_corpus`` / ``read_corpus`` write and read the joined corpus
   as one artifact (``CORPUS_COLUMNS``, no object arrays);
+- ``download_ml1m`` fetches and unzips the real corpus (each member's
+  path checked to stay under the destination);
 - ``MovielensRanking`` encodes the six CTR features, label = rating > 3, and
   splits ``train_size``/rest once over the shuffled examples; its retrieval
   view gives the positive (user, movie) pairs of a split for the two-tower
@@ -26,11 +28,13 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import os
+import zipfile
 from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
 from deep_recommenders_torch import native
+from deep_recommenders_torch.datasets._download import fetch
 from deep_recommenders_torch.features.columns import (
     WEIGHT_SUFFIX,
     Feature,
@@ -49,6 +53,37 @@ GENRES_VOCAB = (
     "Musical", "Mystery", "Romance", "Sci-Fi", "Thriller", "War", "Western",
 )
 MAX_GENRES = 6  # ml-1m movies carry at most 6 genres
+
+ML1M_URL = "https://files.grouplens.org/datasets/movielens/ml-1m.zip"
+
+
+def download_ml1m(
+    dest_dir: str, url: str = ML1M_URL, timeout: float = 60.0
+) -> str:
+    """Download and unzip the real ml-1m corpus; return the directory of
+    its ``.dat`` files, ``<dest_dir>/ml-1m``.
+
+    Skips both the download and the extraction when ``ratings.dat`` is
+    already there, and the download when ``ml-1m.zip`` is. Raises
+    ``OSError`` when the URL is unreachable (callers offline fall back to
+    ``synthesize_ml1m``), ``ValueError`` when a member's path leaves
+    ``dest_dir``.
+    """
+    out = os.path.join(dest_dir, "ml-1m")
+    if os.path.exists(os.path.join(out, "ratings.dat")):
+        return out
+    os.makedirs(dest_dir, exist_ok=True)
+    zip_path = os.path.join(dest_dir, "ml-1m.zip")
+    fetch(url, zip_path, timeout)
+    root = os.path.realpath(dest_dir)
+    with zipfile.ZipFile(zip_path) as zf:
+        for name in zf.namelist():
+            target = os.path.realpath(os.path.join(root, name))
+            if os.path.commonpath([root, target]) != root:
+                raise ValueError(f"{zip_path}: member {name!r} leaves "
+                                 f"{dest_dir}")
+        zf.extractall(dest_dir)
+    return out
 
 
 def _load_dat(path: str, columns) -> Dict[str, Dict[str, str]]:

@@ -42,3 +42,12 @@ def check_compute_dtype(dtype):
         raise ValueError(f"compute_dtype must be None (fp32) or "
                          f"torch.bfloat16, got {dtype}")
     return dtype
+
+
+def check_param_dtype(dtype):
+    """The dtype a table is stored in: ``torch.float32`` or
+    ``torch.bfloat16``."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"param_dtype must be torch.float32 or "
+                         f"torch.bfloat16, got {dtype}")
+    return dtype

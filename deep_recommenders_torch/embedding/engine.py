@@ -28,7 +28,10 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from deep_recommenders_torch.device import check_compute_dtype  # noqa: F401
+from deep_recommenders_torch.device import (
+    check_compute_dtype,
+    check_param_dtype,
+)
 from deep_recommenders_torch.embedding.sharded import (
     shard_rows,
     sharded_fused_rows,
@@ -161,10 +164,13 @@ class EmbeddingCollection(nn.Module):
     Multi-hot features are combined (mean/sum) with their padding weights, so
     every feature contributes exactly one D-vector per example.
 
-    With ``compute_dtype=torch.bfloat16`` the table stays an fp32 parameter
-    and is cast to bf16 before the lookup: the one-hot matmul, the gather and
-    the bag sums run in bf16, the rows come out bf16, and the gather's
-    backward is K1 on bf16 gradients.
+    ``param_dtype`` is the dtype the table is stored in, fp32 or bf16; the
+    draw is fp32 from ``generator``, then cast. A bf16 table is looked up
+    in bf16 (the one-hot matmul, the gather and the bag sums), its rows
+    come out bf16, and its gradient is bf16: K1 on bf16 gradients, written
+    straight into the parameter's gradient. With
+    ``compute_dtype=torch.bfloat16`` an fp32 table is cast to bf16 before
+    the same lookup, and the cast's backward upcasts the bf16 gradient.
 
     With ``mesh`` the fused vocab is padded to a multiple of the model
     axis's size (``total_vocab``) and ``table`` holds this process's rows
@@ -180,9 +186,11 @@ class EmbeddingCollection(nn.Module):
         compute_dtype=None,
         mesh=None,
         generator: Optional[torch.Generator] = None,
+        param_dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.compute_dtype = check_compute_dtype(compute_dtype)
+        self.param_dtype = check_param_dtype(param_dtype)
         self.specs = tuple(specs)
         self.dim = dim
         self.mesh = mesh
@@ -195,14 +203,16 @@ class EmbeddingCollection(nn.Module):
         self.total_vocab = total
         table = torch.empty(total, dim)
         nn.init.normal_(table, 0.0, 1.0 / math.sqrt(dim), generator=generator)
+        table = table.to(param_dtype)
         if mesh is None:
             self.table = nn.Parameter(table)
         else:
             self.table = row_shard(table[self.shard_lo:hi].clone(), vocab)
 
     def compute_table(self) -> torch.Tensor:
-        """The table in the compute dtype (a cast of the fp32 parameter)."""
-        if self.compute_dtype is None:
+        """The table in the compute dtype: the parameter itself when the
+        two dtypes agree (or no compute dtype is set), else a cast of it."""
+        if self.compute_dtype in (None, self.table.dtype):
             return self.table
         return self.table.to(self.compute_dtype)
 
@@ -267,10 +277,13 @@ def fused_embedding_linear(
     gradients come out of a single K1 launch (the concat's backward is a
     slice). Under a mesh the operand is this process's shard of the fused
     (V, D+1) table, and the linear weights' rows of it are cut from the
-    replicated weights. The operand is in the embeddings' compute dtype.
-    Returns ``(stacked, first_order)``: (B, F, D) combined embeddings in
-    that dtype and (B, F) per-feature SUM-combined linear terms, upcast to
-    fp32 so that the wide sum over features does not round in bf16.
+    replicated weights. The operand is in the dtype of
+    ``embeddings.compute_table()`` (the compute dtype, or the table's own
+    when none is set): fp32 linear weights beside a bf16 table are cast to
+    bf16, as JAX casts them. Returns ``(stacked, first_order)``: (B, F, D)
+    combined embeddings in that dtype and (B, F) per-feature SUM-combined
+    linear terms, upcast to fp32 so that the wide sum over features does
+    not round in bf16.
     """
     if embeddings.specs != linear.specs:
         raise ValueError("fused_embedding_linear requires identical specs")

@@ -4,8 +4,10 @@ the PyTorch port.
 Same model and loop as ``examples/train_transformer_on_imdb.py``: the
 Transformer's encoder over token sequences, a masked mean pool of its
 outputs, a 2-class head, Adam under the Noam schedule (warmup 400), and the
-test accuracy after each epoch. It trains on ``SyntheticImdb`` (the real
-``imdb.npz`` reader is not ported). Runs on the CUDA card by default:
+test accuracy after each epoch. It trains on ``SyntheticImdb``, or on a
+keras ``imdb.npz`` given with ``--imdb-npz`` (``load_imdb_npz``, each
+split's batches in one permutation drawn from ``--seed``, as the JAX
+example draws them). Runs on the CUDA card by default:
 
     python -m deep_recommenders_torch.examples.train_transformer_on_imdb
 
@@ -22,10 +24,11 @@ import argparse
 import time
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
-from deep_recommenders_torch.datasets import SyntheticImdb
+from deep_recommenders_torch.datasets import SyntheticImdb, load_imdb_npz
 from deep_recommenders_torch.device import resolve_device
 from deep_recommenders_torch.models.nlp import Transformer, noam_schedule
 from deep_recommenders_torch.models.nlp.attention import Dense
@@ -59,6 +62,9 @@ class TransformerClassifier(nn.Module):
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     p = argparse.ArgumentParser()
+    p.add_argument("--imdb-npz", default=None,
+                   help="a keras imdb.npz to train on instead of "
+                        "SyntheticImdb")
     p.add_argument("--epochs", type=int, default=3)
     p.add_argument("--batch-size", type=int, default=64)
     p.add_argument("--num-words", type=int, default=2000)
@@ -73,11 +79,25 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = p.parse_args(argv)
     device = resolve_device(args.device)  # fail before building the data
 
-    ds = SyntheticImdb(num_words=args.num_words, max_len=args.max_len,
-                       seed=args.seed)
+    if args.imdb_npz:
+        train, test = load_imdb_npz(args.imdb_npz, args.num_words,
+                                    args.max_len)
+
+        def split_batches(split):
+            x, y = train if split == "train" else test
+            idx = np.random.default_rng(args.seed).permutation(len(y))
+            for s in range(len(y) // args.batch_size):
+                rows = idx[s * args.batch_size:(s + 1) * args.batch_size]
+                yield x[rows], y[rows]
+    else:
+        ds = SyntheticImdb(num_words=args.num_words, max_len=args.max_len,
+                           seed=args.seed)
+
+        def split_batches(split):
+            return ds.batches(split, args.batch_size, 1, args.seed)
 
     def batches(split):
-        for x, y in ds.batches(split, args.batch_size, 1, args.seed):
+        for x, y in split_batches(split):
             yield (torch.from_numpy(x).to(device),
                    torch.from_numpy(y).long().to(device))
 

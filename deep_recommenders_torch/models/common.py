@@ -88,7 +88,9 @@ class Dense(nn.Linear):
     ``dtype`` the input, weight and bias are cast to it and the output is in
     it: the product is rounded once (fp32 accumulation), then the bias is
     added in that dtype, as XLA does for ``nn.Dense(dtype=bf16)``. The
-    parameters stay fp32."""
+    parameters stay fp32. Without one, the input and the weight are
+    promoted to a common dtype as flax promotes them (a bf16 input to an
+    fp32 layer computes in fp32 and gives fp32)."""
 
     def __init__(self, in_features: int, out_features: int,
                  generator: Optional[torch.Generator] = None,
@@ -101,7 +103,9 @@ class Dense(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         if dt is None:
-            return super().forward(x)
+            dt = torch.promote_types(x.dtype, self.weight.dtype)
+            if dt == self.weight.dtype:
+                return super().forward(x.to(dt))
         return x.to(dt) @ self.weight.to(dt).T + self.bias.to(dt)
 
 

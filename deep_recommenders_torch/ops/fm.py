@@ -33,11 +33,13 @@ def fm_interaction(embeddings: torch.Tensor) -> torch.Tensor:
 
     Reductions accumulate in fp32 regardless of input dtype: the
     (sum)^2 - sum^2 cancellation loses significance in 8-bit mantissas.
+    The two terms read the input through two casts, as JAX's does: on a
+    bf16 input each term's fp32 cotangent is rounded to bf16 on its own
+    and the two are added in bf16, JAX's roundings of the gradient.
     """
-    x = embeddings.float()
-    sum_v = x.sum(dim=1)  # (B, D)
+    sum_v = embeddings.sum(dim=1, dtype=torch.float32)  # (B, D)
     sum_sq = sum_v.square().sum(dim=-1)  # (B,)
-    sq_sum = x.square().sum(dim=(1, 2))  # (B,)
+    sq_sum = embeddings.float().square().sum(dim=(1, 2))  # (B,)
     return (0.5 * (sum_sq - sq_sum))[:, None]
 
 

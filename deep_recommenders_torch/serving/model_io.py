@@ -15,7 +15,12 @@ specs as ``{"__spec__": name, "fields": ...}``, tuples as
 ``{"__tuple__": [...]}``, so round-tripped configs compare equal. Runtime
 arguments (``generator``, ``mesh``) are stored as null. A value JAX refuses
 is refused here with ``TypeError``, a ``torch.dtype`` in ``compute_dtype``
-among them, as a jnp dtype is in JAX's ``_encode``.
+among them, as a jnp dtype is in JAX's ``_encode``. The one dtype that is
+stored is a ``param_dtype`` argument, the dtype a table is stored in
+(``EmbeddingCollection(param_dtype=)``): by name, ``"float32"`` or
+``"bfloat16"``, read back by :func:`decode_config`. A saved tensor whose
+dtype is not the rebuilt model's is cast to it with a warning
+(``checkpoints.warn_dtype_casts``).
 
 A model whose tables (or experts) are sharded over a mesh's "model" axis
 saves its whole state: the shards joined over "model", their padding rows
@@ -52,6 +57,7 @@ from deep_recommenders_torch.training.checkpoints import (
     restore_checkpoint,
     save_checkpoint,
     sharded_rows,
+    warn_dtype_casts,
 )
 
 _SPEC_TYPES = {
@@ -62,6 +68,8 @@ _SPEC_TYPES = {
 
 # Arguments holding runtime objects, stored as null.
 _RUNTIME_FIELDS = ("mesh", "generator")
+# The dtype a table is stored in (a ``param_dtype`` argument), by name.
+_PARAM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _encode(v: Any) -> Any:
@@ -108,8 +116,29 @@ def model_config(model: torch.nn.Module) -> Dict[str, Any]:
     if args is None:
         raise TypeError(f"{type(model).__name__} records no constructor "
                         "arguments (models.common.records_config)")
-    return {k: None if k in _RUNTIME_FIELDS else _encode(v)
+    return {k: None if k in _RUNTIME_FIELDS else
+            _encode_param_dtype(v) if k == "param_dtype" else _encode(v)
             for k, v in args.items()}
+
+
+def _encode_param_dtype(v: Any) -> str:
+    for name, dtype in _PARAM_DTYPES.items():
+        if v == dtype:
+            return name
+    raise TypeError(f"param_dtype={v!r} is not serializable")
+
+
+def decode_config(config: Dict[str, Any]) -> Dict[str, Any]:
+    """The constructor arguments of an encoded config (``model_config``'s
+    output, read back from JSON): specs and tuples rebuilt, a
+    ``param_dtype`` name turned back into its ``torch.dtype``."""
+    kwargs = {k: _decode(v) for k, v in config.items()}
+    if "param_dtype" in kwargs:
+        if kwargs["param_dtype"] not in _PARAM_DTYPES:
+            raise ValueError(f"param_dtype={kwargs['param_dtype']!r}: not "
+                             f"one of {sorted(_PARAM_DTYPES)}")
+        kwargs["param_dtype"] = _PARAM_DTYPES[kwargs["param_dtype"]]
+    return kwargs
 
 
 def _mesh_of(model: torch.nn.Module):
@@ -177,7 +206,7 @@ def load_model(path: str, mesh: Optional[object] = None,
     cls = getattr(importlib.import_module(spec["module"]), spec["class"])
     if not getattr(cls, "_records_config", False):
         raise ValueError(f"{cls.__name__} records no config")
-    kwargs = {k: _decode(v) for k, v in spec["config"].items()}
+    kwargs = decode_config(spec["config"])
     if mesh is not None:
         if "mesh" not in kwargs:
             raise ValueError(f"{cls.__name__} has no mesh field to "
@@ -188,6 +217,7 @@ def load_model(path: str, mesh: Optional[object] = None,
     with torch.random.fork_rng(devices=[]):
         model = cls(**kwargs)
     state = restore_checkpoint(os.path.join(path, "params"))
+    warn_dtype_casts(state, model)
     if mesh is not None:
         state = convert.shard_state(state, axis_size(mesh, MODEL_AXIS),
                                     axis_index(mesh, MODEL_AXIS),

@@ -32,6 +32,7 @@ from deep_recommenders_torch.training.checkpoints import (
 )
 from deep_recommenders_torch.training.optimizers import (
     Adagrad,
+    Adam,
     Ftrl,
     scoped_optimizer,
 )

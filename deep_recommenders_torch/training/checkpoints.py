@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import json
 import os
+import warnings
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -51,6 +52,28 @@ def save_checkpoint(path: str, state: Any, force: bool = True) -> str:
     return path
 
 
+def _cast(saved: torch.Tensor, dtype: torch.dtype,
+          where: str) -> torch.Tensor:
+    """``saved`` in ``dtype``, rounded to nearest as JAX's restore casts a
+    saved array to its template's dtype; the cast is not silent here: it
+    warns (an fp32 checkpoint read into a bf16 table loses its low bits)."""
+    if saved.dtype != dtype:
+        warnings.warn(f"checkpoint entry {where or 'the root'}: saved "
+                      f"{saved.dtype}, restored as {dtype}", stacklevel=3)
+    return saved.to(dtype)
+
+
+def warn_dtype_casts(state: Dict[str, torch.Tensor],
+                     model: torch.nn.Module) -> None:
+    """Warn, as :func:`_cast`, for each entry of ``state`` whose dtype is
+    not the model's: ``load_state_dict`` would cast it without a word."""
+    own = model.state_dict()
+    for key, value in state.items():
+        if (key in own and isinstance(value, torch.Tensor)
+                and value.dtype != own[key].dtype):
+            _cast(value, own[key].dtype, key)
+
+
 def _restore_like(saved: Any, template: Any, where: str) -> Any:
     if isinstance(template, dict):
         if not isinstance(saved, dict) or set(saved) != set(template):
@@ -65,15 +88,17 @@ def _restore_like(saved: Any, template: Any, where: str) -> Any:
             raise ValueError(f"checkpoint entry {where}: saved "
                              f"{getattr(saved, 'shape', saved)}, template "
                              f"{tuple(template.shape)}")
-        return saved.to(template.device, template.dtype)
+        return _cast(saved, template.dtype, where).to(template.device)
     return saved
 
 
 def restore_checkpoint(path: str, template: Optional[Any] = None) -> Any:
     """Read the state saved at ``path``. ``template`` (a state of the same
     structure) pins the structure, the shapes, the dtypes and the devices:
-    a mismatch raises ValueError. Without it the saved state is returned as
-    it was saved (tensors on the CPU)."""
+    a structure or shape that differs raises ValueError, and a tensor saved
+    in another dtype is cast to the template's, as JAX's restore casts it,
+    with a warning. Without it the saved state is returned as it was saved
+    (tensors on the CPU)."""
     path = os.path.abspath(path)
     saved = torch.load(os.path.join(path, _FILE), map_location="cpu",
                        weights_only=True)
@@ -171,7 +196,9 @@ def restore_train_state(path: str, model: torch.nn.Module,
     saved shards are joined (``convert.join_shards``,
     ``join_optimizer_shards``), the padding rows dropped, and the whole
     state cut again for this process (``shard_state``,
-    ``shard_optimizer_state``; new padding rows are zero)."""
+    ``shard_optimizer_state``; new padding rows are zero). An entry saved
+    in another dtype than the model's is cast to it with a warning, as
+    :func:`restore_checkpoint` casts one."""
     _, n_model, m = _coordinates(mesh)
     names = _optimizer_names(model, optimizer)
     cuts = sharded_rows(model)
@@ -184,6 +211,7 @@ def restore_train_state(path: str, model: torch.nn.Module,
         saved_n = layout["mesh"][1]
         if saved_n == n_model:
             state = _load(os.path.join(path, _shard_file(m)))
+            warn_dtype_casts(state["model"], model)
             model.load_state_dict(state["model"])
             optimizer.load_state_dict(state["optimizer"])
             return
@@ -200,6 +228,7 @@ def restore_train_state(path: str, model: torch.nn.Module,
                           for k, v in whole["model"].items()}
         whole["optimizer"] = convert._map_moments(
             whole["optimizer"], names, lambda k, t: t[:rows[k]], rows)
+    warn_dtype_casts(whole["model"], model)
     model.load_state_dict(convert.shard_state(whole["model"], n_model, m,
                                               cuts))
     optimizer.load_state_dict(convert.shard_optimizer_state(

@@ -32,10 +32,12 @@ class BinaryCTREval:
     forward that serving runs.
     """
 
-    def __init__(self, model: torch.nn.Module):
+    def __init__(self, model: torch.nn.Module,
+                 auc: Optional[metrics_lib.AUC] = None,
+                 pr: Optional[metrics_lib.PrecisionRecall] = None):
         self.model = model
-        self.auc = metrics_lib.AUC()
-        self.pr = metrics_lib.PrecisionRecall()
+        self.auc = auc or metrics_lib.AUC()
+        self.pr = pr or metrics_lib.PrecisionRecall()
 
     def init(self):
         device = _device(self.model)

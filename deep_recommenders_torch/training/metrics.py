@@ -26,11 +26,15 @@ def _merge(a: State, b: State) -> State:
 
 @dataclasses.dataclass(frozen=True)
 class AUC:
-    """Streaming ROC-AUC over sigmoid scores in [0, 1] (predictions are
-    clipped to [0, 1]: raw logits would give a plausible but wrong value).
+    """Streaming ROC-AUC over sigmoid scores in [0, 1].
+
+    The threshold grid spans [0, 1], so raw logits fed here would give a
+    plausible but wrong value. ``from_logits=True`` applies the sigmoid in
+    the update; otherwise predictions are clipped to [0, 1].
     """
 
     num_thresholds: int = 200
+    from_logits: bool = False
 
     def init(self, device="cpu") -> State:
         return {
@@ -41,9 +45,14 @@ class AUC:
 
     def update(self, state: State, labels: torch.Tensor,
                predictions: torch.Tensor) -> State:
-        """labels, predictions: (B,) or (B, 1); probabilities in [0, 1]."""
+        """labels, predictions: (B,) or (B, 1); probabilities in [0, 1]
+        (or logits with ``from_logits=True``)."""
         labels = labels.reshape(-1).float()
-        preds = predictions.reshape(-1).clamp(0.0, 1.0)
+        preds = predictions.reshape(-1)
+        if self.from_logits:
+            preds = torch.sigmoid(preds)
+        else:
+            preds = preds.clamp(0.0, 1.0)
         eps = 1e-7
         thresholds = torch.linspace(
             0.0 - eps, 1.0 + eps, self.num_thresholds, device=preds.device

@@ -1,12 +1,15 @@
-"""Optimizers: FTRL-Proximal, optax's Adagrad, and one optimizer per
-parameter scope.
+"""Optimizers: FTRL-Proximal, optax's Adagrad, Adam with optax's order on
+bf16 parameters, and one optimizer per parameter scope.
 
 Counterpart of ``deep_recommenders_tpu/training/optimizers.py``. PyTorch has
 no FTRL, so :class:`Ftrl` is the FTRL-Proximal update (McMahan et al.
 2013) with tf.train.FtrlOptimizer's arguments, as JAX's ``ftrl``.
 :class:`Adagrad` is ``optax.adagrad``, which the two-tower example trains
 with: ``torch.optim.Adagrad`` starts its accumulator at 0 and divides by
-``sqrt(acc) + eps``, another optimizer.
+``sqrt(acc) + eps``, another optimizer. :class:`Adam` is
+``torch.optim.Adam`` on full-precision parameters and ``optax.adam``'s
+sequence of bf16 roundings on a bf16 parameter (a table stored in bf16),
+where torch's own order moves many elements by one bf16 ulp or more.
 :func:`scoped_optimizer` is the per-scope split of JAX's
 ``optax.multi_transform`` over parameter paths (FTRL on ``wide``, Adam
 elsewhere, in the Wide & Deep example).
@@ -16,6 +19,7 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Iterable, Tuple
 
+import numpy as np
 import torch
 
 
@@ -111,6 +115,83 @@ class Adagrad(torch.optim.Optimizer):
                                     torch.zeros_like(acc))
                 w.add_((scale * w.grad) * -lr)
         return loss
+
+
+class Adam(torch.optim.Adam):
+    """``torch.optim.Adam`` on fp32 parameters; ``optax.adam(lr, b1, b2,
+    eps)`` operation for operation on bf16 ones.
+
+    optax keeps a bf16 parameter's moments in bf16 and rounds every
+    operation to bf16, its constants too (b2 = 0.999 becomes 1.0); torch
+    folds the bias corrections into the step size and the denominator, so
+    in bf16 an element's update rounds differently, by one ulp or more.
+    Per element of a bf16 parameter, with each constant c rounded to bf16
+    (``c~``) and every operation rounded to bf16::
+
+        m' = (1 - b1)~ * g + b1~ * m
+        v' = (1 - b2)~ * (g * g) + b2~ * v
+        c1 = bf16(1 - b1^t), c2 = bf16(1 - b2^t)   (fp32 powers, t = step)
+        u  = (m' / c1) / (sqrt(v' / c2) + eps~)
+        p' = p + (-lr)~ * u
+
+    The state keeps torch's names (``step``, ``exp_avg``,
+    ``exp_avg_sq``), so ``state_dict`` and the checkpoints read it as
+    torch's.
+    """
+
+    def __init__(self, params, lr: float = 1e-3,
+                 betas: Tuple[float, float] = (0.9, 0.999),
+                 eps: float = 1e-8):
+        super().__init__(params, lr=lr, betas=betas, eps=eps)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        # torch's own step over the fp32 parameters alone (its foreach or
+        # fused implementation, bit for bit torch.optim.Adam), then optax's
+        # order over the bf16 ones.
+        groups = [g["params"] for g in self.param_groups]
+        try:
+            for group, params in zip(self.param_groups, groups):
+                group["params"] = [p for p in params
+                                   if p.dtype != torch.bfloat16]
+            super().step()
+        finally:
+            for group, params in zip(self.param_groups, groups):
+                group["params"] = params
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.dtype == torch.bfloat16 and p.grad is not None:
+                    self._optax_step(p, group)
+        return loss
+
+    def _optax_step(self, p: torch.Tensor, group) -> None:
+        b1, b2 = group["betas"]
+        state = self.state[p]
+        if not state:
+            state["step"] = torch.tensor(0.0)
+            state["exp_avg"] = torch.zeros_like(p)
+            state["exp_avg_sq"] = torch.zeros_like(p)
+        state["step"] += 1
+
+        def c(x):  # a constant of optax's in fp32, then the parameter's
+            # dtype; made on the device, so the step copies nothing to it
+            return torch.full((), x, dtype=torch.float32,
+                              device=p.device).to(p.dtype)
+
+        def correction(beta):
+            t = np.float32(state["step"].item())
+            return c(np.float32(1) - np.float32(beta) ** t)
+
+        g, m, v = p.grad, state["exp_avg"], state["exp_avg_sq"]
+        m.copy_(c(1 - b1) * g + c(b1) * m)
+        v.copy_(c(1 - b2) * (g * g) + c(b2) * v)
+        u = (m / correction(b1)) / (
+            (v / correction(b2)).sqrt() + c(group["eps"]))
+        p.copy_(p + c(-group["lr"]) * u)
 
 
 class ScopedOptimizer:

@@ -152,17 +152,20 @@ class Trainer:
 
     def _mean_over_data(self, loss: torch.Tensor) -> torch.Tensor:
         """Every gradient and ``loss`` summed over the data group in one
-        all-reduce and divided by its size; returns the mean loss."""
+        all-reduce and divided by its size; returns the mean loss. The
+        buffer is fp32: a bf16 gradient (a table stored in bf16) is summed
+        there and rounded once to bf16 after the division, the same bits
+        on NCCL and gloo (at two data shards, the bf16 sum of the two)."""
         params = [p for p in self.model.parameters() if p.requires_grad]
         flat = torch.cat(
             [(p.grad if p.grad is not None else torch.zeros_like(p))
-             .reshape(-1) for p in params]
-            + [loss.detach().reshape(1).to(params[0].dtype)])
+             .reshape(-1).float() for p in params]
+            + [loss.detach().reshape(1).float()])
         all_reduce(flat, self.mesh, DATA_AXIS)
         flat /= axis_size(self.mesh, DATA_AXIS)
         offset = 0
         for p in params:
-            p.grad = flat[offset:offset + p.numel()].view_as(p)
+            p.grad = flat[offset:offset + p.numel()].view_as(p).to(p.dtype)
             offset += p.numel()
         return flat[-1]
 

@@ -344,6 +344,78 @@ def test_lookup_backward_on_a_bf16_table(device):
     assert torch.equal(table.grad.cpu(), want.to(torch.bfloat16).float())
 
 
+def test_bf16_table_train_step_launches_k1_once(device):
+    """A table stored in bf16 (``EmbeddingCollection(param_dtype=bf16)``)
+    beside fp32 linear terms in one fused pass, as DeepFM composes them,
+    on a train batch of 8192: the step launches the bf16 K1 once and the
+    fp32 K1 never; the table's gradient is that launch's rows bit for bit
+    its order model's on the step's own g and ids; the port's Adam keeps
+    the table and its moments bf16."""
+    from deep_recommenders_torch.datasets.movielens import (
+        default_movielens_features,
+    )
+    from deep_recommenders_torch.embedding.engine import (
+        EmbeddingCollection,
+        LinearTerms,
+        fused_embedding_linear,
+    )
+    from deep_recommenders_torch.training import Adam
+
+    specs = default_movielens_features()
+    emb = EmbeddingCollection(specs, 16, param_dtype=torch.bfloat16,
+                              generator=torch.Generator().manual_seed(0))
+    lin = LinearTerms(specs)
+    emb, lin = emb.to(device), lin.to(device)
+    rng = np.random.default_rng(4)
+    b = 8192
+    batch = {"user_id": rng.integers(0, 6040, b),
+             "user_gender": rng.integers(0, 3, b),
+             "user_age": rng.integers(0, 8, b),
+             "user_occupation": rng.integers(0, 22, b),
+             "movie_id": rng.integers(0, 3952, b),
+             "movie_genres": rng.integers(0, 19, (b, 6))}
+    batch = {k: torch.from_numpy(v.astype(np.int32)).to(device)
+             for k, v in batch.items()}
+    batch["movie_genres__wt"] = (torch.rand(b, 6, device=device)
+                                 < 0.5).float()
+    opt = Adam([*emb.parameters(), *lin.parameters()], lr=1e-3)
+    seen, real = {}, ek.scatter_add_rows
+
+    def keep(g, ids, num_rows):
+        ek.scatter_add_rows = real
+        seen.update(g=g.clone(), ids=ids.clone(), num_rows=num_rows)
+        return real(g, ids, num_rows)
+
+    before = (ek.scatter_add_rows.launches, ek.scatter_add_rows.launches_bf16)
+    ek.scatter_add_rows = keep
+    try:
+        stacked, first = fused_embedding_linear(emb, lin, batch)
+        ((stacked.float() ** 2).sum() + first.sum()).backward()
+    finally:
+        ek.scatter_add_rows = real
+    assert (ek.scatter_add_rows.launches,
+            ek.scatter_add_rows.launches_bf16) == (before[0], before[1] + 1)
+    g, ids = seen["g"], seen["ids"]
+    assert g.dtype == emb.table.grad.dtype == torch.bfloat16
+    want = ek.scatter_add_rows_in_segments(
+        g.float().cpu(), ids.cpu(), seen["num_rows"]).to(torch.bfloat16)
+    # the big-vocab rows are K1's alone: the small vocabs go through the
+    # one-hot matmul, whose gradient adds to theirs
+    big = torch.zeros(seen["num_rows"], dtype=torch.bool)
+    big[ids.long().cpu()] = True
+    for s, off in zip(specs, emb.feature_offsets):
+        if s.cardinality <= 256:
+            big[off:off + s.cardinality] = False
+    got = emb.table.grad.cpu()[big].view(torch.int16)
+    assert torch.equal(got, want[big, :16].contiguous().view(torch.int16))
+    before_step = emb.table.detach().clone()
+    opt.step()
+    state = opt.state[emb.table]
+    assert emb.table.dtype == state["exp_avg"].dtype == torch.bfloat16
+    assert state["exp_avg_sq"].dtype == torch.bfloat16
+    assert not torch.equal(emb.table.detach(), before_step)
+
+
 def test_scatter_add_rows_rejects_other_dtypes(device):
     """fp32 and bf16 g only: no silent cast, no fallback."""
     ids = torch.zeros(4, dtype=torch.int32, device=device)
