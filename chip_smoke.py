@@ -39,9 +39,17 @@ In order:
    CUDA-graph replays, and the eager call's time; K5's and K6's bounds
    those of their 3xTF32 design: bytes, three TF32 passes of their
    products, or the exponentials, whichever is largest); then the bf16 K5
-   and K6 at the same shapes on bf16 q, k, v, g, held against their fp64 and
-   bf16 plain versions (``check_forward_bf16``, ``check_backward_bf16``),
-   timed beside the bf16 SDPA call, with the exp floor beside their bounds;
+   and K6 at the same shapes on bf16 q, k, v, g (at D = 16 those of
+   csrc/flash_attention_tma_bf16.cu: TMA under warp specialisation, K5's
+   consumer warps on mma.sync, K6 on wgmma and scored once a pair), held
+   against their fp64 and bf16 plain versions (``check_forward_bf16``,
+   ``check_backward_bf16``), shown to reject dk less one query tile and dq
+   less one key tile, timed beside the bf16 SDPA call and the mma.sync
+   kernels of csrc/flash_attention_bf16.cu (through their C functions),
+   with the exp floors beside their bounds, their SASS (TMA loads; wgmma
+   in K6) and ptxas summary, and the checks on planted extreme scores
+   beside those mma.sync kernels (exp2f, where the new ones take
+   ex2.approx.ftz) and the bf16 plain version;
    then K5 and K6 at D = 256 and at D = 512, fp32 and bf16
    (``wide_attention_phase``: K6 and the fp32 K5 from 256 are
    csrc/flash_attention_wide(_bf16).cu's, the bf16 K5
@@ -242,8 +250,9 @@ in a parent's tree measures the parent.
     python3 chip_smoke.py --attention-times
 
 builds the kernels and times the fp32 and the bf16 K5 and K6 at the
-Transformer's shapes (D = 16), at D = 256 and 512 (the wide phase's
-inputs) and at D = 1024, (64, 512, 1024) (K5 on clusters of 4 blocks);
+Transformer's shapes (D = 16), the bf16 ones also at its (BH, S) and
+D = 32, 64 and 128, at D = 256 and 512 (the wide phase's inputs) and at
+D = 1024, (64, 512, 1024) (K5 on clusters of 4 blocks);
 device and eager ms, K6's split between its two kernels, no checks; and
 prints them as its last line, one JSON object (no "ok" line). It calls
 only what every tree since the D > 256 instances has, so a copy of this
@@ -265,7 +274,9 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -376,8 +387,11 @@ TT_BATCH, TT_DIM, TT_HIDDEN = 4096, 32, (64,)
 TT_QUERIES, TT_K, TT_STREAM, TT_CHUNK = 4096, 100, 1000, 1024
 # Flash attention's kernel phase: fp64 checks over BH rows in chunks.
 ATT_CHUNK = 256
-# A planted fault in dk: the contribution of the first query tile dropped.
+# A planted fault in dk: the contribution of the first query tile dropped;
+# in the bf16 dq: the contribution of the first key tile (of the one-pass
+# K6's 128).
 ATT_PLANTED_ROWS = 64
+ATT_PLANTED_KEYS = 128
 # Head widths without a kernel: the IMDB example's --model-dim 32
 # --max-len 1024 (batch 64 x 4 heads, D = 8; 256 x 1024^2 x 4 B x 3 = 3.2 GB
 # of dense score tensors, over the 2 GB budget), checked in chunks of rows;
@@ -391,6 +405,9 @@ WIDE_SHAPES = {"d256": (256, 256), "d512": (128, 512)}
 # --attention-times also takes D = 1024 (K5 on clusters of 4 blocks), BH
 # halved again: how the clusters' exchange grows with their size.
 TIMED_SHAPES = {**WIDE_SHAPES, "d1024": (64, 1024)}
+# And the other head widths up to 128 of the bf16 K5 and K6 at the
+# Transformer slice's (BH, S) and key masks.
+NARROW_TIMED = (32, 64, 128)
 
 # Published H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bandwidth, fp32
 # outside the tensor cores, and dense bf16 on the tensor cores.
@@ -1788,20 +1805,22 @@ def live_tile_pairs(mask: torch.Tensor, causal: bool) -> int:
     return int((live * seen).sum().item()) * ATT_TILE * ATT_TILE
 
 
-def kernel_source(dtype, d: int, backward: bool) -> str:
+def kernel_source(dtype, d: int, backward: bool, bh: int, sq: int) -> str:
     """The repo path of the source whose kernel K5 (or K6) runs for
-    operands of ``dtype`` at head width ``d``."""
+    operands of ``dtype`` at head width ``d`` and (BH, Sq) = (bh, sq)."""
     return (f"deep_recommenders_torch/csrc/"
-            f"{att._kernel(dtype, d, backward)[0]}.cu")
+            f"{att._kernel(dtype, d, backward, bh, sq)[0]}.cu")
 
 
-def attention_inputs(imdb: SyntheticImdb, device, dtype=torch.float32):
+def attention_inputs(imdb: SyntheticImdb, device, dtype=torch.float32,
+                     d: int = TX_DIM // TX_HEADS):
     """The attention kernels' inputs at the Transformer slice's shapes:
-    q, k, v, g (2048, 512, 16) seeded normals in ``dtype``, and the key
-    masks of one train batch's tokens repeated over the 8 heads."""
+    q, k, v, g (2048, 512, 16) seeded normals in ``dtype`` (or head width
+    ``d``), and the key masks of one train batch's tokens repeated over the
+    8 heads."""
     tokens = torch.from_numpy(imdb.train[0][:TX_BATCH]).to(device)
     mask = (tokens != 0).float().repeat_interleave(TX_HEADS, dim=0)
-    bh, s, d = mask.shape[0], TX_LEN, TX_DIM // TX_HEADS
+    bh, s = mask.shape[0], TX_LEN
     gen = torch.Generator(device=device).manual_seed(SEED)
     q, k, v, g = (torch.randn(bh, s, d, device=device, generator=gen)
                   .to(dtype) for _ in range(4))
@@ -1862,14 +1881,19 @@ def fp32_attention_times(imdb: SyntheticImdb, device) -> dict:
 
 def attention_times_by_width(imdb: SyntheticImdb, device) -> dict:
     """:func:`attention_times` of the fp32 and the bf16 K5 and K6 at the
-    Transformer slice's shapes (D = 16, :func:`attention_inputs`) and at
-    D = 256, 512 and 1024 (:func:`wide_attention_inputs`,
+    Transformer slice's shapes (D = 16, :func:`attention_inputs`), of the
+    bf16 ones at its (BH, S) and D = 32, 64 and 128 (``NARROW_TIMED``), and
+    at D = 256, 512 and 1024 (:func:`wide_attention_inputs`,
     ``TIMED_SHAPES``): calls that every tree since the D > 256 instances
     takes, for setting a change beside its parent."""
     times = {}
     for dtype in (torch.float32, torch.bfloat16):
         times[f"d16/{dtype}"] = attention_times(
             *attention_inputs(imdb, device, dtype))
+        if dtype == torch.bfloat16:
+            for d in NARROW_TIMED:
+                times[f"d{d}/{dtype}"] = attention_times(
+                    *attention_inputs(imdb, device, dtype, d))
         for which in TIMED_SHAPES:
             times[f"{which}/{dtype}"] = attention_times(
                 *wide_attention_inputs(imdb, device, dtype, which))
@@ -1996,15 +2020,153 @@ def attention_kernel_phase(imdb: SyntheticImdb, device, inputs=None,
         del out, lse, grads, fwd_call, bwd_call
     entries = [
         {"name": "flash_attention.fwd" + suffix, "route": "cuda",
-         "source": kernel_source(torch.float32, d, False),
+         "source": kernel_source(torch.float32, d, False, bh, s),
          "replaces": "deep_recommenders_tpu/ops/attention.py:165", **fwd},
         {"name": "flash_attention.bwd" + suffix, "route": "cuda",
-         "source": kernel_source(torch.float32, d, True),
+         "source": kernel_source(torch.float32, d, True, bh, s),
          "replaces": "deep_recommenders_tpu/ops/attention.py:377", **bwd},
     ]
     del q, k, v, g
     torch.cuda.empty_cache()
     return entries
+
+
+def mma_sync_bf16_calls(q, k, v, g, mask, causal):
+    """The bf16 K5 and K6 of csrc/flash_attention_bf16.cu (mma.sync, 64-key
+    tiles, exp2f, K6 in a dq and a dk/dv kernel) called through their C
+    functions on the same inputs, whatever the wrapper routes the shape to:
+    the yardstick of flash_attention_tma_bf16.cu's kernels in one run (their
+    times, and whether their exponentials change what the checks see).
+    Returns (forward call, backward call on its own out and lse); no launch
+    is counted."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    p, i32, f64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_double
+    fwd_fn = _build.function("flash_attention_bf16", "flash_attention_fwd_bf16",
+                             [p] * 6 + [i32] * 5 + [f64, p])
+    bwd_fn = _build.function("flash_attention_bf16", "flash_attention_bwd_bf16",
+                             [p] * 11 + [i32] * 5 + [f64, p])
+    scale = d ** -0.5
+
+    def fwd():
+        out = torch.empty_like(q)
+        lse = torch.empty(bh, sq, device=q.device)
+        _build.check(fwd_fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            mask.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                            bh, sq, sk, d, int(causal), scale, stream()),
+                     "the mma.sync bf16 K5")
+        return out, lse
+
+    out, lse = fwd()
+
+    def bwd():
+        grads = [torch.empty_like(t) for t in (q, k, v)]
+        delta = torch.empty(bh, sq, device=q.device)
+        _build.check(bwd_fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            mask.data_ptr(), lse.data_ptr(), out.data_ptr(),
+                            g.data_ptr(), delta.data_ptr(),
+                            *(t.data_ptr() for t in grads), bh, sq, sk, d,
+                            int(causal), scale, stream()),
+                     "the mma.sync bf16 K6")
+        return grads
+
+    return fwd, bwd
+
+
+# Planted extreme scores: q times each of these on EXTREME_ROWS (bh) rows
+# of the bf16 path's inputs puts the scores' spread in the tens and in the
+# hundreds, so that some or most p lie below 2^-126, where ex2.approx.ftz
+# flushes to 0 and exp2f does not.
+EXTREME_Q_SCALES, EXTREME_ROWS = (16.0, 64.0), 256
+
+
+def extreme_scores(q, k, v, g, mask) -> dict:
+    """The bf16 K5 and K6 on planted extreme scores (q scaled by each of
+    EXTREME_Q_SCALES, EXTREME_ROWS rows), non-causal and causal: the largest
+    share of a tolerance, forward and backward, of the routed kernels
+    (ex2.approx.ftz), of flash_attention_bf16.cu's mma.sync kernels (exp2f)
+    and of the bf16 plain version
+    (torch.exp) under the same fp64 checks, reported without raising (an
+    output element whose every term is a p below 2^-126 has lost the
+    relative precision the checks' model assumes, whatever the exp), and
+    the share of valid lanes whose p lies below 2^-126."""
+    rows = slice(0, EXTREME_ROWS)
+    base = q[rows].float()
+    k, v, g, mask = k[rows], v[rows], g[rows], mask[rows]
+    bh, s, d = k.shape
+    result = {}
+    for scale, causal in itertools.product(EXTREME_Q_SCALES, (False, True)):
+        q = (base * scale).to(torch.bfloat16)
+        fields = {}
+        sync_fwd, sync_bwd = mma_sync_bf16_calls(q, k, v, g, mask, causal)
+        for name in ("routed", "mma_sync", "bf16_plain"):
+            if name == "routed":
+                out, lse = att.flash_attention(q, k, v, mask, causal,
+                                               return_lse=True)
+                grads = att.flash_attention_backward(q, k, v, mask, out, lse,
+                                                     g, causal)
+            elif name == "mma_sync":
+                out, lse = sync_fwd()
+                grads = sync_bwd()
+            else:
+                out, lse = att.flash_attention_reference_bf16(q, k, v, mask,
+                                                              causal)
+                grads = att.flash_attention_backward_reference_bf16(
+                    q, k, v, mask, out, lse, g, causal)
+            fwd_checks = at.check_forward_bf16((out, lse), q, k, v, mask,
+                                               causal, hold=False)
+            bwd_checks = at.check_backward_bf16(grads, q, k, v, mask, out,
+                                                lse, g, causal, hold=False)
+            fields[name] = {"forward": ct.worst_share(fwd_checks),
+                            "backward": ct.worst_share(bwd_checks)}
+        lanes = att._valid_lanes((bh, s, s), mask, causal,
+                                 q.device).expand(bh, s, s)
+        sc = torch.einsum("bqd,bkd->bqk", q.double(), k.double()) * d ** -0.5
+        lse64 = att.flash_attention_reference(q.double(), k.double(),
+                                              v.double(), mask, causal)[1]
+        tiny = (sc - lse64[..., None]) < -126 * math.log(2)
+        fields["valid_lanes_below_2^-126"] = (
+            (tiny & lanes).sum() / lanes.sum()).item()
+        result[f"q_scale={scale:g} causal={causal}"] = fields
+        del sc, lanes, tiny
+    torch.cuda.empty_cache()
+    return result
+
+
+def ptxas_summary(log: str) -> dict:
+    """Registers and spilled bytes of each kernel in an nvcc -Xptxas -v
+    log, and the lines of its warnings (C75xx: setmaxnreg, wgmma)."""
+    kernels, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            kernels[name] = {}
+        elif name and "spill stores" in line:
+            parts = line.replace(",", "").split()
+            kernels[name]["spill_stores"] = int(parts[parts.index("spill") - 2])
+            kernels[name]["spill_loads"] = int(parts[-4])
+        elif name and "Used" in line and "registers" in line:
+            parts = line.split()
+            kernels[name]["registers"] = int(parts[parts.index("Used") + 1])
+    warnings_ = [line.strip() for line in log.splitlines() if "C75" in line]
+    return {"kernels": kernels, "warnings": warnings_}
+
+
+def check_tma_sass() -> dict:
+    """The bf16 K5 and K6 of narrow heads are fed by TMA: every kernel of
+    csrc/flash_attention_tma_bf16.cu has UTMALDG instructions; K6's
+    (bwd_kernel) run their products on wgmma (HGMMA, no HMMA), K5's
+    (fwd_kernel) on mma.sync (HMMA, no HGMMA)."""
+    counts = sass_opcodes("flash_attention_tma_bf16")
+    bad = {k: c for k, c in counts.items()
+           if not c["UTMALDG"] or (
+               (c["HMMA"] or not c["HGMMA"]) if "bwd_kernel" in k
+               else (c["HGMMA"] or not c["HMMA"]))}
+    if not counts or bad:
+        raise AssertionError(f"flash_attention_tma_bf16 SASS: {counts}")
+    print(f"flash_attention_tma_bf16 SASS: {counts}")
+    return counts
 
 
 def attention_bf16_kernel_phase(imdb: SyntheticImdb, device, inputs=None,
@@ -2013,14 +2175,21 @@ def attention_bf16_kernel_phase(imdb: SyntheticImdb, device, inputs=None,
     (2048, 512, 16) seeded normals rounded to bf16, with the same key
     masks as the fp32 phase (or ``inputs``, ``heads`` and ``suffix`` as in
     :func:`attention_kernel_phase`), non-causal and causal. Each is held
-    against its fp64 and its bf16 plain version (``check_forward_bf16``,
-    ``check_backward_bf16`` in ``ops/attention_tolerances.py``), in chunks
-    of ATT_CHUNK rows; the dk check must reject dk less its first query
-    tile. Times: kernel, bf16 plain version, and one bf16
+    against its fp64 and its bf16 plain version (``check_forward_bf16`` at
+    the kernel's key tile, ``check_backward_bf16`` in
+    ``ops/attention_tolerances.py``), in chunks of ATT_CHUNK rows; the dk
+    check must reject dk less its first query tile, the dq check dq less
+    its first key tile. Times: kernel, bf16 plain version, one bf16
     ``F.scaled_dot_product_attention`` call with the boolean mask (for K6
-    its backward). Bounds: bf16 bytes and bf16 tensor-core operations,
-    with the exp floor beside them (one exp per lane of a scored tile, two
-    in K6, at 16 a clock per SM at the largest SM clock)."""
+    its backward), and the mma.sync kernels (:func:`mma_sync_bf16_calls`)
+    where the wrapper routes to flash_attention_tma_bf16.cu. Bounds: bf16
+    bytes and
+    bf16 tensor-core operations, with the exp floors beside them (at 16 a
+    clock per SM at the largest SM clock: one exp per lane of a scored
+    64-key tile, two in K6 as JAX splits it, "exp_floor_ms"; one a valid
+    pair, "exp_floor_valid_pairs_ms"; K6 scored once a pair,
+    "exp_floor_one_pass_ms" and "exp_floor_one_pass_valid_pairs_ms");
+    at D = 16 also the planted extreme scores (:func:`extreme_scores`)."""
     q, k, v, g, mask = inputs or attention_inputs(imdb, device,
                                                   torch.bfloat16)
     del inputs
@@ -2030,6 +2199,8 @@ def attention_bf16_kernel_phase(imdb: SyntheticImdb, device, inputs=None,
     shape = {"q": [bh, s, d], "k": [bh, s, d], "dtype": "bfloat16",
              "valid_keys": mask.mean().item()}
     exp_rate = SMS * EXP_PER_SM_CLOCK * sm_clock_hz()
+    routed = {direction: att._kernel(torch.bfloat16, d, direction, bh, s)[0]
+              for direction in (False, True)}
     fwd, bwd = {}, {}
     for causal in (False, True):
         out, lse = att.flash_attention(q, k, v, mask, causal, return_lse=True)
@@ -2043,17 +2214,28 @@ def attention_bf16_kernel_phase(imdb: SyntheticImdb, device, inputs=None,
         bwd_checks = _merge_checks(
             at.check_backward_bf16([t[c] for t in grads], q[c], k[c], v[c],
                                    mask[c], out[c], lse[c], g[c], causal,
-                                   planted_rows=ATT_PLANTED_ROWS)
+                                   planted_rows=ATT_PLANTED_ROWS,
+                                   planted_keys=ATT_PLANTED_KEYS)
             for c in chunks)
         print(f"flash_attention_bf16{suffix} causal={causal} shares: out "
               f"{fwd_checks['out']['err_over_tol']:.6g} (fp64), "
               f"{fwd_checks['out_bf16_plain']['err_over_tol']:.6g} (bf16 "
               f"plain); dk {bwd_checks['dk']['err_over_tol']:.6g}, fro "
               f"{bwd_checks['dk']['fro_over_tol']:.6g}; planted dk fault "
-              f"{bwd_checks['dk']['planted']['query_tile_dropped']:.6g}"
+              f"{bwd_checks['dk']['planted']['query_tile_dropped']:.6g}, "
+              f"dq fault "
+              f"{bwd_checks['dq']['planted']['key_tile_dropped']:.6g}"
               + lost_partial(fwd_checks))
         pairs = _valid_pairs(mask, causal)
         lanes = live_tile_pairs(mask, causal)
+        sync = {}
+        if "tma" in routed[False] or "tma" in routed[True]:
+            sync_fwd, sync_bwd = mma_sync_bf16_calls(q, k, v, g, mask, causal)
+            sync = {"fwd": {"mma_sync_ms": graph_ms(sync_fwd, 10, 4),
+                            "mma_sync_eager_ms": time_ms(sync_fwd, 20)},
+                    "bwd": {"mma_sync_ms": graph_ms(sync_bwd, 10, 4),
+                            "mma_sync_eager_ms": time_ms(sync_bwd, 20)}}
+            del sync_fwd, sync_bwd
         fwd_entry = {
             "shape": {**shape, "causal": causal},
             **check_fields(fwd_checks),
@@ -2066,6 +2248,7 @@ def attention_bf16_kernel_phase(imdb: SyntheticImdb, device, inputs=None,
                 lambda: att.flash_attention_reference_bf16(q, k, v, mask,
                                                            causal),
                 None, iters=10, replays=4, eager_iters=20),
+            **sync.get("fwd", {}),
             "host_us": host_us(lambda: att.flash_attention(q, k, v, mask,
                                                            causal)),
             **library_fields(q, k, v, mask, causal, heads=heads),
@@ -2089,16 +2272,19 @@ def attention_bf16_kernel_phase(imdb: SyntheticImdb, device, inputs=None,
                 lambda: att.flash_attention_backward_reference_bf16(
                     q, k, v, mask, out, lse, g, causal),
                 None, iters=10, replays=4, eager_iters=20),
+            **sync.get("bwd", {}),
             **library_fields(q, k, v, mask, causal, g, heads),
-            # The dq kernel and the dk/dv kernel, one launch each.
+            # The kernels one call runs: one (scored once a pair) or the
+            # mma.sync dq and dk/dv kernels.
             "kernel_split": kernel_times(
                 lambda: att.flash_attention_backward(q, k, v, mask, out, lse,
                                                      g, causal), top=2),
 
             # q, k, v, g, out, dq, dk and dv in bf16; the mask and lse in
             # fp32. Per scored pair 10 D tensor-core operations (s, dp, dq,
-            # dk, dv); as JAX splits it, 14 D ("gflop_kernels"); each
-            # kernel rebuilds p: two exps a lane.
+            # dk, dv); as JAX splits it, 14 D ("gflop_kernels"), and each
+            # kernel rebuilds p: two exps a lane ("exp_floor_ms", the
+            # yardstick shared with the mma.sync kernels); scored once, one.
             **bound_fields((8 * bh * s * d) * 2 + 2 * bh * s * 4,
                            pairs * 10 * d, bf16=True),
             "gflop_kernels": pairs * 14 * d / 1e9,
@@ -2106,6 +2292,8 @@ def attention_bf16_kernel_phase(imdb: SyntheticImdb, device, inputs=None,
             "exp_lanes": 2 * lanes,
             "exp_floor_ms": 2 * lanes / exp_rate * 1e3,
             "exp_floor_valid_pairs_ms": 2 * pairs / exp_rate * 1e3,
+            "exp_floor_one_pass_ms": lanes / exp_rate * 1e3,
+            "exp_floor_one_pass_valid_pairs_ms": pairs / exp_rate * 1e3,
         }
         if causal:
             fwd["causal"], bwd["causal"] = fwd_entry, bwd_entry
@@ -2115,12 +2303,17 @@ def attention_bf16_kernel_phase(imdb: SyntheticImdb, device, inputs=None,
         del out, lse, grads
     entries = [
         {"name": "flash_attention_bf16.fwd" + suffix, "route": "cuda",
-         "source": kernel_source(torch.bfloat16, d, False),
+         "source": kernel_source(torch.bfloat16, d, False, bh, s),
          "replaces": "deep_recommenders_tpu/ops/attention.py:165", **fwd},
         {"name": "flash_attention_bf16.bwd" + suffix, "route": "cuda",
-         "source": kernel_source(torch.bfloat16, d, True),
+         "source": kernel_source(torch.bfloat16, d, True, bh, s),
          "replaces": "deep_recommenders_tpu/ops/attention.py:377", **bwd},
     ]
+    if "tma" in routed[False] and not suffix:
+        entries[0]["sass"] = entries[1]["sass"] = check_tma_sass()
+        entries[0]["extreme_scores"] = extreme = extreme_scores(q, k, v, g,
+                                                                mask)
+        print("flash_attention_bf16 extreme scores " + json.dumps(extreme))
     del q, k, v, g
     torch.cuda.empty_cache()
     return entries
@@ -4617,9 +4810,12 @@ def main(argv=()) -> int:
     print(card_line())
     device = resolve_device("cuda")
     t0 = time.perf_counter()
-    for name, log in _build.build().items():
+    logs = _build.build()
+    for name, log in logs.items():
         print(f"--- nvcc {name}\n{log}", file=sys.stderr)
     print(f"kernels built in {time.perf_counter() - t0:.1f} s")
+    ptxas = ptxas_summary(logs.get("flash_attention_tma_bf16", ""))
+    print("flash_attention_tma_bf16 ptxas " + json.dumps(ptxas))
 
     if args.wrapper_host_us:
         # Not the full smoke run: no checks of the kernels, no "ok" line.
@@ -4706,6 +4902,10 @@ def main(argv=()) -> int:
         if entry["name"] in SERVED_PATH:
             entry["serving_launches_per_batch"] = served[SERVED_PATH[
                 entry["name"]]][counter]
+    for entry in entries:
+        if entry["name"] in ("flash_attention_bf16.fwd",
+                             "flash_attention_bf16.bwd"):
+            entry["ptxas"] = ptxas
     print("serving " + json.dumps(serving))
     print("head_widths " + json.dumps(head_widths))
     print(json.dumps({"kernels": entries}))

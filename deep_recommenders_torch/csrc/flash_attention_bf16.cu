@@ -23,8 +23,13 @@
 // 989 TFLOP/s) and about 143 MB of inputs and outputs (0.043 ms at
 // 3.35 TB/s), but one exp per pair, and the SFU gives 16 a clock per SM:
 // 0.08-0.13 ms at 1.98 GHz, counting 337 M exps or every lane of a live
-// tile (537 M). K6 rebuilds p in both of its kernels, twice the exps. So
-// wgmma would buy nothing yet. What the design does:
+// tile (537 M). K6 rebuilds p in both of its kernels, twice the exps.
+// Measured there on an H100 SXM at 700 W (PERF.md): K5 0.262 / 0.207 ms
+// (non-causal / causal), K6 0.676 / 0.506; a FlashAttention-3 forward on
+// wgmma ran 0.28-0.34 ms, behind this kernel, and the bf16 K5 at D = 16,
+// 32, 64 and K6 at 16 and 32 now run flash_attention_tma_bf16.cu's
+// kernels (K5 on mma.sync warps fed by TMA, 0.252 / 0.191 ms; K6 on wgmma,
+// each tile pair scored once, 0.467 / 0.350 ms). What this design does:
 // - mma.sync m16n8k16 (bf16 operands, fp32 accumulators) for every
 //   product; the score tile's accumulator fragments are converted to bf16
 //   in registers and fed as the A operand of the next product (P V, P^T dO,
@@ -65,9 +70,12 @@
 // so far, which depends on the tile width (JAX uses 128 keys, this kernel
 // 64); ops/attention_tolerances.py bounds the difference.
 //
-// Head widths. This file holds K5 and K6 at D = 16, 32, 64 and 128; K5
-// from D = 256 to 2048 is flash_attention_cluster_bf16.cu's (wgmma fed by
-// TMA, clusters that split D above 256), K6 from D = 256 and K5 above 2048
+// Head widths. This file holds K5 and K6 at D = 16, 32, 64 and 128; the
+// wrapper routes here K5 at D = 128 and K6 at D = 64 and 128, and at 16
+// and 32 where flash_attention_tma_bf16.cu's K6 does not reach (Sq past
+// what its shared memory holds, fewer (bh) than the card's SMs); K5 from
+// D = 256 to 2048 is flash_attention_cluster_bf16.cu's (wgmma fed by TMA,
+// clusters that split D above 256), K6 from D = 256 and K5 above 2048
 // flash_attention_wide_bf16.cu's.
 //
 // Every exported function launches on the stream it is given and returns

@@ -103,6 +103,7 @@
 #include <cuda.h>  // CUtensorMap and its enums; no libcuda function is linked
 
 #include "flash_common.cuh"
+#include "tma.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -156,100 +157,7 @@ enum Exchange { kSolo, kPush, kPull };
 // each warpgroup's epilogue.
 constexpr int kTurnBar = 1, kStoreBar = 3;
 
-// -- mbarriers, TMA, named barriers ------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-// One arrival that also expects `bytes` from TMA before the phase ends.
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-
-// An arrival on block `rank`'s barrier at this block's address bar.
-// kCluster: release semantics at cluster scope, so what this thread (and
-// its warp, after a __syncwarp) wrote before is visible to the peer's
-// threads that acquire the phase at cluster scope. Else the default
-// (release at CTA scope): enough to hand back a slot that was only read,
-// as a TMA pipeline's consumers hand a stage back to a multicasting peer.
-template <bool kCluster>
-__device__ __forceinline__ void mbar_arrive_peer(uint64_t* bar, int rank) {
-  if constexpr (kCluster)
-    asm volatile(
-        "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::
-            "r"(cluster_addr(bar, rank))
-        : "memory");
-  else
-    asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(
-                     cluster_addr(bar, rank))
-                 : "memory");
-}
-
-// Wait for the phase of the given parity to complete (a fresh barrier's
-// phase of parity 1 counts as complete); kCluster: with acquire semantics
-// at cluster scope, for arrivals of the cluster's other blocks.
-template <bool kCluster = false>
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_addr(bar);
-  for (uint32_t polls = 0;; ++polls) {
-    uint32_t done;
-    if constexpr (kCluster)
-      asm volatile(
-          "{\n.reg .pred p;\n"
-          "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
-          "%2;\n"
-          "selp.u32 %0, 1, 0, p;\n}\n"
-          : "=r"(done)
-          : "r"(addr), "r"(parity)
-          : "memory");
-    else
-      asm volatile(
-          "{\n.reg .pred p;\n"
-          "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-          "selp.u32 %0, 1, 0, p;\n}\n"
-          : "=r"(done)
-          : "r"(addr), "r"(parity)
-          : "memory");
-    if (done) return;
-    if (polls == (1u << 24)) __trap();
-  }
-}
-
-// A 64 x 64 box at (column c0, row c1, head c2) into dst, completing on bar.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
-      "r"(c1), "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_store(const CUtensorMap* map,
-                                          const void* src, int c0, int c1,
-                                          int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group "
-      "[%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
+// -- exchanges through distributed shared memory ----------------------------
 
 // 16 bytes into block `rank`'s shared memory at this block's address of
 // a, counted in bytes on that block's barrier at this block's address of
@@ -272,14 +180,6 @@ __device__ __forceinline__ float4 ld_cluster4(uint32_t a) {
                : "r"(a)
                : "memory");
   return v;
-}
-
-__device__ __forceinline__ void bar_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(int id, int threads) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // -- the products ------------------------------------------------------------
@@ -371,7 +271,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         mbar_init(&empty_x[w], 4 * (group - 1));
       }
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   // The barriers, before any block of the cluster arrives on a peer's.
   if constexpr (SPLIT) {
@@ -658,52 +558,6 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // -- the tensor maps and the launch ------------------------------------------
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, through the runtime (no link to
-// libcuda), or null.
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// The map of a (bh, rows, d) bf16 tensor as (d, rows, bh), in 64 x 64
-// boxes with the 128-byte swizzle; rows and columns past the end read as
-// zeros and are not written. Returns false if it cannot be encoded.
-bool encode(CUtensorMap* map, const bf16* base, int rows, int bh, int d) {
-  const EncodeTiled fn = encoder();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows,
-                              (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {sizeof(bf16) * (cuuint64_t)d,
-                                 sizeof(bf16) * (cuuint64_t)d * rows};
-  const cuuint32_t box[3] = {kC, 64, 1};
-  const cuuint32_t step[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-            const_cast<bf16*>(base), dims, strides, box, step,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // One launch in clusters of `group` blocks along x (none for kSolo).
 template <int NC, int X>
 int launch(const CUtensorMap& qm, const CUtensorMap& km,
@@ -753,8 +607,12 @@ extern "C" int flash_attention_cluster_fwd_bf16(const bf16* q, const bf16* k,
   CUtensorMap qm, km, vm, om;
   // An empty key side is never read: its maps take one row.
   const int rows_k = sk > 0 ? sk : 1;
-  if (!encode(&qm, q, sq, bh, d) || !encode(&km, k, rows_k, bh, d) ||
-      !encode(&vm, v, rows_k, bh, d) || !encode(&om, out, sq, bh, d))
+  // 64 x 64 boxes in wgmma's 128-byte swizzle.
+  const auto map = [&](CUtensorMap* m, const bf16* t, int rows) {
+    return encode(m, t, rows, bh, d, kC, 64, CU_TENSOR_MAP_SWIZZLE_128B);
+  };
+  if (!map(&qm, q, sq) || !map(&km, k, rows_k) || !map(&vm, v, rows_k) ||
+      !map(&om, out, sq))
     return (int)cudaErrorInvalidValue;
   const float scale_log2 = (float)(kLog2e * scale);
 #define LAUNCH(NC, X)                                                      \

@@ -1,5 +1,6 @@
 // Device helpers shared by the attention kernels (K5, K6): flash_attention.cu
 // and flash_attention_bf16.cu (head widths up to 128),
+// flash_attention_tma_bf16.cu (the bf16 K5 and K6 of narrow heads),
 // flash_attention_cluster_bf16.cu (bf16 K5 from 256 to 2048), and
 // flash_attention_wide.cu and flash_attention_wide_bf16.cu (K6 at D >= 256,
 // the fp32 K5 from 256, the bf16 K5 above 2048). Each source includes it

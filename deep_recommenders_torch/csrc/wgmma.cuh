@@ -1,6 +1,8 @@
 // Hopper's warpgroup products (wgmma) on bf16 operands in shared memory
 // laid out in wgmma's 128-byte swizzle, shared by
-// flash_attention_wide_bf16.cu and flash_attention_cluster_bf16.cu. Include
+// flash_attention_wide_bf16.cu and flash_attention_cluster_bf16.cu, and
+// (the last section) on the 32-, 64- and 128-byte rows of a narrow head in
+// the swizzle of their width, for flash_attention_tma_bf16.cu. Include
 // after flash_common.cuh; everything here has internal linkage.
 //
 // A chunk is 64 rows of 64 bf16 (128 bytes), 1024-byte aligned, its 16-byte
@@ -257,6 +259,87 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[NJ / 2][4],
     a[kk][2] = pack_bf16x2(x[2 * kk + 1][0], x[2 * kk + 1][1]);
     a[kk][3] = pack_bf16x2(x[2 * kk + 1][2], x[2 * kk + 1][3]);
   }
+}
+
+// -- narrow heads (flash_attention_tma_bf16.cu) --------------------------------
+
+// The descriptors' 2-bit layout code of a W-byte swizzle (W = 32, 64, 128).
+template <int W>
+__host__ __device__ constexpr uint64_t swizzle_code() {
+  static_assert(W == 32 || W == 64 || W == 128, "a swizzle of 32, 64 or 128 B");
+  return W == 128 ? 1 : W == 64 ? 2 : 3;
+}
+
+// The descriptor of an operand from p on whose rows are W bytes, one
+// swizzle span (a tile TMA wrote with the W-byte swizzle, 8-row groups 8 W
+// bytes apart). Read K-major (k along the row: a k16 step is 32 bytes
+// further) or MN-major (rows are the k index, n along the row, W / 2 wide:
+// one span, so the leading offset is unused; a k16 step is 16 rows
+// further): the same descriptor.
+template <int W>
+__device__ __forceinline__ uint64_t desc_sw(const void* p) {
+  return (uint64_t)((smem_addr(p) & 0x3ffff) >> 4) | (1ull << 16) |
+         ((uint64_t)((8 * W) >> 4) << 32) | (swizzle_code<W>() << 62);
+}
+
+// d += A B, m64n16k16, A and B from shared memory, both MN-major (read
+// transposed).
+__device__ __forceinline__ void wgmma_ss_t(float (&d)[2][4], uint64_t a,
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d += A B, m64n32k16, A and B from shared memory, both MN-major (read
+// transposed).
+__device__ __forceinline__ void wgmma_ss_t(float (&d)[4][4], uint64_t a,
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15"
+      "}, %16, %17, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d += A B, m64n16k16, as the m64n64k16 form: A in registers, B MN-major.
+__device__ __forceinline__ void wgmma_rs(float (&d)[2][4],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d += A B, m64n32k16, as the m64n64k16 form: A in registers, B MN-major.
+__device__ __forceinline__ void wgmma_rs(float (&d)[4][4],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 }  // namespace

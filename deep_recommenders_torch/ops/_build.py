@@ -33,7 +33,8 @@ BUILD_DIR = os.path.join(os.path.dirname(_PACKAGE_DIR), "build", "kernels")
 # Every kernel source of the package, by file stem.
 SOURCES = ("scatter_add_rows", "fm_interaction", "cin2d", "cin_stack",
            "flash_attention", "flash_attention_bf16", "flash_attention_wide",
-           "flash_attention_wide_bf16", "flash_attention_cluster_bf16")
+           "flash_attention_wide_bf16", "flash_attention_cluster_bf16",
+           "flash_attention_tma_bf16")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -14,7 +14,10 @@ JAX package's: heads folded into the batch, q (BH, Sq, D), k and v
 - :func:`flash_attention` (K5) and :func:`flash_attention_backward` (K6)
   take fp32 or bf16 q, k, v (and g), all of one dtype; the mask and lse are
   fp32. On a CUDA tensor they launch ``csrc/flash_attention.cu`` (fp32) or
-  ``csrc/flash_attention_bf16.cu`` (bf16) at head widths up to 128,
+  ``csrc/flash_attention_bf16.cu`` (bf16) at head widths up to 128, except
+  the bf16 kernels of ``csrc/flash_attention_tma_bf16.cu`` at the narrow
+  widths and shapes they take (``TMA_FWD_HEAD_DIMS``, ``TMA_BWD_MAX_SQ``,
+  ``TMA_BWD_MIN_BH``),
   ``csrc/flash_attention_wide.cu`` or ``csrc/flash_attention_wide_bf16.cu``
   for K6 from 256 and the fp32 K5 from 256, and
   ``csrc/flash_attention_cluster_bf16.cu`` for the bf16 K5 from 256 to
@@ -81,6 +84,17 @@ WIDE_HEAD_STEP = 64
 # The widest head width of the bf16 K5 on a thread-block cluster: 8 blocks
 # (the portable cluster size) of 256 columns each.
 CLUSTER_HEAD_DIM_MAX = 2048
+# The bf16 K5 and K6 fed by TMA under warp specialisation
+# (csrc/flash_attention_tma_bf16.cu) take these head widths; K6 there
+# scores each tile pair once and holds dq, lse and delta of all of a (bh)'s
+# query rows in shared memory, so it takes Sq up to TMA_BWD_MAX_SQ[d] (the C
+# function flash_attention_tma_bwd_max_sq_bf16), and one block a (bh) on a
+# persistent grid, so it takes BH from TMA_BWD_MIN_BH on (the H100's 132
+# SMs: fewer would leave SMs idle where flash_attention_bf16.cu's two
+# kernels fill them).
+TMA_FWD_HEAD_DIMS = (16, 32, 64)
+TMA_BWD_MAX_SQ = {16: 2176, 32: 768}
+TMA_BWD_MIN_BH = 132
 # Operand dtypes of q, k, v and g; the mask and lse are always fp32.
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -337,14 +351,28 @@ _SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16"}
 _C_TYPE = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
-def _kernel(dtype, d: int, backward: bool) -> Tuple[str, str]:
+def _kernel(dtype, d: int, backward: bool, bh: int, sq: int
+            ) -> Tuple[str, str]:
     """(source, C function) of K5 or K6 (``backward``) for operands of
-    ``dtype`` at head width ``d``, chosen by width, never as a fallback:
-    csrc/flash_attention(_bf16).cu's up to 128; from 256 on
-    csrc/flash_attention_wide(_bf16).cu's (K6, and the fp32 K5 on clusters
-    that split D), except the bf16 K5 up to ``CLUSTER_HEAD_DIM_MAX``:
-    csrc/flash_attention_cluster_bf16.cu's (clusters that split D)."""
-    if d < KERNEL_HEAD_DIMS[-1]:
+    ``dtype`` at head width ``d`` and (BH, Sq) = (``bh``, ``sq``), chosen by
+    width and shape, never as a fallback:
+
+    - bf16 at the widths of ``TMA_FWD_HEAD_DIMS`` (K5), or of
+      ``TMA_BWD_MAX_SQ`` with Sq up to its entry and BH from
+      ``TMA_BWD_MIN_BH`` on (K6): csrc/flash_attention_tma_bf16.cu's;
+    - else up to 128: csrc/flash_attention(_bf16).cu's;
+    - from 256 on csrc/flash_attention_wide(_bf16).cu's (K6, and the fp32
+      K5 on clusters that split D), except the bf16 K5 up to
+      ``CLUSTER_HEAD_DIM_MAX``: csrc/flash_attention_cluster_bf16.cu's
+      (clusters that split D)."""
+    if backward:
+        tma = (d in TMA_BWD_MAX_SQ and sq <= TMA_BWD_MAX_SQ[d]
+               and bh >= TMA_BWD_MIN_BH)
+    else:
+        tma = d in TMA_FWD_HEAD_DIMS
+    if dtype == torch.bfloat16 and tma:
+        width = "_tma"
+    elif d < KERNEL_HEAD_DIMS[-1]:
         width = ""
     elif (dtype == torch.bfloat16 and not backward
           and d <= CLUSTER_HEAD_DIM_MAX):
@@ -369,7 +397,7 @@ def _flash_fwd_cuda(q, k, v, key_mask, causal, scale):
     out = torch.empty_like(q)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     if bh and sq:
-        source, symbol = _kernel(q.dtype, d, backward=False)
+        source, symbol = _kernel(q.dtype, d, False, bh, sq)
         fn = _build.function(source, symbol,
                              [_P] * 6 + [_I32] * 5 + [_F64, _P])
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -440,8 +468,8 @@ def flash_attention_backward(
     output gradient g, from the forward's out and lse (computed with the
     same ``scale``, by default D ** -0.5). q, k, v, out and g share one
     dtype (fp32 or bf16); lse is fp32. delta = rowsum(g * out) in fp32 is
-    a plain torch reduction in fp32, as JAX leaves it to XLA; the bf16 dq
-    kernel forms it from its own rows."""
+    a plain torch reduction in fp32, as JAX leaves it to XLA; the bf16
+    kernels form it from their own rows."""
     name = "flash_attention backward"
     dtype = _operand_dtype(name, q, k, v, out, g)
     key_mask = _mask_or_ones(key_mask, k)
@@ -459,11 +487,11 @@ def flash_attention_backward(
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     if bh and sk and sq:
-        source, symbol = _kernel(dtype, d, backward=True)
+        source, symbol = _kernel(dtype, d, True, bh, sq)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         scale = _scale_arg(scale, d)
         if dtype == torch.bfloat16:
-            # The dq kernel forms delta itself, into this scratch.
+            # The bf16 kernels form delta themselves, into this scratch.
             delta = torch.empty((bh, sq), dtype=torch.float32,
                                 device=q.device)
             fn = _build.function(source, symbol,

@@ -531,7 +531,9 @@ def test_attention_dispatch_above_the_widest_kernel(rng, monkeypatch):
 
 
 # (source, C function) of K5 ("fwd") and K6 ("bwd") by operand dtype and
-# head width: csrc/flash_attention(_bf16).cu up to 128;
+# head width at the bf16 Transformer's (BH, Sq) = (2048, 512):
+# csrc/flash_attention(_bf16).cu up to 128, except the bf16 kernels of
+# csrc/flash_attention_tma_bf16.cu at D = 16;
 # csrc/flash_attention_wide(_bf16).cu for K6 and the fp32 K5 from 256 on;
 # csrc/flash_attention_cluster_bf16.cu for the bf16 K5 from 256 to 2048,
 # csrc/flash_attention_wide_bf16.cu above.
@@ -541,16 +543,29 @@ _ROUTES = {
                          **{d: "flash_attention_wide" for d in _WIDTHS[2:]}},
     ("float32", "bwd"): {16: "flash_attention", 128: "flash_attention",
                          **{d: "flash_attention_wide" for d in _WIDTHS[2:]}},
-    ("bfloat16", "fwd"): {16: "flash_attention_bf16",
+    ("bfloat16", "fwd"): {16: "flash_attention_tma_bf16",
                           128: "flash_attention_bf16",
                           **{d: "flash_attention_cluster_bf16"
                              for d in _WIDTHS[2:-1]},
                           2304: "flash_attention_wide_bf16"},
-    ("bfloat16", "bwd"): {16: "flash_attention_bf16",
+    ("bfloat16", "bwd"): {16: "flash_attention_tma_bf16",
                           128: "flash_attention_bf16",
                           **{d: "flash_attention_wide_bf16"
                              for d in _WIDTHS[2:]}},
 }
+
+
+def _check_route(dtype, direction, source, symbol):
+    """The C function's name follows its source's, and the source is one
+    the build compiles and defines that function."""
+    from deep_recommenders_torch.ops import _build
+
+    prefix = source[:-len("_bf16")] if dtype == "bfloat16" else source
+    suffix = "bf16" if dtype == "bfloat16" else "f32"
+    assert symbol == f"{prefix}_{direction}_{suffix}"
+    assert source in _build.SOURCES
+    with open(_build.source_path(source)) as f:
+        assert f'extern "C" int {symbol}(' in f.read()
 
 
 @pytest.mark.parametrize("direction", ["fwd", "bwd"])
@@ -558,19 +573,44 @@ _ROUTES = {
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernel_routing_by_dtype_width_and_direction(dtype, d, direction):
     """_kernel() names the source and C function the card launches for each
-    operand dtype, head width and direction; the source is one the build
-    compiles and defines that function."""
-    from deep_recommenders_torch.ops import _build
-
+    operand dtype, head width and direction at the bf16 Transformer's
+    (BH, Sq); the source is one the build compiles and defines that
+    function."""
     source, symbol = att._kernel(getattr(torch, dtype), d,
-                                 backward=direction == "bwd")
+                                 direction == "bwd", 2048, 512)
     assert source == _ROUTES[dtype, direction][d]
-    prefix = source[:-len("_bf16")] if dtype == "bfloat16" else source
-    suffix = "bf16" if dtype == "bfloat16" else "f32"
-    assert symbol == f"{prefix}_{direction}_{suffix}"
-    assert source in _build.SOURCES
-    with open(_build.source_path(source)) as f:
-        assert f'extern "C" int {symbol}(' in f.read()
+    _check_route(dtype, direction, source, symbol)
+
+
+# (dtype, direction, D, BH, Sq) -> source: the bf16 K5 of
+# flash_attention_tma_bf16.cu at D = 16, 32 and 64 whatever the shape; its
+# K6 at D = 16 and 32 up to TMA_BWD_MAX_SQ and from TMA_BWD_MIN_BH (BH) on,
+# the mma.sync kernels of flash_attention_bf16.cu past either edge, at
+# D = 64 and 128, and for fp32 operands.
+_SHAPE_ROUTES = [
+    ("bfloat16", "fwd", 16, 2, 100, "flash_attention_tma_bf16"),
+    ("bfloat16", "fwd", 32, 6, 150, "flash_attention_tma_bf16"),
+    ("bfloat16", "fwd", 64, 2048, 4096, "flash_attention_tma_bf16"),
+    ("bfloat16", "fwd", 128, 2048, 512, "flash_attention_bf16"),
+    ("float32", "fwd", 16, 2048, 512, "flash_attention"),
+    ("bfloat16", "bwd", 16, 132, 2176, "flash_attention_tma_bf16"),
+    ("bfloat16", "bwd", 16, 132, 2177, "flash_attention_bf16"),
+    ("bfloat16", "bwd", 16, 131, 512, "flash_attention_bf16"),
+    ("bfloat16", "bwd", 32, 2048, 768, "flash_attention_tma_bf16"),
+    ("bfloat16", "bwd", 32, 2048, 769, "flash_attention_bf16"),
+    ("bfloat16", "bwd", 64, 2048, 512, "flash_attention_bf16"),
+    ("float32", "bwd", 16, 2048, 512, "flash_attention"),
+]
+
+
+@pytest.mark.parametrize("dtype,direction,d,bh,sq,want", _SHAPE_ROUTES)
+def test_kernel_routing_by_shape(dtype, direction, d, bh, sq, want):
+    """_kernel() routes the bf16 kernels of narrow heads by width and shape
+    to the source and C function documented for each case."""
+    source, symbol = att._kernel(getattr(torch, dtype), d,
+                                 direction == "bwd", bh, sq)
+    assert source == want
+    _check_route(dtype, direction, source, symbol)
 
 
 @pytest.mark.parametrize("causal", [False, True])

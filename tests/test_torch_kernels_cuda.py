@@ -973,6 +973,128 @@ def test_wide_attention_kernels_are_deterministic(device, d, dtype):
         assert torch.equal(a, b)
 
 
+# -- the bf16 K5 and K6 of flash_attention_tma_bf16.cu --------------------------
+
+def _tma_edge_mask(mask, case, sk):
+    """Key masks at the tiles of flash_attention_tma_bf16.cu (K5's of 64
+    keys, K6's of 128): a whole middle 128-key tile of padding (never
+    loaded) and post-padding in the last; a row whose only valid keys lie
+    in the last 128 keys, and one whose only valid key is the last;
+    post-padding that ends inside a tile (a half tile with no valid key
+    skipped, the other half masked)."""
+    last = (sk - 1) // 128 * 128  # the first key of the last 128-key tile
+    if case == "padding_tiles":
+        mask[:, 128:256] = 0.0
+        mask[2, last:] = 0.0
+    elif case == "last_tile_only":
+        mask[0] = 0.0
+        mask[0, last:] = 1.0
+        mask[3] = 0.0
+        mask[3, sk - 1] = 1.0
+    elif case == "post_padding":
+        lengths = torch.arange(mask.shape[0], device=mask.device) * 7 % sk + 1
+        mask[:] = (torch.arange(sk, device=mask.device)[None, :]
+                   < lengths[:, None]).float()
+    mask[1] = 0.0  # a (bh) row with no valid key
+    return mask
+
+
+def _tma_run(device, bh, sq, sk, d, causal, case, seed):
+    """The bf16 K5 and K6 once each on seeded inputs with the edge mask
+    ``case``: (q, k, v, g, mask, out, lse, grads), one launch of each."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v, mask = _attention_inputs(gen, bh, sq, sk, d)
+    mask = _tma_edge_mask(mask, case, sk)
+    q, k, v, g = _bf16(q, k, v, _normal(gen, bh, sq, d))
+    before = dict(att.flash_attention.launches)
+    out, lse = att.flash_attention(q, k, v, mask, causal, return_lse=True)
+    grads = att.flash_attention_backward(q, k, v, mask, out, lse, g, causal)
+    torch.cuda.synchronize()
+    assert att.flash_attention.launches == {
+        **before, "fwd_bf16": before["fwd_bf16"] + 1,
+        "bwd_bf16": before["bwd_bf16"] + 1}
+    return q, k, v, g, mask, out, lse, grads
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("case,bh,sq,sk,d,fwd_src,bwd_src", [
+    # The bf16 Transformer's sequence length, D = 16: both new kernels.
+    ("post_padding", 132, 512, 512, 16, "tma", "tma"),
+    # Ragged Sq and Sk, not multiples of 64 or 128, Sq != Sk.
+    ("post_padding", 140, 200, 300, 16, "tma", "tma"),
+    ("padding_tiles", 132, 300, 390, 16, "tma", "tma"),
+    ("last_tile_only", 133, 130, 270, 16, "tma", "tma"),
+    ("post_padding", 132, 130, 150, 32, "tma", "tma"),
+    ("padding_tiles", 132, 260, 300, 32, "tma", "tma"),
+    # K6 routed to flash_attention_bf16.cu's kernels: D = 64, too few
+    # (bh), Sq past the most.
+    ("post_padding", 132, 70, 200, 64, "tma", "bf16"),
+    ("last_tile_only", 6, 150, 130, 16, "tma", "bf16"),
+    ("post_padding", 132, 800, 130, 32, "tma", "bf16"),
+])
+def test_tma_bf16_kernels(device, case, bh, sq, sk, d, fwd_src, bwd_src,
+                            causal):
+    """The bf16 K5 and K6 of flash_attention_tma_bf16.cu (or, where
+    _kernel routes K6 elsewhere by shape, flash_attention_bf16.cu's) against
+    their fp64 and bf16 plain versions; the checks reject dk less its first
+    query tile and dq less its first key tile. A row with no valid key
+    gives out 0, lse 0 and no gradient."""
+    q, k, v, g, mask, out, lse, grads = _tma_run(device, bh, sq, sk, d,
+                                                   causal, case, 21)
+    assert att._kernel(torch.bfloat16, d, False, bh, sq)[0] == (
+        f"flash_attention_{fwd_src}_bf16".replace("_bf16_bf16", "_bf16"))
+    assert att._kernel(torch.bfloat16, d, True, bh, sq)[0] == (
+        f"flash_attention_{bwd_src}_bf16".replace("_bf16_bf16", "_bf16"))
+    at.check_forward_bf16((out, lse), q, k, v, mask, causal)
+    planted_keys = 128 if case != "last_tile_only" else 0
+    checks = at.check_backward_bf16(grads, q, k, v, mask, out, lse, g,
+                                    causal, planted_rows=64,
+                                    planted_keys=planted_keys)
+    assert checks["dk"]["planted"]["query_tile_dropped"] > 1
+    if planted_keys:
+        assert checks["dq"]["planted"]["key_tile_dropped"] > 1
+    assert not out[1].any() and not lse[1].any()
+    for grad in grads:
+        assert grad.dtype == torch.bfloat16 and not grad[1].any()
+
+
+@pytest.mark.parametrize("d", [16, 32])
+def test_tma_bf16_kernels_are_deterministic(device, d):
+    """Two calls of the bf16 K5 and the one-pass K6 give the same bits:
+    each dq row adds its key tiles in ascending order, the two warpgroups'
+    halves of each in a fixed turn, and no atomics."""
+    for causal in (False, True):
+        runs = [_tma_run(device, 140, 300, 260, d, causal, "post_padding",
+                           22)[5:] for _ in range(2)]
+        assert att._kernel(torch.bfloat16, d, True, 140, 300)[0] == (
+            "flash_attention_tma_bf16")
+        (out_a, lse_a, grads_a), (out_b, lse_b, grads_b) = runs
+        assert torch.equal(out_a, out_b) and torch.equal(lse_a, lse_b)
+        for a, b in zip(grads_a, grads_b):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("d", [16, 32])
+def test_tma_bf16_backward_at_its_longest_query_side(device, d):
+    """The one-pass K6 holds dq, lse and delta of Sq rows in shared memory:
+    the C function's limit is att.TMA_BWD_MAX_SQ[d], the kernel runs and
+    passes its check there, and one row more goes to
+    flash_attention_bf16.cu's kernels."""
+    from deep_recommenders_torch.ops import _build
+    import ctypes
+
+    limit = _build.function("flash_attention_tma_bf16",
+                            "flash_attention_tma_bwd_max_sq_bf16",
+                            [ctypes.c_int32])
+    sq = att.TMA_BWD_MAX_SQ[d]
+    assert limit(d) == sq and limit(64) == 0
+    assert att._kernel(torch.bfloat16, d, True, 132, sq + 1)[0] == (
+        "flash_attention_bf16")
+    q, k, v, g, mask, out, lse, grads = _tma_run(device, 132, sq, 140, d,
+                                                   True, "post_padding", 23)
+    at.check_backward_bf16(grads, q, k, v, mask, out, lse, g, True)
+
+
 def test_flash_attention_bf16_autograd_and_dispatch(device):
     """bf16 operands through FlashAttention and attention(): the bf16
     kernels, gradients in bf16, the same out as the direct call."""
