@@ -51,15 +51,18 @@ In order:
    beside those mma.sync kernels (exp2f, where the new ones take
    ex2.approx.ftz) and the bf16 plain version;
    then K5 and K6 at D = 256 and at D = 512, fp32 and bf16
-   (``wide_attention_phase``: K6 and the fp32 K5 from 256 are
-   csrc/flash_attention_wide(_bf16).cu's, the bf16 K5
-   csrc/flash_attention_cluster_bf16.cu's; both K5 on clusters that split
-   D above 256), at (256, 512, 256) and (128, 512, 512) on one
-   SyntheticImdb batch's key masks, held and timed as those at D = 16,
-   beside the library's SDPA where it takes the shape ("refused" where
-   not); at D = 512 the forward checks must also reject the forward that
-   loses a block's partial scores, and the bf16 K5's kernels must show
-   Hopper's wgmma and TMA instructions in their SASS and no mma.sync;
+   (``wide_attention_phase``: the fp32 K5 and K6 and the bf16 K6 at 256
+   are csrc/flash_attention_wide(_bf16).cu's, the bf16 K5 and the bf16 K6
+   above 256 csrc/flash_attention_cluster_bf16.cu's; every K5 and K6
+   above 256 on clusters that split D), at (256, 512, 256) and
+   (128, 512, 512) on one SyntheticImdb batch's key masks, held and timed
+   as those at D = 16, beside the library's SDPA where it takes the shape
+   ("refused" where not); at D = 512 the forward and backward checks must
+   also reject the function that loses a block's partial scores, and the
+   cluster kernels must show Hopper's wgmma and TMA instructions in their
+   SASS and no mma.sync; the bf16 K6 at (64, 512, 1024), clusters of 4
+   blocks that pull, is held the same way and must give the same bits on
+   two calls;
    then the head widths no kernel is built for
    (``head_width_phase``): attention() over the budget at D = 8 and
    FlashAttention at D = 24, fp32 and bf16, through K5 and K6 padded to
@@ -73,7 +76,7 @@ In order:
    - attention() over the budget at D = 200 and at D = 257, (160, 1024),
      in fp32 and then bf16, forward and backward
      (``attention_width_path``): no warning, one launch of each of the
-     four K5/K6 kernels (padded to D = 256 and to D = 320: both K5 on
+     four K5/K6 kernels (padded to D = 256 and to D = 320: all four on
      clusters of two blocks at 320), held to the plain versions at the
      true D on 64 rows;
    - xDeepFM's flagship (maps (128, 128) relu, hidden (256, 128)), 2 epochs:
@@ -251,9 +254,12 @@ in a parent's tree measures the parent.
 
 builds the kernels and times the fp32 and the bf16 K5 and K6 at the
 Transformer's shapes (D = 16), the bf16 ones also at its (BH, S) and
-D = 32, 64 and 128, at D = 256 and 512 (the wide phase's inputs) and at
-D = 1024, (64, 512, 1024) (K5 on clusters of 4 blocks);
-device and eager ms, K6's split between its two kernels, no checks; and
+D = 32, 64 and 128, at D = 256 and 512 (the wide phase's inputs), at
+D = 1024, (64, 512, 1024) (K5 and the bf16 K6 on clusters of 4 blocks)
+and at D = 2304, (32, 512, 2304) (past the clusters); device and eager
+ms, K6's split between its two kernels, and at the bf16 widths that no
+entry of the full run times (32, 64, 128, 1024 and 2304) their bounds and
+library calls; no checks; and
 prints them as its last line, one JSON object (no "ok" line). It calls
 only what every tree since the D > 256 instances has, so a copy of this
 script in a parent's tree measures the parent.
@@ -402,9 +408,12 @@ HW_BH, HW_LEN, HW_CHUNK, HW_WIDE_BH = 256, 1024, 64, 160
 # SyntheticImdb batch's key masks, one head an example, at the
 # Transformer's S; (BH, D) of each.
 WIDE_SHAPES = {"d256": (256, 256), "d512": (128, 512)}
-# --attention-times also takes D = 1024 (K5 on clusters of 4 blocks), BH
-# halved again: how the clusters' exchange grows with their size.
-TIMED_SHAPES = {**WIDE_SHAPES, "d1024": (64, 1024)}
+# --attention-times also takes D = 1024 (K5 and the bf16 K6 on clusters of
+# 4 blocks), BH halved again: how the clusters' exchange grows with their
+# size; and D = 2304, past the clusters (the bf16 K5 and K6 of
+# csrc/flash_attention_wide_bf16.cu, the fp32 ones in grid columns of
+# clusters).
+TIMED_SHAPES = {**WIDE_SHAPES, "d1024": (64, 1024), "d2304": (32, 2304)}
 # And the other head widths up to 128 of the bf16 K5 and K6 at the
 # Transformer slice's (BH, S) and key masks.
 NARROW_TIMED = (32, 64, 128)
@@ -1857,10 +1866,36 @@ def attention_calls(q, k, v, g, mask, causal):
                                                  causal))
 
 
-def attention_times(q, k, v, g, mask) -> dict:
+def bf16_yardsticks(q, k, v, g, mask, causal, heads) -> dict:
+    """The bounds of the bf16 K5 and K6 on these inputs, as the bf16 kernel
+    phase counts them (bf16 bytes; 4 D and 10 D tensor-core operations a
+    scored pair; K6 as its kernels split it, scores twice, 14 D:
+    "bwd_bound_design_ms"), and the library calls' times
+    (:func:`library_fields`; ``heads`` heads an example; null and
+    "refused" where the library refuses the shape)."""
+    bh, s, d = q.shape
+    pairs = _valid_pairs(mask, causal)
+    fwd_bytes = (4 * bh * s * d) * 2 + 2 * bh * s * 4
+    bwd_bytes = (8 * bh * s * d) * 2 + 2 * bh * s * 4
+    fwd_ms, fwd_by = bound(fwd_bytes, pairs * 4 * d, BF16_OPS_PER_S)
+    bwd_ms, bwd_by = bound(bwd_bytes, pairs * 10 * d, BF16_OPS_PER_S)
+    fields = {"fwd_bound_ms": fwd_ms, "fwd_bound_by": fwd_by,
+              "bwd_bound_ms": bwd_ms, "bwd_bound_by": bwd_by,
+              "bwd_bound_design_ms": bound(bwd_bytes, pairs * 14 * d,
+                                           BF16_OPS_PER_S)[0]}
+    for name, grad in (("fwd", None), ("bwd", g)):
+        lib = library_fields(q, k, v, mask, causal, grad, heads)
+        fields[f"{name}_library_ms"] = lib["library_ms"]
+        fields[f"{name}_library"] = lib.get(
+            "library_kernels", lib.get("library", "refused"))
+    return fields
+
+
+def attention_times(q, k, v, g, mask, heads=None) -> dict:
     """Device and eager ms of K5 and K6 on these inputs, non-causal and
     causal, and how K6's time splits between its two kernels: the same
-    measurement on any tree of the port."""
+    measurement on any tree of the port. With ``heads`` (the heads of an
+    example among the (bh) rows), also :func:`bf16_yardsticks`."""
     times = {}
     for causal in (False, True):
         fwd, bwd = attention_calls(q, k, v, g, mask, causal)
@@ -1868,6 +1903,10 @@ def attention_times(q, k, v, g, mask) -> dict:
             "fwd_ms": graph_ms(fwd, 5, 4), "fwd_eager_ms": time_ms(fwd, 10),
             "bwd_ms": graph_ms(bwd, 5, 4), "bwd_eager_ms": time_ms(bwd, 10),
             "bwd_kernel_split": kernel_times(bwd, top=2)}
+        del fwd, bwd
+        if heads is not None:
+            times[f"causal={causal}"].update(
+                bf16_yardsticks(q, k, v, g, mask, causal, heads))
     del q, k, v, g
     torch.cuda.empty_cache()
     return times
@@ -1883,29 +1922,37 @@ def attention_times_by_width(imdb: SyntheticImdb, device) -> dict:
     """:func:`attention_times` of the fp32 and the bf16 K5 and K6 at the
     Transformer slice's shapes (D = 16, :func:`attention_inputs`), of the
     bf16 ones at its (BH, S) and D = 32, 64 and 128 (``NARROW_TIMED``), and
-    at D = 256, 512 and 1024 (:func:`wide_attention_inputs`,
+    at D = 256, 512, 1024 and 2304 (:func:`wide_attention_inputs`,
     ``TIMED_SHAPES``): calls that every tree since the D > 256 instances
-    takes, for setting a change beside its parent."""
+    takes, for setting a change beside its parent. The bf16 widths that no
+    entry of the full run times (``NARROW_TIMED``, D = 1024 and 2304) also
+    carry their bounds and library calls (:func:`bf16_yardsticks`)."""
     times = {}
     for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
         times[f"d16/{dtype}"] = attention_times(
             *attention_inputs(imdb, device, dtype))
-        if dtype == torch.bfloat16:
+        if bf16:
             for d in NARROW_TIMED:
                 times[f"d{d}/{dtype}"] = attention_times(
-                    *attention_inputs(imdb, device, dtype, d))
+                    *attention_inputs(imdb, device, dtype, d),
+                    heads=TX_HEADS)
         for which in TIMED_SHAPES:
             times[f"{which}/{dtype}"] = attention_times(
-                *wide_attention_inputs(imdb, device, dtype, which))
+                *wide_attention_inputs(imdb, device, dtype, which),
+                heads=1 if bf16 and which not in WIDE_SHAPES else None)
     return times
 
 
-def lost_partial(fwd_checks) -> str:
-    """The share line's end where the forward check also ran the planted
-    fault of a lost partial score (K5 on a cluster that splits D)."""
-    share = fwd_checks.get("planted", {}).get("partial_dropped")
-    return "" if share is None else (
-        f"; forward less a block's partial scores {share:.6g}")
+def lost_partial(fwd_checks, bwd_checks) -> str:
+    """The share line's end where the checks also ran the planted fault of
+    a lost partial score (K5 and K6 on clusters that split D)."""
+    end = ""
+    for which, checks in (("forward", fwd_checks), ("backward", bwd_checks)):
+        share = checks.get("planted", {}).get("partial_dropped")
+        if share is not None:
+            end += f"; {which} less a block's partial scores {share:.6g}"
+    return end
 
 
 def attention_kernel_phase(imdb: SyntheticImdb, device, inputs=None,
@@ -1919,7 +1966,8 @@ def attention_kernel_phase(imdb: SyntheticImdb, device, inputs=None,
     rows, on the same inputs, forward residuals and incoming gradient; the
     checks must reject the same function with single-pass TF32 products at
     least TF32_REJECT_FACTOR times over their limits, and dk less its
-    first query tile. Times: kernel, plain version and one
+    first query tile (above PARTIAL_WIDTH also K5 and K6 less a block's
+    partial scores). Times: kernel, plain version and one
     ``F.scaled_dot_product_attention`` call with the boolean mask (for K6
     its backward), with the kernels that call ran. Bounds: the 3xTF32
     design's (:func:`tf32_bound_fields`), the fp32 CUDA-core bound
@@ -1927,7 +1975,7 @@ def attention_kernel_phase(imdb: SyntheticImdb, device, inputs=None,
     q, k, v, g, mask = inputs or attention_inputs(imdb, device)
     del inputs
     bh, s, d = q.shape
-    split = d > at.PARTIAL_WIDTH  # K5 on clusters that split D
+    split = d > at.PARTIAL_WIDTH  # K5 and K6 on clusters that split D
     chunks = [slice(i, i + ATT_CHUNK) for i in range(0, bh, ATT_CHUNK)]
     shape = {"q": [bh, s, d], "k": [bh, s, d],
              "valid_keys": mask.mean().item()}
@@ -1948,7 +1996,7 @@ def attention_kernel_phase(imdb: SyntheticImdb, device, inputs=None,
             at.check_backward([t[c] for t in grads], q[c], k[c], v[c],
                               mask[c], out[c], lse[c], g[c], causal,
                               planted_rows=ATT_PLANTED_ROWS,
-                              planted_tf32=True)
+                              planted_tf32=True, planted_partial=split)
             for c in chunks)
         print(f"flash_attention{suffix} causal={causal} shares: out "
               f"{fwd_checks['out']['err_over_tol']:.6g} / fro "
@@ -1962,7 +2010,7 @@ def attention_kernel_phase(imdb: SyntheticImdb, device, inputs=None,
               f"{bwd_checks['planted']['single_pass_tf32']:.6g} times its "
               "limit; dk less a query tile "
               f"{bwd_checks['dk']['planted']['query_tile_dropped']:.6g}"
-              + lost_partial(fwd_checks))
+              + lost_partial(fwd_checks, bwd_checks))
         pairs = _valid_pairs(mask, causal)
         fwd_call, bwd_call = attention_calls(q, k, v, g, mask, causal)
         fwd_entry = {
@@ -2179,7 +2227,8 @@ def attention_bf16_kernel_phase(imdb: SyntheticImdb, device, inputs=None,
     the kernel's key tile, ``check_backward_bf16`` in
     ``ops/attention_tolerances.py``), in chunks of ATT_CHUNK rows; the dk
     check must reject dk less its first query tile, the dq check dq less
-    its first key tile. Times: kernel, bf16 plain version, one bf16
+    its first key tile, and above PARTIAL_WIDTH the checks K5 and K6 less
+    a block's partial scores. Times: kernel, bf16 plain version, one bf16
     ``F.scaled_dot_product_attention`` call with the boolean mask (for K6
     its backward), and the mma.sync kernels (:func:`mma_sync_bf16_calls`)
     where the wrapper routes to flash_attention_tma_bf16.cu. Bounds: bf16
@@ -2194,7 +2243,7 @@ def attention_bf16_kernel_phase(imdb: SyntheticImdb, device, inputs=None,
                                                   torch.bfloat16)
     del inputs
     bh, s, d = q.shape
-    split = d > at.PARTIAL_WIDTH  # K5 on clusters that split D
+    split = d > at.PARTIAL_WIDTH  # K5 and K6 on clusters that split D
     chunks = [slice(i, i + ATT_CHUNK) for i in range(0, bh, ATT_CHUNK)]
     shape = {"q": [bh, s, d], "k": [bh, s, d], "dtype": "bfloat16",
              "valid_keys": mask.mean().item()}
@@ -2215,7 +2264,8 @@ def attention_bf16_kernel_phase(imdb: SyntheticImdb, device, inputs=None,
             at.check_backward_bf16([t[c] for t in grads], q[c], k[c], v[c],
                                    mask[c], out[c], lse[c], g[c], causal,
                                    planted_rows=ATT_PLANTED_ROWS,
-                                   planted_keys=ATT_PLANTED_KEYS)
+                                   planted_keys=ATT_PLANTED_KEYS,
+                                   planted_partial=split)
             for c in chunks)
         print(f"flash_attention_bf16{suffix} causal={causal} shares: out "
               f"{fwd_checks['out']['err_over_tol']:.6g} (fp64), "
@@ -2225,7 +2275,7 @@ def attention_bf16_kernel_phase(imdb: SyntheticImdb, device, inputs=None,
               f"{bwd_checks['dk']['planted']['query_tile_dropped']:.6g}, "
               f"dq fault "
               f"{bwd_checks['dq']['planted']['key_tile_dropped']:.6g}"
-              + lost_partial(fwd_checks))
+              + lost_partial(fwd_checks, bwd_checks))
         pairs = _valid_pairs(mask, causal)
         lanes = live_tile_pairs(mask, causal)
         sync = {}
@@ -2360,9 +2410,10 @@ def sass_opcodes(source: str) -> dict:
 
 
 def check_cluster_sass() -> dict:
-    """The bf16 K5 from D = 256 to 2048 runs on wgmma and TMA: every kernel
-    of csrc/flash_attention_cluster_bf16.cu has HGMMA, UTMALDG and
-    UTMASTG instructions and no HMMA (mma.sync)."""
+    """The bf16 K5 from D = 256 to 2048 and K6 above 256 run on wgmma and
+    TMA: every kernel of csrc/flash_attention_cluster_bf16.cu (fwd_cluster,
+    and K6's dq_cluster and dkv_cluster) has HGMMA, UTMALDG and UTMASTG
+    instructions and no HMMA (mma.sync)."""
     counts = sass_opcodes("flash_attention_cluster_bf16")
     bad = {k: c for k, c in counts.items()
            if c["HMMA"] or not (c["HGMMA"] and c["UTMALDG"] and c["UTMASTG"])}
@@ -2376,11 +2427,14 @@ def wide_attention_phase(imdb: SyntheticImdb, device):
     """K5 and K6 at D = 256 and at D = 512, fp32 and bf16, at
     (BH, S, D) = (256, TX_LEN, 256) and (128, TX_LEN, 512)
     (:func:`wide_attention_inputs`), non-causal and causal, by the fp32
-    and bf16 kernel phases' checks, planted faults (at D = 512 also the
-    forward less a block's partial scores), times, bounds and library
+    and bf16 kernel phases' checks, planted faults, times, bounds and library
     calls (the SDPA call's kernels where it takes the shape, "refused"
-    where not); entries ``*.d256`` and ``*.d512``, the bf16 K5's with its
-    kernels' SASS opcode counts (:func:`check_cluster_sass`)."""
+    where not); entries ``*.d256`` and ``*.d512``, the bf16 K5's (and the
+    bf16 K6's at D = 512) with the cluster kernels' SASS opcode counts
+    (:func:`check_cluster_sass`). At D = 512 the checks also reject K5 and
+    K6 less a block's partial scores; the bf16 K6 at D = 1024 (clusters of
+    4) is held too (:func:`cluster_backward_check`, its entry's
+    "clusters_of_4")."""
     sass = check_cluster_sass()
     entries = []
     for which in WIDE_SHAPES:
@@ -2393,7 +2447,61 @@ def wide_attention_phase(imdb: SyntheticImdb, device):
             wide_attention_inputs(imdb, device, torch.bfloat16, which),
             heads=1, suffix="." + which)
         entries[-2]["sass"] = sass
+        if which != "d256":
+            entries[-1]["sass"] = sass
+    entries[-1]["clusters_of_4"] = cluster_backward_check(imdb, device)
     return entries
+
+
+def cluster_backward_check(imdb: SyntheticImdb, device,
+                           which: str = "d1024") -> dict:
+    """The bf16 K6 at ``TIMED_SHAPES[which]``, (64, TX_LEN, 1024): clusters
+    of 4 blocks that pull their peers' partial scores, non-causal and
+    causal. Against its fp64 and bf16 plain versions
+    (``check_backward_bf16``), with the planted faults (dk less a query
+    tile, dq less a key tile, the backward less a block's partial scores);
+    two calls bit for bit. Returns each causal mode's worst shares."""
+    q, k, v, g, mask = wide_attention_inputs(imdb, device, torch.bfloat16,
+                                             which)
+    bh, s, d = q.shape
+    chunks = [slice(i, i + ATT_CHUNK) for i in range(0, bh, ATT_CHUNK)]
+    result = {"shape": {"q": [bh, s, d], "dtype": "bfloat16",
+                        "source": kernel_source(torch.bfloat16, d, True, bh,
+                                                s)}}
+    for causal in (False, True):
+        out, lse = att.flash_attention(q, k, v, mask, causal, return_lse=True)
+        runs = [att.flash_attention_backward(q, k, v, mask, out, lse, g,
+                                             causal) for _ in range(2)]
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(*runs)):
+            raise AssertionError(f"bf16 K6 at {which}: two calls differ")
+        checks = _merge_checks(
+            at.check_backward_bf16([t[c] for t in runs[0]], q[c], k[c], v[c],
+                                   mask[c], out[c], lse[c], g[c], causal,
+                                   planted_rows=ATT_PLANTED_ROWS,
+                                   planted_keys=ATT_PLANTED_KEYS,
+                                   planted_partial=True)
+            for c in chunks)
+        faults = {"dk_less_a_query_tile":
+                  checks["dk"]["planted"]["query_tile_dropped"],
+                  "dq_less_a_key_tile":
+                  checks["dq"]["planted"]["key_tile_dropped"],
+                  "less_a_partial": checks["planted"]["partial_dropped"]}
+        print(f"flash_attention_bf16.bwd.{which} causal={causal} shares: "
+              + ", ".join(f"{n} {checks[n]['err_over_tol']:.6g} / fro "
+                          f"{checks[n]['fro_over_tol']:.6g}"
+                          for n in ("dq", "dk", "dv"))
+              + f"; planted dk fault {faults['dk_less_a_query_tile']:.6g}, "
+              f"dq fault {faults['dq_less_a_key_tile']:.6g}; backward less "
+              f"a block's partial scores {faults['less_a_partial']:.6g}; "
+              "two calls bit for bit")
+        result[f"causal={causal}"] = {
+            "worst_share": ct.worst_share(checks),
+            "planted": faults}
+        del out, lse, runs
+    del q, k, v, g
+    torch.cuda.empty_cache()
+    return result
 
 
 def attention_width_path(device, d: int) -> dict:
@@ -4793,7 +4901,8 @@ def main(argv=()) -> int:
                              "fp32 Transformer path")
     parser.add_argument("--attention-times", action="store_true",
                         help="time only the fp32 and bf16 K5 and K6 at "
-                             "D = 16, 256, 512 and 1024")
+                             "D = 16, 256, 512, 1024 and 2304 (bf16 also "
+                             "32, 64 and 128)")
     parser.add_argument("--wrapper-host-us", action="store_true",
                         help="time only the host's us a call of the K3, K4 "
                              "and K5 forward wrappers")
@@ -4816,6 +4925,9 @@ def main(argv=()) -> int:
     print(f"kernels built in {time.perf_counter() - t0:.1f} s")
     ptxas = ptxas_summary(logs.get("flash_attention_tma_bf16", ""))
     print("flash_attention_tma_bf16 ptxas " + json.dumps(ptxas))
+    cluster_ptxas = ptxas_summary(logs.get("flash_attention_cluster_bf16",
+                                           ""))
+    print("flash_attention_cluster_bf16 ptxas " + json.dumps(cluster_ptxas))
 
     if args.wrapper_host_us:
         # Not the full smoke run: no checks of the kernels, no "ok" line.
@@ -4906,6 +5018,9 @@ def main(argv=()) -> int:
         if entry["name"] in ("flash_attention_bf16.fwd",
                              "flash_attention_bf16.bwd"):
             entry["ptxas"] = ptxas
+        if entry["name"] in ("flash_attention_bf16.fwd.d512",
+                             "flash_attention_bf16.bwd.d512"):
+            entry["ptxas"] = cluster_ptxas
     print("serving " + json.dumps(serving))
     print("head_widths " + json.dumps(head_widths))
     print(json.dumps({"kernels": entries}))

@@ -1,14 +1,17 @@
-// K5 in bf16 at head widths D from 256 to 2048 (a multiple of 64), on
-// wgmma fed by TMA, at the TPU kernel's bf16 contract
+// K5 in bf16 at head widths D from 256 to 2048 and K6 above 256 to 2048 (a
+// multiple of 64), on wgmma fed by TMA, at the TPU kernels' bf16 contract
 // (flash_attention_bf16.cu's: fp32 scores of bf16 operands, fp32 softmax
-// statistics, p rounded to bf16 before P V, fp32 accumulation, out rounded
-// to bf16 once).
+// statistics, p and ds rounded to bf16 before the products that consume
+// them, fp32 accumulation, out, dq, dk and dv rounded to bf16 once).
 //
 // Replaces, for bf16 operands at these widths, deep_recommenders_tpu/ops/
-// attention.py: flash_attention (body _flash_kernel :82, pallas_call :199).
-// The layout, the masks, the scale and lse are flash_attention_bf16.cu's.
-// Above 2048 (more blocks than a portable cluster holds) K5 stays
-// flash_attention_wide_bf16.cu's.
+// attention.py: flash_attention (K5, body _flash_kernel :82, pallas_call
+// :199) and _flash_backward_impl (K6, :377; bodies _flash_bwd_dq_kernel
+// :285 and _flash_bwd_dkv_kernel :326, pallas_calls :436 and :463). The
+// layout, the masks, the scale, lse and delta are flash_attention_bf16.cu's.
+// Above 2048 (more blocks than a portable cluster holds) K5 and K6 stay
+// flash_attention_wide_bf16.cu's, and so does K6 at D = 256 (one block,
+// nothing to exchange). K6 is described after K5.
 //
 // What bounds it. At (BH 256, S 512, D 256) with a SyntheticImdb batch's
 // masks K5 needs 4 D products a scored pair (43 GFLOP non-causal, 0.044 ms
@@ -89,14 +92,81 @@
 // serialized due to insufficient register resources" (C7512): every wgmma
 // waits for the one before.
 //
+// K6 (dq_cluster, then dkv_cluster). What bounds it. At (BH 128, S 512,
+// D 512) with a SyntheticImdb batch's masks (21.9 M scored pairs
+// non-causal) K6 moves 0.160 ms of bytes (q, k, v, g, out, dq, dk, dv) and
+// needs 5 products of length D a scored pair (112 GFLOP, 0.114 ms at 989
+// TFLOP/s); split as JAX splits it, into a dq kernel and a dk/dv kernel
+// that each score s and dp, 7 (157 GFLOP, 0.159 ms): the memory and the
+// tensor cores about equally. A block that scored over all of D for a share of
+// 256 output columns, as flash_attention_wide_bf16.cu's does, would score
+// every pair D / 256 times in each kernel. So each kernel splits D over a
+// cluster as K5 does:
+// - A cluster of G = ceil(D / 256) blocks serves 64 rows (dq: queries of a
+//   (bh); dk/dv: keys); block r owns the same chunks of D as in K5, keeps
+//   its rows' chunks resident (dq: q and g; dk/dv: k and v), loaded once
+//   by TMA, and streams its chunks of the other side through a ring (dq:
+//   K and V tiles of 64 keys, 2 stages; dk/dv: q and g tiles of 32
+//   queries, 4 stages; full and empty mbarriers), fed by one producer
+//   warp (a block is the two consumer warpgroups and that warp).
+// - dq: the producer reads the key mask tile by tile and loads only live
+//   tiles (not all masked, not wholly in the causal future), each entry
+//   with its index and mask words, as K5's. Each consumer warpgroup takes
+//   32 keys of every tile: partial s = q k^T and dp = g v^T over the
+//   block's chunks on wgmma m64n32k16 (both operands from shared memory),
+//   exchanged in one 16 KB message a warpgroup and tile (K5's push at
+//   G = 2, pull above), p and ds in fp32 on the summed scores, then
+//   dq += ds k over the block's columns on m64n(64 NC)k16 with ds as A in
+//   registers and the stage's K chunks (the ones the scores read) as B.
+//   The two warpgroups' fp32 dq are added in a fixed order at the end.
+//   delta = rowsum(g out) needs all of D: each block forms its rows'
+//   partial over its columns (g from its resident chunks), pushes it to
+//   the peers with st.async, and adds the G partials in rank order; rank
+//   0 writes delta for the dk/dv kernel.
+// - dk/dv: the producer loads every query tile from the block's causal
+//   start (none for a block whose 64 keys are all masked: its gradients
+//   are 0), and writes the tile's lse log2(e) and delta into the stage.
+//   Warpgroup 0 scores s^T = k q^T, warpgroup 1 dp^T = v g^T (m64n32k16),
+//   each exchanged in an 8 KB message; warpgroup 0 forms p^T and hands it
+//   to warpgroup 1 in fp32 through shared memory (two named barriers), and
+//   accumulates dv += p^T g; warpgroup 1 forms ds^T = p^T (dp^T - delta)
+//   scale and accumulates dk += ds^T q (m64n(64 NC)k16, A in registers,
+//   the stage's q and g chunks as B). Query rows past Sq take lse log2(e)
+//   = 1e30, so their p is 0 without a select.
+// - Overlap: each warpgroup issues the next tile's scores and this tile's
+//   product as one batch, and exchanges, forms p and ds and packs them
+//   after it, while the other warpgroup's batch runs. Running the
+//   exchange under the product instead writes the score registers of an
+//   open wgmma batch, and ptxas then serialises every wgmma (C7515):
+//   2-17% slower up to D = 768, 0-3% at 1024, 2-3% faster at 2048, where
+//   the exchange among 8 blocks is longest (tools/cluster_bwd_variants.py,
+//   "overlap", two runs).
+// - The resident operands' addresses go through an empty asm statement,
+//   so their descriptors are formed at each tile (as K5's q): hoisted,
+//   they hold registers the accumulators need and spill more.
+// - Every kernel scores each live (query tile, key tile) pair once over
+//   the cluster; no atomics; dq, dk and dv are rounded once into the
+//   resident chunks and stored by TMA (no row past S, no column past D).
+//   Two calls give the same bits.
+//
+// K6's ptxas (-Xptxas -v, sm_90a, CUDA 12.9): at NC 3 dk/dv 152-154
+// registers and no spill, dq 168 and 24 / 32 bytes of spill stores / loads
+// (push, none pulling); at NC 4 168 registers, dq 992 / 856 (push) and
+// 948 / 612 (pull), dk/dv 580 / 568 and 684 / 488, and every wgmma
+// serialised for want of registers (C7511 in dq, C7512 in dk/dv). ptxas
+// keeps to 65536 / 384 = 168 registers at 288 threads too (the block
+// counted in whole warpgroups, it seems): __maxnreg__(224) compiles
+// without a spill (dq 209-216 registers), but the card refuses that launch
+// (out of resources; tools/cluster_bwd_variants.py, "maxnreg224").
+//
 // A wait on an mbarrier that never completes (a fault in the protocol)
 // traps after 2^24 polls, so the launch fails instead of hanging.
 // Each block writes its own rows and columns once: no atomics, and the
 // result does not depend on the order blocks run in. Rows with no valid
 // key give out 0 and lse 0.
 //
-// The exported function launches on the stream it is given and returns
-// cudaGetLastError(), or cudaErrorInvalidValue for what it does not take or
+// The exported functions launch on the stream they are given and return
+// cudaGetLastError(), or cudaErrorInvalidValue for what they do not take or
 // when a tensor map cannot be encoded; a cluster the card cannot place
 // returns its error.
 
@@ -556,21 +626,721 @@ __global__ void __launch_bounds__(kThreads, 1)
   if constexpr (SPLIT) mbar_wait(&empty_x[wg], (n & 1) ^ 1);
 }
 
-// -- the tensor maps and the launch ------------------------------------------
+// -- K6 ----------------------------------------------------------------------
 
-// One launch in clusters of `group` blocks along x (none for kSolo).
+// A block of either kernel owns 64 rows (dq: queries; dk/dv: keys) and its
+// share of D, and walks the other side's tiles: dq 64 keys a tile, of which
+// each consumer warpgroup takes 32; dk/dv 32 queries a tile, which both
+// warpgroups take in their roles.
+constexpr int kHalfKeys = kKeys / 2;  // a dq warpgroup's keys of a tile
+constexpr int kQTile = 32;            // queries of a dk/dv tile
+constexpr int QCHUNK = kQTile * kC;   // bf16 of a query tile's chunk (4 KB)
+constexpr int kDqStages = 2, kDkvStages = 4;
+// Threads of a K6 block: the two consumer warpgroups and one producer warp,
+// no setmaxnreg. A producer warpgroup with setmaxnreg, as K5's, ran
+// 1.4-4% slower from D = 512 up, and within 1.6% either way at 320
+// (tools/cluster_bwd_variants.py, "warpgroup_producer", two runs).
+constexpr int kBwdThreads = kConsumers + 32;
+// lse log2(e) of a query row past Sq: its p is 2^(s c - 1e30) = 0.
+constexpr float kNoRow = 1e30f;
+// K6's named barriers: dk/dv's p^T handed from warpgroup 0 to 1 (full,
+// free), dq's merge of the warpgroups' sums, dq's delta partials, and each
+// warpgroup's store (5, 6).
+constexpr int kPFullBar = 1, kPFreeBar = 2, kMergeBar = 3, kDeltaBar = 4,
+              kBwdStoreBar = 5;
+
+// A consumer warpgroup's partial sums of P 64 x 32 fp32 tiles (4 P float4 a
+// thread), exchanged with the same warpgroup of the cluster's other blocks
+// as fwd_cluster's partial scores are: push (two blocks) or pull (more),
+// through a slot of [float4 j][thread] with full and empty mbarriers. After
+// receive(x, n), x holds the sum of the cluster's partials n in rank order,
+// the same bits in every block.
+template <int P, int X>
+struct Partials {
+  static constexpr int Q = 4 * P;  // float4s a thread
+  static constexpr uint32_t kBytes = sizeof(float4) * Q * 128;
+  float4* slot;  // this thread's first float4 of the warpgroup's slot
+  uint64_t* full;
+  uint64_t* empty;
+  int rank, group, lane, xt;
+
+  // Before the first launch-wide barrier, by one thread.
+  static __device__ void init(uint64_t* full, uint64_t* empty, int group) {
+    mbar_init(full, X == kPush ? 1 : 4 * (group - 1));
+    if constexpr (X == kPush) mbar_expect_tx(full, kBytes);
+    mbar_init(empty, 4 * (group - 1));
+  }
+
+  // Partial n to the peers, once they are done with partial n - 1.
+  __device__ __forceinline__ void send(const float (&x)[P][4][4], int n) {
+    mbar_wait(empty, (n & 1) ^ 1);
+#pragma unroll
+    for (int j = 0; j < Q; ++j) {
+      const float* e = x[j >> 2][j & 3];
+      const float4 v = make_float4(e[0], e[1], e[2], e[3]);
+      if constexpr (X == kPush)
+        st_async(slot + j * 128, v, full, rank ^ 1);
+      else
+        slot[j * 128] = v;
+    }
+    if constexpr (X == kPull) {
+      __syncwarp();
+      if (lane == 0)
+        for (int r = 0; r < group; ++r)
+          if (r != rank) mbar_arrive_peer<true>(full, r);
+    }
+  }
+
+  __device__ __forceinline__ void receive(float (&x)[P][4][4], int n) {
+    if constexpr (X == kPush) {
+      mbar_wait(full, n & 1);
+#pragma unroll
+      for (int j = 0; j < Q; ++j) {
+        const float4 v = slot[j * 128];
+        float* e = x[j >> 2][j & 3];
+        e[0] += v.x;
+        e[1] += v.y;
+        e[2] += v.z;
+        e[3] += v.w;
+      }
+      if (xt == 0) mbar_expect_tx(full, kBytes);  // n + 1
+    } else {
+      mbar_wait<true>(full, n & 1);
+      for (int r = rank == 0 ? 1 : 0; r < group; ++r) {
+        const uint32_t at = cluster_addr(slot, r);
+#pragma unroll
+        for (int j = 0; j < Q; ++j) {
+          const float4 v = r == rank
+                               ? slot[j * 128]
+                               : ld_cluster4(at + sizeof(float4) * 128 * j);
+          const float y[4] = {v.x, v.y, v.z, v.w};
+          float* e = x[j >> 2][j & 3];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) e[i] = r == 0 ? y[i] : e[i] + y[i];
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0)
+      for (int r = 0; r < group; ++r)
+        if (r != rank) mbar_arrive_peer<false>(empty, r);
+  }
+
+  // The peers are done with the last of n partials: the slot may go.
+  __device__ __forceinline__ void drain(int n) { mbar_wait(empty, (n & 1) ^ 1); }
+};
+
+// Shared memory of the dq kernel at NC chunks: q and g [chunk][64][64]
+// (resident), the K/V ring [stage][K, V][chunk][64][64] (after the loop
+// warpgroup 1's fp32 dq), the two slots, the delta partials
+// [rank][64 rows], the ring's tile entries, the mbarriers.
+template <int NC>
+struct DqLayout {
+  static constexpr uint32_t kTileBytes = sizeof(bf16) * NC * CHUNK;
+  static constexpr uint32_t kSlotBytes = Partials<2, kPush>::kBytes;
+  static constexpr size_t kQ = 0;
+  static constexpr size_t kG = kQ + kTileBytes;
+  static constexpr size_t kRing = kG + kTileBytes;
+  static constexpr size_t kX = kRing + kDqStages * 2 * kTileBytes;
+  static constexpr size_t kDelta = kX + 2 * kSlotBytes;
+  static constexpr size_t kInfo = kDelta + sizeof(float) * kClusterMax * 64;
+  static constexpr size_t kBar = kInfo + sizeof(uint4) * kDqStages;
+  // full q/g; full and empty K/V [stage]; full and empty slots [wg]; delta
+  static constexpr int kBars = 1 + 2 * kDqStages + 4 + 1;
+  static constexpr size_t kBytes = kBar + sizeof(uint64_t) * kBars;
+  static_assert(kBytes <= kMaxSmem, "a block's shared memory");
+  static_assert(sizeof(float) * 8 * NC * 4 * 128 <= kDqStages * 2 * kTileBytes,
+                "warpgroup 1's dq in the ring");
+};
+
 template <int NC, int X>
-int launch(const CUtensorMap& qm, const CUtensorMap& km,
-           const CUtensorMap& vm, const CUtensorMap& om, const float* mask,
-           float* lse, int bh, int sq, int sk, int d, int group, int causal,
-           float scale_log2, cudaStream_t stream) {
-  constexpr size_t bytes = Layout<NC, X != kSolo>::kBytes;
-  const int64_t blocks = (int64_t)bh * ((sq + kRows - 1) / kRows) * group;
-  const int err = configure(fwd_cluster<NC, X>, bytes, blocks);
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    dq_cluster(const __grid_constant__ CUtensorMap qmap,
+               const __grid_constant__ CUtensorMap kmap,
+               const __grid_constant__ CUtensorMap vmap,
+               const __grid_constant__ CUtensorMap gmap,
+               const __grid_constant__ CUtensorMap dqmap,
+               const float* __restrict__ mask, const float* __restrict__ lse,
+               const bf16* __restrict__ out, float* __restrict__ delta,
+               int sq, int sk, int d, int group, int causal, float scale,
+               float scale_log2) {
+  using L = DqLayout<NC>;
+  constexpr int S = kDqStages;
+  constexpr uint32_t kTileBytes = L::kTileBytes;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem + L::kQ);
+  bf16* gs = reinterpret_cast<bf16*>(smem + L::kG);
+  bf16* ring = reinterpret_cast<bf16*>(smem + L::kRing);
+  float4* xs = reinterpret_cast<float4*>(smem + L::kX);
+  float* parts = reinterpret_cast<float*>(smem + L::kDelta);
+  uint4* info = reinterpret_cast<uint4*>(smem + L::kInfo);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* full_own = bars;
+  uint64_t* full = bars + 1;  // [S]
+  uint64_t* empty = full + S;
+  uint64_t* full_x = empty + S;  // [warpgroup]
+  uint64_t* empty_x = full_x + 2;
+  uint64_t* delta_bar = empty_x + 2;
+
+  int rank;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
+  const int nq = (sq + kWgRows - 1) / kWgRows;
+  const int cluster = (int)(blockIdx.x / group);
+  const int bh = cluster / nq;
+  const int q0 = (cluster % nq) * kWgRows;
+  const int col0 = rank * NC * kC;
+  const int ntiles = (sk + kKeys - 1) / kKeys;
+  // Causal: tiles that start after the block's last row are all future.
+  const int nrun =
+      causal ? min(ntiles, (q0 + kWgRows - 1) / kKeys + 1) : ntiles;
+  if (threadIdx.x == 0) {
+    mbar_init(full_own, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers / 32);
+    }
+    for (int w = 0; w < 2; ++w) Partials<2, X>::init(&full_x[w], &empty_x[w], group);
+    mbar_init(delta_bar, 1);
+    mbar_expect_tx(delta_bar, sizeof(float) * 64 * (group - 1));
+    mbar_init_fence();
+  }
+  cluster_arrive();
+  cluster_wait();
+
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x >> 7, 0);
+  const int lane = threadIdx.x & 31;
+  if (wg == 2) {
+    // The producer: q and g once, then K and V of each live key tile.
+    const bool leader = lane == 0;
+    const float* mrow = mask + (int64_t)bh * sk;
+    if (leader) {
+      mbar_expect_tx(full_own, 2 * kTileBytes);
+      for (int c = 0; c < NC; ++c) {
+        tma_load(qs + c * CHUNK, &qmap, full_own, col0 + c * kC, q0, bh);
+        tma_load(gs + c * CHUNK, &gmap, full_own, col0 + c * kC, q0, bh);
+      }
+    }
+    int j = 0;
+    for (int t = 0; t < nrun; ++t) {
+      const int key = t * kKeys + lane;
+      const uint32_t w0 = __ballot_sync(0xffffffffu,
+                                        key < sk && mrow[key] > 0.f);
+      const uint32_t w1 = __ballot_sync(0xffffffffu,
+                                        key + 32 < sk && mrow[key + 32] > 0.f);
+      if ((w0 | w1) == 0) continue;  // all masked: skipped
+      if (leader) {
+        const int s = j % S;
+        mbar_wait(&empty[s], ((j / S) & 1) ^ 1);
+        info[s] = make_uint4((uint32_t)t, w0, w1, 0u);
+        mbar_expect_tx(&full[s], 2 * kTileBytes);
+        bf16* st = ring + s * 2 * NC * CHUNK;
+        for (int c = 0; c < NC; ++c) {
+          tma_load(st + c * CHUNK, &kmap, &full[s], col0 + c * kC, t * kKeys,
+                   bh);
+          tma_load(st + (NC + c) * CHUNK, &vmap, &full[s], col0 + c * kC,
+                   t * kKeys, bh);
+        }
+      }
+      ++j;
+    }
+    if (leader) {  // the end of the list: an entry with no tile and no bytes
+      const int s = j % S;
+      mbar_wait(&empty[s], ((j / S) & 1) ^ 1);
+      info[s] = make_uint4(~0u, 0u, 0u, 0u);
+      mbar_arrive(&full[s]);
+    }
+    return;
+  }
+
+  // A consumer warpgroup: keys 32 wg .. + 31 of every tile; warp (wq) rows
+  // 16 wq .. + 15 of the block's, this lane rows r0 and r0 + 8.
+  const int ct = threadIdx.x, xt = ct & 127;
+  const int wq = (ct >> 5) & 3;
+  const int grp = lane >> 2, tig = lane & 3;
+  const int r0 = 16 * wq + grp;
+  const int kb = wg * kHalfKeys;
+  const auto release = [&](uint64_t* bar) {
+    if (lane == 0) mbar_arrive(bar);
+  };
+  mbar_wait(full_own, 0);
+
+  // delta = rowsum(g out) in fp32 (each product of two bf16 values exact):
+  // this block's partial over its columns (g from its chunks, out from
+  // memory), a warp a row at a time, 8 columns a lane; then every block
+  // pushes its partials into the peers' [rank] rows with st.async and adds
+  // the G partials in rank order. Rank 0 writes delta for the dk/dv kernel.
+  float row_delta[2], row_lse2[2];
+  {
+    const int warp = ct >> 5;
+    const int col = 8 * lane;  // of the block's columns
+    for (int r = warp; r < kWgRows; r += kConsumers / 32) {
+      float sum = 0.f;
+      if (q0 + r < sq && col < NC * kC && col0 + col < d) {
+        const uint4 gv = *reinterpret_cast<const uint4*>(
+            gs + (lane >> 3) * CHUNK + r * kC + (((lane & 7) ^ (r & 7)) << 3));
+        const uint4 ov = *reinterpret_cast<const uint4*>(
+            out + ((int64_t)bh * sq + q0 + r) * d + col0 + col);
+        const uint32_t gw[4] = {gv.x, gv.y, gv.z, gv.w};
+        const uint32_t ow[4] = {ov.x, ov.y, ov.z, ov.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 gf = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&gw[e]));
+          const float2 of = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&ow[e]));
+          sum = fmaf(gf.x, of.x, sum);
+          sum = fmaf(gf.y, of.y, sum);
+        }
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      if (lane == 0) parts[rank * 64 + r] = sum;
+    }
+    bar_sync(kDeltaBar, kConsumers);
+    if (ct < 16) {
+      float4* mine = reinterpret_cast<float4*>(parts + rank * 64) + ct;
+      const float4 v = *mine;
+      for (int p = 0; p < group; ++p)
+        if (p != rank) st_async(mine, v, delta_bar, p);
+    }
+    mbar_wait(delta_bar, 0);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      float sum = parts[r];
+      for (int p = 1; p < group; ++p) sum += parts[p * 64 + r];
+      row_delta[h] = sum;
+      const bool in = q0 + r < sq;
+      row_lse2[h] = in ? lse[(int64_t)bh * sq + q0 + r] * kLog2e : kNoRow;
+      if (in && rank == 0 && tig == 0) delta[(int64_t)bh * sq + q0 + r] = sum;
+    }
+  }
+
+  Partials<2, X> ex{xs + wg * Partials<2, X>::Q * 128 + xt, &full_x[wg],
+                    &empty_x[wg], rank, group, lane, xt};
+  float x[2][4][4];  // s and dp of the warpgroup's 64 rows x 32 keys
+  uint32_t da[2][4];  // ds in bf16: the A fragments of dS K
+  float acc[8 * NC][4];
+  zero(acc);
+  // s = q k^T and dp = g v^T over the block's chunks, of stage st's keys.
+  // q's and g's addresses go through an empty asm statement, so their
+  // descriptors are formed at each call (as in scores() above).
+  const auto scores = [&](int st) {
+    const bf16* kt = ring + st * 2 * NC * CHUNK + kb * kC;
+    const bf16* vt = kt + NC * CHUNK;
+    const bf16 *qv = qs, *gv = gs;
+    asm volatile("" : "+l"(qv), "+l"(gv));
+#pragma unroll
+    for (int kk = 0; kk < 4 * NC; ++kk) {
+      const int off = (kk >> 2) * CHUNK + 16 * (kk & 3);
+      wgmma_ss(x[0], desc(qv + off), desc(kt + off), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4 * NC; ++kk) {
+      const int off = (kk >> 2) * CHUNK + 16 * (kk & 3);
+      wgmma_ss(x[1], desc(gv + off), desc(vt + off), kk > 0);
+    }
+  };
+  // p = 2^(s c - lse2) and ds = p (dp - delta) scale of a tile (its entry)
+  // on the summed s and dp.
+  const auto p_ds = [&](uint4 tile) {
+    const uint32_t w0 = tile.y, w1 = tile.z;
+    const int k0 = (int)tile.x * kKeys;
+    const auto lse2 = [=](int, int h) { return row_lse2[h]; };
+    const auto dlt = [=](int, int h) { return row_delta[h]; };
+    if ((w0 & w1) == ~0u && (!causal || k0 + kKeys - 1 <= q0)) {
+      rebuild_p_ds<false, false>(x[0], x[1], scale_log2, scale, tig,
+                                 [](int, int) { return true; }, lse2, dlt);
+    } else {
+      rebuild_p_ds<false, true>(
+          x[0], x[1], scale_log2, scale, tig,
+          [=](int c, int h) {
+            return key_bit(w0, w1, kb + c) &&
+                   (!causal || k0 + kb + c <= q0 + r0 + 8 * h);
+          },
+          lse2, dlt);
+    }
+  };
+  // dq += ds k over the warpgroup's 32 keys of stage st (rows of the
+  // chunks are the k index), into the block's NC chunks of columns.
+  const auto products = [&](int st) {
+    const bf16* kt = ring + st * 2 * NC * CHUNK + kb * kC;
+#pragma unroll
+    for (int kk = 0; kk < kHalfKeys / 16; ++kk)
+      wgmma_rs(acc, da[kk], desc_mn(kt + 16 * kk * kC, sizeof(bf16) * CHUNK));
+  };
+
+  mbar_wait(&full[0], 0);
+  uint4 tile = info[0];
+  int n = 0;  // partials sent
+  if (tile.x != ~0u) {
+    wgmma_fence();
+    scores(0);
+    wgmma_commit();
+    wgmma_wait_for<0>();
+    pin(x[0]);
+    pin(x[1]);
+    ex.send(x, 0);
+    ex.receive(x, 0);
+    n = 1;
+    p_ds(tile);
+    pack_a(da, x[1]);
+    // The next tile's scores and this tile's dq product in one batch; the
+    // exchange, p and ds of the next tile after it (no register of a
+    // wgmma in flight is written: ptxas would serialise every wgmma), while
+    // the other warpgroup's products run.
+    for (int j = 0;; ++j) {
+      const int jn = j + 1;
+      mbar_wait(&full[jn % S], (jn / S) & 1);
+      tile = info[jn % S];
+      const bool more = tile.x != ~0u;
+      wgmma_fence();
+      if (more) scores(jn % S);
+      products(j % S);
+      wgmma_commit();
+      wgmma_wait_for<0>();
+      pin(x[0]);
+      pin(x[1]);
+      pin(acc);
+      pin(da);
+      release(&empty[j % S]);
+      if (!more) break;
+      ex.send(x, jn);
+      ex.receive(x, jn);
+      ++n;
+      p_ds(tile);
+      pack_a(da, x[1]);
+    }
+  }
+  ex.drain(n);
+
+  // Warpgroup 1's fp32 dq (keys 32..63 of each tile) through the ring to
+  // warpgroup 0, which adds it to its own (keys 0..31), rounds once into
+  // its q chunks, swizzled as TMA reads them, and stores them.
+  float4* merge = reinterpret_cast<float4*>(ring) + xt;  // [n8][thread]
+  bar_sync(kMergeBar, kConsumers);  // both warpgroups are done with the ring
+  if (wg == 1) {
+#pragma unroll
+    for (int n8 = 0; n8 < 8 * NC; ++n8)
+      merge[n8 * 128] =
+          make_float4(acc[n8][0], acc[n8][1], acc[n8][2], acc[n8][3]);
+  }
+  bar_sync(kMergeBar, kConsumers);
+  if (wg == 1) return;
+#pragma unroll
+  for (int n8 = 0; n8 < 8 * NC; ++n8) {
+    const float4 o = merge[n8 * 128];
+    const float y[4] = {o.x, o.y, o.z, o.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n8][e] += y[e];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      bf16* dst = qs + (n8 >> 3) * CHUNK + r * kC +
+                  (((n8 & 7) ^ (r & 7)) << 3) + 2 * tig;
+      *reinterpret_cast<uint32_t*>(dst) =
+          pack_bf16x2(acc[n8][2 * h], acc[n8][2 * h + 1]);
+    }
+  }
+  fence_async_proxy();
+  bar_sync(kBwdStoreBar, 128);
+  if (xt == 0) {
+    for (int c = 0; c < NC && col0 + c * kC < d; ++c)
+      tma_store(&dqmap, qs + c * CHUNK, col0 + c * kC, q0, bh);
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  }
+}
+
+// Shared memory of the dk/dv kernel at NC chunks: k and v [chunk][64][64]
+// (resident; after the loop dv and dk in bf16), the q/g ring
+// [stage][q, g][chunk][32][64], the two slots, p^T [float4 j][thread], the
+// ring's lse log2(e) and delta [stage][lse2, delta][32], the mbarriers.
+template <int NC>
+struct DkvLayout {
+  static constexpr uint32_t kOwnBytes = sizeof(bf16) * NC * CHUNK;
+  static constexpr uint32_t kTileBytes = sizeof(bf16) * NC * QCHUNK;
+  static constexpr uint32_t kSlotBytes = Partials<1, kPush>::kBytes;
+  static constexpr size_t kK = 0;
+  static constexpr size_t kV = kK + kOwnBytes;
+  static constexpr size_t kRing = kV + kOwnBytes;
+  static constexpr size_t kX = kRing + kDkvStages * 2 * kTileBytes;
+  static constexpr size_t kP = kX + 2 * kSlotBytes;
+  static constexpr size_t kRowsLd = kP + kSlotBytes;
+  static constexpr size_t kBar =
+      kRowsLd + sizeof(float) * kDkvStages * 2 * kQTile;
+  // full k/v; full and empty q/g [stage]; full and empty slots [wg]
+  static constexpr int kBars = 1 + 2 * kDkvStages + 4;
+  static constexpr size_t kBytes = kBar + sizeof(uint64_t) * kBars;
+  static_assert(kBytes <= kMaxSmem, "a block's shared memory");
+};
+
+template <int NC, int X>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    dkv_cluster(const __grid_constant__ CUtensorMap kmap,
+                const __grid_constant__ CUtensorMap vmap,
+                const __grid_constant__ CUtensorMap qmap,
+                const __grid_constant__ CUtensorMap gmap,
+                const __grid_constant__ CUtensorMap dkmap,
+                const __grid_constant__ CUtensorMap dvmap,
+                const float* __restrict__ mask, const float* __restrict__ lse,
+                const float* __restrict__ delta, int sq, int sk, int d,
+                int group, int causal, float scale, float scale_log2) {
+  using L = DkvLayout<NC>;
+  constexpr int S = kDkvStages;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  bf16* ks = reinterpret_cast<bf16*>(smem + L::kK);
+  bf16* vs = reinterpret_cast<bf16*>(smem + L::kV);
+  bf16* ring = reinterpret_cast<bf16*>(smem + L::kRing);
+  float4* xs = reinterpret_cast<float4*>(smem + L::kX);
+  float4* ps = reinterpret_cast<float4*>(smem + L::kP);
+  float* rows_ld = reinterpret_cast<float*>(smem + L::kRowsLd);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* full_own = bars;
+  uint64_t* full = bars + 1;  // [S]
+  uint64_t* empty = full + S;
+  uint64_t* full_x = empty + S;  // [warpgroup]
+  uint64_t* empty_x = full_x + 2;
+
+  int rank;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
+  const int nk = (sk + kWgRows - 1) / kWgRows;
+  const int cluster = (int)(blockIdx.x / group);
+  const int bh = cluster / nk;
+  const int k0 = (cluster % nk) * kWgRows;
+  const int col0 = rank * NC * kC;
+  const int nq = (sq + kQTile - 1) / kQTile;
+  // Causal: query tiles that end before this key tile starts see none of
+  // its keys.
+  const int qt0 = causal ? k0 / kQTile : 0;
+  if (threadIdx.x == 0) {
+    mbar_init(full_own, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers / 32);
+    }
+    for (int w = 0; w < 2; ++w) Partials<1, X>::init(&full_x[w], &empty_x[w], group);
+    mbar_init_fence();
+  }
+  cluster_arrive();
+  cluster_wait();
+
+  // The block's valid keys, in every warp. A block with none (padding) has
+  // only gradients 0: it walks no query tile (nor do its peers: a cluster
+  // shares its keys).
+  const int lane = threadIdx.x & 31;
+  const float* mrow = mask + (int64_t)bh * sk;
+  const uint32_t w0 = __ballot_sync(
+      0xffffffffu, k0 + lane < sk && mrow[k0 + lane] > 0.f);
+  const uint32_t w1 = __ballot_sync(
+      0xffffffffu, k0 + 32 + lane < sk && mrow[k0 + 32 + lane] > 0.f);
+  const int ntq = (w0 | w1) != 0 ? max(nq - qt0, 0) : 0;
+
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x >> 7, 0);
+  if (wg == 2) {
+    // The producer: k and v once, then q, g, lse log2(e) and delta of each
+    // query tile (lane: a query of the tile).
+    if (ntq == 0) return;
+    const bool leader = lane == 0;
+    if (leader) {
+      mbar_expect_tx(full_own, 2 * L::kOwnBytes);
+      for (int c = 0; c < NC; ++c) {
+        tma_load(ks + c * CHUNK, &kmap, full_own, col0 + c * kC, k0, bh);
+        tma_load(vs + c * CHUNK, &vmap, full_own, col0 + c * kC, k0, bh);
+      }
+    }
+    for (int i = 0; i < ntq; ++i) {
+      const int t = qt0 + i, s = i % S, row = t * kQTile + lane;
+      const bool in = row < sq;
+      const float l2 = in ? lse[(int64_t)bh * sq + row] * kLog2e : kNoRow;
+      const float dl = in ? delta[(int64_t)bh * sq + row] : 0.f;
+      mbar_wait(&empty[s], ((i / S) & 1) ^ 1);
+      rows_ld[s * 2 * kQTile + lane] = l2;
+      rows_ld[s * 2 * kQTile + kQTile + lane] = dl;
+      __syncwarp();
+      if (leader) {
+        mbar_expect_tx(&full[s], 2 * L::kTileBytes);
+        bf16* st = ring + s * 2 * NC * QCHUNK;
+        for (int c = 0; c < NC; ++c) {
+          tma_load(st + c * QCHUNK, &qmap, &full[s], col0 + c * kC,
+                   t * kQTile, bh);
+          tma_load(st + (NC + c) * QCHUNK, &gmap, &full[s], col0 + c * kC,
+                   t * kQTile, bh);
+        }
+      }
+    }
+    return;
+  }
+
+  // A consumer warpgroup: rows are the block's 64 keys, warp (wq) keys
+  // 16 wq .. + 15, this lane keys key0 and key0 + 8; columns the tile's 32
+  // queries. Warpgroup 0 scores s^T = k q^T, forms p^T and accumulates
+  // dv += p^T g; warpgroup 1 scores dp^T = v g^T, takes p^T from
+  // warpgroup 0 through shared memory (fp32), forms ds^T and accumulates
+  // dk += ds^T q.
+  const int xt = threadIdx.x & 127;
+  const int wq = (threadIdx.x >> 5) & 3;
+  const int grp = lane >> 2, tig = lane & 3;
+  const int key0 = k0 + 16 * wq + grp;
+  const bool all_keys = (w0 & w1) == ~0u;
+  bool key_ok[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    key_ok[h] = key_bit(w0, w1, 16 * wq + grp + 8 * h);
+  const auto release = [&](uint64_t* bar) {
+    if (lane == 0) mbar_arrive(bar);
+  };
+  bf16* own = wg == 0 ? ks : vs;  // the scores' A; after the loop, the output
+  const int ring_a = wg * NC * QCHUNK;        // the scores' B: q or g
+  const int ring_b = (1 - wg) * NC * QCHUNK;  // the products' B: g or q
+  float4* pt = ps + xt;
+  Partials<1, X> ex{xs + wg * Partials<1, X>::Q * 128 + xt, &full_x[wg],
+                    &empty_x[wg], rank, group, lane, xt};
+  float x[1][4][4];  // s^T or dp^T of the 64 keys x 32 queries
+  uint32_t xa[2][4];  // p^T or ds^T in bf16: the products' A fragments
+  float acc[8 * NC][4];  // dv (warpgroup 0) or dk (warpgroup 1)
+  zero(acc);
+  if (wg == 1) bar_arrive(kPFreeBar, kConsumers);  // p^T's buffer is free
+
+  const auto scores = [&](int st) {
+    const bf16* b = ring + st * 2 * NC * QCHUNK + ring_a;
+    const bf16* a = own;
+    asm volatile("" : "+l"(a));
+#pragma unroll
+    for (int kk = 0; kk < 4 * NC; ++kk)
+      wgmma_ss(x[0], desc(a + (kk >> 2) * CHUNK + 16 * (kk & 3)),
+               desc(b + (kk >> 2) * QCHUNK + 16 * (kk & 3)), kk > 0);
+  };
+  // Query tile i (stage st) on the summed x: p^T (warpgroup 0, handed to
+  // warpgroup 1) or ds^T = p^T (dp^T - delta) scale (warpgroup 1).
+  const auto form = [&](int i, int st) {
+    const int q0 = (qt0 + i) * kQTile;
+    const float* ld = rows_ld + st * 2 * kQTile;
+    if (wg == 0) {
+      const auto lse2 = [=](int c, int) { return ld[c]; };
+      // Queries past Sq take lse2 = kNoRow: p = 0 without a select.
+      if (all_keys && (!causal || k0 + kWgRows - 1 <= q0)) {
+        rebuild_p<false, false>(x[0], scale_log2, tig,
+                                [](int, int) { return true; }, lse2);
+      } else {
+        rebuild_p<false, true>(x[0], scale_log2, tig,
+                               [=](int c, int h) {
+                                 return key_ok[h] &&
+                                        (!causal || key0 + 8 * h <= q0 + c);
+                               },
+                               lse2);
+      }
+      bar_sync(kPFreeBar, kConsumers);  // warpgroup 1 read the last one
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        pt[j * 128] = make_float4(x[0][j][0], x[0][j][1], x[0][j][2],
+                                  x[0][j][3]);
+      bar_arrive(kPFullBar, kConsumers);
+    } else {
+      float p[4][4];
+      bar_sync(kPFullBar, kConsumers);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float4 v = pt[j * 128];
+        p[j][0] = v.x;
+        p[j][1] = v.y;
+        p[j][2] = v.z;
+        p[j][3] = v.w;
+      }
+      bar_arrive(kPFreeBar, kConsumers);
+      form_ds(x[0], p, scale, tig,
+              [=](int c, int) { return ld[kQTile + c]; });
+    }
+  };
+  // dv += p^T g or dk += ds^T q over stage st's 32 queries (the chunks'
+  // rows are the k index), into the block's NC chunks of columns.
+  const auto products = [&](int st) {
+    const bf16* b = ring + st * 2 * NC * QCHUNK + ring_b;
+#pragma unroll
+    for (int kk = 0; kk < kQTile / 16; ++kk)
+      wgmma_rs(acc, xa[kk],
+               desc_mn(b + 16 * kk * kC, sizeof(bf16) * QCHUNK));
+  };
+
+  int n = 0;  // partials sent
+  if (ntq > 0) {
+    mbar_wait(full_own, 0);
+    mbar_wait(&full[0], 0);
+    wgmma_fence();
+    scores(0);
+    wgmma_commit();
+    wgmma_wait_for<0>();
+    pin(x[0]);
+    ex.send(x, 0);
+    ex.receive(x, 0);
+    n = 1;
+    form(0, 0);
+    pack_a(xa, x[0]);
+    // The next tile's scores and this tile's product in one batch, then the
+    // exchange and the next tile's p^T or ds^T (as in dq_cluster).
+    for (int i = 0; i < ntq; ++i) {
+      const int in = i + 1;
+      const bool more = in < ntq;
+      if (more) mbar_wait(&full[in % S], (in / S) & 1);
+      wgmma_fence();
+      if (more) scores(in % S);
+      products(i % S);
+      wgmma_commit();
+      wgmma_wait_for<0>();
+      pin(x[0]);
+      pin(acc);
+      pin(xa);
+      release(&empty[i % S]);
+      if (!more) break;
+      ex.send(x, in);
+      ex.receive(x, in);
+      ++n;
+      form(in, in % S);
+      pack_a(xa, x[0]);
+    }
+  }
+  // Warpgroup 1's last hand-back of p^T's buffer (its first was the extra
+  // one above).
+  if (wg == 0) bar_sync(kPFreeBar, kConsumers);
+  ex.drain(n);
+
+  // dv (warpgroup 0) into k's chunks, dk (warpgroup 1) into v's, in bf16,
+  // swizzled as TMA reads them: only this warpgroup read them.
+#pragma unroll
+  for (int n8 = 0; n8 < 8 * NC; ++n8)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 16 * wq + grp + 8 * h;
+      bf16* dst = own + (n8 >> 3) * CHUNK + r * kC +
+                  (((n8 & 7) ^ (r & 7)) << 3) + 2 * tig;
+      *reinterpret_cast<uint32_t*>(dst) =
+          pack_bf16x2(acc[n8][2 * h], acc[n8][2 * h + 1]);
+    }
+  fence_async_proxy();
+  bar_sync(kBwdStoreBar + wg, 128);
+  if (xt == 0) {
+    const CUtensorMap* map = wg == 0 ? &dvmap : &dkmap;
+    for (int c = 0; c < NC && col0 + c * kC < d; ++c)
+      tma_store(map, own + c * CHUNK, col0 + c * kC, k0, bh);
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  }
+}
+
+// -- the launches --------------------------------------------------------------
+
+// One launch of `blocks` blocks of `threads` threads and `bytes` of shared
+// memory in clusters of `group` blocks along x (none for group 1); a
+// cluster the card cannot place returns its error.
+template <typename... Args, typename... Actual>
+int launch(void (*kernel)(Args...), int64_t blocks, int threads,
+           size_t bytes, int group, cudaStream_t stream, Actual... args) {
+  const int err = configure(kernel, bytes, blocks);
   if (err) return err;
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3((unsigned)blocks);
-  config.blockDim = dim3(kThreads);
+  config.blockDim = dim3(threads);
   config.dynamicSmemBytes = bytes;
   config.stream = stream;
   cudaLaunchAttribute cluster[1];
@@ -579,11 +1349,43 @@ int launch(const CUtensorMap& qm, const CUtensorMap& km,
   cluster[0].val.clusterDim.y = 1;
   cluster[0].val.clusterDim.z = 1;
   config.attrs = cluster;
-  config.numAttrs = X != kSolo ? 1 : 0;
-  const cudaError_t launched =
-      cudaLaunchKernelEx(&config, fwd_cluster<NC, X>, qm, km, vm, om,
-                         mask, lse, sq, sk, d, group, causal, scale_log2);
+  config.numAttrs = group > 1 ? 1 : 0;
+  const cudaError_t launched = cudaLaunchKernelEx(&config, kernel, args...);
   return (int)(launched != cudaSuccess ? launched : cudaGetLastError());
+}
+
+// The cluster of a head width d (a multiple of 64, 256 to 2048): (blocks,
+// chunks a block), ceil(d / 256) blocks of an even share of 3 or 4 chunks
+// (one block of 4 at 256).
+int2 split_of(int d) {
+  const int nc = d / kC;
+  const int group = (nc + kMaxChunks - 1) / kMaxChunks;
+  return make_int2(group, (nc + group - 1) / group);
+}
+
+// 64-column boxes of `rows` rows of a (bh, n, d) tensor in wgmma's 128-byte
+// swizzle; an empty side (never read) takes one row.
+bool chunk_map(CUtensorMap* m, const bf16* t, int n, int bh, int d,
+               int rows) {
+  return encode(m, t, n > 0 ? n : 1, bh, d, kC, rows,
+                CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+template <int NC, int X>
+int bwd(const CUtensorMap (&m)[9], const float* mask, const float* lse,
+        const bf16* out, float* delta, int bh, int sq, int sk, int d,
+        int group, int causal, float scale, float scale_log2,
+        cudaStream_t stream) {
+  const int err = launch(
+      dq_cluster<NC, X>, (int64_t)bh * ((sq + kWgRows - 1) / kWgRows) * group,
+      kBwdThreads, DqLayout<NC>::kBytes, group, stream, m[0], m[1], m[2], m[3], m[4],
+      mask, lse, out, delta, sq, sk, d, group, causal, scale, scale_log2);
+  if (err) return err;
+  return launch(
+      dkv_cluster<NC, X>, (int64_t)bh * ((sk + kWgRows - 1) / kWgRows) * group,
+      kBwdThreads, DkvLayout<NC>::kBytes, group, stream, m[1], m[2], m[5], m[6], m[7],
+      m[8], mask, lse, (const float*)delta, sq, sk, d, group, causal, scale,
+      scale_log2);
 }
 
 }  // namespace
@@ -601,29 +1403,65 @@ extern "C" int flash_attention_cluster_fwd_bf16(const bf16* q, const bf16* k,
   if (!aligned(q) || !aligned(k) || !aligned(v) || !aligned(out) ||
       d < kMaxChunks * kC || d > kClusterMax * kMaxChunks * kC || d % kC)
     return (int)cudaErrorInvalidValue;
-  const int nc = d / kC;
-  const int group = (nc + kMaxChunks - 1) / kMaxChunks;
-  const int per = (nc + group - 1) / group;  // 3 or 4 above 256
+  const int2 split = split_of(d);
+  const int group = split.x;
   CUtensorMap qm, km, vm, om;
-  // An empty key side is never read: its maps take one row.
-  const int rows_k = sk > 0 ? sk : 1;
-  // 64 x 64 boxes in wgmma's 128-byte swizzle.
-  const auto map = [&](CUtensorMap* m, const bf16* t, int rows) {
-    return encode(m, t, rows, bh, d, kC, 64, CU_TENSOR_MAP_SWIZZLE_128B);
-  };
-  if (!map(&qm, q, sq) || !map(&km, k, rows_k) || !map(&vm, v, rows_k) ||
-      !map(&om, out, sq))
+  if (!chunk_map(&qm, q, sq, bh, d, 64) || !chunk_map(&km, k, sk, bh, d, 64) ||
+      !chunk_map(&vm, v, sk, bh, d, 64) || !chunk_map(&om, out, sq, bh, d, 64))
     return (int)cudaErrorInvalidValue;
   const float scale_log2 = (float)(kLog2e * scale);
-#define LAUNCH(NC, X)                                                      \
-  return launch<NC, X>(qm, km, vm, om, mask, lse, bh, sq, sk, d, group,    \
-                       causal, scale_log2, stream)
+#define LAUNCH(NC, X)                                                        \
+  return launch(fwd_cluster<NC, X>,                                          \
+                (int64_t)bh * ((sq + kRows - 1) / kRows) * group, kThreads,  \
+                Layout<NC, X != kSolo>::kBytes, group, stream, qm, km, vm,   \
+                om, mask, lse, sq, sk, d, group, causal, scale_log2)
   if (group == 1) LAUNCH(4, kSolo);
   if (group == 2) {
-    if (per == 3) LAUNCH(3, kPush);
+    if (split.y == 3) LAUNCH(3, kPush);
     LAUNCH(4, kPush);
   }
-  if (per == 3) LAUNCH(3, kPull);
+  if (split.y == 3) LAUNCH(3, kPull);
+  LAUNCH(4, kPull);
+#undef LAUNCH
+}
+
+// K6 in bf16 at a head width 256 < d <= 2048, d a multiple of 64, in
+// clusters of ceil(d / 256) blocks. Arguments as
+// flash_attention_bwd_bf16's (flash_attention_bf16.cu); runs the dq kernel
+// (which also writes delta), then the dk/dv kernel.
+extern "C" int flash_attention_cluster_bwd_bf16(
+    const bf16* q, const bf16* k, const bf16* v, const float* mask,
+    const float* lse, const bf16* out, const bf16* g, float* delta, bf16* dq,
+    bf16* dk, bf16* dv, int bh, int sq, int sk, int d, int causal,
+    double scale, cudaStream_t stream) {
+  if (!aligned(q) || !aligned(k) || !aligned(v) || !aligned(out) ||
+      !aligned(g) || !aligned(dq) || !aligned(dk) || !aligned(dv) ||
+      d <= kMaxChunks * kC || d > kClusterMax * kMaxChunks * kC || d % kC)
+    return (int)cudaErrorInvalidValue;
+  const int2 split = split_of(d);
+  const int group = split.x;
+  // dq's maps: q, k, v, g, dq (64-row boxes); dk/dv's: q and g in 32-row
+  // boxes, dk, dv.
+  CUtensorMap m[9];
+  if (!chunk_map(&m[0], q, sq, bh, d, 64) ||
+      !chunk_map(&m[1], k, sk, bh, d, 64) ||
+      !chunk_map(&m[2], v, sk, bh, d, 64) ||
+      !chunk_map(&m[3], g, sq, bh, d, 64) ||
+      !chunk_map(&m[4], dq, sq, bh, d, 64) ||
+      !chunk_map(&m[5], q, sq, bh, d, kQTile) ||
+      !chunk_map(&m[6], g, sq, bh, d, kQTile) ||
+      !chunk_map(&m[7], dk, sk, bh, d, 64) ||
+      !chunk_map(&m[8], dv, sk, bh, d, 64))
+    return (int)cudaErrorInvalidValue;
+  const float sc = (float)scale, scale_log2 = (float)(kLog2e * scale);
+#define LAUNCH(NC, X)                                                       \
+  return bwd<NC, X>(m, mask, lse, out, delta, bh, sq, sk, d, group, causal, \
+                    sc, scale_log2, stream)
+  if (group == 2) {
+    if (split.y == 3) LAUNCH(3, kPush);
+    LAUNCH(4, kPush);
+  }
+  if (split.y == 3) LAUNCH(3, kPull);
   LAUNCH(4, kPull);
 #undef LAUNCH
 }

@@ -55,9 +55,9 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t a,
       : "l"(a), "l"(b), "r"(acc));
 }
 
-// d += A B^T, m64n32k16.
+// d (+)= A B^T, m64n32k16; acc = 0 overwrites d.
 __device__ __forceinline__ void wgmma_ss(float (&d)[4][4], uint64_t a,
-                                         uint64_t b) {
+                                         uint64_t b, int acc = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
@@ -67,7 +67,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[4][4], uint64_t a,
         "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
         "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
         "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(acc));
 }
 
 // d += A B, m64n64k16: A the warps' packed bf16 fragments in registers

@@ -20,9 +20,10 @@ JAX package's: heads folded into the batch, q (BH, Sq, D), k and v
   ``TMA_BWD_MIN_BH``),
   ``csrc/flash_attention_wide.cu`` or ``csrc/flash_attention_wide_bf16.cu``
   for K6 from 256 and the fp32 K5 from 256, and
-  ``csrc/flash_attention_cluster_bf16.cu`` for the bf16 K5 from 256 to
-  ``CLUSTER_HEAD_DIM_MAX`` (:func:`_kernel`; both K5 from 256 on
-  thread-block clusters that split D), or raise; on a CPU tensor they
+  ``csrc/flash_attention_cluster_bf16.cu`` for the bf16 K5 from 256 and
+  the bf16 K6 above 256, both up to ``CLUSTER_HEAD_DIM_MAX``
+  (:func:`_kernel`; on thread-block clusters that split D), or raise; on
+  a CPU tensor they
   take their plain versions, :func:`flash_attention_reference` and
   :func:`flash_attention_backward_reference` in fp32, the ``_bf16`` ones in
   bf16. Launches are counted in ``flash_attention.launches``: "fwd" and
@@ -81,8 +82,8 @@ DENSE_RESIDENT_SCORE_TENSORS = 3
 # WIDE_HEAD_STEP, in chunks of D of that many columns.
 KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
 WIDE_HEAD_STEP = 64
-# The widest head width of the bf16 K5 on a thread-block cluster: 8 blocks
-# (the portable cluster size) of 256 columns each.
+# The widest head width of the bf16 K5 and K6 on a thread-block cluster: 8
+# blocks (the portable cluster size) of 256 columns each.
 CLUSTER_HEAD_DIM_MAX = 2048
 # The bf16 K5 and K6 fed by TMA under warp specialisation
 # (csrc/flash_attention_tma_bf16.cu) take these head widths; K6 there
@@ -362,9 +363,9 @@ def _kernel(dtype, d: int, backward: bool, bh: int, sq: int
       ``TMA_BWD_MIN_BH`` on (K6): csrc/flash_attention_tma_bf16.cu's;
     - else up to 128: csrc/flash_attention(_bf16).cu's;
     - from 256 on csrc/flash_attention_wide(_bf16).cu's (K6, and the fp32
-      K5 on clusters that split D), except the bf16 K5 up to
-      ``CLUSTER_HEAD_DIM_MAX``: csrc/flash_attention_cluster_bf16.cu's
-      (clusters that split D)."""
+      K5 on clusters that split D), except the bf16 K5 from 256 and the
+      bf16 K6 above 256, both up to ``CLUSTER_HEAD_DIM_MAX``:
+      csrc/flash_attention_cluster_bf16.cu's (clusters that split D)."""
     if backward:
         tma = (d in TMA_BWD_MAX_SQ and sq <= TMA_BWD_MAX_SQ[d]
                and bh >= TMA_BWD_MIN_BH)
@@ -374,8 +375,8 @@ def _kernel(dtype, d: int, backward: bool, bh: int, sq: int
         width = "_tma"
     elif d < KERNEL_HEAD_DIMS[-1]:
         width = ""
-    elif (dtype == torch.bfloat16 and not backward
-          and d <= CLUSTER_HEAD_DIM_MAX):
+    elif (dtype == torch.bfloat16 and d <= CLUSTER_HEAD_DIM_MAX
+          and (not backward or d > KERNEL_HEAD_DIMS[-1])):
         width = "_cluster"
     else:
         width = "_wide"

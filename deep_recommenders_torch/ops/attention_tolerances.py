@@ -109,7 +109,11 @@ u_b (||exact|| + 2 sqrt(sum_i sum_k t_ik^2)) plus the fp32 limit
 4 u sqrt(n + 4) ||exact||, twice that against the bf16 plain version. The
 dk less one query tile fails it, and dq less one key tile (the fault of a
 K6 that sums dq over key tiles in shared memory): :func:`reject_planted`
-reports the factor.
+reports the factor. Above ``PARTIAL_WIDTH`` columns, where a cluster of
+blocks splits D and adds their partial scores, every check can also
+reject the function with one block's partials lost
+(:func:`flash_attention_partial_scores`,
+:func:`flash_attention_backward_partial_scores`; ``planted_partial``).
 """
 
 from __future__ import annotations
@@ -234,9 +238,49 @@ def flash_attention_partial_scores(q, k, v, key_mask, causal: bool,
     return out.to(q.dtype), lse
 
 
+def flash_attention_backward_partial_scores(q, k, v, key_mask, out, lse, g,
+                                            causal: bool,
+                                            drop: Optional[int] = None,
+                                            width: int = PARTIAL_WIDTH):
+    """(dq, dk, dv) of K6 with s = q k^T and dp = g v^T summed in fp32 from
+    partials over ``width`` columns of D each, added in rank order, as a
+    cluster that splits D adds its blocks' partials (each kernel of K6
+    exchanges both, or s^T and dp^T); ``drop`` leaves rank ``drop``'s
+    partials out (a lost exchange: the planted fault). On the forward's
+    out and lse; delta = rowsum(g out) in fp32. fp32 operands give the fp32
+    plain version's function; bf16 ones the bf16 plain version's (p and ds
+    rounded to bf16 before the products, the gradients rounded once)."""
+    d = q.shape[-1]
+    qf, kf, vf, of, gf = (t.float() for t in (q, k, v, out, g))
+    shape = q.shape[:2] + k.shape[1:2]
+    s = torch.zeros(shape, dtype=torch.float32, device=q.device)
+    dp = torch.zeros_like(s)
+    for rank, c in enumerate(range(0, d, width)):
+        if rank != drop:
+            cols = slice(c, c + width)
+            s = s + torch.einsum("...qd,...kd->...qk", qf[..., cols],
+                                 kf[..., cols])
+            dp = dp + torch.einsum("...qd,...kd->...qk", gf[..., cols],
+                                   vf[..., cols])
+    scale = 1.0 / math.sqrt(d)
+    p = torch.exp(s * scale - lse.float()[..., None])
+    valid = att._valid_lanes(s.shape, key_mask, causal, s.device)
+    if valid is not None:
+        p = torch.where(valid, p, 0.0)
+    ds = p * (dp - (gf * of).sum(-1)[..., None]) * scale
+    if q.dtype == torch.bfloat16:
+        p = p.to(torch.bfloat16).float()
+        ds = ds.to(torch.bfloat16).float()
+    grads = (torch.einsum("...qk,...kd->...qd", ds, kf),
+             torch.einsum("...qk,...qd->...kd", ds, qf),
+             torch.einsum("...qk,...qd->...kd", p, gf))
+    return tuple(t.to(q.dtype) for t in grads)
+
+
 def reject_lost_partial(name: str, share: float) -> Dict[str, float]:
-    """The forward check must reject K5 with one block's partial scores
-    left out (:func:`flash_attention_partial_scores` with ``drop``):
+    """The forward and backward checks must reject K5 or K6 with one
+    block's partial scores left out (:func:`flash_attention_partial_scores`
+    or :func:`flash_attention_backward_partial_scores` with ``drop``):
     ``share`` is its largest share of a tolerance. Returns it; raises if
     the check accepts the fault."""
     if not share > 1:
@@ -325,6 +369,14 @@ def _lost_partial(q, k, v, mask, causal):
                                           drop=last)
 
 
+def _lost_partial_backward(q, k, v, mask, out, lse, g, causal):
+    """:func:`flash_attention_backward_partial_scores` on the check's
+    inputs with the last block's partials left out."""
+    last = (q.shape[-1] - 1) // PARTIAL_WIDTH
+    return flash_attention_backward_partial_scores(
+        q, k, v, mask.float(), out, lse, g, causal, drop=last)
+
+
 def check_forward(got: Sequence[torch.Tensor], q, k, v,
                   key_mask: Optional[torch.Tensor], causal: bool,
                   planted_tf32: bool = False, planted_partial: bool = False
@@ -395,13 +447,15 @@ def _backward_bounds(q, k, v, mask, out, lse, g, causal, split: bool):
 def check_backward(got: Sequence[torch.Tensor], q, k, v,
                    key_mask: Optional[torch.Tensor], out, lse, g,
                    causal: bool, planted_rows: int = 0,
-                   planted_tf32: bool = False
+                   planted_tf32: bool = False, planted_partial: bool = False
                    ) -> Dict[str, Dict[str, float]]:
     """K6's (dq, dk, dv) against the fp64 plain backward on the same out,
     lse and g. With ``planted_rows``, also :func:`reject_planted` on dk
     less the contribution of its first ``planted_rows`` queries; with
     ``planted_tf32``, :func:`reject_tf32` on the single-pass TF32 backward
-    of the same fp32 inputs, under "planted"."""
+    of the same fp32 inputs, under "planted"; with ``planted_partial`` (D
+    above PARTIAL_WIDTH), :func:`reject_lost_partial` on the backward that
+    loses the last block's partial scores, under "planted" too."""
     args = [t.double() for t in (q, k, v)]
     mask = _mask(key_mask, k)
     rest = [t.double() for t in (out, lse, g)]
@@ -427,6 +481,13 @@ def check_backward(got: Sequence[torch.Tensor], q, k, v,
         checks["planted"] = reject_tf32(name, {
             grad: worst(_fro_errors(fault[i], want[i], tols[i], limits[i]))
             for i, grad in enumerate(("dq", "dk", "dv"))})
+    if planted_partial:
+        fault = _lost_partial_backward(
+            *(t.float() for t in (q, k, v)), mask,
+            *(t.float() for t in (out, lse, g)), causal)
+        checks.setdefault("planted", {}).update(reject_lost_partial(
+            name, max(worst(_fro_errors(fault[i], want[i], tols[i],
+                                        limits[i])) for i in range(3))))
     return checks
 
 
@@ -541,7 +602,8 @@ def check_forward_bf16(got: Sequence[torch.Tensor], q, k, v,
 def check_backward_bf16(got: Sequence[torch.Tensor], q, k, v,
                         key_mask: Optional[torch.Tensor], out, lse, g,
                         causal: bool, planted_rows: int = 0,
-                        planted_keys: int = 0, hold: bool = True
+                        planted_keys: int = 0, planted_partial: bool = False,
+                        hold: bool = True
                         ) -> Dict[str, Dict[str, float]]:
     """The bf16 K6's (dq, dk, dv) on bf16 q, k, v, out, g and fp32 lse:
     each against the fp64 plain backward on the same inputs ("dq", ...) and
@@ -549,8 +611,10 @@ def check_backward_bf16(got: Sequence[torch.Tensor], q, k, v,
     ``planted_rows``, also :func:`reject_planted_bf16` on dk less the
     contribution of its first ``planted_rows`` queries; with
     ``planted_keys``, on dq less the contribution of its first
-    ``planted_keys`` keys (a key tile lost from dq's sum). ``hold`` as in
-    :func:`check_forward_bf16`."""
+    ``planted_keys`` keys (a key tile lost from dq's sum); with
+    ``planted_partial``, :func:`reject_lost_partial` on the bf16 backward
+    that loses the last block's partial scores, under "planted". ``hold``
+    as in :func:`check_forward_bf16`."""
     mask = _mask(key_mask, k)
     args = [t.double() for t in (q, k, v)]
     rest = [t.double() for t in (out, lse, g)]
@@ -570,7 +634,9 @@ def check_backward_bf16(got: Sequence[torch.Tensor], q, k, v,
         q, k, v, mask.float(), out, lse, g, causal)
     d, sq, sk = q.shape[-1], q.shape[1], k.shape[1]
     name = f"flash_attention bf16 backward causal={causal}"
-    checks = {}
+    checks, fault_shares = {}, []
+    fault = (_lost_partial_backward(q, k, v, mask, out, lse, g, causal)
+             if planted_partial else None)
     for i, (grad, n) in enumerate((("dq", sk + 2 * d), ("dk", sq + 2 * d),
                                    ("dv", sq + 2 * d))):
         if got[i].dtype != torch.bfloat16 or \
@@ -599,6 +665,11 @@ def check_backward_bf16(got: Sequence[torch.Tensor], q, k, v,
             checks["dq"]["planted"] = reject_planted_bf16(
                 f"{name} dq", got[0], want[0], tol, sq_terms[0], n, chunk,
                 fault="key_tile_dropped")
+        if fault is not None:
+            fault_shares.append(worst(_rounded_errors(
+                fault[i], want[i], tol, sq_terms[i], n)))
+    if fault is not None:
+        checks["planted"] = reject_lost_partial(name, max(fault_shares))
     return checks
 
 

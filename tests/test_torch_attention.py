@@ -535,8 +535,9 @@ def test_attention_dispatch_above_the_widest_kernel(rng, monkeypatch):
 # csrc/flash_attention(_bf16).cu up to 128, except the bf16 kernels of
 # csrc/flash_attention_tma_bf16.cu at D = 16;
 # csrc/flash_attention_wide(_bf16).cu for K6 and the fp32 K5 from 256 on;
-# csrc/flash_attention_cluster_bf16.cu for the bf16 K5 from 256 to 2048,
-# csrc/flash_attention_wide_bf16.cu above.
+# csrc/flash_attention_cluster_bf16.cu for the bf16 K5 from 256 to 2048 and
+# the bf16 K6 above 256 to 2048, csrc/flash_attention_wide_bf16.cu above
+# 2048 and for the bf16 K6 at 256.
 _WIDTHS = (16, 128, 256, 320, 512, 768, 2048, 2304)
 _ROUTES = {
     ("float32", "fwd"): {16: "flash_attention", 128: "flash_attention",
@@ -550,8 +551,10 @@ _ROUTES = {
                           2304: "flash_attention_wide_bf16"},
     ("bfloat16", "bwd"): {16: "flash_attention_tma_bf16",
                           128: "flash_attention_bf16",
-                          **{d: "flash_attention_wide_bf16"
-                             for d in _WIDTHS[2:]}},
+                          256: "flash_attention_wide_bf16",
+                          **{d: "flash_attention_cluster_bf16"
+                             for d in _WIDTHS[3:-1]},
+                          2304: "flash_attention_wide_bf16"},
 }
 
 
@@ -586,7 +589,9 @@ def test_kernel_routing_by_dtype_width_and_direction(dtype, d, direction):
 # flash_attention_tma_bf16.cu at D = 16, 32 and 64 whatever the shape; its
 # K6 at D = 16 and 32 up to TMA_BWD_MAX_SQ and from TMA_BWD_MIN_BH (BH) on,
 # the mma.sync kernels of flash_attention_bf16.cu past either edge, at
-# D = 64 and 128, and for fp32 operands.
+# D = 64 and 128, and for fp32 operands; the bf16 K6 of
+# flash_attention_cluster_bf16.cu up to CLUSTER_HEAD_DIM_MAX whatever the
+# shape, flash_attention_wide_bf16.cu's one step past it.
 _SHAPE_ROUTES = [
     ("bfloat16", "fwd", 16, 2, 100, "flash_attention_tma_bf16"),
     ("bfloat16", "fwd", 32, 6, 150, "flash_attention_tma_bf16"),
@@ -600,13 +605,17 @@ _SHAPE_ROUTES = [
     ("bfloat16", "bwd", 32, 2048, 769, "flash_attention_bf16"),
     ("bfloat16", "bwd", 64, 2048, 512, "flash_attention_bf16"),
     ("float32", "bwd", 16, 2048, 512, "flash_attention"),
+    ("bfloat16", "bwd", 2048, 2, 70, "flash_attention_cluster_bf16"),
+    ("bfloat16", "bwd", 2112, 2, 70, "flash_attention_wide_bf16"),
+    ("bfloat16", "bwd", 320, 1, 4096, "flash_attention_cluster_bf16"),
 ]
 
 
 @pytest.mark.parametrize("dtype,direction,d,bh,sq,want", _SHAPE_ROUTES)
 def test_kernel_routing_by_shape(dtype, direction, d, bh, sq, want):
-    """_kernel() routes the bf16 kernels of narrow heads by width and shape
-    to the source and C function documented for each case."""
+    """_kernel() routes the bf16 kernels of narrow heads by width and shape,
+    and the bf16 K6 above 256 by width, to the source and C function
+    documented for each case."""
     source, symbol = att._kernel(getattr(torch, dtype), d,
                                  direction == "bwd", bh, sq)
     assert source == want
@@ -637,6 +646,37 @@ def test_forward_checks_reject_a_lost_partial_score(rng, d, dtype, causal):
         q, k, v, mask, causal, drop=d // at.PARTIAL_WIDTH - 1)
     with pytest.raises(AssertionError, match="disagrees|outside"):
         check(lost, q, k, v, mask, causal)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [512, 1024])
+def test_backward_checks_reject_a_lost_partial_score(rng, d, dtype, causal):
+    """The backward checks keep the power to catch a lost exchange between
+    the blocks of a cluster that splits D: K6 with s and dp summed in fp32
+    from per-256-column partials in rank order passes check_backward
+    (fp32 operands) or check_backward_bf16 (bf16 operands); the same with
+    the last block's partials left out fails, its worst share of a
+    tolerance above 1."""
+    q, k, v, mask = _t(*_inputs(rng, 2, 70, 90, d, masked_row=1))
+    g = torch.from_numpy(rng.normal(size=q.shape).astype(np.float32))
+    check, forward = at.check_backward, att.flash_attention_reference
+    if dtype == "bfloat16":
+        q, k, v, g = (t.to(torch.bfloat16) for t in (q, k, v, g))
+        check = at.check_backward_bf16
+        forward = att.flash_attention_reference_bf16
+    out, lse = forward(q, k, v, mask, causal)
+    whole = at.flash_attention_backward_partial_scores(q, k, v, mask, out,
+                                                       lse, g, causal)
+    checks = check(whole, q, k, v, mask, out, lse, g, causal,
+                   planted_partial=True)
+    assert max(c["err_over_tol"] for name, c in checks.items()
+               if name != "planted") < 1
+    assert checks["planted"]["partial_dropped"] > 1
+    lost = at.flash_attention_backward_partial_scores(
+        q, k, v, mask, out, lse, g, causal, drop=d // at.PARTIAL_WIDTH - 1)
+    with pytest.raises(AssertionError, match="disagrees"):
+        check(lost, q, k, v, mask, out, lse, g, causal)
 
 
 @pytest.mark.parametrize("causal", [False, True])

@@ -953,12 +953,14 @@ def test_flash_attention_bf16_kernels_at_tile_edges(device, case, bh, sq, sk,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [256, 320, 512, 768, 2304])
+@pytest.mark.parametrize("d", [256, 320, 512, 768, 1024, 2048, 2304])
 def test_wide_attention_kernels_are_deterministic(device, d, dtype):
     """K5 and K6 from D = 256 on give the same bits on two calls: each
     block writes its own rows once, the two warpgroups' partial sums are
-    added in a fixed order, and a cluster that splits D (K5 in both dtypes,
-    the fp32 K6) adds its blocks' partial scores in rank order."""
+    added in a fixed order, and a cluster that splits D (K5 and K6 in both
+    dtypes; the bf16 clusters of 2, 3, 4 and 8 blocks at D = 320-512, 768,
+    1024 and 2048, and the bf16 K6 past them at 2304) adds its blocks'
+    partial scores in rank order."""
     gen = torch.Generator(device=device).manual_seed(14)
     q, k, v, mask = _attention_inputs(gen, 8, 300, 260, d)
     g = _normal(gen, 8, 300, d)
@@ -971,6 +973,44 @@ def test_wide_attention_kernels_are_deterministic(device, d, dtype):
     torch.cuda.synchronize()
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("bh,sq,sk,d", [
+    (4, 130, 200, 320),  # a cluster of 2 blocks (push), the last chunk past D
+    (4, 100, 140, 512),
+    (3, 70, 67, 768),  # 3 blocks (pull)
+    (2, 130, 260, 1024),  # 4 blocks
+    (2, 70, 67, 2048),  # 8 blocks
+])
+def test_cluster_bf16_backward(device, bh, sq, sk, d, causal):
+    """The bf16 K6 above 256 on clusters that split D
+    (csrc/flash_attention_cluster_bf16.cu): one launch, against its fp64
+    and bf16 plain versions; the checks reject dk less a query tile, dq
+    less a key tile and the backward that loses the last block's partial
+    scores; two calls give the same bits."""
+    gen = torch.Generator(device=device).manual_seed(15)
+    q, k, v, mask = _attention_inputs(gen, bh, sq, sk, d)
+    mask[2 % bh, sk // 2:] = 0.0  # post-padding: whole key tiles of padding
+    q, k, v, g = _bf16(q, k, v, _normal(gen, bh, sq, d))
+    out, lse = att.flash_attention(q, k, v, mask, causal, return_lse=True)
+    assert att._kernel(torch.bfloat16, d, True, bh, sq)[0] == \
+        "flash_attention_cluster_bf16"
+    before = att.flash_attention.launches["bwd_bf16"]
+    runs = [att.flash_attention_backward(q, k, v, mask, out, lse, g, causal)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert att.flash_attention.launches["bwd_bf16"] == before + 2
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    checks = at.check_backward_bf16(runs[0], q, k, v, mask, out, lse, g,
+                                    causal, planted_rows=64, planted_keys=64,
+                                    planted_partial=True)
+    assert checks["dk"]["planted"]["query_tile_dropped"] > 1
+    assert checks["dq"]["planted"]["key_tile_dropped"] > 1
+    assert checks["planted"]["partial_dropped"] > 1
+    for grad in runs[0]:
+        assert not grad[1].any()
 
 
 # -- the bf16 K5 and K6 of flash_attention_tma_bf16.cu --------------------------
