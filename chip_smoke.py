@@ -63,6 +63,12 @@ In order:
    SASS and no mma.sync; the bf16 K6 at (64, 512, 1024), clusters of 4
    blocks that pull, is held the same way and must give the same bits on
    two calls;
+   then the bf16 K5 and K6 at (2048, 512, 64) and (2048, 512, 128)
+   (``narrow_attention_phase``: K6 at both and K5 at 128 the one-block
+   kernels of csrc/flash_attention_cluster_bf16.cu, K5 at 64
+   csrc/flash_attention_tma_bf16.cu's), held and timed as those at D = 16,
+   beside the mma.sync kernels, with two calls bit for bit and their
+   instances' ptxas and SASS;
    then the head widths no kernel is built for
    (``head_width_phase``): attention() over the budget at D = 8 and
    FlashAttention at D = 24, fp32 and bf16, through K5 and K6 padded to
@@ -78,7 +84,7 @@ In order:
      (``attention_width_path``): no warning, one launch of each of the
      four K5/K6 kernels (padded to D = 256 and to D = 320: all four on
      clusters of two blocks at 320), held to the plain versions at the
-     true D on 64 rows;
+     true D on 64 rows; and at D = 128 as it is;
    - xDeepFM's flagship (maps (128, 128) relu, hidden (256, 128)), 2 epochs:
      two K1, one K3 forward and one K3 backward per train step, one K3
      forward per eval batch;
@@ -154,6 +160,8 @@ In order:
      six bf16 K6 per train step, six bf16 K5 per held-out batch, no fp32
      launch; its logits through the bf16 K5 nearer the CPU's bf16 plain
      path than that path is to fp32;
+   - the same bf16 run at the zoo's 2 x 64 heads (batch 512: over the
+     budget, so K5 and K6 at D = 64), checked the same way;
    - the ported IMDB example at its defaults, 3 epochs: dense attention,
      no kernel launch;
 6. profiles ten more train steps of every CTR, DIN, multitask and
@@ -371,6 +379,14 @@ TX_BATCH, TX_LEN, TX_EPOCHS, TX_EPSILON = 256, 512, 2, 0.1
 # Noam warmup: the learning rate rises to 2.7e-3 over the 30 steps (the
 # zoo's 4000 would keep it below 1.1e-5, too small to move the loss).
 TX_WARMUP = 100
+# The bf16 Transformer at the JAX zoo's lane-aligned head shape
+# (benchmarks/run_models.py:341-346: the same width, 2 heads of 64) at
+# S = TX_LEN and batch 512: (BH, S) = (1024, 512), 3.2 GB of dense score
+# tensors, over the budget, so its attention takes the bf16 K5 at D = 64
+# (csrc/flash_attention_tma_bf16.cu) and K6 at D = 64
+# (csrc/flash_attention_cluster_bf16.cu); at batch 256 (1.6 GB) it would
+# stay dense. 7 train steps an epoch, 1 held-out batch.
+TX2_HEADS, TX2_BATCH = 2, 512
 # DIN at the zoo's config (benchmarks/run_models.py:171-204: B 8192, T 32,
 # D 32, attention units 36, hidden (200, 80), Dice, Adam 1e-3) on the DIN
 # example's task (make_data: 500 items) at 200k examples, split 80/20: 19
@@ -417,6 +433,10 @@ TIMED_SHAPES = {**WIDE_SHAPES, "d1024": (64, 1024), "d2304": (32, 2304)}
 # And the other head widths up to 128 of the bf16 K5 and K6 at the
 # Transformer slice's (BH, S) and key masks.
 NARROW_TIMED = (32, 64, 128)
+# The widths of the one-block instances of csrc/flash_attention_cluster_bf16.cu
+# (K5 at 128, K6 at 64 and 128), held and timed at the Transformer slice's
+# (BH, S) and key masks: entries ``*.d64`` and ``*.d128``.
+NARROW_HELD = (64, 128)
 
 # Published H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bandwidth, fp32
 # outside the tensor cores, and dense bf16 on the tensor cores.
@@ -2083,8 +2103,10 @@ def mma_sync_bf16_calls(q, k, v, g, mask, causal):
     """The bf16 K5 and K6 of csrc/flash_attention_bf16.cu (mma.sync, 64-key
     tiles, exp2f, K6 in a dq and a dk/dv kernel) called through their C
     functions on the same inputs, whatever the wrapper routes the shape to:
-    the yardstick of flash_attention_tma_bf16.cu's kernels in one run (their
-    times, and whether their exponentials change what the checks see).
+    the yardstick of the kernels that replaced them up to D = 128
+    (flash_attention_tma_bf16.cu's, and flash_attention_cluster_bf16.cu's
+    one-block instances) in one run (their times, and whether their
+    exponentials change what the checks see).
     Returns (forward call, backward call on its own out and lse); no launch
     is counted."""
     bh, sq, d = q.shape
@@ -2231,7 +2253,8 @@ def attention_bf16_kernel_phase(imdb: SyntheticImdb, device, inputs=None,
     a block's partial scores. Times: kernel, bf16 plain version, one bf16
     ``F.scaled_dot_product_attention`` call with the boolean mask (for K6
     its backward), and the mma.sync kernels (:func:`mma_sync_bf16_calls`)
-    where the wrapper routes to flash_attention_tma_bf16.cu. Bounds: bf16
+    where the wrapper routes a width they take (up to 128) to another
+    source. Bounds: bf16
     bytes and
     bf16 tensor-core operations, with the exp floors beside them (at 16 a
     clock per SM at the largest SM clock: one exp per lane of a scored
@@ -2279,7 +2302,7 @@ def attention_bf16_kernel_phase(imdb: SyntheticImdb, device, inputs=None,
         pairs = _valid_pairs(mask, causal)
         lanes = live_tile_pairs(mask, causal)
         sync = {}
-        if "tma" in routed[False] or "tma" in routed[True]:
+        if d <= 128 and "flash_attention_bf16" not in routed.values():
             sync_fwd, sync_bwd = mma_sync_bf16_calls(q, k, v, g, mask, causal)
             sync = {"fwd": {"mma_sync_ms": graph_ms(sync_fwd, 10, 4),
                             "mma_sync_eager_ms": time_ms(sync_fwd, 20)},
@@ -2504,13 +2527,83 @@ def cluster_backward_check(imdb: SyntheticImdb, device,
     return result
 
 
+def instances(table: dict, stems) -> dict:
+    """The entries of ``table`` (by mangled kernel name: a ptxas summary's
+    or sass_opcodes') whose names hold one of ``stems`` (a kernel's name
+    and template arguments, mangled: "dq_soloILi2EE" is dq_solo<2>)."""
+    return {k: v for k, v in table.items() if any(t in k for t in stems)}
+
+
+def narrow_attention_phase(imdb: SyntheticImdb, device,
+                           cluster_ptxas: dict) -> list:
+    """The bf16 K5 and K6 at each of NARROW_HELD (D = 64: K5 of
+    csrc/flash_attention_tma_bf16.cu, K6 of dq_solo<1> and dkv_solo<1> in
+    csrc/flash_attention_cluster_bf16.cu; D = 128: K5 of fwd_solo<2> and
+    K6 of dq_solo<2> and dkv_solo<2>, all on persistent grids)
+    at the Transformer slice's (BH, S) = (2048, TX_LEN) and key
+    masks (:func:`attention_inputs`): the bf16 kernel phase's checks,
+    planted faults, times beside flash_attention_bf16.cu's mma.sync kernels
+    in the same run, bounds and library calls (entries ``*.d64`` and
+    ``*.d128``); two calls bit for bit, non-causal and causal. Each entry
+    of a cluster kernel carries its instances' ptxas summary (registers,
+    spills, from ``cluster_ptxas``) and SASS opcode counts (HGMMA, UTMALDG,
+    UTMASTG, no HMMA: :func:`check_cluster_sass`), and every entry the C
+    function it runs ("function")."""
+    sass = check_cluster_sass()
+    entries = []
+    for d in NARROW_HELD:
+        nc = d // 64
+        q, k, v, g, mask = inputs = attention_inputs(imdb, device,
+                                                     torch.bfloat16, d)
+        same = {}
+        for causal in (False, True):
+            runs = []
+            for _ in range(2):
+                out, lse = att.flash_attention(q, k, v, mask, causal,
+                                               return_lse=True)
+                runs.append((out, lse, *att.flash_attention_backward(
+                    q, k, v, mask, out, lse, g, causal)))
+            torch.cuda.synchronize()
+            same[f"causal={causal}"] = all(torch.equal(a, b)
+                                           for a, b in zip(*runs))
+            del runs, out, lse
+        if not all(same.values()):
+            raise AssertionError(f"bf16 K5/K6 at D = {d}: two calls differ "
+                                 f"{same}")
+        print(f"flash_attention_bf16.d{d} two calls bit for bit: {same}")
+        new = attention_bf16_kernel_phase(imdb, device, inputs,
+                                          heads=TX_HEADS, suffix=f".d{d}")
+        del q, k, v, g, mask, inputs
+        for entry in new:
+            entry["two_calls_bit_equal"] = same
+            # The C function the wrapper calls at this width.
+            entry["function"] = att._kernel(
+                torch.bfloat16, d, ".bwd." in entry["name"],
+                TX_BATCH * TX_HEADS, TX_LEN)[1]
+            if "cluster" in entry["source"]:
+                stems = ((f"dq_soloILi{nc}EE", f"dkv_soloILi{nc}EE")
+                         if ".bwd." in entry["name"]
+                         else (f"fwd_soloILi{nc}EE",))
+                entry["ptxas"] = instances(cluster_ptxas.get("kernels", {}),
+                                           stems)
+                entry["sass"] = instances(sass, stems)
+                if len(entry["sass"]) != len(stems):
+                    raise AssertionError(f"{entry['name']}: SASS of {stems}: "
+                                         f"{entry['sass']}")
+        entries += new
+    torch.cuda.empty_cache()
+    return entries
+
+
 def attention_width_path(device, d: int) -> dict:
     """A wide head width's main path: ``attention()`` over the memory
     budget at head width ``d``, (BH, S) = (HW_WIDE_BH, HW_LEN), in fp32
     and then in bf16, forward and backward, with seeded post-padding key
     masks. It must warn of nothing and launch the fp32 and the bf16 K5
     and K6 once each (D padded to ``kernel_head_dim(d)``: 256 for 200,
-    320 for 257), and agree with the plain versions at the true D
+    320 for 257; 128 as it is, the bf16 kernels' one-block instances in
+    csrc/flash_attention_cluster_bf16.cu), and agree with the plain
+    versions at the true D
     (``ops/attention_tolerances.py``) on HW_CHUNK rows. Returns the
     launches of the two calls."""
     name = f"attention_d{d}"
@@ -2630,8 +2723,8 @@ def head_width_phase(device) -> dict:
     return result
 
 
-def make_transformer(device, dtype=None) -> Transformer:
-    return Transformer(TX_VOCAB, TX_DIM, TX_HEADS, TX_LAYERS, TX_LAYERS,
+def make_transformer(device, dtype=None, heads=TX_HEADS) -> Transformer:
+    return Transformer(TX_VOCAB, TX_DIM, heads, TX_LAYERS, TX_LAYERS,
                        TX_FFN, dropout=0.0, compute_dtype=dtype,
                        generator=torch.Generator().manual_seed(SEED)
                        ).to(device)
@@ -2653,7 +2746,8 @@ def copy_task(tokens: torch.Tensor):
             (tokens != 0).float())
 
 
-def transformer_path(imdb: SyntheticImdb, device, dtype=None):
+def transformer_path(imdb: SyntheticImdb, device, dtype=None,
+                     heads=TX_HEADS, batch=TX_BATCH):
     """The slice's main path: TX_EPOCHS of the copy task on the card through
     ``Transformer.loss``, Adam under Noam(TX_DIM, TX_WARMUP), with every
     launch counter set to 0 just before and read just after (the held-out
@@ -2661,13 +2755,16 @@ def transformer_path(imdb: SyntheticImdb, device, dtype=None):
     train step must launch 6 K5 and 6 K6 (encoder self-attention x2,
     decoder causal self-attention x2, cross-attention x2), each held-out
     batch 6 K5; with ``dtype=torch.bfloat16`` the same counts of the bf16
-    K5 and K6 and no fp32 launch; K1-K4 none. Then the trained logits on
-    the card, through K5, against the plain CPU path, and a profile of ten
-    steady steps. Returns the launches and the profile."""
+    K5 and K6 and no fp32 launch; K1-K4 none. ``heads`` heads of
+    TX_DIM / heads and ``batch`` sequences a step (the zoo's 8 and
+    TX_BATCH, or its 2 x 64 heads at TX2_BATCH: path
+    "transformer_seq2seq_bf16_2x64"). Then the trained logits on the card,
+    through K5, against the plain CPU path, and a profile of ten steady
+    steps. Returns the launches and the profile."""
     train = torch.from_numpy(imdb.train[0]).long().to(device)
     test = torch.from_numpy(imdb.test[0]).long().to(device)
-    n_train, n_test = len(train) // TX_BATCH, len(test) // TX_BATCH
-    model = make_transformer(device, dtype)
+    n_train, n_test = len(train) // batch, len(test) // batch
+    model = make_transformer(device, dtype, heads)
     opt = torch.optim.Adam(model.parameters(), lr=1.0)
     sched = torch.optim.lr_scheduler.LambdaLR(
         opt, noam_schedule(TX_DIM, TX_WARMUP))
@@ -2687,7 +2784,7 @@ def transformer_path(imdb: SyntheticImdb, device, dtype=None):
         with torch.no_grad():
             for i in range(n_test):
                 inp, tgt_in, tgt_out, mask = copy_task(
-                    test[i * TX_BATCH:(i + 1) * TX_BATCH])
+                    test[i * batch:(i + 1) * batch])
                 total += model.loss(inp, tgt_in, tgt_out,
                                     epsilon=TX_EPSILON, training=False,
                                     mask=mask)
@@ -2706,17 +2803,23 @@ def transformer_path(imdb: SyntheticImdb, device, dtype=None):
     for epoch in range(TX_EPOCHS):
         perm = permutation(epoch)
         for s in range(n_train):
-            losses.append(step(perm[s * TX_BATCH:(s + 1) * TX_BATCH]))
+            losses.append(step(perm[s * batch:(s + 1) * batch]))
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     after = heldout()
     launches = read_launches()
     losses = torch.stack(losses).tolist()
     steps, evals = len(losses), 2 * n_test
-    name = "transformer_seq2seq" + ("_bf16" if dtype else "")
-    print(f"{name} train: {steps} steps of {TX_BATCH} x {TX_LEN}, loss "
+    name = "transformer_seq2seq" + ("_bf16" if dtype else "") + (
+        f"_{heads}x{TX_DIM // heads}" if heads != TX_HEADS else "")
+    d = TX_DIM // heads
+    routes = {direction: att._kernel(dtype or torch.float32, d, backward,
+                                     batch * heads, TX_LEN)[0]
+              for direction, backward in (("K5", False), ("K6", True))}
+    print(f"{name} train: {steps} steps of {batch} x {TX_LEN}, {heads} "
+          f"heads of {d} ({routes}), loss "
           f"{losses[0]:.6f} -> {losses[-1]:.6f}, held-out loss {before:.6f} "
-          f"-> {after:.6f}, {steps * TX_BATCH / train_s:.1f} sequences/s "
+          f"-> {after:.6f}, {steps * batch / train_s:.1f} sequences/s "
           f"(smoke figure), peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(f"{name} launches: {launches}")
@@ -2730,10 +2833,10 @@ def transformer_path(imdb: SyntheticImdb, device, dtype=None):
     if not np.isfinite(losses).all() or not after < before:
         raise AssertionError(f"{name}: loss not finite and falling: "
                              f"{losses}, held-out {before} -> {after}")
-    check_transformer_logits(name, model, test[:8], dtype)
+    check_transformer_logits(name, model, test[:8], dtype, heads)
     perm = permutation(TX_EPOCHS)
     profile = profile_phase(
-        lambda s: step(perm[s * TX_BATCH:(s + 1) * TX_BATCH]), heldout)
+        lambda s: step(perm[s * batch:(s + 1) * batch]), heldout)
     print(f"{name} profile: " + json.dumps(profile))
     del model, opt, train, test
     torch.cuda.empty_cache()
@@ -2741,7 +2844,8 @@ def transformer_path(imdb: SyntheticImdb, device, dtype=None):
 
 
 def check_transformer_logits(name: str, model: Transformer,
-                             tokens: torch.Tensor, dtype=None):
+                             tokens: torch.Tensor, dtype=None,
+                             heads=TX_HEADS):
     """The trained model's logits on 8 test rows: on the card with every
     ``MultiHeadAttention.use_flash`` set to True (8 rows are under the
     dispatch's budget), so K5 runs six times, against the plain CPU path
@@ -2762,7 +2866,7 @@ def check_transformer_logits(name: str, model: Transformer,
     bf16 logits lie to its fp32 logits on the same weights (the largest
     difference of each)."""
     inp, tgt_in, _, _ = copy_task(tokens)
-    cpu_model = make_transformer("cpu", dtype)
+    cpu_model = make_transformer("cpu", dtype, heads)
     cpu_model.load_state_dict({key: value.cpu() for key, value in
                                model.state_dict().items()})
     layers = [m for m in model.modules() if isinstance(m, MultiHeadAttention)]
@@ -2786,7 +2890,7 @@ def check_transformer_logits(name: str, model: Transformer,
         torch.testing.assert_close(on_card, on_cpu, rtol=1e-4, atol=1e-3)
         gap = ""
     else:
-        fp32_model = make_transformer("cpu")
+        fp32_model = make_transformer("cpu", heads=heads)
         fp32_model.load_state_dict(cpu_model.state_dict())
         with torch.no_grad():
             on_cpu32 = fp32_model(inp.cpu(), tgt_in.cpu())
@@ -4857,6 +4961,10 @@ ENTRY_PATH = {
     "flash_attention.bwd.d512": "attention_d257",
     "flash_attention_bf16.fwd.d512": "attention_d257",
     "flash_attention_bf16.bwd.d512": "attention_d257",
+    "flash_attention_bf16.fwd.d64": "transformer_seq2seq_bf16_2x64",
+    "flash_attention_bf16.bwd.d64": "transformer_seq2seq_bf16_2x64",
+    "flash_attention_bf16.fwd.d128": "attention_d128",
+    "flash_attention_bf16.bwd.d128": "attention_d128",
 }
 
 
@@ -4873,14 +4981,17 @@ SERVED_PATH = {
 # An entry whose launch counter has another name: K2 on bf16 embeddings is
 # the same wrapper, counted in fm_interaction_fused.launches; K1 on bf16 g
 # is counted in scatter_add_rows.launches_bf16; the D = 256 and D > 256
-# instances of K5 and K6 in their dtype's counters, on the paths that run
-# those widths alone.
+# instances of K5 and K6, and the bf16 ones at D = 64 and 128, in their
+# dtype's counters, on the paths that run those widths alone.
 COUNTER = {"fm_interaction_fused.bf16": "fm_interaction_fused",
            "scatter_add_rows.bf16": "scatter_add_rows_bf16",
            **{f"{k}.{which}": k for k in (
                "flash_attention.fwd", "flash_attention.bwd",
                "flash_attention_bf16.fwd", "flash_attention_bf16.bwd")
-              for which in WIDE_SHAPES}}
+              for which in WIDE_SHAPES},
+           **{f"{k}.d{d}": k for k in (
+               "flash_attention_bf16.fwd", "flash_attention_bf16.bwd")
+              for d in NARROW_HELD}}
 
 
 def device_line() -> str:
@@ -4975,6 +5086,7 @@ def main(argv=()) -> int:
     entries += attention_kernel_phase(imdb, device)
     entries += attention_bf16_kernel_phase(imdb, device)
     entries += wide_attention_phase(imdb, device)
+    entries += narrow_attention_phase(imdb, device, cluster_ptxas)
     head_widths = head_width_phase(device)
     print(f"kernel phase done ({time.perf_counter() - t0:.1f} s)")
     paths = train_phase(ds, model, device)
@@ -4983,6 +5095,7 @@ def main(argv=()) -> int:
          if e["name"] == "scatter_add_rows.bf16")["bf16_table"] = bf16_k1
     paths["attention_d200"] = attention_width_path(device, 200)
     paths["attention_d257"] = attention_width_path(device, 257)
+    paths["attention_d128"] = attention_width_path(device, 128)
     served, serving = serving_phase(ds, model, imdb, device)
     paths["esmm"] = esmm_path(ds, device)[0]
     del model
@@ -4996,6 +5109,8 @@ def main(argv=()) -> int:
     paths["transformer_seq2seq"] = transformer_path(imdb, device)[0]
     paths["transformer_seq2seq_bf16"] = transformer_path(
         imdb, device, torch.bfloat16)[0]
+    paths["transformer_seq2seq_bf16_2x64"] = transformer_path(
+        imdb, device, torch.bfloat16, TX2_HEADS, TX2_BATCH)[0]
     paths["transformer_imdb"] = imdb_path()
     model_io_phase(device)
     index_phase(device)

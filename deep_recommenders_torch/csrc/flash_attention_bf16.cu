@@ -71,12 +71,15 @@
 // 64); ops/attention_tolerances.py bounds the difference.
 //
 // Head widths. This file holds K5 and K6 at D = 16, 32, 64 and 128; the
-// wrapper routes here K5 at D = 128 and K6 at D = 64 and 128, and at 16
-// and 32 where flash_attention_tma_bf16.cu's K6 does not reach (Sq past
-// what its shared memory holds, fewer (bh) than the card's SMs); K5 from
-// D = 256 to 2048 is flash_attention_cluster_bf16.cu's (wgmma fed by TMA,
-// clusters that split D above 256), K6 from D = 256 and K5 above 2048
-// flash_attention_wide_bf16.cu's.
+// wrapper routes here only K6 at D = 16 and 32 where
+// flash_attention_tma_bf16.cu's K6 does not reach (Sq past what its shared
+// memory holds, fewer (bh) than the card's SMs). K5 at 16, 32 and 64 is
+// flash_attention_tma_bf16.cu's; K5 at 128 and K6 at 64 and 128 are the
+// one-block kernels of flash_attention_cluster_bf16.cu (wgmma fed by TMA,
+// persistent grids); K5 from D = 256 to 2048 and K6 above 256 to 2048 run
+// there on clusters that split D, K6 at 256 and K5 and K6 above 2048 in
+// flash_attention_wide_bf16.cu. The other instances here stay built:
+// chip_smoke.py times them beside the kernels that replaced them.
 //
 // Every exported function launches on the stream it is given and returns
 // cudaGetLastError(), or cudaErrorInvalidValue for what it does not take.

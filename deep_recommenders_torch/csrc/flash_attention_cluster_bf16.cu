@@ -1,5 +1,6 @@
-// K5 in bf16 at head widths D from 256 to 2048 and K6 above 256 to 2048 (a
-// multiple of 64), on wgmma fed by TMA, at the TPU kernels' bf16 contract
+// K5 in bf16 at head widths D = 128 and from 256 to 2048, and K6 at D = 64,
+// 128 and above 256 to 2048 (a multiple of 64), on wgmma fed by TMA, at the
+// TPU kernels' bf16 contract
 // (flash_attention_bf16.cu's: fp32 scores of bf16 operands, fp32 softmax
 // statistics, p and ds rounded to bf16 before the products that consume
 // them, fp32 accumulation, out, dq, dk and dv rounded to bf16 once).
@@ -11,7 +12,8 @@
 // layout, the masks, the scale, lse and delta are flash_attention_bf16.cu's.
 // Above 2048 (more blocks than a portable cluster holds) K5 and K6 stay
 // flash_attention_wide_bf16.cu's, and so does K6 at D = 256 (one block,
-// nothing to exchange). K6 is described after K5.
+// nothing to exchange). K6 is described after K5, and the one-block
+// kernels of D = 64 and 128 after both.
 //
 // What bounds it. At (BH 256, S 512, D 256) with a SyntheticImdb batch's
 // masks K5 needs 4 D products a scored pair (43 GFLOP non-causal, 0.044 ms
@@ -159,6 +161,54 @@
 // without a spill (dq 209-216 registers), but the card refuses that launch
 // (out of resources; tools/cluster_bwd_variants.py, "maxnreg224").
 //
+// D = 64 and 128 (one block a cluster, NC = 1 or 2 chunks: nothing to
+// exchange). These widths ran flash_attention_bf16.cu's mma.sync kernels
+// (4 warps a block, cp.async, K6 split as JAX splits it). What bounds them:
+// at (BH 2048, S 512, D 128) with a SyntheticImdb batch's masks K5 moves
+// 0.323 ms of bytes and needs 0.17 ms of tensor-core work (4 D operations
+// a scored pair), K6 0.644 ms of bytes and 0.43 ms of products (10 D; 14 D
+// as the two kernels split it, 0.61 ms); at D = 64 half of each. So the
+// memory, then the tensor cores, each about as long as the other; and a
+// (bh, 128-row) item is short (8 key tiles of 64, about 5 live), so what a
+// block does once an item (its rows' loads, its epilogue, its stores) is as
+// long as its main loop unless it overlaps another item's. The design:
+// - K5 (fwd_solo<2>): fwd_cluster's design at two chunks without the
+//   exchange, on a persistent grid of one block an SM that walks
+//   (bh, 128-row) items (item_of), with two q buffers and rings of four
+//   stages: the producer loads the next item's q and tiles while the
+//   consumers finish this one, and stores an item's out by TMA once the
+//   consumers have written it, while they score the next; a tile with no
+//   masked lane takes the softmax without selects. On a grid of one block
+//   an item it ran 7-21% slower at (2048, 512, 128)
+//   (tools/narrow_bf16_variants.py, "one_shot"). Built into fwd_cluster
+//   itself (every instance walking items), the same changes made the
+//   cluster instances spill more and run up to 32% slower (causal, at
+//   D = 1024), so the cluster kernel stays as it was.
+// - K6's dq kernel (dq_solo): the same walk; each consumer warpgroup owns
+//   64 of an item's 128 query rows and takes all 64 keys of each live tile
+//   (s and dp on m64n64k16, dq += ds k on m64n(64 NC)k16 with ds in
+//   registers), so no sum is shared between the warpgroups; delta is formed
+//   from out (loaded for the next item under this item's last tiles) and the
+//   resident g, and written for the dk/dv kernel.
+// - K6's dk/dv kernel (dkv_solo): a walk over (bh, 128-key) items, each
+//   consumer warpgroup owning 64 keys with their dk and dv in registers,
+//   over query tiles of 64 (D = 64) or 32 (D = 128: the registers of dk
+//   and dv): s^T, dp^T, p^T and ds^T in the warpgroup, dv += p^T g and
+//   dk += ds^T q; items whose 128 keys are all masked take dk = dv = 0
+//   without a tile. lse and delta of a batch of query tiles are loaded
+//   before the batch's first stage is waited for.
+// - K6's p = 2^(s c - lse2) on ex2.approx.ftz (one MUFU op; results below
+//   2^-126 flush to 0, far below the checks' tolerances), as
+//   flash_attention_tma_bf16.cu's K6; with exp2f the backward ran 27% slower
+//   at D = 64 and 16% at 128 (tools/narrow_bf16_variants.py, "exp2f").
+// - All three: one producer warp of a warpgroup that gives its registers to
+//   the consumers (setmaxnreg 56 / 224 in K6, 40 / 232 in K5; with one
+//   producer warp and no setmaxnreg ptxas holds the kernels to 168
+//   registers and dk/dv spilled 948 bytes at D = 128, 2.1x slower:
+//   tools/narrow_bf16_variants.py, "warp_producer"); the producer reads the
+//   key mask four tiles at a time (tile_bits); no atomics; each output row
+//   written once. Two calls give the same bits.
+//
 // A wait on an mbarrier that never completes (a fault in the protocol)
 // traps after 2^24 polls, so the launch fails instead of hanging.
 // Each block writes its own rows and columns once: no atomics, and the
@@ -196,6 +246,11 @@ constexpr uint32_t kSlotBytes = sizeof(float) * kWgRows * kKeys;  // 16 KB
 // rounded down to a multiple of 8); the producer's 128 threads give 128
 // each to the consumers' 256 threads.
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+// K6's one-block kernels (dq_solo, dkv_solo) keep more in the producer
+// (the stores, the batches of mask and row values) and need less in the
+// consumers: 56 and 224 (at 40 and 232 dkv_solo<2> spilled 4 bytes; the
+// same time either way: tools/narrow_bf16_variants.py, "regs40").
+constexpr int kWalkProducerRegs = 56, kWalkConsumerRegs = 224;
 
 // Shared memory of a block of NC chunks: q [warpgroup][chunk][64][64], the
 // K and V rings [stage][chunk][64][64], with G > 1 (SPLIT) the partial
@@ -226,6 +281,44 @@ enum Exchange { kSolo, kPush, kPull };
 // Named barriers (0 is __syncthreads): the warpgroups' turns to issue, and
 // each warpgroup's epilogue.
 constexpr int kTurnBar = 1, kStoreBar = 3;
+
+// An item of the one-block kernels' persistent grids: (bh, the first of its
+// 128 rows: queries in K5 and dq, keys in dk/dv). Items run (bh)-major;
+// within a (bh) the row tiles are rotated by bh, so that a block of a grid
+// of a multiple of nq blocks walks every row tile in turn (a causal tile's
+// work depends on its index) while the blocks that run at one time share
+// their (bh)'s other side in L2.
+struct Item {
+  int bh, q0;
+};
+__device__ __forceinline__ Item item_of(int item, int nq) {
+  const int bh = item / nq;
+  return {bh, ((item % nq + bh) % nq) * kRows};
+}
+
+// The valid-key bits of the kBatch 64-key tiles from t0 on (tiles from n
+// on read as masked) in a warp: bit b of w[i][c] is key 64 (t0 + i) +
+// 32 c + b of mask row m. Every mask value is loaded before the first
+// ballot, so a producer waits for one load's latency a batch, not one a
+// tile (flash_attention_tma_bf16.cu's batch_bits).
+constexpr int kBatch = 4;
+__device__ __forceinline__ void tile_bits(uint32_t (&w)[kBatch][2],
+                                          const float* m, int t0, int n,
+                                          int sk, int lane) {
+  float v[kBatch][2];
+#pragma unroll
+  for (int i = 0; i < kBatch; ++i)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int key = (t0 + i) * kKeys + 32 * c + lane;
+      v[i][c] = t0 + i < n && key < sk ? m[key] : 0.f;
+    }
+#pragma unroll
+  for (int i = 0; i < kBatch; ++i)
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+      w[i][c] = __ballot_sync(0xffffffffu, v[i][c] > 0.f);
+}
 
 // -- exchanges through distributed shared memory ----------------------------
 
@@ -624,6 +717,325 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   // The peers read this block's last partial before it leaves.
   if constexpr (SPLIT) mbar_wait(&empty_x[wg], (n & 1) ^ 1);
+}
+
+// K5 at D = 128 (NC = 2 chunks, one block, nothing to exchange): the
+// design of fwd_cluster above on a persistent grid of one block an SM that
+// walks (bh, 128-row) items (item_of). Shared memory: two q buffers
+// [buffer][warpgroup][chunk][64][64] (the producer loads the next item's
+// rows into one while it stores this item's out from the other), the K and
+// V rings [stage][chunk][64][64] of four stages, the K ring's tile entries,
+// the mbarriers.
+template <int NC>
+struct FwdSoloLayout {
+  static constexpr int kStages = 4;
+  static constexpr uint32_t kTileBytes = sizeof(bf16) * NC * CHUNK;
+  static constexpr size_t kQ = 0;
+  static constexpr size_t kK = kQ + 2 * 2 * kTileBytes;
+  static constexpr size_t kV = kK + kStages * kTileBytes;
+  static constexpr size_t kInfo = kV + kStages * kTileBytes;
+  static constexpr size_t kBar = kInfo + sizeof(uint4) * kStages;
+  // full and ready q [buffer]; full and empty K and V [stage]
+  static constexpr int kBars = 4 + 4 * kStages;
+  static constexpr size_t kBytes = kBar + sizeof(uint64_t) * kBars;
+  static_assert(kBytes <= kMaxSmem, "a block's shared memory");
+};
+
+template <int NC>
+__global__ void __launch_bounds__(kThreads, 1)
+    fwd_solo(const __grid_constant__ CUtensorMap qmap,
+             const __grid_constant__ CUtensorMap kmap,
+             const __grid_constant__ CUtensorMap vmap,
+             const __grid_constant__ CUtensorMap omap,
+             const float* __restrict__ mask, float* __restrict__ lse,
+             int nbh, int sq, int sk, int causal, float scale_log2) {
+  using L = FwdSoloLayout<NC>;
+  constexpr int S = L::kStages;
+  constexpr uint32_t kTileBytes = L::kTileBytes;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem + L::kQ);
+  bf16* ks = reinterpret_cast<bf16*>(smem + L::kK);
+  bf16* vs = reinterpret_cast<bf16*>(smem + L::kV);
+  // The K ring's entries: (tile, its two mask words); tile ~0 ends an
+  // item's list.
+  uint4* info = reinterpret_cast<uint4*>(smem + L::kInfo);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* full_q = bars;  // [buffer]
+  uint64_t* ready_q = full_q + 2;
+  uint64_t* full_k = ready_q + 2;  // [S]
+  uint64_t* full_v = full_k + S;
+  uint64_t* empty_k = full_v + S;
+  uint64_t* empty_v = empty_k + S;
+
+  const int nq = (sq + kRows - 1) / kRows;
+  const int items = nbh * nq;
+  const int ntiles = (sk + kKeys - 1) / kKeys;
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&full_q[b], 1);
+      mbar_init(&ready_q[b], 2);  // each warpgroup's out, written
+    }
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty_k[s], kConsumers / 32);  // one arrival a warp
+      mbar_init(&empty_v[s], kConsumers / 32);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x >> 7, 0);
+  const int lane = threadIdx.x & 31;
+  if (wg == 2) {
+    // The producer: one warp reads the mask, its lane 0 issues every load
+    // and store.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x >= kConsumers + 32) return;
+    const bool leader = lane == 0;
+    // Use j of a ring's stage j % S waits for the consumers to free use
+    // j - S. The K ring takes each item's live tiles and the entry that
+    // ends its list, the V ring its live tiles; K of tile j goes before V
+    // of tile j - 1, the order in which the consumers need them. (jv is
+    // the leader's alone.)
+    int jk = 0, jv = 0;
+    auto load = [&](const CUtensorMap* map, bf16* ring, uint64_t* full,
+                    int j, int t, int bh) {
+      for (int c = 0; c < NC; ++c)
+        tma_load(ring + ((j % S) * NC + c) * CHUNK, map, &full[j % S],
+                 c * kC, t * kKeys, bh);
+    };
+    auto load_v = [&](int t, int bh) {
+      mbar_wait(&empty_v[jv % S], ((jv / S) & 1) ^ 1);
+      mbar_expect_tx(&full_v[jv % S], kTileBytes);
+      load(&vmap, vs, full_v, jv, t, bh);
+      ++jv;
+    };
+    // The out of this block's k-th item: once both consumer warpgroups have
+    // written it into its q buffer, stored by TMA (no row past Sq); the
+    // buffer is free for the next rows once the store has read it. So the
+    // consumers go on to the next item without waiting for it.
+    auto store = [&](int k) {
+      const int b = k & 1;
+      const Item w = item_of(blockIdx.x + k * gridDim.x, nq);
+      mbar_wait(&ready_q[b], (k >> 1) & 1);
+      for (int h = 0; h < 2; ++h)
+        if (w.q0 + h * kWgRows < sq)
+          for (int c = 0; c < NC; ++c)
+            tma_store(&omap, qs + ((b * 2 + h) * NC + c) * CHUNK, c * kC,
+                      w.q0 + h * kWgRows, w.bh);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    };
+    int it = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x, ++it) {
+      const Item w = item_of(item, nq);
+      const float* mrow = mask + (int64_t)w.bh * sk;
+      if (leader) {
+        const int b = it & 1;
+        if (it >= 2) store(it - 2);  // the buffer's last rows
+        mbar_expect_tx(&full_q[b], 2 * kTileBytes);
+        for (int h = 0; h < 2; ++h)
+          for (int c = 0; c < NC; ++c)
+            tma_load(qs + ((b * 2 + h) * NC + c) * CHUNK, &qmap, &full_q[b],
+                     c * kC, w.q0 + h * kWgRows, w.bh);
+      }
+      // Causal: tiles that start after the item's last row are all future.
+      const int nrun =
+          causal ? min(ntiles, (w.q0 + kRows - 1) / kKeys + 1) : ntiles;
+      int prev = -1;  // the live tile whose V is still to load
+      for (int t0 = 0; t0 < nrun; t0 += kBatch) {
+        uint32_t wb[kBatch][2];
+        tile_bits(wb, mrow, t0, nrun, sk, lane);
+#pragma unroll
+        for (int i = 0; i < kBatch; ++i) {
+          const int t = t0 + i;
+          if ((wb[i][0] | wb[i][1]) == 0) continue;  // masked, or past nrun
+          if (leader) {
+            mbar_wait(&empty_k[jk % S], ((jk / S) & 1) ^ 1);
+            info[jk % S] = make_uint4((uint32_t)t, wb[i][0], wb[i][1], 0u);
+            mbar_expect_tx(&full_k[jk % S], kTileBytes);
+            load(&kmap, ks, full_k, jk, t, w.bh);
+            if (prev >= 0) load_v(prev, w.bh);
+          }
+          prev = t;
+          ++jk;
+        }
+      }
+      if (leader) {
+        if (prev >= 0) load_v(prev, w.bh);
+        // The end of the list: an entry with no tile and no bytes.
+        mbar_wait(&empty_k[jk % S], ((jk / S) & 1) ^ 1);
+        info[jk % S] = make_uint4(~0u, 0u, 0u, 0u);
+        mbar_arrive(&full_k[jk % S]);
+      }
+      ++jk;
+    }
+    if (leader)  // the last items' out, before the block leaves
+      for (int k = max(it - 2, 0); k < it; ++k) store(k);
+    return;
+  }
+
+  // A consumer warpgroup: rows q0 + 64 wg .. + 63 of each item; warp (wq)
+  // of it rows 16 wq .. + 15 of those, this lane rows grp and grp + 8.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int wq = (threadIdx.x >> 5) & 3;
+  const int grp = lane >> 2, tig = lane & 3;
+  const int xt = threadIdx.x & 127;
+  // The turns: warpgroup w issues after bar_sync(kTurnBar + w) and hands
+  // the turn over with bar_arrive(kTurnBar + 1 - w); warpgroup 0 starts.
+  // Both walk the same items and tiles, so the turns run on across items.
+  if (wg == 1) bar_arrive(kTurnBar, kConsumers);
+  auto release = [&](uint64_t* bar) {
+    if (lane == 0) mbar_arrive(bar);
+  };
+
+  float m[2], l[2], alpha[2];
+  float o[8 * NC][4], s[8][4];
+  uint32_t pa[4][4];  // p in bf16: the A fragments of P V
+  int wg_row0 = 0, row0 = 0;
+  // The online softmax of a tile (its entry: index and mask words) on s
+  // (the raw q.k): p in s, with m, l and alpha updated. A tile with no
+  // masked lane (all keys valid, wholly in the causal past) takes the
+  // instance without selects; a masked lane's test shifts the lane's key
+  // bits and bounds its causal limit once a tile (columns less the lane's
+  // first, 2 tig: 8 j + (0, 1), known when the loops unroll). As one masked
+  // instance for every tile, the causal K5 ran 1.7x slower and the
+  // non-causal 5% (tools/narrow_bf16_variants.py, "masked_all").
+  auto softmax = [&](uint4 tile) {
+    const uint32_t w0 = tile.y, w1 = tile.z;
+    const int k0 = (int)tile.x * kKeys;
+    if ((w0 & w1) == ~0u && (!causal || k0 + kKeys - 1 <= wg_row0)) {
+      online_softmax<true, false>(s, m, l, alpha, scale_log2, tig,
+                                  [](int, int) { return true; });
+      return;
+    }
+    const uint32_t u0 = w0 >> (2 * tig), u1 = w1 >> (2 * tig);
+    const int lim = row0 - k0 - 2 * tig;
+    online_softmax<true, true>(
+        s, m, l, alpha, scale_log2, tig, [=](int c, int h) {
+          const int cc = c - 2 * tig;
+          return (((cc < 32 ? u0 : u1) >> (cc & 31)) & 1u) &&
+                 (!causal || cc <= lim + 8 * h);
+        });
+  };
+  auto rescale = [&]() {
+#pragma unroll
+    for (int n8 = 0; n8 < 8 * NC; ++n8)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n8][e] *= alpha[e >> 1];
+  };
+
+  int jk = 0, jv = 0;  // uses of the K and V rings, as the producer's
+  for (int item = blockIdx.x, it = 0; item < items;
+       item += gridDim.x, ++it) {
+    const Item w = item_of(item, nq);
+    const int b = it & 1;
+    bf16* qw = qs + (b * 2 + wg) * NC * CHUNK;
+    wg_row0 = w.q0 + wg * kWgRows;
+    row0 = wg_row0 + 16 * wq + grp;  // and row0 + 8
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m[h] = kNegInf;
+      l[h] = 0.f;
+    }
+    mbar_wait(&full_q[b], (it >> 1) & 1);
+    mbar_wait(&full_k[jk % S], (jk / S) & 1);
+    uint4 tile = info[jk % S];
+    if (tile.x != ~0u) {
+      int first_pv = 1;  // the next P V is the first: it overwrites o
+      bar_sync(kTurnBar + wg, kConsumers);
+      wgmma_fence();
+      scores<NC>(s, qw, ks + (jk % S) * NC * CHUNK);
+      wgmma_commit();
+      bar_arrive(kTurnBar + 1 - wg, kConsumers);
+      wgmma_wait_for<0>();
+      pin(s);
+      release(&empty_k[jk % S]);
+      ++jk;
+      softmax(tile);
+      pack_a(pa, s);
+      for (;;) {
+        // The next tile's scores, then this tile's P V; o is rescaled to
+        // the running max of this tile (the previous softmax's alpha)
+        // before P V. Before the first P V, o holds nothing yet.
+        mbar_wait(&full_k[jk % S], (jk / S) & 1);
+        const uint4 next = info[jk % S];
+        if (next.x == ~0u) break;
+        mbar_wait(&full_v[jv % S], (jv / S) & 1);
+        bar_sync(kTurnBar + wg, kConsumers);
+        wgmma_fence();
+        scores<NC>(s, qw, ks + (jk % S) * NC * CHUNK);
+        wgmma_commit();
+        rescale();
+        wgmma_fence();
+        accumulate_pv(o, pa, vs + (jv % S) * NC * CHUNK, !first_pv);
+        wgmma_commit();
+        bar_arrive(kTurnBar + 1 - wg, kConsumers);
+        wgmma_wait_for<1>();  // the scores
+        pin(s);
+        release(&empty_k[jk % S]);
+        ++jk;
+        softmax(next);
+        wgmma_wait_for<0>();  // P V
+        pin(o);
+        pin(pa);
+        release(&empty_v[jv % S]);
+        ++jv;
+        pack_a(pa, s);
+        first_pv = 0;
+      }
+      release(&empty_k[jk % S]);  // the entry that ended the list
+      ++jk;
+      mbar_wait(&full_v[jv % S], (jv / S) & 1);
+      rescale();
+      wgmma_fence();
+      accumulate_pv(o, pa, vs + (jv % S) * NC * CHUNK, !first_pv);
+      wgmma_commit();
+      wgmma_wait_for<0>();
+      pin(o);
+      pin(pa);
+      release(&empty_v[jv % S]);
+      ++jv;
+    } else {
+      release(&empty_k[jk % S]);  // the entry that ended the list
+      ++jk;
+      zero(o);  // no live tile: out 0
+    }
+
+    // o / l in bf16 into the warpgroup's q chunks, swizzled as TMA reads
+    // them (column 8 n + 2 tig is in chunk n / 8, 16-byte group n % 8), for
+    // the producer to store; and the rows' lse.
+    float inv[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) inv[h] = 1.f / fmaxf(l[h], 1e-30f);
+#pragma unroll
+    for (int n8 = 0; n8 < 8 * NC; ++n8)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 16 * wq + grp + 8 * h;
+        bf16* dst = qw + (n8 >> 3) * CHUNK + r * kC +
+                    (((n8 & 7) ^ (r & 7)) << 3) + 2 * tig;
+        *reinterpret_cast<uint32_t*>(dst) =
+            pack_bf16x2(o[n8][2 * h] * inv[h], o[n8][2 * h + 1] * inv[h]);
+      }
+    fence_async_proxy();
+    bar_sync(kStoreBar + wg, 128);
+    if (xt == 0) mbar_arrive(&ready_q[b]);
+    if (tig == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + 8 * h;
+        // Rows with no valid key get lse = 0: their backward p is zeroed by
+        // the same masks, so the value only has to be finite.
+        if (row < sq)
+          lse[(int64_t)w.bh * sq + row] =
+              l[h] > 0.f ? m[h] * kLn2 + logf(fmaxf(l[h], 1e-30f)) : 0.f;
+      }
+    }
+  }
+  // Warpgroup 1's last hand-over (its first was the extra one above).
+  if (wg == 0) bar_sync(kTurnBar, kConsumers);
 }
 
 // -- K6 ----------------------------------------------------------------------
@@ -1053,6 +1465,677 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   }
 }
 
+// The dq kernel of one block a cluster (D = 64 and 128, NC = 1 and 2: no
+// exchange). A block walks (bh, 128-row) items, as K5's persistent grid
+// does (item_of), with two buffers of q and g [buffer][q, g][warpgroup]
+// [chunk][64][64] (the producer loads the next item's rows into one while
+// it stores this item's dq from the other), the K/V ring
+// [stage][K, V][chunk][64][64], its tile entries and the mbarriers.
+template <int NC>
+struct DqSoloLayout {
+  static constexpr int kStages = NC == 1 ? 4 : 3;
+  static constexpr uint32_t kOwnBytes = sizeof(bf16) * 2 * 2 * NC * CHUNK;
+  static constexpr uint32_t kTileBytes = sizeof(bf16) * NC * CHUNK;
+  static constexpr size_t kOwn = 0;
+  static constexpr size_t kRing = kOwn + 2 * kOwnBytes;
+  static constexpr size_t kInfo = kRing + kStages * 2 * kTileBytes;
+  static constexpr size_t kBar = kInfo + sizeof(uint4) * kStages;
+  // full and empty q/g [buffer]; full and empty K/V [stage]
+  static constexpr int kBars = 4 + 2 * kStages;
+  static constexpr size_t kBytes = kBar + sizeof(uint64_t) * kBars;
+  static_assert(kBytes <= kMaxSmem, "a block's shared memory");
+};
+
+// Each consumer warpgroup owns 64 of an item's 128 query rows and takes
+// every key of each live 64-key tile: s = q k^T and dp = g v^T on wgmma
+// m64n64k16 (both operands from shared memory), p and ds in fp32, then
+// dq += ds k on m64n(64 NC)k16 with ds as A in registers and the stage's K
+// chunks as B; no sum is shared between the warpgroups. delta =
+// rowsum(g out) of the warpgroup's rows (written for the dk/dv kernel):
+// each quad's four lanes take a quarter of a row's columns, out loaded
+// from memory (before the wait for q and g) and g from the resident
+// chunks, summed in the quad in a fixed order.
+template <int NC>
+__global__ void __launch_bounds__(kThreads, 1)
+    dq_solo(const __grid_constant__ CUtensorMap qmap,
+            const __grid_constant__ CUtensorMap kmap,
+            const __grid_constant__ CUtensorMap vmap,
+            const __grid_constant__ CUtensorMap gmap,
+            const __grid_constant__ CUtensorMap dqmap,
+            const float* __restrict__ mask, const float* __restrict__ lse,
+            const bf16* __restrict__ out, float* __restrict__ delta, int nbh,
+            int sq, int sk, int causal, float scale, float scale_log2) {
+  using L = DqSoloLayout<NC>;
+  constexpr int S = L::kStages;
+  constexpr uint32_t kTileBytes = L::kTileBytes;
+  constexpr int d = NC * kC;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  bf16* own = reinterpret_cast<bf16*>(smem + L::kOwn);
+  bf16* ring = reinterpret_cast<bf16*>(smem + L::kRing);
+  uint4* info = reinterpret_cast<uint4*>(smem + L::kInfo);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* full_own = bars;  // [buffer]
+  uint64_t* ready_own = full_own + 2;
+  uint64_t* full = ready_own + 2;  // [S]
+  uint64_t* empty = full + S;
+
+  const int nq = (sq + kRows - 1) / kRows;
+  const int items = nbh * nq;
+  const int ntiles = (sk + kKeys - 1) / kKeys;
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&full_own[b], 1);
+      mbar_init(&ready_own[b], 2);  // each warpgroup's dq, written
+    }
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers / 32);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x >> 7, 0);
+  const int lane = threadIdx.x & 31;
+  if (wg == 2) {
+    // The producer: q and g of each item, then K and V of its live tiles
+    // and the entry that ends its list; and the dq of the item before the
+    // last, once the consumers have written it into its buffer (as K5's
+    // out).
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kWalkProducerRegs));
+    if (threadIdx.x >= kConsumers + 32) return;
+    const bool leader = lane == 0;
+    auto store = [&](int k) {  // the k-th item's dq
+      const int b = k & 1;
+      const Item w = item_of(blockIdx.x + k * gridDim.x, nq);
+      mbar_wait(&ready_own[b], (k >> 1) & 1);
+      for (int h = 0; h < 2; ++h)
+        if (w.q0 + h * kWgRows < sq)
+          for (int c = 0; c < NC; ++c)
+            tma_store(&dqmap, own + ((b * 2 * 2 + h) * NC + c) * CHUNK,
+                      c * kC, w.q0 + h * kWgRows, w.bh);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    };
+    int jk = 0, it = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x, ++it) {
+      const Item w = item_of(item, nq);
+      const float* mrow = mask + (int64_t)w.bh * sk;
+      if (leader) {
+        const int b = it & 1;
+        bf16* ob = own + b * 2 * 2 * NC * CHUNK;
+        if (it >= 2) store(it - 2);  // the buffer's last rows
+        mbar_expect_tx(&full_own[b], L::kOwnBytes);
+        for (int h = 0; h < 2; ++h)
+          for (int c = 0; c < NC; ++c) {
+            tma_load(ob + (h * NC + c) * CHUNK, &qmap, &full_own[b], c * kC,
+                     w.q0 + h * kWgRows, w.bh);
+            tma_load(ob + ((2 + h) * NC + c) * CHUNK, &gmap, &full_own[b],
+                     c * kC, w.q0 + h * kWgRows, w.bh);
+          }
+      }
+      const int nrun =
+          causal ? min(ntiles, (w.q0 + kRows - 1) / kKeys + 1) : ntiles;
+      for (int t0 = 0; t0 < nrun; t0 += kBatch) {
+        uint32_t wb[kBatch][2];
+        tile_bits(wb, mrow, t0, nrun, sk, lane);
+#pragma unroll
+        for (int i = 0; i < kBatch; ++i) {
+          const int t = t0 + i;
+          if ((wb[i][0] | wb[i][1]) == 0) continue;  // masked, or past nrun
+          if (leader) {
+            const int s = jk % S;
+            mbar_wait(&empty[s], ((jk / S) & 1) ^ 1);
+            info[s] = make_uint4((uint32_t)t, wb[i][0], wb[i][1], 0u);
+            mbar_expect_tx(&full[s], 2 * kTileBytes);
+            bf16* st = ring + s * 2 * NC * CHUNK;
+            for (int c = 0; c < NC; ++c) {
+              tma_load(st + c * CHUNK, &kmap, &full[s], c * kC, t * kKeys,
+                       w.bh);
+              tma_load(st + (NC + c) * CHUNK, &vmap, &full[s], c * kC,
+                       t * kKeys, w.bh);
+            }
+          }
+          ++jk;
+        }
+      }
+      if (leader) {  // the end of the list: an entry with no tile, no bytes
+        const int s = jk % S;
+        mbar_wait(&empty[s], ((jk / S) & 1) ^ 1);
+        info[s] = make_uint4(~0u, 0u, 0u, 0u);
+        mbar_arrive(&full[s]);
+      }
+      ++jk;
+    }
+    if (leader)  // the last items' dq, before the block leaves
+      for (int k = max(it - 2, 0); k < it; ++k) store(k);
+    return;
+  }
+
+  // A consumer warpgroup: rows q0 + 64 wg .. + 63 of each item; warp (wq)
+  // rows 16 wq .. + 15 of those, this lane rows r0 and r0 + 8.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kWalkConsumerRegs));
+  const int xt = threadIdx.x & 127;
+  const int wq = (threadIdx.x >> 5) & 3;
+  const int grp = lane >> 2, tig = lane & 3;
+  const int r0 = 16 * wq + grp;
+  const auto release = [&](uint64_t* bar) {
+    if (lane == 0) mbar_arrive(bar);
+  };
+  float x[2][8][4];   // s and dp of the warpgroup's 64 rows x 64 keys
+  uint32_t da[4][4];  // ds in bf16: the A fragments of dS K
+  float acc[8 * NC][4];
+  float row_delta[2], row_lse2[2];
+  int wg_row0 = 0;
+  const bf16* qw = own;
+  const bf16* gw = own;
+  // s = q k^T and dp = g v^T over the NC chunks, of stage st's keys. q's
+  // and g's addresses go through an empty asm statement, so their
+  // descriptors are formed at each call (as in scores() above).
+  const auto scores = [&](int st) {
+    const bf16* kt = ring + st * 2 * NC * CHUNK;
+    const bf16* vt = kt + NC * CHUNK;
+    const bf16 *qv = qw, *gv = gw;
+    asm volatile("" : "+l"(qv), "+l"(gv));
+#pragma unroll
+    for (int kk = 0; kk < 4 * NC; ++kk) {
+      const int off = (kk >> 2) * CHUNK + 16 * (kk & 3);
+      wgmma_ss(x[0], desc(qv + off), desc(kt + off), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4 * NC; ++kk) {
+      const int off = (kk >> 2) * CHUNK + 16 * (kk & 3);
+      wgmma_ss(x[1], desc(gv + off), desc(vt + off), kk > 0);
+    }
+  };
+  // p = 2^(s c - lse2) and ds = p (dp - delta) scale of a tile (its entry).
+  const auto p_ds = [&](uint4 tile) {
+    const uint32_t w0 = tile.y, w1 = tile.z;
+    const int k0 = (int)tile.x * kKeys;
+    const int row0 = wg_row0 + r0;
+    const auto lse2 = [=](int, int h) { return row_lse2[h]; };
+    const auto dlt = [=](int, int h) { return row_delta[h]; };
+    if ((w0 & w1) == ~0u && (!causal || k0 + kKeys - 1 <= wg_row0)) {
+      rebuild_p_ds<true, false>(x[0], x[1], scale_log2, scale, tig,
+                                 [](int, int) { return true; }, lse2, dlt);
+    } else {
+      rebuild_p_ds<true, true>(
+          x[0], x[1], scale_log2, scale, tig,
+          [=](int c, int h) {
+            return key_bit(w0, w1, c) && (!causal || k0 + c <= row0 + 8 * h);
+          },
+          lse2, dlt);
+    }
+  };
+  // dq += ds k over stage st's 64 keys (rows of the chunks are the k
+  // index), into the NC chunks of columns.
+  const auto products = [&](int st) {
+    const bf16* kt = ring + st * 2 * NC * CHUNK;
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk)
+      wgmma_rs(acc, da[kk], desc_mn(kt + 16 * kk * kC, sizeof(bf16) * CHUNK));
+  };
+
+  // The rows' out (a quarter of each row's columns: 16-byte groups
+  // 2 NC tig .. + 2 NC - 1) and lse log2(e) of an item: loaded for the next
+  // item once this item's scores are done, so that the loads run under its
+  // last products and its epilogue.
+  uint4 ov[2][2 * NC];
+  const auto load_rows = [&](int item) {
+    const Item w = item_of(item, nq);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = w.q0 + wg * kWgRows + r0 + 8 * h;
+      const bool in = row < sq;
+#pragma unroll
+      for (int i = 0; i < 2 * NC; ++i)
+        ov[h][i] = in ? *reinterpret_cast<const uint4*>(
+                            out + ((int64_t)w.bh * sq + row) * d +
+                            8 * (2 * NC * tig + i))
+                      : make_uint4(0u, 0u, 0u, 0u);
+      row_lse2[h] = in ? lse[(int64_t)w.bh * sq + row] * kLog2e : kNoRow;
+    }
+  };
+  if ((int)blockIdx.x < items) load_rows(blockIdx.x);
+
+  int jk = 0;  // uses of the ring, as the producer's
+  for (int item = blockIdx.x, it = 0; item < items;
+       item += gridDim.x, ++it) {
+    const Item w = item_of(item, nq);
+    const int b = it & 1;
+    qw = own + (b * 2 * 2 + wg) * NC * CHUNK;
+    gw = own + (b * 2 * 2 + 2 + wg) * NC * CHUNK;
+    wg_row0 = w.q0 + wg * kWgRows;
+    mbar_wait(&full_own[b], (it >> 1) & 1);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < 2 * NC; ++i) {
+        const int group = 2 * NC * tig + i;  // of the row's 8 NC
+        const uint4 gv = *reinterpret_cast<const uint4*>(
+            gw + (group >> 3) * CHUNK + r * kC + (((group & 7) ^ (r & 7)) << 3));
+        const uint32_t gwd[4] = {gv.x, gv.y, gv.z, gv.w};
+        const uint32_t owd[4] = {ov[h][i].x, ov[h][i].y, ov[h][i].z,
+                                 ov[h][i].w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 gf = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&gwd[e]));
+          const float2 of = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&owd[e]));
+          sum = fmaf(gf.x, of.x, sum);
+          sum = fmaf(gf.y, of.y, sum);
+        }
+      }
+      row_delta[h] = quad_sum(sum);
+      const int row = wg_row0 + r;
+      if (row < sq && tig == 0) delta[(int64_t)w.bh * sq + row] = row_delta[h];
+    }
+
+    zero(acc);
+    mbar_wait(&full[jk % S], (jk / S) & 1);
+    uint4 tile = info[jk % S];
+    if (tile.x != ~0u) {
+      wgmma_fence();
+      scores(jk % S);
+      wgmma_commit();
+      wgmma_wait_for<0>();
+      pin(x[0]);
+      pin(x[1]);
+      p_ds(tile);
+      pack_a(da, x[1]);
+      // The next tile's scores and this tile's dq product in one batch;
+      // p and ds of the next tile after it (no register of a wgmma in
+      // flight is written), while the other warpgroup's products run.
+      for (;;) {
+        const int cur = jk % S;
+        ++jk;
+        mbar_wait(&full[jk % S], (jk / S) & 1);
+        tile = info[jk % S];
+        const bool more = tile.x != ~0u;
+        wgmma_fence();
+        if (more) scores(jk % S);
+        products(cur);
+        wgmma_commit();
+        wgmma_wait_for<0>();
+        pin(x[0]);
+        pin(x[1]);
+        pin(acc);
+        pin(da);
+        release(&empty[cur]);
+        if (!more) break;
+        p_ds(tile);
+        pack_a(da, x[1]);
+      }
+    }
+    release(&empty[jk % S]);  // the entry that ended the list
+    ++jk;
+    if (item + (int)gridDim.x < items) load_rows(item + gridDim.x);
+
+    // dq rounded once into the warpgroup's q chunks, swizzled as TMA reads
+    // them (the scores are done with them), for the producer to store.
+    bf16* qd = own + (b * 2 * 2 + wg) * NC * CHUNK;
+#pragma unroll
+    for (int n8 = 0; n8 < 8 * NC; ++n8)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + 8 * h;
+        bf16* dst = qd + (n8 >> 3) * CHUNK + r * kC +
+                    (((n8 & 7) ^ (r & 7)) << 3) + 2 * tig;
+        *reinterpret_cast<uint32_t*>(dst) =
+            pack_bf16x2(acc[n8][2 * h], acc[n8][2 * h + 1]);
+      }
+    fence_async_proxy();
+    bar_sync(kBwdStoreBar + wg, 128);
+    if (xt == 0) mbar_arrive(&ready_own[b]);
+  }
+}
+
+// The dk/dv kernel of one block a cluster (D = 64 and 128, NC = 1 and 2:
+// no exchange). A block walks (bh, 128-key) items (item_of, its rows read
+// as keys); each consumer warpgroup owns 64 of an item's keys and holds
+// their dk and dv in registers, and for each query tile of QT queries (64
+// at NC = 1, 32 at NC = 2: the registers of dk and dv) forms s^T = k q^T
+// and dp^T = v g^T on wgmma m64n(QT)k16, p^T and ds^T =
+// p^T (dp^T - delta) scale in fp32, and accumulates dv += p^T g and
+// dk += ds^T q on m64n(64 NC)k16 with p^T and ds^T as A in registers: no
+// product or sum is handed between the warpgroups. Shared memory: two
+// buffers of k and v [buffer][k, v][warpgroup][chunk][64][64] (the producer
+// loads the next item's keys into one while it stores this item's dk and
+// dv from the other), the q/g ring [stage][q, g][chunk][QT][64], the
+// ring's lse log2(e) and delta [stage][lse2, delta][QT], the mbarriers.
+template <int NC>
+struct DkvSoloLayout {
+  static constexpr int kQt = NC == 1 ? 64 : 32;  // queries of a tile
+  static constexpr int kStages = 4;
+  static constexpr uint32_t kOwnBytes = sizeof(bf16) * 2 * 2 * NC * CHUNK;
+  static constexpr uint32_t kTileBytes = sizeof(bf16) * NC * kQt * kC;
+  static constexpr size_t kOwn = 0;
+  static constexpr size_t kRing = kOwn + 2 * kOwnBytes;
+  static constexpr size_t kRowsLd = kRing + kStages * 2 * kTileBytes;
+  static constexpr size_t kBar =
+      kRowsLd + sizeof(float) * kStages * 2 * kQt;
+  // full and ready k/v [buffer]; full and empty q/g [stage]
+  static constexpr int kBars = 4 + 2 * kStages;
+  static constexpr size_t kBytes = kBar + sizeof(uint64_t) * kBars;
+  static_assert(kBytes <= kMaxSmem, "a block's shared memory");
+};
+
+template <int NC>
+__global__ void __launch_bounds__(kThreads, 1)
+    dkv_solo(const __grid_constant__ CUtensorMap kmap,
+             const __grid_constant__ CUtensorMap vmap,
+             const __grid_constant__ CUtensorMap qmap,
+             const __grid_constant__ CUtensorMap gmap,
+             const __grid_constant__ CUtensorMap dkmap,
+             const __grid_constant__ CUtensorMap dvmap,
+             const float* __restrict__ mask, const float* __restrict__ lse,
+             const float* __restrict__ delta, bf16* __restrict__ dk,
+             bf16* __restrict__ dv, int nbh, int sq, int sk, int causal,
+             float scale, float scale_log2) {
+  using L = DkvSoloLayout<NC>;
+  constexpr int S = L::kStages, QT = L::kQt, QCH = QT * kC;
+  constexpr int d = NC * kC;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  bf16* own = reinterpret_cast<bf16*>(smem + L::kOwn);
+  bf16* ring = reinterpret_cast<bf16*>(smem + L::kRing);
+  float* rows_ld = reinterpret_cast<float*>(smem + L::kRowsLd);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* full_own = bars;  // [buffer]
+  uint64_t* ready_own = full_own + 2;
+  uint64_t* full = ready_own + 2;  // [S]
+  uint64_t* empty = full + S;
+
+  const int nk = (sk + kRows - 1) / kRows;
+  const int items = nbh * nk;
+  const int nq = (sq + QT - 1) / QT;
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&full_own[b], 1);
+      mbar_init(&ready_own[b], 2);  // each warpgroup's dk and dv, written
+    }
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers / 32);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x >> 7, 0);
+  const int lane = threadIdx.x & 31;
+  // An item's keys k0 .. + 127 in every warp: their valid-key bits (bit b
+  // of kb[c] is key k0 + 32 c + b), and the query tiles it walks: from the
+  // causal start on, none where all 128 keys are masked (padding: its
+  // gradients are 0).
+  uint32_t kb[4];
+  const auto mask_of = [&](int item, float (&mv)[4]) {  // the keys' mask
+    const Item w = item_of(item, nk);
+    const float* mrow = mask + (int64_t)w.bh * sk;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int key = w.q0 + 32 * c + lane;
+      mv[c] = key < sk ? mrow[key] : 0.f;
+    }
+  };
+  const auto walk = [&](const Item& w, const float (&mv)[4], int& qt0) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) kb[c] = __ballot_sync(0xffffffffu, mv[c] > 0.f);
+    qt0 = causal ? w.q0 / QT : 0;
+    return (kb[0] | kb[1] | kb[2] | kb[3]) != 0 ? max(nq - qt0, 0) : 0;
+  };
+  if (wg == 2) {
+    // The producer: k and v of each item with a query tile to walk, then
+    // q, g, lse log2(e) and delta of each of its query tiles; and the dk
+    // and dv of the item before the last, once the consumers have written
+    // them into its buffer (as K5's out).
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kWalkProducerRegs));
+    if (threadIdx.x >= kConsumers + 32) return;
+    const bool leader = lane == 0;
+    Item held[2];  // the items whose dk and dv the buffers hold
+    auto store = [&](int k) {  // the k-th used buffer's
+      const int b = k & 1;
+      const Item w = held[b];
+      mbar_wait(&ready_own[b], (k >> 1) & 1);
+      for (int h = 0; h < 2; ++h)
+        if (w.q0 + h * kWgRows < sk)
+          for (int c = 0; c < NC; ++c) {
+            tma_store(&dkmap, own + ((b * 2 * 2 + h) * NC + c) * CHUNK,
+                      c * kC, w.q0 + h * kWgRows, w.bh);
+            tma_store(&dvmap, own + ((b * 2 * 2 + 2 + h) * NC + c) * CHUNK,
+                      c * kC, w.q0 + h * kWgRows, w.bh);
+          }
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    };
+    // Query tiles go in batches of 4 rows a lane, whose lse and delta are
+    // loaded before the first tile's stage is waited for.
+    constexpr int kTb = 4 * 32 / QT;  // tiles a batch
+    int u = 0, jq = 0;  // uses of the k/v buffers and of the ring
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+      const Item w = item_of(item, nk);
+      int qt0;
+      float mv[4];
+      mask_of(item, mv);
+      const int ntq = walk(w, mv, qt0);
+      if (ntq == 0) continue;
+      if (leader) {
+        const int b = u & 1;
+        bf16* ob = own + b * 2 * 2 * NC * CHUNK;
+        if (u >= 2) store(u - 2);  // the buffer's last keys
+        held[b] = w;
+        mbar_expect_tx(&full_own[b], L::kOwnBytes);
+        for (int h = 0; h < 2; ++h)
+          for (int c = 0; c < NC; ++c) {
+            tma_load(ob + (h * NC + c) * CHUNK, &kmap, &full_own[b], c * kC,
+                     w.q0 + h * kWgRows, w.bh);
+            tma_load(ob + ((2 + h) * NC + c) * CHUNK, &vmap, &full_own[b],
+                     c * kC, w.q0 + h * kWgRows, w.bh);
+          }
+      }
+      ++u;
+      for (int i0 = 0; i0 < ntq; i0 += kTb) {
+        float l2[4], dl[4];  // rows 32 e + lane of the batch's
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = (qt0 + i0) * QT + 32 * e + lane;
+          const bool in = row < sq;
+          l2[e] = in ? lse[(int64_t)w.bh * sq + row] * kLog2e : kNoRow;
+          dl[e] = in ? delta[(int64_t)w.bh * sq + row] : 0.f;
+        }
+#pragma unroll
+        for (int ib = 0; ib < kTb; ++ib) {
+          if (i0 + ib >= ntq) break;
+          const int t = qt0 + i0 + ib, s = jq % S;
+          mbar_wait(&empty[s], ((jq / S) & 1) ^ 1);
+#pragma unroll
+          for (int e = 0; e < QT / 32; ++e) {
+            rows_ld[s * 2 * QT + 32 * e + lane] = l2[ib * (QT / 32) + e];
+            rows_ld[s * 2 * QT + QT + 32 * e + lane] = dl[ib * (QT / 32) + e];
+          }
+          __syncwarp();
+          if (leader) {
+            mbar_expect_tx(&full[s], 2 * L::kTileBytes);
+            bf16* st = ring + s * 2 * NC * QCH;
+            for (int c = 0; c < NC; ++c) {
+              tma_load(st + c * QCH, &qmap, &full[s], c * kC, t * QT, w.bh);
+              tma_load(st + (NC + c) * QCH, &gmap, &full[s], c * kC, t * QT,
+                       w.bh);
+            }
+          }
+          ++jq;
+        }
+      }
+    }
+    if (leader)  // the last items' dk and dv, before the block leaves
+      for (int k = max(u - 2, 0); k < u; ++k) store(k);
+    return;
+  }
+
+  // A consumer warpgroup: keys k0 + 64 wg .. + 63 of each item; warp (wq)
+  // keys 16 wq .. + 15 of those, this lane keys key0 and key0 + 8; columns
+  // the tile's QT queries.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kWalkConsumerRegs));
+  const int xt = threadIdx.x & 127;
+  const int wq = (threadIdx.x >> 5) & 3;
+  const int grp = lane >> 2, tig = lane & 3;
+  const int r0 = 16 * wq + grp;
+  const auto release = [&](uint64_t* bar) {
+    if (lane == 0) mbar_arrive(bar);
+  };
+  float x[2][QT / 8][4];      // s^T and dp^T of the 64 keys x QT queries
+  uint32_t pa[QT / 16][4];    // p^T in bf16: the A fragments of dv
+  uint32_t da[QT / 16][4];    // ds^T in bf16: the A fragments of dk
+  float dka[8 * NC][4], dva[8 * NC][4];
+  const bf16* kw = own;
+  const bf16* vw = own;
+  int key0 = 0, qt0 = 0, kw0 = 0;
+  bool key_ok[2], all_keys = false;
+  // s^T = k q^T and dp^T = v g^T over the NC chunks, of stage st's queries.
+  const auto scores = [&](int st) {
+    const bf16* qt = ring + st * 2 * NC * QCH;
+    const bf16* gt = qt + NC * QCH;
+    const bf16 *ka = kw, *va = vw;
+    asm volatile("" : "+l"(ka), "+l"(va));
+#pragma unroll
+    for (int kk = 0; kk < 4 * NC; ++kk) {
+      const int a = (kk >> 2) * CHUNK + 16 * (kk & 3);
+      const int b = (kk >> 2) * QCH + 16 * (kk & 3);
+      wgmma_ss(x[0], desc(ka + a), desc(qt + b), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4 * NC; ++kk) {
+      const int a = (kk >> 2) * CHUNK + 16 * (kk & 3);
+      const int b = (kk >> 2) * QCH + 16 * (kk & 3);
+      wgmma_ss(x[1], desc(va + a), desc(gt + b), kk > 0);
+    }
+  };
+  // Query tile i (stage st) on x: p^T, then ds^T = p^T (dp^T - delta) scale.
+  const auto form = [&](int i, int st) {
+    const int q0 = (qt0 + i) * QT;
+    const float* ld = rows_ld + st * 2 * QT;
+    const auto lse2 = [=](int c, int) { return ld[c]; };
+    // Queries past Sq take lse2 = kNoRow: p = 0 without a select.
+    if (all_keys && (!causal || kw0 + kWgRows - 1 <= q0)) {
+      rebuild_p<true, false>(x[0], scale_log2, tig,
+                              [](int, int) { return true; }, lse2);
+    } else {
+      rebuild_p<true, true>(x[0], scale_log2, tig,
+                             [=](int c, int h) {
+                               return key_ok[h] &&
+                                      (!causal || key0 + 8 * h <= q0 + c);
+                             },
+                             lse2);
+    }
+    form_ds(x[1], x[0], scale, tig, [=](int c, int) { return ld[QT + c]; });
+  };
+  // dv += p^T g and dk += ds^T q over stage st's queries (the chunks' rows
+  // are the k index), into the NC chunks of columns.
+  const auto products = [&](int st) {
+    const bf16* qt = ring + st * 2 * NC * QCH;
+    const bf16* gt = qt + NC * QCH;
+#pragma unroll
+    for (int kk = 0; kk < QT / 16; ++kk) {
+      wgmma_rs(dva, pa[kk], desc_mn(gt + 16 * kk * kC, sizeof(bf16) * QCH));
+      wgmma_rs(dka, da[kk], desc_mn(qt + 16 * kk * kC, sizeof(bf16) * QCH));
+    }
+  };
+
+  // The keys' mask of the next item is loaded as soon as this item's is
+  // read, so that its latency falls under this item's tiles.
+  float mv[4] = {0.f, 0.f, 0.f, 0.f};
+  if ((int)blockIdx.x < items) mask_of(blockIdx.x, mv);
+  int u = 0, jq = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const Item w = item_of(item, nk);
+    const int ntq = walk(w, mv, qt0);
+    if (item + (int)gridDim.x < items) mask_of(item + gridDim.x, mv);
+    kw0 = w.q0 + wg * kWgRows;
+    key0 = kw0 + r0;
+    const uint32_t w0 = kb[2 * wg], w1 = kb[2 * wg + 1];
+    all_keys = (w0 & w1) == ~0u;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) key_ok[h] = key_bit(w0, w1, r0 + 8 * h);
+    if (ntq == 0) {
+      // All 128 keys masked: dk = dv = 0, written from registers.
+      const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+      for (int e = xt; e < kWgRows * d / 8; e += 128) {
+        const int row = kw0 + e / (d / 8);
+        if (row < sk) {
+          const int64_t at = ((int64_t)w.bh * sk + row) * d + 8 * (e % (d / 8));
+          *reinterpret_cast<uint4*>(dk + at) = z;
+          *reinterpret_cast<uint4*>(dv + at) = z;
+        }
+      }
+      continue;
+    }
+    const int b = u & 1;
+    bf16* kd = own + (b * 2 * 2 + wg) * NC * CHUNK;
+    bf16* vd = own + (b * 2 * 2 + 2 + wg) * NC * CHUNK;
+    kw = kd;
+    vw = vd;
+    zero(dka);
+    zero(dva);
+    mbar_wait(&full_own[b], (u >> 1) & 1);
+    mbar_wait(&full[jq % S], (jq / S) & 1);
+    wgmma_fence();
+    scores(jq % S);
+    wgmma_commit();
+    wgmma_wait_for<0>();
+    pin(x[0]);
+    pin(x[1]);
+    form(0, jq % S);
+    pack_a(pa, x[0]);
+    pack_a(da, x[1]);
+    // The next tile's scores and this tile's products in one batch; p^T
+    // and ds^T of the next tile after it.
+    for (int i = 0;; ++i) {
+      const int cur = jq % S;
+      ++jq;
+      const bool more = i + 1 < ntq;
+      if (more) mbar_wait(&full[jq % S], (jq / S) & 1);
+      wgmma_fence();
+      if (more) scores(jq % S);
+      products(cur);
+      wgmma_commit();
+      wgmma_wait_for<0>();
+      pin(x[0]);
+      pin(x[1]);
+      pin(dka);
+      pin(dva);
+      pin(pa);
+      pin(da);
+      release(&empty[cur]);
+      if (!more) break;
+      form(i + 1, jq % S);
+      pack_a(pa, x[0]);
+      pack_a(da, x[1]);
+    }
+    ++u;
+
+    // dk into the warpgroup's k chunks, dv into its v chunks, in bf16,
+    // swizzled as TMA reads them (only this warpgroup read them), for the
+    // producer to store.
+#pragma unroll
+    for (int n8 = 0; n8 < 8 * NC; ++n8)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + 8 * h;
+        const int at = (n8 >> 3) * CHUNK + r * kC +
+                       (((n8 & 7) ^ (r & 7)) << 3) + 2 * tig;
+        *reinterpret_cast<uint32_t*>(kd + at) =
+            pack_bf16x2(dka[n8][2 * h], dka[n8][2 * h + 1]);
+        *reinterpret_cast<uint32_t*>(vd + at) =
+            pack_bf16x2(dva[n8][2 * h], dva[n8][2 * h + 1]);
+      }
+    fence_async_proxy();
+    bar_sync(kBwdStoreBar + wg, 128);
+    if (xt == 0) mbar_arrive(&ready_own[b]);
+  }
+}
+
 // Shared memory of the dk/dv kernel at NC chunks: k and v [chunk][64][64]
 // (resident; after the loop dv and dk in bf16), the q/g ring
 // [stage][q, g][chunk][32][64], the two slots, p^T [float4 j][thread], the
@@ -1354,9 +2437,9 @@ int launch(void (*kernel)(Args...), int64_t blocks, int threads,
   return (int)(launched != cudaSuccess ? launched : cudaGetLastError());
 }
 
-// The cluster of a head width d (a multiple of 64, 256 to 2048): (blocks,
+// The cluster of a head width d (a multiple of 64 up to 2048): (blocks,
 // chunks a block), ceil(d / 256) blocks of an even share of 3 or 4 chunks
-// (one block of 4 at 256).
+// (one block of d / 64 up to 256).
 int2 split_of(int d) {
   const int nc = d / kC;
   const int group = (nc + kMaxChunks - 1) / kMaxChunks;
@@ -1371,26 +2454,72 @@ bool chunk_map(CUtensorMap* m, const bf16* t, int n, int bh, int d,
                 CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
+// The card's SMs: the width of a persistent grid (0 if unknown).
+int sm_count() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 0;
+  return n;
+}
+
+// The blocks of a persistent grid that walks `items` items of nq query
+// tiles a (bh): one an SM, a multiple of nq where it can be (item_of's
+// rotation).
+int64_t walk_blocks(int64_t items, int nq) {
+  int64_t grid = sm_count();
+  if (items < grid) grid = items;
+  if (grid >= nq) grid -= grid % nq;
+  return grid;
+}
+
+
 template <int NC, int X>
 int bwd(const CUtensorMap (&m)[9], const float* mask, const float* lse,
-        const bf16* out, float* delta, int bh, int sq, int sk, int d,
-        int group, int causal, float scale, float scale_log2,
+        const bf16* out, float* delta, bf16* dk, bf16* dv, int bh, int sq,
+        int sk, int d, int group, int causal, float scale, float scale_log2,
         cudaStream_t stream) {
-  const int err = launch(
-      dq_cluster<NC, X>, (int64_t)bh * ((sq + kWgRows - 1) / kWgRows) * group,
-      kBwdThreads, DqLayout<NC>::kBytes, group, stream, m[0], m[1], m[2], m[3], m[4],
-      mask, lse, out, delta, sq, sk, d, group, causal, scale, scale_log2);
+  constexpr bool SPLIT = X != kSolo;
+  int err;
+  if constexpr (SPLIT) {
+    err = launch(dq_cluster<NC, X>,
+                 (int64_t)bh * ((sq + kWgRows - 1) / kWgRows) * group,
+                 kBwdThreads, DqLayout<NC>::kBytes, group, stream, m[0], m[1],
+                 m[2], m[3], m[4], mask, lse, out, delta, sq, sk, d, group,
+                 causal, scale, scale_log2);
+  } else {
+    const int nq = (sq + kRows - 1) / kRows;
+    err = launch(dq_solo<NC>, walk_blocks((int64_t)bh * nq, nq), kThreads,
+                 DqSoloLayout<NC>::kBytes, 1, stream, m[0], m[1], m[2], m[3],
+                 m[4], mask, lse, out, delta, bh, sq, sk, causal, scale,
+                 scale_log2);
+  }
   if (err) return err;
-  return launch(
-      dkv_cluster<NC, X>, (int64_t)bh * ((sk + kWgRows - 1) / kWgRows) * group,
-      kBwdThreads, DkvLayout<NC>::kBytes, group, stream, m[1], m[2], m[5], m[6], m[7],
-      m[8], mask, lse, (const float*)delta, sq, sk, d, group, causal, scale,
-      scale_log2);
+  if constexpr (SPLIT) {
+    return launch(
+        dkv_cluster<NC, X>,
+        (int64_t)bh * ((sk + kWgRows - 1) / kWgRows) * group, kBwdThreads,
+        DkvLayout<NC>::kBytes, group, stream, m[1], m[2], m[5], m[6], m[7],
+        m[8], mask, lse, (const float*)delta, sq, sk, d, group, causal, scale,
+        scale_log2);
+  } else {
+    // q and g in boxes of the kernel's query tile: 64 rows (m[0], m[3]) at
+    // NC = 1, 32 (m[5], m[6]) at NC = 2.
+    const int nk = (sk + kRows - 1) / kRows;
+    const bool wide_tile = DkvSoloLayout<NC>::kQt == 64;
+    return launch(dkv_solo<NC>, walk_blocks((int64_t)bh * nk, nk),
+                  kThreads, DkvSoloLayout<NC>::kBytes, 1, stream, m[1],
+                  m[2], wide_tile ? m[0] : m[5], wide_tile ? m[3] : m[6],
+                  m[7], m[8], mask, lse, (const float*)delta, dk, dv, bh, sq,
+                  sk, causal, scale, scale_log2);
+  }
 }
 
 }  // namespace
 
-// K5 in bf16 at a head width 256 <= d <= 2048, d a multiple of 64, in
+// K5 in bf16 at a head width d = 128 (fwd_solo: one block walking items
+// on a persistent grid) or 256 <= d <= 2048, d a multiple of 64, in
 // clusters of ceil(d / 256) blocks (one block at d = 256). Arguments as
 // flash_attention_fwd_bf16's (flash_attention_bf16.cu).
 extern "C" int flash_attention_cluster_fwd_bf16(const bf16* q, const bf16* k,
@@ -1401,18 +2530,23 @@ extern "C" int flash_attention_cluster_fwd_bf16(const bf16* q, const bf16* k,
                                                 double scale,
                                                 cudaStream_t stream) {
   if (!aligned(q) || !aligned(k) || !aligned(v) || !aligned(out) ||
-      d < kMaxChunks * kC || d > kClusterMax * kMaxChunks * kC || d % kC)
+      (d != 2 * kC && d < kMaxChunks * kC) ||
+      d > kClusterMax * kMaxChunks * kC || d % kC)
     return (int)cudaErrorInvalidValue;
   const int2 split = split_of(d);
   const int group = split.x;
+  const int64_t items = (int64_t)bh * ((sq + kRows - 1) / kRows);
   CUtensorMap qm, km, vm, om;
   if (!chunk_map(&qm, q, sq, bh, d, 64) || !chunk_map(&km, k, sk, bh, d, 64) ||
       !chunk_map(&vm, v, sk, bh, d, 64) || !chunk_map(&om, out, sq, bh, d, 64))
     return (int)cudaErrorInvalidValue;
   const float scale_log2 = (float)(kLog2e * scale);
+  if (d == 2 * kC)
+    return launch(fwd_solo<2>, walk_blocks(items, (sq + kRows - 1) / kRows),
+                  kThreads, FwdSoloLayout<2>::kBytes, 1, stream, qm, km, vm,
+                  om, mask, lse, bh, sq, sk, causal, scale_log2);
 #define LAUNCH(NC, X)                                                        \
-  return launch(fwd_cluster<NC, X>,                                          \
-                (int64_t)bh * ((sq + kRows - 1) / kRows) * group, kThreads,  \
+  return launch(fwd_cluster<NC, X>, items * group, kThreads,                 \
                 Layout<NC, X != kSolo>::kBytes, group, stream, qm, km, vm,   \
                 om, mask, lse, sq, sk, d, group, causal, scale_log2)
   if (group == 1) LAUNCH(4, kSolo);
@@ -1425,10 +2559,11 @@ extern "C" int flash_attention_cluster_fwd_bf16(const bf16* q, const bf16* k,
 #undef LAUNCH
 }
 
-// K6 in bf16 at a head width 256 < d <= 2048, d a multiple of 64, in
-// clusters of ceil(d / 256) blocks. Arguments as
-// flash_attention_bwd_bf16's (flash_attention_bf16.cu); runs the dq kernel
-// (which also writes delta), then the dk/dv kernel.
+// K6 in bf16 at a head width d = 64 or 128 (one block a row tile, no
+// exchange) or 256 < d <= 2048, d a multiple of 64, in clusters of
+// ceil(d / 256) blocks. Arguments as flash_attention_bwd_bf16's
+// (flash_attention_bf16.cu); runs the dq kernel (which also writes delta),
+// then the dk/dv kernel.
 extern "C" int flash_attention_cluster_bwd_bf16(
     const bf16* q, const bf16* k, const bf16* v, const float* mask,
     const float* lse, const bf16* out, const bf16* g, float* delta, bf16* dq,
@@ -1436,7 +2571,8 @@ extern "C" int flash_attention_cluster_bwd_bf16(
     double scale, cudaStream_t stream) {
   if (!aligned(q) || !aligned(k) || !aligned(v) || !aligned(out) ||
       !aligned(g) || !aligned(dq) || !aligned(dk) || !aligned(dv) ||
-      d <= kMaxChunks * kC || d > kClusterMax * kMaxChunks * kC || d % kC)
+      (d != kC && d != 2 * kC && d <= kMaxChunks * kC) ||
+      d > kClusterMax * kMaxChunks * kC || d % kC)
     return (int)cudaErrorInvalidValue;
   const int2 split = split_of(d);
   const int group = split.x;
@@ -1454,9 +2590,13 @@ extern "C" int flash_attention_cluster_bwd_bf16(
       !chunk_map(&m[8], dv, sk, bh, d, 64))
     return (int)cudaErrorInvalidValue;
   const float sc = (float)scale, scale_log2 = (float)(kLog2e * scale);
-#define LAUNCH(NC, X)                                                       \
-  return bwd<NC, X>(m, mask, lse, out, delta, bh, sq, sk, d, group, causal, \
-                    sc, scale_log2, stream)
+#define LAUNCH(NC, X)                                                    \
+  return bwd<NC, X>(m, mask, lse, out, delta, dk, dv, bh, sq, sk, d, group, \
+                    causal, sc, scale_log2, stream)
+  if (group == 1) {
+    if (split.y == 1) LAUNCH(1, kSolo);
+    LAUNCH(2, kSolo);
+  }
   if (group == 2) {
     if (split.y == 3) LAUNCH(3, kPush);
     LAUNCH(4, kPush);

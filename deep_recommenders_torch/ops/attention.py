@@ -13,15 +13,18 @@ JAX package's: heads folded into the batch, q (BH, Sq, D), k and v
   q's dtype.
 - :func:`flash_attention` (K5) and :func:`flash_attention_backward` (K6)
   take fp32 or bf16 q, k, v (and g), all of one dtype; the mask and lse are
-  fp32. On a CUDA tensor they launch ``csrc/flash_attention.cu`` (fp32) or
-  ``csrc/flash_attention_bf16.cu`` (bf16) at head widths up to 128, except
-  the bf16 kernels of ``csrc/flash_attention_tma_bf16.cu`` at the narrow
-  widths and shapes they take (``TMA_FWD_HEAD_DIMS``, ``TMA_BWD_MAX_SQ``,
-  ``TMA_BWD_MIN_BH``),
-  ``csrc/flash_attention_wide.cu`` or ``csrc/flash_attention_wide_bf16.cu``
-  for K6 from 256 and the fp32 K5 from 256, and
-  ``csrc/flash_attention_cluster_bf16.cu`` for the bf16 K5 from 256 and
-  the bf16 K6 above 256, both up to ``CLUSTER_HEAD_DIM_MAX``
+  fp32. On a CUDA tensor they launch ``csrc/flash_attention.cu`` (fp32) at
+  head widths up to 128; in bf16 the kernels of
+  ``csrc/flash_attention_tma_bf16.cu`` at the narrow widths and shapes
+  they take (``TMA_FWD_HEAD_DIMS``, ``TMA_BWD_MAX_SQ``,
+  ``TMA_BWD_MIN_BH``), the one-block instances of
+  ``csrc/flash_attention_cluster_bf16.cu`` for K5 at 128 and K6 at 64 and
+  128 (``CLUSTER_FWD_NARROW_DIMS``, ``CLUSTER_BWD_NARROW_DIMS``), and
+  ``csrc/flash_attention_bf16.cu`` for K6 at 16 and 32 past the TMA
+  kernel's shapes; ``csrc/flash_attention_wide.cu`` or
+  ``csrc/flash_attention_wide_bf16.cu`` for K6 from 256 and the fp32 K5
+  from 256, and ``csrc/flash_attention_cluster_bf16.cu`` for the bf16 K5
+  from 256 and the bf16 K6 above 256, both up to ``CLUSTER_HEAD_DIM_MAX``
   (:func:`_kernel`; on thread-block clusters that split D), or raise; on
   a CPU tensor they
   take their plain versions, :func:`flash_attention_reference` and
@@ -96,6 +99,12 @@ CLUSTER_HEAD_DIM_MAX = 2048
 TMA_FWD_HEAD_DIMS = (16, 32, 64)
 TMA_BWD_MAX_SQ = {16: 2176, 32: 768}
 TMA_BWD_MIN_BH = 132
+# The bf16 K5 and K6 of csrc/flash_attention_cluster_bf16.cu at head widths
+# below 256, one block a cluster (nothing to exchange), at every (BH, Sq):
+# K5 at D = 128 on a persistent grid whose blocks walk (bh, 128-row) items,
+# K6 at D = 64 and 128 in a dq and a dk/dv kernel on wgmma fed by TMA.
+CLUSTER_FWD_NARROW_DIMS = (128,)
+CLUSTER_BWD_NARROW_DIMS = (64, 128)
 # Operand dtypes of q, k, v and g; the mask and lse are always fp32.
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -361,21 +370,30 @@ def _kernel(dtype, d: int, backward: bool, bh: int, sq: int
     - bf16 at the widths of ``TMA_FWD_HEAD_DIMS`` (K5), or of
       ``TMA_BWD_MAX_SQ`` with Sq up to its entry and BH from
       ``TMA_BWD_MIN_BH`` on (K6): csrc/flash_attention_tma_bf16.cu's;
-    - else up to 128: csrc/flash_attention(_bf16).cu's;
+    - bf16 at the widths of ``CLUSTER_FWD_NARROW_DIMS`` (K5) or
+      ``CLUSTER_BWD_NARROW_DIMS`` (K6), at every shape:
+      csrc/flash_attention_cluster_bf16.cu's (one block a cluster);
+    - else up to 128: csrc/flash_attention(_bf16).cu's (the fp32 kernels,
+      and the bf16 K6 at D = 16 and 32 past the TMA kernel's shapes);
     - from 256 on csrc/flash_attention_wide(_bf16).cu's (K6, and the fp32
       K5 on clusters that split D), except the bf16 K5 from 256 and the
       bf16 K6 above 256, both up to ``CLUSTER_HEAD_DIM_MAX``:
       csrc/flash_attention_cluster_bf16.cu's (clusters that split D)."""
+    bf16 = dtype == torch.bfloat16
     if backward:
         tma = (d in TMA_BWD_MAX_SQ and sq <= TMA_BWD_MAX_SQ[d]
                and bh >= TMA_BWD_MIN_BH)
+        narrow = d in CLUSTER_BWD_NARROW_DIMS
     else:
         tma = d in TMA_FWD_HEAD_DIMS
-    if dtype == torch.bfloat16 and tma:
+        narrow = d in CLUSTER_FWD_NARROW_DIMS
+    if bf16 and tma:
         width = "_tma"
+    elif bf16 and narrow:
+        width = "_cluster"
     elif d < KERNEL_HEAD_DIMS[-1]:
         width = ""
-    elif (dtype == torch.bfloat16 and d <= CLUSTER_HEAD_DIM_MAX
+    elif (bf16 and d <= CLUSTER_HEAD_DIM_MAX
           and (not backward or d > KERNEL_HEAD_DIMS[-1])):
         width = "_cluster"
     else:

@@ -532,28 +532,31 @@ def test_attention_dispatch_above_the_widest_kernel(rng, monkeypatch):
 
 # (source, C function) of K5 ("fwd") and K6 ("bwd") by operand dtype and
 # head width at the bf16 Transformer's (BH, Sq) = (2048, 512):
-# csrc/flash_attention(_bf16).cu up to 128, except the bf16 kernels of
-# csrc/flash_attention_tma_bf16.cu at D = 16;
+# csrc/flash_attention.cu up to 128 for fp32 operands; the bf16 kernels of
+# csrc/flash_attention_tma_bf16.cu at D = 16 and K5's at 64, and the
+# one-block instances of csrc/flash_attention_cluster_bf16.cu for the bf16
+# K6 at 64 and 128 and K5 at 128;
 # csrc/flash_attention_wide(_bf16).cu for K6 and the fp32 K5 from 256 on;
 # csrc/flash_attention_cluster_bf16.cu for the bf16 K5 from 256 to 2048 and
 # the bf16 K6 above 256 to 2048, csrc/flash_attention_wide_bf16.cu above
 # 2048 and for the bf16 K6 at 256.
-_WIDTHS = (16, 128, 256, 320, 512, 768, 2048, 2304)
+_WIDTHS = (16, 64, 128, 256, 320, 512, 768, 2048, 2304)
 _ROUTES = {
-    ("float32", "fwd"): {16: "flash_attention", 128: "flash_attention",
-                         **{d: "flash_attention_wide" for d in _WIDTHS[2:]}},
-    ("float32", "bwd"): {16: "flash_attention", 128: "flash_attention",
-                         **{d: "flash_attention_wide" for d in _WIDTHS[2:]}},
+    ("float32", "fwd"): {**{d: "flash_attention" for d in _WIDTHS[:3]},
+                         **{d: "flash_attention_wide" for d in _WIDTHS[3:]}},
+    ("float32", "bwd"): {**{d: "flash_attention" for d in _WIDTHS[:3]},
+                         **{d: "flash_attention_wide" for d in _WIDTHS[3:]}},
     ("bfloat16", "fwd"): {16: "flash_attention_tma_bf16",
-                          128: "flash_attention_bf16",
+                          64: "flash_attention_tma_bf16",
                           **{d: "flash_attention_cluster_bf16"
                              for d in _WIDTHS[2:-1]},
                           2304: "flash_attention_wide_bf16"},
     ("bfloat16", "bwd"): {16: "flash_attention_tma_bf16",
-                          128: "flash_attention_bf16",
+                          64: "flash_attention_cluster_bf16",
+                          128: "flash_attention_cluster_bf16",
                           256: "flash_attention_wide_bf16",
                           **{d: "flash_attention_cluster_bf16"
-                             for d in _WIDTHS[3:-1]},
+                             for d in _WIDTHS[4:-1]},
                           2304: "flash_attention_wide_bf16"},
 }
 
@@ -588,22 +591,35 @@ def test_kernel_routing_by_dtype_width_and_direction(dtype, d, direction):
 # (dtype, direction, D, BH, Sq) -> source: the bf16 K5 of
 # flash_attention_tma_bf16.cu at D = 16, 32 and 64 whatever the shape; its
 # K6 at D = 16 and 32 up to TMA_BWD_MAX_SQ and from TMA_BWD_MIN_BH (BH) on,
-# the mma.sync kernels of flash_attention_bf16.cu past either edge, at
-# D = 64 and 128, and for fp32 operands; the bf16 K6 of
-# flash_attention_cluster_bf16.cu up to CLUSTER_HEAD_DIM_MAX whatever the
-# shape, flash_attention_wide_bf16.cu's one step past it.
+# the mma.sync kernels of flash_attention_bf16.cu past either edge and for
+# fp32 operands; the one-block instances of flash_attention_cluster_bf16.cu
+# for the bf16 K5 at D = 128 (CLUSTER_FWD_NARROW_DIMS) and K6 at 64 and 128
+# (CLUSTER_BWD_NARROW_DIMS) whatever the shape (on both sides of the TMA
+# K6's edges: one (bh) or many, one query row or more than its most); the
+# bf16 K6 of flash_attention_cluster_bf16.cu up to CLUSTER_HEAD_DIM_MAX
+# whatever the shape, flash_attention_wide_bf16.cu's one step past it.
 _SHAPE_ROUTES = [
     ("bfloat16", "fwd", 16, 2, 100, "flash_attention_tma_bf16"),
     ("bfloat16", "fwd", 32, 6, 150, "flash_attention_tma_bf16"),
     ("bfloat16", "fwd", 64, 2048, 4096, "flash_attention_tma_bf16"),
-    ("bfloat16", "fwd", 128, 2048, 512, "flash_attention_bf16"),
+    ("bfloat16", "fwd", 128, 2048, 512, "flash_attention_cluster_bf16"),
+    ("bfloat16", "fwd", 128, 1, 1, "flash_attention_cluster_bf16"),
+    ("bfloat16", "fwd", 128, 131, 4096, "flash_attention_cluster_bf16"),
+    ("float32", "fwd", 128, 2048, 512, "flash_attention"),
     ("float32", "fwd", 16, 2048, 512, "flash_attention"),
     ("bfloat16", "bwd", 16, 132, 2176, "flash_attention_tma_bf16"),
     ("bfloat16", "bwd", 16, 132, 2177, "flash_attention_bf16"),
     ("bfloat16", "bwd", 16, 131, 512, "flash_attention_bf16"),
     ("bfloat16", "bwd", 32, 2048, 768, "flash_attention_tma_bf16"),
     ("bfloat16", "bwd", 32, 2048, 769, "flash_attention_bf16"),
-    ("bfloat16", "bwd", 64, 2048, 512, "flash_attention_bf16"),
+    ("bfloat16", "bwd", 64, 2048, 512, "flash_attention_cluster_bf16"),
+    ("bfloat16", "bwd", 64, 131, 512, "flash_attention_cluster_bf16"),
+    ("bfloat16", "bwd", 64, 132, 769, "flash_attention_cluster_bf16"),
+    ("bfloat16", "bwd", 64, 1, 1, "flash_attention_cluster_bf16"),
+    ("bfloat16", "bwd", 128, 2048, 512, "flash_attention_cluster_bf16"),
+    ("bfloat16", "bwd", 128, 131, 2177, "flash_attention_cluster_bf16"),
+    ("bfloat16", "bwd", 128, 1, 1, "flash_attention_cluster_bf16"),
+    ("float32", "bwd", 64, 2048, 512, "flash_attention"),
     ("float32", "bwd", 16, 2048, 512, "flash_attention"),
     ("bfloat16", "bwd", 2048, 2, 70, "flash_attention_cluster_bf16"),
     ("bfloat16", "bwd", 2112, 2, 70, "flash_attention_wide_bf16"),

@@ -1013,6 +1013,61 @@ def test_cluster_bf16_backward(device, bh, sq, sk, d, causal):
         assert not grad[1].any()
 
 
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("case,bh,sq,sk,d", [
+    ("ragged", 4, 150, 130, 64),  # Sq != Sk, neither a multiple of 64
+    ("padding_tiles", 6, 130, 260, 64),  # whole 64-key tiles of padding
+    ("last_tile_only", 4, 100, 140, 128),  # a row's only keys: the last tile
+    ("padding_tiles", 5, 70, 200, 128),  # Sq under one 128-row item
+    # More items than the card's SMs: each block of the persistent grids
+    # walks several (bh, 128-row) items.
+    ("ragged", 300, 130, 200, 128),
+    ("padding_tiles", 140, 520, 260, 64),
+    ("last_tile_only", 133, 33, 61, 64),
+])
+def test_cluster_bf16_narrow_kernels(device, case, bh, sq, sk, d, causal):
+    """The one-block instances of flash_attention_cluster_bf16.cu: the bf16
+    K6 at D = 64 and 128 (dq_solo and dkv_solo) and K5 at D = 128
+    (fwd_solo), all on persistent grids, at ragged and tile-edge shapes
+    and with fewer and more (bh) than SMs: one launch each a call, two
+    calls bit for bit, against their fp64 and bf16 plain versions; the
+    checks reject dk less its first query tile and dq less its first key
+    tile. A row with no valid key gives out 0, lse 0 and no gradient."""
+    gen = torch.Generator(device=device).manual_seed(24)
+    q, k, v, mask = _attention_inputs(gen, bh, sq, sk, d)
+    mask = _edge_mask(mask, case, sk)
+    q, k, v, g = _bf16(q, k, v, _normal(gen, bh, sq, d))
+    assert att._kernel(torch.bfloat16, d, True, bh, sq)[0] == \
+        "flash_attention_cluster_bf16"
+    assert att._kernel(torch.bfloat16, d, False, bh, sq)[0] == (
+        "flash_attention_cluster_bf16" if d == 128
+        else "flash_attention_tma_bf16")
+    before = dict(att.flash_attention.launches)
+    runs = []
+    for _ in range(2):
+        out, lse = att.flash_attention(q, k, v, mask, causal, return_lse=True)
+        runs.append((out, lse, *att.flash_attention_backward(
+            q, k, v, mask, out, lse, g, causal)))
+    torch.cuda.synchronize()
+    assert att.flash_attention.launches == {
+        **before, "fwd_bf16": before["fwd_bf16"] + 2,
+        "bwd_bf16": before["bwd_bf16"] + 2}
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    out, lse, *grads = runs[0]
+    at.check_forward_bf16((out, lse), q, k, v, mask, causal)
+    planted_keys = 64 if case != "last_tile_only" else 0
+    checks = at.check_backward_bf16(grads, q, k, v, mask, out, lse, g,
+                                    causal, planted_rows=64,
+                                    planted_keys=planted_keys)
+    assert checks["dk"]["planted"]["query_tile_dropped"] > 1
+    if planted_keys:
+        assert checks["dq"]["planted"]["key_tile_dropped"] > 1
+    assert not out[1].any() and not lse[1].any()
+    for grad in grads:
+        assert grad.dtype == torch.bfloat16 and not grad[1].any()
+
+
 # -- the bf16 K5 and K6 of flash_attention_tma_bf16.cu --------------------------
 
 def _tma_edge_mask(mask, case, sk):
@@ -1066,16 +1121,18 @@ def _tma_run(device, bh, sq, sk, d, causal, case, seed):
     ("last_tile_only", 133, 130, 270, 16, "tma", "tma"),
     ("post_padding", 132, 130, 150, 32, "tma", "tma"),
     ("padding_tiles", 132, 260, 300, 32, "tma", "tma"),
-    # K6 routed to flash_attention_bf16.cu's kernels: D = 64, too few
-    # (bh), Sq past the most.
-    ("post_padding", 132, 70, 200, 64, "tma", "bf16"),
+    # K6 routed elsewhere: D = 64 (flash_attention_cluster_bf16.cu's
+    # one-block kernels); too few (bh), Sq past the most
+    # (flash_attention_bf16.cu's).
+    ("post_padding", 132, 70, 200, 64, "tma", "cluster"),
     ("last_tile_only", 6, 150, 130, 16, "tma", "bf16"),
     ("post_padding", 132, 800, 130, 32, "tma", "bf16"),
 ])
 def test_tma_bf16_kernels(device, case, bh, sq, sk, d, fwd_src, bwd_src,
                             causal):
     """The bf16 K5 and K6 of flash_attention_tma_bf16.cu (or, where
-    _kernel routes K6 elsewhere by shape, flash_attention_bf16.cu's) against
+    _kernel routes K6 elsewhere by width or shape,
+    flash_attention_cluster_bf16.cu's or flash_attention_bf16.cu's) against
     their fp64 and bf16 plain versions; the checks reject dk less its first
     query tile and dq less its first key tile. A row with no valid key
     gives out 0, lse 0 and no gradient."""
