@@ -16,7 +16,11 @@ In order:
    bound, and on ids out of range; K1 at ESMM's row width C = 16 on the
    same batch's ids, checked the same way; K1 on bf16 g at the batch's,
    skewed and uniform ids and into 10^6 rows, bit for bit its order's fp32
-   sums rounded once to bf16; K2 on fp32 and bf16 embeddings; K3 forward and backward at xDeepFM's
+   sums rounded once to bf16; K1's large-table plan (on bf16 g into a
+   table past the crossover) into 10^6 and 4 x 10^6 rows and on a batch
+   of two rounds, bit for bit, beside the cluster plan's time in the same
+   run, with a row summed out of segment order rejected; K2 on fp32 and
+   bf16 embeddings; K3 forward and backward at xDeepFM's
    flagship shapes; K4 forward and backward at H = 6 and H = 128; K5 and
    K6 at the Transformer's (2048, 512, 16), non-causal and causal), holds
    the result against its plain PyTorch version with the tolerance stated
@@ -69,6 +73,15 @@ In order:
    csrc/flash_attention_tma_bf16.cu's), held and timed as those at D = 16,
    beside the mma.sync kernels, with two calls bit for bit and their
    instances' ptxas and SASS;
+   then the bf16 K5 above 2048 (``reduce_scatter_attention_phase``:
+   clusters of ceil(D / 256) blocks, 9-16, a non-portable size, that
+   reduce-scatter their partial scores, as those of 3-8 blocks do but
+   for D = 576's, which pull): the placement line (how many clusters of
+   2-16 blocks the card holds at once), K5 and the streamed
+   K6 at (32, 512, 2304) held and timed as those at D = 512 (the forward
+   less the last of 9 blocks' partial scores rejected), K5 at (16, 512,
+   4096) held with the same fault and timed, two calls bit for bit at
+   both, the instance's ptxas and SASS;
    then the head widths no kernel is built for
    (``head_width_phase``): attention() over the budget at D = 8 and
    FlashAttention at D = 24, fp32 and bf16, through K5 and K6 padded to
@@ -84,7 +97,9 @@ In order:
      (``attention_width_path``): no warning, one launch of each of the
      four K5/K6 kernels (padded to D = 256 and to D = 320: all four on
      clusters of two blocks at 320), held to the plain versions at the
-     true D on 64 rows; and at D = 128 as it is;
+     true D on 64 rows; and at D = 128 as it is; and in bf16 alone at
+     D = 2300 (``attention_d2304``: padded to 2304, the bf16 K5 on
+     clusters of 9 blocks and the streamed bf16 K6, once each);
    - xDeepFM's flagship (maps (128, 128) relu, hidden (256, 128)), 2 epochs:
      two K1, one K3 forward and one K3 backward per train step, one K3
      forward per eval batch;
@@ -119,7 +134,9 @@ In order:
      the same weights in fp32), ``AUC(from_logits=True)`` on raw logits
      equal to ``AUC()`` on their sigmoid, and the ms of a train step; one
      ``bf16_table {...}`` line, and its K1 fields in the bf16 K1 entry's
-     ``"bf16_table"``;
+     ``"bf16_table"``; then the same over user_id and movie_id hashed
+     into 2^19 buckets each (``bf16_table_large``, a table of 1,048,628
+     rows): 19 bf16 K1, each on the large-table plan;
    - ESMM at the zoo's config (the six features through the shared
      embedding collection, D 16, towers (256, 128)), 2 epochs on the same
      data with ctcvr = ctr x a seeded Bernoulli(0.3): one fp32 K1 (C = 16)
@@ -263,11 +280,12 @@ in a parent's tree measures the parent.
 builds the kernels and times the fp32 and the bf16 K5 and K6 at the
 Transformer's shapes (D = 16), the bf16 ones also at its (BH, S) and
 D = 32, 64 and 128, at D = 256 and 512 (the wide phase's inputs), at
-D = 1024, (64, 512, 1024) (K5 and the bf16 K6 on clusters of 4 blocks)
-and at D = 2304, (32, 512, 2304) (past the clusters); device and eager
-ms, K6's split between its two kernels, and at the bf16 widths that no
-entry of the full run times (32, 64, 128, 1024 and 2304) their bounds and
-library calls; no checks; and
+D = 1024, (64, 512, 1024) (K5 and the bf16 K6 on clusters of 4 blocks),
+at D = 2304, (32, 512, 2304), and at D = 4096, (16, 512, 4096) (the bf16
+K5 on clusters of 9 and 16 blocks, the rest past the clusters); device
+and eager ms, K6's split between its two kernels, and at the bf16 widths
+that no entry of the full run times (32, 64, 128, 1024, 2304 and 4096)
+their bounds and library calls; no checks; and
 prints them as its last line, one JSON object (no "ok" line). It calls
 only what every tree since the D > 256 instances has, so a copy of this
 script in a parent's tree measures the parent.
@@ -351,6 +369,14 @@ LEARNING_RATE = 1e-3
 NUM_RATINGS = 200_000
 # K1's timed table of hashed ids (the table of a Criteo-scale ranking model).
 LARGE_TABLE_ROWS = 1_000_000
+# K1's large-table plan is also held at 4 x 10^6 rows and on a batch of two
+# rounds (131072 ids) into 10^6 rows; the bf16_table_large path hashes
+# user_id and movie_id into 2^19 buckets each (a table of 1,048,628 rows).
+LARGE_TABLE_ROWS_4M = 4_000_000
+TWO_ROUND_IDS = 131_072
+# Ids of the bf16 K1's key-edge checks (three segments of 2048 at C = 17).
+KEY_EDGE_IDS = 6000
+LARGE_TABLE_BUCKETS = 2**19
 EPOCHS = 2
 SEED = 42
 # The bf16-stored table's path: one epoch, 19 steps at NUM_RATINGS.
@@ -426,10 +452,12 @@ HW_BH, HW_LEN, HW_CHUNK, HW_WIDE_BH = 256, 1024, 64, 160
 WIDE_SHAPES = {"d256": (256, 256), "d512": (128, 512)}
 # --attention-times also takes D = 1024 (K5 and the bf16 K6 on clusters of
 # 4 blocks), BH halved again: how the clusters' exchange grows with their
-# size; and D = 2304, past the clusters (the bf16 K5 and K6 of
+# size; and D = 2304 and 4096, past the portable clusters (the bf16 K5 on
+# clusters of 9 and 16 blocks that reduce-scatter, the bf16 K6 of
 # csrc/flash_attention_wide_bf16.cu, the fp32 ones in grid columns of
 # clusters).
-TIMED_SHAPES = {**WIDE_SHAPES, "d1024": (64, 1024), "d2304": (32, 2304)}
+TIMED_SHAPES = {**WIDE_SHAPES, "d1024": (64, 1024), "d2304": (32, 2304),
+                "d4096": (16, 4096)}
 # And the other head widths up to 128 of the bf16 K5 and K6 at the
 # Transformer slice's (BH, S) and key masks.
 NARROW_TIMED = (32, 64, 128)
@@ -754,6 +782,126 @@ def scatter_bf16_entry(g, ids, skewed, spread, num_rows, device,
     }
 
 
+def scatter_bf16_large_entry(g, large_ids, gen, device) -> dict:
+    """K1's large-table plan on bf16 g (csrc/scatter_add_rows.cu:
+    ``segment_runs``, then ``row_ranges``, where ``large_table_plan``
+    routes a large table): the train
+    batch's g into LARGE_TABLE_ROWS rows on uniform ids (the bf16 K1
+    entry's "large_table"), into LARGE_TABLE_ROWS_4M, and a batch of two
+    rounds (TWO_ROUND_IDS seeded normals, a quarter of the ids on one row,
+    so that it recurs in every segment) into LARGE_TABLE_ROWS. Each:
+    :func:`check_scatter` (bit for bit its order's fp32 sums rounded
+    once), device, eager and plain ms, the library call (``index_add_`` of
+    g.float() into fp32 zeros, then the cast to bf16), the cluster plan's
+    ms in the same run ("cluster_plan_ms": ``large_table_plan`` forced
+    false), the two kernels' device ms (``kernel_split``) and the bound
+    (bf16 g, ids and bf16 output once each). The planted fault: on the
+    two-round batch, the order model with each row's segment sums added
+    last segment first must differ from the kernel's bits; the batch holds
+    one row whose three updates, one in each of the first three segments,
+    are 2^24, -2^24 and 0.5 (in segment order 0.5, backwards 0), so that
+    the fault shows through the rounding to bf16. The key edges:
+    KEY_EDGE_IDS seeded normal rows into 2^21 - 1, 2^21 and 2^21 + 1 rows
+    (32-bit sort keys below 2^21 rows, 64-bit from there) with row V - 1
+    at the last place of the first two segments (directly and as -1), the
+    largest key each table gives: :func:`check_scatter`, bit for bit."""
+    from deep_recommenders_torch.ops import embedding_kernels as ek
+
+    n, c = g.shape
+    two_g = torch.randn(TWO_ROUND_IDS, c, device=device,
+                        generator=gen).to(torch.bfloat16)
+    two_ids = torch.randint(0, LARGE_TABLE_ROWS, (TWO_ROUND_IDS,),
+                            device=device, generator=gen, dtype=torch.int32)
+    hot = torch.rand(TWO_ROUND_IDS, device=device, generator=gen) < 0.25
+    two_ids[hot] = LARGE_TABLE_ROWS // 3
+    segment = ek.segment_length(c)
+    fault_row = LARGE_TABLE_ROWS // 3 + 1
+    two_ids[two_ids == fault_row] = fault_row + 1
+    for k, value in enumerate((2.0**24, -2.0**24, 0.5)):
+        two_ids[k * segment] = fault_row
+        two_g[k * segment] = value
+    cases = {
+        "large_table": (g, large_ids, LARGE_TABLE_ROWS),
+        "rows_4m": (g, torch.randint(0, LARGE_TABLE_ROWS_4M, (n,),
+                                     device=device, generator=gen,
+                                     dtype=torch.int32),
+                    LARGE_TABLE_ROWS_4M),
+        "two_rounds": (two_g, two_ids, LARGE_TABLE_ROWS),
+    }
+    real, fields = ek.large_table_plan, {}
+    for name, (gg, ids, v) in cases.items():
+        m, cc = gg.shape
+        if not ek.large_table_plan(m, cc, v):
+            raise AssertionError(f"K1 at {v} rows: not the large-table plan")
+        ids_long = ids.long()
+        b_ms, b_by = bound(m * cc * 2 + m * 4 + v * cc * 2, m * cc)
+        call = (lambda gg=gg, ids=ids, v=v: scatter_add_rows(gg, ids, v))
+        ek.large_table_plan = lambda *a: False
+        try:
+            cluster_ms = graph_ms(call, 10, 4)
+        finally:
+            ek.large_table_plan = real
+        fields[name] = {
+            "shape": {"g": [m, cc], "dtype": "bfloat16", "num_rows": v},
+            **check_scatter(gg, ids, v, calls=2),
+            **timings(call,
+                      lambda: scatter_add_rows_reference(gg, ids, v),
+                      lambda: torch.zeros(v, cc, device=device).index_add_(
+                          0, ids_long, gg.float()).to(torch.bfloat16),
+                      iters=20, replays=5, eager_iters=20),
+            "cluster_plan_ms": cluster_ms,
+            "kernel_split": kernel_times(call, top=2),
+            "host_us": host_us(call),
+            "bound_ms": b_ms, "bound_us": b_ms * 1e3, "bound_by": b_by,
+        }
+        print(f"K1 large-table plan, {name}: " + json.dumps(fields[name]))
+    # The planted fault: the segments merged last to first.
+    gg, ids, v = cases["two_rounds"]
+    got = scatter_add_rows(gg, ids, v).cpu().view(torch.int16)
+    order = torch.cat([torch.arange(lo, min(lo + segment, TWO_ROUND_IDS))
+                       for lo in reversed(range(0, TWO_ROUND_IDS, segment))])
+    g_cpu, ids_cpu = gg.cpu().float(), ids.cpu()
+    fault = ek.scatter_add_rows_in_segments(
+        g_cpu[order], ids_cpu[order], v).to(torch.bfloat16).view(torch.int16)
+    rows_off = int((fault != got).any(1).sum())
+    if rows_off == 0 or torch.equal(fault[fault_row], got[fault_row]):
+        raise AssertionError("K1 large-table plan: a row summed out of "
+                             "segment order is not rejected")
+    print(f"K1 large-table plan: a row's segment sums added last segment "
+          f"first differ from the kernel in {rows_off} rows (rejected)")
+    edges = {}
+    edge_g = torch.randn(KEY_EDGE_IDS, c, device=device,
+                         generator=gen).to(torch.bfloat16)
+    for v in (2**21 - 1, 2**21, 2**21 + 1):
+        ids = torch.randint(0, v, (KEY_EDGE_IDS,), device=device,
+                            generator=gen, dtype=torch.int32)
+        ids[segment - 1], ids[2 * segment - 1] = v - 1, -1
+        if not ek.large_table_plan(KEY_EDGE_IDS, c, v):
+            raise AssertionError(f"K1 at {v} rows: not the large-table plan")
+        edges[str(v)] = check_scatter(edge_g, ids, v, calls=1)[
+            "bitwise_equal"]
+    print(f"K1 large-table plan, key edges (row V - 1 at place 2047), bit "
+          f"for bit: {json.dumps(edges)}")
+    entry = {
+        "name": "scatter_add_rows.bf16_large",
+        "route": "cuda",
+        "source": "deep_recommenders_torch/csrc/scatter_add_rows.cu",
+        "replaces": "deep_recommenders_tpu/ops/embedding_kernels.py:90",
+        "function": "scatter_add_rows_bf16_large",
+        **fields["large_table"],
+        "rows_4m": fields["rows_4m"],
+        "two_rounds": fields["two_rounds"],
+        "planted": {"segments_out_of_order_rows_differing": rows_off},
+        "key_edges_bit_equal": edges,
+        "library": "index_add_ of g.float() into fp32 torch.zeros, then "
+                   ".to(torch.bfloat16)",
+        "large_table_row_rounds": ek.LARGE_TABLE_ROW_ROUNDS,
+    }
+    del cases, two_g, two_ids
+    torch.cuda.empty_cache()
+    return entry
+
+
 def check_fm(emb):
     """K2 against its plain version on the same embeddings (fp32 or bf16,
     both widened to fp32): sums over F and D in fp32 in two orders, so the
@@ -884,6 +1032,8 @@ def kernel_phase(ds: MovielensRanking, model: DeepFM, device):
     entries[-1]["esmm"] = esmm_scatter_fields(ids, num_rows, gen, device)
     entries.append(scatter_bf16_entry(g.to(torch.bfloat16), ids, skewed,
                                       spread, num_rows, device, large_ids))
+    entries.append(scatter_bf16_large_entry(g.to(torch.bfloat16), large_ids,
+                                            gen, device))
 
     # K2 on the (B, F, D) embeddings of the same batch, in fp32 and bf16.
     b, f, d = emb32.shape
@@ -1113,6 +1263,7 @@ def make_xdeepfm(ds: MovielensRanking, maps, device) -> XDeepFM:
 def reset_launches() -> None:
     scatter_add_rows.launches = 0
     scatter_add_rows.launches_bf16 = 0
+    scatter_add_rows.launches_bf16_large = 0
     fm_interaction_fused.launches = 0
     ck.cin_stack_pooled.launches = {"fwd": 0, "bwd": 0}
     ck.cin2d.launches = {"fwd": 0, "bwd": 0}
@@ -1124,6 +1275,9 @@ def read_launches() -> dict:
     return {
         "scatter_add_rows": scatter_add_rows.launches,
         "scatter_add_rows_bf16": scatter_add_rows.launches_bf16,
+        # A parent's tree (--ctr-only) has no large-table plan.
+        "scatter_add_rows_bf16_large": getattr(
+            scatter_add_rows, "launches_bf16_large", 0),
         "fm_interaction_fused": fm_interaction_fused.launches,
         "cin_stack_pooled.fwd": ck.cin_stack_pooled.launches["fwd"],
         "cin_stack_pooled.bwd": ck.cin_stack_pooled.launches["bwd"],
@@ -1423,7 +1577,8 @@ class Bf16TableModel(torch.nn.Module):
         return first_order + fm_interaction(stacked) + deep_logit.float()
 
 
-def bf16_table_phase(ds: MovielensRanking, device) -> tuple:
+def bf16_table_phase(ds: MovielensRanking, device,
+                     name: str = "bf16_table") -> tuple:
     """The bf16-stored table: :class:`Bf16TableModel` trained one epoch
     (BF16_TABLE_EPOCHS) with the port's Adam at LEARNING_RATE (optax's
     order on the bf16 table) through ``fit_device``, evaluated with
@@ -1434,8 +1589,11 @@ def bf16_table_phase(ds: MovielensRanking, device) -> tuple:
     checkpoint round trip bit for bit; the logits on the card against the
     plain CPU path (nearer the CPU's bf16 logits than those lie to the
     same weights in fp32); ``AUC(from_logits=True)`` on raw logits equal to
-    ``AUC()`` on their sigmoid; the ms of a train step. Returns the
-    launches and the K1 fields for its kernel entry."""
+    ``AUC()`` on their sigmoid; the ms of a train step. A large table
+    (``name`` "bf16_table_large": hashed ids; ``large_table_plan``) takes
+    K1's large-table plan at every step, counted in
+    ``scatter_add_rows_bf16_large`` too. Returns the launches and the K1
+    fields for its kernel entry."""
     # Imported here: --ctr-only also runs in a parent's tree, which may
     # not have these.
     from deep_recommenders_torch.ops import embedding_kernels as ek
@@ -1452,11 +1610,17 @@ def bf16_table_phase(ds: MovielensRanking, device) -> tuple:
     bf16 = torch.bfloat16
     model = Bf16TableModel(
         specs, generator=torch.Generator().manual_seed(SEED)).to(device)
+    table_rows = model.embeddings.table.shape[0]
+    large = ek.large_table_plan(BATCH, EMBED_DIM + 1, table_rows)
+    if large != (name == "bf16_table_large"):
+        raise AssertionError(f"{name}: a table of {table_rows} rows")
     train = DeviceData.from_numpy(*ds.train_arrays(), BATCH, device=device)
     test = DeviceData.from_numpy(*ds.test_arrays(), BATCH, device=device)
     trainer, launches, final = train_path(
-        "bf16_table", model, train, test, BF16_TABLE_EPOCHS,
-        lambda s, e: {"scatter_add_rows_bf16": s}, device,
+        name, model, train, test, BF16_TABLE_EPOCHS,
+        lambda s, e: {"scatter_add_rows_bf16": s,
+                      **({"scatter_add_rows_bf16_large": s} if large
+                         else {})}, device,
         optimizer=Adam(model.parameters(), lr=LEARNING_RATE),
         eval_spec=BinaryCTREval(model, auc=AUC(num_thresholds=500)))
     table = model.embeddings.table
@@ -1465,7 +1629,7 @@ def bf16_table_phase(ds: MovielensRanking, device) -> tuple:
                                                       .dtype),
               "exp_avg_sq": str(state["exp_avg_sq"].dtype)}
     if set(dtypes.values()) != {str(bf16)}:
-        raise AssertionError(f"bf16_table: dtypes after training {dtypes}")
+        raise AssertionError(f"{name}: dtypes after training {dtypes}")
 
     # One more step, its K1 input kept: the real bf16 gradient of the rows.
     feats, labels = ds.train_arrays()
@@ -1486,7 +1650,7 @@ def bf16_table_phase(ds: MovielensRanking, device) -> tuple:
         ek.scatter_add_rows = real
     g, ids, v = seen["g"], seen["ids"], seen["num_rows"]
     if g.dtype != bf16:
-        raise AssertionError(f"bf16_table: K1 got {g.dtype} g")
+        raise AssertionError(f"{name}: K1 got {g.dtype} g")
     n, c = g.shape
     k1 = {"shape": {"g": [n, c], "dtype": "bfloat16", "num_rows": v},
           **check_scatter(g, ids, v),
@@ -1515,11 +1679,10 @@ def bf16_table_phase(ds: MovielensRanking, device) -> tuple:
     round_trip &= all(torch.equal(a.detach(), b.detach()) for a, b in zip(
         fresh.parameters(), model.parameters()))
     if not round_trip:
-        raise AssertionError("bf16_table: checkpoint round trip changed "
-                             "bits")
+        raise AssertionError(f"{name}: checkpoint round trip changed bits")
     del fresh, opt
 
-    check_logits("bf16_table", model, Bf16TableModel(specs), ds, device,
+    check_logits(name, model, Bf16TableModel(specs), ds, device,
                  fp32_model=Bf16TableModel(specs,
                                            param_dtype=torch.float32))
     test_feats, test_labels = ds.test_arrays()
@@ -1533,12 +1696,12 @@ def bf16_table_phase(ds: MovielensRanking, device) -> tuple:
     on_logits = from_logits.update(from_logits.init(device), y, logits)
     same_auc = all(torch.equal(on_probs[k], on_logits[k]) for k in on_probs)
     if not same_auc:
-        raise AssertionError("bf16_table: AUC(from_logits=True) differs "
-                             "from AUC() on the sigmoid")
+        raise AssertionError(f"{name}: AUC(from_logits=True) differs from "
+                             "AUC() on the sigmoid")
     step_ms = time_ms(lambda: trainer.train_step(batch, y_train), iters=10,
                       warmup=2)
     summary = {
-        "card": card_line(), "launches": launches,
+        "card": card_line(), "launches": launches, "table_rows": table_rows,
         "k1_bf16_on_a_step_gradient": {
             key: k1[key] for key in ("bitwise_equal", "deterministic",
                                      "max_abs_err", "ms", "eager_ms",
@@ -1549,7 +1712,7 @@ def bf16_table_phase(ds: MovielensRanking, device) -> tuple:
         "eval_auc": final["auc"], "eval": final, "train_step_ms": step_ms,
         "seconds": time.perf_counter() - t0,
     }
-    print("bf16_table " + json.dumps(summary))
+    print(f"{name} " + json.dumps(summary))
     del model, trainer
     torch.cuda.empty_cache()
     return launches, k1
@@ -2595,17 +2758,104 @@ def narrow_attention_phase(imdb: SyntheticImdb, device,
     return entries
 
 
-def attention_width_path(device, d: int) -> dict:
+# The mangled stem of the bf16 K5 above 2048: fwd_cluster<4, kReduce>.
+REDUCE_STEMS = ("fwd_clusterILi4ELi3EE",)
+
+
+def cluster_placement() -> dict:
+    """How many clusters of the bf16 K5 the card places at once, by blocks
+    a cluster: G = 2-16 at D = 256 G (cudaOccupancyMaxActiveClusters of
+    the instance each width launches, with its shared memory)."""
+    fn = _build.function("flash_attention_cluster_bf16",
+                         "flash_attention_cluster_fwd_bf16_placement",
+                         [ctypes.c_int, ctypes.c_void_p])
+    placement = {}
+    for group in range(2, 17):
+        held = ctypes.c_int(0)
+        _build.check(fn(256 * group, ctypes.byref(held)),
+                     f"cluster placement at {group} blocks")
+        placement[group] = held.value
+    print("flash_attention_cluster_bf16 placement (clusters held at once, by "
+          "blocks a cluster; one block an SM): " + json.dumps(placement))
+    return placement
+
+
+def reduce_scatter_attention_phase(imdb: SyntheticImdb, device,
+                                   cluster_ptxas: dict) -> list:
+    """The bf16 K5 above 2048 on clusters of 9-16 blocks
+    (``fwd_cluster<4, kReduce>`` of csrc/flash_attention_cluster_bf16.cu:
+    a reduce-scatter of the blocks' partial scores, then an all-gather),
+    with the bf16 K6 of csrc/flash_attention_wide_bf16.cu beside it:
+    the placement line (:func:`cluster_placement`); at
+    ``TIMED_SHAPES["d2304"]`` = (32, TX_LEN, 2304), clusters of 9, on one
+    SyntheticImdb batch's key masks, the bf16 kernel phase's checks (the
+    forward's planted fault: the last block's partial scores lost), times,
+    bounds and library calls (entries ``*.d2304``); at
+    ``TIMED_SHAPES["d4096"]`` = (16, TX_LEN, 4096), clusters of 16,
+    ``check_forward_bf16`` with the same planted fault, ms and the
+    library's (the forward entry's "d4096"); two calls bit for bit at both,
+    non-causal and causal; the instance's ptxas summary and SASS counts
+    (HGMMA, UTMALDG, UTMASTG, no HMMA)."""
+    placement = cluster_placement()
+    sass = check_cluster_sass()
+    same, wide = {}, {}
+    for which in ("d2304", "d4096"):
+        q, k, v, g, mask = wide_attention_inputs(imdb, device, torch.bfloat16,
+                                                 which)
+        for causal in (False, True):
+            runs = [att.flash_attention(q, k, v, mask, causal,
+                                        return_lse=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            same[f"{which}/causal={causal}"] = all(
+                torch.equal(a, b) for a, b in zip(*runs))
+            if which == "d4096":
+                checks = at.check_forward_bf16(runs[0], q, k, v, mask, causal,
+                                               planted_partial=True)
+                wide[f"causal={causal}"] = {
+                    "worst_share": ct.worst_share(checks),
+                    "less_a_partial": checks["planted"]["partial_dropped"],
+                    "ms": graph_ms(lambda: att.flash_attention(
+                        q, k, v, mask, causal), 5, 4),
+                    "library_ms": library_fields(q, k, v, mask, causal,
+                                                 heads=1)["library_ms"]}
+                print(f"flash_attention_bf16.fwd.d4096 causal={causal}: "
+                      + json.dumps(wide[f"causal={causal}"]))
+            del runs
+        del q, k, v, g, mask
+    if not all(same.values()):
+        raise AssertionError(f"bf16 K5 above 2048: two calls differ {same}")
+    print(f"flash_attention_bf16.fwd.d2304/d4096 two calls bit for bit: "
+          f"{same}")
+    entries = attention_bf16_kernel_phase(
+        imdb, device, wide_attention_inputs(imdb, device, torch.bfloat16,
+                                            "d2304"),
+        heads=1, suffix=".d2304")
+    bh, d = TIMED_SHAPES["d2304"]
+    fwd = entries[0]
+    fwd.update(function=att._kernel(torch.bfloat16, d, False, bh, TX_LEN)[1],
+               placement=placement, two_calls_bit_equal=same, d4096=wide,
+               ptxas=instances(cluster_ptxas.get("kernels", {}),
+                               REDUCE_STEMS),
+               sass=instances(sass, REDUCE_STEMS))
+    if len(fwd["sass"]) != len(REDUCE_STEMS):
+        raise AssertionError(f"bf16 K5 above 2048: SASS {fwd['sass']}")
+    torch.cuda.empty_cache()
+    return entries
+
+
+def attention_width_path(device, d: int,
+                         dtypes=(torch.float32, torch.bfloat16)) -> dict:
     """A wide head width's main path: ``attention()`` over the memory
-    budget at head width ``d``, (BH, S) = (HW_WIDE_BH, HW_LEN), in fp32
-    and then in bf16, forward and backward, with seeded post-padding key
-    masks. It must warn of nothing and launch the fp32 and the bf16 K5
-    and K6 once each (D padded to ``kernel_head_dim(d)``: 256 for 200,
-    320 for 257; 128 as it is, the bf16 kernels' one-block instances in
-    csrc/flash_attention_cluster_bf16.cu), and agree with the plain
-    versions at the true D
-    (``ops/attention_tolerances.py``) on HW_CHUNK rows. Returns the
-    launches of the two calls."""
+    budget at head width ``d``, (BH, S) = (HW_WIDE_BH, HW_LEN), in each of
+    ``dtypes`` (fp32 and then bf16), forward and backward, with seeded
+    post-padding key masks. It must warn of nothing and launch K5 and K6
+    once each in each dtype (D padded to ``kernel_head_dim(d)``: 256 for
+    200, 320 for 257, 2304 for 2300; 128 as it is, the bf16 kernels'
+    one-block instances in csrc/flash_attention_cluster_bf16.cu; at 2300
+    the bf16 K5 on clusters of 9 blocks and the streamed K6 of
+    csrc/flash_attention_wide_bf16.cu), and agree with
+    the plain versions at the true D (``ops/attention_tolerances.py``) on
+    HW_CHUNK rows. Returns the launches of the calls."""
     name = f"attention_d{d}"
     gen = torch.Generator(device=device).manual_seed(SEED + d)
     bh, s, width = HW_WIDE_BH, HW_LEN, att.kernel_head_dim(d)
@@ -2617,7 +2867,7 @@ def attention_width_path(device, d: int) -> dict:
             < lengths[:, None]).float()
     reset_launches()
     runs = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes:
         q, k, v, g = (torch.randn(bh, s, d, device=device, generator=gen)
                       .to(dtype) for _ in range(4))
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -2629,7 +2879,7 @@ def attention_width_path(device, d: int) -> dict:
     torch.cuda.synchronize()
     launches = read_launches()
     want = {key: 0 for key in launches}
-    for key in (*flash_keys(torch.float32), *flash_keys(torch.bfloat16)):
+    for key in itertools.chain(*map(flash_keys, dtypes)):
         want[key] = 1
     if launches != want:
         raise AssertionError(f"{name}: launches {launches}, expected {want}")
@@ -4965,6 +5215,9 @@ ENTRY_PATH = {
     "flash_attention_bf16.bwd.d64": "transformer_seq2seq_bf16_2x64",
     "flash_attention_bf16.fwd.d128": "attention_d128",
     "flash_attention_bf16.bwd.d128": "attention_d128",
+    "flash_attention_bf16.fwd.d2304": "attention_d2304",
+    "flash_attention_bf16.bwd.d2304": "attention_d2304",
+    "scatter_add_rows.bf16_large": "bf16_table_large",
 }
 
 
@@ -4980,11 +5233,15 @@ SERVED_PATH = {
 
 # An entry whose launch counter has another name: K2 on bf16 embeddings is
 # the same wrapper, counted in fm_interaction_fused.launches; K1 on bf16 g
-# is counted in scatter_add_rows.launches_bf16; the D = 256 and D > 256
-# instances of K5 and K6, and the bf16 ones at D = 64 and 128, in their
-# dtype's counters, on the paths that run those widths alone.
+# is counted in scatter_add_rows.launches_bf16, its large-table plan also
+# in scatter_add_rows.launches_bf16_large; the D = 256 and D > 256
+# instances of K5 and K6, and the bf16 ones at D = 64, 128 and 2304, in
+# their dtype's counters, on the paths that run those widths alone.
 COUNTER = {"fm_interaction_fused.bf16": "fm_interaction_fused",
            "scatter_add_rows.bf16": "scatter_add_rows_bf16",
+           "scatter_add_rows.bf16_large": "scatter_add_rows_bf16_large",
+           "flash_attention_bf16.fwd.d2304": "flash_attention_bf16.fwd",
+           "flash_attention_bf16.bwd.d2304": "flash_attention_bf16.bwd",
            **{f"{k}.{which}": k for k in (
                "flash_attention.fwd", "flash_attention.bwd",
                "flash_attention_bf16.fwd", "flash_attention_bf16.bwd")
@@ -5087,15 +5344,30 @@ def main(argv=()) -> int:
     entries += attention_bf16_kernel_phase(imdb, device)
     entries += wide_attention_phase(imdb, device)
     entries += narrow_attention_phase(imdb, device, cluster_ptxas)
+    entries += reduce_scatter_attention_phase(imdb, device, cluster_ptxas)
     head_widths = head_width_phase(device)
     print(f"kernel phase done ({time.perf_counter() - t0:.1f} s)")
     paths = train_phase(ds, model, device)
     paths["bf16_table"], bf16_k1 = bf16_table_phase(ds, device)
     next(e for e in entries
          if e["name"] == "scatter_add_rows.bf16")["bf16_table"] = bf16_k1
+    hashed = MovielensRanking(
+        batch_size=BATCH, num_ratings=NUM_RATINGS, seed=SEED,
+        features=default_movielens_features(
+            user_hash_buckets=LARGE_TABLE_BUCKETS,
+            movie_hash_buckets=LARGE_TABLE_BUCKETS))
+    paths["bf16_table_large"], large_k1 = bf16_table_phase(
+        hashed, device, "bf16_table_large")
+    del hashed
+    k1_large = next(e for e in entries
+                    if e["name"] == "scatter_add_rows.bf16_large")
+    k1_large["bf16_table_large"] = large_k1
+    k1_large["ptxas"] = ptxas_summary(logs.get("scatter_add_rows", ""))
     paths["attention_d200"] = attention_width_path(device, 200)
     paths["attention_d257"] = attention_width_path(device, 257)
     paths["attention_d128"] = attention_width_path(device, 128)
+    paths["attention_d2304"] = attention_width_path(device, 2300,
+                                                    (torch.bfloat16,))
     served, serving = serving_phase(ds, model, imdb, device)
     paths["esmm"] = esmm_path(ds, device)[0]
     del model

@@ -1,4 +1,4 @@
-// K5 in bf16 at head widths D = 128 and from 256 to 2048, and K6 at D = 64,
+// K5 in bf16 at head widths D = 128 and from 256 to 4096, and K6 at D = 64,
 // 128 and above 256 to 2048 (a multiple of 64), on wgmma fed by TMA, at the
 // TPU kernels' bf16 contract
 // (flash_attention_bf16.cu's: fp32 scores of bf16 operands, fp32 softmax
@@ -10,10 +10,10 @@
 // :199) and _flash_backward_impl (K6, :377; bodies _flash_bwd_dq_kernel
 // :285 and _flash_bwd_dkv_kernel :326, pallas_calls :436 and :463). The
 // layout, the masks, the scale, lse and delta are flash_attention_bf16.cu's.
-// Above 2048 (more blocks than a portable cluster holds) K5 and K6 stay
-// flash_attention_wide_bf16.cu's, and so does K6 at D = 256 (one block,
-// nothing to exchange). K6 is described after K5, and the one-block
-// kernels of D = 64 and 128 after both.
+// K6 above 2048 (more blocks than a portable cluster holds) stays
+// flash_attention_wide_bf16.cu's, and so does K5 above 4096 and K6 at
+// D = 256 (one block, nothing to exchange). K6 is described after K5, and
+// the one-block kernels of D = 64 and 128 after both.
 //
 // What bounds it. At (BH 256, S 512, D 256) with a SyntheticImdb batch's
 // masks K5 needs 4 D products a scored pair (43 GFLOP non-causal, 0.044 ms
@@ -23,8 +23,9 @@
 // and a block that scored over all of D for such a share would score
 // every pair D / 256 times. So, as FlashAttention-3's forward, on a
 // cluster that splits D:
-// - A cluster of G = ceil(D / 256) blocks (one at D = 256, at most 8)
-//   serves 128 query rows; block r owns NC = ceil(D / 64 / G) 64-column
+// - A cluster of G = ceil(D / 256) blocks (one at D = 256, at most 16;
+//   above the portable 8 the kernel allows a non-portable size) serves
+//   128 query rows; block r owns NC = ceil(D / 64 / G) 64-column
 //   chunks of D (3 or 4) from column 64 NC r on, and scores and computes
 //   over them only. The shares are even: the cluster advances at the pace
 //   of its widest block, so a narrower last block would wait, not finish
@@ -54,11 +55,16 @@
 //   peer's slot with st.async, counted in bytes on the peer's full barrier
 //   (complete_tx: no fence), and adds the peer's from its own slot (one
 //   addition, the same bits either way round). G > 2: each writes its
-//   partial into its own slot and arrives on each peer's full barrier
+//   partial into its own slot and arrives on every rank's full barrier
 //   (mbarrier.arrive.release.cluster, through mapa); once its own
-//   completes (acquire at cluster scope) it adds the G partials in rank
-//   order, the peers' read through distributed shared memory
-//   (ld.shared::cluster). Either way it then hands the slot back with an
+//   completes (acquire at cluster scope) it sums its 1 / G slice of the
+//   tile over the G partials in rank order into its own slot (a
+//   reduce-scatter, the peers' read through distributed shared memory,
+//   ld.shared::cluster), arrives on every rank's second barrier, and once
+//   that completes reads each fragment from its slice's owner (an
+//   all-gather): 2 (G - 1) / G slots a tile where a pull of every peer's
+//   partial read G - 1, and every score the rank-order sum of its G
+//   partials all the same. Either way it then hands the slot back with an
 //   arrival on each peer's empty barrier, at the CTA scope with which a
 //   TMA pipeline hands a stage back to a multicasting peer (a slot only
 //   read). The barriers are per warpgroup and per slot: no cluster-wide
@@ -84,13 +90,14 @@
 //   last partial.
 //
 // Shared memory (NC = 4, G > 1): q 64 KB, the K and V rings 2 x 2 x 32 KB,
-// the two partial slots 32 KB, the rings' tile entries and 13 mbarriers:
-// 229,512 of the 232,448 bytes a block may have (no slots at G = 1).
+// the two partial slots 32 KB, the rings' tile entries and 13 mbarriers
+// (15 to reduce-scatter): 229,512 (229,528) of the 232,448 bytes a block
+// may have (no slots at G = 1).
 //
-// ptxas (-Xptxas -v, sm_90a, CUDA 12.9): 168 registers at launch (232 for
-// the consumers after setmaxnreg) in every instance; spill stores / loads
-// one block (NC 4) 656 / 660 bytes, push NC 3 84 / 100 and NC 4 720 / 908,
-// pull NC 3 116 / 112 and NC 4 1040 / 1360; and in every instance "wgmma
+// ptxas (-Xptxas -v, sm_90a): 168 registers at launch (232 for the
+// consumers after setmaxnreg) in every instance; spill stores / loads one
+// block (NC 4) 656 / 660 bytes, push NC 3 52 / 56 and NC 4 648 / 820, pull
+// NC 3 116 / 112, reduce NC 4 688 / 824; and in every instance "wgmma
 // serialized due to insufficient register resources" (C7512): every wgmma
 // waits for the one before.
 //
@@ -234,6 +241,9 @@ constexpr int kC = 64;                   // columns of D in a chunk
 constexpr int CHUNK = 64 * kC;           // bf16 of a chunk (8 KB)
 constexpr int kMaxChunks = 4;            // chunks a block owns, at most
 constexpr int kClusterMax = 8;           // blocks a cluster: the portable most
+// K5's clusters above 2048 (D up to 4096): Hopper places clusters of up to
+// 16 blocks once a kernel allows a non-portable size.
+constexpr int kClusterMaxFwd = 16;
 constexpr int kWgRows = 64;              // query rows of a warpgroup
 constexpr int kRows = 2 * kWgRows;       // query rows of a block
 constexpr int kKeys = 64;                // keys of a tile
@@ -255,8 +265,8 @@ constexpr int kWalkProducerRegs = 56, kWalkConsumerRegs = 224;
 // Shared memory of a block of NC chunks: q [warpgroup][chunk][64][64], the
 // K and V rings [stage][chunk][64][64], with G > 1 (SPLIT) the partial
 // slots [warpgroup][8][128] float4, the K ring's tile entries, the
-// mbarriers.
-template <int NC, bool SPLIT>
+// mbarriers (kExtraBars more for the reduce-scatter's second phase).
+template <int NC, bool SPLIT, int kExtraBars = 0>
 struct Layout {
   static constexpr uint32_t kTileBytes = sizeof(bf16) * NC * CHUNK;
   static constexpr size_t kQ = 0;
@@ -266,17 +276,20 @@ struct Layout {
   static constexpr size_t kInfo =
       kX + (SPLIT ? 2 * sizeof(float) * kWgRows * kKeys : 0);
   static constexpr size_t kBar = kInfo + sizeof(uint4) * kStages;
-  // full q; full and empty K and V; full and empty slots
-  static constexpr int kBars = 1 + 4 * kStages + 4;
+  // full q; full and empty K and V; full and empty slots; (reduce-scatter)
+  // the summed slices
+  static constexpr int kBars = 1 + 4 * kStages + 4 + kExtraBars;
   static constexpr size_t kBytes = kBar + sizeof(uint64_t) * kBars;
   static_assert(kBytes <= kMaxSmem, "a block's shared memory");
 };
 
 // How the blocks of a cluster exchange partial scores: not at all (one
 // block); push (two blocks: each writes its partial into the other's slot
-// with st.async); pull (more: each reads every peer's partial from the
-// peer's slot).
-enum Exchange { kSolo, kPush, kPull };
+// with st.async); pull (K6's 3-8 blocks, K5's 3 blocks of 3 chunks: each
+// reads every peer's partial from the peer's slot); reduce (K5's other
+// clusters of 3-16 blocks: a reduce-scatter, then an all-gather of the
+// summed slices).
+enum Exchange { kSolo, kPush, kPull, kReduce };
 
 // Named barriers (0 is __syncthreads): the warpgroups' turns to issue, and
 // each warpgroup's epilogue.
@@ -387,7 +400,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                 int sq, int sk, int d, int group, int causal,
                 float scale_log2) {
   constexpr bool SPLIT = X != kSolo;
-  using L = Layout<NC, SPLIT>;
+  using L = Layout<NC, SPLIT, X == kReduce ? 2 : 0>;
   constexpr uint32_t kTileBytes = L::kTileBytes;
   extern __shared__ __align__(1024) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem + L::kQ);
@@ -404,6 +417,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint64_t* empty_v = empty_k + kStages;
   uint64_t* full_x = empty_v + kStages;  // [warpgroup]
   uint64_t* empty_x = full_x + 2;
+  uint64_t* full_y = empty_x + 2;  // reduce: the summed slices [warpgroup]
 
   int rank = 0;
   if constexpr (SPLIT)
@@ -427,10 +441,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     if constexpr (SPLIT) {
       for (int w = 0; w < 2; ++w) {
         // Push: one local arrival that expects the peer's 16 KB; pull: one
-        // arrival from each warp of the peers' same warpgroup. Empty: one
-        // from each warp of the peers' same warpgroup.
-        mbar_init(&full_x[w], X == kPush ? 1 : 4 * (group - 1));
+        // arrival from each warp of the peers' same warpgroup; reduce: also
+        // from this block's own (its threads read each other's partials),
+        // and the same again for the summed slices. Empty: one from each
+        // warp of the peers' same warpgroup.
+        mbar_init(&full_x[w], X == kPush   ? 1
+                              : X == kPull ? 4 * (group - 1)
+                                           : 4 * group);
         if constexpr (X == kPush) mbar_expect_tx(&full_x[w], kSlotBytes);
+        if constexpr (X == kReduce) mbar_init(&full_y[w], 4 * group);
         mbar_init(&empty_x[w], 4 * (group - 1));
       }
     }
@@ -562,9 +581,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int j = 0; j < kSlotQuads; ++j)
         slot[j * 128] = make_float4(s[j][0], s[j][1], s[j][2], s[j][3]);
       __syncwarp();
-      if (lane == 0)
-        for (int r = 0; r < group; ++r)
-          if (r != rank) mbar_arrive_peer<true>(&full_x[wg], r);
+      // An arrival on each peer's barrier (reduce: this block's own too):
+      // lane r on rank r's, all at once.
+      if (lane < group && (X == kReduce || lane != rank))
+        mbar_arrive_peer<true>(&full_x[wg], lane);
     }
   };
   auto receive = [&](int n) {
@@ -581,6 +601,50 @@ __global__ void __launch_bounds__(kThreads, 1)
         s[j][3] += x.w;
       }
       if (xt == 0) mbar_expect_tx(&full_x[wg], kSlotBytes);  // n + 1
+    } else if constexpr (X == kReduce) {
+      // Reduce-scatter: this block sums its slice of the tile (float4
+      // [lo, hi) of the slot, 1024 / G of them) over the G ranks' partials
+      // in rank order into its own slot; all-gather: each thread then reads
+      // its fragments from the slots of their slices' owners. Each score
+      // is the rank-order sum, as pull's; each block reads 2 (G - 1) / G
+      // slots a tile, where pull reads G - 1.
+      float4* base = xs + wg * kSlotQuads * 128;
+      mbar_wait<true>(&full_x[wg], n & 1);  // every rank's partial of n
+      const int lo = (rank << 10) / group, hi = ((rank + 1) << 10) / group;
+      for (int f = lo + xt; f < hi; f += 128) {
+        // A rank at a time: with eight ranks' loads in flight it ran 12-25%
+        // slower (tools/wide_cluster_variants.py, "batched_loads").
+        float4 acc = base[f];
+        for (int r = 0; r < group; ++r) {
+          const float4 x = r == rank ? base[f]
+                                     : ld_cluster4(cluster_addr(base + f, r));
+          if (r == 0) {
+            acc = x;
+          } else {
+            acc.x += x.x;
+            acc.y += x.y;
+            acc.z += x.z;
+            acc.w += x.w;
+          }
+        }
+        base[f] = acc;
+      }
+      __syncwarp();
+      if (lane < group) mbar_arrive_peer<true>(&full_y[wg], lane);
+      mbar_wait<true>(&full_y[wg], n & 1);  // every slice of n summed
+#pragma unroll
+      for (int j = 0; j < kSlotQuads; ++j) {
+        const int f = j * 128 + xt;
+        const int owner = ((f + 1) * group - 1) >> 10;
+        const float4 x = owner == rank
+                             ? slot[j * 128]
+                             : ld_cluster4(cluster_addr(slot + j * 128,
+                                                        owner));
+        s[j][0] = x.x;
+        s[j][1] = x.y;
+        s[j][2] = x.z;
+        s[j][3] = x.w;
+      }
     } else {
       mbar_wait<true>(&full_x[wg], n & 1);  // the peers' partials of n
       // Rank 0's partial, this block's own read back from its shared
@@ -600,9 +664,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
     __syncwarp();
-    if (lane == 0)
-      for (int r = 0; r < group; ++r)
-        if (r != rank) mbar_arrive_peer<false>(&empty_x[wg], r);
+    // The slot back to each peer: lane r to rank r.
+    if (lane < group && lane != rank)
+      mbar_arrive_peer<false>(&empty_x[wg], lane);
   };
 
   mbar_wait(full_q, 0);
@@ -2413,37 +2477,76 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
 
 // -- the launches --------------------------------------------------------------
 
-// One launch of `blocks` blocks of `threads` threads and `bytes` of shared
-// memory in clusters of `group` blocks along x (none for group 1); a
-// cluster the card cannot place returns its error.
-template <typename... Args, typename... Actual>
-int launch(void (*kernel)(Args...), int64_t blocks, int threads,
-           size_t bytes, int group, cudaStream_t stream, Actual... args) {
-  const int err = configure(kernel, bytes, blocks);
-  if (err) return err;
-  cudaLaunchConfig_t config = {};
+// The launch of `blocks` blocks of `threads` threads and `bytes` of shared
+// memory in clusters of `group` blocks along x (none for group 1), into
+// config and its one attribute: the kernel's shared memory set and, above
+// the portable 8, a non-portable cluster size allowed. Returns the error.
+template <typename Kernel>
+int cluster_config(cudaLaunchConfig_t& config, cudaLaunchAttribute& cluster,
+                   Kernel kernel, int64_t blocks, int threads, size_t bytes,
+                   int group, cudaStream_t stream) {
+  int err = configure(kernel, bytes, blocks);
+  if (!err && group > kClusterMax)
+    err = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  config = {};
   config.gridDim = dim3((unsigned)blocks);
   config.blockDim = dim3(threads);
   config.dynamicSmemBytes = bytes;
   config.stream = stream;
-  cudaLaunchAttribute cluster[1];
-  cluster[0].id = cudaLaunchAttributeClusterDimension;
-  cluster[0].val.clusterDim.x = (unsigned)group;
-  cluster[0].val.clusterDim.y = 1;
-  cluster[0].val.clusterDim.z = 1;
-  config.attrs = cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = (unsigned)group;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  config.attrs = &cluster;
   config.numAttrs = group > 1 ? 1 : 0;
+  return err;
+}
+
+// One such launch; a cluster the card cannot place returns its error.
+template <typename... Args, typename... Actual>
+int launch(void (*kernel)(Args...), int64_t blocks, int threads,
+           size_t bytes, int group, cudaStream_t stream, Actual... args) {
+  cudaLaunchConfig_t config;
+  cudaLaunchAttribute cluster;
+  const int err = cluster_config(config, cluster, kernel, blocks, threads,
+                                 bytes, group, stream);
+  if (err) return err;
   const cudaError_t launched = cudaLaunchKernelEx(&config, kernel, args...);
   return (int)(launched != cudaSuccess ? launched : cudaGetLastError());
 }
 
-// The cluster of a head width d (a multiple of 64 up to 2048): (blocks,
+// The cluster of a head width d (a multiple of 64 up to 4096): (blocks,
 // chunks a block), ceil(d / 256) blocks of an even share of 3 or 4 chunks
-// (one block of d / 64 up to 256).
+// (one block of d / 64 up to 256; 9-16 blocks of 4 above 2048).
 int2 split_of(int d) {
   const int nc = d / kC;
   const int group = (nc + kMaxChunks - 1) / kMaxChunks;
   return make_int2(group, (nc + group - 1) / group);
+}
+
+// K5's cluster kernel for a split (from 256 on) and its shared memory:
+// one block, a push between two, a reduce-scatter among more, but for the
+// one split of more than two blocks of 3 chunks (D = 576), which pulls:
+// there the reduce-scatter ran 17% (21% causal) slower, and from D = 640
+// on, where a pull at 4 chunks spills more, 10-75% faster than the same
+// pull (tools/wide_cluster_variants.py, "reduce_at_three_chunks" and
+// "pull_everywhere").
+using FwdKernel = decltype(&fwd_cluster<4, kSolo>);
+struct FwdInstance {
+  FwdKernel kernel;
+  size_t bytes;
+};
+template <int NC, int X>
+FwdInstance fwd_instance() {
+  using L = Layout<NC, X != kSolo, X == kReduce ? 2 : 0>;
+  return {fwd_cluster<NC, X>, L::kBytes};
+}
+FwdInstance fwd_instance(int2 split) {
+  if (split.x == 1) return fwd_instance<4, kSolo>();
+  if (split.x == 2)
+    return split.y == 3 ? fwd_instance<3, kPush>() : fwd_instance<4, kPush>();
+  return split.y == 3 ? fwd_instance<3, kPull>() : fwd_instance<4, kReduce>();
 }
 
 // 64-column boxes of `rows` rows of a (bh, n, d) tensor in wgmma's 128-byte
@@ -2519,9 +2622,11 @@ int bwd(const CUtensorMap (&m)[9], const float* mask, const float* lse,
 }  // namespace
 
 // K5 in bf16 at a head width d = 128 (fwd_solo: one block walking items
-// on a persistent grid) or 256 <= d <= 2048, d a multiple of 64, in
-// clusters of ceil(d / 256) blocks (one block at d = 256). Arguments as
-// flash_attention_fwd_bf16's (flash_attention_bf16.cu).
+// on a persistent grid) or 256 <= d <= 4096, d a multiple of 64, in
+// clusters of ceil(d / 256) blocks (fwd_instance: one block at d = 256,
+// two that push, 3-16 that reduce-scatter, three of 3 chunks that pull;
+// above the portable 8 a non-portable size). Arguments as flash_attention_fwd_bf16's
+// (flash_attention_bf16.cu).
 extern "C" int flash_attention_cluster_fwd_bf16(const bf16* q, const bf16* k,
                                                 const bf16* v,
                                                 const float* mask, bf16* out,
@@ -2531,7 +2636,7 @@ extern "C" int flash_attention_cluster_fwd_bf16(const bf16* q, const bf16* k,
                                                 cudaStream_t stream) {
   if (!aligned(q) || !aligned(k) || !aligned(v) || !aligned(out) ||
       (d != 2 * kC && d < kMaxChunks * kC) ||
-      d > kClusterMax * kMaxChunks * kC || d % kC)
+      d > kClusterMaxFwd * kMaxChunks * kC || d % kC)
     return (int)cudaErrorInvalidValue;
   const int2 split = split_of(d);
   const int group = split.x;
@@ -2545,18 +2650,30 @@ extern "C" int flash_attention_cluster_fwd_bf16(const bf16* q, const bf16* k,
     return launch(fwd_solo<2>, walk_blocks(items, (sq + kRows - 1) / kRows),
                   kThreads, FwdSoloLayout<2>::kBytes, 1, stream, qm, km, vm,
                   om, mask, lse, bh, sq, sk, causal, scale_log2);
-#define LAUNCH(NC, X)                                                        \
-  return launch(fwd_cluster<NC, X>, items * group, kThreads,                 \
-                Layout<NC, X != kSolo>::kBytes, group, stream, qm, km, vm,   \
-                om, mask, lse, sq, sk, d, group, causal, scale_log2)
-  if (group == 1) LAUNCH(4, kSolo);
-  if (group == 2) {
-    if (split.y == 3) LAUNCH(3, kPush);
-    LAUNCH(4, kPush);
-  }
-  if (split.y == 3) LAUNCH(3, kPull);
-  LAUNCH(4, kPull);
-#undef LAUNCH
+  const FwdInstance f = fwd_instance(split);
+  return launch(f.kernel, items * group, kThreads, f.bytes, group, stream, qm,
+                km, vm, om, mask, lse, sq, sk, d, group, causal, scale_log2);
+}
+
+// How many clusters of K5 at head width d (256 < d <= 4096, clusters of
+// more than one block) the card places at once
+// (cudaOccupancyMaxActiveClusters of the instance d launches, with its
+// shared memory): into *clusters. Returns the CUDA error, or
+// cudaErrorInvalidValue for a width without clusters.
+extern "C" int flash_attention_cluster_fwd_bf16_placement(int d,
+                                                          int* clusters) {
+  if (d <= kMaxChunks * kC || d > kClusterMaxFwd * kMaxChunks * kC ||
+      d % kC)
+    return (int)cudaErrorInvalidValue;
+  const int2 split = split_of(d);
+  const FwdInstance f = fwd_instance(split);
+  cudaLaunchConfig_t config;
+  cudaLaunchAttribute cluster;
+  const int err = cluster_config(config, cluster, f.kernel, split.x, kThreads,
+                                 f.bytes, split.x, nullptr);
+  if (err) return err;
+  return (int)cudaOccupancyMaxActiveClusters(clusters, (const void*)f.kernel,
+                                             &config);
 }
 
 // K6 in bf16 at a head width d = 64 or 128 (one block a row tile, no

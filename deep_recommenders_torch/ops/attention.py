@@ -24,8 +24,9 @@ JAX package's: heads folded into the batch, q (BH, Sq, D), k and v
   kernel's shapes; ``csrc/flash_attention_wide.cu`` or
   ``csrc/flash_attention_wide_bf16.cu`` for K6 from 256 and the fp32 K5
   from 256, and ``csrc/flash_attention_cluster_bf16.cu`` for the bf16 K5
-  from 256 and the bf16 K6 above 256, both up to ``CLUSTER_HEAD_DIM_MAX``
-  (:func:`_kernel`; on thread-block clusters that split D), or raise; on
+  from 256 up to ``CLUSTER_FWD_HEAD_DIM_MAX`` and the bf16 K6 above 256 up
+  to ``CLUSTER_BWD_HEAD_DIM_MAX`` (:func:`_kernel`; on thread-block
+  clusters that split D), or raise; on
   a CPU tensor they
   take their plain versions, :func:`flash_attention_reference` and
   :func:`flash_attention_backward_reference` in fp32, the ``_bf16`` ones in
@@ -85,9 +86,11 @@ DENSE_RESIDENT_SCORE_TENSORS = 3
 # WIDE_HEAD_STEP, in chunks of D of that many columns.
 KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
 WIDE_HEAD_STEP = 64
-# The widest head width of the bf16 K5 and K6 on a thread-block cluster: 8
-# blocks (the portable cluster size) of 256 columns each.
-CLUSTER_HEAD_DIM_MAX = 2048
+# The widest head widths of the bf16 K5 and K6 on a thread-block cluster of
+# blocks of 256 columns each: K5 on up to 16 blocks (a non-portable cluster
+# size, which Hopper places), K6 on up to 8 (the portable size).
+CLUSTER_FWD_HEAD_DIM_MAX = 4096
+CLUSTER_BWD_HEAD_DIM_MAX = 2048
 # The bf16 K5 and K6 fed by TMA under warp specialisation
 # (csrc/flash_attention_tma_bf16.cu) take these head widths; K6 there
 # scores each tile pair once and holds dq, lse and delta of all of a (bh)'s
@@ -376,9 +379,10 @@ def _kernel(dtype, d: int, backward: bool, bh: int, sq: int
     - else up to 128: csrc/flash_attention(_bf16).cu's (the fp32 kernels,
       and the bf16 K6 at D = 16 and 32 past the TMA kernel's shapes);
     - from 256 on csrc/flash_attention_wide(_bf16).cu's (K6, and the fp32
-      K5 on clusters that split D), except the bf16 K5 from 256 and the
-      bf16 K6 above 256, both up to ``CLUSTER_HEAD_DIM_MAX``:
-      csrc/flash_attention_cluster_bf16.cu's (clusters that split D)."""
+      K5 on clusters that split D), except the bf16 K5 from 256 up to
+      ``CLUSTER_FWD_HEAD_DIM_MAX`` and the bf16 K6 above 256 up to
+      ``CLUSTER_BWD_HEAD_DIM_MAX``: csrc/flash_attention_cluster_bf16.cu's
+      (clusters that split D)."""
     bf16 = dtype == torch.bfloat16
     if backward:
         tma = (d in TMA_BWD_MAX_SQ and sq <= TMA_BWD_MAX_SQ[d]
@@ -393,8 +397,8 @@ def _kernel(dtype, d: int, backward: bool, bh: int, sq: int
         width = "_cluster"
     elif d < KERNEL_HEAD_DIMS[-1]:
         width = ""
-    elif (bf16 and d <= CLUSTER_HEAD_DIM_MAX
-          and (not backward or d > KERNEL_HEAD_DIMS[-1])):
+    elif bf16 and (d <= CLUSTER_BWD_HEAD_DIM_MAX and d > KERNEL_HEAD_DIMS[-1]
+                   if backward else d <= CLUSTER_FWD_HEAD_DIM_MAX):
         width = "_cluster"
     else:
         width = "_wide"

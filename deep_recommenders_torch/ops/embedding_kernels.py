@@ -9,7 +9,8 @@ plain gather; its backward is ``zeros((V, C)).at[ids].add(g)``.
   backward calls :func:`scatter_add_rows`.
 - :func:`scatter_add_rows` launches the CUDA kernel
   ``csrc/scatter_add_rows.cu`` for a CUDA tensor, on fp32 or bf16 g (the
-  source says what bounds it and how it is built), and takes the plain
+  source says what bounds it and how it is built; on bf16 g into a large
+  table, :func:`large_table_plan`, its second plan), and takes the plain
   version for a CPU tensor.
 - :func:`scatter_add_rows_reference` is that plain version (``index_add_``).
 - :func:`scatter_add_rows_in_segments` is the kernel's summation order, run
@@ -45,6 +46,16 @@ MAX_SEGMENT = 2048
 STAGE_FLOATS = 2048 * 17
 MAX_COLS = 8192
 CLUSTER = 8
+# The bf16 K1 takes its large-table plan (csrc/scatter_add_rows.cu:
+# segment_runs, then row_ranges), whose work grows with the ids and not
+# with the table, once the table's rows times the cluster plan's rounds
+# (CLUSTER segments of ids a round) reach this: the cluster plan launches
+# a cluster for every 2048 rows and runs each round over all of them.
+# Measured on an NVIDIA H100 80GB HBM3 at 700 W (tools/k1_crossover.py):
+# with one round (16384 ids at C = 17) the cluster plan is faster at
+# 131072 rows, slower at 262144; with eight (131072 ids) equal at 16384,
+# slower at 32768.
+LARGE_TABLE_ROW_ROUNDS = 2**18
 
 
 def segment_length(c: int) -> int:
@@ -106,6 +117,15 @@ def scatter_add_rows_in_segments(
     return out.index_add_(0, keys // nseg, parts)[:num_rows]
 
 
+def large_table_plan(n: int, c: int, num_rows: int) -> bool:
+    """Whether the bf16 K1 on (n, c) g into ``num_rows`` rows takes its
+    large-table plan: when ``num_rows`` times the cluster plan's rounds of
+    ``CLUSTER * segment_length(c)`` ids is ``LARGE_TABLE_ROW_ROUNDS`` or
+    more (never for no ids)."""
+    rounds = -(-n // (CLUSTER * segment_length(c)))
+    return num_rows * rounds >= LARGE_TABLE_ROW_ROUNDS
+
+
 # The kernel's C function by g's dtype.
 _SYMBOLS = {torch.float32: "scatter_add_rows_f32",
             torch.bfloat16: "scatter_add_rows_bf16"}
@@ -121,7 +141,9 @@ def scatter_add_rows(
     launch in the fixed order of :func:`scatter_add_rows_in_segments` (no
     atomics: the same bits on every run), and counts the launch in
     ``scatter_add_rows.launches`` (fp32 g) or
-    ``scatter_add_rows.launches_bf16`` (bf16 g). On bf16 g, as the TPU
+    ``scatter_add_rows.launches_bf16`` (bf16 g; on a large table,
+    :func:`large_table_plan`, its large-table plan, counted in
+    ``scatter_add_rows.launches_bf16_large`` too). On bf16 g, as the TPU
     kernel on bf16 g, every sum is fp32 and each row is rounded once to
     bf16: ``scatter_add_rows_in_segments(g.float(), ids, V).bfloat16()``
     bit for bit. Any other dtype raises. On a CPU tensor it is the plain
@@ -162,6 +184,24 @@ def scatter_add_rows(
         _build.check(code, "scatter_add_rows")
         scatter_add_rows.launches += 1
         return out
+    if large_table_plan(n, c, num_rows):
+        # The large-table plan: a workspace of n runs (fp32 sums, int32
+        # rows) and each segment's first run of every range of rows.
+        size = _build.function(
+            "scatter_add_rows", "scatter_add_rows_bf16_large_workspace",
+            [ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32],
+            restype=ctypes.c_int64)(n, c, num_rows, segment)
+        work = torch.empty((max(size, 1),), dtype=torch.uint8,
+                           device=g.device)
+        fn = _build.function(
+            "scatter_add_rows", "scatter_add_rows_bf16_large",
+            _ARGTYPES[:-1] + [ctypes.c_void_p] * 2)
+        code = fn(out.data_ptr(), g.data_ptr(), ids.data_ptr(), n, c,
+                  num_rows, segment, work.data_ptr(), stream)
+        _build.check(code, "scatter_add_rows_bf16_large")
+        scatter_add_rows.launches_bf16 += 1
+        scatter_add_rows.launches_bf16_large += 1
+        return out
     # bf16: an fp32 workspace only when the ids take more than one round
     # of the kernel's segments; else each row is rounded straight out.
     workspace = (torch.empty((num_rows, c), dtype=torch.float32,
@@ -180,6 +220,7 @@ def scatter_add_rows(
 
 scatter_add_rows.launches = 0
 scatter_add_rows.launches_bf16 = 0
+scatter_add_rows.launches_bf16_large = 0
 
 
 class _Lookup(torch.autograd.Function):

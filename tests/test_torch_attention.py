@@ -537,9 +537,9 @@ def test_attention_dispatch_above_the_widest_kernel(rng, monkeypatch):
 # one-block instances of csrc/flash_attention_cluster_bf16.cu for the bf16
 # K6 at 64 and 128 and K5 at 128;
 # csrc/flash_attention_wide(_bf16).cu for K6 and the fp32 K5 from 256 on;
-# csrc/flash_attention_cluster_bf16.cu for the bf16 K5 from 256 to 2048 and
-# the bf16 K6 above 256 to 2048, csrc/flash_attention_wide_bf16.cu above
-# 2048 and for the bf16 K6 at 256.
+# csrc/flash_attention_cluster_bf16.cu for the bf16 K5 from 256 to 4096 and
+# the bf16 K6 above 256 to 2048, csrc/flash_attention_wide_bf16.cu for the
+# bf16 K6 above 2048 and at 256.
 _WIDTHS = (16, 64, 128, 256, 320, 512, 768, 2048, 2304)
 _ROUTES = {
     ("float32", "fwd"): {**{d: "flash_attention" for d in _WIDTHS[:3]},
@@ -549,8 +549,7 @@ _ROUTES = {
     ("bfloat16", "fwd"): {16: "flash_attention_tma_bf16",
                           64: "flash_attention_tma_bf16",
                           **{d: "flash_attention_cluster_bf16"
-                             for d in _WIDTHS[2:-1]},
-                          2304: "flash_attention_wide_bf16"},
+                             for d in _WIDTHS[2:]}},
     ("bfloat16", "bwd"): {16: "flash_attention_tma_bf16",
                           64: "flash_attention_cluster_bf16",
                           128: "flash_attention_cluster_bf16",
@@ -596,7 +595,7 @@ def test_kernel_routing_by_dtype_width_and_direction(dtype, d, direction):
 # for the bf16 K5 at D = 128 (CLUSTER_FWD_NARROW_DIMS) and K6 at 64 and 128
 # (CLUSTER_BWD_NARROW_DIMS) whatever the shape (on both sides of the TMA
 # K6's edges: one (bh) or many, one query row or more than its most); the
-# bf16 K6 of flash_attention_cluster_bf16.cu up to CLUSTER_HEAD_DIM_MAX
+# bf16 K6 of flash_attention_cluster_bf16.cu up to CLUSTER_BWD_HEAD_DIM_MAX
 # whatever the shape, flash_attention_wide_bf16.cu's one step past it.
 _SHAPE_ROUTES = [
     ("bfloat16", "fwd", 16, 2, 100, "flash_attention_tma_bf16"),
@@ -636,6 +635,122 @@ def test_kernel_routing_by_shape(dtype, direction, d, bh, sq, want):
                                  direction == "bwd", bh, sq)
     assert source == want
     _check_route(dtype, direction, source, symbol)
+
+
+# Above 2048 columns: the bf16 K5 on clusters of 9-16 blocks
+# (csrc/flash_attention_cluster_bf16.cu, up to CLUSTER_FWD_HEAD_DIM_MAX),
+# the bf16 K6 and everything past 4096 on flash_attention_wide_bf16.cu, the
+# fp32 kernels on flash_attention_wide.cu, whatever the shape.
+_ABOVE_2048_ROUTES = [
+    ("bfloat16", "fwd", 2112, "flash_attention_cluster_bf16"),
+    ("bfloat16", "fwd", 2304, "flash_attention_cluster_bf16"),
+    ("bfloat16", "fwd", 4096, "flash_attention_cluster_bf16"),
+    ("bfloat16", "fwd", 4160, "flash_attention_wide_bf16"),
+    ("bfloat16", "bwd", 2304, "flash_attention_wide_bf16"),
+    ("bfloat16", "bwd", 4096, "flash_attention_wide_bf16"),
+    ("bfloat16", "bwd", 4160, "flash_attention_wide_bf16"),
+    ("float32", "fwd", 4096, "flash_attention_wide"),
+    ("float32", "bwd", 4096, "flash_attention_wide"),
+]
+
+
+@pytest.mark.parametrize("bh,sq", [(2048, 512), (1, 70)])
+@pytest.mark.parametrize("dtype,direction,d,want", _ABOVE_2048_ROUTES)
+def test_kernel_routing_above_2048(dtype, direction, d, want, bh, sq):
+    """_kernel() sends the bf16 K5 from 2048 to 4096 to the clusters of
+    csrc/flash_attention_cluster_bf16.cu and the rest above 2048 to the
+    wide kernels, at any (BH, Sq); the source defines the C function."""
+    source, symbol = att._kernel(getattr(torch, dtype), d,
+                                 direction == "bwd", bh, sq)
+    assert source == want
+    _check_route(dtype, direction, source, symbol)
+
+
+def _cluster_split(d: int):
+    """A plain mirror of csrc/flash_attention_cluster_bf16.cu's split_of:
+    the blocks of a cluster at head width d (one a 256 columns) and the
+    64-column chunks each block owns (an even share)."""
+    chunks = d // 64
+    blocks = -(-chunks // 4)
+    return blocks, -(-chunks // blocks)
+
+
+def test_cluster_split_mirrors_split_of():
+    """split_of's rule as the source states it, and for every multiple of
+    64 from 256 to CLUSTER_FWD_HEAD_DIM_MAX its plain mirror: one block a
+    256 columns, at most 16 (8, the portable size, up to
+    CLUSTER_BWD_HEAD_DIM_MAX), an even share of 3 or 4 chunks a block
+    (every block owns at least one column of D, so each rank has a
+    partial), 4 chunks in every cluster of more than 8 blocks."""
+    from deep_recommenders_torch.ops import _build
+
+    with open(_build.source_path("flash_attention_cluster_bf16")) as f:
+        source = f.read()
+    assert ("  const int nc = d / kC;\n"
+            "  const int group = (nc + kMaxChunks - 1) / kMaxChunks;\n"
+            "  return make_int2(group, (nc + group - 1) / group);\n") in source
+    assert "constexpr int kClusterMaxFwd = 16;" in source
+    assert att.CLUSTER_FWD_HEAD_DIM_MAX == 16 * 256
+    assert att.CLUSTER_BWD_HEAD_DIM_MAX == 8 * 256
+    for d in range(256, att.CLUSTER_FWD_HEAD_DIM_MAX + 1, 64):
+        blocks, chunks = _cluster_split(d)
+        assert blocks == -(-d // 256)
+        assert (blocks - 1) * chunks * 64 < d <= blocks * chunks * 64
+        assert chunks == 4 if d == 256 or blocks > 8 else chunks in (3, 4)
+        assert (blocks <= 8) == (d <= att.CLUSTER_BWD_HEAD_DIM_MAX)
+    assert _cluster_split(att.CLUSTER_FWD_HEAD_DIM_MAX) == (16, 4)
+    assert _cluster_split(2112) == (9, 4)
+
+
+@pytest.mark.parametrize("group", range(3, 17))
+def test_reduce_scatter_slices_mirror_the_source(group):
+    """The bf16 K5's reduce-scatter among G = 3-16 blocks, as the source
+    states it: rank r sums float4 [r 1024 / G, (r + 1) 1024 / G) of a
+    warpgroup's 1024-float4 slot, and the all-gather reads float4 f from
+    rank ((f + 1) G - 1) / 1024. Plainly: the slices cover the slot once,
+    every rank owns one, and each f is read from the rank whose slice
+    holds it."""
+    from deep_recommenders_torch.ops import _build
+
+    with open(_build.source_path("flash_attention_cluster_bf16")) as f:
+        source = f.read()
+    assert ("const int lo = (rank << 10) / group, "
+            "hi = ((rank + 1) << 10) / group;") in source
+    assert "const int owner = ((f + 1) * group - 1) >> 10;" in source
+    bounds = [(r * 1024 // group, (r + 1) * 1024 // group)
+              for r in range(group)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == 1024
+    assert all(lo < hi for lo, hi in bounds)
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    for f in range(1024):
+        owner = ((f + 1) * group - 1) >> 10
+        lo, hi = bounds[owner]
+        assert lo <= f < hi
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [2112, 2304, 3072, 4096])
+def test_forward_checks_at_clusters_of_9_to_16(rng, d, causal):
+    """The bf16 K5 above 2048 sums the partial scores of 9-16 blocks
+    (reduce-scatter, then all-gather) in rank order: that function passes
+    check_forward_bf16 at G = 9, 9, 12 and 16 (D = 2112's last block owns
+    one chunk of D), and with any one rank's partial left out (the first,
+    the middle or the last) it fails, its worst share above 1."""
+    q, k, v, mask = _t(*_inputs(rng, 2, 70, 90, d, masked_row=1))
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    ranks = _cluster_split(d)[0]
+    assert -(-d // at.PARTIAL_WIDTH) == ranks
+    whole = at.flash_attention_partial_scores(q, k, v, mask, causal)
+    checks = at.check_forward_bf16(whole, q, k, v, mask, causal,
+                                   planted_partial=True)
+    assert max(c["err_over_tol"] for name, c in checks.items()
+               if name != "planted") < 1
+    assert checks["planted"]["partial_dropped"] > 1
+    for drop in (0, ranks // 2, ranks - 1):
+        lost = at.flash_attention_partial_scores(q, k, v, mask, causal,
+                                                 drop=drop)
+        with pytest.raises(AssertionError, match="disagrees|outside"):
+            at.check_forward_bf16(lost, q, k, v, mask, causal)
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -763,7 +878,19 @@ def test_wide_head_bf16_plain_versions_match_jax_pallas(rng, tmp_path):
     and 2^-7 of max|v|, lse to 2e-5, each gradient (from JAX's out and
     lse) within 2^-7 relative and 2^-7 of its largest element, as the bf16
     tests above."""
-    q, k, v, mask = _inputs(rng, 2, 64, 64, 256, masked_row=1)
+    _wide_bf16_against_jax(rng, tmp_path, 256)
+
+
+def test_bf16_k5_above_2048_matches_jax_pallas(rng, tmp_path):
+    """At D = 2304, where the card's bf16 K5 runs on clusters of 9 blocks
+    that add their partial scores in rank order: the bf16 plain K5 and K6
+    and that summation order (flash_attention_partial_scores) against
+    JAX's Pallas kernels in interpret mode, as at D = 256."""
+    _wide_bf16_against_jax(rng, tmp_path, 2304, partial_scores=True)
+
+
+def _wide_bf16_against_jax(rng, tmp_path, d, partial_scores=False):
+    q, k, v, mask = _inputs(rng, 2, 64, 64, d, masked_row=1)
     g = rng.normal(size=q.shape).astype(np.float32)
     np.savez(tmp_path / "in.npz", q=q, k=k, v=v, g=g, mask=mask)
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -786,6 +913,12 @@ def test_wide_head_bf16_plain_versions_match_jax_pallas(rng, tmp_path):
         np.testing.assert_allclose(_f32(out), w["out"], rtol=2**-7,
                                    atol=2**-7 * vmax)
         np.testing.assert_allclose(lse.numpy(), w["lse"], atol=2e-5)
+        if partial_scores:
+            out, lse = at.flash_attention_partial_scores(tq, tk, tv, tmask,
+                                                         causal)
+            np.testing.assert_allclose(_f32(out), w["out"], rtol=2**-7,
+                                       atol=2**-7 * vmax)
+            np.testing.assert_allclose(lse.numpy(), w["lse"], atol=2e-5)
         got = att.flash_attention_backward(
             tq, tk, tv, tmask, torch.from_numpy(w["out"]).to(torch.bfloat16),
             torch.from_numpy(w["lse"]), tg, causal)

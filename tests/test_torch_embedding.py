@@ -304,3 +304,77 @@ def test_segment_length_fits_the_kernel_stage():
         2048, 2048, 1024, 1024, 4]
     with pytest.raises(ValueError):
         t_ek.segment_length(8193)
+
+
+@pytest.mark.parametrize("n,c,v,large", [
+    (16384, 17, 10044, False),      # DeepFM's batch into its table
+    (16384, 17, 131072, False),     # one round: the crossover's near side
+    (16384, 17, 262144, True),      # ... and its far side
+    (16385, 17, 131072, True),      # two rounds
+    (131072, 17, 16384, False),     # eight rounds
+    (131072, 17, 32768, True),
+    (0, 17, 4_000_000, False),      # no ids: no round
+    (4096, 32, 1_000_000, True),    # the two-tower's width: segments of 1024
+])
+def test_large_table_plan_routes_by_rows_and_rounds(n, c, v, large):
+    """The bf16 K1 takes its large-table plan where the table's rows times
+    the cluster plan's rounds (CLUSTER segments of segment_length(C) ids)
+    reach LARGE_TABLE_ROW_ROUNDS, the crossover measured on the card."""
+    assert t_ek.large_table_plan(n, c, v) == large
+    rounds = -(-n // (t_ek.CLUSTER * t_ek.segment_length(c)))
+    assert large == (v * rounds >= t_ek.LARGE_TABLE_ROW_ROUNDS)
+
+
+def _by_row_ranges(g, ids, num_rows):
+    """K1's order model (``scatter_add_rows_in_segments``) as the bf16
+    K1's large-table plan (csrc/scatter_add_rows.cu) computes it: each
+    segment's ids grouped by row in position order (a stable sort) and
+    each run summed in index order from +0.0, the runs kept sorted by row;
+    then each row's segment sums (which the kernel finds through a table
+    of each segment's first run a range of rows) added in segment order
+    onto +0.0."""
+    n, c = g.shape
+    segment = t_ek.segment_length(c)
+    out = torch.zeros((num_rows, c), dtype=g.dtype, device=g.device)
+    rows_all = t_ek._rows(ids, num_rows)
+    for s0 in range(0, n, segment):
+        rows = rows_all[s0:s0 + segment]
+        order = torch.sort(rows, stable=True).indices
+        run_rows, slot = torch.unique_consecutive(rows[order],
+                                                  return_inverse=True)
+        sums = torch.zeros((run_rows.shape[0], c), dtype=g.dtype,
+                           device=g.device)
+        sums.index_add_(0, slot, g[s0:s0 + segment][order])
+        kept = run_rows < num_rows
+        out[run_rows[kept]] += sums[kept]
+    return out
+
+
+@pytest.mark.parametrize("n,c", [(16384, 17), (131072, 17), (5001, 40)])
+def test_row_range_order_is_the_segment_order(rng, n, c):
+    """The large-table plan's order (each segment's runs by row, summed in
+    index order; each row's segment sums merged in segment order) equals
+    K1's order model bit for bit on bf16-valued g into 10^6 rows, with
+    ids repeated across segments (a hot row in every segment, rows shared
+    by a few), ids in [-V, 0) and ids dropped; and a merge that takes a
+    row's segment sums out of segment order does not."""
+    v = 1_000_000
+    ids = rng.integers(0, v, n).astype(np.int32)
+    ids[rng.random(n) < 0.2] = 123_457                      # every segment
+    ids[rng.random(n) < 0.2] = rng.integers(0, 50, n)[:1]   # a few rows
+    ids[rng.random(n) < 0.02] = -5                          # row V - 5
+    ids[rng.random(n) < 0.02] = v + 3                       # dropped
+    g = torch.from_numpy(rng.normal(0, 1, (n, c)).astype(np.float32))
+    g = g.to(torch.bfloat16).float()
+    ids = torch.from_numpy(ids)
+    want = t_ek.scatter_add_rows_in_segments(g, ids, v)
+    got = _by_row_ranges(g, ids, v)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    # The same segments merged last to first: another fp32 sum.
+    segment = t_ek.segment_length(c)
+    if n > 2 * segment:
+        order = torch.cat([torch.arange(s, min(s + segment, n)) for s in
+                           reversed(range(0, n, segment))])
+        backwards = _by_row_ranges(g[order], ids[order], v)
+        assert not torch.equal(backwards.view(torch.int32),
+                               want.view(torch.int32))

@@ -887,8 +887,10 @@ def _bf16(*tensors):
     # _wide_bf16.cu
     (4, 100, 140, 320),  # K5 on a cluster of 2 blocks, the last chunk past D
     (4, 70, 67, 512),  # 2 blocks, 4 + 4 chunks
+    (3, 100, 140, 576),  # 3 blocks of 3 chunks
     (3, 100, 140, 768),  # 3 blocks
-    (3, 70, 67, 2304),  # above 2048: K5 of flash_attention_wide_bf16.cu
+    (3, 70, 67, 2304),  # above 2048: K5 on a cluster of 9 blocks (reduce-
+    # scatter), K6 of flash_attention_wide_bf16.cu
     (64, 512, 512, 16),  # the Transformer slice's sequence length
 ])
 def test_flash_attention_bf16_kernels(device, bh, sq, sk, d, causal):
@@ -1495,3 +1497,141 @@ def test_transformer_export_on_the_card(device, tmp_path):
         assert att.flash_attention.launches["fwd"] == before + 3
         with torch.no_grad():
             assert torch.equal(got, model.eval()(x))
+
+
+# -- above 2048: the bf16 K5 on clusters of 9-16 blocks; K1's large tables ----
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("case,bh,sq,sk,d", [
+    ("ragged_sk", 3, 70, 67, 2112),  # 9 blocks, the last one chunk of D
+    ("last_tile_only", 4, 100, 140, 2304),  # 9 blocks of 4 chunks
+    ("padding_tiles", 4, 130, 260, 2304),
+    ("ragged_sk", 2, 33, 61, 4096),  # 16 blocks
+    ("last_tile_only", 4, 100, 140, 4096),
+])
+def test_cluster_bf16_forward_above_2048(device, case, bh, sq, sk, d,
+                                         causal):
+    """The bf16 K5 from 2048 to 4096 (flash_attention_cluster_bf16.cu:
+    clusters of ceil(D / 256) blocks, a non-portable size, that
+    reduce-scatter their partial scores): routed there, one launch a call,
+    against its fp64 and bf16 plain versions with the fault of a lost
+    partial (the last block's) rejected, rows with no valid key giving
+    out 0 and lse 0, and two calls bit for bit."""
+    _check_reduce_scatter_forward(device, case, bh, sq, sk, d, causal)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("case,bh,sq,sk,d", [
+    ("ragged_sk", 3, 70, 67, 640),  # 3 blocks of 4 chunks, 2 past D
+    ("last_tile_only", 4, 100, 140, 1024),  # 4 blocks
+    ("padding_tiles", 4, 130, 260, 1536),  # 6 blocks
+    ("last_tile_only", 4, 100, 140, 2048),  # 8 blocks
+])
+def test_cluster_bf16_forward_reduce_scatter_up_to_2048(device, case, bh, sq,
+                                                        sk, d, causal):
+    """The same for the portable clusters of 3-8 blocks, which
+    reduce-scatter as the larger ones do."""
+    _check_reduce_scatter_forward(device, case, bh, sq, sk, d, causal)
+
+
+def _check_reduce_scatter_forward(device, case, bh, sq, sk, d, causal):
+    assert att._kernel(torch.bfloat16, d, False, bh, sq)[0] == \
+        "flash_attention_cluster_bf16"
+    gen = torch.Generator(device=device).manual_seed(d + sq)
+    q, k, v, mask = _attention_inputs(gen, bh, sq, sk, d)
+    mask = _edge_mask(mask, case, sk)
+    q, k, v = _bf16(q, k, v)
+    before = dict(att.flash_attention.launches)
+    runs = [att.flash_attention(q, k, v, mask, causal, return_lse=True)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert att.flash_attention.launches == {
+        **before, "fwd_bf16": before["fwd_bf16"] + 2}
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    checks = at.check_forward_bf16(runs[0], q, k, v, mask, causal,
+                                   planted_partial=True)
+    assert checks["planted"]["partial_dropped"] > 1
+    out, lse = runs[0]
+    assert not out[1].any() and not lse[1].any()
+
+
+def _large_ids(rng, n, v, kind):
+    if kind == "out_of_range":  # [-V, 0) wraps, the rest drop
+        return torch.from_numpy(rng.integers(-2 * v, 2 * v, n).astype(
+            np.int32))
+    if kind == "last_row_at_2047":
+        # Row V - 1 at the last place of a full segment of 2048, directly
+        # and as -1: the largest key the table can give, row << 11 | 2047.
+        ids = torch.from_numpy(rng.integers(0, v, n).astype(np.int32))
+        ids[2047], ids[4095] = v - 1, -1
+        return ids
+    return _k1_bf16_ids(rng, n, v, kind)
+
+
+@pytest.mark.parametrize("n,c,v,kind", [
+    (16384, 17, 1_000_000, "uniform"),   # DeepFM's batch: one round
+    (16384, 17, 1_000_000, "skewed"),    # 16 hot rows
+    (131072, 17, 1_000_000, "batch"),    # eight rounds: a hot row in each
+    (40001, 17, 4_000_000, "out_of_range"),  # 64-bit sort keys, ragged
+    (16384, 17, 4_000_000, "uniform"),
+    (5001, 40, 1_000_000, "batch"),      # segments of 512
+    (0, 17, 1_000_000, "uniform"),       # no ids: every row +0.0
+    (6000, 17, 2**21 - 1, "last_row_at_2047"),  # 32-bit keys, the largest
+    (6000, 17, 2**21, "last_row_at_2047"),  # 64-bit: ~0 would be this key
+    (6000, 17, 2**21 + 1, "last_row_at_2047"),
+])
+def test_scatter_add_rows_bf16_large_table(device, n, c, v, kind):
+    """K1's large-table plan on bf16 g (segment_runs, then row_ranges):
+    routed there, bit for bit ``scatter_add_rows_in_segments(g.float(),
+    ids, V).to(bf16)`` run on the CPU over two calls, each counted in
+    ``launches_bf16`` and ``launches_bf16_large``, the output written
+    whole over memory first filled with NaN."""
+    assert n == 0 or ek.large_table_plan(n, c, v)
+    rng = np.random.default_rng(n + c + v)
+    ids = _large_ids(rng, n, v, kind)
+    g = torch.from_numpy(rng.normal(0, 1, (n, c)).astype(np.float32))
+    g = g.to(torch.bfloat16)
+    want = ek.scatter_add_rows_in_segments(g.float(), ids, v).to(
+        torch.bfloat16).view(torch.int16)
+    if kind == "last_row_at_2047":
+        assert want[v - 1].any()
+    g_card, ids_card = g.to(device), ids.to(device)
+    before = (ek.scatter_add_rows.launches_bf16,
+              ek.scatter_add_rows.launches_bf16_large)
+    for _ in range(2):
+        garbage = torch.full((v, c), float("nan"), dtype=torch.bfloat16,
+                             device=device)
+        del garbage
+        got = ek.scatter_add_rows(g_card, ids_card, v)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bfloat16 and got.shape == (v, c)
+        assert torch.equal(got.cpu().view(torch.int16), want)
+    large = 2 if ek.large_table_plan(n, c, v) else 0
+    assert (ek.scatter_add_rows.launches_bf16,
+            ek.scatter_add_rows.launches_bf16_large) == (
+        before[0] + 2, before[1] + large)
+
+
+def test_scatter_add_rows_bf16_large_table_at_an_odd_address(device):
+    """The large-table plan on bf16 rows of 34 bytes from a base 2 bytes
+    past a 4-byte boundary, into 10^6 rows over NaN-filled memory: bit for
+    bit as above."""
+    rng = np.random.default_rng(6)
+    n, c, v = 20001, 17, 1_000_000
+    ids = _k1_bf16_ids(rng, n, v, "skewed")
+    g = torch.from_numpy(rng.normal(0, 1, (n, c)).astype(np.float32))
+    g = g.to(torch.bfloat16)
+    want = ek.scatter_add_rows_in_segments(g.float(), ids, v).to(
+        torch.bfloat16)
+    base = torch.zeros(n * c + 1, dtype=torch.bfloat16, device=device)
+    base[1:] = g.reshape(-1).to(device)
+    g_card = base[1:].view(n, c)
+    assert g_card.data_ptr() % 4 == 2 and ek.large_table_plan(n, c, v)
+    garbage = torch.full((v, c), float("nan"), dtype=torch.bfloat16,
+                         device=device)
+    del garbage
+    before = ek.scatter_add_rows.launches_bf16_large
+    got = ek.scatter_add_rows(g_card, ids.to(device), v)
+    torch.cuda.synchronize()
+    assert ek.scatter_add_rows.launches_bf16_large == before + 1
+    assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))

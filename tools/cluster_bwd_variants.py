@@ -25,7 +25,7 @@ each grid column scoring over all of D):
 - ``no_exchange``: the exchange of partial scores cut out (each block
   takes its own partials: wrong results, timing only).
 
-    python3 tools/cluster_bwd_variants.py
+    python3 tools/cluster_bwd_variants.py [variant ...]   # default: all
 
 Each variant is built with nvcc (-Xptxas -v) into build/variants_bwd/ and
 timed (device ms, CUDA-graph replays, ``chip_smoke.graph_ms``) on
@@ -141,7 +141,9 @@ def variants(src: str) -> dict:
       pin(xa);
       release(&empty[i % S]);
       if (more) pack_a(xa, x[0]);""")
-    hoist = _rep(src, '    asm volatile("" : "+l"(qv), "+l"(gv));\n', "")
+    hoist = _rep(src, '    const bf16 *qv = qs, *gv = gs;\n'
+                 '    asm volatile("" : "+l"(qv), "+l"(gv));\n',
+                 '    const bf16 *qv = qs, *gv = gs;\n')
     v["hoisted"] = _rep(hoist, '    asm volatile("" : "+l"(a));\n', "")
     v["batched_pull"] = _rep(src, """      mbar_wait<true>(full, n & 1);
       for (int r = rank == 0 ? 1 : 0; r < group; ++r) {
@@ -253,7 +255,13 @@ def main() -> int:
         return 1
     print(cs.card_line())
     _build.build()
-    built = build(variants(open(SOURCE).read()))
+    texts = variants(open(SOURCE).read())
+    names = sys.argv[1:] or list(texts)
+    unknown = set(names) - set(texts)
+    if unknown:
+        raise SystemExit(f"no such variant: {sorted(unknown)}")
+    built = build({k: t for k, t in texts.items()
+                   if k in names or k == "main"})
     # The replaced kernel before the variants, the timing-only cut last.
     libs = {"main": built.pop("main"),
             "streamed": _build.library_path("flash_attention_wide_bf16"),

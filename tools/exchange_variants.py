@@ -5,9 +5,9 @@ card, to see what its exchange of partial scores costs:
 - ``main``: the source as it is;
 - ``no_exchange``: the exchange cut out (each block softmaxes its own
   partial scores: wrong results, timing only);
-- ``pull``: clusters of two exchange as larger ones do (each block reads
-  its peer's partial through distributed shared memory) instead of pushing
-  it with st.async;
+- ``no_push``: clusters of two exchange as larger ones do, through
+  distributed shared memory (a pull at 3 chunks a block, a reduce-scatter
+  then an all-gather at 4), instead of pushing each partial with st.async;
 - ``cluster_release``: the slots handed back with release and acquire at
   cluster scope instead of the CTA scope of a TMA pipeline;
 - ``late_send``: the partial scores sent after P V is issued, not before.
@@ -59,12 +59,14 @@ def variants(src: str) -> dict:
     cut = _rep(cut, "      if constexpr (SPLIT) receive(jn);", "")
     v["no_exchange"] = _rep(
         cut, "  if constexpr (SPLIT) mbar_wait(&empty_x[wg], (n & 1) ^ 1);", "")
-    v["pull"] = _rep(src, "  if (group == 2) {", "  if (false) {")
+    v["no_push"] = _rep(src, """  if (split.x == 2)
+    return split.y == 3 ? fwd_instance<3, kPush>() : fwd_instance<4, kPush>();
+""", "")
     rel = _rep(src, "    mbar_wait(&empty_x[wg], (n & 1) ^ 1);",
                "    mbar_wait<true>(&empty_x[wg], (n & 1) ^ 1);")
     v["cluster_release"] = _rep(
-        rel, "mbar_arrive_peer<false>(&empty_x[wg], r);",
-        "mbar_arrive_peer<true>(&empty_x[wg], r);")
+        rel, "mbar_arrive_peer<false>(&empty_x[wg], lane);",
+        "mbar_arrive_peer<true>(&empty_x[wg], lane);")
     late = _rep(src, """        wgmma_wait_for<0>();  // the scores
         pin(s);
         send(jn);
