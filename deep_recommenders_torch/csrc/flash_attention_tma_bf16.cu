@@ -9,10 +9,9 @@
 // Replaces, for bf16 operands at these widths, deep_recommenders_tpu/ops/
 // attention.py: flash_attention (K5, :165, pallas_call :199, bf16 body
 // :107-149) and _flash_backward_impl (K6, :377, pallas_calls :436 and :463,
-// bf16 bodies :312-371). The layout, the masks, the scale and lse are
-// flash_attention_bf16.cu's, which keeps its mma.sync kernels for the shapes this
-// file does not take (ops/attention.py's _kernel routes by width and
-// shape).
+// bf16 bodies :312-371), K6 at every (BH, Sq). The layout, the masks, the
+// scale and lse are flash_attention_bf16.cu's, whose mma.sync kernels no
+// route takes any more (they stay as a yardstick).
 //
 // What bounds them. At the zoo Transformer's (BH 2048, S 512, D 16) with
 // SyntheticImdb's key masks (62.8% valid) the products are 64 (K5) or 160
@@ -62,13 +61,13 @@
 //
 // K6 scores each (query tile, key tile) pair once, where JAX's kernels
 // (and flash_attention_bf16.cu's) rebuild s, p and dp in a dq pass and again in a dk/dv pass.
-// An item is a whole (bh): the block keeps dq for all of its Sq rows in
+// An item is a (bh, query range): the block keeps dq for the range's rows in
 // fp32 in shared memory, with lse log2(e) and delta = rowsum(g out) (fp32,
 // formed at the item's start; delta also written out) for every row. For
 // each live 128-key tile (ascending), each of two consumer warpgroups owns
 // 64 of its keys and holds their dk and dv in registers; for each query
-// tile of 128 (ascending; causal: from the key tile's on), in two halves of
-// 64 queries:
+// tile of 128 of the range (ascending; causal: from the key tile's on), in
+// two halves of 64 queries:
 // - s^T = k q^T and dp^T = v g^T on wgmma m64n64k16 (keys are rows);
 // - p = 2^(s c - lse2) and ds = p (dp scale - delta scale) in fp32 on the
 //   fragments (per-column lse2 and delta read from shared memory in the
@@ -81,15 +80,28 @@
 //   fp32 dq in shared memory. The two warpgroups take turns (named
 //   barriers), warpgroup 0 first: every dq row adds its key tiles in
 //   ascending order, and in each the two 64-key halves in warpgroup order.
-//   No atomics: two calls give the same bits.
 // A producer warp loads K and V once a key tile, q and g once a step;
 // setmaxnreg moves registers from the producer warpgroup (56) to the
 // consumers (224). Rows past Sq read as zeros and take lse2 = 1e30, so
-// their p is 0; keys of tiles no step visits (all masked, or causal with no
-// query after them) get dk = dv = 0 at the item's start. Shared memory
-// holds dq, lse2 and delta of every row: Sq up to bwd_max_sq(D) (2176 at
-// D = 16, 768 at 32); longer rows, wider heads, and fewer (bh) than the
-// card has SMs keep the two kernels of flash_attention_bf16.cu.
+// their p is 0.
+//
+// Query ranges. Shared memory holds dq, lse2 and delta of at most
+// max_rows(D) rows (2176 at D = 16, 768 at 32), so a longer query side is
+// cut into ranges of whole 128-row tiles, and so are shorter ones where BH
+// items would leave SMs idle (ops/attention.py's bwd_query_ranges picks
+// them). With one range a launch's persistent grid walks the BH items and
+// an item writes dk and dv in bf16 itself, and dk = dv = 0 for the keys of
+// tiles no step visits (all masked, or causal with no query after them).
+// With more, the ranges run in groups of at most kMaxRanges (a table
+// passed by value), a launch a group whose grid walks its BH x ranges
+// items range-major; an item writes the fp32 dk and dv of each key tile it
+// visits, summed over its own query tiles, to its range's slice of a
+// workspace, and a second kernel (reduce_kernel) adds each key's partials
+// over the group's ranges that visited its tile in range order onto the
+// sums of the groups before (an fp32 accumulator), rounding to bf16 once
+// after the last group (0 for a tile no range visits). The workspace
+// holds a group: its size is the caller's choice, not Sq's. No atomics:
+// two calls give the same bits, whatever the groups.
 //
 // A wait on an mbarrier that never completes traps (tma.cuh). Each block
 // writes its own rows once. Rows with no valid key give out 0 and lse 0,
@@ -534,16 +546,38 @@ struct BwdLayout {
   static constexpr size_t kInfo = kQ + kQStages * 2 * kTileBytes;
   static constexpr size_t kBar = kInfo + kKvStages * 2 * sizeof(uint4);
   static constexpr int kBars = 2 * (kKvStages + kQStages);
-  // Then lse2 and delta scale [sq_pad] fp32 each, and dq [sq_pad][D] fp32.
+  // Then lse2 and delta scale [rows] fp32 each, and dq [rows][D] fp32, for
+  // the rows of the longest range.
   static constexpr size_t kRows = kBar + sizeof(uint64_t) * kBars;
   static_assert(kRows % 16 == 0, "dq's float4s");
-  static constexpr size_t bytes(int sq_pad) {
-    return kRows + (size_t)sq_pad * (2 + D) * sizeof(float);
+  static constexpr size_t bytes(int rows) {
+    return kRows + (size_t)rows * (2 + D) * sizeof(float);
   }
-  // The longest query side a block holds, a multiple of the tile.
-  static constexpr int kMaxSq =
+  // The most query rows an item holds, a multiple of the tile.
+  static constexpr int kMaxRows =
       (int)((kMaxSmem - kRows) / ((2 + D) * sizeof(float))) / kTile * kTile;
 };
+
+// The query ranges of a launch: range r takes the query tiles from
+// start[r] to start[r + 1], at most kMaxRanges of them; a kernel
+// parameter.
+constexpr int kMaxRanges = 256;
+struct Ranges {
+  int start[kMaxRanges + 1];
+};
+
+// Item i of a launch over `ranges` query ranges: (bh, range, first and end
+// query tile). Range-major: a block's items (i, i + grid, ...) draw on the
+// ranges in turn wherever BH is the grid's width or more, not on one range
+// of a grid's parity.
+struct BwdItem {
+  int b, r, qt0, qt1;
+};
+
+__device__ __forceinline__ BwdItem bwd_item(int i, int bh, const Ranges& rg) {
+  const int r = i / bh;
+  return {i % bh, r, rg.start[r], rg.start[r + 1]};
+}
 
 // Where row r's lse2 and delta lie: in each 128-row tile, a lane's columns
 // (8 j + 2 tig + x of the scores' fragments) in the order it reads them,
@@ -609,8 +643,10 @@ __global__ void __launch_bounds__(kThreads, 1)
                const float* __restrict__ mask, const float* __restrict__ lse,
                const bf16* __restrict__ out, const bf16* __restrict__ g,
                float* __restrict__ delta, bf16* __restrict__ dq,
-               bf16* __restrict__ dk, bf16* __restrict__ dv, int bh, int sq,
-               int sk, int causal, float scale, float scale_log2) {
+               bf16* __restrict__ dk, bf16* __restrict__ dv,
+               float* __restrict__ part, int bh, int sq, int sk, int causal,
+               const __grid_constant__ Ranges rg, int ranges, int rows_max,
+               float scale, float scale_log2) {
   using L = BwdLayout<D>;
   constexpr int kKvStages = L::kKvStages, kQStages = L::kQStages;
   constexpr uint32_t kTileBytes = L::kTileBytes;
@@ -626,13 +662,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint64_t* full_q = empty_kv + kKvStages;  // [kQStages]
   uint64_t* empty_q = full_q + kQStages;
   const int nq = (sq + kTile - 1) / kTile, nk = (sk + kTile - 1) / kTile;
-  const int sq_pad = nq * kTile;
-  float* lse2_s = reinterpret_cast<float*>(smem + L::kRows);  // [sq_pad]
-  float* delta_s = lse2_s + sq_pad;                             // [sq_pad]
+  const int items = bh * ranges;
+  float* lse2_s = reinterpret_cast<float*>(smem + L::kRows);  // [rows_max]
+  float* delta_s = lse2_s + rows_max;                           // [rows_max]
   // dq in its fragments' order: float4 (((qt 2 + half) 4 + warp) N8 + c8) 32
-  // + lane holds the lane's c8 fragment of query half `half` of tile qt.
-  float4* dq_s = reinterpret_cast<float4*>(delta_s + sq_pad);
-  const int dq_quads = sq_pad * D / 4;
+  // + lane holds the lane's c8 fragment of query half `half` of the item's
+  // query tile qt (counted from its first).
+  float4* dq_s = reinterpret_cast<float4*>(delta_s + rows_max);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kKvStages; ++s) {
@@ -649,10 +685,14 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x >> 7, 0);
   const int lane = threadIdx.x & 31;
-  // A key tile is visited if it holds a valid key and, causal, a query
-  // tile sees it (from the key tile's own on).
-  const auto visited = [&](const uint32_t (&w)[4], int t) {
-    return (w[0] | w[1] | w[2] | w[3]) != 0 && (!causal || t < nq);
+  // An item visits a key tile that holds a valid key and, causal, that a
+  // query tile of its range sees (from the key tile's own on): one before
+  // kend(it).
+  const auto kend = [&](const BwdItem& it) {
+    return causal ? min(nk, it.qt1) : nk;
+  };
+  const auto visited = [&](const uint32_t (&w)[4], int t, int end) {
+    return (w[0] | w[1] | w[2] | w[3]) != 0 && t < end;
   };
   if (wg == 2) {
     // The producer: for each visited key tile, K and V, then q and g of
@@ -662,28 +702,31 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (threadIdx.x >= kConsumers + 32) return;
     const bool leader = lane == 0;
     int jk = 0, jq = 0;  // uses of the K/V and the q/g rings
-    for (int b = blockIdx.x; b < bh; b += gridDim.x) {
+    for (int i = blockIdx.x; i < items; i += gridDim.x) {
+      const BwdItem it = bwd_item(i, bh, rg);
+      const int b = it.b, end = kend(it);
       const float* mrow = mask + (int64_t)b * sk;
-      for (int t0 = 0; t0 < nk; t0 += kBatch) {
+      for (int t0 = 0; t0 < end; t0 += kBatch) {
         uint32_t wb[kBatch][4];
-        batch_bits<kTile>(wb, mrow, t0, nk, sk, lane);
+        batch_bits<kTile>(wb, mrow, t0, end, sk, lane);
 #pragma unroll
-        for (int i = 0; i < kBatch; ++i) {
-          const int t = t0 + i;
-          if (!visited(wb[i], t)) continue;  // past nk every bit is 0
+        for (int x = 0; x < kBatch; ++x) {
+          const int t = t0 + x;
+          if (!visited(wb[x], t, end)) continue;  // past end every bit is 0
           if (leader) {
             const int s = jk % kKvStages;
             mbar_wait(&empty_kv[s], ((jk / kKvStages) & 1) ^ 1);
-            info[2 * s] = make_uint4((uint32_t)t, wb[i][0], wb[i][1],
-                                     wb[i][2]);
-            info[2 * s + 1] = make_uint4(wb[i][3], 0u, 0u, 0u);
+            info[2 * s] = make_uint4((uint32_t)t, wb[x][0], wb[x][1],
+                                     wb[x][2]);
+            info[2 * s + 1] = make_uint4(wb[x][3], 0u, 0u, 0u);
             mbar_expect_tx(&full_kv[s], 2 * kTileBytes);
             bf16* kt = kv_s + 2 * s * kTile * D;
             tma_load(kt, &kmap, &full_kv[s], 0, t * kTile, b);
             tma_load(kt + kTile * D, &vmap, &full_kv[s], 0, t * kTile, b);
           }
           ++jk;
-          for (int qt = causal ? t : 0; qt < nq; ++qt, ++jq) {
+          for (int qt = causal ? max(t, it.qt0) : it.qt0; qt < it.qt1;
+               ++qt, ++jq) {
             if (!leader) continue;
             const int s = jq % kQStages;
             mbar_wait(&empty_q[s], ((jq / kQStages) & 1) ^ 1);
@@ -714,20 +757,23 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (lane == 0) mbar_arrive(bar);
   };
   bf16* dsw = ds_s + wg * (L::kDsBytes / sizeof(bf16));
-  for (int x = ct; x < dq_quads; x += kConsumers)
+  for (int x = ct; x < rows_max * D / 4; x += kConsumers)
     dq_s[x] = make_float4(0.f, 0.f, 0.f, 0.f);
   // The turns to add into dq: warpgroup w adds after bar_sync(kDqBar + w)
   // and hands over with bar_arrive(kDqBar + 1 - w); warpgroup 0 starts.
   if (wg == 1) bar_arrive(kDqBar, kConsumers);
   int jk = 0, jq = 0;
-  for (int b = blockIdx.x; b < bh; b += gridDim.x) {
+  for (int i = blockIdx.x; i < items; i += gridDim.x) {
+    const BwdItem it = bwd_item(i, bh, rg);
+    const int b = it.b, row0 = it.qt0 * kTile;
+    const int rows = (it.qt1 - it.qt0) * kTile, dq_quads = rows * D / 4;
     // The item's rows: delta = rowsum(g out) in fp32 (each product of two
     // bf16 values exact), written out and kept times the scale; lse2 =
     // lse log2(e); rows past Sq take lse2 = kNoRow and delta 0.
-    for (int r = ct; r < sq_pad; r += kConsumers) {
+    for (int r = ct; r < rows; r += kConsumers) {
       float sum = 0.f, l2 = kNoRow;
-      if (r < sq) {
-        const int64_t row = (int64_t)b * sq + r;
+      if (row0 + r < sq) {
+        const int64_t row = (int64_t)b * sq + row0 + r;
         const uint4* gr = reinterpret_cast<const uint4*>(g + row * D);
         const uint4* orow = reinterpret_cast<const uint4*>(out + row * D);
 #pragma unroll
@@ -751,14 +797,15 @@ __global__ void __launch_bounds__(kThreads, 1)
       lse2_s[row_slot(r)] = l2;
       delta_s[row_slot(r)] = sum * scale;
     }
-    // Key tiles no step visits: dk = dv = 0, a warp a tile.
+    // Key tiles no step visits: dk = dv = 0, a warp a tile (over query
+    // ranges, with a workspace, reduce_kernel writes them).
     const float* mrow = mask + (int64_t)b * sk;
-    for (int t = cw; t < nk; t += kConsumers / 32) {
+    for (int t = cw; part == nullptr && t < nk; t += kConsumers / 32) {
       uint32_t w[4];
       tile_bits(w, mrow, t, sk, lane);
-      if (visited(w, t)) continue;
-      const int rows = min(kTile, sk - t * kTile);
-      for (int x = lane; x < rows * N8; x += 32) {
+      if (visited(w, t, kend(it))) continue;
+      const int keys = min(kTile, sk - t * kTile);
+      for (int x = lane; x < keys * N8; x += 32) {
         const int64_t at = ((int64_t)b * sk + t * kTile + x / N8) * D +
                            8 * (x % N8);
         *reinterpret_cast<uint4*>(dk + at) = make_uint4(0u, 0u, 0u, 0u);
@@ -787,8 +834,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       float dk_acc[N8][4], dv_acc[N8][4];
       zero(dk_acc);
       zero(dv_acc);
-      for (int qt = causal ? t : 0; qt < nq; ++qt, ++jq) {
+      for (int qt = causal ? max(t, it.qt0) : it.qt0; qt < it.qt1;
+           ++qt, ++jq) {
         const int s2 = jq % kQStages;
+        const int lt = qt - it.qt0;  // the tile's place in the item's rows
         mbar_wait(&full_q[s2], (jq / kQStages) & 1);
         const bf16* qtile = qg_s + 2 * s2 * kTile * D;
         const bf16* gtile = qtile + kTile * D;
@@ -822,10 +871,10 @@ __global__ void __launch_bounds__(kThreads, 1)
             pin(da);
           }
           const float4* lq =
-              reinterpret_cast<const float4*>(lse2_s + qt * kTile) + tig +
+              reinterpret_cast<const float4*>(lse2_s + lt * kTile) + tig +
               16 * hf;
           const float4* dl =
-              reinterpret_cast<const float4*>(delta_s + qt * kTile) + tig +
+              reinterpret_cast<const float4*>(delta_s + lt * kTile) + tig +
               16 * hf;
           if (bits == 0xffffu && (!causal || kw0 + 15 <= q0))
             p_ds<false>(sc, dp, lq, dl, scale_log2, scale, bits, grp, false,
@@ -860,7 +909,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         // in its turn: from and back into dq's fp32 in shared memory.
         bar_sync(kDqBar + wg, kConsumers);
         float dq_acc[2][N8][4];
-        float4* slot = dq_s + ((2 * qt * 4 + wq) * N8) * 32 + lane;
+        float4* slot = dq_s + ((2 * lt * 4 + wq) * N8) * 32 + lane;
 #pragma unroll
         for (int hq = 0; hq < 2; ++hq)
 #pragma unroll
@@ -897,17 +946,32 @@ __global__ void __launch_bounds__(kThreads, 1)
         bar_arrive(kDqBar + 1 - wg, kConsumers);
         release(&empty_q[s2]);
       }
+      // dk and dv of the warp's keys: in bf16, or over query ranges the
+      // fp32 partials into the range's slice of the workspace
+      // ([range of the launch][bh][sk][D] for dk, then the same for dv).
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int key = kw0 + grp + 8 * h;
         if (key >= sk) continue;
         const int64_t at = ((int64_t)b * sk + key) * D + 2 * tig;
+        if (part == nullptr) {
 #pragma unroll
-        for (int c8 = 0; c8 < N8; ++c8) {
-          *reinterpret_cast<uint32_t*>(dk + at + 8 * c8) =
-              pack_bf16x2(dk_acc[c8][2 * h], dk_acc[c8][2 * h + 1]);
-          *reinterpret_cast<uint32_t*>(dv + at + 8 * c8) =
-              pack_bf16x2(dv_acc[c8][2 * h], dv_acc[c8][2 * h + 1]);
+          for (int c8 = 0; c8 < N8; ++c8) {
+            *reinterpret_cast<uint32_t*>(dk + at + 8 * c8) =
+                pack_bf16x2(dk_acc[c8][2 * h], dk_acc[c8][2 * h + 1]);
+            *reinterpret_cast<uint32_t*>(dv + at + 8 * c8) =
+                pack_bf16x2(dv_acc[c8][2 * h], dv_acc[c8][2 * h + 1]);
+          }
+        } else {
+          float* pk = part + (int64_t)it.r * bh * sk * D + at;
+          float* pv = pk + (int64_t)ranges * bh * sk * D;
+#pragma unroll
+          for (int c8 = 0; c8 < N8; ++c8) {
+            *reinterpret_cast<float2*>(pk + 8 * c8) =
+                make_float2(dk_acc[c8][2 * h], dk_acc[c8][2 * h + 1]);
+            *reinterpret_cast<float2*>(pv + 8 * c8) =
+                make_float2(dv_acc[c8][2 * h], dv_acc[c8][2 * h + 1]);
+          }
         }
       }
       release(&empty_kv[s]);
@@ -918,7 +982,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int x = ct; x < dq_quads; x += kConsumers) {
       const int f = x >> 5;  // (((qt 2 + half) 4 + warp) N8 + c8); lane x % 32
       const int c8 = f % N8, t4 = f / N8;
-      const int row = (t4 >> 3) * kTile + ((t4 >> 2) & 1) * kWgRows +
+      const int row = row0 + (t4 >> 3) * kTile + ((t4 >> 2) & 1) * kWgRows +
                       16 * (t4 & 3) + grp;
       const float4 v = dq_s[x];
       dq_s[x] = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -933,6 +997,87 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   // Warpgroup 1's last hand-over (its first was the extra one above).
   if (wg == 0) bar_sync(kDqBar, kConsumers);
+}
+
+// Over query ranges: dk and dv of a 128-key tile, a thread a key, after
+// a launch of bwd_kernel over a group of ranges: the sums of the groups
+// before (acc, unless `first`) plus the fp32 partials of the group's ranges
+// whose items visited the tile (every range, or causal those that end
+// after it), added in range order; after the last group rounded to bf16
+// once, else kept in acc ([bh][sk][D] for dk, then the same for dv). A
+// tile with no valid key is no range's: 0. Range `drop` of the group has
+// its partials left out of the sum (a planted fault for the checks; -1:
+// none).
+template <int D>
+__global__ void __launch_bounds__(kTile)
+    reduce_kernel(const float* __restrict__ part, float* __restrict__ acc,
+                  const float* __restrict__ mask, bf16* __restrict__ dk,
+                  bf16* __restrict__ dv, int bh, int sk, int causal,
+                  const __grid_constant__ Ranges rg, int ranges, int first,
+                  int last, int drop) {
+  const int nk = (sk + kTile - 1) / kTile;
+  const int b = blockIdx.x / nk, t = blockIdx.x % nk;
+  const int key = t * kTile + threadIdx.x;
+  const bool valid = key < sk && mask[(int64_t)b * sk + key] > 0.f;
+  const bool live = __syncthreads_or(valid);
+  if (key >= sk || (!live && !last)) return;
+  const int64_t at = ((int64_t)b * sk + key) * D;
+  const int64_t slice = (int64_t)bh * sk * D;  // a range's partials
+  float sum_k[D], sum_v[D];
+  float4* ak = reinterpret_cast<float4*>(acc + at);
+  float4* av = reinterpret_cast<float4*>(acc + slice + at);
+#pragma unroll
+  for (int c = 0; c < D / 4; ++c) {
+    const float4 a = live && !first ? ak[c] : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4 w = live && !first ? av[c] : make_float4(0.f, 0.f, 0.f, 0.f);
+    sum_k[4 * c] = a.x;
+    sum_k[4 * c + 1] = a.y;
+    sum_k[4 * c + 2] = a.z;
+    sum_k[4 * c + 3] = a.w;
+    sum_v[4 * c] = w.x;
+    sum_v[4 * c + 1] = w.y;
+    sum_v[4 * c + 2] = w.z;
+    sum_v[4 * c + 3] = w.w;
+  }
+  for (int r = 0; live && r < ranges; ++r) {
+    if (r == drop || (causal && rg.start[r + 1] <= t)) continue;
+    const float4* pk = reinterpret_cast<const float4*>(part + r * slice + at);
+    const float4* pv =
+        reinterpret_cast<const float4*>(part + (ranges + r) * slice + at);
+#pragma unroll
+    for (int c = 0; c < D / 4; ++c) {
+      const float4 a = pk[c], w = pv[c];
+      sum_k[4 * c] += a.x;
+      sum_k[4 * c + 1] += a.y;
+      sum_k[4 * c + 2] += a.z;
+      sum_k[4 * c + 3] += a.w;
+      sum_v[4 * c] += w.x;
+      sum_v[4 * c + 1] += w.y;
+      sum_v[4 * c + 2] += w.z;
+      sum_v[4 * c + 3] += w.w;
+    }
+  }
+  if (!last) {
+#pragma unroll
+    for (int c = 0; c < D / 4; ++c) {
+      ak[c] = make_float4(sum_k[4 * c], sum_k[4 * c + 1], sum_k[4 * c + 2],
+                          sum_k[4 * c + 3]);
+      av[c] = make_float4(sum_v[4 * c], sum_v[4 * c + 1], sum_v[4 * c + 2],
+                          sum_v[4 * c + 3]);
+    }
+    return;
+  }
+#pragma unroll
+  for (int c = 0; c < D / 8; ++c) {
+    const float* x = sum_k + 8 * c;
+    const float* y = sum_v + 8 * c;
+    reinterpret_cast<uint4*>(dk + at)[c] =
+        make_uint4(pack_bf16x2(x[0], x[1]), pack_bf16x2(x[2], x[3]),
+                   pack_bf16x2(x[4], x[5]), pack_bf16x2(x[6], x[7]));
+    reinterpret_cast<uint4*>(dv + at)[c] =
+        make_uint4(pack_bf16x2(y[0], y[1]), pack_bf16x2(y[2], y[3]),
+                   pack_bf16x2(y[4], y[5]), pack_bf16x2(y[6], y[7]));
+  }
 }
 
 // -- launchers ------------------------------------------------------------
@@ -971,11 +1116,28 @@ int fwd(const bf16* q, const bf16* k, const bf16* v, const float* mask,
 template <int D>
 int bwd(const bf16* q, const bf16* k, const bf16* v, const float* mask,
         const float* lse, const bf16* out, const bf16* g, float* delta,
-        bf16* dq, bf16* dk, bf16* dv, int bh, int sq, int sk, int causal,
-        double scale, cudaStream_t stream) {
+        bf16* dq, bf16* dk, bf16* dv, float* part, float* acc, int bh,
+        int sq, int sk, int causal, const int* starts, int ranges, int group,
+        int drop, double scale, cudaStream_t stream) {
   using L = BwdLayout<D>;
-  const int sq_pad = (sq + kTile - 1) / kTile * kTile;
-  if (sq_pad > L::kMaxSq) return (int)cudaErrorInvalidValue;
+  const int nq = (sq + kTile - 1) / kTile, nk = (sk + kTile - 1) / kTile;
+  if (starts == nullptr || ranges < 1 || starts[0] != 0 ||
+      starts[ranges] != nq || group < 1 || group > kMaxRanges ||
+      drop < -1 || drop >= ranges)
+    return (int)cudaErrorInvalidValue;
+  int most = 0;  // the longest range's query tiles
+  for (int r = 1; r <= ranges; ++r) {
+    const int tiles = starts[r] - starts[r - 1];
+    if (tiles <= 0 || tiles * kTile > L::kMaxRows)
+      return (int)cudaErrorInvalidValue;
+    if (tiles > most) most = tiles;
+  }
+  const int64_t tiles = (int64_t)bh * nk;
+  const bool ranged = ranges > 1, grouped = ranges > group;
+  if (tiles > INT_MAX || (int64_t)bh * group > INT_MAX ||
+      (ranged && (part == nullptr || !aligned(part))) ||
+      (grouped && (acc == nullptr || !aligned(acc))))
+    return (int)cudaErrorInvalidValue;
   CUtensorMap qm, km, vm, gm;
   if (!tile_map<D>(&qm, q, sq, bh, kTile) ||
       !tile_map<D>(&km, k, sk, bh, kTile) ||
@@ -983,14 +1145,31 @@ int bwd(const bf16* q, const bf16* k, const bf16* v, const float* mask,
       !tile_map<D>(&gm, g, sq, bh, kTile))
     return (int)cudaErrorInvalidValue;
   const int sms = sm_count();
-  const int grid = bh < sms ? bh : sms;
-  const size_t bytes = L::bytes(sq_pad);
-  const int err = configure(bwd_kernel<D>, bytes, bh);
+  const size_t bytes = L::bytes(most * kTile);
+  const int err = configure(bwd_kernel<D>, bytes, (int64_t)bh * group);
   if (err) return err;
-  if (grid <= 0) return (int)cudaErrorInvalidValue;
-  bwd_kernel<D><<<grid, kThreads, bytes, stream>>>(
-      qm, km, vm, gm, mask, lse, out, g, delta, dq, dk, dv, bh, sq, sk,
-      causal, (float)scale, (float)(kLog2e * scale));
+  // A launch of bwd_kernel a group of ranges, and of reduce_kernel after
+  // it where there is more than one range.
+  for (int r0 = 0; r0 < ranges; r0 += group) {
+    const int n = ranges - r0 < group ? ranges - r0 : group;
+    Ranges rg = {};
+    for (int r = 0; r <= n; ++r) rg.start[r] = starts[r0 + r];
+    const int items = bh * n, grid = items < sms ? items : sms;
+    if (grid <= 0) return (int)cudaErrorInvalidValue;
+    bwd_kernel<D><<<grid, kThreads, bytes, stream>>>(
+        qm, km, vm, gm, mask, lse, out, g, delta, dq, dk, dv,
+        ranged ? part : nullptr, bh, sq, sk, causal, rg, n, most * kTile,
+        (float)scale, (float)(kLog2e * scale));
+    if (!ranged) break;
+    const cudaError_t launched = cudaGetLastError();
+    if (launched != cudaSuccess) return (int)launched;
+    const int lost = drop >= r0 && drop < r0 + n ? drop - r0 : -1;
+    reduce_kernel<D><<<(int)tiles, kTile, 0, stream>>>(
+        part, acc, mask, dk, dv, bh, sk, causal, rg, n, r0 == 0,
+        r0 + n == ranges, lost);
+    const cudaError_t reduced = cudaGetLastError();
+    if (reduced != cudaSuccess) return (int)reduced;
+  }
   return (int)cudaGetLastError();
 }
 
@@ -1021,37 +1200,49 @@ extern "C" int flash_attention_tma_fwd_bf16(const bf16* q, const bf16* k,
   }
 }
 
-// K6 in bf16 at d in {16, 32}, sq at most bwd_max_sq(d). Arguments as
+// K6 in bf16 at d in {16, 32}, any bh and sq. Arguments as
 // flash_attention_bwd_bf16's (flash_attention_bf16.cu): delta (bh, sq)
-// fp32 is written with rowsum(g out).
+// fp32 is written with rowsum(g out); and part, acc, starts, ranges, group
+// and drop: starts (host memory, ranges + 1 ascending query tiles of 128
+// rows, from 0 to ceil(sq / 128), each range at most
+// flash_attention_tma_bwd_max_rows_bf16(d) rows) cuts the query tiles
+// into ranges, run in groups of `group` (1 to 256) ranges a launch; with
+// more than one range, part is an fp32 workspace of
+// 2 x min(ranges, group) x bh x sk x d floats, and with more than one
+// group acc one of 2 x bh x sk x d floats (else unused, may be null); drop
+// is -1 (or a range whose partials reduce_kernel leaves out: a planted
+// fault for the checks).
 extern "C" int flash_attention_tma_bwd_bf16(
     const bf16* q, const bf16* k, const bf16* v, const float* mask,
     const float* lse, const bf16* out, const bf16* g, float* delta, bf16* dq,
-    bf16* dk, bf16* dv, int bh, int sq, int sk, int d, int causal,
+    bf16* dk, bf16* dv, float* part, float* acc, int bh, int sq, int sk,
+    int d, int causal, const int* starts, int ranges, int group, int drop,
     double scale, cudaStream_t stream) {
   if (!aligned(q) || !aligned(k) || !aligned(v) || !aligned(out) ||
       !aligned(g) || !aligned(dq) || !aligned(dk) || !aligned(dv))
     return (int)cudaErrorInvalidValue;
   switch (d) {
     case 16:
-      return bwd<16>(q, k, v, mask, lse, out, g, delta, dq, dk, dv, bh, sq,
-                     sk, causal, scale, stream);
+      return bwd<16>(q, k, v, mask, lse, out, g, delta, dq, dk, dv, part,
+                     acc, bh, sq, sk, causal, starts, ranges, group, drop,
+                     scale, stream);
     case 32:
-      return bwd<32>(q, k, v, mask, lse, out, g, delta, dq, dk, dv, bh, sq,
-                     sk, causal, scale, stream);
+      return bwd<32>(q, k, v, mask, lse, out, g, delta, dq, dk, dv, part,
+                     acc, bh, sq, sk, causal, starts, ranges, group, drop,
+                     scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-// The longest query side K6 takes at head width d (its dq, lse2 and delta
-// held in shared memory), or 0 for a width it does not take.
-extern "C" int flash_attention_tma_bwd_max_sq_bf16(int d) {
+// The most query rows an item of K6 holds at head width d (their dq, lse2
+// and delta in shared memory), or 0 for a width it does not take.
+extern "C" int flash_attention_tma_bwd_max_rows_bf16(int d) {
   switch (d) {
     case 16:
-      return BwdLayout<16>::kMaxSq;
+      return BwdLayout<16>::kMaxRows;
     case 32:
-      return BwdLayout<32>::kMaxSq;
+      return BwdLayout<32>::kMaxRows;
     default:
       return 0;
   }

@@ -15,13 +15,12 @@ JAX package's: heads folded into the batch, q (BH, Sq, D), k and v
   take fp32 or bf16 q, k, v (and g), all of one dtype; the mask and lse are
   fp32. On a CUDA tensor they launch ``csrc/flash_attention.cu`` (fp32) at
   head widths up to 128; in bf16 the kernels of
-  ``csrc/flash_attention_tma_bf16.cu`` at the narrow widths and shapes
-  they take (``TMA_FWD_HEAD_DIMS``, ``TMA_BWD_MAX_SQ``,
-  ``TMA_BWD_MIN_BH``), the one-block instances of
+  ``csrc/flash_attention_tma_bf16.cu`` at the narrow widths
+  (``TMA_FWD_HEAD_DIMS``, ``TMA_BWD_MAX_ROWS``; K6 over query ranges that
+  :func:`bwd_query_ranges` picks), the one-block instances of
   ``csrc/flash_attention_cluster_bf16.cu`` for K5 at 128 and K6 at 64 and
-  128 (``CLUSTER_FWD_NARROW_DIMS``, ``CLUSTER_BWD_NARROW_DIMS``), and
-  ``csrc/flash_attention_bf16.cu`` for K6 at 16 and 32 past the TMA
-  kernel's shapes; ``csrc/flash_attention_wide.cu`` or
+  128 (``CLUSTER_FWD_NARROW_DIMS``, ``CLUSTER_BWD_NARROW_DIMS``);
+  ``csrc/flash_attention_wide.cu`` or
   ``csrc/flash_attention_wide_bf16.cu`` for K6 from 256 and the fp32 K5
   from 256, and ``csrc/flash_attention_cluster_bf16.cu`` for the bf16 K5
   from 256 up to ``CLUSTER_FWD_HEAD_DIM_MAX`` and the bf16 K6 above 256 up
@@ -32,8 +31,12 @@ JAX package's: heads folded into the batch, q (BH, Sq, D), k and v
   :func:`flash_attention_backward_reference` in fp32, the ``_bf16`` ones in
   bf16. Launches are counted in ``flash_attention.launches``: "fwd" and
   "bwd" for the fp32 kernels, "fwd_bf16" and "bwd_bf16" for the bf16 ones
-  (one count per forward call; one per backward call, which runs both of
-  K6's kernels). K5 is an op that ``torch.export`` records
+  (one count per forward call; one per backward call, which runs all of
+  K6's kernels), and by source in ``flash_attention.launches_by_source``
+  ("<source>.fwd", "<source>.bwd", and
+  "flash_attention_tma_bf16.bwd.ranges" for its backward calls over more
+  than one query range, which add the ranges' partials in a second
+  kernel). K5 is an op that ``torch.export`` records
   (``ops/custom_ops.py``): ``flash_attention_fwd`` (fp32) and
   ``flash_attention_fwd_bf16``.
 - :class:`FlashAttention` is the autograd Function over K5 and K6 (the
@@ -62,10 +65,12 @@ dq, dk, dv returned in bf16.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import warnings
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from deep_recommenders_torch.ops import _build, custom_ops
@@ -92,16 +97,25 @@ WIDE_HEAD_STEP = 64
 CLUSTER_FWD_HEAD_DIM_MAX = 4096
 CLUSTER_BWD_HEAD_DIM_MAX = 2048
 # The bf16 K5 and K6 fed by TMA under warp specialisation
-# (csrc/flash_attention_tma_bf16.cu) take these head widths; K6 there
-# scores each tile pair once and holds dq, lse and delta of all of a (bh)'s
-# query rows in shared memory, so it takes Sq up to TMA_BWD_MAX_SQ[d] (the C
-# function flash_attention_tma_bwd_max_sq_bf16), and one block a (bh) on a
-# persistent grid, so it takes BH from TMA_BWD_MIN_BH on (the H100's 132
-# SMs: fewer would leave SMs idle where flash_attention_bf16.cu's two
-# kernels fill them).
+# (csrc/flash_attention_tma_bf16.cu) take these head widths, K6 at every
+# (BH, Sq). K6 there scores each tile pair once: an item of its persistent
+# grid is a (bh, query range) whose dq, lse and delta lie in shared memory,
+# at most TMA_BWD_MAX_ROWS[d] rows (the C function
+# flash_attention_tma_bwd_max_rows_bf16), in tiles of TMA_BWD_TILE;
+# :func:`bwd_query_ranges` picks the ranges. Over more than one range the
+# ranges' fp32 dk and dv partials go to a workspace of at most
+# TMA_BWD_PART_BYTES (at least one range's), ranges running in groups of
+# what it holds (at most TMA_BWD_GROUP_MAX a launch: the kernel's table),
+# the groups' sums in an fp32 accumulator of BH Sk D; the planner prices a
+# range's partials at TMA_BWD_PART_PAIRS[d] (query tile, key tile) pairs
+# for each key tile it visits (tools/long_bwd_times.py --part-cost measures
+# it: 0.83-0.87 at D = 16, 1.50 at 32 on an H100).
 TMA_FWD_HEAD_DIMS = (16, 32, 64)
-TMA_BWD_MAX_SQ = {16: 2176, 32: 768}
-TMA_BWD_MIN_BH = 132
+TMA_BWD_MAX_ROWS = {16: 2176, 32: 768}
+TMA_BWD_TILE = 128
+TMA_BWD_GROUP_MAX = 256
+TMA_BWD_PART_BYTES = 1 << 30
+TMA_BWD_PART_PAIRS = {16: 0.85, 32: 1.5}
 # The bf16 K5 and K6 of csrc/flash_attention_cluster_bf16.cu at head widths
 # below 256, one block a cluster (nothing to exchange), at every (BH, Sq):
 # K5 at D = 128 on a persistent grid whose blocks walk (bh, 128-row) items,
@@ -284,12 +298,22 @@ def flash_attention_backward_reference_bf16(
     ds = p (dp - delta) scale in fp32 (``scale`` default 1 / sqrt(D)); p
     and ds rounded to bf16 before dv = p^T g, dk = ds^T q and dq = ds k
     (fp32 accumulation); the gradients returned in bf16."""
+    return _backward_bf16(q, k, v, key_mask, out, lse, g, causal, scale)
+
+
+def _backward_bf16(q, k, v, key_mask, out, lse, g, causal, scale,
+                   keep: Optional[torch.Tensor] = None):
+    """:func:`flash_attention_backward_reference_bf16`; with ``keep`` (Sq,)
+    of 0 and 1, dk and dv summed only over the queries it keeps."""
     qf, kf, vf, of, gf = (t.float() for t in (q, k, v, out, g))
     p, _, _, ds = backward_terms(qf, kf, vf, key_mask, of, lse.float(), gf,
                                  causal, scale)
     pb = p.to(torch.bfloat16).float()
     dsb = ds.to(torch.bfloat16).float()
     dq = torch.einsum("...qk,...kd->...qd", dsb, kf)
+    if keep is not None:
+        pb = pb * keep[:, None]
+        dsb = dsb * keep[:, None]
     dk = torch.einsum("...qk,...qd->...kd", dsb, qf)
     dv = torch.einsum("...qk,...qd->...kd", pb, gf)
     return tuple(t.to(torch.bfloat16) for t in (dq, dk, dv))
@@ -364,20 +388,21 @@ _SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16"}
 _C_TYPE = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
-def _kernel(dtype, d: int, backward: bool, bh: int, sq: int
-            ) -> Tuple[str, str]:
+def _kernel(dtype, d: int, backward: bool) -> Tuple[str, str]:
     """(source, C function) of K5 or K6 (``backward``) for operands of
-    ``dtype`` at head width ``d`` and (BH, Sq) = (``bh``, ``sq``), chosen by
-    width and shape, never as a fallback:
+    ``dtype`` at head width ``d``, at every shape, chosen by width, never as
+    a fallback:
 
-    - bf16 at the widths of ``TMA_FWD_HEAD_DIMS`` (K5), or of
-      ``TMA_BWD_MAX_SQ`` with Sq up to its entry and BH from
-      ``TMA_BWD_MIN_BH`` on (K6): csrc/flash_attention_tma_bf16.cu's;
+    - bf16 at the widths of ``TMA_FWD_HEAD_DIMS`` (K5) or of
+      ``TMA_BWD_MAX_ROWS`` (K6), at every shape:
+      csrc/flash_attention_tma_bf16.cu's (K6 over the query ranges of
+      :func:`bwd_query_ranges`: one range up to ``TMA_BWD_MAX_ROWS`` rows
+      where BH fills the card, more past it or where it does not);
     - bf16 at the widths of ``CLUSTER_FWD_NARROW_DIMS`` (K5) or
       ``CLUSTER_BWD_NARROW_DIMS`` (K6), at every shape:
       csrc/flash_attention_cluster_bf16.cu's (one block a cluster);
-    - else up to 128: csrc/flash_attention(_bf16).cu's (the fp32 kernels,
-      and the bf16 K6 at D = 16 and 32 past the TMA kernel's shapes);
+    - else up to 128: csrc/flash_attention.cu's (the fp32 kernels; no bf16
+      width reaches csrc/flash_attention_bf16.cu);
     - from 256 on csrc/flash_attention_wide(_bf16).cu's (K6, and the fp32
       K5 on clusters that split D), except the bf16 K5 from 256 up to
       ``CLUSTER_FWD_HEAD_DIM_MAX`` and the bf16 K6 above 256 up to
@@ -385,8 +410,7 @@ def _kernel(dtype, d: int, backward: bool, bh: int, sq: int
       (clusters that split D)."""
     bf16 = dtype == torch.bfloat16
     if backward:
-        tma = (d in TMA_BWD_MAX_SQ and sq <= TMA_BWD_MAX_SQ[d]
-               and bh >= TMA_BWD_MIN_BH)
+        tma = d in TMA_BWD_MAX_ROWS
         narrow = d in CLUSTER_BWD_NARROW_DIMS
     else:
         tma = d in TMA_FWD_HEAD_DIMS
@@ -407,6 +431,157 @@ def _kernel(dtype, d: int, backward: bool, bh: int, sq: int
             f"{_C_TYPE[dtype]}")
 
 
+def bwd_range_group(bh: int, sk: int, d: int, ranges: int) -> int:
+    """How many of ``ranges`` query ranges of the bf16 K6 of
+    csrc/flash_attention_tma_bf16.cu run in one launch at (BH, Sk, D):
+    as many as ``TMA_BWD_PART_BYTES`` of fp32 dk and dv partials hold (at
+    least one, at most ``TMA_BWD_GROUP_MAX``)."""
+    per_range = 2 * bh * sk * d * 4
+    return max(1, min(ranges, TMA_BWD_GROUP_MAX,
+                      TMA_BWD_PART_BYTES // per_range))
+
+
+def bwd_plan_time(bh: int, sq: int, sk: int, d: int, sms: int, causal: bool,
+                  starts: Tuple[int, ...]) -> float:
+    """The planner's model of the time of the bf16 K6 over query ranges
+    starting at ``starts`` (in query tiles, then the tiles' end), in (query
+    tile, key tile) pairs: for each launch (a group of
+    :func:`bwd_range_group` ranges), the largest sum over a block of its
+    items' pairs, items drawn range-major (item i, range i // BH, on block
+    i mod min(BH ranges, ``sms``)); an item's pairs are every key tile for
+    each of its query tiles (causal: those up to the query tile's own),
+    plus ``TMA_BWD_PART_PAIRS[d]`` a key tile it visits where there is more
+    than one range."""
+    nk = max(1, -(-sk // TMA_BWD_TILE))
+    begins, ends = np.array(starts[:-1]), np.array(starts[1:])
+    if causal:  # query tile t sees min(t + 1, nk) key tiles
+        def seen(n):
+            return np.where(n <= nk, n * (n + 1) // 2,
+                            nk * (nk + 1) // 2 + (n - nk) * nk)
+        work = (seen(ends) - seen(begins)).astype(float)
+    else:
+        work = ((ends - begins) * nk).astype(float)
+    ranges = len(begins)
+    if ranges > 1:
+        work += TMA_BWD_PART_PAIRS[d] * (np.minimum(ends, nk) if causal
+                                         else nk)
+    group = bwd_range_group(bh, sk, d, ranges)
+    time = 0.0
+    for r0 in range(0, ranges, group):
+        part = work[r0:r0 + group]
+        items = bh * len(part)
+        blocks = min(items, sms)
+        loads = np.zeros(-(-items // blocks) * blocks)
+        loads[:items] = np.repeat(part, bh)
+        time += loads.reshape(-1, blocks).sum(0).max()
+    return float(time)
+
+
+@functools.lru_cache(maxsize=4096)
+def bwd_query_ranges(bh: int, sq: int, sk: int, d: int, sms: int,
+                     causal: bool = False) -> Tuple[int, ...]:
+    """The query ranges of the bf16 K6 of csrc/flash_attention_tma_bf16.cu
+    at (BH, Sq, Sk, D) on a card of ``sms`` SMs: the starts of R ranges in
+    query tiles of ``TMA_BWD_TILE`` rows, then the tiles' end. The ranges
+    are of n tiles each, the last of what is left, for the n from 1 to
+    the most an item holds (``TMA_BWD_MAX_ROWS[d]`` rows) whose plan takes
+    the least time under :func:`bwd_plan_time`, of equal times the fewest
+    ranges, then the shortest: one range wherever it costs no more (Sq up to
+    ``TMA_BWD_MAX_ROWS[d]`` with BH from ``sms`` on, and BH = 131 at
+    Sq = 512), more where BH leaves SMs idle or Sq is longer; causal, a
+    range's work grows with its place, so more ranges than SMs need may
+    balance the blocks better."""
+    nq = max(1, -(-sq // TMA_BWD_TILE))
+    plans = [tuple(range(0, nq, tiles)) + (nq,) for tiles in
+             range(1, min(nq, TMA_BWD_MAX_ROWS[d] // TMA_BWD_TILE) + 1)]
+    return min(plans, key=lambda starts: (
+        bwd_plan_time(bh, sq, sk, d, sms, causal, starts), len(starts),
+        starts[1]))
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _tma_backward(q, k, v, key_mask, out, lse, g, causal, scale,
+                  grads, drop: int = -1) -> int:
+    """One call of the bf16 K6 of csrc/flash_attention_tma_bf16.cu into
+    ``grads`` (dq, dk, dv) over the query ranges of
+    :func:`bwd_query_ranges`, in groups of :func:`bwd_range_group` (a
+    second kernel adds their dk and dv where there is more than one range),
+    with the fp32 workspace of a group's partials, and the accumulator of
+    the groups' sums where there is more than one group; ``drop`` is -1, or
+    a range whose partials the sum leaves out (the planted fault of
+    :func:`flash_attention_backward_lost_range`). Returns the count of
+    ranges."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    starts = bwd_query_ranges(bh, sq, sk, d, _sm_count(q.device), causal)
+    ranges = len(starts) - 1
+    group = bwd_range_group(bh, sk, d, ranges)
+
+    def floats(n):
+        return torch.empty(n, dtype=torch.float32, device=q.device)
+
+    part = floats(2 * group * bh * sk * d) if ranges > 1 else None
+    acc = floats(2 * bh * sk * d) if ranges > group else None
+    delta = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    fn = _build.function("flash_attention_tma_bf16",
+                         "flash_attention_tma_bwd_bf16",
+                         [_P] * 13 + [_I32] * 5
+                         + [_P, _I32, _I32, _I32, _F64, _P])
+    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(),
+              lse.data_ptr(), out.data_ptr(), g.data_ptr(), delta.data_ptr(),
+              *(t.data_ptr() for t in grads),
+              *(None if t is None else t.data_ptr() for t in (part, acc)),
+              bh, sq, sk, d, int(causal), (_I32 * len(starts))(*starts),
+              ranges, group, drop, _scale_arg(scale, d),
+              torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(code, "flash_attention backward")
+    return ranges
+
+
+def flash_attention_backward_lost_range(q, k, v, key_mask, out, lse, g,
+                                        causal: bool = False,
+                                        drop: int = 0,
+                                        sms: Optional[int] = None):
+    """A planted fault for the checks of ``ops/attention_tolerances.py``:
+    the bf16 K6 at D = 16 or 32 with query range ``drop``'s dk and dv
+    partials left out of their sum, on a shape that
+    :func:`bwd_query_ranges` cuts into more than one range on a card of
+    ``sms`` SMs (else ValueError). On the card the kernel itself (counting
+    no launch; ``sms`` the card's); on the CPU the bf16 plain version less
+    the range's queries' terms in dk and dv, with ``sms`` given."""
+    name = "flash_attention_backward_lost_range"
+    bh, sq, d = q.shape
+    cpu = q.device.type == "cpu"
+    if not cpu:
+        _check_inputs(name, q, k, v, key_mask, (out, g), (lse,))
+        sms = _sm_count(q.device)
+    elif sms is None:
+        raise ValueError(f"{name}: on the CPU the SMs of the card to plan "
+                         "for are the caller's to give")
+    starts = bwd_query_ranges(bh, sq, k.shape[1], d, sms, causal) \
+        if q.dtype == torch.bfloat16 and d in TMA_BWD_MAX_ROWS else (0,)
+    if len(starts) < 3:
+        raise ValueError(f"{name}: one query range at {(bh, sq, d)}")
+    if cpu:
+        keep = torch.ones(sq)
+        tile = TMA_BWD_TILE
+        keep[starts[drop] * tile:starts[drop + 1] * tile] = 0.0
+        return _backward_bf16(q, k, v, key_mask, out, lse, g, causal, None,
+                              keep)
+    grads = tuple(torch.empty_like(t) for t in (q, k, v))
+    _tma_backward(q, k, v, key_mask, out, lse, g, causal, None, grads, drop)
+    return grads
+
+
+def _count(source: str, direction: str) -> None:
+    key = f"{source}.{direction}"
+    by_source = flash_attention.launches_by_source
+    by_source[key] = by_source.get(key, 0) + 1
+
+
 def _scale_arg(scale: Optional[float], d: int) -> float:
     """The softmax scale a kernel is given: ``scale``, or 1 / sqrt(D)."""
     return 1.0 / math.sqrt(d) if scale is None else float(scale)
@@ -420,7 +595,7 @@ def _flash_fwd_cuda(q, k, v, key_mask, causal, scale):
     out = torch.empty_like(q)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     if bh and sq:
-        source, symbol = _kernel(q.dtype, d, False, bh, sq)
+        source, symbol = _kernel(q.dtype, d, False)
         fn = _build.function(source, symbol,
                              [_P] * 6 + [_I32] * 5 + [_F64, _P])
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -429,6 +604,7 @@ def _flash_fwd_cuda(q, k, v, key_mask, causal, scale):
                   torch.cuda.current_stream(q.device).cuda_stream)
         _build.check(code, "flash_attention forward")
         flash_attention.launches["fwd" + _SUFFIX[q.dtype]] += 1
+        _count(source, "fwd")
     return out, lse
 
 
@@ -474,6 +650,7 @@ def flash_attention(
 
 
 flash_attention.launches = {"fwd": 0, "bwd": 0, "fwd_bf16": 0, "bwd_bf16": 0}
+flash_attention.launches_by_source = {}
 
 
 def flash_attention_backward(
@@ -510,8 +687,16 @@ def flash_attention_backward(
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     if bh and sk and sq:
-        source, symbol = _kernel(dtype, d, True, bh, sq)
+        source, symbol = _kernel(dtype, d, True)
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        if source == "flash_attention_tma_bf16":
+            ranges = _tma_backward(q, k, v, key_mask, out, lse, g, causal,
+                                   scale, (dq, dk, dv))
+            flash_attention.launches["bwd_bf16"] += 1
+            _count(source, "bwd")
+            if ranges > 1:
+                _count(source, "bwd.ranges")
+            return dq, dk, dv
         scale = _scale_arg(scale, d)
         if dtype == torch.bfloat16:
             # The bf16 kernels form delta themselves, into this scratch.
@@ -535,6 +720,7 @@ def flash_attention_backward(
                       stream)
         _build.check(code, name)
         flash_attention.launches["bwd" + _SUFFIX[dtype]] += 1
+        _count(source, "bwd")
     else:  # no scores: every gradient is 0
         dq.zero_()
         dk.zero_()

@@ -10,6 +10,7 @@ against blockwise with online rescaling; outputs and lse agree to 2e-5
 gradients to atol 3e-5 and rtol 1e-4 (likewise).
 """
 
+import itertools
 import os
 import subprocess
 import sys
@@ -531,7 +532,7 @@ def test_attention_dispatch_above_the_widest_kernel(rng, monkeypatch):
 
 
 # (source, C function) of K5 ("fwd") and K6 ("bwd") by operand dtype and
-# head width at the bf16 Transformer's (BH, Sq) = (2048, 512):
+# head width (at every shape):
 # csrc/flash_attention.cu up to 128 for fp32 operands; the bf16 kernels of
 # csrc/flash_attention_tma_bf16.cu at D = 16 and K5's at 64, and the
 # one-block instances of csrc/flash_attention_cluster_bf16.cu for the bf16
@@ -578,19 +579,18 @@ def _check_route(dtype, direction, source, symbol):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernel_routing_by_dtype_width_and_direction(dtype, d, direction):
     """_kernel() names the source and C function the card launches for each
-    operand dtype, head width and direction at the bf16 Transformer's
-    (BH, Sq); the source is one the build compiles and defines that
-    function."""
+    operand dtype, head width and direction; the source is one the build
+    compiles and defines that function."""
     source, symbol = att._kernel(getattr(torch, dtype), d,
-                                 direction == "bwd", 2048, 512)
+                                 direction == "bwd")
     assert source == _ROUTES[dtype, direction][d]
     _check_route(dtype, direction, source, symbol)
 
 
 # (dtype, direction, D, BH, Sq) -> source: the bf16 K5 of
-# flash_attention_tma_bf16.cu at D = 16, 32 and 64 whatever the shape; its
-# K6 at D = 16 and 32 up to TMA_BWD_MAX_SQ and from TMA_BWD_MIN_BH (BH) on,
-# the mma.sync kernels of flash_attention_bf16.cu past either edge and for
+# flash_attention_tma_bf16.cu at D = 16, 32 and 64 and its K6 at D = 16 and
+# 32 whatever the shape (on both sides of the most rows a query range holds,
+# TMA_BWD_MAX_ROWS, and of the card's SMs in BH); flash_attention.cu for
 # fp32 operands; the one-block instances of flash_attention_cluster_bf16.cu
 # for the bf16 K5 at D = 128 (CLUSTER_FWD_NARROW_DIMS) and K6 at 64 and 128
 # (CLUSTER_BWD_NARROW_DIMS) whatever the shape (on both sides of the TMA
@@ -607,10 +607,15 @@ _SHAPE_ROUTES = [
     ("float32", "fwd", 128, 2048, 512, "flash_attention"),
     ("float32", "fwd", 16, 2048, 512, "flash_attention"),
     ("bfloat16", "bwd", 16, 132, 2176, "flash_attention_tma_bf16"),
-    ("bfloat16", "bwd", 16, 132, 2177, "flash_attention_bf16"),
-    ("bfloat16", "bwd", 16, 131, 512, "flash_attention_bf16"),
+    ("bfloat16", "bwd", 16, 132, 2177, "flash_attention_tma_bf16"),
+    ("bfloat16", "bwd", 16, 131, 512, "flash_attention_tma_bf16"),
     ("bfloat16", "bwd", 32, 2048, 768, "flash_attention_tma_bf16"),
-    ("bfloat16", "bwd", 32, 2048, 769, "flash_attention_bf16"),
+    ("bfloat16", "bwd", 32, 2048, 769, "flash_attention_tma_bf16"),
+    ("bfloat16", "bwd", 16, 64, 4096, "flash_attention_tma_bf16"),
+    ("bfloat16", "bwd", 16, 1, 1, "flash_attention_tma_bf16"),
+    ("bfloat16", "bwd", 16, 1, 100_000, "flash_attention_tma_bf16"),
+    ("bfloat16", "bwd", 32, 131, 768, "flash_attention_tma_bf16"),
+    ("bfloat16", "bwd", 32, 4096, 4096, "flash_attention_tma_bf16"),
     ("bfloat16", "bwd", 64, 2048, 512, "flash_attention_cluster_bf16"),
     ("bfloat16", "bwd", 64, 131, 512, "flash_attention_cluster_bf16"),
     ("bfloat16", "bwd", 64, 132, 769, "flash_attention_cluster_bf16"),
@@ -628,13 +633,20 @@ _SHAPE_ROUTES = [
 
 @pytest.mark.parametrize("dtype,direction,d,bh,sq,want", _SHAPE_ROUTES)
 def test_kernel_routing_by_shape(dtype, direction, d, bh, sq, want):
-    """_kernel() routes the bf16 kernels of narrow heads by width and shape,
-    and the bf16 K6 above 256 by width, to the source and C function
-    documented for each case."""
+    """_kernel() routes the bf16 kernels of narrow heads, and the bf16 K6
+    above 256, by width alone to the source and C function documented for
+    each case; where that is the bf16 K6 of flash_attention_tma_bf16.cu,
+    bwd_query_ranges covers the case's (BH, Sq) in ranges it takes."""
     source, symbol = att._kernel(getattr(torch, dtype), d,
-                                 direction == "bwd", bh, sq)
+                                 direction == "bwd")
     assert source == want
     _check_route(dtype, direction, source, symbol)
+    if source == "flash_attention_tma_bf16" and direction == "bwd":
+        for causal in (False, True):
+            starts = att.bwd_query_ranges(bh, sq, sq, d, 132, causal)
+            assert starts[0] == 0 and starts[-1] == max(1, -(-sq // 128))
+            assert all(0 < (b - a) * 128 <= att.TMA_BWD_MAX_ROWS[d]
+                       for a, b in zip(starts, starts[1:]))
 
 
 # Above 2048 columns: the bf16 K5 on clusters of 9-16 blocks
@@ -659,11 +671,171 @@ _ABOVE_2048_ROUTES = [
 def test_kernel_routing_above_2048(dtype, direction, d, want, bh, sq):
     """_kernel() sends the bf16 K5 from 2048 to 4096 to the clusters of
     csrc/flash_attention_cluster_bf16.cu and the rest above 2048 to the
-    wide kernels, at any (BH, Sq); the source defines the C function."""
+    wide kernels, at any (BH, Sq) (it takes none: the cases name two); the
+    source defines the C function."""
     source, symbol = att._kernel(getattr(torch, dtype), d,
-                                 direction == "bwd", bh, sq)
+                                 direction == "bwd")
     assert source == want
     _check_route(dtype, direction, source, symbol)
+
+
+# Every bf16 route of K5 and K6 at the kernel widths up to 128, at shapes on
+# both sides of every edge the routes have had: none is
+# csrc/flash_attention_bf16.cu (its mma.sync kernels stay only as a
+# yardstick), and the bf16 K6 at D = 16 and 32 is
+# csrc/flash_attention_tma_bf16.cu's.
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_no_bf16_route_reaches_the_mma_sync_kernels(d):
+    for bh, sq in itertools.product((1, 6, 64, 131, 132, 133, 2048),
+                                    (1, 100, 512, 768, 769, 2176, 2177,
+                                     4096, 16384)):
+        for backward in (False, True):
+            source, symbol = att._kernel(torch.bfloat16, d, backward)
+            assert source != "flash_attention_bf16"
+            _check_route("bfloat16", "bwd" if backward else "fwd", source,
+                         symbol)
+            if backward and d in (16, 32):
+                assert source == "flash_attention_tma_bf16"
+
+
+# (BH, Sq = Sk, D, causal) -> the starts of the query ranges (in 128-row
+# tiles) on the H100's 132 SMs: one range where it fits and BH fills the
+# card (the one-pass kernel's former shapes, and BH = 131 at Sq = 512,
+# where two cost as much); past TMA_BWD_MAX_ROWS ranges of one length (the
+# last shorter), causal more than the fewest where that balances the
+# blocks (13 + 13 + 6 tiles at Sq = 4096); few (bh) rows cut into ranges
+# that fill the SMs, down to one query tile a range; and past the kernel's
+# table of 256 ranges, in groups.
+_RANGE_PLANS = [
+    ((2048, 512, 16, False), (0, 4)),
+    ((2048, 512, 16, True), (0, 4)),
+    ((132, 2176, 16, False), (0, 17)),
+    ((132, 2177, 16, False), (0, 9, 18)),
+    ((132, 2177, 16, True), (0, 9, 18)),
+    ((131, 512, 16, False), (0, 4)),
+    ((132, 512, 16, True), (0, 4)),
+    ((64, 4096, 16, False), (0, 16, 32)),
+    ((64, 4096, 16, True), (0, 13, 26, 32)),
+    ((1, 4096, 16, True), tuple(range(33))),
+    ((128, 2048, 16, False), (0, 16)),
+    ((64, 512, 16, False), (0, 2, 4)),
+    ((64, 512, 16, True), (0, 3, 4)),
+    ((1, 4096, 16, False), tuple(range(33))),
+    ((1, 1, 16, False), (0, 1)),
+    ((2048, 768, 32, False), (0, 6)),
+    ((2048, 769, 32, False), (0, 4, 7)),
+    ((256, 1024, 32, False), (0, 4, 8)),
+    ((64, 4096, 32, False), (0, 4, 8, 12, 16, 20, 24, 28, 32)),
+    ((1, 600_000, 16, False), tuple(range(0, 4688, 14)) + (4688,)),
+]
+
+
+@pytest.mark.parametrize("shape,want", _RANGE_PLANS)
+def test_bwd_query_ranges(shape, want):
+    """bwd_query_ranges: ranges of whole 128-row tiles from 0 to the last
+    tile's end, each at most TMA_BWD_MAX_ROWS[d] rows (the C function's
+    limit, flash_attention_tma_bwd_max_rows_bf16, as the source computes
+    it), all of one length but the last; the plan pinned for each case; a
+    launch takes at most TMA_BWD_GROUP_MAX of them (the kernel's table) and
+    the partials of a group fit TMA_BWD_PART_BYTES."""
+    bh, sq, d, causal = shape
+    starts = att.bwd_query_ranges(bh, sq, sq, d, 132, causal)
+    assert starts == want
+    nq = max(1, -(-sq // 128))
+    most = att.TMA_BWD_MAX_ROWS[d] // 128
+    assert starts[0] == 0 and starts[-1] == nq
+    lengths = [b - a for a, b in zip(starts, starts[1:])]
+    assert all(0 < n <= most for n in lengths)
+    assert all(n == lengths[0] for n in lengths[:-1])
+    group = att.bwd_range_group(bh, sq, d, len(lengths))
+    assert 1 <= group <= min(len(lengths), att.TMA_BWD_GROUP_MAX)
+    assert group == 1 or 2 * group * bh * sq * d * 4 <= \
+        att.TMA_BWD_PART_BYTES
+
+
+# (BH, Sq = Sk, causal, starts, the partials' bytes budget or None) -> the
+# planner's time in (query tile, key tile) pairs, counted by hand at D = 16
+# (c = TMA_BWD_PART_PAIRS[16] pairs a visited key tile where there is more
+# than one range): one range of 16 x 16 pairs on a block each; two ranges
+# of 8 query tiles, two items a block; causal, 1 + 2 + 3 + 4 pairs; causal
+# two ranges on four blocks, the second (3 + 4 pairs, 4 key tiles) the
+# longest; and one range a launch (a budget of one range's partials), two
+# launches of one item.
+_PLAN_TIMES = [
+    ((132, 2048, False, (0, 16), None), lambda c: 256),
+    ((132, 2048, False, (0, 8, 16), None), lambda c: 2 * (128 + 16 * c)),
+    ((1, 512, True, (0, 4), None), lambda c: 10),
+    ((2, 512, True, (0, 2, 4), None), lambda c: 7 + 4 * c),
+    ((1, 512, False, (0, 2, 4), 2 * 512 * 16 * 4),
+     lambda c: 2 * (2 * 4 + 4 * c)),
+]
+
+
+@pytest.mark.parametrize("shape,want", _PLAN_TIMES)
+def test_bwd_plan_time(monkeypatch, shape, want):
+    """bwd_plan_time counts each block's items' pairs and the partials'
+    price, launch by launch, as its docstring says."""
+    bh, s, causal, starts, budget = shape
+    if budget is not None:
+        monkeypatch.setattr(att, "TMA_BWD_PART_BYTES", budget)
+        assert att.bwd_range_group(bh, s, 16, len(starts) - 1) == 1
+    c = att.TMA_BWD_PART_PAIRS[16]
+    assert att.bwd_plan_time(bh, s, s, 16, 132, causal, starts) == \
+        pytest.approx(want(c))
+
+
+def test_bwd_max_rows_mirrors_the_source():
+    """TMA_BWD_MAX_ROWS is what BwdLayout's kMaxRows gives: the shared
+    memory a block may take (kMaxSmem) less its rings, barriers and ds
+    buffers, over (2 + D) fp32 a row, in whole 128-row tiles."""
+    from deep_recommenders_torch.ops import _build
+
+    with open(_build.source_path("flash_attention_tma_bf16")) as f:
+        source = f.read()
+    assert "constexpr int kMaxRows =" in source
+    assert "extern \"C\" int flash_attention_tma_bwd_max_rows_bf16(int d)" \
+        in source
+    smem = 232448
+    for d, rows in att.TMA_BWD_MAX_ROWS.items():
+        tile = 128 * 2 * d
+        fixed = (2 * 64 * 64 * 2 * 2 + 2 * 2 * tile + 3 * 2 * tile
+                 + 2 * 2 * 16 + 8 * 2 * (2 + 3))
+        assert rows == (smem - fixed) // ((2 + d) * 4) // 128 * 128
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("bh,sq,sk,d", [(2, 600, 600, 16), (3, 900, 200, 32)])
+def test_backward_checks_reject_a_lost_query_range(bh, sq, sk, d, causal):
+    """flash_attention_backward_lost_range on the CPU (the bf16 plain
+    version less one query range's terms in dk and dv, the ranges of
+    bwd_query_ranges on the H100's 132 SMs, given by the caller): dq is
+    whole, and the bf16 backward check, which accepts the plain version,
+    rejects dk or dv with any one range lost; a shape of one range raises,
+    and so does a call on the CPU that names no SM count."""
+    rng = np.random.default_rng(7)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal(
+        (bh, s, d)).astype(np.float32)).to(torch.bfloat16)
+        for s in (sq, sk, sk, sq))
+    mask = torch.from_numpy((rng.random((bh, sk)) < 0.8).astype(np.float32))
+    out, lse = att.flash_attention_reference_bf16(q, k, v, mask, causal)
+    grads = att.flash_attention_backward(q, k, v, mask, out, lse, g, causal)
+    at.check_backward_bf16(grads, q, k, v, mask, out, lse, g, causal)
+    ranges = len(att.bwd_query_ranges(bh, sq, sk, d, 132, causal)) - 1
+    assert ranges > 1
+    for drop in range(ranges):
+        lost = att.flash_attention_backward_lost_range(
+            q, k, v, mask, out, lse, g, causal, drop, sms=132)
+        assert torch.equal(lost[0], grads[0])
+        checks = at.check_backward_bf16(lost, q, k, v, mask, out, lse, g,
+                                        causal, hold=False)
+        assert max(checks[n]["err_over_tol"] for n in ("dk", "dv")) > 1
+    with pytest.raises(ValueError, match="one query range"):
+        att.flash_attention_backward_lost_range(
+            *(t[:, :128] for t in (q, k, v)), mask[:, :128],
+            out[:, :128], lse[:, :128], g[:, :128], causal, sms=132)
+    with pytest.raises(ValueError, match="SMs"):
+        att.flash_attention_backward_lost_range(
+            q, k, v, mask, out, lse, g, causal)
 
 
 def _cluster_split(d: int):

@@ -996,7 +996,7 @@ def test_cluster_bf16_backward(device, bh, sq, sk, d, causal):
     mask[2 % bh, sk // 2:] = 0.0  # post-padding: whole key tiles of padding
     q, k, v, g = _bf16(q, k, v, _normal(gen, bh, sq, d))
     out, lse = att.flash_attention(q, k, v, mask, causal, return_lse=True)
-    assert att._kernel(torch.bfloat16, d, True, bh, sq)[0] == \
+    assert att._kernel(torch.bfloat16, d, True)[0] == \
         "flash_attention_cluster_bf16"
     before = att.flash_attention.launches["bwd_bf16"]
     runs = [att.flash_attention_backward(q, k, v, mask, out, lse, g, causal)
@@ -1039,9 +1039,9 @@ def test_cluster_bf16_narrow_kernels(device, case, bh, sq, sk, d, causal):
     q, k, v, mask = _attention_inputs(gen, bh, sq, sk, d)
     mask = _edge_mask(mask, case, sk)
     q, k, v, g = _bf16(q, k, v, _normal(gen, bh, sq, d))
-    assert att._kernel(torch.bfloat16, d, True, bh, sq)[0] == \
+    assert att._kernel(torch.bfloat16, d, True)[0] == \
         "flash_attention_cluster_bf16"
-    assert att._kernel(torch.bfloat16, d, False, bh, sq)[0] == (
+    assert att._kernel(torch.bfloat16, d, False)[0] == (
         "flash_attention_cluster_bf16" if d == 128
         else "flash_attention_tma_bf16")
     before = dict(att.flash_attention.launches)
@@ -1124,25 +1124,25 @@ def _tma_run(device, bh, sq, sk, d, causal, case, seed):
     ("post_padding", 132, 130, 150, 32, "tma", "tma"),
     ("padding_tiles", 132, 260, 300, 32, "tma", "tma"),
     # K6 routed elsewhere: D = 64 (flash_attention_cluster_bf16.cu's
-    # one-block kernels); too few (bh), Sq past the most
-    # (flash_attention_bf16.cu's).
+    # one-block kernels); too few (bh), Sq past the most rows an item
+    # holds: K6 over query ranges (one, and seven of 128 rows).
     ("post_padding", 132, 70, 200, 64, "tma", "cluster"),
-    ("last_tile_only", 6, 150, 130, 16, "tma", "bf16"),
-    ("post_padding", 132, 800, 130, 32, "tma", "bf16"),
+    ("last_tile_only", 6, 150, 130, 16, "tma", "tma"),
+    ("post_padding", 132, 800, 130, 32, "tma", "tma"),
 ])
 def test_tma_bf16_kernels(device, case, bh, sq, sk, d, fwd_src, bwd_src,
                             causal):
     """The bf16 K5 and K6 of flash_attention_tma_bf16.cu (or, where
-    _kernel routes K6 elsewhere by width or shape,
-    flash_attention_cluster_bf16.cu's or flash_attention_bf16.cu's) against
+    _kernel routes K6 elsewhere by width, flash_attention_cluster_bf16.cu's)
+    against
     their fp64 and bf16 plain versions; the checks reject dk less its first
     query tile and dq less its first key tile. A row with no valid key
     gives out 0, lse 0 and no gradient."""
     q, k, v, g, mask, out, lse, grads = _tma_run(device, bh, sq, sk, d,
                                                    causal, case, 21)
-    assert att._kernel(torch.bfloat16, d, False, bh, sq)[0] == (
+    assert att._kernel(torch.bfloat16, d, False)[0] == (
         f"flash_attention_{fwd_src}_bf16".replace("_bf16_bf16", "_bf16"))
-    assert att._kernel(torch.bfloat16, d, True, bh, sq)[0] == (
+    assert att._kernel(torch.bfloat16, d, True)[0] == (
         f"flash_attention_{bwd_src}_bf16".replace("_bf16_bf16", "_bf16"))
     at.check_forward_bf16((out, lse), q, k, v, mask, causal)
     planted_keys = 128 if case != "last_tile_only" else 0
@@ -1165,7 +1165,7 @@ def test_tma_bf16_kernels_are_deterministic(device, d):
     for causal in (False, True):
         runs = [_tma_run(device, 140, 300, 260, d, causal, "post_padding",
                            22)[5:] for _ in range(2)]
-        assert att._kernel(torch.bfloat16, d, True, 140, 300)[0] == (
+        assert att._kernel(torch.bfloat16, d, True)[0] == (
             "flash_attention_tma_bf16")
         (out_a, lse_a, grads_a), (out_b, lse_b, grads_b) = runs
         assert torch.equal(out_a, out_b) and torch.equal(lse_a, lse_b)
@@ -1175,23 +1175,176 @@ def test_tma_bf16_kernels_are_deterministic(device, d):
 
 @pytest.mark.parametrize("d", [16, 32])
 def test_tma_bf16_backward_at_its_longest_query_side(device, d):
-    """The one-pass K6 holds dq, lse and delta of Sq rows in shared memory:
-    the C function's limit is att.TMA_BWD_MAX_SQ[d], the kernel runs and
-    passes its check there, and one row more goes to
-    flash_attention_bf16.cu's kernels."""
+    """The one-pass K6 holds dq, lse and delta of an item's query rows in
+    shared memory: the C function's limit is att.TMA_BWD_MAX_ROWS[d]; at
+    BH = 132 the kernel takes Sq up to it in one range and passes its
+    check there, and one row more in two ranges (no other source)."""
     from deep_recommenders_torch.ops import _build
     import ctypes
 
     limit = _build.function("flash_attention_tma_bf16",
-                            "flash_attention_tma_bwd_max_sq_bf16",
+                            "flash_attention_tma_bwd_max_rows_bf16",
                             [ctypes.c_int32])
-    sq = att.TMA_BWD_MAX_SQ[d]
+    sq = att.TMA_BWD_MAX_ROWS[d]
     assert limit(d) == sq and limit(64) == 0
-    assert att._kernel(torch.bfloat16, d, True, 132, sq + 1)[0] == (
-        "flash_attention_bf16")
-    q, k, v, g, mask, out, lse, grads = _tma_run(device, 132, sq, 140, d,
-                                                   True, "post_padding", 23)
-    at.check_backward_bf16(grads, q, k, v, mask, out, lse, g, True)
+    sms = att._sm_count(device)
+    for rows in (sq, sq + 1):
+        assert att._kernel(torch.bfloat16, d, True)[0] == (
+            "flash_attention_tma_bf16")
+        plan = att.bwd_query_ranges(132, rows, 140, d, sms, True)
+        assert len(plan) - 1 == (1 if rows == sq else 2)
+        before = dict(att.flash_attention.launches_by_source)
+        q, k, v, g, mask, out, lse, grads = _tma_run(
+            device, 132, rows, 140, d, True, "post_padding", 23)
+        ranged = att.flash_attention.launches_by_source.get(
+            "flash_attention_tma_bf16.bwd.ranges", 0) - before.get(
+            "flash_attention_tma_bf16.bwd.ranges", 0)
+        assert ranged == (rows > sq)
+        at.check_backward_bf16(grads, q, k, v, mask, out, lse, g, True)
+
+
+# The bf16 K6 of flash_attention_tma_bf16.cu over query ranges: (BH, Sq, Sk,
+# D, the edge mask, the ranges' starts in query tiles: None for
+# bwd_query_ranges' plan, or a plan forced on the wrapper). BH = 1 at
+# Sq = 4096 (32 ranges of one tile, causal 19 of equal work); BH = 131
+# past D = 32's most rows (two ranges); few (bh) just past D = 16's most
+# rows; forced plans of two ranges of 9 tiles, of 17 tiles and one, of six
+# tiles at D = 32 with a shorter last, and of ranges of 1-17 tiles; Sk !=
+# Sq and not multiples of 128.
+_RANGE_CASES = [
+    (1, 4096, 4096, 16, None, None),
+    (131, 769, 300, 32, "post_padding", None),
+    (4, 2177, 2177, 16, "padding_tiles", None),
+    (4, 2177, 2177, 16, "last_tile_only", (0, 9, 18)),
+    (4, 2177, 1000, 16, "post_padding", (0, 17, 18)),
+    (4, 4096, 4096, 32, "post_padding", (0, 6, 12, 18, 24, 30, 32)),
+    (4, 4096, 3000, 16, "padding_tiles", (0, 1, 17, 20, 32)),
+    (6, 769, 769, 32, "last_tile_only", None),
+]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("bh,sq,sk,d,case,rows", _RANGE_CASES)
+def test_tma_bf16_backward_over_query_ranges(device, monkeypatch, bh, sq, sk,
+                                             d, case, rows, causal):
+    """The bf16 K6 over query ranges against fp64 and its bf16 plain version
+    (check_backward_bf16, on every (bh) row), with dk less its first
+    query tile and dq less its first key tile rejected; two calls give the
+    same bits; the wrapper counts one launch, and one call over more than
+    one range; a row with no valid key gives no gradient; and the kernel
+    with one range's dk and dv partials left out of the sum
+    (flash_attention_backward_lost_range: the first, and the one of the
+    most query rows) fails the check."""
+    if rows is not None:
+        monkeypatch.setattr(att, "bwd_query_ranges",
+                            lambda *args: rows)
+    plan = att.bwd_query_ranges(bh, sq, sk, d, att._sm_count(device),
+                                causal)
+    ranges = len(plan) - 1
+    assert ranges > 1 or (causal and rows is None)
+    gen = torch.Generator(device=device).manual_seed(31)
+    if case is None:
+        q, k, v = (_normal(gen, bh, s, d) for s in (sq, sk, sk))
+        mask = (torch.rand(bh, sk, device=device, generator=gen)
+                < 0.7).float()
+    else:
+        q, k, v, mask = _attention_inputs(gen, bh, sq, sk, d)
+        mask = _tma_edge_mask(mask, case, sk)
+    q, k, v, g = _bf16(q, k, v, _normal(gen, bh, sq, d))
+    out, lse = att.flash_attention(q, k, v, mask, causal, return_lse=True)
+    before = dict(att.flash_attention.launches)
+    by_source = dict(att.flash_attention.launches_by_source)
+    runs = [att.flash_attention_backward(q, k, v, mask, out, lse, g, causal)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert att.flash_attention.launches == {
+        **before, "bwd_bf16": before["bwd_bf16"] + 2}
+    for key, calls in (("flash_attention_tma_bf16.bwd", 2),
+                       ("flash_attention_tma_bf16.bwd.ranges",
+                        2 if ranges > 1 else 0)):
+        assert att.flash_attention.launches_by_source.get(key, 0) == \
+            by_source.get(key, 0) + calls
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    grads = runs[0]
+    args = (q, k, v, mask, out, lse, g, causal)
+    planted_keys = 128 if case not in ("last_tile_only",) and sk > 128 else 0
+    checks = at.check_backward_bf16(grads, *args,
+                                    planted_rows=64,
+                                    planted_keys=planted_keys)
+    assert checks["dk"]["planted"]["query_tile_dropped"] > 1
+    if planted_keys:
+        assert checks["dq"]["planted"]["key_tile_dropped"] > 1
+    if bh > 1 and case is not None:
+        for grad in grads:
+            assert grad.dtype == torch.bfloat16 and not grad[1].any()
+    # The first range, and the one of the most query rows (a range of
+    # fewer than 64 rows may lose less than the checks resolve).
+    rows_of = [min(sq, plan[r + 1] * 128) - plan[r] * 128
+               for r in range(ranges)]
+    widest = max(range(ranges), key=lambda r: (rows_of[r], r))
+    for drop in sorted({0, widest} if ranges > 1 else ()):
+        lost = att.flash_attention_backward_lost_range(
+            q, k, v, mask, out, lse, g, causal, drop)
+        assert torch.equal(lost[0], grads[0])  # dq is whole
+        shares = at.check_backward_bf16(lost, *args, hold=False)
+        assert max(shares[n]["err_over_tol"] for n in ("dk", "dv")) > 1
+
+
+# The bf16 K6 over query ranges in groups, a launch each: (BH, Sq, Sk, D,
+# the plan's query tiles a range, the ranges a group): 258 ranges of one
+# tile, past the kernel's table of 256 (in groups of 256 and of 7), and 32
+# of one tile at D = 32 in groups of 1, 5 and 32; post-padding rows
+# (_tma_edge_mask), (bh) row 1 with no valid key.
+_GROUP_CASES = [
+    (4, 33000, 300, 16, 1, (256, 7)),
+    (4, 4096, 700, 32, 1, (32, 5, 1)),
+]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("bh,sq,sk,d,tiles,groups", _GROUP_CASES)
+def test_tma_bf16_backward_in_groups_of_ranges(device, monkeypatch, bh, sq,
+                                               sk, d, tiles, groups,
+                                               causal):
+    """Ranges run in groups of what TMA_BWD_PART_BYTES holds, the groups'
+    sums folded in range order through an fp32 accumulator: every grouping
+    gives the same bits, which pass the bf16 checks against fp64 and the
+    plain version; where a range holds a 32nd of the query rows or more,
+    the last range lost, in the last group of the finest grouping
+    (flash_attention_backward_lost_range), is rejected (a 258th is below
+    the checks' resolution)."""
+    nq = -(-sq // 128)
+    plan = tuple(range(0, nq, tiles)) + (nq,)
+    ranges = len(plan) - 1
+    monkeypatch.setattr(att, "bwd_query_ranges", lambda *args: plan)
+    gen = torch.Generator(device=device).manual_seed(41)
+    q, k, v, mask = _attention_inputs(gen, bh, sq, sk, d)
+    mask = _tma_edge_mask(mask, "post_padding", sk)
+    q, k, v, g = _bf16(q, k, v, _normal(gen, bh, sq, d))
+    out, lse = att.flash_attention(q, k, v, mask, causal, return_lse=True)
+    per_range = 2 * bh * sk * d * 4
+    runs = []
+    for group in groups:
+        monkeypatch.setattr(att, "TMA_BWD_PART_BYTES", group * per_range)
+        assert att.bwd_range_group(bh, sk, d, ranges) == group
+        runs.append(att.flash_attention_backward(q, k, v, mask, out, lse, g,
+                                                 causal))
+    torch.cuda.synchronize()
+    for other in runs[1:]:
+        for a, b in zip(runs[0], other):
+            assert torch.equal(a, b)
+    at.check_backward_bf16(runs[0], q, k, v, mask, out, lse, g, causal)
+    for grad in runs[0]:
+        assert not grad[1].any()
+    if ranges > 32:
+        return
+    lost = att.flash_attention_backward_lost_range(
+        q, k, v, mask, out, lse, g, causal, ranges - 1)
+    assert torch.equal(lost[0], runs[0][0])
+    shares = at.check_backward_bf16(lost, q, k, v, mask, out, lse, g, causal,
+                                    hold=False)
+    assert max(shares[n]["err_over_tol"] for n in ("dk", "dv")) > 1
 
 
 def test_flash_attention_bf16_autograd_and_dispatch(device):
@@ -1535,7 +1688,7 @@ def test_cluster_bf16_forward_reduce_scatter_up_to_2048(device, case, bh, sq,
 
 
 def _check_reduce_scatter_forward(device, case, bh, sq, sk, d, causal):
-    assert att._kernel(torch.bfloat16, d, False, bh, sq)[0] == \
+    assert att._kernel(torch.bfloat16, d, False)[0] == \
         "flash_attention_cluster_bf16"
     gen = torch.Generator(device=device).manual_seed(d + sq)
     q, k, v, mask = _attention_inputs(gen, bh, sq, sk, d)

@@ -293,20 +293,29 @@ __device__ __forceinline__ void wgmma_ss_t(float (&d)[8][4], uint64_t a,
 """
 
 
+# The one-pass K6 at D = 64 over one query range, behind
+# flash_attention_bwd_bf16's arguments.
+ONE_RANGE_D64 = """
+extern "C" int flash_attention_tma_bwd_one_range_bf16(
+    const bf16* q, const bf16* k, const bf16* v, const float* mask,
+    const float* lse, const bf16* out, const bf16* g, float* delta, bf16* dq,
+    bf16* dk, bf16* dv, int bh, int sq, int sk, int d, int causal,
+    double scale, cudaStream_t stream) {
+  const int starts[2] = {0, (sq + kTile - 1) / kTile};
+  if (d != 64) return (int)cudaErrorInvalidValue;
+  return bwd<64>(q, k, v, mask, lse, out, g, delta, dq, dk, dv, nullptr,
+                 nullptr, bh, sq, sk, causal, starts, 1, 1, -1, scale,
+                 stream);
+}
+"""
+
+
 def one_pass_d64(src: str) -> str:
-    """flash_attention_tma_bf16.cu with its K6 instantiated at D = 64."""
+    """flash_attention_tma_bf16.cu with its K6 instantiated at D = 64 over
+    one query range (flash_attention_tma_bwd_one_range_bf16)."""
     src = _rep(src, '#include "wgmma.cuh"\n',
                '#include "wgmma.cuh"\n\nnamespace {' + SS_T_N64 + '}\n')
-    return _rep(src, """    case 32:
-      return bwd<32>(q, k, v, mask, lse, out, g, delta, dq, dk, dv, bh, sq,
-                     sk, causal, scale, stream);
-    default:""", """    case 32:
-      return bwd<32>(q, k, v, mask, lse, out, g, delta, dq, dk, dv, bh, sq,
-                     sk, causal, scale, stream);
-    case 64:
-      return bwd<64>(q, k, v, mask, lse, out, g, delta, dq, dk, dv, bh, sq,
-                     sk, causal, scale, stream);
-    default:""")
+    return src + ONE_RANGE_D64
 
 
 def build(texts: dict) -> dict:
@@ -474,7 +483,8 @@ def main() -> int:
         fns = sync if name == "mma_sync" else libs[name]
         measure(f"{name}#{i}", *fns, both, want, split=True)
     if "one_pass_d64" in built:
-        fn = bind(built["one_pass_d64"], "flash_attention_tma_bwd_bf16", True)
+        fn = bind(built["one_pass_d64"],
+                  "flash_attention_tma_bwd_one_range_bf16", True)
         measure("one_pass_d64", None, fn, short, want)
         if "main" in libs:
             measure("main_short", None, libs["main"][1], short, want)
