@@ -73,15 +73,19 @@ In order:
    csrc/flash_attention_tma_bf16.cu's), held and timed as those at D = 16,
    beside the mma.sync kernels, with two calls bit for bit and their
    instances' ptxas and SASS;
-   then the bf16 K5 above 2048 (``reduce_scatter_attention_phase``:
+   then the bf16 K5 and K6 above 2048 (``reduce_scatter_attention_phase``:
    clusters of ceil(D / 256) blocks, 9-16, a non-portable size, that
-   reduce-scatter their partial scores, as those of 3-8 blocks do but
-   for D = 576's, which pull): the placement line (how many clusters of
-   2-16 blocks the card holds at once), K5 and the streamed
-   K6 at (32, 512, 2304) held and timed as those at D = 512 (the forward
-   less the last of 9 blocks' partial scores rejected), K5 at (16, 512,
-   4096) held with the same fault and timed, two calls bit for bit at
-   both, the instance's ptxas and SASS;
+   reduce-scatter their partial scores, as K5's of 3-8 blocks do but
+   for D = 576's, which pull; K6's of 3-8 pull): the placement line (how
+   many clusters of 2-16 blocks of K5 and of K6's dq and dk/dv kernels the
+   card holds at once), K5 and K6 at (32, 512, 2304) held and timed as
+   those at D = 512 (the forward and the backward less the last of 9
+   blocks' partial scores rejected), K5 at (16, 512, 4096) held with the
+   same fault and timed, K6 at both shapes also with the first and the
+   middle blocks' partials lost rejected and timed beside the streamed K6
+   of csrc/flash_attention_wide_bf16.cu that it replaced (streamed,
+   cluster, cluster, streamed), two calls bit for bit at both, the
+   instances' ptxas and SASS;
    then the bf16 K6 of csrc/flash_attention_tma_bf16.cu over query ranges
    (``long_attention_phase``): at BH = 132 on each side of the most rows
    an item holds (2176 and 2177 at D = 16, 768 and 769 at 32) and at
@@ -111,8 +115,8 @@ In order:
      four K5/K6 kernels (padded to D = 256 and to D = 320: all four on
      clusters of two blocks at 320), held to the plain versions at the
      true D on 64 rows; and at D = 128 as it is; and in bf16 alone at
-     D = 2300 (``attention_d2304``: padded to 2304, the bf16 K5 on
-     clusters of 9 blocks and the streamed bf16 K6, once each);
+     D = 2300 (``attention_d2304``: padded to 2304, the bf16 K5 and K6
+     on clusters of 9 blocks, once each, each from its source);
    - xDeepFM's flagship (maps (128, 128) relu, hidden (256, 128)), 2 epochs:
      two K1, one K3 forward and one K3 backward per train step, one K3
      forward per eval batch;
@@ -301,10 +305,12 @@ Transformer's shapes (D = 16), the bf16 ones also at its (BH, S) and
 D = 32, 64 and 128, at D = 256 and 512 (the wide phase's inputs), at
 D = 1024, (64, 512, 1024) (K5 and the bf16 K6 on clusters of 4 blocks),
 at D = 2304, (32, 512, 2304), and at D = 4096, (16, 512, 4096) (the bf16
-K5 on clusters of 9 and 16 blocks, the rest past the clusters); device
-and eager ms, K6's split between its two kernels, and at the bf16 widths
-that no entry of the full run times (32, 64, 128, 1024, 2304 and 4096)
-their bounds and library calls; no checks; and
+K5 and K6 on clusters of 9 and 16 blocks, the fp32 ones past the
+clusters), and the bf16 ones at D = 8192, (8, 512, 8192) (past the
+clusters: csrc/flash_attention_wide_bf16.cu); device and eager ms, K6's
+split between its two kernels, and at the bf16 widths that no entry of
+the full run times (32, 64, 128, 1024, 2304, 4096 and 8192) their
+bounds, bytes and operations apart, and library calls; no checks; and
 prints them as its last line, one JSON object (no "ok" line). It calls
 only what every tree since the D > 256 instances has, so a copy of this
 script in a parent's tree measures the parent.
@@ -492,12 +498,13 @@ HW_BH, HW_LEN, HW_CHUNK, HW_WIDE_BH = 256, 1024, 64, 160
 WIDE_SHAPES = {"d256": (256, 256), "d512": (128, 512)}
 # --attention-times also takes D = 1024 (K5 and the bf16 K6 on clusters of
 # 4 blocks), BH halved again: how the clusters' exchange grows with their
-# size; and D = 2304 and 4096, past the portable clusters (the bf16 K5 on
-# clusters of 9 and 16 blocks that reduce-scatter, the bf16 K6 of
-# csrc/flash_attention_wide_bf16.cu, the fp32 ones in grid columns of
-# clusters).
+# size; D = 2304 and 4096, past the portable clusters (the bf16 K5 and K6
+# on clusters of 9 and 16 blocks that reduce-scatter, the fp32 ones in grid
+# columns of clusters); and in bf16 alone D = 8192, past the clusters
+# (csrc/flash_attention_wide_bf16.cu's K5 and K6).
 TIMED_SHAPES = {**WIDE_SHAPES, "d1024": (64, 1024), "d2304": (32, 2304),
-                "d4096": (16, 4096)}
+                "d4096": (16, 4096), "d8192": (8, 8192)}
+BF16_ONLY_TIMED = ("d8192",)
 # And the other head widths up to 128 of the bf16 K5 and K6 at the
 # Transformer slice's (BH, S) and key masks.
 NARROW_TIMED = (32, 64, 128)
@@ -2104,7 +2111,12 @@ def bf16_yardsticks(q, k, v, g, mask, causal, heads) -> dict:
     fwd_ms, fwd_by = bound(fwd_bytes, pairs * 4 * d, BF16_OPS_PER_S)
     bwd_ms, bwd_by = bound(bwd_bytes, pairs * 10 * d, BF16_OPS_PER_S)
     fields = {"fwd_bound_ms": fwd_ms, "fwd_bound_by": fwd_by,
+              "fwd_bytes_bound_ms": fwd_bytes / HBM_BYTES_PER_S * 1e3,
+              "fwd_operations_bound_ms": pairs * 4 * d / BF16_OPS_PER_S * 1e3,
               "bwd_bound_ms": bwd_ms, "bwd_bound_by": bwd_by,
+              "bwd_bytes_bound_ms": bwd_bytes / HBM_BYTES_PER_S * 1e3,
+              "bwd_operations_bound_ms":
+                  pairs * 10 * d / BF16_OPS_PER_S * 1e3,
               "bwd_bound_design_ms": bound(bwd_bytes, pairs * 14 * d,
                                            BF16_OPS_PER_S)[0]}
     for name, grad in (("fwd", None), ("bwd", g)):
@@ -2115,11 +2127,12 @@ def bf16_yardsticks(q, k, v, g, mask, causal, heads) -> dict:
     return fields
 
 
-def attention_times(q, k, v, g, mask, heads=None) -> dict:
+def attention_times(q, k, v, g, mask, heads=None, plain=False) -> dict:
     """Device and eager ms of K5 and K6 on these inputs, non-causal and
     causal, and how K6's time splits between its two kernels: the same
     measurement on any tree of the port. With ``heads`` (the heads of an
-    example among the (bh) rows), also :func:`bf16_yardsticks`."""
+    example among the (bh) rows), also :func:`bf16_yardsticks`; with
+    ``plain`` (bf16 operands), the bf16 plain versions' device ms."""
     times = {}
     for causal in (False, True):
         fwd, bwd = attention_calls(q, k, v, g, mask, causal)
@@ -2127,6 +2140,16 @@ def attention_times(q, k, v, g, mask, heads=None) -> dict:
             "fwd_ms": graph_ms(fwd, 5, 4), "fwd_eager_ms": time_ms(fwd, 10),
             "bwd_ms": graph_ms(bwd, 5, 4), "bwd_eager_ms": time_ms(bwd, 10),
             "bwd_kernel_split": kernel_times(bwd, top=2)}
+        if plain:
+            out, lse = fwd()
+            times[f"causal={causal}"].update(
+                fwd_plain_ms=graph_ms(
+                    lambda: att.flash_attention_reference_bf16(
+                        q, k, v, mask, causal), 2, 2),
+                bwd_plain_ms=graph_ms(
+                    lambda: att.flash_attention_backward_reference_bf16(
+                        q, k, v, mask, out, lse, g, causal), 2, 2))
+            del out, lse
         del fwd, bwd
         if heads is not None:
             times[f"causal={causal}"].update(
@@ -2146,11 +2169,13 @@ def attention_times_by_width(imdb: SyntheticImdb, device) -> dict:
     """:func:`attention_times` of the fp32 and the bf16 K5 and K6 at the
     Transformer slice's shapes (D = 16, :func:`attention_inputs`), of the
     bf16 ones at its (BH, S) and D = 32, 64 and 128 (``NARROW_TIMED``), and
-    at D = 256, 512, 1024 and 2304 (:func:`wide_attention_inputs`,
-    ``TIMED_SHAPES``): calls that every tree since the D > 256 instances
-    takes, for setting a change beside its parent. The bf16 widths that no
-    entry of the full run times (``NARROW_TIMED``, D = 1024 and 2304) also
-    carry their bounds and library calls (:func:`bf16_yardsticks`)."""
+    at D = 256 to 4096 (:func:`wide_attention_inputs`, ``TIMED_SHAPES``;
+    D = 8192, ``BF16_ONLY_TIMED``, in bf16 alone): calls that every tree
+    since the D > 256 instances takes, for setting a change beside its
+    parent. The bf16 widths that no entry of the full run times
+    (``NARROW_TIMED``, D = 1024 and above) also carry their bounds and
+    library calls (:func:`bf16_yardsticks`), and ``BF16_ONLY_TIMED`` the
+    bf16 plain versions' times."""
     times = {}
     for dtype in (torch.float32, torch.bfloat16):
         bf16 = dtype == torch.bfloat16
@@ -2162,9 +2187,12 @@ def attention_times_by_width(imdb: SyntheticImdb, device) -> dict:
                     *attention_inputs(imdb, device, dtype, d),
                     heads=TX_HEADS)
         for which in TIMED_SHAPES:
+            if not bf16 and which in BF16_ONLY_TIMED:
+                continue
             times[f"{which}/{dtype}"] = attention_times(
                 *wide_attention_inputs(imdb, device, dtype, which),
-                heads=1 if bf16 and which not in WIDE_SHAPES else None)
+                heads=1 if bf16 and which not in WIDE_SHAPES else None,
+                plain=which in BF16_ONLY_TIMED)
     return times
 
 
@@ -2804,44 +2832,186 @@ def narrow_attention_phase(imdb: SyntheticImdb, device,
     return entries
 
 
-# The mangled stem of the bf16 K5 above 2048: fwd_cluster<4, kReduce>.
+# The mangled stems of the bf16 K5 above 2048, fwd_cluster<4, kReduce>, and
+# of the bf16 K6 there, dq_cluster<4, kReduce> and dkv_cluster<4, kReduce>.
 REDUCE_STEMS = ("fwd_clusterILi4ELi3EE",)
+REDUCE_BWD_STEMS = ("dq_clusterILi4ELi3EE", "dkv_clusterILi4ELi3EE")
 
 
 def cluster_placement() -> dict:
-    """How many clusters of the bf16 K5 the card places at once, by blocks
-    a cluster: G = 2-16 at D = 256 G (cudaOccupancyMaxActiveClusters of
-    the instance each width launches, with its shared memory)."""
-    fn = _build.function("flash_attention_cluster_bf16",
-                         "flash_attention_cluster_fwd_bf16_placement",
-                         [ctypes.c_int, ctypes.c_void_p])
-    placement = {}
+    """How many clusters of the bf16 K5, and of the bf16 K6's dq and dk/dv
+    kernels, the card places at once, by blocks a cluster: G = 2-16 at
+    D = 256 G (cudaOccupancyMaxActiveClusters of the instance each width
+    launches, with its shared memory). Returns {"fwd": {G: n}, "dq": ...,
+    "dkv": ...}."""
+    fwd = _build.function("flash_attention_cluster_bf16",
+                          "flash_attention_cluster_fwd_bf16_placement",
+                          [ctypes.c_int, ctypes.c_void_p])
+    bwd = _build.function("flash_attention_cluster_bf16",
+                          "flash_attention_cluster_bwd_bf16_placement",
+                          [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+    placement = {"fwd": {}, "dq": {}, "dkv": {}}
     for group in range(2, 17):
-        held = ctypes.c_int(0)
-        _build.check(fn(256 * group, ctypes.byref(held)),
+        held = [ctypes.c_int(0) for _ in range(3)]
+        _build.check(fwd(256 * group, ctypes.byref(held[0])),
                      f"cluster placement at {group} blocks")
-        placement[group] = held.value
+        _build.check(bwd(256 * group, ctypes.byref(held[1]),
+                         ctypes.byref(held[2])),
+                     f"K6 cluster placement at {group} blocks")
+        for name, n in zip(placement, held):
+            placement[name][group] = n.value
     print("flash_attention_cluster_bf16 placement (clusters held at once, by "
           "blocks a cluster; one block an SM): " + json.dumps(placement))
     return placement
 
 
+def streamed_backward_call(q, k, v, mask, out, lse, g, causal):
+    """A call of the bf16 K6 that ran above 2048 before the clusters of
+    9-16 blocks, csrc/flash_attention_wide_bf16.cu's streamed kernels (grid
+    columns each scoring over all of D; the route above 4096), through its
+    C function on the same inputs: the yardstick of the cluster kernel.
+    No launch is counted."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    p, i32, f64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_double
+    fn = _build.function("flash_attention_wide_bf16",
+                         "flash_attention_wide_bwd_bf16",
+                         [p] * 11 + [i32] * 5 + [f64, p])
+    grads = [torch.empty_like(t) for t in (q, k, v)]
+    delta = torch.empty(bh, sq, device=q.device)
+
+    def call():
+        _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        mask.data_ptr(), lse.data_ptr(), out.data_ptr(),
+                        g.data_ptr(), delta.data_ptr(),
+                        *(t.data_ptr() for t in grads), bh, sq, sk, d,
+                        int(causal), d ** -0.5,
+                        torch.cuda.current_stream().cuda_stream),
+                     "the streamed bf16 K6")
+        return grads
+
+    return call
+
+
+def lost_partial_shares(q, k, v, mask, out, lse, g, causal) -> dict:
+    """``check_backward_bf16``'s worst share (each must be above 1) on the
+    bf16 K6's function with the first, the middle or the last block's
+    partial s and dp lost (``flash_attention_backward_partial_scores``
+    with ``drop``), by rank."""
+    ranks = -(-q.shape[-1] // at.PARTIAL_WIDTH)
+    shares = {}
+    for drop in (0, ranks // 2, ranks - 1):
+        lost = at.flash_attention_backward_partial_scores(
+            q, k, v, mask, out, lse, g, causal, drop=drop)
+        shares[drop] = ct.worst_share(at.check_backward_bf16(
+            lost, q, k, v, mask, out, lse, g, causal, hold=False))
+        if not shares[drop] > 1:
+            raise AssertionError(f"bf16 K6 at D = {q.shape[-1]}: the check "
+                                 f"accepts rank {drop}'s partials lost: "
+                                 f"{shares[drop]}")
+    return shares
+
+
+def reduce_scatter_backward(imdb: SyntheticImdb, device, which: str) -> dict:
+    """The bf16 K6 at ``TIMED_SHAPES[which]`` (clusters of ceil(D / 256) =
+    9-16 blocks that reduce-scatter: ``dq_cluster<4, kReduce>`` and
+    ``dkv_cluster<4, kReduce>``), non-causal and causal, on one
+    SyntheticImdb batch's key masks: two calls bit for bit;
+    ``check_backward_bf16`` with its planted faults (dk less a query tile,
+    dq less a key tile, the last block's partials lost) and the first and
+    middle blocks' lost too (:func:`lost_partial_shares`); device ms
+    beside the streamed kernel it replaced (:func:`streamed_backward_call`)
+    in the order streamed, routed, routed, streamed ("pccp_ms"); the
+    library's backward and the bounds (bf16 bytes, 10 D tensor-core
+    operations a scored pair)."""
+    q, k, v, g, mask = wide_attention_inputs(imdb, device, torch.bfloat16,
+                                             which)
+    bh, s, d = q.shape
+    chunks = [slice(i, i + ATT_CHUNK) for i in range(0, bh, ATT_CHUNK)]
+    result = {"shape": {"q": [bh, s, d], "dtype": "bfloat16",
+                        "blocks_a_cluster": -(-d // 256),
+                        "source": kernel_source(torch.bfloat16, d, True),
+                        "function": att._kernel(torch.bfloat16, d, True)[1]}}
+    if "cluster" not in result["shape"]["source"]:
+        raise AssertionError(f"bf16 K6 at {which}: routed to "
+                             f"{result['shape']['source']}")
+    for causal in (False, True):
+        out, lse = att.flash_attention(q, k, v, mask, causal, return_lse=True)
+        runs = [att.flash_attention_backward(q, k, v, mask, out, lse, g,
+                                             causal) for _ in range(2)]
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(*runs))
+        if not same:
+            raise AssertionError(f"bf16 K6 at {which}: two calls differ")
+        checks = _merge_checks(
+            at.check_backward_bf16([t[c] for t in runs[0]], q[c], k[c], v[c],
+                                   mask[c], out[c], lse[c], g[c], causal,
+                                   planted_rows=ATT_PLANTED_ROWS,
+                                   planted_keys=ATT_PLANTED_KEYS,
+                                   planted_partial=True)
+            for c in chunks)
+        del runs
+        lost = lost_partial_shares(q, k, v, mask, out, lse, g, causal)
+        routed = lambda: att.flash_attention_backward(q, k, v, mask, out, lse,
+                                                      g, causal)
+        streamed = streamed_backward_call(q, k, v, mask, out, lse, g, causal)
+        pccp = [graph_ms(f, 5, 4)
+                for f in (streamed, routed, routed, streamed)]
+        pairs = _valid_pairs(mask, causal)
+        num_bytes = (8 * bh * s * d) * 2 + 2 * bh * s * 4
+        entry = {
+            "worst_share": ct.worst_share(checks),
+            "max_abs_err": max(checks[f"{n}_bf16_plain"]["max_abs_err"]
+                               for n in ("dq", "dk", "dv")),
+            "planted": {
+                "dk_less_a_query_tile":
+                    checks["dk"]["planted"]["query_tile_dropped"],
+                "dq_less_a_key_tile":
+                    checks["dq"]["planted"]["key_tile_dropped"],
+                "less_a_partial": checks["planted"]["partial_dropped"],
+                "less_rank_partial": lost},
+            "two_calls_bit_equal": same,
+            "pccp_ms": pccp,
+            "ms": (pccp[1] + pccp[2]) / 2,
+            "streamed_ms": (pccp[0] + pccp[3]) / 2,
+            "eager_ms": time_ms(routed, 5, 2),
+            "kernel_split": kernel_times(routed, top=2),
+            **library_fields(q, k, v, mask, causal, g, heads=1),
+            **bound_fields(num_bytes, pairs * 10 * d, bf16=True),
+            "bytes_bound_ms": num_bytes / HBM_BYTES_PER_S * 1e3,
+            "operations_bound_ms": pairs * 10 * d / BF16_OPS_PER_S * 1e3,
+            "scored_pairs": pairs,
+        }
+        del streamed, routed
+        result[f"causal={causal}"] = entry
+        print(f"flash_attention_bf16.bwd.{which} causal={causal}: "
+              + json.dumps({k: v for k, v in entry.items()
+                            if k != "library_kernels"}))
+        del out, lse
+    del q, k, v, g, mask
+    torch.cuda.empty_cache()
+    return result
+
+
 def reduce_scatter_attention_phase(imdb: SyntheticImdb, device,
                                    cluster_ptxas: dict) -> list:
-    """The bf16 K5 above 2048 on clusters of 9-16 blocks
-    (``fwd_cluster<4, kReduce>`` of csrc/flash_attention_cluster_bf16.cu:
-    a reduce-scatter of the blocks' partial scores, then an all-gather),
-    with the bf16 K6 of csrc/flash_attention_wide_bf16.cu beside it:
+    """The bf16 K5 and K6 above 2048 on clusters of 9-16 blocks
+    (``fwd_cluster<4, kReduce>``, ``dq_cluster<4, kReduce>`` and
+    ``dkv_cluster<4, kReduce>`` of csrc/flash_attention_cluster_bf16.cu: a
+    reduce-scatter of the blocks' partial scores, then an all-gather):
     the placement line (:func:`cluster_placement`); at
     ``TIMED_SHAPES["d2304"]`` = (32, TX_LEN, 2304), clusters of 9, on one
     SyntheticImdb batch's key masks, the bf16 kernel phase's checks (the
-    forward's planted fault: the last block's partial scores lost), times,
+    planted fault of the last block's partial scores lost), times,
     bounds and library calls (entries ``*.d2304``); at
-    ``TIMED_SHAPES["d4096"]`` = (16, TX_LEN, 4096), clusters of 16,
+    ``TIMED_SHAPES["d4096"]`` = (16, TX_LEN, 4096), clusters of 16, K5 by
     ``check_forward_bf16`` with the same planted fault, ms and the
-    library's (the forward entry's "d4096"); two calls bit for bit at both,
-    non-causal and causal; the instance's ptxas summary and SASS counts
-    (HGMMA, UTMALDG, UTMASTG, no HMMA)."""
+    library's (the forward entry's "d4096"); two calls of K5 bit for bit at
+    both, non-causal and causal; K6 at both by
+    :func:`reduce_scatter_backward` (the backward entry's "d2304" and
+    "d4096": the first, middle and last blocks' partials lost, times
+    beside the streamed kernel it replaced); the instances' ptxas summaries
+    and SASS counts (HGMMA, UTMALDG, UTMASTG, no HMMA)."""
     placement = cluster_placement()
     sass = check_cluster_sass()
     same, wide = {}, {}
@@ -2872,19 +3042,28 @@ def reduce_scatter_attention_phase(imdb: SyntheticImdb, device,
         raise AssertionError(f"bf16 K5 above 2048: two calls differ {same}")
     print(f"flash_attention_bf16.fwd.d2304/d4096 two calls bit for bit: "
           f"{same}")
+    backward = {which: reduce_scatter_backward(imdb, device, which)
+                for which in ("d2304", "d4096")}
     entries = attention_bf16_kernel_phase(
         imdb, device, wide_attention_inputs(imdb, device, torch.bfloat16,
                                             "d2304"),
         heads=1, suffix=".d2304")
     bh, d = TIMED_SHAPES["d2304"]
-    fwd = entries[0]
+    fwd, bwd = entries
     fwd.update(function=att._kernel(torch.bfloat16, d, False)[1],
                placement=placement, two_calls_bit_equal=same, d4096=wide,
                ptxas=instances(cluster_ptxas.get("kernels", {}),
                                REDUCE_STEMS),
                sass=instances(sass, REDUCE_STEMS))
-    if len(fwd["sass"]) != len(REDUCE_STEMS):
-        raise AssertionError(f"bf16 K5 above 2048: SASS {fwd['sass']}")
+    bwd.update(function=att._kernel(torch.bfloat16, d, True)[1],
+               placement=placement, **backward,
+               ptxas=instances(cluster_ptxas.get("kernels", {}),
+                               REDUCE_BWD_STEMS),
+               sass=instances(sass, REDUCE_BWD_STEMS))
+    for entry, stems in ((fwd, REDUCE_STEMS), (bwd, REDUCE_BWD_STEMS)):
+        if len(entry["sass"]) != len(stems):
+            raise AssertionError(f"{entry['name']}: SASS of {stems}: "
+                                 f"{entry['sass']}")
     torch.cuda.empty_cache()
     return entries
 
@@ -3112,10 +3291,11 @@ def attention_width_path(device, d: int,
     once each in each dtype (D padded to ``kernel_head_dim(d)``: 256 for
     200, 320 for 257, 2304 for 2300; 128 as it is, the bf16 kernels'
     one-block instances in csrc/flash_attention_cluster_bf16.cu; at 2300
-    the bf16 K5 on clusters of 9 blocks and the streamed K6 of
-    csrc/flash_attention_wide_bf16.cu), and agree with
-    the plain versions at the true D (``ops/attention_tolerances.py``) on
-    HW_CHUNK rows. Returns the launches of the calls."""
+    the bf16 K5 and K6 on clusters of 9 blocks that reduce-scatter), each
+    from the source ``_kernel`` names for its dtype and width (launches by
+    source), and agree with the plain versions at the true D
+    (``ops/attention_tolerances.py``) on HW_CHUNK rows. Returns the
+    launches of the calls."""
     name = f"attention_d{d}"
     gen = torch.Generator(device=device).manual_seed(SEED + d)
     bh, s, width = HW_WIDE_BH, HW_LEN, att.kernel_head_dim(d)
@@ -3138,11 +3318,19 @@ def attention_width_path(device, d: int,
         runs[dtype] = (q, k, v, g, out.detach(), [t.grad for t in leaves])
     torch.cuda.synchronize()
     launches = read_launches()
+    by_source = dict(att.flash_attention.launches_by_source)
     want = {key: 0 for key in launches}
     for key in itertools.chain(*map(flash_keys, dtypes)):
         want[key] = 1
-    if launches != want:
-        raise AssertionError(f"{name}: launches {launches}, expected {want}")
+    want_source = {}
+    for dtype, backward in itertools.product(dtypes, (False, True)):
+        key = (f"{att._kernel(dtype, width, backward)[0]}."
+               f"{'bwd' if backward else 'fwd'}")
+        want_source[key] = want_source.get(key, 0) + 1
+    if launches != want or by_source != want_source:
+        raise AssertionError(f"{name}: launches {launches}, expected {want}; "
+                             f"by source {by_source}, expected "
+                             f"{want_source}")
     shares, rows = {}, slice(0, HW_CHUNK)
     for dtype, (q, k, v, g, out, grads) in runs.items():
         bf16 = dtype == torch.bfloat16
@@ -3160,8 +3348,8 @@ def attention_width_path(device, d: int,
             ct.worst_share(fwd_checks), ct.worst_share(bwd_checks))
     del runs
     torch.cuda.empty_cache()
-    print(f"{name} launches: {launches}; kernel width {width}; worst "
-          f"shares {shares}; no warning")
+    print(f"{name} launches: {launches}; by source {by_source}; kernel "
+          f"width {width}; worst shares {shares}; no warning")
     return launches
 
 
@@ -5587,8 +5775,8 @@ def main(argv=()) -> int:
                              "fp32 Transformer path")
     parser.add_argument("--attention-times", action="store_true",
                         help="time only the fp32 and bf16 K5 and K6 at "
-                             "D = 16, 256, 512, 1024 and 2304 (bf16 also "
-                             "32, 64 and 128)")
+                             "D = 16, 256, 512, 1024, 2304 and 4096 (bf16 "
+                             "also 32, 64, 128 and 8192)")
     parser.add_argument("--wrapper-host-us", action="store_true",
                         help="time only the host's us a call of the K3, K4 "
                              "and K5 forward wrappers")

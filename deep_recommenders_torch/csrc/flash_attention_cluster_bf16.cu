@@ -1,5 +1,5 @@
 // K5 in bf16 at head widths D = 128 and from 256 to 4096, and K6 at D = 64,
-// 128 and above 256 to 2048 (a multiple of 64), on wgmma fed by TMA, at the
+// 128 and above 256 to 4096 (a multiple of 64), on wgmma fed by TMA, at the
 // TPU kernels' bf16 contract
 // (flash_attention_bf16.cu's: fp32 scores of bf16 operands, fp32 softmax
 // statistics, p and ds rounded to bf16 before the products that consume
@@ -10,10 +10,10 @@
 // :199) and _flash_backward_impl (K6, :377; bodies _flash_bwd_dq_kernel
 // :285 and _flash_bwd_dkv_kernel :326, pallas_calls :436 and :463). The
 // layout, the masks, the scale, lse and delta are flash_attention_bf16.cu's.
-// K6 above 2048 (more blocks than a portable cluster holds) stays
-// flash_attention_wide_bf16.cu's, and so does K5 above 4096 and K6 at
-// D = 256 (one block, nothing to exchange). K6 is described after K5, and
-// the one-block kernels of D = 64 and 128 after both.
+// K5 and K6 above 4096 (more than 16 blocks of 4 chunks) stay
+// flash_attention_wide_bf16.cu's, and so does K6 at D = 256 (one block,
+// nothing to exchange). K6 is described after K5, and the one-block
+// kernels of D = 64 and 128 after both.
 //
 // What bounds it. At (BH 256, S 512, D 256) with a SyntheticImdb batch's
 // masks K5 needs 4 D products a scored pair (43 GFLOP non-causal, 0.044 ms
@@ -124,14 +124,23 @@
 //   32 keys of every tile: partial s = q k^T and dp = g v^T over the
 //   block's chunks on wgmma m64n32k16 (both operands from shared memory),
 //   exchanged in one 16 KB message a warpgroup and tile (K5's push at
-//   G = 2, pull above), p and ds in fp32 on the summed scores, then
+//   G = 2, a pull at 3-8, K5's reduce-scatter and all-gather at 9-16,
+//   where a pull would read 8-15 peer slots a tile), p and ds in fp32 on
+//   the summed scores, then
 //   dq += ds k over the block's columns on m64n(64 NC)k16 with ds as A in
 //   registers and the stage's K chunks (the ones the scores read) as B.
 //   The two warpgroups' fp32 dq are added in a fixed order at the end.
 //   delta = rowsum(g out) needs all of D: each block forms its rows'
 //   partial over its columns (g from its resident chunks), pushes it to
 //   the peers with st.async, and adds the G partials in rank order; rank
-//   0 writes delta for the dk/dv kernel.
+//   0 writes delta for the dk/dv kernel. At 9-16 blocks the partials lie in
+//   warpgroup 0's slot, idle until the loop (DqLayout).
+// - Clusters of 9-16 blocks reduce-scatter because a pull there reads 8-15
+//   peer slots a tile: at (32, 512, 2304) and (16, 512, 4096) the pull ran
+//   2.5x and 3.8x the reduce-scatter's time (tools/cluster_bwd_variants.py,
+//   "pull_above_eight"). Shared memory at NC 4 and 9-16 blocks: dq 229,504
+//   bytes, dk/dv 222,328; the card holds 9 clusters of 9 blocks and 7 of
+//   10-16 at once, as K5's.
 // - dk/dv: the producer loads every query tile from the block's causal
 //   start (none for a block whose 64 keys are all masked: its gradients
 //   are 0), and writes the tile's lse log2(e) and delta into the stage.
@@ -160,9 +169,10 @@
 //
 // K6's ptxas (-Xptxas -v, sm_90a, CUDA 12.9): at NC 3 dk/dv 152-154
 // registers and no spill, dq 168 and 24 / 32 bytes of spill stores / loads
-// (push, none pulling); at NC 4 168 registers, dq 992 / 856 (push) and
-// 948 / 612 (pull), dk/dv 580 / 568 and 684 / 488, and every wgmma
-// serialised for want of registers (C7511 in dq, C7512 in dk/dv). ptxas
+// (push, none pulling); at NC 4 168 registers, dq 992 / 856 (push),
+// 948 / 612 (pull) and 996 / 540 (reduce), dk/dv 580 / 568, 684 / 488 and
+// 668 / 416, and every wgmma serialised for want of registers (C7511 in
+// dq, C7512 in dk/dv). ptxas
 // keeps to 65536 / 384 = 168 registers at 288 threads too (the block
 // counted in whole warpgroups, it seems): __maxnreg__(224) compiles
 // without a spill (dq 209-216 registers), but the card refuses that launch
@@ -241,9 +251,9 @@ constexpr int kC = 64;                   // columns of D in a chunk
 constexpr int CHUNK = 64 * kC;           // bf16 of a chunk (8 KB)
 constexpr int kMaxChunks = 4;            // chunks a block owns, at most
 constexpr int kClusterMax = 8;           // blocks a cluster: the portable most
-// K5's clusters above 2048 (D up to 4096): Hopper places clusters of up to
-// 16 blocks once a kernel allows a non-portable size.
-constexpr int kClusterMaxFwd = 16;
+// K5's and K6's clusters above 2048 (D up to 4096): Hopper places clusters
+// of up to 16 blocks once a kernel allows a non-portable size.
+constexpr int kClusterMaxWide = 16;
 constexpr int kWgRows = 64;              // query rows of a warpgroup
 constexpr int kRows = 2 * kWgRows;       // query rows of a block
 constexpr int kKeys = 64;                // keys of a tile
@@ -1127,23 +1137,38 @@ constexpr int kPFullBar = 1, kPFreeBar = 2, kMergeBar = 3, kDeltaBar = 4,
 
 // A consumer warpgroup's partial sums of P 64 x 32 fp32 tiles (4 P float4 a
 // thread), exchanged with the same warpgroup of the cluster's other blocks
-// as fwd_cluster's partial scores are: push (two blocks) or pull (more),
-// through a slot of [float4 j][thread] with full and empty mbarriers. After
-// receive(x, n), x holds the sum of the cluster's partials n in rank order,
-// the same bits in every block.
+// as fwd_cluster's partial scores are: push (two blocks), pull (3-8) or
+// reduce-scatter and all-gather (9-16), through a slot of [float4 j][thread]
+// with full and empty mbarriers (and, to reduce, a second full barrier for
+// the summed slices). After receive(x, n), x holds the sum of the cluster's
+// partials n in rank order, the same bits in every block and in every
+// exchange.
 template <int P, int X>
 struct Partials {
   static constexpr int Q = 4 * P;  // float4s a thread
+  // A slot's float4s, 1 << kShift: 1024 (dq's s and dp) or 512 (dk/dv's
+  // s^T or dp^T).
+  static constexpr int kShift = P == 2 ? 10 : 9;
+  static_assert(Q * 128 == 1 << kShift, "a slot's float4s");
   static constexpr uint32_t kBytes = sizeof(float4) * Q * 128;
   float4* slot;  // this thread's first float4 of the warpgroup's slot
   uint64_t* full;
   uint64_t* empty;
+  uint64_t* summed;  // reduce: every rank's slice summed
   int rank, group, lane, xt;
 
-  // Before the first launch-wide barrier, by one thread.
-  static __device__ void init(uint64_t* full, uint64_t* empty, int group) {
-    mbar_init(full, X == kPush ? 1 : 4 * (group - 1));
+  // Before the first launch-wide barrier, by one thread. Push: one local
+  // arrival that expects the peer's bytes; pull: one arrival from each warp
+  // of the peers' same warpgroup; reduce: also from this block's own (its
+  // threads read each other's partials), and the same again for the summed
+  // slices. Empty: one from each warp of the peers' same warpgroup.
+  static __device__ void init(uint64_t* full, uint64_t* empty,
+                              uint64_t* summed, int group) {
+    mbar_init(full, X == kPush   ? 1
+                    : X == kPull ? 4 * (group - 1)
+                                 : 4 * group);
     if constexpr (X == kPush) mbar_expect_tx(full, kBytes);
+    if constexpr (X == kReduce) mbar_init(summed, 4 * group);
     mbar_init(empty, 4 * (group - 1));
   }
 
@@ -1164,6 +1189,11 @@ struct Partials {
       if (lane == 0)
         for (int r = 0; r < group; ++r)
           if (r != rank) mbar_arrive_peer<true>(full, r);
+    } else if constexpr (X == kReduce) {
+      // An arrival on every rank's barrier, this block's own too: lane r on
+      // rank r's, all at once.
+      __syncwarp();
+      if (lane < group) mbar_arrive_peer<true>(full, lane);
     }
   }
 
@@ -1180,6 +1210,50 @@ struct Partials {
         e[3] += v.w;
       }
       if (xt == 0) mbar_expect_tx(full, kBytes);  // n + 1
+    } else if constexpr (X == kReduce) {
+      // Reduce-scatter: this block sums its slice of the slot (float4
+      // [lo, hi), 1 / G of them) over the G ranks' partials in rank order,
+      // a rank's load at a time, into its own slot; all-gather: each thread
+      // then reads its float4s from the slots of their slices' owners. Each
+      // sum is the pull's, in the same order; each block reads
+      // 2 (G - 1) / G slots a tile, where the pull reads G - 1. The slices
+      // and owners are fwd_cluster's, on a slot of 1 << kShift float4s.
+      float4* base = slot - xt;
+      mbar_wait<true>(full, n & 1);  // every rank's partial n
+      const int lo = (rank << kShift) / group,
+                hi = ((rank + 1) << kShift) / group;
+      for (int f = lo + xt; f < hi; f += 128) {
+        float4 acc = base[f];
+        for (int r = 0; r < group; ++r) {
+          const float4 v = r == rank ? base[f]
+                                     : ld_cluster4(cluster_addr(base + f, r));
+          if (r == 0) {
+            acc = v;
+          } else {
+            acc.x += v.x;
+            acc.y += v.y;
+            acc.z += v.z;
+            acc.w += v.w;
+          }
+        }
+        base[f] = acc;
+      }
+      __syncwarp();
+      if (lane < group) mbar_arrive_peer<true>(summed, lane);
+      mbar_wait<true>(summed, n & 1);  // every slice of n summed
+#pragma unroll
+      for (int j = 0; j < Q; ++j) {
+        const int f = j * 128 + xt;
+        const int owner = ((f + 1) * group - 1) >> kShift;
+        const float4 v = owner == rank
+                             ? slot[j * 128]
+                             : ld_cluster4(cluster_addr(slot + j * 128, owner));
+        float* e = x[j >> 2][j & 3];
+        e[0] = v.x;
+        e[1] = v.y;
+        e[2] = v.z;
+        e[3] = v.w;
+      }
     } else {
       mbar_wait<true>(full, n & 1);
       for (int r = rank == 0 ? 1 : 0; r < group; ++r) {
@@ -1197,9 +1271,13 @@ struct Partials {
       }
     }
     __syncwarp();
-    if (lane == 0)
+    if constexpr (X == kReduce) {
+      if (lane < group && lane != rank)  // lane r to rank r
+        mbar_arrive_peer<false>(empty, lane);
+    } else if (lane == 0) {
       for (int r = 0; r < group; ++r)
         if (r != rank) mbar_arrive_peer<false>(empty, r);
+    }
   }
 
   // The peers are done with the last of n partials: the slot may go.
@@ -1209,21 +1287,39 @@ struct Partials {
 // Shared memory of the dq kernel at NC chunks: q and g [chunk][64][64]
 // (resident), the K/V ring [stage][K, V][chunk][64][64] (after the loop
 // warpgroup 1's fp32 dq), the two slots, the delta partials
-// [rank][64 rows], the ring's tile entries, the mbarriers.
-template <int NC>
+// [rank][64 rows], the ring's tile entries, the mbarriers (and the two
+// summed-slice barriers to reduce-scatter).
+//
+// The delta partials of up to 16 ranks (4 KB) do not fit beside the slots
+// at NC 4 (231,536 of the 232,448 bytes with 8 ranks'), so a cluster that
+// reduce-scatters keeps them in warpgroup 0's slot, which is idle until
+// the loop: peers write a block's slot only with the delta pushes, which
+// land before its delta barrier completes, and the block writes its slot
+// only after both warpgroups have read the partials (one named barrier). A
+// push cluster (G = 2) cannot: the peer's first partial would land in the
+// slot while this block still reads delta; so the push and the pull keep
+// them beside the slots.
+template <int NC, int X>
 struct DqLayout {
   static constexpr uint32_t kTileBytes = sizeof(bf16) * NC * CHUNK;
   static constexpr uint32_t kSlotBytes = Partials<2, kPush>::kBytes;
+  static constexpr bool kDeltaInSlot = X == kReduce;
   static constexpr size_t kQ = 0;
   static constexpr size_t kG = kQ + kTileBytes;
   static constexpr size_t kRing = kG + kTileBytes;
   static constexpr size_t kX = kRing + kDqStages * 2 * kTileBytes;
-  static constexpr size_t kDelta = kX + 2 * kSlotBytes;
-  static constexpr size_t kInfo = kDelta + sizeof(float) * kClusterMax * 64;
+  static constexpr size_t kDelta = kDeltaInSlot ? kX : kX + 2 * kSlotBytes;
+  static constexpr size_t kInfo =
+      kDeltaInSlot ? kX + 2 * kSlotBytes
+                   : kDelta + sizeof(float) * kClusterMax * 64;
   static constexpr size_t kBar = kInfo + sizeof(uint4) * kDqStages;
-  // full q/g; full and empty K/V [stage]; full and empty slots [wg]; delta
-  static constexpr int kBars = 1 + 2 * kDqStages + 4 + 1;
+  // full q/g; full and empty K/V [stage]; full and empty slots [wg]; delta;
+  // (reduce) the summed slices [wg]
+  static constexpr int kBars = 1 + 2 * kDqStages + 4 + 1 + (X == kReduce ? 2 : 0);
   static constexpr size_t kBytes = kBar + sizeof(uint64_t) * kBars;
+  static_assert(!kDeltaInSlot ||
+                    sizeof(float) * kClusterMaxWide * 64 <= kSlotBytes,
+                "the delta partials in warpgroup 0's slot");
   static_assert(kBytes <= kMaxSmem, "a block's shared memory");
   static_assert(sizeof(float) * 8 * NC * 4 * 128 <= kDqStages * 2 * kTileBytes,
                 "warpgroup 1's dq in the ring");
@@ -1240,7 +1336,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
                const bf16* __restrict__ out, float* __restrict__ delta,
                int sq, int sk, int d, int group, int causal, float scale,
                float scale_log2) {
-  using L = DqLayout<NC>;
+  using L = DqLayout<NC, X>;
   constexpr int S = kDqStages;
   constexpr uint32_t kTileBytes = L::kTileBytes;
   extern __shared__ __align__(1024) unsigned char smem[];
@@ -1257,6 +1353,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   uint64_t* full_x = empty + S;  // [warpgroup]
   uint64_t* empty_x = full_x + 2;
   uint64_t* delta_bar = empty_x + 2;
+  uint64_t* summed_x = X == kReduce ? delta_bar + 1 : nullptr;  // [wg]
 
   int rank;
   asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
@@ -1275,7 +1372,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], kConsumers / 32);
     }
-    for (int w = 0; w < 2; ++w) Partials<2, X>::init(&full_x[w], &empty_x[w], group);
+    for (int w = 0; w < 2; ++w)
+      Partials<2, X>::init(&full_x[w], &empty_x[w],
+                           X == kReduce ? &summed_x[w] : nullptr, group);
     mbar_init(delta_bar, 1);
     mbar_expect_tx(delta_bar, sizeof(float) * 64 * (group - 1));
     mbar_init_fence();
@@ -1391,10 +1490,14 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       row_lse2[h] = in ? lse[(int64_t)bh * sq + q0 + r] * kLog2e : kNoRow;
       if (in && rank == 0 && tig == 0) delta[(int64_t)bh * sq + q0 + r] = sum;
     }
+    // The partials in warpgroup 0's slot: read by both warpgroups before
+    // its first partial scores overwrite them.
+    if constexpr (L::kDeltaInSlot) bar_sync(kDeltaBar, kConsumers);
   }
 
   Partials<2, X> ex{xs + wg * Partials<2, X>::Q * 128 + xt, &full_x[wg],
-                    &empty_x[wg], rank, group, lane, xt};
+                    &empty_x[wg], X == kReduce ? &summed_x[wg] : nullptr,
+                    rank, group, lane, xt};
   float x[2][4][4];  // s and dp of the warpgroup's 64 rows x 32 keys
   uint32_t da[2][4];  // ds in bf16: the A fragments of dS K
   float acc[8 * NC][4];
@@ -2204,7 +2307,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 // (resident; after the loop dv and dk in bf16), the q/g ring
 // [stage][q, g][chunk][32][64], the two slots, p^T [float4 j][thread], the
 // ring's lse log2(e) and delta [stage][lse2, delta][32], the mbarriers.
-template <int NC>
+template <int NC, int X>
 struct DkvLayout {
   static constexpr uint32_t kOwnBytes = sizeof(bf16) * NC * CHUNK;
   static constexpr uint32_t kTileBytes = sizeof(bf16) * NC * QCHUNK;
@@ -2217,8 +2320,9 @@ struct DkvLayout {
   static constexpr size_t kRowsLd = kP + kSlotBytes;
   static constexpr size_t kBar =
       kRowsLd + sizeof(float) * kDkvStages * 2 * kQTile;
-  // full k/v; full and empty q/g [stage]; full and empty slots [wg]
-  static constexpr int kBars = 1 + 2 * kDkvStages + 4;
+  // full k/v; full and empty q/g [stage]; full and empty slots [wg];
+  // (reduce) the summed slices [wg]
+  static constexpr int kBars = 1 + 2 * kDkvStages + 4 + (X == kReduce ? 2 : 0);
   static constexpr size_t kBytes = kBar + sizeof(uint64_t) * kBars;
   static_assert(kBytes <= kMaxSmem, "a block's shared memory");
 };
@@ -2234,7 +2338,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
                 const float* __restrict__ mask, const float* __restrict__ lse,
                 const float* __restrict__ delta, int sq, int sk, int d,
                 int group, int causal, float scale, float scale_log2) {
-  using L = DkvLayout<NC>;
+  using L = DkvLayout<NC, X>;
   constexpr int S = kDkvStages;
   extern __shared__ __align__(1024) unsigned char smem[];
   bf16* ks = reinterpret_cast<bf16*>(smem + L::kK);
@@ -2249,6 +2353,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   uint64_t* empty = full + S;
   uint64_t* full_x = empty + S;  // [warpgroup]
   uint64_t* empty_x = full_x + 2;
+  uint64_t* summed_x = X == kReduce ? empty_x + 2 : nullptr;  // [wg]
 
   int rank;
   asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
@@ -2267,7 +2372,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], kConsumers / 32);
     }
-    for (int w = 0; w < 2; ++w) Partials<1, X>::init(&full_x[w], &empty_x[w], group);
+    for (int w = 0; w < 2; ++w)
+      Partials<1, X>::init(&full_x[w], &empty_x[w],
+                           X == kReduce ? &summed_x[w] : nullptr, group);
     mbar_init_fence();
   }
   cluster_arrive();
@@ -2343,7 +2450,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   const int ring_b = (1 - wg) * NC * QCHUNK;  // the products' B: g or q
   float4* pt = ps + xt;
   Partials<1, X> ex{xs + wg * Partials<1, X>::Q * 128 + xt, &full_x[wg],
-                    &empty_x[wg], rank, group, lane, xt};
+                    &empty_x[wg], X == kReduce ? &summed_x[wg] : nullptr,
+                    rank, group, lane, xt};
   float x[1][4][4];  // s^T or dp^T of the 64 keys x 32 queries
   uint32_t xa[2][4];  // p^T or ds^T in bf16: the products' A fragments
   float acc[8 * NC][4];  // dv (warpgroup 0) or dk (warpgroup 1)
@@ -2588,7 +2696,7 @@ int bwd(const CUtensorMap (&m)[9], const float* mask, const float* lse,
   if constexpr (SPLIT) {
     err = launch(dq_cluster<NC, X>,
                  (int64_t)bh * ((sq + kWgRows - 1) / kWgRows) * group,
-                 kBwdThreads, DqLayout<NC>::kBytes, group, stream, m[0], m[1],
+                 kBwdThreads, DqLayout<NC, X>::kBytes, group, stream, m[0], m[1],
                  m[2], m[3], m[4], mask, lse, out, delta, sq, sk, d, group,
                  causal, scale, scale_log2);
   } else {
@@ -2603,7 +2711,7 @@ int bwd(const CUtensorMap (&m)[9], const float* mask, const float* lse,
     return launch(
         dkv_cluster<NC, X>,
         (int64_t)bh * ((sk + kWgRows - 1) / kWgRows) * group, kBwdThreads,
-        DkvLayout<NC>::kBytes, group, stream, m[1], m[2], m[5], m[6], m[7],
+        DkvLayout<NC, X>::kBytes, group, stream, m[1], m[2], m[5], m[6], m[7],
         m[8], mask, lse, (const float*)delta, sq, sk, d, group, causal, scale,
         scale_log2);
   } else {
@@ -2636,7 +2744,7 @@ extern "C" int flash_attention_cluster_fwd_bf16(const bf16* q, const bf16* k,
                                                 cudaStream_t stream) {
   if (!aligned(q) || !aligned(k) || !aligned(v) || !aligned(out) ||
       (d != 2 * kC && d < kMaxChunks * kC) ||
-      d > kClusterMaxFwd * kMaxChunks * kC || d % kC)
+      d > kClusterMaxWide * kMaxChunks * kC || d % kC)
     return (int)cudaErrorInvalidValue;
   const int2 split = split_of(d);
   const int group = split.x;
@@ -2655,6 +2763,39 @@ extern "C" int flash_attention_cluster_fwd_bf16(const bf16* q, const bf16* k,
                 km, vm, om, mask, lse, sq, sk, d, group, causal, scale_log2);
 }
 
+namespace {
+
+// How many clusters of `group` blocks of `kernel` (`threads` threads and
+// `bytes` of shared memory a block) the card places at once
+// (cudaOccupancyMaxActiveClusters): into *clusters. Returns the error.
+template <typename Kernel>
+int placement(Kernel kernel, int group, int threads, size_t bytes,
+              int* clusters) {
+  cudaLaunchConfig_t config;
+  cudaLaunchAttribute cluster;
+  const int err = cluster_config(config, cluster, kernel, group, threads,
+                                 bytes, group, nullptr);
+  if (err) return err;
+  return (int)cudaOccupancyMaxActiveClusters(clusters, (const void*)kernel,
+                                             &config);
+}
+
+template <int NC, int X>
+int bwd_placement(int group, int* dq, int* dkv) {
+  const int err = placement(dq_cluster<NC, X>, group, kBwdThreads,
+                            DqLayout<NC, X>::kBytes, dq);
+  return err ? err
+             : placement(dkv_cluster<NC, X>, group, kBwdThreads,
+                         DkvLayout<NC, X>::kBytes, dkv);
+}
+
+bool has_clusters(int d) {
+  return d > kMaxChunks * kC && d <= kClusterMaxWide * kMaxChunks * kC &&
+         d % kC == 0;
+}
+
+}  // namespace
+
 // How many clusters of K5 at head width d (256 < d <= 4096, clusters of
 // more than one block) the card places at once
 // (cudaOccupancyMaxActiveClusters of the instance d launches, with its
@@ -2662,23 +2803,30 @@ extern "C" int flash_attention_cluster_fwd_bf16(const bf16* q, const bf16* k,
 // cudaErrorInvalidValue for a width without clusters.
 extern "C" int flash_attention_cluster_fwd_bf16_placement(int d,
                                                           int* clusters) {
-  if (d <= kMaxChunks * kC || d > kClusterMaxFwd * kMaxChunks * kC ||
-      d % kC)
-    return (int)cudaErrorInvalidValue;
+  if (!has_clusters(d)) return (int)cudaErrorInvalidValue;
   const int2 split = split_of(d);
   const FwdInstance f = fwd_instance(split);
-  cudaLaunchConfig_t config;
-  cudaLaunchAttribute cluster;
-  const int err = cluster_config(config, cluster, f.kernel, split.x, kThreads,
-                                 f.bytes, split.x, nullptr);
-  if (err) return err;
-  return (int)cudaOccupancyMaxActiveClusters(clusters, (const void*)f.kernel,
-                                             &config);
+  return placement(f.kernel, split.x, kThreads, f.bytes, clusters);
+}
+
+// The same for K6's dq and dk/dv kernels at head width d (the instances
+// flash_attention_cluster_bwd_bf16 launches there): into *dq and *dkv.
+extern "C" int flash_attention_cluster_bwd_bf16_placement(int d, int* dq,
+                                                          int* dkv) {
+  if (!has_clusters(d)) return (int)cudaErrorInvalidValue;
+  const int2 split = split_of(d);
+  if (split.x == 2)
+    return split.y == 3 ? bwd_placement<3, kPush>(2, dq, dkv)
+                        : bwd_placement<4, kPush>(2, dq, dkv);
+  if (split.y == 3) return bwd_placement<3, kPull>(split.x, dq, dkv);
+  return split.x <= kClusterMax ? bwd_placement<4, kPull>(split.x, dq, dkv)
+                                : bwd_placement<4, kReduce>(split.x, dq, dkv);
 }
 
 // K6 in bf16 at a head width d = 64 or 128 (one block a row tile, no
-// exchange) or 256 < d <= 2048, d a multiple of 64, in clusters of
-// ceil(d / 256) blocks. Arguments as flash_attention_bwd_bf16's
+// exchange) or 256 < d <= 4096, d a multiple of 64, in clusters of
+// ceil(d / 256) blocks: two that push, 3-8 that pull, 9-16 (a non-portable
+// size) that reduce-scatter. Arguments as flash_attention_bwd_bf16's
 // (flash_attention_bf16.cu); runs the dq kernel (which also writes delta),
 // then the dk/dv kernel.
 extern "C" int flash_attention_cluster_bwd_bf16(
@@ -2689,7 +2837,7 @@ extern "C" int flash_attention_cluster_bwd_bf16(
   if (!aligned(q) || !aligned(k) || !aligned(v) || !aligned(out) ||
       !aligned(g) || !aligned(dq) || !aligned(dk) || !aligned(dv) ||
       (d != kC && d != 2 * kC && d <= kMaxChunks * kC) ||
-      d > kClusterMax * kMaxChunks * kC || d % kC)
+      d > kClusterMaxWide * kMaxChunks * kC || d % kC)
     return (int)cudaErrorInvalidValue;
   const int2 split = split_of(d);
   const int group = split.x;
@@ -2718,7 +2866,10 @@ extern "C" int flash_attention_cluster_bwd_bf16(
     if (split.y == 3) LAUNCH(3, kPush);
     LAUNCH(4, kPush);
   }
+  // The pull up to the portable 8 blocks; above, where a pull would read
+  // 8-15 peer slots a tile, the reduce-scatter.
   if (split.y == 3) LAUNCH(3, kPull);
-  LAUNCH(4, kPull);
+  if (group <= kClusterMax) LAUNCH(4, kPull);
+  LAUNCH(4, kReduce);
 #undef LAUNCH
 }

@@ -25,7 +25,7 @@ JAX package's: heads folded into the batch, q (BH, Sq, D), k and v
   from 256, and ``csrc/flash_attention_cluster_bf16.cu`` for the bf16 K5
   from 256 up to ``CLUSTER_FWD_HEAD_DIM_MAX`` and the bf16 K6 above 256 up
   to ``CLUSTER_BWD_HEAD_DIM_MAX`` (:func:`_kernel`; on thread-block
-  clusters that split D), or raise; on
+  clusters that split D, of up to 16 blocks: both 4096), or raise; on
   a CPU tensor they
   take their plain versions, :func:`flash_attention_reference` and
   :func:`flash_attention_backward_reference` in fp32, the ``_bf16`` ones in
@@ -92,10 +92,12 @@ DENSE_RESIDENT_SCORE_TENSORS = 3
 KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
 WIDE_HEAD_STEP = 64
 # The widest head widths of the bf16 K5 and K6 on a thread-block cluster of
-# blocks of 256 columns each: K5 on up to 16 blocks (a non-portable cluster
-# size, which Hopper places), K6 on up to 8 (the portable size).
+# blocks of 256 columns each: both on up to 16 blocks (above the portable 8
+# a non-portable cluster size, which Hopper places; there the blocks
+# reduce-scatter their partial scores). Above, both stay on
+# csrc/flash_attention_wide_bf16.cu.
 CLUSTER_FWD_HEAD_DIM_MAX = 4096
-CLUSTER_BWD_HEAD_DIM_MAX = 2048
+CLUSTER_BWD_HEAD_DIM_MAX = 4096
 # The bf16 K5 and K6 fed by TMA under warp specialisation
 # (csrc/flash_attention_tma_bf16.cu) take these head widths, K6 at every
 # (BH, Sq). K6 there scores each tile pair once: an item of its persistent
@@ -407,7 +409,9 @@ def _kernel(dtype, d: int, backward: bool) -> Tuple[str, str]:
       K5 on clusters that split D), except the bf16 K5 from 256 up to
       ``CLUSTER_FWD_HEAD_DIM_MAX`` and the bf16 K6 above 256 up to
       ``CLUSTER_BWD_HEAD_DIM_MAX``: csrc/flash_attention_cluster_bf16.cu's
-      (clusters that split D)."""
+      (clusters of ceil(D / 256) blocks that split D: K6's push at 2
+      blocks, pull at 3-8, reduce-scatter at 9-16). The bf16 K5 and K6
+      above 4096 stay on csrc/flash_attention_wide_bf16.cu."""
     bf16 = dtype == torch.bfloat16
     if backward:
         tma = d in TMA_BWD_MAX_ROWS

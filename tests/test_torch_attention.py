@@ -539,8 +539,8 @@ def test_attention_dispatch_above_the_widest_kernel(rng, monkeypatch):
 # K6 at 64 and 128 and K5 at 128;
 # csrc/flash_attention_wide(_bf16).cu for K6 and the fp32 K5 from 256 on;
 # csrc/flash_attention_cluster_bf16.cu for the bf16 K5 from 256 to 4096 and
-# the bf16 K6 above 256 to 2048, csrc/flash_attention_wide_bf16.cu for the
-# bf16 K6 above 2048 and at 256.
+# the bf16 K6 above 256 to 4096, csrc/flash_attention_wide_bf16.cu for the
+# bf16 K6 at 256 (and both above 4096: test_bf16_cluster_routes_end_at_4096).
 _WIDTHS = (16, 64, 128, 256, 320, 512, 768, 2048, 2304)
 _ROUTES = {
     ("float32", "fwd"): {**{d: "flash_attention" for d in _WIDTHS[:3]},
@@ -556,8 +556,7 @@ _ROUTES = {
                           128: "flash_attention_cluster_bf16",
                           256: "flash_attention_wide_bf16",
                           **{d: "flash_attention_cluster_bf16"
-                             for d in _WIDTHS[4:-1]},
-                          2304: "flash_attention_wide_bf16"},
+                             for d in _WIDTHS[4:]}},
 }
 
 
@@ -626,7 +625,9 @@ _SHAPE_ROUTES = [
     ("float32", "bwd", 64, 2048, 512, "flash_attention"),
     ("float32", "bwd", 16, 2048, 512, "flash_attention"),
     ("bfloat16", "bwd", 2048, 2, 70, "flash_attention_cluster_bf16"),
-    ("bfloat16", "bwd", 2112, 2, 70, "flash_attention_wide_bf16"),
+    ("bfloat16", "bwd", 2112, 2, 70, "flash_attention_cluster_bf16"),
+    ("bfloat16", "bwd", 4096, 2048, 512, "flash_attention_cluster_bf16"),
+    ("bfloat16", "bwd", 4160, 2, 70, "flash_attention_wide_bf16"),
     ("bfloat16", "bwd", 320, 1, 4096, "flash_attention_cluster_bf16"),
 ]
 
@@ -649,18 +650,22 @@ def test_kernel_routing_by_shape(dtype, direction, d, bh, sq, want):
                        for a, b in zip(starts, starts[1:]))
 
 
-# Above 2048 columns: the bf16 K5 on clusters of 9-16 blocks
-# (csrc/flash_attention_cluster_bf16.cu, up to CLUSTER_FWD_HEAD_DIM_MAX),
-# the bf16 K6 and everything past 4096 on flash_attention_wide_bf16.cu, the
-# fp32 kernels on flash_attention_wide.cu, whatever the shape.
+# Above 2048 columns: the bf16 K5 and K6 on clusters of 9-16 blocks
+# (csrc/flash_attention_cluster_bf16.cu, up to CLUSTER_FWD_HEAD_DIM_MAX and
+# CLUSTER_BWD_HEAD_DIM_MAX), everything past 4096 on
+# flash_attention_wide_bf16.cu, the fp32 kernels on flash_attention_wide.cu,
+# whatever the shape.
 _ABOVE_2048_ROUTES = [
     ("bfloat16", "fwd", 2112, "flash_attention_cluster_bf16"),
     ("bfloat16", "fwd", 2304, "flash_attention_cluster_bf16"),
     ("bfloat16", "fwd", 4096, "flash_attention_cluster_bf16"),
     ("bfloat16", "fwd", 4160, "flash_attention_wide_bf16"),
-    ("bfloat16", "bwd", 2304, "flash_attention_wide_bf16"),
-    ("bfloat16", "bwd", 4096, "flash_attention_wide_bf16"),
+    ("bfloat16", "bwd", 2112, "flash_attention_cluster_bf16"),
+    ("bfloat16", "bwd", 2304, "flash_attention_cluster_bf16"),
+    ("bfloat16", "bwd", 3072, "flash_attention_cluster_bf16"),
+    ("bfloat16", "bwd", 4096, "flash_attention_cluster_bf16"),
     ("bfloat16", "bwd", 4160, "flash_attention_wide_bf16"),
+    ("bfloat16", "bwd", 8192, "flash_attention_wide_bf16"),
     ("float32", "fwd", 4096, "flash_attention_wide"),
     ("float32", "bwd", 4096, "flash_attention_wide"),
 ]
@@ -669,14 +674,32 @@ _ABOVE_2048_ROUTES = [
 @pytest.mark.parametrize("bh,sq", [(2048, 512), (1, 70)])
 @pytest.mark.parametrize("dtype,direction,d,want", _ABOVE_2048_ROUTES)
 def test_kernel_routing_above_2048(dtype, direction, d, want, bh, sq):
-    """_kernel() sends the bf16 K5 from 2048 to 4096 to the clusters of
-    csrc/flash_attention_cluster_bf16.cu and the rest above 2048 to the
+    """_kernel() sends the bf16 K5 and K6 from 2048 to 4096 to the clusters
+    of csrc/flash_attention_cluster_bf16.cu and the rest above 2048 to the
     wide kernels, at any (BH, Sq) (it takes none: the cases name two); the
     source defines the C function."""
     source, symbol = att._kernel(getattr(torch, dtype), d,
                                  direction == "bwd")
     assert source == want
     _check_route(dtype, direction, source, symbol)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_bf16_cluster_routes_end_at_4096(backward):
+    """Every multiple of 64 above 2048: the bf16 K5 and K6 run the clusters
+    of csrc/flash_attention_cluster_bf16.cu up to 4096 (9-16 blocks of 4
+    chunks) and flash_attention_wide_bf16.cu above, where 16 blocks of 4
+    chunks no longer cover D."""
+    top = (att.CLUSTER_BWD_HEAD_DIM_MAX if backward
+           else att.CLUSTER_FWD_HEAD_DIM_MAX)
+    assert top == 4096
+    for d in range(2112, 8193, 64):
+        source, symbol = att._kernel(torch.bfloat16, d, backward)
+        assert source == ("flash_attention_cluster_bf16" if d <= top
+                          else "flash_attention_wide_bf16"), d
+        assert 9 <= _cluster_split(d)[0] <= 16 or d > top
+        _check_route("bfloat16", "bwd" if backward else "fwd", source,
+                     symbol)
 
 
 # Every bf16 route of K5 and K6 at the kernel widths up to 128, at shapes on
@@ -849,11 +872,11 @@ def _cluster_split(d: int):
 
 def test_cluster_split_mirrors_split_of():
     """split_of's rule as the source states it, and for every multiple of
-    64 from 256 to CLUSTER_FWD_HEAD_DIM_MAX its plain mirror: one block a
-    256 columns, at most 16 (8, the portable size, up to
-    CLUSTER_BWD_HEAD_DIM_MAX), an even share of 3 or 4 chunks a block
-    (every block owns at least one column of D, so each rank has a
-    partial), 4 chunks in every cluster of more than 8 blocks."""
+    64 from 256 to CLUSTER_FWD_HEAD_DIM_MAX (= CLUSTER_BWD_HEAD_DIM_MAX)
+    its plain mirror: one block a 256 columns, at most 16, an even share
+    of 3 or 4 chunks a block (every block owns at least one column of D, so
+    each rank has a partial), 4 chunks in every cluster of more than 8
+    blocks."""
     from deep_recommenders_torch.ops import _build
 
     with open(_build.source_path("flash_attention_cluster_bf16")) as f:
@@ -861,17 +884,40 @@ def test_cluster_split_mirrors_split_of():
     assert ("  const int nc = d / kC;\n"
             "  const int group = (nc + kMaxChunks - 1) / kMaxChunks;\n"
             "  return make_int2(group, (nc + group - 1) / group);\n") in source
-    assert "constexpr int kClusterMaxFwd = 16;" in source
+    assert "constexpr int kClusterMaxWide = 16;" in source
     assert att.CLUSTER_FWD_HEAD_DIM_MAX == 16 * 256
-    assert att.CLUSTER_BWD_HEAD_DIM_MAX == 8 * 256
+    assert att.CLUSTER_BWD_HEAD_DIM_MAX == 16 * 256
     for d in range(256, att.CLUSTER_FWD_HEAD_DIM_MAX + 1, 64):
         blocks, chunks = _cluster_split(d)
         assert blocks == -(-d // 256)
         assert (blocks - 1) * chunks * 64 < d <= blocks * chunks * 64
         assert chunks == 4 if d == 256 or blocks > 8 else chunks in (3, 4)
-        assert (blocks <= 8) == (d <= att.CLUSTER_BWD_HEAD_DIM_MAX)
     assert _cluster_split(att.CLUSTER_FWD_HEAD_DIM_MAX) == (16, 4)
     assert _cluster_split(2112) == (9, 4)
+
+
+def _mirror_slices(group: int, shift: int):
+    """The plain mirror of a reduce-scatter's slices of a slot of
+    1 << shift float4s among ``group`` ranks: rank r sums float4
+    [r N / G, (r + 1) N / G), and the all-gather reads float4 f from rank
+    ((f + 1) G - 1) / N. The slices cover the slot once, every rank owns
+    one, and each f is read from the rank whose slice holds it."""
+    n = 1 << shift
+    bounds = [(r * n // group, (r + 1) * n // group) for r in range(group)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == n
+    assert all(lo < hi for lo, hi in bounds)
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    for f in range(n):
+        owner = ((f + 1) * group - 1) >> shift
+        lo, hi = bounds[owner]
+        assert lo <= f < hi
+
+
+def _cluster_source() -> str:
+    from deep_recommenders_torch.ops import _build
+
+    with open(_build.source_path("flash_attention_cluster_bf16")) as f:
+        return f.read()
 
 
 @pytest.mark.parametrize("group", range(3, 17))
@@ -879,25 +925,33 @@ def test_reduce_scatter_slices_mirror_the_source(group):
     """The bf16 K5's reduce-scatter among G = 3-16 blocks, as the source
     states it: rank r sums float4 [r 1024 / G, (r + 1) 1024 / G) of a
     warpgroup's 1024-float4 slot, and the all-gather reads float4 f from
-    rank ((f + 1) G - 1) / 1024. Plainly: the slices cover the slot once,
-    every rank owns one, and each f is read from the rank whose slice
-    holds it."""
-    from deep_recommenders_torch.ops import _build
-
-    with open(_build.source_path("flash_attention_cluster_bf16")) as f:
-        source = f.read()
+    rank ((f + 1) G - 1) / 1024 (:func:`_mirror_slices`)."""
+    source = _cluster_source()
     assert ("const int lo = (rank << 10) / group, "
             "hi = ((rank + 1) << 10) / group;") in source
     assert "const int owner = ((f + 1) * group - 1) >> 10;" in source
-    bounds = [(r * 1024 // group, (r + 1) * 1024 // group)
-              for r in range(group)]
-    assert bounds[0][0] == 0 and bounds[-1][1] == 1024
-    assert all(lo < hi for lo, hi in bounds)
-    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
-    for f in range(1024):
-        owner = ((f + 1) * group - 1) >> 10
-        lo, hi = bounds[owner]
-        assert lo <= f < hi
+    _mirror_slices(group, 10)
+
+
+@pytest.mark.parametrize("parts", [1, 2])
+@pytest.mark.parametrize("group", range(9, 17))
+def test_backward_reduce_scatter_slices_mirror_the_source(group, parts):
+    """The bf16 K6's reduce-scatter among G = 9-16 blocks (Partials<P,
+    kReduce> of csrc/flash_attention_cluster_bf16.cu), as the source states
+    it: K5's slices and owners on a slot of 1 << kShift float4s, 1024 for
+    dq's s and dp (P = 2), 512 for dk/dv's s^T or dp^T (P = 1), so that
+    every rank owns a slice (:func:`_mirror_slices`)."""
+    source = _cluster_source()
+    assert "static constexpr int kShift = P == 2 ? 10 : 9;" in source
+    assert "static_assert(Q * 128 == 1 << kShift" in source
+    assert "  static constexpr int Q = 4 * P;  // float4s a thread\n" in source
+    assert ("      const int lo = (rank << kShift) / group,\n"
+            "                hi = ((rank + 1) << kShift) / group;\n") in source
+    assert ("        const int owner = ((f + 1) * group - 1) >> kShift;\n"
+            in source)
+    shift = 10 if parts == 2 else 9
+    assert 4 * parts * 128 == 1 << shift
+    _mirror_slices(group, shift)
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -923,6 +977,35 @@ def test_forward_checks_at_clusters_of_9_to_16(rng, d, causal):
                                                  drop=drop)
         with pytest.raises(AssertionError, match="disagrees|outside"):
             at.check_forward_bf16(lost, q, k, v, mask, causal)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [2112, 2304, 3072, 4096])
+def test_backward_checks_at_clusters_of_9_to_16(rng, d, causal):
+    """The bf16 K6 above 2048 sums the partial s and dp (s^T and dp^T) of
+    9-16 blocks (reduce-scatter, then all-gather) in rank order: that
+    function passes check_backward_bf16 at G = 9, 9, 12 and 16 (D = 2112's
+    last block owns one chunk of D), and with any one rank's partials left
+    out (the first, the middle or the last) it fails, its worst share
+    above 1."""
+    q, k, v, mask = _t(*_inputs(rng, 2, 70, 90, d, masked_row=1))
+    g = torch.from_numpy(rng.normal(size=q.shape).astype(np.float32))
+    q, k, v, g = (t.to(torch.bfloat16) for t in (q, k, v, g))
+    ranks = _cluster_split(d)[0]
+    assert -(-d // at.PARTIAL_WIDTH) == ranks
+    out, lse = att.flash_attention_reference_bf16(q, k, v, mask, causal)
+    whole = at.flash_attention_backward_partial_scores(q, k, v, mask, out,
+                                                       lse, g, causal)
+    checks = at.check_backward_bf16(whole, q, k, v, mask, out, lse, g,
+                                    causal, planted_partial=True)
+    assert max(c["err_over_tol"] for name, c in checks.items()
+               if name != "planted") < 1
+    assert checks["planted"]["partial_dropped"] > 1
+    for drop in (0, ranks // 2, ranks - 1):
+        lost = at.flash_attention_backward_partial_scores(
+            q, k, v, mask, out, lse, g, causal, drop=drop)
+        with pytest.raises(AssertionError, match="disagrees"):
+            at.check_backward_bf16(lost, q, k, v, mask, out, lse, g, causal)
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -1054,10 +1137,11 @@ def test_wide_head_bf16_plain_versions_match_jax_pallas(rng, tmp_path):
 
 
 def test_bf16_k5_above_2048_matches_jax_pallas(rng, tmp_path):
-    """At D = 2304, where the card's bf16 K5 runs on clusters of 9 blocks
-    that add their partial scores in rank order: the bf16 plain K5 and K6
-    and that summation order (flash_attention_partial_scores) against
-    JAX's Pallas kernels in interpret mode, as at D = 256."""
+    """At D = 2304, where the card's bf16 K5 and K6 run on clusters of 9
+    blocks that add their partial scores in rank order: the bf16 plain K5
+    and K6 and those summation orders (flash_attention_partial_scores, and
+    flash_attention_backward_partial_scores for s and dp) against JAX's
+    Pallas kernels in interpret mode, as at D = 256."""
     _wide_bf16_against_jax(rng, tmp_path, 2304, partial_scores=True)
 
 
@@ -1091,11 +1175,16 @@ def _wide_bf16_against_jax(rng, tmp_path, d, partial_scores=False):
             np.testing.assert_allclose(_f32(out), w["out"], rtol=2**-7,
                                        atol=2**-7 * vmax)
             np.testing.assert_allclose(lse.numpy(), w["lse"], atol=2e-5)
-        got = att.flash_attention_backward(
-            tq, tk, tv, tmask, torch.from_numpy(w["out"]).to(torch.bfloat16),
-            torch.from_numpy(w["lse"]), tg, causal)
-        for name, grad in zip(("dq", "dk", "dv"), got):
-            assert grad.dtype == torch.bfloat16 and not grad[1].any()
-            np.testing.assert_allclose(
-                _f32(grad), w[name], rtol=2**-7,
-                atol=2**-7 * np.abs(w[name]).max(), err_msg=name)
+        residuals = (torch.from_numpy(w["out"]).to(torch.bfloat16),
+                     torch.from_numpy(w["lse"]))
+        runs = [att.flash_attention_backward(tq, tk, tv, tmask, *residuals,
+                                             tg, causal)]
+        if partial_scores:
+            runs.append(at.flash_attention_backward_partial_scores(
+                tq, tk, tv, tmask, *residuals, tg, causal))
+        for got in runs:
+            for name, grad in zip(("dq", "dk", "dv"), got):
+                assert grad.dtype == torch.bfloat16 and not grad[1].any()
+                np.testing.assert_allclose(
+                    _f32(grad), w[name], rtol=2**-7,
+                    atol=2**-7 * np.abs(w[name]).max(), err_msg=name)

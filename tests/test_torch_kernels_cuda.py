@@ -889,8 +889,8 @@ def _bf16(*tensors):
     (4, 70, 67, 512),  # 2 blocks, 4 + 4 chunks
     (3, 100, 140, 576),  # 3 blocks of 3 chunks
     (3, 100, 140, 768),  # 3 blocks
-    (3, 70, 67, 2304),  # above 2048: K5 on a cluster of 9 blocks (reduce-
-    # scatter), K6 of flash_attention_wide_bf16.cu
+    (3, 70, 67, 2304),  # above 2048: K5 and K6 on clusters of 9 blocks
+    # (reduce-scatter)
     (64, 512, 512, 16),  # the Transformer slice's sequence length
 ])
 def test_flash_attention_bf16_kernels(device, bh, sq, sk, d, causal):
@@ -955,14 +955,14 @@ def test_flash_attention_bf16_kernels_at_tile_edges(device, case, bh, sq, sk,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [256, 320, 512, 768, 1024, 2048, 2304])
+@pytest.mark.parametrize("d", [256, 320, 512, 768, 1024, 2048, 2304, 4096])
 def test_wide_attention_kernels_are_deterministic(device, d, dtype):
     """K5 and K6 from D = 256 on give the same bits on two calls: each
     block writes its own rows once, the two warpgroups' partial sums are
     added in a fixed order, and a cluster that splits D (K5 and K6 in both
     dtypes; the bf16 clusters of 2, 3, 4 and 8 blocks at D = 320-512, 768,
-    1024 and 2048, and the bf16 K6 past them at 2304) adds its blocks'
-    partial scores in rank order."""
+    1024 and 2048, and of 9 and 16 that reduce-scatter at 2304 and 4096)
+    adds its blocks' partial scores in rank order."""
     gen = torch.Generator(device=device).manual_seed(14)
     q, k, v, mask = _attention_inputs(gen, 8, 300, 260, d)
     g = _normal(gen, 8, 300, d)
@@ -984,13 +984,19 @@ def test_wide_attention_kernels_are_deterministic(device, d, dtype):
     (3, 70, 67, 768),  # 3 blocks (pull)
     (2, 130, 260, 1024),  # 4 blocks
     (2, 70, 67, 2048),  # 8 blocks
+    # 9-16 blocks, a non-portable size, that reduce-scatter
+    (2, 70, 67, 2112),  # 9 blocks, the last one chunk of D
+    (2, 130, 260, 2304),  # 9 blocks, post-padding tiles
+    (2, 70, 67, 3072),  # 12 blocks
+    (2, 100, 140, 4096),  # 16 blocks
 ])
 def test_cluster_bf16_backward(device, bh, sq, sk, d, causal):
     """The bf16 K6 above 256 on clusters that split D
-    (csrc/flash_attention_cluster_bf16.cu): one launch, against its fp64
-    and bf16 plain versions; the checks reject dk less a query tile, dq
-    less a key tile and the backward that loses the last block's partial
-    scores; two calls give the same bits."""
+    (csrc/flash_attention_cluster_bf16.cu; push at 2 blocks, pull at 3-8,
+    reduce-scatter at 9-16): one launch, against its fp64 and bf16 plain
+    versions; the checks reject dk less a query tile, dq less a key tile
+    and the backward that loses the last block's partial scores; two calls
+    give the same bits."""
     gen = torch.Generator(device=device).manual_seed(15)
     q, k, v, mask = _attention_inputs(gen, bh, sq, sk, d)
     mask[2 % bh, sk // 2:] = 0.0  # post-padding: whole key tiles of padding

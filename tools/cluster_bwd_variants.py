@@ -23,14 +23,21 @@ each grid column scoring over all of D):
 - ``regs240``: ``warpgroup_producer`` with setmaxnreg giving the
   consumers 240 registers and the producer warpgroup 24, not 232 and 40;
 - ``no_exchange``: the exchange of partial scores cut out (each block
-  takes its own partials: wrong results, timing only).
+  takes its own partials: wrong results, timing only);
+- ``pull_above_eight``: clusters of 9-16 blocks (D above 2048) pull every
+  peer's partial, as those of 3-8 do, where ``main`` reduce-scatters and
+  all-gathers (dq's delta partials in warpgroup 0's slot, as the
+  reduce-scatter keeps them: beside the slots they do not fit);
+- ``reduce_everywhere``: clusters of 3-8 blocks of 4 chunks reduce-scatter
+  too, where ``main`` pulls.
 
     python3 tools/cluster_bwd_variants.py [variant ...]   # default: all
 
 Each variant is built with nvcc (-Xptxas -v) into build/variants_bwd/ and
 timed (device ms, CUDA-graph replays, ``chip_smoke.graph_ms``) on
 ``chip_smoke``'s wide inputs at D = 320, 512, 768, 1024 and 2048 (BH
-halved as D doubles), non-causal and causal, with its bits against the
+halved as D doubles), 2304 and 4096 (BH 32 and 16: clusters of 9 and 16
+blocks), non-causal and causal, with its bits against the
 built kernel's and its worst share of ``check_backward_bf16``'s
 tolerances on 16 rows ("fail" where the check refuses it), or the error
 code of a launch the card refuses. Prints the card, each variant's K6
@@ -59,7 +66,13 @@ from deep_recommenders_torch.ops import cin_tolerances as ct  # noqa: E402
 SOURCE = _build.source_path("flash_attention_cluster_bf16")
 OUT = os.path.join(ROOT, "build", "variants_bwd")
 SHAPES = {"d320": (128, 320), "d512": (128, 512), "d768": (96, 768),
-          "d1024": (64, 1024), "d2048": (32, 2048)}
+          "d1024": (64, 1024), "d2048": (32, 2048), "d2304": (32, 2304),
+          "d4096": (16, 4096)}
+# The routes of clusters of more than 2 blocks in the source, and the
+# delta partials' place in the dq kernel (in a slot to reduce-scatter).
+PULL_OR_REDUCE = ("  if (group <= kClusterMax) LAUNCH(4, kPull);\n"
+                  "  LAUNCH(4, kReduce);\n")
+DELTA_IN_SLOT = "  static constexpr bool kDeltaInSlot = X == kReduce;\n"
 
 
 def _rep(text: str, old: str, new: str) -> str:
@@ -218,6 +231,11 @@ def variants(src: str) -> dict:
             cut.count("ex.drain("):
         raise SystemExit("the source's exchange calls have moved")
     v["no_exchange"] = cut
+    v["pull_above_eight"] = _rep(
+        _rep(src, PULL_OR_REDUCE, "  LAUNCH(4, kPull);\n"), DELTA_IN_SLOT,
+        "  static constexpr bool kDeltaInSlot = X != kPush;\n")
+    v["reduce_everywhere"] = _rep(src, PULL_OR_REDUCE,
+                                  "  LAUNCH(4, kReduce);\n")
     return v
 
 
